@@ -1,0 +1,84 @@
+"""Configuration dataclasses of the PyTorch port.
+
+Copies of the model, STFT and evaluation configs of the JAX package
+(``tfswa_tpu/config.py``), so that configs carry over field for field.
+The port keeps its own copy: it imports nothing of the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass
+class ModelConfig:
+    """TFSWA-UNet architecture config.  The stock widths give 15,404,834
+    parameters at in/out_channels=2."""
+
+    in_channels: int = 4          # stereo complex spectrogram: [re_L, re_R, im_L, im_R]
+    out_channels: int = 4         # 2 * n_stems mask channels
+    depths: Tuple[int, ...] = (2, 2, 6, 2)
+    dims: Tuple[int, ...] = (32, 64, 128, 256)
+    window_size: int = 8
+    shift_size: int = 4
+    num_heads: int = 8
+    dropout: float = 0.0
+    mlp_ratio: float = 4.0
+    use_shift_mask: bool = False
+    # "pallas": the fused row-block kernel (CUDA on the card);
+    # "xla": the plain PyTorch row-block path.  The names are the JAX
+    # package's, so configs carry over.
+    attention_impl: str = "xla"
+    attn_chunk_size: int = 16
+    remat: bool = False
+    dtype: str = "float32"        # compute dtype ("float32" | "bfloat16")
+    param_dtype: str = "float32"
+
+
+@dataclass
+class STFTConfig:
+    """STFT front-end config."""
+
+    n_fft: int = 2048
+    hop_length: int = 512
+    win_length: Optional[int] = None
+    window: str = "hann"          # hann | hamming | blackman
+    center: bool = True
+    pad_mode: str = "reflect"
+    sample_rate: int = 44100
+    # Kept for config compatibility.  The port always computes the DFT in
+    # float32; the JAX package's "default" is a 1-pass bf16 DFT on a TPU.
+    precision: str = "highest"
+
+
+@dataclass
+class EvalConfig:
+    """Inference config: the serving knobs of the JAX package."""
+
+    segment_seconds: float = 10.0
+    overlap: float = 0.25
+    mask_mode: str = "trainer"      # "trainer" | "direct" | "mag_direct"
+    normalize: bool = False         # SpectrogramNormalizer on model input
+    framewise_seconds: float = 10.0
+    segment_batch: int = 8          # segments per device batch
+    transfer_dtype: str = "float32" # "float32" | "float16" | "int16"
+    device_ola: bool = False        # overlap-add on the device
+    ola_bucket_seconds: float = 60.0
+    freq_policy: str = "full"       # "full" | "crop_pow2" (drop the Nyquist row)
+    stft_precision: str = ""        # "" keeps STFTConfig's (float32 either way)
+    stream_max_in_flight: int = 2
+
+    @classmethod
+    def fast_serving(cls, **overrides) -> "EvalConfig":
+        """The serving preset: batches of 8, float16 transfers, device
+        overlap-add in 60 s windows, Nyquist-row crop."""
+        cfg = cls(
+            segment_batch=8,
+            transfer_dtype="float16",
+            device_ola=True,
+            ola_bucket_seconds=60.0,
+            freq_policy="crop_pow2",
+            stft_precision="default",
+        )
+        return dataclasses.replace(cfg, **overrides) if overrides else cfg

@@ -1,0 +1,186 @@
+"""TSA / FSA / SW-MSA attention (counterpart of ``tfswa_tpu/models/attention.py``).
+
+All three attentions share one primitive, a pre-LN transformer block over
+independent rows (R, N, C): rows are frequency columns (TSA), time frames
+(FSA) or ws*ws windows (SWA), in the JAX package's row order.
+
+``row_transformer_block`` has two routes that give the same values:
+  - ``attention_impl="pallas"``: the fused row-block kernel
+    (``ops/fused_block.py``), at every shape;
+  - ``attention_impl="xla"``: the plain path, LN, multi-head attention with
+    a standard softmax chunked over rows, MLP.
+Masked SWA and dropout, which send the JAX package to its plain path, are
+not ported yet.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import fused_block
+from ..ops.fused_block import fused_row_block, layer_norm_f32
+from ..ops.windowing import window_partition, window_reverse
+from .layers import gelu
+
+ATTENTION_IMPLS = ("pallas", "xla")
+
+
+def check_attention_impl(impl: str) -> None:
+    if impl not in ATTENTION_IMPLS:
+        raise NotImplementedError(
+            f"attention_impl={impl!r} is not ported yet (ported: "
+            f"{ATTENTION_IMPLS}); the int8 and bilinear-attention routes "
+            "are queued in ROADMAP.md")
+
+
+class RowBlockParams(NamedTuple):
+    """Flat parameters of one row block, in the JAX layout: kernels are
+    (in, out)."""
+
+    norm1_scale: torch.Tensor
+    norm1_bias: torch.Tensor
+    qkv_kernel: torch.Tensor     # (C, 3C), no bias
+    proj_kernel: torch.Tensor    # (C, C)
+    proj_bias: torch.Tensor
+    norm2_scale: torch.Tensor
+    norm2_bias: torch.Tensor
+    fc1_kernel: torch.Tensor     # (C, hidden)
+    fc1_bias: torch.Tensor
+    fc2_kernel: torch.Tensor     # (hidden, C)
+    fc2_bias: torch.Tensor
+
+
+def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """LayerNorm with f32 statistics, back in x's dtype."""
+    return layer_norm_f32(x.float(), scale, bias).to(x.dtype)
+
+
+def mha_rows(rows: torch.Tensor, p: RowBlockParams, num_heads: int) -> torch.Tensor:
+    """Multi-head self-attention over rows (R, N, C) -> (R, N, C); scores
+    and softmax in f32."""
+    dt = rows.dtype
+    R, N, C = rows.shape
+    H = num_heads
+    D = C // H
+    qkv = (rows @ p.qkv_kernel.to(dt)).view(R, N, 3, H, D).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0], qkv[1], qkv[2]                          # (R, H, N, D)
+    scores = (q * D ** -0.5).float() @ k.float().transpose(-1, -2)
+    weights = torch.softmax(scores, dim=-1).to(dt)
+    out = (weights @ v).transpose(1, 2).reshape(R, N, C)
+    return out @ p.proj_kernel.to(dt) + p.proj_bias.to(dt)
+
+
+def row_transformer_block(rows: torch.Tensor, p: RowBlockParams, num_heads: int, *,
+                          attention_impl: str = "xla") -> torch.Tensor:
+    """Pre-LN transformer block on rows (R, N, C):
+    rows + MHA(LN(rows)); then + MLP(LN(.))."""
+    check_attention_impl(attention_impl)
+    if attention_impl == "pallas":
+        return fused_row_block(rows.contiguous(), p, num_heads)
+
+    dt = rows.dtype
+    R, N, _ = rows.shape
+    normed = _layer_norm(rows, p.norm1_scale, p.norm1_bias)
+    chunk = max(1, fused_block.MAX_SCORE_BYTES // (num_heads * N * N * 4))
+    rows = rows + torch.cat([mha_rows(normed[r0:r0 + chunk], p, num_heads)
+                             for r0 in range(0, R, chunk)])
+    h = _layer_norm(rows, p.norm2_scale, p.norm2_bias)
+    h = gelu(h @ p.fc1_kernel.to(dt) + p.fc1_bias.to(dt))
+    h = h @ p.fc2_kernel.to(dt) + p.fc2_bias.to(dt)
+    return rows + h
+
+
+class _RowAttention(nn.Module):
+    """qkv (no bias) + out-projection, named as the reference's ``attn``."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.qkv = nn.Linear(dim, 3 * dim, bias=False)
+        self.proj = nn.Linear(dim, dim)
+
+
+class _RowBlock(nn.Module):
+    """Parameters of one row block under the reference's names:
+    norm1, attn.{qkv, proj}, norm2, mlp.{0, 3}."""
+
+    def __init__(self, dim: int, num_heads: int = 8, mlp_ratio: float = 4.0,
+                 attention_impl: str = "xla"):
+        super().__init__()
+        check_attention_impl(attention_impl)
+        hidden = int(dim * mlp_ratio)
+        self.num_heads = num_heads
+        self.attention_impl = attention_impl
+        self.norm1 = nn.LayerNorm(dim)
+        self.attn = _RowAttention(dim)
+        self.norm2 = nn.LayerNorm(dim)
+        self.mlp = nn.Sequential(nn.Linear(dim, hidden), nn.GELU(), nn.Dropout(0.0),
+                                 nn.Linear(hidden, dim))
+
+    def params(self) -> RowBlockParams:
+        return RowBlockParams(
+            norm1_scale=self.norm1.weight, norm1_bias=self.norm1.bias,
+            qkv_kernel=self.attn.qkv.weight.t(),
+            proj_kernel=self.attn.proj.weight.t(), proj_bias=self.attn.proj.bias,
+            norm2_scale=self.norm2.weight, norm2_bias=self.norm2.bias,
+            fc1_kernel=self.mlp[0].weight.t(), fc1_bias=self.mlp[0].bias,
+            fc2_kernel=self.mlp[3].weight.t(), fc2_bias=self.mlp[3].bias)
+
+    def _rows(self, rows: torch.Tensor) -> torch.Tensor:
+        return row_transformer_block(rows, self.params(), self.num_heads,
+                                     attention_impl=self.attention_impl)
+
+
+class TemporalSequenceAttention(_RowBlock):
+    """TSA: attention along the H axis, one row per (batch, w) column.
+    Input NHWC (B, H, W, C); rows (B*W, H, C)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, H, W, C = x.shape
+        rows = self._rows(x.transpose(1, 2).reshape(B * W, H, C))
+        return rows.reshape(B, W, H, C).transpose(1, 2)
+
+
+class FrequencySequenceAttention(_RowBlock):
+    """FSA: attention along the W axis, one row per (batch, h).
+    Input NHWC; rows (B*H, W, C)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, H, W, C = x.shape
+        return self._rows(x.reshape(B * H, W, C)).reshape(B, H, W, C)
+
+
+class ShiftedWindowAttention(_RowBlock):
+    """SW-MSA: pad to window multiples, cyclic shift, windowed attention.
+    Like the reference (and the JAX default), shifted windows attend across
+    the wrap-around seam: no shift mask."""
+
+    def __init__(self, dim: int, window_size: int, num_heads: int,
+                 shift_size: int = 0, mlp_ratio: float = 4.0,
+                 use_shift_mask: bool = False, attention_impl: str = "xla"):
+        super().__init__(dim, num_heads, mlp_ratio, attention_impl)
+        if use_shift_mask:
+            raise NotImplementedError(
+                "use_shift_mask=True (masked SWA) is not ported yet")
+        self.window_size = window_size
+        self.shift_size = shift_size
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, H, W, C = x.shape
+        ws, ss = self.window_size, self.shift_size
+        pad_h = (ws - H % ws) % ws
+        pad_w = (ws - W % ws) % ws
+        if pad_h or pad_w:
+            x = F.pad(x, (0, 0, 0, pad_w, 0, pad_h))
+        Hp, Wp = H + pad_h, W + pad_w
+        if ss > 0:
+            x = torch.roll(x, shifts=(-ss, -ss), dims=(1, 2))
+        windows = self._rows(window_partition(x, ws))
+        x = window_reverse(windows, ws, B, Hp, Wp)
+        if ss > 0:
+            x = torch.roll(x, shifts=(ss, ss), dims=(1, 2))
+        if pad_h or pad_w:
+            x = x[:, :H, :W]
+        return x
