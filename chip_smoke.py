@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (tfswa_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py           # the whole run (about a minute on an H100)
+    python3 chip_smoke.py           # the whole run (a few minutes on an H100)
     python3 chip_smoke.py --quick   # build + kernel-vs-plain checks only
 
-Phases, each of which fails the run (exit code 1) when it fails:
-  1. the card's name and power limit; build of the CUDA sources (nvcc, sm_90a);
+Three kernels: B1 (fused_row_block, the serving forward), B1-train
+(fused_row_block_train, the forward that also exports mid, acc, den) and B2
+(fused_row_block_bwd, the whole-block VJP).  Phases, each of which fails the
+run (exit code 1) when it fails:
+  1. the card's name and power limit; build of the CUDA sources (nvcc, sm_90a,
+     one nvcc per source, in parallel);
   2. the fused row-block kernel against its plain PyTorch version at each
      of the 12 (N, C) of the main path (bf16, a slice of 64 rows, three kinds
      of weights: flat, peaked and clamped softmax), on the block's output
@@ -19,7 +23,20 @@ Phases, each of which fails the run (exit code 1) when it fails:
      one more separation under torch.profiler for device time by kernel;
   4. the separated audio of one 10 s segment through the kernel route
      against the plain route (same weights, bf16), as an SNR;
-  5. a JSON line of the kernels, then the last line
+  5. B1-train and B2 against their plain versions at the 12 (N, C) of the
+     training path (a batch of 4 six-second segments, F = 1025), 64-row
+     slices under the same three kinds of weights, B2 also against autograd
+     through the plain block in f32; kernel / plain / library times and the
+     bound at the full row counts;
+  6. the training main path: the flagship model in train mode through
+     make_train_step (TrainConfig defaults) on a fixed batch of 4 x 6 s from
+     the port's SyntheticDataset: a warm-up step and 5 timed steps, each
+     with 66 B1-train and 66 B2 launches and no serving launch, finite
+     non-zero gradients for every row-block parameter, a falling loss; one
+     profiled step; make_eval_step with 66 serving launches;
+  7. one train step through the kernel route against the plain route (same
+     weights and batch): loss and gradient cosine;
+  8. a JSON line of the kernels, then the last line
      {"ok": true, "device": {...}}.
 Long results go to chiprun_out/chip_smoke.json.  Without a CUDA device, or
 outside a checkout of the repository, the run exits non-zero with no result.
@@ -37,9 +54,12 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # Published H100 SXM peaks (NVIDIA data sheet), dense: bf16 tensor-core rate
-# and HBM rate.
+# and HBM rate.  exp2 runs on the SFU (MUFU): 16 per clock per SM, at the
+# SM clock nvidia-smi reports as clocks.max.sm (set in main()).
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+MUFU_PER_CLOCK_PER_SM = 16
+MUFU_RATE = None    # exp2 per second, from the card
 
 # (stage, attention, N, C, R) of the row block at full width: batch of 8
 # ten-second segments at 44.1 kHz, n_fft 2048, hop 512, Nyquist row cropped
@@ -75,6 +95,18 @@ def gpu_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def mufu_rate(torch) -> float:
+    """exp2 per second: 16 per clock per SM at the card's top SM clock."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    if res.returncode != 0 or not res.stdout.strip():
+        fail(f"nvidia-smi failed: {res.stderr.strip()}")
+    mhz = float(res.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return MUFU_PER_CLOCK_PER_SM * sms * mhz * 1e6
+
+
 def cuda_ms(torch, fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -88,14 +120,41 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(R: int, N: int, C: int, hidden: int):
-    """Least time for one block call: rows in and out plus weights once, in
-    bf16, over the HBM rate; the products and scores/AV (bf16 operands)
-    over the bf16 tensor-core peak."""
-    nbytes = 2 * (2 * R * N * C + 4 * C * C + 2 * C * hidden + 6 * C + hidden)
-    flops = 2 * R * N * (4 * C * C + 2 * C * hidden) + 4 * R * N * N * C
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+def _bound(nbytes: float, flops: float, exp2: float):
+    """The larger of bytes over the HBM rate, bf16 FLOPs over the tensor-core
+    peak and exp2 over the MUFU rate, in ms, and which of bytes or
+    operations it is."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = max(flops / PEAK_BF16_FLOPS, exp2 / MUFU_RATE) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound_ms(R: int, N: int, C: int, hidden: int, train: bool = False):
+    """Least time for one B1 (or B1-train) call: rows in and out (B1-train:
+    also mid, acc and den out) plus weights once, in bf16, over the HBM
+    rate; the products and scores/AV (bf16 operands) over the bf16
+    tensor-core peak; H*N^2 exp2 per row over the MUFU rate."""
+    nbytes = 2 * (2 * R * N * C + 4 * C * C + 2 * C * hidden + 6 * C + hidden)
+    if train:
+        nbytes += 2 * 2 * R * N * C + 4 * R * HEADS * N
+    flops = 2 * R * N * (4 * C * C + 2 * C * hidden) + 4 * R * N * N * C
+    return _bound(nbytes, flops, R * HEADS * N * N)
+
+
+def bound_bwd_ms(R: int, N: int, C: int, hidden: int):
+    """Least time for one B2 call, the function's floor: rows, mid, acc, g
+    in (bf16), den in (f32), weights in, dx out (bf16) and the gradients
+    out (f32); the products (q|k|v and fc1 recomputed, which the inputs
+    force; the MLP VJP's four, dWo and d_acc, d_normed and dWqkv) and the
+    attention's five (scores s and d_p once each, d_q, d_k, d_v); H*N^2
+    exp2 per row, once.  The design's second pass over s, d_p and exp2
+    (one per attention-backward kernel) is its own cost, not counted."""
+    M = R * N
+    weights = 4 * C * C + 2 * C * hidden + 6 * C + hidden
+    nbytes = 2 * 5 * M * C + 4 * R * HEADS * N + 2 * weights + 4 * weights
+    flops = 2 * M * (3 * C * C + C * hidden + 4 * C * hidden + 2 * C * C + 6 * C * C) \
+        + 5 * 2 * R * N * N * C
+    return _bound(nbytes, flops, R * HEADS * N * N)
 
 
 # The kernel is checked on three kinds of weights at every shape, so that
@@ -255,6 +314,463 @@ def phase_kernels(torch, quick: bool):
     return rows_out, max_err, totals
 
 
+# (stage, attention, N, C, R) of the row block on the training path: a batch
+# of 4 six-second segments at 44.1 kHz, n_fft 2048, hop 512, every STFT row
+# (freq_policy "full": F = 1025, T = 517), SWA padded to multiples of 8.
+TRAIN_SHAPES = [
+    (0, "TSA", 1025, 32, 2068), (0, "FSA", 517, 32, 4100), (0, "SWA", 64, 32, 33540),
+    (1, "TSA", 512, 64, 1032), (1, "FSA", 258, 64, 2048), (1, "SWA", 64, 64, 8448),
+    (2, "TSA", 256, 128, 516), (2, "FSA", 129, 128, 1024), (2, "SWA", 64, 128, 2176),
+    (3, "TSA", 128, 256, 256), (3, "FSA", 64, 256, 512), (3, "SWA", 64, 256, 512),
+]
+TRAIN_BATCH, TRAIN_SECONDS, TRAIN_STEPS = 4, 6.0, 5
+# the plain versions are timed on at most this many rows and scaled by R
+PLAIN_ROWS = 256
+
+
+def _max_abs(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def _rel_max(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return _max_abs(a, b) / max(b.float().abs().max().item(), 1e-30)
+
+
+def _rel_l2(a, b) -> float:
+    """||a - b|| over ||b||."""
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+
+def autograd_grads(torch, fn, x, p, g):
+    """[dx, 11 parameter gradients] of fn(x, p) at cotangent g, by autograd."""
+    x = x.detach().requires_grad_()
+    pr = type(p)(*(t.detach().requires_grad_() for t in p))
+    fn(x, pr).backward(g)
+    return [x.grad] + [t.grad for t in pr]
+
+
+def library_fwd_bwd(torch, rows, p, H: int, g):
+    """Yardstick only: forward and backward of library_block (LN, cuBLAS,
+    SDPA), by autograd, one row chunk at a time to bound memory."""
+    N = rows.shape[1]
+    pr = type(p)(*(t.detach().requires_grad_() for t in p))
+    chunk = max(1, (1 << 30) // (H * N * N * 4))
+    for r0 in range(0, rows.shape[0], chunk):
+        x = rows[r0:r0 + chunk].detach().requires_grad_()
+        library_block(torch, x, pr, H).backward(g[r0:r0 + chunk])
+
+
+# B2 against the f32 truth: at most this many times the distance of its
+# plain version (the same rounding points), plus 1e-3, in every regime.
+# The JAX package holds its B2 within 1.5x of autograd through the plain
+# block in bf16 (tests/test_fused_block.py:183-193), on flat weights;
+# under a peaked softmax the TPU kernel's own bf16 d_oe and d_den, which
+# the plain route keeps in f32, put B2 and its plain version alike up to
+# 1.9x that far from the truth (PERF.md), so that ratio is recorded, not
+# held.
+AUTOGRAD_FACTOR = 1.1
+
+
+def plain_qkv(torch, x, p, H: int):
+    """The plain q|k|v (R*N, 3C) of B1: bf16(bf16(LN1(x)) @ Wqkv'), f32."""
+    from tfswa_tpu_torch.ops.fused_block import _block_weights, layer_norm_f32
+
+    C = x.shape[-1]
+    ln_s, ln_b, w_qkv = (w.float() for w in _block_weights(p, C, H, x.dtype)[:3])
+    n1 = layer_norm_f32(x.float(), ln_s, ln_b).to(x.dtype).float()
+    return (n1 @ w_qkv).to(x.dtype).float().reshape(-1, 3 * C)
+
+
+def check_train_shape(torch, N: int, C: int, gen):
+    """B1-train and B2 against their plain versions on CHECK_ROWS rows, for
+    each kind of weights in REGIMES.  The plain versions get the kernel's
+    own q|k|v (B1-train's buffer; B2 recomputes it with the same code, so
+    bit for bit): a bf16 rounding of q or k that flips between two
+    summation orders moves a peaked softmax's denominator by percents and
+    carries scores of the clamp regime across SCORE_CLAMP, where the
+    gradient jumps.  The product that makes q|k|v is held on its own:
+      qkv:      within 2 bf16 ULP at max|ref|;
+      B1-train: out and mid within 0.0625 * max(max|ref| / 4, 1) (B1's out
+                limit), acc within 4 bf16 ULP at max|ref| (B1's attention
+                limit), den within 1e-2 relative, elementwise;
+      B2:       fed the same rows, mid, acc, den and g as its plain version:
+                dx within 4 bf16 ULP at max|dx_ref|, each parameter gradient
+                within 1e-2 * max|ref leaf| (f32 sums over 64 rows of bf16
+                products in another order);
+      autograd: against autograd through the plain block in f32 (the
+                truth), B2's relative error on each of the 12 gradients is
+                at most AUTOGRAD_FACTOR times that of its plain version,
+                plus 1e-3, with the error as ||a - t|| / ||t|| (a bias
+                gradient, a sum over tokens with cancellation, holds bf16
+                noise whose maximum moves by chance; the norm averages
+                it).  Autograd through the plain block in bf16 is recorded
+                beside them, by norm and by max."""
+    from tfswa_tpu_torch.models.attention import RowBlockParams
+    from tfswa_tpu_torch.ops.fused_block import (
+        SCORE_CLAMP, _forward_kernel, fused_row_block_bwd, fused_row_block_bwd_reference,
+        fused_row_block_reference, fused_row_block_train, fused_row_block_train_reference)
+
+    def plain(a, q):
+        return fused_row_block_reference(a, q, HEADS)
+
+    res, flat = {}, None
+    for regime in REGIMES:
+        p = random_params(torch, RowBlockParams, C, gen, regime)
+        if regime == "flat":
+            flat = p
+        x = torch.randn(CHECK_ROWS, N, C, generator=gen).cuda().to(torch.bfloat16)
+        g = torch.randn(CHECK_ROWS, N, C, generator=gen).cuda().to(torch.bfloat16)
+        out, mid, acc, den = fused_row_block_train(x, p, HEADS)
+        again = _forward_kernel(x, p, HEADS, train=True)     # for its q|k|v buffer
+        torch.cuda.synchronize()
+        qkv = again[4]
+        r_qkv = plain_qkv(torch, x, p, HEADS)
+        r_out, r_mid, r_acc, r_den = fused_row_block_train_reference(x, p, HEADS, qkv=qkv)
+        c = {"qkv_err": _max_abs(qkv, r_qkv),
+             "qkv_tol": 2 * bf16_ulp(r_qkv.abs().max().item()),
+             "repeat_equal": all(bool(torch.equal(a, b)) for a, b in
+                                 zip((out, acc, mid, den), again[:4])),
+             "out_err": _max_abs(out, r_out),
+             "out_tol": 0.0625 * max(r_out.float().abs().max().item() / 4.0, 1.0),
+             "mid_err": _max_abs(mid, r_mid),
+             "mid_tol": 0.0625 * max(r_mid.float().abs().max().item() / 4.0, 1.0),
+             "acc_err": _max_abs(acc, r_acc),
+             "acc_tol": 4 * bf16_ulp(r_acc.float().abs().max().item()),
+             "den_rel": ((den - r_den).abs() / r_den.abs()).max().item(), "den_tol": 1e-2}
+        dx, dp = fused_row_block_bwd(x, mid, acc, den, g, p, HEADS)
+        torch.cuda.synchronize()
+        r_dx, r_dp = fused_row_block_bwd_reference(x, mid, acc, den, g, p, HEADS, qkv=qkv)
+        c.update(dx_err=_max_abs(dx, r_dx),
+                 dx_tol=4 * bf16_ulp(r_dx.float().abs().max().item()),
+                 dp_rel=max(_rel_max(a, b) for a, b in zip(dp, r_dp)), dp_tol=1e-2)
+        truth = autograd_grads(torch, plain, x.float(), p, g.float())
+        plain_bf16 = autograd_grads(torch, plain, x, p, g)
+        leaves = list(zip([dx, *dp], plain_bf16, truth, [r_dx, *r_dp]))
+        c["autograd"] = [(_rel_l2(k, t), _rel_l2(b, t), _rel_l2(r, t))
+                         for k, b, t, r in leaves]
+        c["autograd_max"] = [(_rel_max(k, t), _rel_max(b, t)) for k, b, t, _ in leaves]
+        ag_ok = all(e[0] <= AUTOGRAD_FACTOR * e[2] + 1e-3 for e in c["autograd"])
+        c["max_score"] = max_score(torch, x, p, HEADS)
+        finite = all(bool(torch.isfinite(t.float()).all())
+                     for t in (out, mid, acc, den, dx, *dp))
+        c["ok"] = (finite and ag_ok and c["repeat_equal"] and c["qkv_err"] <= c["qkv_tol"]
+                   and c["out_err"] <= c["out_tol"]
+                   and c["mid_err"] <= c["mid_tol"] and c["acc_err"] <= c["acc_tol"]
+                   and c["den_rel"] <= c["den_tol"] and c["dx_err"] <= c["dx_tol"]
+                   and c["dp_rel"] <= c["dp_tol"]
+                   and (regime != "clamp" or c["max_score"] > SCORE_CLAMP))
+        c["max_abs_err"] = max(c["out_err"], c["mid_err"], c["acc_err"])
+        c["bwd_max_abs_err"] = c["dx_err"]
+        res[regime] = c
+        del truth, plain_bf16, again, qkv
+        torch.cuda.empty_cache()
+    return res, flat
+
+
+def phase_train_kernels(torch, quick: bool):
+    """B1-train and B2 at the 12 training shapes: checks on 64 rows, then
+    kernel / plain / library times and bounds at the full row count."""
+    from tfswa_tpu_torch.ops.fused_block import (
+        fused_row_block_bwd, fused_row_block_bwd_reference, fused_row_block_train,
+        fused_row_block_train_reference)
+
+    gen = torch.Generator().manual_seed(2)
+    gen_full = torch.Generator().manual_seed(3)   # the timed tensors: the checks'
+    rows_out, misses = [], []                     # inputs do not depend on --quick
+    err = {"train": 0.0, "bwd": 0.0}
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_bytes_ms")
+    totals = {"train": dict.fromkeys(keys, 0.0), "bwd": dict.fromkeys(keys, 0.0)}
+    for stage, attn, N, C, R in TRAIN_SHAPES:
+        checks, p = check_train_shape(torch, N, C, gen)
+        entry = {"stage": stage, "attn": attn, "N": N, "C": C, "R_full": R,
+                 "checks": checks}
+        for regime, c in checks.items():
+            worst = max(c["autograd"], key=lambda e: e[0] / (AUTOGRAD_FACTOR * e[2] + 1e-3))
+            max_ratio = max((k - 1e-3) / max(b, 1e-30) for k, b in c["autograd_max"])
+            log(f"train check stage {stage} {attn} N={N} C={C} {regime:6s}: "
+                f"qkv {c['qkv_err']:.4f}/{c['qkv_tol']:.4f}; B1-train out "
+                f"{c['out_err']:.4f}/{c['out_tol']:.4f} mid "
+                f"{c['mid_err']:.4f}/{c['mid_tol']:.4f} acc {c['acc_err']:.5f}/"
+                f"{c['acc_tol']:.4f} den {c['den_rel']:.1e}; B2 dx {c['dx_err']:.5f}/"
+                f"{c['dx_tol']:.4f} params {c['dp_rel']:.1e}/1e-2 autograd worst "
+                f"{worst[0]:.1e} vs plain B2 {worst[2]:.1e} x{AUTOGRAD_FACTOR} (plain "
+                f"bf16 route {worst[1]:.1e}; by max: ratio {max_ratio:.2f}); max score "
+                f"{c['max_score']:.1f} "
+                f"{'ok' if c['ok'] else 'MISS'}")
+            if not c["ok"]:
+                misses.append(f"N={N} C={C} {regime}")
+            err["train"] = max(err["train"], c["max_abs_err"])
+            err["bwd"] = max(err["bwd"], c["bwd_max_abs_err"])
+        if not quick:
+            xf = torch.randn(R, N, C, generator=gen_full).cuda().to(torch.bfloat16)
+            gf = torch.randn(R, N, C, generator=gen_full).cuda().to(torch.bfloat16)
+            t_ms = cuda_ms(torch, lambda: fused_row_block_train(xf, p, HEADS), 3)
+            _, mid, acc, den = fused_row_block_train(xf, p, HEADS)
+            b_ms = cuda_ms(torch, lambda: fused_row_block_bwd(xf, mid, acc, den, gf, p, HEADS), 3)
+            rs = min(R, PLAIN_ROWS)
+            pt_ms = cuda_ms(torch, lambda: fused_row_block_train_reference(
+                xf[:rs], p, HEADS), 1) * R / rs
+            pb_ms = cuda_ms(torch, lambda: fused_row_block_bwd_reference(
+                xf[:rs], mid[:rs], acc[:rs], den[:rs], gf[:rs], p, HEADS), 1) * R / rs
+            lf_ms = cuda_ms(torch, lambda: library_block(torch, xf, p, HEADS), 2)
+            lfb_ms = cuda_ms(torch, lambda: library_fwd_bwd(torch, xf, p, HEADS, gf), 1)
+            bt = bound_ms(R, N, C, 4 * C, train=True)
+            bb = bound_bwd_ms(R, N, C, 4 * C)
+            calls = BLOCKS_PER_STAGE[stage]
+            entry["train"] = {"ms": t_ms, "plain_ms": pt_ms, "library_ms": lf_ms,
+                              "bound_ms": bt[0], "bound_by": bt[1]}
+            entry["bwd"] = {"ms": b_ms, "plain_ms": pb_ms,
+                            "library_ms": max(lfb_ms - lf_ms, 0.0),
+                            "library_fwd_bwd_ms": lfb_ms, "bound_ms": bb[0],
+                            "bound_by": bb[1]}
+            entry.update(calls_per_step=calls, plain_rows_timed=rs)
+            for kind in ("train", "bwd"):
+                e = entry[kind]
+                for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                    totals[kind][k] += calls * e[k]
+                if e["bound_by"] == "bytes":
+                    totals[kind]["bound_bytes_ms"] += calls * e["bound_ms"]
+                log(f"  full R={R} {'B1-train' if kind == 'train' else 'B2'}: kernel_ms "
+                    f"{e['ms']:.3f} plain_ms {e['plain_ms']:.3f} (timed on {rs} rows) "
+                    f"library_ms {e['library_ms']:.3f} bound_ms {e['bound_ms']:.4f} "
+                    f"({e['bound_by']})")
+            del xf, gf, mid, acc, den
+            torch.cuda.empty_cache()
+        rows_out.append(entry)
+    if misses:
+        fail("B1-train / B2 disagree with their plain versions at " + "; ".join(misses))
+    return rows_out, err, totals
+
+
+# Faults for --plant: text substitutions in a copy of csrc/fused_block_bwd.cu,
+# each of which the B2 check must catch.
+PLANTS = {
+    # d_den = 0: the softmax denominator's share of d_p is lost
+    "no_d_den": ("d_den[(size_t)tok * H + h] = round_bf16(-r * s);",
+                 "d_den[(size_t)tok * H + h] = 0.f;"),
+    # d_s = d_p * p * ln 2 also where the score was clamped
+    "no_clamp": ("s < SCORE_CLAMP ? dp * p * LN2F : 0.f", "dp * p * LN2F"),
+    # the last token split of every weight-gradient sum left out
+    "drop_last_split": ("for (int k = 0; k < S; ++k)", "for (int k = 0; k < S - 1; ++k)"),
+}
+
+
+def plant_fault(torch, name: str) -> None:
+    """Build csrc/fused_block_bwd.cu with fault ``name`` of PLANTS into
+    build/planted/ (outside the sources) with the port's nvcc flags, and
+    swap the library in for B2."""
+    import ctypes
+
+    from tfswa_tpu_torch.ops import _build
+
+    old, new = PLANTS[name]
+    src = (_build.CSRC / "fused_block_bwd.cu").read_text()
+    if old not in src:
+        fail(f"planted fault {name}: its text is not in the source")
+    out = _build.BUILD_DIR.parent / "planted"
+    out.mkdir(parents=True, exist_ok=True)
+    cu = out / f"fused_block_bwd_{name}.cu"
+    cu.write_text(src.replace(old, new))
+    lib = out / f"libfused_block_bwd_{name}.so"
+    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+                          "-o", str(lib), str(cu)], capture_output=True, text=True)
+    if res.returncode != 0:
+        fail(f"planted fault {name}: nvcc failed:\n{res.stdout}{res.stderr}")
+    _build._loaded["fused_block_bwd"] = ctypes.CDLL(str(lib))
+    log(f"planted fault {name}: {old!r} -> {new!r}")
+
+
+def train_batch(torch, np):
+    """A fixed batch of TRAIN_BATCH x TRAIN_SECONDS stereo segments from the
+    port's SyntheticDataset (seed 0), on the card."""
+    from tfswa_tpu_torch.data import SyntheticDataset
+
+    ds = SyntheticDataset(num_tracks=TRAIN_BATCH, track_seconds=12.0,
+                          segment_seconds=TRAIN_SECONDS, sample_rate=44100, seed=0)
+    items = [ds[i] for i in range(TRAIN_BATCH)]
+    mix = torch.from_numpy(np.stack([m for m, _ in items])).cuda()
+    targets = {k: torch.from_numpy(np.stack([t[k] for _, t in items])).cuda()
+               for k in ds.stems}
+    return mix, targets
+
+
+def make_trainer(torch, impl: str):
+    """The flagship bf16 model (f32 parameters, weights from seed 0) in a
+    TrainState with the TrainConfig defaults, and its train and eval steps."""
+    from tfswa_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from tfswa_tpu_torch.ops.stft import STFTProcessor
+    from tfswa_tpu_torch.training import (create_train_state, make_eval_step,
+                                          make_train_step)
+
+    cfg = Config(model=ModelConfig(in_channels=4, out_channels=4, attention_impl=impl,
+                                   dtype="bfloat16"), train=TrainConfig(seed=0))
+    model, state = create_train_state(cfg, device="cuda")
+    proc = STFTProcessor(cfg.stft)
+    stems = cfg.data.stems
+    kw = dict(l1_weight=cfg.train.l1_weight, mask_mode=cfg.train.train_mask_mode,
+              freq_policy=cfg.train.freq_policy)
+    return (state, make_train_step(model, proc, stems, **kw),
+            make_eval_step(model, proc, stems, **kw))
+
+
+def row_block_grads(model):
+    """(name, gradient) of every row-block parameter (66 blocks x 11)."""
+    return [(n, p.grad) for n, p in model.named_parameters()
+            if any(f".{a}." in n for a in ("tsa", "fsa", "swa"))]
+
+
+def phase_train(torch, np, gpu: str):
+    """The training main path: a warm-up step, TRAIN_STEPS counted and timed
+    steps on one fixed batch, the checks, one profiled step and an eval
+    step."""
+    from tfswa_tpu_torch.ops.fused_block import (fused_row_block, fused_row_block_bwd,
+                                                 fused_row_block_train)
+
+    counters = (fused_row_block, fused_row_block_train, fused_row_block_bwd)
+    state, step, eval_step = make_trainer(torch, "pallas")
+    mix, targets = train_batch(torch, np)
+    t0 = time.perf_counter()
+    state, _ = step(state, mix, targets)                     # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    times, losses, norms, per_step = [], [], [], []
+    for _ in range(TRAIN_STEPS):
+        before = [c.launches for c in counters]
+        t0 = time.perf_counter()
+        state, loss = step(state, mix, targets)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        per_step.append([c.launches - b for c, b in zip(counters, before)])
+        losses.append({k: float(v) for k, v in loss.items()})
+        grads = row_block_grads(state.model)
+        bad = [n for n, g in grads if g is None or not bool(torch.isfinite(g).all())
+               or not bool((g != 0).any())]
+        if len(grads) != 66 * 11 or bad:
+            fail(f"row-block gradients: {len(grads)} found, missing, non-finite or "
+                 f"all zero: {bad[:5]}")
+    launches = {c.__name__: c.launches for c in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"train path: launches per step (B1, B1-train, B2) {per_step}")
+    if any(s != [0, 66, 66] for s in per_step):
+        fail(f"expected 0 B1, 66 B1-train and 66 B2 launches per step, got {per_step}")
+    for i, l in enumerate(losses):
+        log(f"  step {i + 1}: total_loss {l['total_loss']:.6f} grad_norm "
+            f"{l['grad_norm']:.6f} ({times[i]:.4f} s)")
+    if not all(math.isfinite(v) for l in losses for v in l.values()):
+        fail("non-finite loss or grad_norm")
+    if not losses[-1]["total_loss"] < losses[0]["total_loss"]:
+        fail(f"the loss did not fall on the fixed batch: {losses[0]['total_loss']} -> "
+             f"{losses[-1]['total_loss']}")
+    best = min(times)
+    rate = TRAIN_BATCH * TRAIN_SECONDS / best
+    log(f"train path: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SECONDS} s, "
+        f"best {best * 1e3:.3f} ms/step (warm-up {warm_s:.3f} s): {rate:.4f} "
+        f"audio-s trained per s on {gpu}; peak memory {peak_gb:.3f} GB")
+
+    prof = profile_step(torch, lambda: step(state, mix, targets))
+
+    for c in counters:
+        c.launches = 0
+    ev = eval_step(state, mix, targets)
+    torch.cuda.synchronize()
+    ev_launches = [c.launches for c in counters]
+    log(f"eval step: total_loss {float(ev['total_loss']):.6f}, launches (B1, B1-train, "
+        f"B2) {ev_launches}")
+    if ev_launches != [66, 0, 0] or not math.isfinite(float(ev["total_loss"])):
+        fail(f"eval step: expected 66 serving launches and a finite loss, got "
+             f"{ev_launches}")
+    return {"launches": launches, "per_step": per_step, "step_s": times,
+            "warmup_s": warm_s, "best_ms_per_step": best * 1e3,
+            "audio_s_trained_per_s": rate, "peak_mem_gb": peak_gb, "losses": losses,
+            "profile": prof, "eval_loss": float(ev["total_loss"])}
+
+
+def device_kernels(prof):
+    """(name, device ms, count) of every device activity in a
+    torch.profiler trace, longest first, and the device ms of the user
+    annotations (record_function ranges, such as the optimizer's), which
+    span kernels already counted and are left out of the busy time."""
+    kernels, annotation_ms = [], 0.0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+            if getattr(e, "is_user_annotation", False):
+                annotation_ms += us / 1e3
+            else:
+                kernels.append((e.key, us / 1e3, e.count))
+    kernels.sort(key=lambda k: -k[1])
+    return kernels, annotation_ms
+
+
+def profile_step(torch, run):
+    """Device time by kernel over one train step (torch.profiler), and the
+    device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, annotation_ms = device_kernels(prof)
+    busy_ms = sum(k[1] for k in kernels)
+    groups = {"B1-train": ("ln_qkv_kernel<false>", "attn_kernel", "post_kernel"),
+              "B2": ("ln_qkv_kernel<true>", "mlp_bwd_kernel", "attn_bwd_q_kernel",
+                     "attn_bwd_kv_kernel", "ln1_bwd_kernel", "atb_kernel", "reduce_kernel")}
+    by_group = {g: sum(k[1] for k in kernels if any(n in k[0] for n in names))
+                for g, names in groups.items()}
+    res = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+           "annotation_ms": annotation_ms, "by_kernel_group_ms": by_group,
+           "top": [{"name": k[0][:120], "ms": k[1], "count": k[2]} for k in kernels[:25]]}
+    if not busy_ms:
+        log("profile: the profiler recorded no device time (not measured)")
+        return res
+    log(f"profile: one train step, wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
+        f"idle share {res['idle_share']:.4f} (user annotations left out: "
+        f"{annotation_ms:.3f} ms); " + ", ".join(
+            f"{g} {v:.3f} ms" for g, v in by_group.items()))
+    for k in kernels[:14]:
+        log(f"  {k[1]:10.3f} ms  x{k[2]:<5d} {k[0][:90]}")
+    return res
+
+
+def phase_train_routes(torch, np):
+    """One train step through the kernel route and through the plain route
+    (attention_impl="xla", autograd through plain PyTorch), same weights
+    and batch: the losses within 1e-2 relative, the flattened gradients at
+    a cosine similarity of at least 0.99."""
+    mix, targets = train_batch(torch, np)
+    res = {}
+    grads = {}
+    for impl in ("pallas", "xla"):
+        state, step = make_trainer(torch, impl)[:2]
+        state, loss = step(state, mix, targets)
+        torch.cuda.synchronize()
+        grads[impl] = torch.cat([p.grad.flatten() for p in state.model.parameters()])
+        res[impl] = {"total_loss": float(loss["total_loss"]),
+                     "grad_norm": float(loss["grad_norm"])}
+        del state, step
+        torch.cuda.empty_cache()
+    a, b = grads["pallas"].double(), grads["xla"].double()
+    cos = float((a @ b) / (a.norm() * b.norm()))
+    rel = abs(res["pallas"]["total_loss"] - res["xla"]["total_loss"]) / \
+        abs(res["xla"]["total_loss"])
+    res.update(grad_cosine=cos, loss_rel=rel)
+    log(f"train step, kernel route vs plain route: loss {res['pallas']['total_loss']:.6f} "
+        f"vs {res['xla']['total_loss']:.6f} (rel {rel:.2e}, limit 1e-2), grad_norm "
+        f"{res['pallas']['grad_norm']:.6f} vs {res['xla']['grad_norm']:.6f}, gradient "
+        f"cosine {cos:.6f} (min 0.99)")
+    if not (rel <= 1e-2 and cos >= 0.99):
+        fail(f"kernel route vs plain route: loss rel {rel}, gradient cosine {cos}")
+    return res
+
+
 def make_separator(torch, impl: str):
     from tfswa_tpu_torch.config import EvalConfig, ModelConfig, STFTConfig
     from tfswa_tpu_torch.evaluation import SourceSeparator
@@ -337,24 +853,20 @@ def phase_profile(torch, np, sep):
         sep.separate(audio)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = []
-    for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            us = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
-            kernels.append((e.key, us / 1e3, e.count))
-    kernels.sort(key=lambda k: -k[1])
+    kernels, annotation_ms = device_kernels(prof)
     busy_ms = sum(k[1] for k in kernels)
     b1 = {n: sum(k[1] for k in kernels if n in k[0])
           for n in ("ln_qkv_kernel", "attn_kernel", "post_kernel")}
     res = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
-           "fused_row_block_ms": b1,
+           "annotation_ms": annotation_ms, "fused_row_block_ms": b1,
            "top": [{"name": k[0][:120], "ms": k[1], "count": k[2]} for k in kernels[:25]]}
     if not busy_ms:
         log("profile: the profiler recorded no device time (not measured)")
         return res
     log(f"profile: one 120 s separation, wall {wall_ms:.3f} ms, device busy "
-        f"{busy_ms:.3f} ms, idle share {res['idle_share']:.4f}")
+        f"{busy_ms:.3f} ms, idle share {res['idle_share']:.4f} (user annotations left "
+        f"out: {annotation_ms:.3f} ms)")
     log("profile: fused_row_block launches " + ", ".join(
         f"{n} {v:.3f} ms" for n, v in b1.items()))
     for k in kernels[:12]:
@@ -384,6 +896,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="build and kernel checks only")
+    ap.add_argument("--plant", choices=sorted(PLANTS),
+                    help="plant a fault in a copy of B2's source and run only the "
+                         "B1-train / B2 checks: exit 0 if they catch it, 1 if not")
     args = ap.parse_args()
 
     try:
@@ -407,8 +922,11 @@ def main() -> None:
 
     from tfswa_tpu_torch.ops import _build
 
+    global MUFU_RATE
+    MUFU_RATE = mufu_rate(torch)
+    log(f"exp2 (MUFU) rate {MUFU_RATE:.4e} /s")
     t0 = time.perf_counter()
-    _build.build(["fused_block"])
+    _build.build(["fused_block", "fused_block_bwd"])
     build_s = time.perf_counter() - t0
     log(f"build: {build_s:.3f} s")
     for name, report in _build.ptxas_report.items():
@@ -416,8 +934,18 @@ def main() -> None:
             if "Used" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    if args.plant:
+        plant_fault(torch, args.plant)
+        try:
+            phase_train_kernels(torch, True)
+        except SystemExit:
+            log(f"planted fault {args.plant}: caught by the B2 check")
+            sys.exit(0)
+        fail(f"planted fault {args.plant}: the B2 check passed it")
+
     shapes, max_err, totals = phase_kernels(torch, args.quick)
-    results = {"gpu": gpu, "build_s": build_s, "shapes": shapes, "totals": totals}
+    results = {"gpu": gpu, "build_s": build_s, "mufu_rate": MUFU_RATE, "shapes": shapes,
+               "totals": totals}
     main_path = {"launches": None}
     if not args.quick:
         main_path, sep = phase_main_path(torch, np, gpu)
@@ -426,6 +954,19 @@ def main() -> None:
         results["route_snr_db"] = phase_routes(torch, np, sep)
         log("per model forward (66 calls): kernel_ms {ms:.3f} plain_ms {plain_ms:.3f} "
             "library_ms {library_ms:.3f} bound_ms {bound_ms:.4f}".format(**totals))
+        del sep
+        torch.cuda.empty_cache()
+    t_shapes, t_err, t_totals = phase_train_kernels(torch, args.quick)
+    results.update(train_shapes=t_shapes, train_totals=t_totals)
+    train = {"launches": {}}
+    if not args.quick:
+        train = phase_train(torch, np, gpu)
+        results["train_path"] = train
+        results["train_routes"] = phase_train_routes(torch, np)
+        for kind, label in (("train", "B1-train"), ("bwd", "B2")):
+            log(f"per train step (66 calls), {label}: kernel_ms {{ms:.3f}} plain_ms "
+                f"{{plain_ms:.3f}} library_ms {{library_ms:.3f}} bound_ms "
+                f"{{bound_ms:.4f}}".format(**t_totals[kind]))
 
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -433,19 +974,31 @@ def main() -> None:
         json.dump(results, fh, indent=1)
 
     timed = not args.quick
-    kernel = {
-        "name": "fused_row_block", "route": "cuda",
-        "source": "tfswa_tpu_torch/csrc/fused_block.cu",
-        "replaces": "tfswa_tpu/ops/pallas/fused_block.py:140",
-        "launches": main_path["launches"], "max_abs_err": max_err,
-        "ms": totals["ms"] if timed else None,
-        "plain_ms": totals["plain_ms"] if timed else None,
-        "bound_ms": totals["bound_ms"] if timed else None,
-        "bound_by": ("bytes" if totals["bound_bytes_ms"] * 2 >= totals["bound_ms"]
-                     else "operations") if timed else None,
-        "library_ms": totals["library_ms"] if timed else None,
-    }
-    log(json.dumps({"kernels": [kernel]}))
+
+    def entry(name, source, replaces, launches, err, tot):
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err,
+            "ms": tot["ms"] if timed else None,
+            "plain_ms": tot["plain_ms"] if timed else None,
+            "bound_ms": tot["bound_ms"] if timed else None,
+            "bound_by": ("bytes" if tot["bound_bytes_ms"] * 2 >= tot["bound_ms"]
+                         else "operations") if timed else None,
+            "library_ms": tot["library_ms"] if timed else None,
+        }
+
+    fwd_src = "tfswa_tpu_torch/csrc/fused_block.cu"
+    kernels = [
+        entry("fused_row_block", fwd_src, "tfswa_tpu/ops/pallas/fused_block.py:140",
+              main_path["launches"], max_err, totals),
+        entry("fused_row_block_train", fwd_src, "tfswa_tpu/ops/pallas/fused_block.py:140",
+              train["launches"].get("fused_row_block_train"), t_err["train"],
+              t_totals["train"]),
+        entry("fused_row_block_bwd", "tfswa_tpu_torch/csrc/fused_block_bwd.cu",
+              "tfswa_tpu/ops/pallas/fused_block.py:526",
+              train["launches"].get("fused_row_block_bwd"), t_err["bwd"], t_totals["bwd"]),
+    ]
+    log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

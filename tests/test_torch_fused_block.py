@@ -151,10 +151,12 @@ def test_wrapper_raises_off_cpu_and_cuda():
 def test_wrapper_raises_on_wrong_dtype_for_cuda():
     """A CUDA tensor of another dtype than bf16 raises before any launch.
     The check runs on a stand-in object, since this machine has no card."""
+    _, p = _both(2, 16, 32, seed=1)
 
     class FakeCuda:
         device = torch.device("cuda", 0)
         dtype = torch.float32
+        requires_grad = False
 
     with pytest.raises(TypeError, match="bfloat16"):
-        fused_row_block(FakeCuda(), None, 8)
+        fused_row_block(FakeCuda(), _torch_params(p), 8)

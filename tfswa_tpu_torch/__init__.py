@@ -1,15 +1,18 @@
 """tfswa_tpu_torch: the PyTorch + CUDA port of tfswa_tpu for NVIDIA Hopper.
 
-  - config.py     model / STFT / evaluation configs (copies of the JAX ones)
-  - ops/          STFT, masks, windowing, the fused row-block kernel wrapper
+  - config.py     model / STFT / data / train / evaluation configs (copies of
+                  the JAX ones)
+  - ops/          STFT, masks, windowing, the fused row-block kernel wrappers
   - csrc/         hand-written CUDA C++ kernels (sm_90a), built by ops/_build.py
   - models/       TFSWA-UNet under the reference's state_dict names
+  - training/     losses, optimizer, the train and eval steps
+  - data/         the synthetic dataset
   - evaluation/   overlap-add separation (SourceSeparator)
-  - weights.py    JAX variables -> the port's state_dict
+  - weights.py    JAX variables <-> the port's state_dict
 
 The package imports torch and never JAX or the JAX package.
 """
 
-from .config import EvalConfig, ModelConfig, STFTConfig
+from .config import Config, DataConfig, EvalConfig, ModelConfig, STFTConfig, TrainConfig
 
-__all__ = ["EvalConfig", "ModelConfig", "STFTConfig"]
+__all__ = ["Config", "DataConfig", "EvalConfig", "ModelConfig", "STFTConfig", "TrainConfig"]

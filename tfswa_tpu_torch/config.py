@@ -1,13 +1,14 @@
 """Configuration dataclasses of the PyTorch port.
 
-Copies of the model, STFT and evaluation configs of the JAX package
-(``tfswa_tpu/config.py``), so that configs carry over field for field.
-The port keeps its own copy: it imports nothing of the JAX package.
+Copies of the model, STFT, data, train and evaluation configs of the JAX
+package (``tfswa_tpu/config.py``), so that configs carry over field for
+field.  The port keeps its own copy: it imports nothing of the JAX package.
+The YAML round trip and the CLI overrides are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 
@@ -30,10 +31,12 @@ class ModelConfig:
     # "xla": the plain PyTorch row-block path.  The names are the JAX
     # package's, so configs carry over.
     attention_impl: str = "xla"
+    # Unused by the port: its plain route chunks rows by the bytes of the
+    # score planes (ops/fused_block.MAX_SCORE_BYTES), not by a row count.
     attn_chunk_size: int = 16
-    remat: bool = False
+    remat: bool = False           # not ported yet: from_config raises on True
     dtype: str = "float32"        # compute dtype ("float32" | "bfloat16")
-    param_dtype: str = "float32"
+    param_dtype: str = "float32"  # only "float32" is ported
 
 
 @dataclass
@@ -50,6 +53,33 @@ class STFTConfig:
     # Kept for config compatibility.  The port always computes the DFT in
     # float32; the JAX package's "default" is a 1-pass bf16 DFT on a TPU.
     precision: str = "highest"
+
+
+@dataclass
+class DataConfig:
+    """Data config: the one field of the JAX package's DataConfig that the
+    training path reads (the data pipeline is not ported)."""
+
+    stems: Tuple[str, ...] = ("vocals", "other")
+
+
+@dataclass
+class TrainConfig:
+    """Training config: the JAX package's fields that the train step and
+    its optimizer read, with its defaults.  The others (the MR-STFT loss,
+    the Trainer's epochs, logging, SDR evaluation and checkpoints) wait
+    for what reads them, so that no option is dropped without a word."""
+
+    learning_rate: float = 1e-4
+    weight_decay: float = 1e-4
+    max_epochs: int = 300
+    warmup_steps: int = 0
+    lr_min: float = 1e-6            # cosine eta_min
+    gradient_clip_val: float = 1.0
+    l1_weight: float = 1.0
+    train_mask_mode: str = "parity"  # "parity" (double sigmoid) | "direct"
+    freq_policy: str = "full"       # "full" | "crop_pow2" (drop the Nyquist row)
+    seed: int = 42
 
 
 @dataclass
@@ -82,3 +112,12 @@ class EvalConfig:
             stft_precision="default",
         )
         return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+@dataclass
+class Config:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    stft: STFTConfig = field(default_factory=STFTConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)

@@ -1,9 +1,11 @@
 // Fused pre-LN row transformer block, forward, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel tfswa_tpu/ops/pallas/fused_block.py
-// _fused_block_kernel (serving form: no mask, no dropout, no residual
-// exports), reached through fused_row_block.  Per row of rows (R, N, C),
-// bf16 in and out:
+// _fused_block_kernel (no mask, no dropout), reached through fused_row_block,
+// in its two forms: serving (B1) and training (B1-train, with_mid=True,
+// which also exports mid = bf16(y) and the per-head denominators den; the
+// attention output acc is written in both forms).  Per row of rows
+// (R, N, C), bf16 in and out:
 //   n1  = bf16(LN1(x))                      f32 statistics, eps 1e-5
 //   q,k,v = bf16(n1 @ Wq'), bf16(n1 @ Wk), bf16(n1 @ Wv)
 //                                           Wq' = Wq * log2(e)/sqrt(D), in bf16
@@ -46,105 +48,21 @@
 // 7 M tokens).  The products run on CUDA cores in f32; moving them to
 // mma/wgmma and fusing the three launches is later work.
 //
+// The training form is the same code instantiated with its two exports
+// (template flags), so the serving form's instructions are unchanged.
+//
 // Interface: plain C, loaded with ctypes.  Each launch goes on the caller's
 // stream; the function returns the first non-zero cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "block_common.cuh"
 
 namespace {
 
-constexpr int TOK = 16;        // tokens per block in the O(N*C) kernels
-constexpr int THREADS = 128;   // threads per block in the O(N*C) kernels
-constexpr int KT = 128;        // keys per shared-memory tile
-constexpr float SCORE_CLAMP = 110.0f;
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
-
-__device__ __forceinline__ float round_bf16(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    return v;
-}
-
-// LayerNorm of TOK token-major rows src[t*C + c] into dst[c*TOK + t]
-// (k-major), rounded to bf16.  One warp per token.
-__device__ void layer_norm_tile(const float* src, float* dst, const bf16* scale,
-                                const bf16* bias, int C) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    for (int t = warp; t < TOK; t += THREADS / 32) {
-        float s = 0.f;
-        for (int c = lane; c < C; c += 32) s += src[t * C + c];
-        const float mean = warp_sum(s) / C;
-        float v = 0.f;
-        for (int c = lane; c < C; c += 32) {
-            const float d = src[t * C + c] - mean;
-            v += d * d;
-        }
-        const float rstd = rsqrtf(warp_sum(v) / C + 1e-5f);
-        for (int c = lane; c < C; c += 32)
-            dst[c * TOK + t] = round_bf16(
-                (src[t * C + c] - mean) * rstd * ld(scale + c) + ld(bias + c));
-    }
-}
-
-// acc[t] = sum_k a[k*TOK + t] * w[k*ldw + j] for the block's TOK tokens.
-__device__ __forceinline__ void column_dot(const float* a, const bf16* w, int ldw,
-                                           int j, int K, float (&acc)[TOK]) {
-#pragma unroll
-    for (int t = 0; t < TOK; ++t) acc[t] = 0.f;
-    for (int k = 0; k < K; ++k) {
-        const float wk = ld(w + (size_t)k * ldw + j);
-        const float4* a4 = reinterpret_cast<const float4*>(a + k * TOK);
-#pragma unroll
-        for (int q = 0; q < TOK / 4; ++q) {
-            const float4 v = a4[q];
-            acc[4 * q + 0] += v.x * wk;
-            acc[4 * q + 1] += v.y * wk;
-            acc[4 * q + 2] += v.z * wk;
-            acc[4 * q + 3] += v.w * wk;
-        }
-    }
-}
-
-// 1. LN1 + qkv projection.  qkv is (M, 3C): [q | k | v] per token.
-__global__ void __launch_bounds__(THREADS)
-ln_qkv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_s,
-              const bf16* __restrict__ ln_b, const bf16* __restrict__ w,
-              bf16* __restrict__ qkv, int M, int C) {
-    extern __shared__ __align__(16) float smem[];
-    float* xs = smem;              // TOK x C, token-major
-    float* ns = smem + TOK * C;    // C x TOK, k-major
-    const int tok0 = blockIdx.x * TOK;
-    const int ntok = min(TOK, M - tok0);
-    for (int i = threadIdx.x; i < TOK * C; i += THREADS) {
-        const int t = i / C;
-        xs[i] = t < ntok ? ld(x + (size_t)tok0 * C + i) : 0.f;
-    }
-    __syncthreads();
-    layer_norm_tile(xs, ns, ln_s, ln_b, C);
-    __syncthreads();
-    const int ncol = 3 * C;
-    for (int j = threadIdx.x; j < ncol; j += THREADS) {
-        float acc[TOK];
-        column_dot(ns, w, ncol, j, C, acc);
-#pragma unroll
-        for (int t = 0; t < TOK; ++t)
-            if (t < ntok) qkv[(size_t)(tok0 + t) * ncol + j] = __float2bfloat16(acc[t]);
-    }
-}
-
 // 2. Attention, one block per (row, head, block of queries).
-template <int D>
+// WITH_DEN also writes den (R, H, N), the f32 sum of the rounded p.
+template <int D, bool WITH_DEN>
 __global__ void attn_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-                            int N, int C, int H, int nqb) {
+                            float* __restrict__ den_out, int N, int C, int H, int nqb) {
     extern __shared__ __align__(16) float smem[];
     float* ks = smem;              // KT x D
     float* vs = smem + KT * D;     // KT x D
@@ -200,17 +118,20 @@ __global__ void attn_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out
 #pragma unroll
         for (int d = 0; d < D; ++d)
             out[(row0 + n) * C + h * D + d] = __float2bfloat16(acc[d] * inv);
+        if (WITH_DEN) den_out[(r * H + h) * N + n] = den;
     }
 }
 
-// 3. Out-projection + residual + LN2 + MLP + residual.
+// 3. Out-projection + residual + LN2 + MLP + residual.  WITH_MID also
+// writes mid = bf16(y), the residual stream after the attention half.
+template <bool WITH_MID>
 __global__ void __launch_bounds__(THREADS)
 post_kernel(const bf16* __restrict__ x, const bf16* __restrict__ attn,
             const bf16* __restrict__ wo, const bf16* __restrict__ bo,
             const bf16* __restrict__ ln_s, const bf16* __restrict__ ln_b,
             const bf16* __restrict__ w1, const bf16* __restrict__ b1,
             const bf16* __restrict__ w2, const bf16* __restrict__ b2,
-            bf16* __restrict__ out, int M, int C, int hidden) {
+            bf16* __restrict__ out, bf16* __restrict__ mid, int M, int C, int hidden) {
     extern __shared__ __align__(16) float smem[];
     float* sa = smem;                  // C x TOK  attention output, k-major
     float* sy = sa + C * TOK;          // TOK x C  residual stream y, token-major
@@ -233,6 +154,10 @@ post_kernel(const bf16* __restrict__ x, const bf16* __restrict__ attn,
         for (int t = 0; t < TOK; ++t) sy[t * C + j] += acc[t] + bj;
     }
     __syncthreads();
+    if (WITH_MID) {
+        for (int i = threadIdx.x; i < ntok * C; i += THREADS)
+            mid[(size_t)tok0 * C + i] = __float2bfloat16(sy[i]);
+    }
     layer_norm_tile(sy, sn, ln_s, ln_b, C);
     __syncthreads();
     for (int j = threadIdx.x; j < hidden; j += THREADS) {
@@ -256,57 +181,67 @@ post_kernel(const bf16* __restrict__ x, const bf16* __restrict__ attn,
 }
 
 template <int D>
-cudaError_t launch_attn(const bf16* qkv, bf16* attn, int R, int N, int C, int H,
-                        cudaStream_t stream) {
+cudaError_t launch_attn(const bf16* qkv, bf16* attn, float* den, int R, int N, int C,
+                        int H, cudaStream_t stream) {
     const int threads = N <= 64 ? 64 : 128;
     const int nqb = (N + threads - 1) / threads;
     const size_t blocks = (size_t)R * H * nqb;
     if (blocks > 0x7fffffffULL) return cudaErrorInvalidConfiguration;
-    attn_kernel<D><<<(unsigned)blocks, threads, 2 * KT * D * sizeof(float), stream>>>(
-        qkv, attn, N, C, H, nqb);
+    const size_t smem = 2 * KT * D * sizeof(float);
+    if (den)
+        attn_kernel<D, true><<<(unsigned)blocks, threads, smem, stream>>>(
+            qkv, attn, den, N, C, H, nqb);
+    else
+        attn_kernel<D, false><<<(unsigned)blocks, threads, smem, stream>>>(
+            qkv, attn, nullptr, N, C, H, nqb);
     return cudaGetLastError();
 }
 
 }  // namespace
 
+// mid and den are null in the serving form; in the training form both are
+// given: mid (R, N, C) bf16, den (R, H, N) f32.
 extern "C" int fused_block_forward(
     const void* x, const void* ln1_s, const void* ln1_b, const void* w_qkv,
     const void* w_o, const void* b_o, const void* ln2_s, const void* ln2_b,
     const void* w_1, const void* b_1, const void* w_2, const void* b_2,
-    void* qkv_buf, void* attn_buf, void* out,
+    void* qkv_buf, void* attn_buf, void* out, void* mid, void* den,
     int R, int N, int C, int H, int hidden, void* stream_ptr) {
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     const int M = R * N;
-    if (M <= 0 || H <= 0 || C % H) return cudaErrorInvalidValue;
+    if (M <= 0 || H <= 0 || C % H || (mid == nullptr) != (den == nullptr))
+        return cudaErrorInvalidValue;
     const unsigned tok_blocks = (unsigned)((M + TOK - 1) / TOK);
 
     const size_t ln_smem = 2 * (size_t)TOK * C * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
-        ln_qkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ln_smem);
+        ln_qkv_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ln_smem);
     if (err != cudaSuccess) return err;
-    ln_qkv_kernel<<<tok_blocks, THREADS, ln_smem, stream>>>(
+    ln_qkv_kernel<false><<<tok_blocks, THREADS, ln_smem, stream>>>(
         (const bf16*)x, (const bf16*)ln1_s, (const bf16*)ln1_b, (const bf16*)w_qkv,
-        (bf16*)qkv_buf, M, C);
+        (bf16*)qkv_buf, nullptr, M, C);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
     const bf16* qkv = (const bf16*)qkv_buf;
     bf16* attn = (bf16*)attn_buf;
+    float* dn = (float*)den;
     switch (C / H) {
-        case 4: err = launch_attn<4>(qkv, attn, R, N, C, H, stream); break;
-        case 8: err = launch_attn<8>(qkv, attn, R, N, C, H, stream); break;
-        case 16: err = launch_attn<16>(qkv, attn, R, N, C, H, stream); break;
-        case 32: err = launch_attn<32>(qkv, attn, R, N, C, H, stream); break;
+        case 4: err = launch_attn<4>(qkv, attn, dn, R, N, C, H, stream); break;
+        case 8: err = launch_attn<8>(qkv, attn, dn, R, N, C, H, stream); break;
+        case 16: err = launch_attn<16>(qkv, attn, dn, R, N, C, H, stream); break;
+        case 32: err = launch_attn<32>(qkv, attn, dn, R, N, C, H, stream); break;
         default: return cudaErrorInvalidValue;
     }
     if (err != cudaSuccess) return err;
 
     const size_t post_smem = (size_t)(3 * C + hidden) * TOK * sizeof(float);
-    err = cudaFuncSetAttribute(
-        post_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)post_smem);
+    auto post = mid ? post_kernel<true> : post_kernel<false>;
+    err = cudaFuncSetAttribute(post, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)post_smem);
     if (err != cudaSuccess) return err;
-    post_kernel<<<tok_blocks, THREADS, post_smem, stream>>>(
+    post<<<tok_blocks, THREADS, post_smem, stream>>>(
         (const bf16*)x, attn, (const bf16*)w_o, (const bf16*)b_o,
         (const bf16*)ln2_s, (const bf16*)ln2_b, (const bf16*)w_1, (const bf16*)b_1,
-        (const bf16*)w_2, (const bf16*)b_2, (bf16*)out, M, C, hidden);
+        (const bf16*)w_2, (const bf16*)b_2, (bf16*)out, (bf16*)mid, M, C, hidden);
     return cudaGetLastError();
 }

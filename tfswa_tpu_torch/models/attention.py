@@ -9,8 +9,13 @@ independent rows (R, N, C): rows are frequency columns (TSA), time frames
     (``ops/fused_block.py``), at every shape;
   - ``attention_impl="xla"``: the plain path, LN, multi-head attention with
     a standard softmax chunked over rows, MLP.
-Masked SWA and dropout, which send the JAX package to its plain path, are
-not ported yet.
+Both are differentiable.  The plain route runs the block a chunk of rows
+at a time, so that one chunk's f32 score planes exist at once; under
+autograd it recomputes each chunk in the backward
+(``torch.utils.checkpoint``, as the JAX package's ``jax.checkpoint`` per
+chunk), so that it keeps only each block's input and output.  Masked SWA
+and dropout, which send the JAX package to its plain path, are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import fused_block
 from ..ops.fused_block import fused_row_block, layer_norm_f32
@@ -73,6 +79,16 @@ def mha_rows(rows: torch.Tensor, p: RowBlockParams, num_heads: int) -> torch.Ten
     return out @ p.proj_kernel.to(dt) + p.proj_bias.to(dt)
 
 
+def _plain_block(rows: torch.Tensor, p: RowBlockParams, num_heads: int) -> torch.Tensor:
+    """The plain block on rows (R, N, C): rows + MHA(LN(rows)), then
+    + MLP(LN(.)), in the rows' dtype with f32 LN statistics and softmax."""
+    dt = rows.dtype
+    rows = rows + mha_rows(_layer_norm(rows, p.norm1_scale, p.norm1_bias), p, num_heads)
+    h = _layer_norm(rows, p.norm2_scale, p.norm2_bias)
+    h = gelu(h @ p.fc1_kernel.to(dt) + p.fc1_bias.to(dt))
+    return rows + (h @ p.fc2_kernel.to(dt) + p.fc2_bias.to(dt))
+
+
 def row_transformer_block(rows: torch.Tensor, p: RowBlockParams, num_heads: int, *,
                           attention_impl: str = "xla") -> torch.Tensor:
     """Pre-LN transformer block on rows (R, N, C):
@@ -81,16 +97,13 @@ def row_transformer_block(rows: torch.Tensor, p: RowBlockParams, num_heads: int,
     if attention_impl == "pallas":
         return fused_row_block(rows.contiguous(), p, num_heads)
 
-    dt = rows.dtype
     R, N, _ = rows.shape
-    normed = _layer_norm(rows, p.norm1_scale, p.norm1_bias)
     chunk = max(1, fused_block.MAX_SCORE_BYTES // (num_heads * N * N * 4))
-    rows = rows + torch.cat([mha_rows(normed[r0:r0 + chunk], p, num_heads)
-                             for r0 in range(0, R, chunk)])
-    h = _layer_norm(rows, p.norm2_scale, p.norm2_bias)
-    h = gelu(h @ p.fc1_kernel.to(dt) + p.fc1_bias.to(dt))
-    h = h @ p.fc2_kernel.to(dt) + p.fc2_bias.to(dt)
-    return rows + h
+    parts = [rows[r0:r0 + chunk] for r0 in range(0, R, chunk)]
+    remat = len(parts) > 1 and torch.is_grad_enabled()
+    outs = [checkpoint(_plain_block, x, p, num_heads, use_reentrant=False) if remat
+            else _plain_block(x, p, num_heads) for x in parts]
+    return torch.cat(outs) if len(outs) > 1 else outs[0]
 
 
 class _RowAttention(nn.Module):
@@ -116,6 +129,8 @@ class _RowBlock(nn.Module):
         self.norm1 = nn.LayerNorm(dim)
         self.attn = _RowAttention(dim)
         self.norm2 = nn.LayerNorm(dim)
+        # the Dropout(0.0) only keeps the reference's state_dict names
+        # (mlp.0, mlp.3); the block applies no dropout
         self.mlp = nn.Sequential(nn.Linear(dim, hidden), nn.GELU(), nn.Dropout(0.0),
                                  nn.Linear(hidden, dim))
 

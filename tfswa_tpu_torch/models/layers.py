@@ -6,7 +6,8 @@ are contiguous in C.  Parameters live in ``nn.Conv2d`` / ``nn.BatchNorm2d``
 / ``nn.ConvTranspose2d`` modules under the reference's state_dict names and
 are applied here in the compute dtype:
   - Conv2d / ConvTranspose2d k4 s2 p1 with torch's shape rules;
-  - BatchNorm in eval mode from running stats, eps 1e-5, in f32;
+  - BatchNorm, eps 1e-5, in f32: in eval mode from the running stats; in
+    train mode (``bn.training``) from the batch, with flax's semantics;
   - exact (erf) GELU;
   - bilinear resize = F.interpolate(align_corners=False).
 """
@@ -43,9 +44,26 @@ def conv_transpose2d(x: torch.Tensor, deconv: nn.ConvTranspose2d) -> torch.Tenso
 
 
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
-    """Eval-mode BatchNorm over the last (channel) axis, computed in f32."""
-    y = (x.float() - bn.running_mean) * torch.rsqrt(bn.running_var + bn.eps)
-    return (y * bn.weight + bn.bias).to(x.dtype)
+    """BatchNorm over the last (channel) axis of NHWC ``x``, in f32, back in
+    x's dtype.  Eval mode normalises with the running stats.  Train mode
+    follows flax's ``BatchNorm`` (the JAX model's), not torch's: statistics
+    over (B, H, W) in f32 with the biased variance E[x^2] - E[x]^2, used
+    both to normalise and, as ``(1 - m) * old + m * batch`` with torch's
+    momentum m = 0.1 (flax's 0.9), to update the running stats.  torch's
+    ``F.batch_norm`` would store the unbiased variance instead."""
+    if not bn.training:
+        y = (x.float() - bn.running_mean) * torch.rsqrt(bn.running_var + bn.eps)
+        return (y * bn.weight + bn.bias).to(x.dtype)
+    xf = x.float()
+    mean = xf.mean(dim=(0, 1, 2))
+    var = (xf.square().mean(dim=(0, 1, 2)) - mean.square()).clamp_min(0.0)
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.copy_((1.0 - m) * bn.running_mean + m * mean)
+        bn.running_var.copy_((1.0 - m) * bn.running_var + m * var)
+        bn.num_batches_tracked += 1
+    y = (xf - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
+    return y.to(x.dtype)
 
 
 def bilinear_resize(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:

@@ -6,6 +6,10 @@ JAX model; inside, activations are NHWC in the compute dtype.  LN
 statistics, softmax and the sigmoid head run in f32.  The module tree
 carries the reference's state_dict names (``encoder_stages.0.0.tsa.attn.
 qkv.weight``, ...), so a reference ``.pt`` loads with ``load_state_dict``.
+
+A new model is in eval mode, as the JAX model's ``train=False`` default:
+``model.train()`` switches BatchNorm to batch statistics and sends every
+row block through the differentiable kernel route (B1-train + B2).
 """
 from __future__ import annotations
 
@@ -62,13 +66,18 @@ class TFSWAUNet(nn.Module):
             nn.Conv2d(dims[0], dims[0], 3, 1, 1), nn.BatchNorm2d(dims[0]), nn.GELU(),
             nn.Conv2d(dims[0], out_channels, 1), nn.Sigmoid())
         init_weights(self, generator if generator is not None else torch.Generator())
-        self.eval()
+        self.eval()   # the JAX model's default is train=False
 
     @classmethod
     def from_config(cls, cfg: ModelConfig,
                     generator: Optional[torch.Generator] = None) -> "TFSWAUNet":
         if cfg.dropout > 0.0:
             raise NotImplementedError("dropout (training) is not ported yet")
+        if cfg.remat:
+            raise NotImplementedError("remat=True is not ported yet (ROADMAP.md)")
+        if cfg.param_dtype != "float32":
+            raise NotImplementedError(
+                f"param_dtype={cfg.param_dtype!r} is not ported (float32 only)")
         return cls(cfg.in_channels, cfg.out_channels, tuple(cfg.depths),
                    tuple(cfg.dims), cfg.window_size, cfg.shift_size, cfg.num_heads,
                    cfg.mlp_ratio, cfg.attention_impl, cfg.use_shift_mask,

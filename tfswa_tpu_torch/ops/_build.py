@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` for ``sm_90a``
 into ``build/kernels/lib<name>.so`` at the root of the checkout (a plain C
-interface, loaded with ctypes).  A library is rebuilt when its source is
-newer.  A failed build raises with the compiler's output.  Nothing here runs
-when a module is imported.
+interface, loaded with ctypes).  A library is rebuilt when its source or a
+shared ``csrc/*.cuh`` header is newer.  A failed build raises with the
+compiler's output.  Nothing here runs when a module is imported.
 """
 from __future__ import annotations
 
@@ -50,8 +50,10 @@ def _compile(name: str) -> subprocess.Popen:
 
 
 def _stale(name: str) -> bool:
+    """Missing, or older than its source or a shared header of ``csrc/``."""
     lib = BUILD_DIR / f"lib{name}.so"
-    return not lib.exists() or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime
+    sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return not lib.exists() or lib.stat().st_mtime < max(s.stat().st_mtime for s in sources)
 
 
 def build(names: Iterable[str]) -> None:

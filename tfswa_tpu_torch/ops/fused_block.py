@@ -1,17 +1,27 @@
 """Fused pre-LN row transformer block (counterpart of
-``tfswa_tpu/ops/pallas/fused_block.py`` ``fused_row_block``, serving form).
+``tfswa_tpu/ops/pallas/fused_block.py`` ``fused_row_block``).
 
 For rows (R, N, C): rows + MHA(LN1(rows)), then + MLP(LN2(.)), with the TPU
 kernel's arithmetic: LN statistics in f32, Wq pre-scaled by log2(e)/sqrt(D),
 a max-free exp2 softmax with scores clamped at ``SCORE_CLAMP``, and the
 same bf16 rounding points (see ``csrc/fused_block.cu``).
 
-- :func:`fused_row_block` is the wrapper.  A CPU tensor goes to the plain
-  version; a contiguous bf16 CUDA tensor launches the CUDA kernel
-  (``csrc/fused_block.cu``); anything else raises.
-- :func:`fused_row_block_reference` is the plain PyTorch version.  It chunks
-  over rows, so that the (rows, H, N, N) scores it does materialise stay
-  bounded at full-width shapes.
+Three kernels, each with its wrapper, its plain PyTorch version and a
+launch counter (``<wrapper>.launches``):
+  - B1, serving form: :func:`fused_row_block_parts` /
+    :func:`fused_row_block_reference_parts`;
+  - B1-train, the forward that also exports ``mid``, ``acc`` and ``den``:
+    :func:`fused_row_block_train` / :func:`fused_row_block_train_reference`;
+  - B2, the whole-block VJP: :func:`fused_row_block_bwd` /
+    :func:`fused_row_block_bwd_reference` (``csrc/fused_block_bwd.cu``).
+A CPU tensor goes to the plain version; a contiguous bf16 CUDA tensor
+launches the kernel; anything else raises.
+
+:func:`fused_row_block`, what the model calls, is differentiable: with grad
+mode on and a tensor that requires a gradient it runs B1-train and saves
+its residuals, and its backward runs B2 (``_FusedRowBlock``); otherwise it
+runs the serving form.  The plain versions chunk over rows, so that the
+(rows, H, N, N) planes they materialise stay bounded at full-width shapes.
 """
 from __future__ import annotations
 
@@ -26,9 +36,12 @@ from . import _build
 # below f32 max for N <= 2^17 keys.
 SCORE_CLAMP = 110.0
 LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+INV_SQRT_2PI = 0.3989422804014327
 KERNEL_HEAD_DIMS = (4, 8, 16, 32)
-# The plain versions materialise f32 scores; they chunk over rows so that at
-# most this many bytes of scores exist at once.
+# The plain versions materialise f32 score planes; they chunk over rows so
+# that at most this many bytes of one plane exist at once (the backward
+# keeps four such planes alive, so it takes a quarter of the rows).
 MAX_SCORE_BYTES = 1 << 28
 
 
@@ -40,10 +53,28 @@ def layer_norm_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (x - mean) * torch.rsqrt(var + eps) * scale + bias
 
 
+def _ln_stats(x: torch.Tensor, eps: float = 1e-5):
+    """(x - mean) * rstd and rstd over the last axis, f32."""
+    mean = x.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt((x - mean).square().mean(dim=-1, keepdim=True) + eps)
+    return (x - mean) * rstd, rstd
+
+
+def _ln_bwd(d_nhat: torch.Tensor, nhat: torch.Tensor, rstd: torch.Tensor) -> torch.Tensor:
+    """d wrt the LN input, given d wrt nhat = (x - mean) * rstd."""
+    m1 = d_nhat.mean(dim=-1, keepdim=True)
+    m2 = (d_nhat * nhat).mean(dim=-1, keepdim=True)
+    return rstd * (d_nhat - m1 - nhat * m2)
+
+
+def _qk_scale(C: int, num_heads: int) -> float:
+    return (C // num_heads) ** -0.5 * LOG2E
+
+
 def _block_weights(p, C: int, num_heads: int, dtype: torch.dtype):
     """Weights in the compute dtype, Wq pre-scaled (in f32, then rounded):
     (ln1_s, ln1_b, w_qkv (C, 3C), w_o, b_o, ln2_s, ln2_b, w_1, b_1, w_2, b_2)."""
-    scale = (C // num_heads) ** -0.5 * LOG2E
+    scale = _qk_scale(C, num_heads)
     w_qkv = torch.cat([p.qkv_kernel[:, :C].float() * scale,
                        p.qkv_kernel[:, C:].float()], dim=1)
     ws = (p.norm1_scale, p.norm1_bias, w_qkv, p.proj_kernel, p.proj_bias,
@@ -52,14 +83,21 @@ def _block_weights(p, C: int, num_heads: int, dtype: torch.dtype):
     return tuple(w.to(dtype).contiguous() for w in ws)
 
 
-def fused_row_block_reference_parts(rows: torch.Tensor, p, num_heads: int):
-    """Plain PyTorch version of the fused block, in f32 arithmetic with the
-    kernel's rounding to ``rows.dtype`` at the same points.  Returns the
-    block's output and its attention output before the out-projection,
-    both (R, N, C) in ``rows.dtype``."""
+def _qkv_heads(normed, w_qkv, rnd, H: int, qkv, t0: int):
+    """q, k, v (3, Rc, H, N, D) of a chunk of rows from its rounded LN1
+    output: rnd(normed @ Wqkv'), or the given ``qkv`` (its tokens t0.. of an
+    (R*N, 3C) tensor)."""
+    Rc, N, C = normed.shape
+    t = rnd(normed @ w_qkv) if qkv is None else qkv[t0:t0 + Rc * N].float()
+    return t.view(Rc, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
+
+
+def _reference_forward(rows: torch.Tensor, p, num_heads: int, train: bool, qkv=None):
+    """The plain forward in f32 arithmetic with the kernel's rounding to
+    ``rows.dtype``: (out, acc) and, with ``train``, (mid, den) as well.
+    ``qkv`` (R*N, 3C), if given, replaces the recomputed q|k|v."""
     R, N, C = rows.shape
     H = num_heads
-    D = C // H
     dt = rows.dtype
     (ln1_s, ln1_b, w_qkv, w_o, b_o, ln2_s, ln2_b, w_1, b_1, w_2,
      b_2) = (w.float() for w in _block_weights(p, C, H, dt))
@@ -68,22 +106,33 @@ def fused_row_block_reference_parts(rows: torch.Tensor, p, num_heads: int):
         return t.to(dt).float()
 
     chunk = max(1, MAX_SCORE_BYTES // (H * N * N * 4))
-    outs, attns = [], []
+    outs, attns, mids, dens = [], [], [], []
     for r0 in range(0, R, chunk):
         x = rows[r0:r0 + chunk].float()
         Rc = x.shape[0]
         n1 = rnd(layer_norm_f32(x, ln1_s, ln1_b))
-        qkv = rnd(n1 @ w_qkv).view(Rc, N, 3, H, D).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0], qkv[1], qkv[2]                      # (Rc, H, N, D)
+        q, k, v = _qkv_heads(n1, w_qkv, rnd, H, qkv, r0 * N)  # (Rc, H, N, D) each
         prob = rnd(torch.exp2((q @ k.transpose(-1, -2)).clamp(max=SCORE_CLAMP)))
-        acc = (prob @ v) / prob.sum(dim=-1, keepdim=True)
+        den = prob.sum(dim=-1, keepdim=True)
+        acc = (prob @ v) / den
         acc = rnd(acc.transpose(1, 2).reshape(Rc, N, C))
         y = x + (acc @ w_o + b_o)
         n2 = rnd(layer_norm_f32(y, ln2_s, ln2_b))
         h1 = rnd(F.gelu(n2 @ w_1 + b_1))
         outs.append((y + (h1 @ w_2 + b_2)).to(dt))
         attns.append(acc.to(dt))
+        if train:
+            mids.append(y.to(dt))
+            dens.append(den[..., 0])
+    if train:
+        return torch.cat(outs), torch.cat(attns), torch.cat(mids), torch.cat(dens)
     return torch.cat(outs), torch.cat(attns)
+
+
+def fused_row_block_reference_parts(rows: torch.Tensor, p, num_heads: int):
+    """Plain PyTorch version of B1: the block's output and its attention
+    output before the out-projection, both (R, N, C) in ``rows.dtype``."""
+    return _reference_forward(rows, p, num_heads, train=False)
 
 
 def fused_row_block_reference(rows: torch.Tensor, p, num_heads: int) -> torch.Tensor:
@@ -91,59 +140,276 @@ def fused_row_block_reference(rows: torch.Tensor, p, num_heads: int) -> torch.Te
     return fused_row_block_reference_parts(rows, p, num_heads)[0]
 
 
+def fused_row_block_train_reference(rows: torch.Tensor, p, num_heads: int, qkv=None):
+    """Plain PyTorch version of B1-train: ``(out, mid, acc, den)``, where
+    ``mid`` is the residual stream after the attention half rounded to
+    ``rows.dtype``, ``acc`` the attention output before the out-projection
+    and ``den`` (R, H, N) f32 the softmax denominators (the sum of the
+    rounded p per query).  ``qkv``: see :func:`fused_row_block_bwd_reference`."""
+    out, acc, mid, den = _reference_forward(rows, p, num_heads, train=True, qkv=qkv)
+    return out, mid, acc, den
+
+
+def fused_row_block_bwd_reference(rows: torch.Tensor, mid: torch.Tensor,
+                                  acc: torch.Tensor, den: torch.Tensor,
+                                  g: torch.Tensor, p, num_heads: int, qkv=None):
+    """Plain PyTorch version of B2: the block's VJP at cotangent ``g``,
+    written out (not ``torch.autograd``) in f32 arithmetic with the TPU
+    kernel's rounding to ``rows.dtype``:
+      - LN2 statistics from the rounded ``mid``; ``d_mid`` in f32, rounded
+        only as a product operand;
+      - p in f32 for d_s = where(s < SCORE_CLAMP, d_p * p * ln 2, 0), rounded
+        for d_v; d_oe = rnd([d_acc / den, -(1/den) * sum_D(d_acc * acc)]);
+      - d_q, d_k, d_v summed in f32, then rounded.
+    Returns ``(dx, dp)``: dx in ``rows.dtype`` and a RowBlockParams of f32
+    gradients in the parameters' layout (d qkv[:, :C] re-scaled).
+
+    ``qkv`` (R*N, 3C) in ``rows.dtype``, if given, is used instead of the
+    recomputed q|k|v.  A check on the card passes the kernel's own: a
+    rounding of q or k that flips between two summation orders moves a
+    peaked softmax by percents and a score past SCORE_CLAMP across it, so
+    only shared q, k, v leave the attention's own arithmetic to compare."""
+    R, N, C = rows.shape
+    H = num_heads
+    D = C // H
+    dt = rows.dtype
+    hidden = p.fc1_kernel.shape[1]
+    (ln1_s, ln1_b, w_qkv, w_o, _, ln2_s, ln2_b, w_1, b_1, w_2,
+     _) = (w.float() for w in _block_weights(p, C, H, dt))
+
+    def rnd(t):
+        return t.to(dt).float()
+
+    def tsum(a, b):                                       # sum over tokens of a^T b
+        return a.reshape(-1, a.shape[-1]).t() @ b.reshape(-1, b.shape[-1])
+
+    z = lambda *s: torch.zeros(*s, dtype=torch.float32, device=rows.device)  # noqa: E731
+    dln1s, dln1b, dob, dln2s, dln2b, df2b = (z(C) for _ in range(6))
+    dwqkv, dwo, dfc1, df1b, dfc2 = z(C, 3 * C), z(C, C), z(C, hidden), z(hidden), z(hidden, C)
+    dxs = []
+    chunk = max(1, MAX_SCORE_BYTES // (4 * H * N * N * 4))
+    for r0 in range(0, R, chunk):
+        sl = slice(r0, r0 + chunk)
+        x, gf, midf, accf = (t[sl].float() for t in (rows, g, mid, acc))
+        Rc = x.shape[0]
+        # LN2 + MLP recompute from mid, then its VJP (out = mid + h2)
+        nhat2, rstd2 = _ln_stats(midf)
+        n2c = rnd(nhat2 * ln2_s + ln2_b)
+        h1pre = n2c @ w_1 + b_1
+        gl = 0.5 * (1.0 + torch.erf(h1pre * 0.5 ** 0.5))
+        h1c = rnd(h1pre * gl)
+        gc = rnd(gf)
+        d_h1 = gc @ w_2.t()
+        dfc2 += tsum(h1c, gc)
+        df2b += gf.sum(dim=(0, 1))
+        d_h1pre = d_h1 * (gl + h1pre * torch.exp(-0.5 * h1pre * h1pre) * INV_SQRT_2PI)
+        d_h1c = rnd(d_h1pre)
+        df1b += d_h1pre.sum(dim=(0, 1))
+        dfc1 += tsum(n2c, d_h1c)
+        d_n2 = d_h1c @ w_1.t()
+        dln2s += (d_n2 * nhat2).sum(dim=(0, 1))
+        dln2b += d_n2.sum(dim=(0, 1))
+        d_mid = gf + _ln_bwd(d_n2 * ln2_s, nhat2, rstd2)
+        # attention half: mid = x + acc @ wo + ob
+        d_midc = rnd(d_mid)
+        dob += d_mid.sum(dim=(0, 1))
+        dwo += tsum(accf, d_midc)
+        d_acc = d_midc @ w_o.t()
+        # LN1 / q / k / v recompute
+        nhat1, rstd1 = _ln_stats(x)
+        normed = rnd(nhat1 * ln1_s + ln1_b)
+        q, k, v = _qkv_heads(normed, w_qkv, rnd, H, qkv, r0 * N)
+        heads = lambda t: t.view(Rc, N, H, D).transpose(1, 2)  # noqa: E731
+        r_h = 1.0 / den[sl].unsqueeze(-1)                     # (Rc, H, N, 1)
+        d_acc_h = heads(d_acc)
+        d_oe = rnd(d_acc_h * r_h)
+        d_den = rnd(-r_h * (d_acc_h * heads(accf)).sum(dim=-1, keepdim=True))
+        s = q @ k.transpose(-1, -2)                           # (Rc, H, Nq, Nk)
+        prob = torch.exp2(s.clamp(max=SCORE_CLAMP))
+        d_p = d_oe @ v.transpose(-1, -2) + d_den
+        d_sc = rnd(torch.where(s < SCORE_CLAMP, d_p * prob * LN2, 0.0))
+        del d_p, s
+        d_q = d_sc @ k
+        d_k = d_sc.transpose(-1, -2) @ q
+        d_v = rnd(prob).transpose(-1, -2) @ d_oe
+        del d_sc, prob
+        dqkv = rnd(torch.stack([d_q, d_k, d_v]).permute(1, 3, 0, 2, 4).reshape(Rc, N, 3 * C))
+        d_normed = dqkv @ w_qkv.t()
+        dwqkv += tsum(normed, dqkv)
+        dln1s += (d_normed * nhat1).sum(dim=(0, 1))
+        dln1b += d_normed.sum(dim=(0, 1))
+        dxs.append((d_mid + _ln_bwd(d_normed * ln1_s, nhat1, rstd1)).to(dt))
+    dwqkv[:, :C] *= _qk_scale(C, H)
+    return torch.cat(dxs), type(p)(dln1s, dln1b, dwqkv, dwo, dob, dln2s, dln2b,
+                                   dfc1, df1b, dfc2, df2b)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_block")
     fn = lib.fused_block_forward
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
 
-def fused_row_block_parts(rows: torch.Tensor, p, num_heads: int):
-    """The whole pre-LN block over rows (R, N, C); ``p`` is a RowBlockParams.
-    Returns the block's output and its attention output before the
-    out-projection (what a check of the attention alone compares), both
-    (R, N, C).  Counts each kernel launch in ``fused_row_block.launches``."""
-    if rows.device.type == "cpu":
-        return fused_row_block_reference_parts(rows, p, num_heads)
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("fused_block_bwd")
+    fn = lib.fused_block_backward
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        sz = lib.fused_block_backward_scratch_bytes
+        sz.argtypes = [ctypes.c_int] * 5
+        sz.restype = ctypes.c_size_t
+    return lib
+
+
+def _check_cuda(name: str, rows: torch.Tensor, num_heads: int, p, like=(),
+                den=None) -> None:
+    """What the CUDA kernels take: raise on anything else, before any of
+    ``p`` (a RowBlockParams) is read."""
     if rows.device.type != "cuda":
-        raise ValueError(f"fused_row_block: no kernel for device {rows.device}")
+        raise ValueError(f"{name}: no kernel for device {rows.device}")
     if rows.dtype != torch.bfloat16:
-        raise TypeError(f"fused_row_block: the kernel takes bfloat16, got {rows.dtype}")
+        raise TypeError(f"{name}: the kernel takes bfloat16, got {rows.dtype}")
     if rows.dim() != 3 or not rows.is_contiguous():
-        raise ValueError("fused_row_block: rows must be a contiguous (R, N, C) tensor")
+        raise ValueError(f"{name}: rows must be a contiguous (R, N, C) tensor")
     R, N, C = rows.shape
     if C % num_heads or C // num_heads not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"fused_row_block: head dim {C}/{num_heads} not in "
-                         f"{KERNEL_HEAD_DIMS}")
-    if R * N >= 2 ** 31:
-        raise ValueError("fused_row_block: too many tokens for 32-bit counts")
-    weights = _block_weights(p, C, num_heads, rows.dtype)
-    for w in weights:
-        if w.device != rows.device:
-            raise ValueError("fused_row_block: parameters are not on the rows' device")
+        raise ValueError(f"{name}: head dim {C}/{num_heads} not in {KERNEL_HEAD_DIMS}")
+    if R * N * max(3 * C, 4 * C) >= 2 ** 31:
+        raise ValueError(f"{name}: too many tokens for 32-bit counts")
+    for t in like:
+        if (t.shape != rows.shape or t.dtype != rows.dtype or t.device != rows.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: saved tensors must be contiguous bf16 like rows")
+    if den is not None and (den.shape != (R, num_heads, N) or den.dtype != torch.float32
+                            or den.device != rows.device or not den.is_contiguous()):
+        raise ValueError(f"{name}: den must be a contiguous f32 (R, H, N) tensor")
+    if any(w.device != rows.device for w in p):
+        raise ValueError(f"{name}: parameters are not on the rows' device")
+
+
+def _forward_kernel(rows: torch.Tensor, p, num_heads: int, train: bool):
+    """One launch of fused_block_forward: (out, attn, mid, den, qkv), with
+    mid and den None in the serving form; qkv is the (R*N, 3C) q|k|v
+    buffer the kernel computed (a check feeds it to the plain versions)."""
+    _check_cuda("fused_row_block_train" if train else "fused_row_block", rows,
+                num_heads, p)
+    weights = _block_weights(p, rows.shape[2], num_heads, rows.dtype)
+    R, N, C = rows.shape
     hidden = weights[7].shape[1]
     qkv = torch.empty((R * N, 3 * C), dtype=rows.dtype, device=rows.device)
     attn = torch.empty((R, N, C), dtype=rows.dtype, device=rows.device)
     out = torch.empty_like(rows)
+    mid = torch.empty_like(rows) if train else None
+    den = torch.empty((R, num_heads, N), dtype=torch.float32, device=rows.device) \
+        if train else None
     # the library launches on the current device: make it the rows' device
     with torch.cuda.device(rows.device):
         err = _lib().fused_block_forward(
             rows.data_ptr(), *(w.data_ptr() for w in weights),
             qkv.data_ptr(), attn.data_ptr(), out.data_ptr(),
+            mid.data_ptr() if train else None, den.data_ptr() if train else None,
             R, N, C, num_heads, hidden,
             torch.cuda.current_stream(rows.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_block_forward failed: CUDA error {err}")
+    return out, attn, mid, den, qkv
+
+
+def fused_row_block_parts(rows: torch.Tensor, p, num_heads: int):
+    """B1, serving form: the whole pre-LN block over rows (R, N, C); ``p``
+    is a RowBlockParams.  Returns the block's output and its attention
+    output before the out-projection (what a check of the attention alone
+    compares), both (R, N, C).  Counts each launch in
+    ``fused_row_block.launches``."""
+    if rows.device.type == "cpu":
+        return fused_row_block_reference_parts(rows, p, num_heads)
+    out, attn, _, _, _ = _forward_kernel(rows, p, num_heads, train=False)
     fused_row_block.launches += 1
     return out, attn
 
 
+def fused_row_block_train(rows: torch.Tensor, p, num_heads: int):
+    """B1-train: ``(out, mid, acc, den)`` as
+    :func:`fused_row_block_train_reference` gives them.  Counts each launch
+    in ``fused_row_block_train.launches``."""
+    if rows.device.type == "cpu":
+        return fused_row_block_train_reference(rows, p, num_heads)
+    out, acc, mid, den, _ = _forward_kernel(rows, p, num_heads, train=True)
+    fused_row_block_train.launches += 1
+    return out, mid, acc, den
+
+
+def fused_row_block_bwd(rows: torch.Tensor, mid: torch.Tensor, acc: torch.Tensor,
+                        den: torch.Tensor, g: torch.Tensor, p, num_heads: int):
+    """B2: the block's VJP from B1-train's residuals, ``(dx, dp)`` as
+    :func:`fused_row_block_bwd_reference` gives them.  Counts each launch in
+    ``fused_row_block_bwd.launches``."""
+    if rows.device.type == "cpu":
+        return fused_row_block_bwd_reference(rows, mid, acc, den, g, p, num_heads)
+    H = num_heads
+    _check_cuda("fused_row_block_bwd", rows, H, p, like=(mid, acc, g), den=den)
+    R, N, C = rows.shape
+    weights = _block_weights(p, C, H, rows.dtype)
+    ln1_s, ln1_b, w_qkv, w_o, _, ln2_s, ln2_b, w_1, b_1, w_2, _ = weights
+    hidden = w_1.shape[1]
+    # transposed copies, so that every product reads its weight by columns
+    w_qkv_t, w_o_t, w_1_t, w_2_t = (w.t().contiguous() for w in (w_qkv, w_o, w_1, w_2))
+    lib = _bwd_lib()
+    scratch = torch.empty(lib.fused_block_backward_scratch_bytes(R, N, C, H, hidden),
+                          dtype=torch.uint8, device=rows.device)
+    sizes = [C, C, 3 * C * C, C * C, C, C, C, C * hidden, hidden, hidden * C, C]
+    grads = torch.empty(sum(sizes), dtype=torch.float32, device=rows.device)
+    dx = torch.empty_like(rows)
+    with torch.cuda.device(rows.device):
+        err = lib.fused_block_backward(
+            rows.data_ptr(), mid.data_ptr(), acc.data_ptr(), den.data_ptr(), g.data_ptr(),
+            ln1_s.data_ptr(), ln1_b.data_ptr(), w_qkv.data_ptr(), w_qkv_t.data_ptr(),
+            w_o_t.data_ptr(), ln2_s.data_ptr(), ln2_b.data_ptr(), w_1.data_ptr(),
+            w_1_t.data_ptr(), b_1.data_ptr(), w_2_t.data_ptr(),
+            scratch.data_ptr(), dx.data_ptr(), grads.data_ptr(),
+            R, N, C, H, hidden, torch.cuda.current_stream(rows.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_block_backward failed: CUDA error {err}")
+    fused_row_block_bwd.launches += 1
+    leaves = [t.view(s) for t, s in zip(
+        torch.split(grads, sizes),
+        [(C,), (C,), (C, 3 * C), (C, C), (C,), (C,), (C,), (C, hidden), (hidden,),
+         (hidden, C), (C,)])]
+    leaves[2][:, :C] *= _qk_scale(C, H)
+    return dx, type(p)(*leaves)
+
+
+class _FusedRowBlock(torch.autograd.Function):
+    """B1-train forward, saving (rows, mid, acc, den), and B2 backward."""
+
+    @staticmethod
+    def forward(ctx, rows, num_heads, params_type, *params):
+        out, mid, acc, den = fused_row_block_train(rows, params_type(*params), num_heads)
+        ctx.save_for_backward(rows, mid, acc, den, *params)
+        ctx.num_heads, ctx.params_type = num_heads, params_type
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, mid, acc, den, *params = ctx.saved_tensors
+        dx, dp = fused_row_block_bwd(rows, mid, acc, den, g.contiguous(),
+                                     ctx.params_type(*params), ctx.num_heads)
+        return (dx, None, None, *(d.to(t.dtype) for d, t in zip(dp, params)))
+
+
 def fused_row_block(rows: torch.Tensor, p, num_heads: int) -> torch.Tensor:
-    """The block's output from :func:`fused_row_block_parts`: the wrapper the
-    model calls."""
+    """The block's output, the wrapper the model calls.  Differentiable:
+    when grad mode is on and ``rows`` or a parameter requires a gradient it
+    runs B1-train and its backward B2; otherwise B1's serving form."""
+    if torch.is_grad_enabled() and (rows.requires_grad or any(t.requires_grad for t in p)):
+        return _FusedRowBlock.apply(rows, num_heads, type(p), *p)
     return fused_row_block_parts(rows, p, num_heads)[0]
 
 
 fused_row_block.launches = 0
+fused_row_block_train.launches = 0
+fused_row_block_bwd.launches = 0

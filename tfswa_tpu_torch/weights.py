@@ -1,4 +1,4 @@
-"""Weights from the JAX package's variables into the port's state_dict.
+"""Weights between the JAX package's variables and the port's state_dict.
 
 The port's module tree uses the reference's state_dict names.  The JAX
 model's variables ``{"params": ..., "batch_stats": ...}``, given as numpy
@@ -8,6 +8,8 @@ transforms:
   - deconv kernel (kh, kw, Cin, Cout) -> weight (Cin, Cout, kh, kw)
   - dense kernel (in, out)            -> weight (out, in)
   - BatchNorm scale/bias, mean/var    -> weight/bias, running_mean/running_var
+:func:`variables_from_state_dict` goes the other way, for a state_dict or a
+dict of gradients by parameter name, so that tests can compare leaf by leaf.
 """
 from __future__ import annotations
 
@@ -20,6 +22,9 @@ _CONV = lambda a: np.transpose(a, (3, 2, 0, 1))      # noqa: E731
 _DECONV = lambda a: np.transpose(a, (2, 3, 0, 1))    # noqa: E731
 _LINEAR = np.transpose
 _SAME = lambda a: a                                  # noqa: E731
+_INVERSE = {_CONV: lambda a: np.transpose(a, (2, 3, 1, 0)),
+            _DECONV: lambda a: np.transpose(a, (2, 3, 0, 1)),
+            _LINEAR: np.transpose, _SAME: _SAME}
 
 Entry = Tuple[str, Tuple[str, ...], object]
 
@@ -98,3 +103,21 @@ def state_dict_from_jax(variables_np: Mapping, depths: Sequence[int]) -> Dict[st
             sd[name[: -len("running_var")] + "num_batches_tracked"] = \
                 torch.tensor(0, dtype=torch.int64)
     return sd
+
+
+def variables_from_state_dict(tensors: Mapping[str, torch.Tensor],
+                              depths: Sequence[int]) -> Dict:
+    """The port's state_dict, or any dict of tensors by state_dict name (e.g.
+    parameter gradients), -> the JAX ``{"params", "batch_stats"}`` layout as a
+    nested dict of float32 numpy arrays.  Names missing from ``tensors`` are
+    left out, so a dict of gradients gives only ``"params"``."""
+    out: Dict = {}
+    for name, path, transform in mapping(depths):
+        if name not in tensors:
+            continue
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        arr = tensors[name].detach().float().cpu().numpy()
+        node[path[-1]] = np.ascontiguousarray(_INVERSE[transform](arr))
+    return out
