@@ -4,10 +4,12 @@
     python3 chip_smoke.py           # the whole run (a few minutes on an H100)
     python3 chip_smoke.py --quick   # build + kernel-vs-plain checks only
 
-Three kernels: B1 (fused_row_block, the serving forward), B1-train
-(fused_row_block_train, the forward that also exports mid, acc, den) and B2
-(fused_row_block_bwd, the whole-block VJP).  Phases, each of which fails the
-run (exit code 1) when it fails:
+Five kernels: B1 (fused_row_block, the serving forward), B1-train
+(fused_row_block_train, the forward that also exports mid, acc, den), B2
+(fused_row_block_bwd, the whole-block VJP), B3 (fused_row_block_int8, the
+serving forward with int8 scores, route "pallas_int8") and B4
+(flash_row_attention, the bilinear row attention, route "pallas_attn").
+Phases, each of which fails the run (exit code 1) when it fails:
   1. the card's name and power limit; build of the CUDA sources (nvcc, sm_90a,
      one nvcc per source, in parallel);
   2. the fused row-block kernel against its plain PyTorch version at each
@@ -16,27 +18,39 @@ run (exit code 1) when it fails:
      and on its attention output before the out-projection, with
      kernel / plain / library times and the bound at the full row counts of
      a batch of 8 ten-second segments;
-  3. the main path: the flagship model (random weights from a seed, bf16,
-     in/out 4, depths (2,2,6,2), dims (32,64,128,256)) in a SourceSeparator
-     with the EvalConfig.fast_serving() knobs separates a 120 s synthetic
-     track; the kernel's launch count must be 66 per model forward; then
-     one more separation under torch.profiler for device time by kernel;
-  4. the separated audio of one 10 s segment through the kernel route
-     against the plain route (same weights, bf16), as an SNR;
-  5. B1-train and B2 against their plain versions at the 12 (N, C) of the
+  3. B3 the same way (the plain version gets the kernel's q|k|v; the int8 q
+     and k and the row scales must agree exactly), and B4 (on LN1 output;
+     the plain version gets the kernel's t and v; its output and its
+     attention output before the out-projection within 4 bf16 ULP), B4's
+     checks also at the 4 training (N, C) that no serving shape has, since
+     the "pallas_attn" train step runs B4 there;
+  4. the main path of each serving route ("pallas": B1, "pallas_int8": B3,
+     "pallas_attn": B4): the flagship model (random weights from a seed,
+     bf16, in/out 4, depths (2,2,6,2), dims (32,64,128,256)) in a
+     SourceSeparator with the EvalConfig.fast_serving() knobs separates a
+     120 s synthetic track; the route's kernel must launch 66 times per
+     model forward and no other kernel at all; then one more separation
+     under torch.profiler for device time by kernel;
+  5. the separated audio of one 10 s segment through each kernel route
+     against the plain route (same weights, bf16), as an SNR (B3 also
+     against B1's route);
+  6. B1-train and B2 against their plain versions at the 12 (N, C) of the
      training path (a batch of 4 six-second segments, F = 1025), 64-row
      slices under the same three kinds of weights, B2 also against autograd
      through the plain block in f32; kernel / plain / library times and the
      bound at the full row counts;
-  6. the training main path: the flagship model in train mode through
+  7. the training main path: the flagship model in train mode through
      make_train_step (TrainConfig defaults) on a fixed batch of 4 x 6 s from
      the port's SyntheticDataset: a warm-up step and 5 timed steps, each
      with 66 B1-train and 66 B2 launches and no serving launch, finite
      non-zero gradients for every row-block parameter, a falling loss; one
-     profiled step; make_eval_step with 66 serving launches;
-  7. one train step through the kernel route against the plain route (same
-     weights and batch): loss and gradient cosine;
-  8. a JSON line of the kernels, then the last line
+     profiled step; make_eval_step with 66 serving launches; then the same
+     model through "pallas_attn": a warm-up step and 2 timed steps with 66
+     B4 launches each and no other kernel, finite non-zero gradients;
+  8. one train step through each kernel route ("pallas", "pallas_attn")
+     against the plain route (same weights and batch): loss and gradient
+     cosine;
+  9. a JSON line of the kernels, then the last line
      {"ok": true, "device": {...}}.
 Long results go to chiprun_out/chip_smoke.json.  Without a CUDA device, or
 outside a checkout of the repository, the run exits non-zero with no result.
@@ -57,6 +71,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # and HBM rate.  exp2 runs on the SFU (MUFU): 16 per clock per SM, at the
 # SM clock nvidia-smi reports as clocks.max.sm (set in main()).
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 MUFU_PER_CLOCK_PER_SM = 16
 MUFU_RATE = None    # exp2 per second, from the card
@@ -120,24 +135,40 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _bound(nbytes: float, flops: float, exp2: float):
-    """The larger of bytes over the HBM rate, bf16 FLOPs over the tensor-core
-    peak and exp2 over the MUFU rate, in ms, and which of bytes or
-    operations it is."""
+def _bound(nbytes: float, flops: float, exp2: float, int8_ops: float = 0.0):
+    """The larger of bytes over the HBM rate, the tensor-core time (bf16
+    FLOPs over the bf16 peak plus int8 operations over the int8 peak) and
+    exp2 over the MUFU rate, in ms, and which of bytes or operations it
+    is."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = max(flops / PEAK_BF16_FLOPS, exp2 / MUFU_RATE) * 1e3
+    t_ops = max(flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS, exp2 / MUFU_RATE) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def bound_ms(R: int, N: int, C: int, hidden: int, train: bool = False):
-    """Least time for one B1 (or B1-train) call: rows in and out (B1-train:
-    also mid, acc and den out) plus weights once, in bf16, over the HBM
-    rate; the products and scores/AV (bf16 operands) over the bf16
-    tensor-core peak; H*N^2 exp2 per row over the MUFU rate."""
+def bound_ms(R: int, N: int, C: int, hidden: int, train: bool = False, int8: bool = False):
+    """Least time for one B1 (or B1-train, or B3) call: rows in and out
+    (B1-train: also mid, acc and den out) plus weights once, in bf16, over
+    the HBM rate; the products and scores/AV (bf16 operands) over the bf16
+    tensor-core peak, B3's scores (int8 operands) over the int8 peak;
+    H*N^2 exp2 per row over the MUFU rate."""
     nbytes = 2 * (2 * R * N * C + 4 * C * C + 2 * C * hidden + 6 * C + hidden)
     if train:
         nbytes += 2 * 2 * R * N * C + 4 * R * HEADS * N
-    flops = 2 * R * N * (4 * C * C + 2 * C * hidden) + 4 * R * N * N * C
+    flops = 2 * R * N * (4 * C * C + 2 * C * hidden) + 2 * R * N * N * C
+    scores = 2 * R * N * N * C
+    return _bound(nbytes, flops + (0 if int8 else scores), R * HEADS * N * N,
+                  scores if int8 else 0)
+
+
+def bound_attn_ms(R: int, N: int, C: int):
+    """Least time for one B4 call: rows in and out (bf16), A (H C^2), Wv and
+    Wo (bf16) and the f32 bias once; the products over the bf16 peak (v and
+    the out-projection 2 C^2 a token each, t 2 H C^2 a token, the scores
+    2 H N^2 C a row, since t is rounded to bf16 and no rank-D shortcut
+    computes the same function, and AV 2 N^2 C a row); H*N^2 exp a row
+    over the MUFU rate."""
+    nbytes = 2 * 2 * R * N * C + 2 * (HEADS + 2) * C * C + 4 * C
+    flops = 2 * R * N * (2 * C * C + HEADS * C * C) + 2 * R * N * N * C * (HEADS + 1)
     return _bound(nbytes, flops, R * HEADS * N * N)
 
 
@@ -314,6 +345,248 @@ def phase_kernels(torch, quick: bool):
     return rows_out, max_err, totals
 
 
+def check_int8_shape(torch, N: int, C: int, gen):
+    """B3 against its plain version on CHECK_ROWS rows, for each kind of
+    weights in REGIMES.  The plain version gets the kernel's own q|k|v, so
+    that a bf16 rounding of q or k that flips between two summation orders
+    (PERF.md, Findings) does not move the int8 values.  Held:
+      int8: the kernel's int8 q and k and its row scales equal the plain
+            version's quantisation of the same q|k|v, exactly (the count
+            of mismatches must be 0);
+      out:  the block's output within B1's limit, 0.0625 * max(max|ref|/4, 1);
+      attn: the attention output before the out-projection within 4 bf16
+            ULP at max|ref attn| (B1's limit)."""
+    from tfswa_tpu_torch.models.attention import RowBlockParams
+    from tfswa_tpu_torch.ops.fused_block import (SCORE_CLAMP, _forward_kernel,
+                                                 fused_row_block_int8_reference_parts,
+                                                 quantize_rows)
+
+    res, flat = {}, None
+    for regime in REGIMES:
+        p = random_params(torch, RowBlockParams, C, gen, regime)
+        if regime == "flat":
+            flat = p
+        x = torch.randn(CHECK_ROWS, N, C, generator=gen).cuda().to(torch.bfloat16)
+        run = _forward_kernel(x, p, HEADS, int8=True, export=True)
+        out, attn, qkv, scales, qk = run.out, run.attn, run.qkv, run.scales, run.qk
+        torch.cuda.synchronize()
+        r_out, r_attn = fused_row_block_int8_reference_parts(x, p, HEADS, qkv=qkv)
+        q = qkv.float().view(CHECK_ROWS, N, 3 * C)
+        (qi, sq), (ki, sk) = quantize_rows(q[..., :C]), quantize_rows(q[..., C:2 * C])
+        r_qk = torch.cat([qi, ki], dim=-1).reshape(-1, 2 * C)
+        mism = int((qk.float() != r_qk).sum()) + int(
+            (scales != torch.cat([sq.view(-1, 1), sk.view(-1, 1)], dim=1)).sum())
+        c = {"int8_mismatches": mism,
+             "max_abs_err": _max_abs(out, r_out),
+             "tol": 0.0625 * max(r_out.float().abs().max().item() / 4.0, 1.0),
+             "max_abs_ref": r_out.float().abs().max().item(),
+             "attn_max_abs_err": _max_abs(attn, r_attn),
+             "attn_tol": 4 * bf16_ulp(r_attn.float().abs().max().item()),
+             "attn_max_abs_ref": r_attn.float().abs().max().item(),
+             "max_score": max_score(torch, x, p, HEADS)}
+        finite = bool(torch.isfinite(out.float()).all() and torch.isfinite(attn.float()).all())
+        c["ok"] = (finite and mism == 0 and c["max_abs_err"] <= c["tol"]
+                   and c["attn_max_abs_err"] <= c["attn_tol"]
+                   and (regime != "clamp" or c["max_score"] > SCORE_CLAMP))
+        res[regime] = c
+    return res, flat
+
+
+def phase_int8_kernels(torch, quick: bool, b1_shapes):
+    """B3 at the 12 serving shapes: checks on 64 rows, then kernel / plain
+    times and bounds at the full row count.  No PyTorch call computes
+    int8-score attention: the library column is None, and B1's library
+    block (from ``b1_shapes``) is recorded beside it for scale."""
+    from tfswa_tpu_torch.ops.fused_block import (fused_row_block_int8,
+                                                 fused_row_block_int8_reference)
+
+    gen = torch.Generator().manual_seed(4)
+    gen_full = torch.Generator().manual_seed(5)
+    rows_out, misses, max_err = [], [], 0.0
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None,
+              "b1_library_ms": 0.0, "bound_bytes_ms": 0.0}
+    for (stage, attn, N, C, R), b1 in zip(SHAPES, b1_shapes):
+        checks, p = check_int8_shape(torch, N, C, gen)
+        entry = {"stage": stage, "attn": attn, "N": N, "C": C, "R_full": R, "checks": checks}
+        for regime, c in checks.items():
+            log(f"B3 check stage {stage} {attn} N={N} C={C} {regime:6s}: int8 mismatches "
+                f"{c['int8_mismatches']}, out err {c['max_abs_err']:.5f} (tol "
+                f"{c['tol']:.4f}), attn err {c['attn_max_abs_err']:.5f} (tol "
+                f"{c['attn_tol']:.4f}), max score {c['max_score']:.1f} "
+                f"{'ok' if c['ok'] else 'MISS'}")
+            if not c["ok"]:
+                misses.append(f"N={N} C={C} {regime}")
+            max_err = max(max_err, c["max_abs_err"])
+        if not quick:
+            xf = torch.randn(R, N, C, generator=gen_full).cuda().to(torch.bfloat16)
+            k_ms = cuda_ms(torch, lambda: fused_row_block_int8(xf, p, HEADS), 3)
+            rs = min(R, PLAIN_ROWS)
+            pl_ms = cuda_ms(torch, lambda: fused_row_block_int8_reference(
+                xf[:rs], p, HEADS), 1) * R / rs
+            b_ms, b_by = bound_ms(R, N, C, 4 * C, int8=True)
+            calls = BLOCKS_PER_STAGE[stage]
+            entry.update(kernel_ms=k_ms, plain_ms=pl_ms, library_ms=None,
+                         b1_library_ms=b1["library_ms"], bound_ms=b_ms, bound_by=b_by,
+                         calls_per_forward=calls, plain_rows_timed=rs)
+            for k, v in (("ms", k_ms), ("plain_ms", pl_ms), ("bound_ms", b_ms),
+                         ("b1_library_ms", b1["library_ms"])):
+                totals[k] += calls * v
+            if b_by == "bytes":
+                totals["bound_bytes_ms"] += calls * b_ms
+            log(f"  full R={R}: kernel_ms {k_ms:.3f} plain_ms {pl_ms:.3f} (timed on {rs} "
+                f"rows) library_ms none (B1's library block {b1['library_ms']:.3f}) "
+                f"bound_ms {b_ms:.4f} ({b_by})")
+            del xf
+            torch.cuda.empty_cache()
+        rows_out.append(entry)
+    if misses:
+        fail("fused_row_block_int8 disagrees with its plain version at " + "; ".join(misses))
+    return rows_out, max_err, totals
+
+
+def ln1_rows(torch, x, p):
+    """bf16(LN1(x)): what the "pallas_attn" route hands B4."""
+    import torch.nn.functional as F
+
+    return F.layer_norm(x.float(), (x.shape[-1],), p.norm1_scale, p.norm1_bias,
+                        1e-5).to(x.dtype)
+
+
+def attn_weights(torch, p):
+    """The qkv kernel, out-projection and bias cast to bf16, as the
+    "pallas_attn" route passes them to B4."""
+    return [t.to(torch.bfloat16) for t in (p.qkv_kernel, p.proj_kernel, p.proj_bias)]
+
+
+def library_attn(torch, rows, wqkv, wp, b, H: int):
+    """Yardstick only (the port never calls it): the same attention from
+    PyTorch library calls (cuBLAS qkv matmul, F.scaled_dot_product_attention,
+    cuBLAS projection), chunked over rows to bound memory."""
+    import torch.nn.functional as F
+
+    R, N, C = rows.shape
+    D = C // H
+    chunk = max(1, (1 << 30) // (H * N * N * 4))
+    outs = []
+    for r0 in range(0, R, chunk):
+        x = rows[r0:r0 + chunk]
+        Rc = x.shape[0]
+        qkv = (x @ wqkv).view(Rc, N, 3, H, D).permute(2, 0, 3, 1, 4)
+        a = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2])
+        outs.append(a.transpose(1, 2).reshape(Rc, N, C) @ wp + b)
+    return torch.cat(outs)
+
+
+def check_attn_shape(torch, N: int, C: int, gen):
+    """B4 against its plain version on CHECK_ROWS rows of LN1 output, for
+    each kind of weights in REGIMES (scores in natural units: no clamp in
+    B4, "clamp" is its most peaked softmax).  The plain version gets the
+    kernel's own t and v: an f32 sum in another order flips a bf16
+    rounding of t now and then, and under a peaked softmax a flip moves
+    the result by more than the rest of the arithmetic.  Held:
+      t, v: within 2 bf16 ULP at max|ref| of the plain recompute;
+      out:  B4's output within 4 bf16 ULP at max|ref out|;
+      acc:  its attention output before the out-projection within 4 bf16
+            ULP at max|ref acc|."""
+    from tfswa_tpu_torch.models.attention import RowBlockParams
+    from tfswa_tpu_torch.ops.row_attention import (_kernel, bilinear_weights,
+                                                   flash_row_attention_reference_parts)
+
+    res, flat = {}, None
+    for regime in REGIMES:
+        p = random_params(torch, RowBlockParams, C, gen, regime)
+        if regime == "flat":
+            flat = p
+        x = ln1_rows(torch, torch.randn(CHECK_ROWS, N, C, generator=gen).cuda()
+                     .to(torch.bfloat16), p)
+        w = attn_weights(torch, p)
+        out, acc, v, t = _kernel(x, *w, HEADS, export=True)
+        torch.cuda.synchronize()
+        r_out, r_acc = flash_row_attention_reference_parts(x, *w, HEADS, t=t, v=v)
+        a, wv = bilinear_weights(w[0], HEADS)
+        xf = x.float()
+        r_v = (xf @ wv.float()).to(x.dtype).reshape(-1, C)
+        r_t = torch.stack([(xf @ a[h].to(x.dtype).float()).to(x.dtype)
+                           for h in range(HEADS)], dim=2).reshape(-1, HEADS * C)
+        t4 = t.float().view(CHECK_ROWS, N, HEADS, C)[:4]
+        s_max = max((t4[:, :, h] @ xf[:4].transpose(-1, -2)).max().item()
+                    for h in range(HEADS))
+        c = {"t_err": _max_abs(t, r_t), "t_tol": 2 * bf16_ulp(r_t.float().abs().max().item()),
+             "v_err": _max_abs(v, r_v), "v_tol": 2 * bf16_ulp(r_v.float().abs().max().item()),
+             "max_abs_err": _max_abs(out, r_out),
+             "tol": 4 * bf16_ulp(r_out.float().abs().max().item()),
+             "max_abs_ref": r_out.float().abs().max().item(),
+             "attn_max_abs_err": _max_abs(acc, r_acc),
+             "attn_tol": 4 * bf16_ulp(r_acc.float().abs().max().item()),
+             "attn_max_abs_ref": r_acc.float().abs().max().item(), "max_score": s_max}
+        finite = bool(torch.isfinite(out.float()).all() and torch.isfinite(acc.float()).all())
+        c["ok"] = (finite and c["t_err"] <= c["t_tol"] and c["v_err"] <= c["v_tol"]
+                   and c["max_abs_err"] <= c["tol"] and c["attn_max_abs_err"] <= c["attn_tol"])
+        res[regime] = c
+        del t
+        torch.cuda.empty_cache()
+    return res, flat
+
+
+def phase_attn_kernels(torch, quick: bool):
+    """B4 at the 12 serving shapes: checks on 64 rows, then kernel / plain /
+    library times and bounds at the full row count.  Then the same checks
+    at each training shape whose (N, C) no serving shape has, since the
+    "pallas_attn" train step runs B4 there too (entries with "path":
+    "train").  Every check is reported before any failure."""
+    from tfswa_tpu_torch.ops.row_attention import (flash_row_attention,
+                                                   flash_row_attention_reference)
+
+    gen = torch.Generator().manual_seed(6)
+    gen_full = torch.Generator().manual_seed(7)
+    rows_out, misses, max_err = [], [], 0.0
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_bytes_ms")
+    totals = dict.fromkeys(keys, 0.0)
+    serving_nc = {(N, C) for _, _, N, C, _ in SHAPES}
+    train_only = [s for s in TRAIN_SHAPES if (s[2], s[3]) not in serving_nc]
+    for path, shapes in (("serving", SHAPES), ("train", train_only)):
+        for stage, attn, N, C, R in shapes:
+            checks, p = check_attn_shape(torch, N, C, gen)
+            entry = {"path": path, "stage": stage, "attn": attn, "N": N, "C": C,
+                     "R_full": R, "checks": checks}
+            for regime, c in checks.items():
+                log(f"B4 check {path} stage {stage} {attn} N={N} C={C} {regime:6s}: t "
+                    f"{c['t_err']:.4f}/{c['t_tol']:.4f} v {c['v_err']:.4f}/{c['v_tol']:.4f}, "
+                    f"out err {c['max_abs_err']:.5f} (tol {c['tol']:.4f}), attn err "
+                    f"{c['attn_max_abs_err']:.5f} (tol {c['attn_tol']:.4f}), max score "
+                    f"{c['max_score']:.1f} {'ok' if c['ok'] else 'MISS'}")
+                if not c["ok"]:
+                    misses.append(f"{path} N={N} C={C} {regime}")
+                max_err = max(max_err, c["max_abs_err"])
+            if not quick and path == "serving":
+                xf = torch.randn(R, N, C, generator=gen_full).cuda().to(torch.bfloat16)
+                w = attn_weights(torch, p)
+                with torch.no_grad():
+                    k_ms = cuda_ms(torch, lambda: flash_row_attention(xf, *w, HEADS), 1)
+                    rs = min(R, PLAIN_ROWS)
+                    pl_ms = cuda_ms(torch, lambda: flash_row_attention_reference(
+                        xf[:rs], *w, HEADS), 1) * R / rs
+                    lib_ms = cuda_ms(torch, lambda: library_attn(torch, xf, *w, HEADS), 3)
+                b_ms, b_by = bound_attn_ms(R, N, C)
+                calls = BLOCKS_PER_STAGE[stage]
+                entry.update(kernel_ms=k_ms, plain_ms=pl_ms, library_ms=lib_ms, bound_ms=b_ms,
+                             bound_by=b_by, calls_per_forward=calls, plain_rows_timed=rs)
+                for k, v in (("ms", k_ms), ("plain_ms", pl_ms), ("library_ms", lib_ms),
+                             ("bound_ms", b_ms)):
+                    totals[k] += calls * v
+                if b_by == "bytes":
+                    totals["bound_bytes_ms"] += calls * b_ms
+                log(f"  full R={R}: kernel_ms {k_ms:.3f} plain_ms {pl_ms:.3f} (timed on {rs} "
+                    f"rows) library_ms {lib_ms:.3f} bound_ms {b_ms:.4f} ({b_by})")
+                del xf
+                torch.cuda.empty_cache()
+            rows_out.append(entry)
+    log(f"B4 checks: {3 * len(rows_out) - len(misses)} of {3 * len(rows_out)} within limits")
+    if misses:
+        fail("flash_row_attention disagrees with its plain version at " + "; ".join(misses))
+    return rows_out, max_err, totals
+
+
 # (stage, attention, N, C, R) of the row block on the training path: a batch
 # of 4 six-second segments at 44.1 kHz, n_fft 2048, hop 512, every STFT row
 # (freq_policy "full": F = 1025, T = 517), SWA padded to multiples of 8.
@@ -424,13 +697,14 @@ def check_train_shape(torch, N: int, C: int, gen):
         out, mid, acc, den = fused_row_block_train(x, p, HEADS)
         again = _forward_kernel(x, p, HEADS, train=True)     # for its q|k|v buffer
         torch.cuda.synchronize()
-        qkv = again[4]
+        qkv = again.qkv
         r_qkv = plain_qkv(torch, x, p, HEADS)
         r_out, r_mid, r_acc, r_den = fused_row_block_train_reference(x, p, HEADS, qkv=qkv)
         c = {"qkv_err": _max_abs(qkv, r_qkv),
              "qkv_tol": 2 * bf16_ulp(r_qkv.abs().max().item()),
              "repeat_equal": all(bool(torch.equal(a, b)) for a, b in
-                                 zip((out, acc, mid, den), again[:4])),
+                                 zip((out, acc, mid, den),
+                                     (again.out, again.attn, again.mid, again.den))),
              "out_err": _max_abs(out, r_out),
              "out_tol": 0.0625 * max(r_out.float().abs().max().item() / 4.0, 1.0),
              "mid_err": _max_abs(mid, r_mid),
@@ -620,15 +894,26 @@ def row_block_grads(model):
             if any(f".{a}." in n for a in ("tsa", "fsa", "swa"))]
 
 
-def phase_train(torch, np, gpu: str):
-    """The training main path: a warm-up step, TRAIN_STEPS counted and timed
-    steps on one fixed batch, the checks, one profiled step and an eval
-    step."""
-    from tfswa_tpu_torch.ops.fused_block import (fused_row_block, fused_row_block_bwd,
-                                                 fused_row_block_train)
+# per train step, the launches of each kernel route (any other kernel: 0),
+# the steps timed after the warm-up, and the device kernels to sum by group
+TRAIN_ROUTES = {
+    "pallas": ({"B1-train": 66, "B2": 66}, TRAIN_STEPS,
+               {"B1-train": ("ln_qkv_kernel<false>", "attn_kernel", "post_kernel"),
+                "B2": ("ln_qkv_kernel<true>", "mlp_bwd_kernel", "attn_bwd_q_kernel",
+                       "attn_bwd_kv_kernel", "ln1_bwd_kernel", "atb_kernel",
+                       "reduce_kernel")}),
+    "pallas_attn": ({"B4": 66}, 2, {"B4": ("rows_matmul_kernel", "bilinear_attn_kernel")}),
+}
 
-    counters = (fused_row_block, fused_row_block_train, fused_row_block_bwd)
-    state, step, eval_step = make_trainer(torch, "pallas")
+
+def phase_train(torch, np, gpu: str, impl: str = "pallas"):
+    """The training main path through one route: a warm-up step, then
+    counted and timed steps on one fixed batch (every launch counter set to
+    0 just before and read just after), the checks, one profiled step and,
+    for "pallas", an eval step.  The loss must fall over the "pallas"
+    route's 5 steps; the "pallas_attn" route's 2 are recorded."""
+    per_kernel, steps, groups = TRAIN_ROUTES[impl]
+    state, step, eval_step = make_trainer(torch, impl)
     mix, targets = train_batch(torch, np)
     t0 = time.perf_counter()
     state, _ = step(state, mix, targets)                     # warm-up
@@ -636,58 +921,63 @@ def phase_train(torch, np, gpu: str):
     warm_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
-    times, losses, norms, per_step = [], [], [], []
-    for _ in range(TRAIN_STEPS):
-        before = [c.launches for c in counters]
+    reset_counts()
+    times, losses, per_step = [], [], []
+    for _ in range(steps):
+        before = read_counts()
         t0 = time.perf_counter()
         state, loss = step(state, mix, targets)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        per_step.append([c.launches - b for c, b in zip(counters, before)])
+        per_step.append({k: v - before[k] for k, v in read_counts().items()})
         losses.append({k: float(v) for k, v in loss.items()})
         grads = row_block_grads(state.model)
         bad = [n for n, g in grads if g is None or not bool(torch.isfinite(g).all())
                or not bool((g != 0).any())]
         if len(grads) != 66 * 11 or bad:
-            fail(f"row-block gradients: {len(grads)} found, missing, non-finite or "
-                 f"all zero: {bad[:5]}")
-    launches = {c.__name__: c.launches for c in counters}
+            fail(f"{impl}: row-block gradients: {len(grads)} found, missing, non-finite "
+                 f"or all zero: {bad[:5]}")
+    launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"train path: launches per step (B1, B1-train, B2) {per_step}")
-    if any(s != [0, 66, 66] for s in per_step):
-        fail(f"expected 0 B1, 66 B1-train and 66 B2 launches per step, got {per_step}")
+    want = {k: per_kernel.get(k, 0) for k in launches}
+    log(f"train path {impl}: launches per step {per_step}")
+    if any(c != want for c in per_step):
+        fail(f"{impl}: expected launches {want} per step, got {per_step}")
     for i, l in enumerate(losses):
         log(f"  step {i + 1}: total_loss {l['total_loss']:.6f} grad_norm "
             f"{l['grad_norm']:.6f} ({times[i]:.4f} s)")
     if not all(math.isfinite(v) for l in losses for v in l.values()):
-        fail("non-finite loss or grad_norm")
-    if not losses[-1]["total_loss"] < losses[0]["total_loss"]:
+        fail(f"{impl}: non-finite loss or grad_norm")
+    if impl == "pallas" and not losses[-1]["total_loss"] < losses[0]["total_loss"]:
         fail(f"the loss did not fall on the fixed batch: {losses[0]['total_loss']} -> "
              f"{losses[-1]['total_loss']}")
     best = min(times)
     rate = TRAIN_BATCH * TRAIN_SECONDS / best
-    log(f"train path: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SECONDS} s, "
+    log(f"train path {impl}: {steps} steps of {TRAIN_BATCH} x {TRAIN_SECONDS} s, "
         f"best {best * 1e3:.3f} ms/step (warm-up {warm_s:.3f} s): {rate:.4f} "
         f"audio-s trained per s on {gpu}; peak memory {peak_gb:.3f} GB")
 
-    prof = profile_step(torch, lambda: step(state, mix, targets))
-
-    for c in counters:
-        c.launches = 0
+    prof = profile_step(torch, lambda: step(state, mix, targets), groups)
+    res = {"launches": launches, "per_step": per_step, "step_s": times,
+           "warmup_s": warm_s, "best_ms_per_step": best * 1e3,
+           "audio_s_trained_per_s": rate, "peak_mem_gb": peak_gb, "losses": losses,
+           "profile": prof}
+    if impl != "pallas":
+        return res
+    # the same step profiled with CPU activity too, so that idle shares read
+    # under either setting can be compared within one run
+    res["profile_cpu_cuda"] = profile_step(torch, lambda: step(state, mix, targets), groups,
+                                           cpu=True)
+    reset_counts()
     ev = eval_step(state, mix, targets)
     torch.cuda.synchronize()
-    ev_launches = [c.launches for c in counters]
-    log(f"eval step: total_loss {float(ev['total_loss']):.6f}, launches (B1, B1-train, "
-        f"B2) {ev_launches}")
-    if ev_launches != [66, 0, 0] or not math.isfinite(float(ev["total_loss"])):
-        fail(f"eval step: expected 66 serving launches and a finite loss, got "
-             f"{ev_launches}")
-    return {"launches": launches, "per_step": per_step, "step_s": times,
-            "warmup_s": warm_s, "best_ms_per_step": best * 1e3,
-            "audio_s_trained_per_s": rate, "peak_mem_gb": peak_gb, "losses": losses,
-            "profile": prof, "eval_loss": float(ev["total_loss"])}
+    ev_launches = read_counts()
+    log(f"eval step: total_loss {float(ev['total_loss']):.6f}, launches {ev_launches}")
+    want = {k: (66 if k == "B1" else 0) for k in ev_launches}
+    if ev_launches != want or not math.isfinite(float(ev["total_loss"])):
+        fail(f"eval step: expected launches {want} and a finite loss, got {ev_launches}")
+    res["eval_loss"] = float(ev["total_loss"])
+    return res
 
 
 def device_kernels(prof):
@@ -707,21 +997,22 @@ def device_kernels(prof):
     return kernels, annotation_ms
 
 
-def profile_step(torch, run):
-    """Device time by kernel over one train step (torch.profiler), and the
-    device's idle share."""
+def profile_step(torch, run, groups, cpu: bool = False):
+    """Device time by kernel over one train step (torch.profiler, CUDA
+    activity only: the "pallas_attn" step issues some 150 k launches, and
+    the profiler's post-processing of their CPU ops as well takes minutes;
+    ``cpu`` records CPU activity too), summed by the
+    kernel groups of ``groups``, and the device's idle share."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels, annotation_ms = device_kernels(prof)
     busy_ms = sum(k[1] for k in kernels)
-    groups = {"B1-train": ("ln_qkv_kernel<false>", "attn_kernel", "post_kernel"),
-              "B2": ("ln_qkv_kernel<true>", "mlp_bwd_kernel", "attn_bwd_q_kernel",
-                     "attn_bwd_kv_kernel", "ln1_bwd_kernel", "atb_kernel", "reduce_kernel")}
     by_group = {g: sum(k[1] for k in kernels if any(n in k[0] for n in names))
                 for g, names in groups.items()}
     res = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
@@ -731,7 +1022,8 @@ def profile_step(torch, run):
     if not busy_ms:
         log("profile: the profiler recorded no device time (not measured)")
         return res
-    log(f"profile: one train step, wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
+    log(f"profile ({'CPU + CUDA' if cpu else 'CUDA'} activity): one train step, wall "
+        f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
         f"idle share {res['idle_share']:.4f} (user annotations left out: "
         f"{annotation_ms:.3f} ms); " + ", ".join(
             f"{g} {v:.3f} ms" for g, v in by_group.items()))
@@ -741,33 +1033,39 @@ def profile_step(torch, run):
 
 
 def phase_train_routes(torch, np):
-    """One train step through the kernel route and through the plain route
-    (attention_impl="xla", autograd through plain PyTorch), same weights
-    and batch: the losses within 1e-2 relative, the flattened gradients at
-    a cosine similarity of at least 0.99."""
+    """One train step through each kernel route ("pallas", "pallas_attn")
+    and through the plain route (attention_impl="xla", autograd through
+    plain PyTorch), same weights and batch: for each kernel route the loss
+    within 1e-2 relative of the plain route's, the flattened gradients at a
+    cosine similarity of at least 0.99."""
     mix, targets = train_batch(torch, np)
     res = {}
     grads = {}
-    for impl in ("pallas", "xla"):
+    for impl in ("pallas", "pallas_attn", "xla"):
         state, step = make_trainer(torch, impl)[:2]
+        torch.cuda.reset_peak_memory_stats()
         state, loss = step(state, mix, targets)
         torch.cuda.synchronize()
         grads[impl] = torch.cat([p.grad.flatten() for p in state.model.parameters()])
         res[impl] = {"total_loss": float(loss["total_loss"]),
-                     "grad_norm": float(loss["grad_norm"])}
+                     "grad_norm": float(loss["grad_norm"]),
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
         del state, step
         torch.cuda.empty_cache()
-    a, b = grads["pallas"].double(), grads["xla"].double()
-    cos = float((a @ b) / (a.norm() * b.norm()))
-    rel = abs(res["pallas"]["total_loss"] - res["xla"]["total_loss"]) / \
-        abs(res["xla"]["total_loss"])
-    res.update(grad_cosine=cos, loss_rel=rel)
-    log(f"train step, kernel route vs plain route: loss {res['pallas']['total_loss']:.6f} "
-        f"vs {res['xla']['total_loss']:.6f} (rel {rel:.2e}, limit 1e-2), grad_norm "
-        f"{res['pallas']['grad_norm']:.6f} vs {res['xla']['grad_norm']:.6f}, gradient "
-        f"cosine {cos:.6f} (min 0.99)")
-    if not (rel <= 1e-2 and cos >= 0.99):
-        fail(f"kernel route vs plain route: loss rel {rel}, gradient cosine {cos}")
+    b = grads["xla"].double()
+    for impl in ("pallas", "pallas_attn"):
+        a = grads[impl].double()
+        cos = float((a @ b) / (a.norm() * b.norm()))
+        rel = abs(res[impl]["total_loss"] - res["xla"]["total_loss"]) / \
+            abs(res["xla"]["total_loss"])
+        res[impl].update(grad_cosine=cos, loss_rel=rel)
+        log(f"train step, route {impl} vs plain route: loss {res[impl]['total_loss']:.6f} "
+            f"vs {res['xla']['total_loss']:.6f} (rel {rel:.2e}, limit 1e-2), grad_norm "
+            f"{res[impl]['grad_norm']:.6f} vs {res['xla']['grad_norm']:.6f}, gradient "
+            f"cosine {cos:.6f} (min 0.99); peak memory {res[impl]['peak_mem_gb']:.3f} vs "
+            f"{res['xla']['peak_mem_gb']:.3f} GB")
+        if not (rel <= 1e-2 and cos >= 0.99):
+            fail(f"route {impl} vs plain route: loss rel {rel}, gradient cosine {cos}")
     return res
 
 
@@ -797,10 +1095,46 @@ def synthetic_track(np, seconds: float, sr: int):
             + 0.1 * np.random.default_rng(0).standard_normal(n)).astype(np.float32)
 
 
-def phase_main_path(torch, np, gpu: str):
-    from tfswa_tpu_torch.ops.fused_block import fused_row_block
+def counters():
+    """The launch counter of every kernel wrapper, by kernel."""
+    from tfswa_tpu_torch.ops.fused_block import (fused_row_block, fused_row_block_bwd,
+                                                 fused_row_block_int8, fused_row_block_train)
+    from tfswa_tpu_torch.ops.row_attention import flash_row_attention
 
-    sep = make_separator(torch, "pallas")
+    return {"B1": fused_row_block, "B1-train": fused_row_block_train,
+            "B2": fused_row_block_bwd, "B3": fused_row_block_int8, "B4": flash_row_attention}
+
+
+def reset_counts() -> None:
+    for c in counters().values():
+        c.launches = 0
+
+
+def read_counts():
+    return {k: c.launches for k, c in counters().items()}
+
+
+# the kernel each serving route runs, and the device kernels it is made of
+# (names as torch.profiler reports them)
+ROUTES = {
+    "pallas": ("B1", ("ln_qkv_kernel", "attn_kernel", "post_kernel")),
+    "pallas_int8": ("B3", ("ln_qkv_kernel", "qk_scale_kernel", "attn_kernel", "post_kernel")),
+    "pallas_attn": ("B4", ("rows_matmul_kernel", "bilinear_attn_kernel")),
+}
+
+
+# separations of the 120 s track timed after the warm-up, per route: B4's
+# route takes about 18 s a separation, and its device is busy 99 % of it
+SERVING_RUNS = {"pallas": 3, "pallas_int8": 3, "pallas_attn": 1}
+
+
+def phase_main_path(torch, np, gpu: str, impl: str):
+    """The serving main path through one route: a warm-up separation of the
+    120 s track, a counted one (every launch counter set to 0 just before
+    and read just after: the route's kernel 66 times a model forward, no
+    other kernel), and more for the rate (SERVING_RUNS in all)."""
+    kernel = ROUTES[impl][0]
+    sep = make_separator(torch, impl)
     forwards = []
     sep.model.register_forward_pre_hook(lambda m, a: forwards.append(a[0].shape[0]))
     track_s = 120.0
@@ -812,37 +1146,38 @@ def phase_main_path(torch, np, gpu: str):
     warm_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    fused_row_block.launches = 0
     forwards.clear()
+    reset_counts()
     t0 = time.perf_counter()
     out = sep.separate(audio)                            # the counted run
     runs = [time.perf_counter() - t0]
-    launches, n_forwards = fused_row_block.launches, len(forwards)
+    counts, n_forwards = read_counts(), len(forwards)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for _ in range(2):
+    for _ in range(SERVING_RUNS[impl] - 1):
         t0 = time.perf_counter()
         out = sep.separate(audio)
         runs.append(time.perf_counter() - t0)
 
     for name, wav in out.items():
         if wav.shape != (1, audio.size) or not np.isfinite(wav).all():
-            fail(f"stem {name}: shape {wav.shape} or non-finite values")
+            fail(f"{impl}: stem {name}: shape {wav.shape} or non-finite values")
         if not np.abs(wav).max() > 0:
-            fail(f"stem {name} is silent")
-    log(f"main path: {n_forwards} model forwards of batch {forwards[:n_forwards]}, "
-        f"fused_row_block launches {launches}")
-    if n_forwards != 2 or launches != 66 * n_forwards:
-        fail(f"expected 2 forwards and 132 kernel launches, got {n_forwards} "
-             f"and {launches}")
+            fail(f"{impl}: stem {name} is silent")
+    log(f"main path {impl}: {n_forwards} model forwards of batch {forwards[:n_forwards]}, "
+        f"launches {counts}")
+    want = {k: (66 * n_forwards if k == kernel else 0) for k in counts}
+    if n_forwards != 2 or counts != want:
+        fail(f"{impl}: expected 2 forwards and launches {want}, got {n_forwards} and "
+             f"{counts}")
     rate = track_s / min(runs)
-    log(f"main path: 120 s track in {[round(r, 4) for r in runs]} s (warm-up "
-        f"{warm_s:.3f} s): {rate:.4f} audio-s/s on {gpu}; peak memory "
-        f"{peak_gb:.3f} GB")
-    return {"launches": launches, "forwards": n_forwards, "runs_s": runs,
-            "warmup_s": warm_s, "audio_s_per_s": rate, "peak_mem_gb": peak_gb}, sep
+    log(f"main path {impl}: 120 s track in {[round(r, 4) for r in runs]} s (warm-up "
+        f"{warm_s:.3f} s): {rate:.4f} audio-s/s on {gpu}; peak memory {peak_gb:.3f} GB")
+    return {"impl": impl, "launches": counts[kernel], "counts": counts,
+            "forwards": n_forwards, "runs_s": runs, "warmup_s": warm_s,
+            "audio_s_per_s": rate, "peak_mem_gb": peak_gb}, sep
 
 
-def phase_profile(torch, np, sep):
+def phase_profile(torch, np, sep, impl: str):
     """Device time by kernel over one separation of the 120 s track
     (torch.profiler, CUDA activity), and the device's idle share."""
     from torch.profiler import ProfilerActivity, profile
@@ -855,41 +1190,71 @@ def phase_profile(torch, np, sep):
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels, annotation_ms = device_kernels(prof)
     busy_ms = sum(k[1] for k in kernels)
-    b1 = {n: sum(k[1] for k in kernels if n in k[0])
-          for n in ("ln_qkv_kernel", "attn_kernel", "post_kernel")}
+    kernel, names = ROUTES[impl]
+    by_name = {n: sum(k[1] for k in kernels if n in k[0] and not
+                      (n == "attn_kernel" and "bilinear" in k[0])) for n in names}
     res = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
-           "annotation_ms": annotation_ms, "fused_row_block_ms": b1,
+           "annotation_ms": annotation_ms, "kernel_ms": by_name,
            "top": [{"name": k[0][:120], "ms": k[1], "count": k[2]} for k in kernels[:25]]}
     if not busy_ms:
         log("profile: the profiler recorded no device time (not measured)")
         return res
-    log(f"profile: one 120 s separation, wall {wall_ms:.3f} ms, device busy "
+    log(f"profile {impl}: one 120 s separation, wall {wall_ms:.3f} ms, device busy "
         f"{busy_ms:.3f} ms, idle share {res['idle_share']:.4f} (user annotations left "
         f"out: {annotation_ms:.3f} ms)")
-    log("profile: fused_row_block launches " + ", ".join(
-        f"{n} {v:.3f} ms" for n, v in b1.items()))
+    log(f"profile {impl}: {kernel} launches " + ", ".join(
+        f"{n} {v:.3f} ms" for n, v in by_name.items()))
     for k in kernels[:12]:
         log(f"  {k[1]:10.3f} ms  x{k[2]:<5d} {k[0][:90]}")
     return res
 
 
-def phase_routes(torch, np, sep_kernel):
-    """One 10 s segment through the kernel route and the plain route."""
-    sep_plain = make_separator(torch, "xla")
-    sep_plain.model.load_state_dict(sep_kernel.model.state_dict())
+def phase_routes(torch, np, sep_kernel, impl: str, against):
+    """One 10 s segment through the kernel route ``impl`` and through each
+    route of ``against`` (same weights): the SNR per stem.  The plain route
+    ("xla") is held to SNR_MIN_DB; the others are recorded."""
     seg = synthetic_track(np, 10.0, sep_kernel.sample_rate)[None]
+    res = {}
     with torch.inference_mode():
         x = torch.from_numpy(seg).cuda()
         a = sep_kernel._separate_core(x).double().cpu().numpy()
-        b = sep_plain._separate_core(x).double().cpu().numpy()
-    snrs = [float(10 * np.log10(np.sum(b[:, s] ** 2) / np.sum((a[:, s] - b[:, s]) ** 2)))
-            for s in range(a.shape[1])]
-    log(f"kernel route vs plain route, one 10 s segment: SNR per stem "
-        f"{[round(s, 3) for s in snrs]} dB (min {SNR_MIN_DB} dB)")
-    if not (np.isfinite(a).all() and min(snrs) >= SNR_MIN_DB):
-        fail(f"kernel route vs plain route SNR {snrs} below {SNR_MIN_DB} dB")
-    return snrs
+        for other in against:
+            sep_other = make_separator(torch, other)
+            sep_other.model.load_state_dict(sep_kernel.model.state_dict())
+            b = sep_other._separate_core(x).double().cpu().numpy()
+            snrs = [float(10 * np.log10(np.sum(b[:, s] ** 2) / np.sum((a[:, s] - b[:, s]) ** 2)))
+                    for s in range(a.shape[1])]
+            log(f"route {impl} vs route {other}, one 10 s segment: SNR per stem "
+                f"{[round(v, 3) for v in snrs]} dB"
+                + (f" (min {SNR_MIN_DB} dB)" if other == "xla" else " (recorded)"))
+            if not np.isfinite(a).all() or (other == "xla" and min(snrs) < SNR_MIN_DB):
+                fail(f"route {impl} vs route {other}: SNR {snrs} below {SNR_MIN_DB} dB")
+            res[other] = snrs
+            del sep_other
+    return res
+
+
+def phase_serving(torch, np, gpu: str, totals):
+    """Phases 4 and 5 for every serving route."""
+    res = {}
+    for impl, against in (("pallas", ("xla",)), ("pallas_int8", ("xla", "pallas")),
+                          ("pallas_attn", ("xla",))):
+        t0 = time.perf_counter()
+        main_path, sep = phase_main_path(torch, np, gpu, impl)
+        main_path["profile"] = phase_profile(torch, np, sep, impl)
+        main_path["route_snr_db"] = phase_routes(torch, np, sep, impl, against)
+        t = totals[ROUTES[impl][0]]
+        log(f"per model forward (66 calls), {ROUTES[impl][0]}: kernel_ms {t['ms']:.3f} "
+            f"plain_ms {t['plain_ms']:.3f} library_ms "
+            + ("none" if t["library_ms"] is None else f"{t['library_ms']:.3f}")
+            + f" bound_ms {t['bound_ms']:.4f}")
+        main_path["phase_s"] = time.perf_counter() - t0
+        log(f"serving route {impl}: {main_path['phase_s']:.1f} s")
+        res[impl] = main_path
+        del sep
+        torch.cuda.empty_cache()
+    return res
 
 
 def main() -> None:
@@ -926,13 +1291,13 @@ def main() -> None:
     MUFU_RATE = mufu_rate(torch)
     log(f"exp2 (MUFU) rate {MUFU_RATE:.4e} /s")
     t0 = time.perf_counter()
-    _build.build(["fused_block", "fused_block_bwd"])
+    _build.build(["fused_block", "fused_block_bwd", "row_attention"])
     build_s = time.perf_counter() - t0
     log(f"build: {build_s:.3f} s")
-    for name, report in _build.ptxas_report.items():
-        for line in report.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    ptxas = [f"{name}: {line.strip()}" for name, report in _build.ptxas_report.items()
+             for line in report.splitlines() if "Used" in line or "spill" in line]
+    for line in ptxas:
+        log(f"  {line}")
 
     if args.plant:
         plant_fault(torch, args.plant)
@@ -943,30 +1308,43 @@ def main() -> None:
             sys.exit(0)
         fail(f"planted fault {args.plant}: the B2 check passed it")
 
-    shapes, max_err, totals = phase_kernels(torch, args.quick)
-    results = {"gpu": gpu, "build_s": build_s, "mufu_rate": MUFU_RATE, "shapes": shapes,
-               "totals": totals}
-    main_path = {"launches": None}
+    phase_s = {"build": build_s}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        r = fn(*a)
+        phase_s[name] = time.perf_counter() - t0
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+        return r
+
+    shapes, max_err, totals = timed("B1 kernels", phase_kernels, torch, args.quick)
+    i8_shapes, i8_err, i8_totals = timed("B3 kernels", phase_int8_kernels, torch, args.quick,
+                                         shapes)
+    at_shapes, at_err, at_totals = timed("B4 kernels", phase_attn_kernels, torch, args.quick)
+    results = {"gpu": gpu, "build_s": build_s, "ptxas": ptxas, "mufu_rate": MUFU_RATE,
+               "phase_s": phase_s, "shapes": shapes, "totals": totals,
+               "int8_shapes": i8_shapes, "int8_totals": i8_totals,
+               "attn_shapes": at_shapes, "attn_totals": at_totals}
+    serving = {impl: {"launches": None} for impl in ROUTES}
     if not args.quick:
-        main_path, sep = phase_main_path(torch, np, gpu)
-        results["main_path"] = main_path
-        results["profile"] = phase_profile(torch, np, sep)
-        results["route_snr_db"] = phase_routes(torch, np, sep)
-        log("per model forward (66 calls): kernel_ms {ms:.3f} plain_ms {plain_ms:.3f} "
-            "library_ms {library_ms:.3f} bound_ms {bound_ms:.4f}".format(**totals))
-        del sep
-        torch.cuda.empty_cache()
-    t_shapes, t_err, t_totals = phase_train_kernels(torch, args.quick)
+        serving = timed("serving", phase_serving, torch, np, gpu,
+                        {"B1": totals, "B3": i8_totals, "B4": at_totals})
+        results["serving"] = serving
+    t_shapes, t_err, t_totals = timed("B1-train/B2 kernels", phase_train_kernels, torch,
+                                      args.quick)
     results.update(train_shapes=t_shapes, train_totals=t_totals)
     train = {"launches": {}}
     if not args.quick:
-        train = phase_train(torch, np, gpu)
+        train = timed("train pallas", phase_train, torch, np, gpu)
         results["train_path"] = train
-        results["train_routes"] = phase_train_routes(torch, np)
+        results["train_path_attn"] = timed("train pallas_attn", phase_train, torch, np, gpu,
+                                           "pallas_attn")
+        results["train_routes"] = timed("train routes", phase_train_routes, torch, np)
         for kind, label in (("train", "B1-train"), ("bwd", "B2")):
             log(f"per train step (66 calls), {label}: kernel_ms {{ms:.3f}} plain_ms "
                 f"{{plain_ms:.3f}} library_ms {{library_ms:.3f}} bound_ms "
                 f"{{bound_ms:.4f}}".format(**t_totals[kind]))
+    log("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -990,13 +1368,17 @@ def main() -> None:
     fwd_src = "tfswa_tpu_torch/csrc/fused_block.cu"
     kernels = [
         entry("fused_row_block", fwd_src, "tfswa_tpu/ops/pallas/fused_block.py:140",
-              main_path["launches"], max_err, totals),
+              serving["pallas"]["launches"], max_err, totals),
         entry("fused_row_block_train", fwd_src, "tfswa_tpu/ops/pallas/fused_block.py:140",
-              train["launches"].get("fused_row_block_train"), t_err["train"],
-              t_totals["train"]),
+              train["launches"].get("B1-train"), t_err["train"], t_totals["train"]),
         entry("fused_row_block_bwd", "tfswa_tpu_torch/csrc/fused_block_bwd.cu",
               "tfswa_tpu/ops/pallas/fused_block.py:526",
-              train["launches"].get("fused_row_block_bwd"), t_err["bwd"], t_totals["bwd"]),
+              train["launches"].get("B2"), t_err["bwd"], t_totals["bwd"]),
+        entry("fused_row_block_int8", fwd_src, "tfswa_tpu/ops/pallas/fused_block.py:253",
+              serving["pallas_int8"]["launches"], i8_err, i8_totals),
+        entry("flash_row_attention", "tfswa_tpu_torch/csrc/row_attention.cu",
+              "tfswa_tpu/ops/pallas/row_attention.py:53",
+              serving["pallas_attn"]["launches"], at_err, at_totals),
     ]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,10 @@ optax transform that hands the raw gradients out through its state, so
 that loss, gradients and batch_stats come from ``make_train_step`` itself.
 It is compiled at XLA's lowest backend optimization level, which changes
 no value checked here and halves the compile, the bulk of this file's
-time.  The port runs both of its routes: "pallas" (on the CPU the plain
-versions of B1-train and B2 inside the autograd.Function) and "xla"
-(autograd).  The optimizer, BatchNorm and the other pieces of the step
+time.  The port runs three of its routes: "pallas" (on the CPU the plain
+versions of B1-train and B2 inside the autograd.Function), "pallas_attn"
+(the plain version of B4, and the plain attention's VJP a chunk of rows at
+a time) and "xla" (autograd).  The optimizer, BatchNorm and the other pieces of the step
 are held against JAX in ``test_torch_training.py``.
 
 Tolerances (all f32, sums in another order: FFT vs DFT, convs, attention):
@@ -94,7 +95,7 @@ def jax_step():
             dict(_flat(new.batch_stats)))
 
 
-@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("impl", ["pallas", "pallas_attn", "xla"])
 def test_train_step_matches_jax(jax_step, impl):
     ref_loss, ref_grads, ref_bs = jax_step
     model = _port_model(impl)

@@ -2,7 +2,8 @@
 
   - config.py     model / STFT / data / train / evaluation configs (copies of
                   the JAX ones)
-  - ops/          STFT, masks, windowing, the fused row-block kernel wrappers
+  - ops/          STFT, masks, windowing, the kernel wrappers (fused row
+                  block, bilinear row attention)
   - csrc/         hand-written CUDA C++ kernels (sm_90a), built by ops/_build.py
   - models/       TFSWA-UNet under the reference's state_dict names
   - training/     losses, optimizer, the train and eval steps

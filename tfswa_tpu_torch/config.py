@@ -28,8 +28,10 @@ class ModelConfig:
     mlp_ratio: float = 4.0
     use_shift_mask: bool = False
     # "pallas": the fused row-block kernel (CUDA on the card);
-    # "xla": the plain PyTorch row-block path.  The names are the JAX
-    # package's, so configs carry over.
+    # "pallas_int8": the fused block with int8 scores (serving only: the
+    # train step refuses it); "pallas_attn": the bilinear attention kernel
+    # between plain LN and MLP; "xla": the plain PyTorch row-block path.
+    # The names are the JAX package's, so configs carry over.
     attention_impl: str = "xla"
     # Unused by the port: its plain route chunks rows by the bytes of the
     # score planes (ops/fused_block.MAX_SCORE_BYTES), not by a row count.

@@ -4,18 +4,30 @@ All three attentions share one primitive, a pre-LN transformer block over
 independent rows (R, N, C): rows are frequency columns (TSA), time frames
 (FSA) or ws*ws windows (SWA), in the JAX package's row order.
 
-``row_transformer_block`` has two routes that give the same values:
-  - ``attention_impl="pallas"``: the fused row-block kernel
-    (``ops/fused_block.py``), at every shape;
-  - ``attention_impl="xla"``: the plain path, LN, multi-head attention with
-    a standard softmax chunked over rows, MLP.
-Both are differentiable.  The plain route runs the block a chunk of rows
-at a time, so that one chunk's f32 score planes exist at once; under
-autograd it recomputes each chunk in the backward
-(``torch.utils.checkpoint``, as the JAX package's ``jax.checkpoint`` per
-chunk), so that it keeps only each block's input and output.  Masked SWA
-and dropout, which send the JAX package to its plain path, are not ported
-yet.
+``row_transformer_block`` has four routes:
+  - ``attention_impl="pallas"``: the fused row-block kernel B1 (B1-train
+    and B2 under autograd; ``ops/fused_block.py``), at every shape;
+  - ``"pallas_int8"``: the fused block with int8 scores, B3
+    (``fused_row_block_int8``), serving only, at every shape;
+  - ``"pallas_attn"``: plain LN1, the bilinear attention kernel B4
+    (``ops/row_attention.py``), the residual, plain LN2 and MLP
+    (``_BilinearBlock``);
+  - ``"xla"``: the plain path, LN, multi-head attention with a standard
+    softmax chunked over rows, MLP.
+The JAX package sends some shapes of ``"pallas"`` and ``"pallas_int8"``
+to its plain path (its autotune gates and ``_pallas_fwd_profitable``), and
+runs B3 only where its ``"fused_int8"`` gate reads "1", which it ships for
+no shape.  The port has no autotune: its routes equal the JAX routes with
+the ``"attn_route"`` gate set to the kernel and ``"fused_int8"`` to "1" at
+every shape.  ``"pallas"``, ``"pallas_attn"`` and ``"xla"`` are
+differentiable.  The plain route runs the block a chunk of rows at a
+time, so that one chunk's f32 score planes exist at once; under autograd
+it recomputes each chunk in the backward (``torch.utils.checkpoint``, as
+the JAX package's ``jax.checkpoint`` per chunk), so that it keeps only
+each block's input and output.  ``"pallas_attn"`` under autograd keeps
+only the rows and B4's output.  Masked SWA and dropout, which send the
+JAX package to its plain path, are not ported yet; nor is the XLA int8
+route ``"int8"`` (``ops/int8.py``).
 """
 from __future__ import annotations
 
@@ -27,19 +39,19 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import fused_block
-from ..ops.fused_block import fused_row_block, layer_norm_f32
+from ..ops.fused_block import fused_row_block, fused_row_block_int8, layer_norm_f32
+from ..ops.row_attention import flash_row_attention, mha_rows
 from ..ops.windowing import window_partition, window_reverse
 from .layers import gelu
 
-ATTENTION_IMPLS = ("pallas", "xla")
+ATTENTION_IMPLS = ("pallas", "pallas_int8", "pallas_attn", "xla")
 
 
 def check_attention_impl(impl: str) -> None:
     if impl not in ATTENTION_IMPLS:
         raise NotImplementedError(
             f"attention_impl={impl!r} is not ported yet (ported: "
-            f"{ATTENTION_IMPLS}); the int8 and bilinear-attention routes "
-            "are queued in ROADMAP.md")
+            f"{ATTENTION_IMPLS}); the XLA int8 route is queued in ROADMAP.md")
 
 
 class RowBlockParams(NamedTuple):
@@ -64,29 +76,89 @@ def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> tor
     return layer_norm_f32(x.float(), scale, bias).to(x.dtype)
 
 
-def mha_rows(rows: torch.Tensor, p: RowBlockParams, num_heads: int) -> torch.Tensor:
-    """Multi-head self-attention over rows (R, N, C) -> (R, N, C); scores
-    and softmax in f32."""
+def _mlp_half(rows: torch.Tensor, p: RowBlockParams) -> torch.Tensor:
+    """rows + MLP(LN2(rows)) in the rows' dtype."""
     dt = rows.dtype
-    R, N, C = rows.shape
-    H = num_heads
-    D = C // H
-    qkv = (rows @ p.qkv_kernel.to(dt)).view(R, N, 3, H, D).permute(2, 0, 3, 1, 4)
-    q, k, v = qkv[0], qkv[1], qkv[2]                          # (R, H, N, D)
-    scores = (q * D ** -0.5).float() @ k.float().transpose(-1, -2)
-    weights = torch.softmax(scores, dim=-1).to(dt)
-    out = (weights @ v).transpose(1, 2).reshape(R, N, C)
-    return out @ p.proj_kernel.to(dt) + p.proj_bias.to(dt)
+    h = _layer_norm(rows, p.norm2_scale, p.norm2_bias)
+    h = gelu(h @ p.fc1_kernel.to(dt) + p.fc1_bias.to(dt))
+    return rows + (h @ p.fc2_kernel.to(dt) + p.fc2_bias.to(dt))
+
+
+def _plain_attn(rows: torch.Tensor, p: RowBlockParams, num_heads: int) -> torch.Tensor:
+    """MHA(LN1(rows)), the plain attention."""
+    normed = _layer_norm(rows, p.norm1_scale, p.norm1_bias)
+    return mha_rows(normed, p.qkv_kernel, p.proj_kernel, p.proj_bias, num_heads)
 
 
 def _plain_block(rows: torch.Tensor, p: RowBlockParams, num_heads: int) -> torch.Tensor:
     """The plain block on rows (R, N, C): rows + MHA(LN(rows)), then
     + MLP(LN(.)), in the rows' dtype with f32 LN statistics and softmax."""
+    return _mlp_half(rows + _plain_attn(rows, p, num_heads), p)
+
+
+def _bilinear_attn(rows: torch.Tensor, p: RowBlockParams, num_heads: int) -> torch.Tensor:
+    """B4 on LN1(rows), the weights cast to the rows' dtype first (as the
+    JAX package's ``pallas_attn`` branch casts them)."""
     dt = rows.dtype
-    rows = rows + mha_rows(_layer_norm(rows, p.norm1_scale, p.norm1_bias), p, num_heads)
-    h = _layer_norm(rows, p.norm2_scale, p.norm2_bias)
-    h = gelu(h @ p.fc1_kernel.to(dt) + p.fc1_bias.to(dt))
-    return rows + (h @ p.fc2_kernel.to(dt) + p.fc2_bias.to(dt))
+    normed = _layer_norm(rows, p.norm1_scale, p.norm1_bias)
+    return flash_row_attention(normed.contiguous(), p.qkv_kernel.to(dt),
+                               p.proj_kernel.to(dt), p.proj_bias.to(dt), num_heads)
+
+
+def _chunked_vjp(fn, rows: torch.Tensor, weights, g: torch.Tensor, chunk: int):
+    """The VJP of ``fn(x, r0, *weights)`` (the output for the rows x =
+    rows[r0:r0 + chunk]) at cotangent ``g``, a chunk of rows at a time under
+    autograd: ``(d rows, [d weight])``, the weight gradients summed over the
+    chunks in f32 and cast to each weight's dtype."""
+    leaves = [w.detach().requires_grad_() for w in weights]
+    dws = [torch.zeros(w.shape, dtype=torch.float32, device=w.device) for w in weights]
+    dxs = []
+    with torch.enable_grad():
+        for r0 in range(0, rows.shape[0], chunk):
+            x = rows[r0:r0 + chunk].detach().requires_grad_()
+            dx, *dw = torch.autograd.grad(fn(x, r0, *leaves), [x, *leaves],
+                                          g[r0:r0 + chunk])
+            dxs.append(dx)
+            for acc, d in zip(dws, dw):
+                acc += d
+    return torch.cat(dxs), [d.to(w.dtype) for d, w in zip(dws, weights)]
+
+
+class _BilinearBlock(torch.autograd.Function):
+    """The ``"pallas_attn"`` block: LN1, B4, the residual, LN2 and the MLP,
+    lean in memory under autograd (the plain LN2 and MLP after B4 would
+    keep about 44 C bytes a token, more than the card holds at the
+    flagship's training shapes).  The forward runs with no graph and keeps
+    only the rows and B4's output.  The backward works a chunk of rows at
+    a time: it recomputes LN1 and the plain attention (whose VJP is B4's,
+    as in the JAX package) and the MLP half at mid = rows + B4's output
+    (the forward's own value), and back-propagates.  B4 launches once, in
+    the forward."""
+
+    @staticmethod
+    def forward(ctx, rows, num_heads, params_type, *params):
+        p = params_type(*params)
+        attn = _bilinear_attn(rows, p, num_heads)
+        ctx.save_for_backward(rows, attn, *params)
+        ctx.num_heads, ctx.params_type = num_heads, params_type
+        return _mlp_half(rows + attn, p)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, attn, *params = ctx.saved_tensors
+        H = ctx.num_heads
+        N = rows.shape[1]
+
+        def block(x, r0, *leaves):
+            p = ctx.params_type(*leaves)
+            plain = _plain_attn(x, p, H)
+            # B4's value, the plain attention's gradient
+            a = attn[r0:r0 + x.shape[0]] + (plain - plain.detach())
+            return _mlp_half(x + a, p)
+
+        dx, dps = _chunked_vjp(block, rows, params, g,
+                              max(1, fused_block.MAX_SCORE_BYTES // (H * N * N * 4)))
+        return (dx, None, None, *dps)
 
 
 def row_transformer_block(rows: torch.Tensor, p: RowBlockParams, num_heads: int, *,
@@ -96,6 +168,10 @@ def row_transformer_block(rows: torch.Tensor, p: RowBlockParams, num_heads: int,
     check_attention_impl(attention_impl)
     if attention_impl == "pallas":
         return fused_row_block(rows.contiguous(), p, num_heads)
+    if attention_impl == "pallas_int8":
+        return fused_row_block_int8(rows.contiguous(), p, num_heads)
+    if attention_impl == "pallas_attn":
+        return _BilinearBlock.apply(rows, num_heads, type(p), *p)
 
     R, N, _ = rows.shape
     chunk = max(1, fused_block.MAX_SCORE_BYTES // (num_heads * N * N * 4))

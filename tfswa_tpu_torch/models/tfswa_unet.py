@@ -8,8 +8,10 @@ carries the reference's state_dict names (``encoder_stages.0.0.tsa.attn.
 qkv.weight``, ...), so a reference ``.pt`` loads with ``load_state_dict``.
 
 A new model is in eval mode, as the JAX model's ``train=False`` default:
-``model.train()`` switches BatchNorm to batch statistics and sends every
-row block through the differentiable kernel route (B1-train + B2).
+``model.train()`` switches BatchNorm to batch statistics; under autograd
+the ``"pallas"`` route sends every row block through B1-train + B2, the
+``"pallas_attn"`` route through B4 and the plain attention's VJP, and the
+serving-only ``"pallas_int8"`` route raises.
 """
 from __future__ import annotations
 

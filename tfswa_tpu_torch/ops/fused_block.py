@@ -6,14 +6,18 @@ kernel's arithmetic: LN statistics in f32, Wq pre-scaled by log2(e)/sqrt(D),
 a max-free exp2 softmax with scores clamped at ``SCORE_CLAMP``, and the
 same bf16 rounding points (see ``csrc/fused_block.cu``).
 
-Three kernels, each with its wrapper, its plain PyTorch version and a
+Four kernels, each with its wrapper, its plain PyTorch version and a
 launch counter (``<wrapper>.launches``):
   - B1, serving form: :func:`fused_row_block_parts` /
     :func:`fused_row_block_reference_parts`;
   - B1-train, the forward that also exports ``mid``, ``acc`` and ``den``:
     :func:`fused_row_block_train` / :func:`fused_row_block_train_reference`;
   - B2, the whole-block VJP: :func:`fused_row_block_bwd` /
-    :func:`fused_row_block_bwd_reference` (``csrc/fused_block_bwd.cu``).
+    :func:`fused_row_block_bwd_reference` (``csrc/fused_block_bwd.cu``);
+  - B3, the serving form with int8 scores (``int8_attn=True`` of the TPU
+    kernel): :func:`fused_row_block_int8` /
+    :func:`fused_row_block_int8_reference`.  It has no VJP: under grad the
+    wrapper raises.
 A CPU tensor goes to the plain version; a contiguous bf16 CUDA tensor
 launches the kernel; anything else raises.
 
@@ -26,6 +30,7 @@ runs the serving form.  The plain versions chunk over rows, so that the
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -92,10 +97,30 @@ def _qkv_heads(normed, w_qkv, rnd, H: int, qkv, t0: int):
     return t.view(Rc, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
 
 
-def _reference_forward(rows: torch.Tensor, p, num_heads: int, train: bool, qkv=None):
+def quantize_rows(t: torch.Tensor):
+    """B3's symmetric int8 quantisation, one scale per index of the leading
+    axis over all other elements: ``s = max|t| / 127`` in f32 and
+    ``round(t / s)`` (a true division, rounded half to even).  Returns the
+    int8 values as f32 and ``s``.  A slice that is all zero has s = 0 and
+    gets 0, produced explicitly (the TPU kernel computes 0/0 and casts the
+    NaN to int8).  The divisor 127 is a tensor: PyTorch's CUDA division by
+    a Python scalar multiplies by its reciprocal, which is not the true
+    division the TPU kernel and the CUDA kernel do."""
+    m = t.abs().amax(dim=tuple(range(1, t.dim())), keepdim=True)
+    s = m / torch.full_like(m, 127.0)
+    nz = s > 0
+    return torch.where(nz, torch.round(t / torch.where(nz, s, 1.0)), 0.0), s
+
+
+def _reference_forward(rows: torch.Tensor, p, num_heads: int, train: bool, qkv=None,
+                       int8_attn: bool = False):
     """The plain forward in f32 arithmetic with the kernel's rounding to
     ``rows.dtype``: (out, acc) and, with ``train``, (mid, den) as well.
-    ``qkv`` (R*N, 3C), if given, replaces the recomputed q|k|v."""
+    ``qkv`` (R*N, 3C), if given, replaces the recomputed q|k|v.
+    ``int8_attn`` (B3) takes the scores from q and k quantised per row
+    (:func:`quantize_rows`): int8 products summed exactly (at most
+    32 * 127^2 < 2^24, so an f32 sum of them is exact in any order), times
+    sq * sk.  v, p and the AV sums stay as in B1."""
     R, N, C = rows.shape
     H = num_heads
     dt = rows.dtype
@@ -112,7 +137,12 @@ def _reference_forward(rows: torch.Tensor, p, num_heads: int, train: bool, qkv=N
         Rc = x.shape[0]
         n1 = rnd(layer_norm_f32(x, ln1_s, ln1_b))
         q, k, v = _qkv_heads(n1, w_qkv, rnd, H, qkv, r0 * N)  # (Rc, H, N, D) each
-        prob = rnd(torch.exp2((q @ k.transpose(-1, -2)).clamp(max=SCORE_CLAMP)))
+        if int8_attn:
+            (qi, sq), (ki, sk) = quantize_rows(q), quantize_rows(k)
+            s = (qi @ ki.transpose(-1, -2)) * (sq * sk)
+        else:
+            s = q @ k.transpose(-1, -2)
+        prob = rnd(torch.exp2(s.clamp(max=SCORE_CLAMP)))
         den = prob.sum(dim=-1, keepdim=True)
         acc = (prob @ v) / den
         acc = rnd(acc.transpose(1, 2).reshape(Rc, N, C))
@@ -138,6 +168,19 @@ def fused_row_block_reference_parts(rows: torch.Tensor, p, num_heads: int):
 def fused_row_block_reference(rows: torch.Tensor, p, num_heads: int) -> torch.Tensor:
     """The block's output from :func:`fused_row_block_reference_parts`."""
     return fused_row_block_reference_parts(rows, p, num_heads)[0]
+
+
+def fused_row_block_int8_reference_parts(rows: torch.Tensor, p, num_heads: int, qkv=None):
+    """Plain PyTorch version of B3: the block's output and its attention
+    output, as :func:`fused_row_block_reference_parts` with the scores of
+    int8 q and k.  ``qkv``: see :func:`fused_row_block_bwd_reference`."""
+    return _reference_forward(rows, p, num_heads, train=False, qkv=qkv, int8_attn=True)
+
+
+def fused_row_block_int8_reference(rows: torch.Tensor, p, num_heads: int,
+                                   qkv=None) -> torch.Tensor:
+    """The block's output from :func:`fused_row_block_int8_reference_parts`."""
+    return fused_row_block_int8_reference_parts(rows, p, num_heads, qkv)[0]
 
 
 def fused_row_block_train_reference(rows: torch.Tensor, p, num_heads: int, qkv=None):
@@ -248,7 +291,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_block")
     fn = lib.fused_block_forward
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -291,32 +334,76 @@ def _check_cuda(name: str, rows: torch.Tensor, num_heads: int, p, like=(),
         raise ValueError(f"{name}: parameters are not on the rows' device")
 
 
-def _forward_kernel(rows: torch.Tensor, p, num_heads: int, train: bool):
-    """One launch of fused_block_forward: (out, attn, mid, den, qkv), with
-    mid and den None in the serving form; qkv is the (R*N, 3C) q|k|v
-    buffer the kernel computed (a check feeds it to the plain versions)."""
-    _check_cuda("fused_row_block_train" if train else "fused_row_block", rows,
-                num_heads, p)
+class _Launch(NamedTuple):
+    """What one launch of fused_block_forward wrote: the block's output, its
+    attention output, the (R*N, 3C) q|k|v buffer (a check feeds it to the
+    plain versions); B1-train's mid and den; B3's (R, 2) f32 row scales of
+    q and k and, when exported, its (R*N, 2C) int8 q | k.  None where the
+    form does not write it."""
+
+    out: torch.Tensor
+    attn: torch.Tensor
+    qkv: torch.Tensor
+    mid: Optional[torch.Tensor]
+    den: Optional[torch.Tensor]
+    scales: Optional[torch.Tensor]
+    qk: Optional[torch.Tensor]
+
+
+def _forward_kernel(rows: torch.Tensor, p, num_heads: int, train: bool = False,
+                    int8: bool = False, export: bool = False) -> _Launch:
+    """One launch of fused_block_forward: B1, B1-train (``train``) or B3
+    (``int8``; ``export`` also writes the int8 q | k)."""
+    name = ("fused_row_block_train" if train else
+            "fused_row_block_int8" if int8 else "fused_row_block")
+    if train and int8:
+        raise ValueError(f"{name}: the int8-score form is serving only")
+    _check_cuda(name, rows, num_heads, p)
     weights = _block_weights(p, rows.shape[2], num_heads, rows.dtype)
     R, N, C = rows.shape
     hidden = weights[7].shape[1]
-    qkv = torch.empty((R * N, 3 * C), dtype=rows.dtype, device=rows.device)
-    attn = torch.empty((R, N, C), dtype=rows.dtype, device=rows.device)
-    out = torch.empty_like(rows)
-    mid = torch.empty_like(rows) if train else None
-    den = torch.empty((R, num_heads, N), dtype=torch.float32, device=rows.device) \
-        if train else None
+    dev = rows.device
+
+    def buf(shape, dtype, on=True):
+        return torch.empty(shape, dtype=dtype, device=dev) if on else None
+
+    res = _Launch(out=torch.empty_like(rows), attn=buf((R, N, C), rows.dtype),
+                  qkv=buf((R * N, 3 * C), rows.dtype), mid=buf((R, N, C), rows.dtype, train),
+                  den=buf((R, num_heads, N), torch.float32, train),
+                  scales=buf((R, 2), torch.float32, int8),
+                  qk=buf((R * N, 2 * C), torch.int8, int8 and export))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     # the library launches on the current device: make it the rows' device
-    with torch.cuda.device(rows.device):
+    with torch.cuda.device(dev):
         err = _lib().fused_block_forward(
             rows.data_ptr(), *(w.data_ptr() for w in weights),
-            qkv.data_ptr(), attn.data_ptr(), out.data_ptr(),
-            mid.data_ptr() if train else None, den.data_ptr() if train else None,
-            R, N, C, num_heads, hidden,
-            torch.cuda.current_stream(rows.device).cuda_stream)
+            ptr(res.qkv), ptr(res.attn), ptr(res.out), ptr(res.mid), ptr(res.den),
+            ptr(res.scales), ptr(res.qk), R, N, C, num_heads, hidden,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"fused_block_forward failed: CUDA error {err}")
-    return out, attn, mid, den, qkv
+        raise RuntimeError(f"fused_block_forward ({name}) failed: CUDA error {err}")
+    return res
+
+
+def fused_row_block_int8(rows: torch.Tensor, p, num_heads: int) -> torch.Tensor:
+    """B3, the block's output with int8 scores, the wrapper the
+    ``"pallas_int8"`` route calls; the plain version on a CPU tensor.
+    Counts each launch in ``fused_row_block_int8.launches``.  Serving only,
+    as in the JAX package (no VJP): when grad mode is on and ``rows`` or a
+    parameter requires a gradient it raises, rather than return a result
+    that no gradient reaches."""
+    if torch.is_grad_enabled() and (rows.requires_grad or any(t.requires_grad for t in p)):
+        raise RuntimeError("fused_row_block_int8 (attention_impl='pallas_int8') is "
+                           "serving only and has no gradient: train with 'pallas', "
+                           "'pallas_attn' or 'xla'")
+    if rows.device.type == "cpu":
+        return fused_row_block_int8_reference(rows, p, num_heads)
+    out = _forward_kernel(rows, p, num_heads, int8=True).out
+    fused_row_block_int8.launches += 1
+    return out
 
 
 def fused_row_block_parts(rows: torch.Tensor, p, num_heads: int):
@@ -327,9 +414,9 @@ def fused_row_block_parts(rows: torch.Tensor, p, num_heads: int):
     ``fused_row_block.launches``."""
     if rows.device.type == "cpu":
         return fused_row_block_reference_parts(rows, p, num_heads)
-    out, attn, _, _, _ = _forward_kernel(rows, p, num_heads, train=False)
+    res = _forward_kernel(rows, p, num_heads)
     fused_row_block.launches += 1
-    return out, attn
+    return res.out, res.attn
 
 
 def fused_row_block_train(rows: torch.Tensor, p, num_heads: int):
@@ -338,9 +425,9 @@ def fused_row_block_train(rows: torch.Tensor, p, num_heads: int):
     in ``fused_row_block_train.launches``."""
     if rows.device.type == "cpu":
         return fused_row_block_train_reference(rows, p, num_heads)
-    out, acc, mid, den, _ = _forward_kernel(rows, p, num_heads, train=True)
+    res = _forward_kernel(rows, p, num_heads, train=True)
     fused_row_block_train.launches += 1
-    return out, mid, acc, den
+    return res.out, res.mid, res.attn, res.den
 
 
 def fused_row_block_bwd(rows: torch.Tensor, mid: torch.Tensor, acc: torch.Tensor,
@@ -411,5 +498,6 @@ def fused_row_block(rows: torch.Tensor, p, num_heads: int) -> torch.Tensor:
 
 
 fused_row_block.launches = 0
+fused_row_block_int8.launches = 0
 fused_row_block_train.launches = 0
 fused_row_block_bwd.launches = 0

@@ -108,10 +108,17 @@ def create_train_state(cfg: Config, steps_per_epoch: int = 1000,
                        device: str = "cuda") -> Tuple[TFSWAUNet, TrainState]:
     """Model from ``cfg.model`` with weights from a ``torch.Generator``
     seeded with ``cfg.train.seed``, on ``device``, and its optimizer."""
+    _check_trainable(cfg.model.attention_impl)
     gen = torch.Generator().manual_seed(cfg.train.seed)
     model = TFSWAUNet.from_config(cfg.model, generator=gen).to(device)
     tx, _ = make_optimizer(cfg, steps_per_epoch, model.parameters())
     return model, TrainState(step=0, model=model, tx=tx)
+
+
+def _check_trainable(attention_impl: str) -> None:
+    if attention_impl == "pallas_int8":
+        raise ValueError("attention_impl='pallas_int8' is serving only (B3 has no "
+                         "gradient); train with 'pallas', 'pallas_attn' or 'xla'")
 
 
 def _crop_nyquist(spec: torch.Tensor) -> torch.Tensor:
@@ -158,6 +165,7 @@ def make_train_step(model: TFSWAUNet, stft_processor: STFTProcessor,
     if data_axis is not None:
         raise NotImplementedError("data_axis (multi-GPU) is not ported yet")
     _check_policy(freq_policy)
+    _check_trainable(model.attention_impl)
     n_stems = len(stems)
 
     def train_step(state: TrainState, mixtures: torch.Tensor,
