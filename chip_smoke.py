@@ -4,11 +4,12 @@
     python3 chip_smoke.py           # the whole run (a few minutes on an H100)
     python3 chip_smoke.py --quick   # build + kernel-vs-plain checks only
 
-Five kernels: B1 (fused_row_block, the serving forward), B1-train
+Six kernels: B1 (fused_row_block, the serving forward), B1-train
 (fused_row_block_train, the forward that also exports mid, acc, den), B2
 (fused_row_block_bwd, the whole-block VJP), B3 (fused_row_block_int8, the
-serving forward with int8 scores, route "pallas_int8") and B4
-(flash_row_attention, the bilinear row attention, route "pallas_attn").
+serving forward with int8 scores, route "pallas_int8"), B4
+(flash_row_attention, the bilinear row attention, route "pallas_attn") and
+L (lab_row_block, the kernel lab's stage and flag forms of B1).
 Phases, each of which fails the run (exit code 1) when it fails:
   1. the card's name and power limit; build of the CUDA sources (nvcc, sm_90a,
      one nvcc per source, in parallel);
@@ -18,6 +19,16 @@ Phases, each of which fails the run (exit code 1) when it fails:
      and on its attention output before the out-projection, with
      kernel / plain / library times and the bound at the full row counts of
      a batch of 8 ten-second segments;
+ 2a. the kernel lab (L), also under --quick: its 5 stage cuts and 3 flag
+     forms against their plain versions (fed the kernel's q|k|v) at the 12
+     shapes under the 3 kinds of weights (288 checks), and all 9 forms at
+     the (N, C) of the CLI's shapes that no serving shape has (27 more);
+     the stage ablation (qkv, scores, exp2, av, attn, full) and the flag
+     forms timed at the full row counts with bounds and plain times, and
+     net of each cut's own output launch (device time from the profiler);
+     then its main path, the
+     CLI (python -m tfswa_tpu_torch.tools.kernel_lab --ablate, then
+     --check) in a subprocess, whose lab launches are counted;
   3. B3 the same way (the plain version gets the kernel's q|k|v; the int8 q
      and k and the row scales must agree exactly), and B4 (on LN1 output;
      the plain version gets the kernel's t and v; its output and its
@@ -343,6 +354,277 @@ def phase_kernels(torch, quick: bool):
     if misses:
         fail("fused_row_block disagrees with its plain version at " + "; ".join(misses))
     return rows_out, max_err, totals
+
+
+# The kernel lab's forms (ops/lab_block.py), by name: (stage, flags).  All
+# are timed, the stages in the ablation's order; all but "full" (B1 itself,
+# phase 2) are checked.
+LAB_FORMS = {
+    "qkv": ("qkv", {}), "scores": ("scores", {}), "exp2": ("exp2", {}),
+    "av": ("av", {}), "attn": ("attn", {}), "full": ("full", {}),
+    "score_bf16": ("full", {"score_bf16": True}), "p_f32": ("full", {"p_f32": True}),
+    "noclamp": ("full", {"clamp": False}),
+}
+# the lab's main path: the CLI as a user runs it, once per mode
+LAB_ITERS, LAB_SHAPES = 3, "enc0"
+LAB_VARIANTS = "prod,xla,hpair,nopair,exp2bf16,sbf16,d16,d4,wofold,ptf32,noclamp"
+LAB_CLI = [["--ablate", "--iters", str(LAB_ITERS), "--shapes", LAB_SHAPES],
+           ["--check", "--variants", LAB_VARIANTS]]
+# the kernel each cut adds to B1's own launches to write its output
+# (csrc/fused_block.cu): its device time is the cut's and not B1's, and
+# comes off the cut's time in the ablation's net line
+LAB_OWN_KERNELS = {"qkv": "qkv_sum_kernel", "scores": "kept_scores_kernel",
+                   "av": "av_sum_kernel"}
+
+
+def lab_limit(name: str, ref) -> float:
+    """The limit of a lab form's check, from the plain version's output:
+      qkv:           exact (the same f32 adds of the same q|k|v);
+      scores:        2 bf16 ULP at max|ref| (sums over heads that cancel);
+      exp2:          2 bf16 ULP of each element (checked elementwise);
+      av:            1e-3 of max|ref| (f32 sums over N queries in another
+                     order, each a sum of N products) plus 1 bf16 ULP at
+                     max|ref|: the output is rounded to bf16, and a sum that
+                     differs in its last f32 bits flips that rounding (a
+                     full ULP, up to 2.3x the 1e-3 term at C = 256);
+      attn and the flag forms: B1's block-output limit,
+                     0.0625 * max(max|ref| / 4, 1), over finite elements."""
+    finite = ref.float()[ref.float().isfinite()]
+    scale = finite.abs().max().item() if finite.numel() else 0.0
+    if name == "qkv":
+        return 0.0
+    if name == "scores":
+        return 2 * bf16_ulp(scale)
+    if name == "av":
+        return 1e-3 * scale + bf16_ulp(scale)
+    return 0.0625 * max(scale / 4.0, 1.0)
+
+
+def check_lab_shape(torch, N: int, C: int, gen, with_full: bool = False):
+    """The lab forms of LAB_FORMS but "full" (unless ``with_full``: B1's
+    own checks do not run at this (N, C)) against their plain versions on
+    CHECK_ROWS rows, for each kind of weights in REGIMES.  The plain version gets the
+    kernel's own q|k|v (see check_train_shape).  Held: the error within
+    lab_limit over the elements both give finite, the same elements
+    non-finite in both (noclamp under the clamp regime overflows exp2 past
+    a score of 128), and every element finite for the other forms."""
+    from tfswa_tpu_torch.models.attention import RowBlockParams
+    from tfswa_tpu_torch.ops.lab_block import lab_row_block_parts, lab_row_block_reference
+
+    res, flat = {}, None
+    for regime in REGIMES:
+        p = random_params(torch, RowBlockParams, C, gen, regime)
+        if regime == "flat":
+            flat = p
+        x = torch.randn(CHECK_ROWS, N, C, generator=gen).cuda().to(torch.bfloat16)
+        forms = {}
+        for name, (stage, kw) in LAB_FORMS.items():
+            if name == "full" and not with_full:
+                continue
+            got, qkv = lab_row_block_parts(x, p, HEADS, stage, **kw)
+            torch.cuda.synchronize()
+            ref = lab_row_block_reference(x, p, HEADS, stage, qkv=qkv, **kw)
+            g, r = got.float(), ref.float()
+            fin_g, fin_r = g.isfinite(), r.isfinite()
+            both = fin_g & fin_r
+            diff = (g - r).abs()[both]
+            err = diff.max().item() if diff.numel() else 0.0
+            if name == "exp2":     # elementwise: the worst error in ULP of its element
+                ulps = torch.exp2(torch.floor(torch.log2(r[both].abs().clamp_min(2.0 ** -100)))
+                                  - 7)
+                worst = (diff / ulps).max().item() if diff.numel() else 0.0
+                ok_err, tol = worst <= 2.0, 2.0
+                err_shown = worst
+            else:
+                tol = lab_limit(name, ref)
+                ok_err, err_shown = err <= tol, err
+            nonfinite_mismatch = int((fin_g != fin_r).sum())
+            all_finite = bool(fin_g.all() and fin_r.all())
+            ok = ok_err and nonfinite_mismatch == 0 and (name == "noclamp" or all_finite)
+            forms[name] = {"max_abs_err": err, "err": err_shown, "tol": tol,
+                           "nonfinite_mismatch": nonfinite_mismatch,
+                           "nonfinite": int((~fin_r).sum()), "ok": ok}
+            del got, qkv, ref
+        res[regime] = {"forms": forms, "max_score": max_score(torch, x, p, HEADS),
+                       "ok": all(f["ok"] for f in forms.values())}
+        torch.cuda.empty_cache()
+    return res, flat
+
+
+def bound_lab_ms(name: str, R: int, N: int, C: int, hidden: int):
+    """Least time for one lab form: B1's bound (bound_ms) cut at the stage.
+    Bytes: rows in and out, LN1 and Wqkv (and from stage attn Wo, bo) once;
+    the qkv product, then the scores, then AV (each 2 R N^2 C) and from
+    stage attn the out-projection at the bf16 tensor-core rate; from stage
+    exp2, H N^2 exp2 a row at the MUFU rate.  The flag forms compute the
+    full stage's function on the same inputs: B1's bound."""
+    stage = LAB_FORMS[name][0]
+    if stage == "full":
+        return bound_ms(R, N, C, hidden)
+    k = ("qkv", "scores", "exp2", "av", "attn").index(stage)
+    nbytes = 2 * (2 * R * N * C + 3 * C * C + 2 * C)
+    flops = 2 * R * N * 3 * C * C + (2 * R * N * N * C if k >= 1 else 0) \
+        + (2 * R * N * N * C if k >= 3 else 0)
+    if k >= 4:
+        nbytes += 2 * (C * C + C)
+        flops += 2 * R * N * C * C
+    return _bound(nbytes, flops, R * HEADS * N * N if k >= 2 else 0)
+
+
+def lab_own_ms(torch, rows, p, reps: int = 2):
+    """Device ms of one launch of each cut's own kernel (LAB_OWN_KERNELS), and
+    of B1's ln_qkv_kernel, from one torch.profiler trace (CUDA activity) of
+    ``reps`` calls of each of those cuts; None for a kernel the trace does not
+    hold (the profiler recorded no device time: not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tfswa_tpu_torch.ops.lab_block import lab_row_block_parts
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for name in LAB_OWN_KERNELS:
+            for _ in range(reps):
+                lab_row_block_parts(rows, p, HEADS, name)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)[0]
+    per_call = {}
+    for kernel, calls in [*((k, reps) for k in LAB_OWN_KERNELS.values()),
+                          ("ln_qkv_kernel", reps * len(LAB_OWN_KERNELS))]:
+        hits = [ms for key, ms, _ in kernels if kernel in key]
+        per_call[kernel] = sum(hits) / calls if hits else None
+    return per_call
+
+
+def run_lab_cli(argv):
+    """The lab's CLI in a subprocess from the checkout, as a user runs it:
+    its output lines and its launch counts (its last line)."""
+    res = subprocess.run([sys.executable, "-m", "tfswa_tpu_torch.tools.kernel_lab", *argv],
+                         cwd=HERE, capture_output=True, text=True, timeout=600)
+    lines = res.stdout.strip().splitlines()
+    for line in lines:
+        log(f"  | {line}")
+    if res.returncode != 0:
+        fail(f"kernel_lab {' '.join(argv)} exited {res.returncode}:\n{res.stderr[-3000:]}")
+    return lines, json.loads(lines[-1])["launches"]
+
+
+def log_lab_checks(N: int, C: int, checks, label: str) -> None:
+    for regime, c in checks.items():
+        log(f"lab check {label} N={N} C={C} {regime:6s}: " + ", ".join(
+            f"{n} {f['err']:.3g}/{f['tol']:.3g}"
+            + (f" nonfinite {f['nonfinite']} (mismatch {f['nonfinite_mismatch']})"
+               if f["nonfinite"] or f["nonfinite_mismatch"] else "")
+            + ("" if f["ok"] else " MISS") for n, f in c["forms"].items())
+            + f"; max score {c['max_score']:.1f}")
+
+
+def phase_lab(torch, quick: bool, b1_shapes):
+    """The kernel lab (L): the forms of LAB_FORMS checked at the 12 serving
+    shapes, and all of them, "full" too, at each (N, C) of the CLI's SHAPES
+    that the serving shapes lack (every check reported before any failure);
+    unless ``quick``, each form timed at the full row count, with its bound
+    and its plain version's time (timed on PLAIN_ROWS rows, scaled), and the
+    ablation also net of each cut's own kernel (lab_own_ms); then the
+    lab's main path, its CLI run once per mode of LAB_CLI, whose launches
+    are the kernel's count.  No PyTorch call computes a stage cut or a flag
+    form: the library column is B1's SDPA block, for the full form."""
+    from tfswa_tpu_torch.ops.lab_block import STAGES, lab_row_block, lab_row_block_reference
+    from tfswa_tpu_torch.tools.kernel_lab import SHAPES as CLI_SHAPES
+
+    gen = torch.Generator().manual_seed(8)
+    gen_full = torch.Generator().manual_seed(9)
+    rows_out, misses, max_err = [], [], 0.0
+    keys = ("ms", "net_ms", "plain_ms", "bound_ms", "bound_bytes_ms")
+    net_measured = True
+    totals = {name: dict.fromkeys(keys, 0.0) for name in LAB_FORMS}
+
+    def tally(N, C, checks):
+        nonlocal max_err
+        for regime, c in checks.items():
+            for n, f in c["forms"].items():
+                if not f["ok"]:
+                    misses.append(f"{n} N={N} C={C} {regime}")
+                if LAB_FORMS[n][0] in ("attn", "full"):      # the block's output
+                    max_err = max(max_err, f["max_abs_err"])
+
+    for (stage, attn, N, C, R), b1 in zip(SHAPES, b1_shapes):
+        checks, p = check_lab_shape(torch, N, C, gen)
+        entry = {"stage": stage, "attn": attn, "N": N, "C": C, "R_full": R, "checks": checks}
+        log_lab_checks(N, C, checks, f"stage {stage} {attn}")
+        tally(N, C, checks)
+        if not quick:
+            xf = torch.randn(R, N, C, generator=gen_full).cuda().to(torch.bfloat16)
+            rs = min(R, PLAIN_ROWS)
+            calls = BLOCKS_PER_STAGE[stage]
+            timed = {}
+            for name, (st, kw) in LAB_FORMS.items():
+                k_ms = cuda_ms(torch, lambda: lab_row_block(xf, p, HEADS, st, **kw), 3)
+                pl_ms = cuda_ms(torch, lambda: lab_row_block_reference(
+                    xf[:rs], p, HEADS, st, **kw), 1) * R / rs
+                b_ms, b_by = bound_lab_ms(name, R, N, C, 4 * C)
+                timed[name] = {"ms": k_ms, "plain_ms": pl_ms, "bound_ms": b_ms,
+                               "bound_by": b_by}
+                for k, v in (("ms", k_ms), ("plain_ms", pl_ms), ("bound_ms", b_ms)):
+                    totals[name][k] += calls * v
+                if b_by == "bytes":
+                    totals[name]["bound_bytes_ms"] += calls * b_ms
+            own = lab_own_ms(torch, xf, p)
+            net_measured = net_measured and None not in own.values()
+            for name, t in timed.items():
+                t["own_ms"] = own[LAB_OWN_KERNELS[name]] if name in LAB_OWN_KERNELS else 0.0
+                if net_measured:
+                    t["net_ms"] = t["ms"] - t["own_ms"]
+                    totals[name]["net_ms"] += calls * t["net_ms"]
+            entry.update(timed=timed, calls_per_forward=calls, plain_rows_timed=rs,
+                         b1_library_ms=b1["library_ms"], ln_qkv_device_ms=own["ln_qkv_kernel"])
+            for key in ("ms", "net_ms") if net_measured else ("ms",):
+                prev = None      # each stage against the one before, each flag against full
+                line = f"  {'full' if key == 'ms' else 'net'} R={R}:"
+                for name, (_, kw) in LAB_FORMS.items():
+                    t = timed[name][key]
+                    ref_t = timed["full"][key] if kw else prev
+                    line += f" {name} {t:.3f}" + ("" if ref_t is None else
+                                                  f" ({t - ref_t:+.3f})")
+                    prev = t
+                log(line)
+            log("    device ms of a launch: " + ", ".join(
+                f"{k} {'not measured' if v is None else f'{v:.3f}'}" for k, v in own.items()))
+            log("    bound " + " ".join(f"{n} {t['bound_ms']:.4f}" for n, t in timed.items())
+                + "; plain " + " ".join(f"{n} {t['plain_ms']:.1f}" for n, t in timed.items()))
+            del xf
+            torch.cuda.empty_cache()
+        rows_out.append(entry)
+    served = {(N, C) for _, _, N, C, _ in SHAPES}
+    for N, C in sorted({(N, C) for _, _, N, C, _ in CLI_SHAPES} - served):
+        checks, _ = check_lab_shape(torch, N, C, gen, with_full=True)
+        log_lab_checks(N, C, checks, "CLI shape")
+        tally(N, C, checks)
+        rows_out.append({"N": N, "C": C, "cli_shape": True, "checks": checks})
+    n_checks = sum(len(c["forms"]) for e in rows_out for c in e["checks"].values())
+    log(f"lab checks: {n_checks - len(misses)} of {n_checks} within limits")
+    if misses:
+        fail("the kernel lab disagrees with its plain version at " + "; ".join(misses))
+    if not quick:
+        for name, t in totals.items():
+            if not net_measured:
+                t["net_ms"] = None
+            net = "not measured" if t["net_ms"] is None else f"{t['net_ms']:.3f}"
+            log(f"per model forward (66 calls), lab {name}: kernel_ms {t['ms']:.3f} "
+                f"net_ms {net} plain_ms {t['plain_ms']:.3f} bound_ms {t['bound_ms']:.4f}")
+    # the lab's main path: every counter at 0 just before, read just after
+    reset_counts()
+    launches, cli = 0, []
+    for argv in LAB_CLI:
+        lines, counts = run_lab_cli(argv)
+        launches += counts["lab_row_block"]
+        cli.append({"argv": argv, "lines": lines, "launches": counts})
+    ablated = sum(1 for label, *_ in CLI_SHAPES if LAB_SHAPES in label)
+    variants = [v for v in LAB_VARIANTS.split(",") if v not in ("prod", "xla")]
+    want = ablated * len(STAGES) * (1 + LAB_ITERS) + len(variants)   # a warm-up call each
+    log(f"kernel_lab CLI: {launches} lab launches (expected {want}), in-process counts "
+        f"{read_counts()}")
+    if launches != want:
+        fail(f"kernel_lab CLI: {launches} lab launches, expected {want}")
+    return rows_out, max_err, totals, {"launches": launches, "runs": cli}
 
 
 def check_int8_shape(torch, N: int, C: int, gen):
@@ -1099,10 +1381,12 @@ def counters():
     """The launch counter of every kernel wrapper, by kernel."""
     from tfswa_tpu_torch.ops.fused_block import (fused_row_block, fused_row_block_bwd,
                                                  fused_row_block_int8, fused_row_block_train)
+    from tfswa_tpu_torch.ops.lab_block import lab_row_block
     from tfswa_tpu_torch.ops.row_attention import flash_row_attention
 
     return {"B1": fused_row_block, "B1-train": fused_row_block_train,
-            "B2": fused_row_block_bwd, "B3": fused_row_block_int8, "B4": flash_row_attention}
+            "B2": fused_row_block_bwd, "B3": fused_row_block_int8, "B4": flash_row_attention,
+            "L": lab_row_block}
 
 
 def reset_counts() -> None:
@@ -1296,7 +1580,17 @@ def main() -> None:
     log(f"build: {build_s:.3f} s")
     ptxas = [f"{name}: {line.strip()}" for name, report in _build.ptxas_report.items()
              for line in report.splitlines() if "Used" in line or "spill" in line]
-    for line in ptxas:
+    regs = [int(line.split("Used ")[1].split()[0]) for line in ptxas if "Used " in line]
+    spills, fn = [], ""
+    for name, report in _build.ptxas_report.items():
+        for line in report.splitlines():
+            if "Function properties for" in line:
+                fn = line.split("for ")[-1].strip()
+            elif "spill" in line and " 0 bytes spill stores" not in line:
+                spills.append(f"{name}: {fn}: {line.strip()}")
+    log(f"  ptxas: {len(regs)} kernels, registers {min(regs, default=0)}-"
+        f"{max(regs, default=0)}, {len(spills)} with spills (all lines in chip_smoke.json)")
+    for line in spills:
         log(f"  {line}")
 
     if args.plant:
@@ -1318,13 +1612,17 @@ def main() -> None:
         return r
 
     shapes, max_err, totals = timed("B1 kernels", phase_kernels, torch, args.quick)
+    lab_shapes, lab_err, lab_totals, lab_path = timed("kernel lab", phase_lab, torch,
+                                                      args.quick, shapes)
     i8_shapes, i8_err, i8_totals = timed("B3 kernels", phase_int8_kernels, torch, args.quick,
                                          shapes)
     at_shapes, at_err, at_totals = timed("B4 kernels", phase_attn_kernels, torch, args.quick)
-    results = {"gpu": gpu, "build_s": build_s, "ptxas": ptxas, "mufu_rate": MUFU_RATE,
+    results = {"gpu": gpu, "build_s": build_s, "ptxas": ptxas, "spills": spills,
+               "mufu_rate": MUFU_RATE,
                "phase_s": phase_s, "shapes": shapes, "totals": totals,
                "int8_shapes": i8_shapes, "int8_totals": i8_totals,
-               "attn_shapes": at_shapes, "attn_totals": at_totals}
+               "attn_shapes": at_shapes, "attn_totals": at_totals, "lab_shapes": lab_shapes,
+               "lab_totals": lab_totals, "lab_path": lab_path}
     serving = {impl: {"launches": None} for impl in ROUTES}
     if not args.quick:
         serving = timed("serving", phase_serving, torch, np, gpu,
@@ -1379,6 +1677,10 @@ def main() -> None:
         entry("flash_row_attention", "tfswa_tpu_torch/csrc/row_attention.cu",
               "tfswa_tpu/ops/pallas/row_attention.py:53",
               serving["pallas_attn"]["launches"], at_err, at_totals),
+        # the full form's numbers (B1's function through the lab's entry);
+        # the stage and flag forms' are in chip_smoke.json
+        entry("kernel_lab", fwd_src, "tools/kernel_lab.py:101", lab_path["launches"], lab_err,
+              dict(lab_totals["full"], library_ms=totals["library_ms"])),
     ]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -42,6 +42,8 @@ from . import _build
 SCORE_CLAMP = 110.0
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
+# ln 2 rounded to bf16: what XLA multiplies a bf16 argument of exp2 by
+LN2_BF16 = 0.69140625
 INV_SQRT_2PI = 0.3989422804014327
 KERNEL_HEAD_DIMS = (4, 8, 16, 32)
 # The plain versions materialise f32 score planes; they chunk over rows so
@@ -112,17 +114,31 @@ def quantize_rows(t: torch.Tensor):
     return torch.where(nz, torch.round(t / torch.where(nz, s, 1.0)), 0.0), s
 
 
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
 def _reference_forward(rows: torch.Tensor, p, num_heads: int, train: bool, qkv=None,
-                       int8_attn: bool = False):
+                       int8_attn: bool = False, stage: str = "full",
+                       score_bf16: bool = False, p_f32: bool = False, clamp: bool = True):
     """The plain forward in f32 arithmetic with the kernel's rounding to
     ``rows.dtype``: (out, acc) and, with ``train``, (mid, den) as well.
     ``qkv`` (R*N, 3C), if given, replaces the recomputed q|k|v.
     ``int8_attn`` (B3) takes the scores from q and k quantised per row
     (:func:`quantize_rows`): int8 products summed exactly (at most
     32 * 127^2 < 2^24, so an f32 sum of them is exact in any order), times
-    sq * sk.  v, p and the AV sums stay as in B1."""
+    sq * sk.  v, p and the AV sums stay as in B1.
+
+    The kernel lab's forms (``ops/lab_block.py``): ``stage`` other than
+    "full" cuts the block and returns ``(cut, None)``, the cut in
+    ``rows.dtype`` (see ``lab_block.STAGES``); ``score_bf16`` takes p from
+    the bf16-rounded clamped score as the JAX package computes exp2 of a
+    bf16 value: XLA lowers it as exp(bf16(x * LN2_BF16)), p then rounded to
+    ``rows.dtype`` (and to bf16 even with ``p_f32``); ``p_f32`` leaves p
+    unrounded; ``clamp=False`` drops the SCORE_CLAMP guard."""
     R, N, C = rows.shape
     H = num_heads
+    D = C // H
     dt = rows.dtype
     (ln1_s, ln1_b, w_qkv, w_o, b_o, ln2_s, ln2_b, w_1, b_1, w_2,
      b_2) = (w.float() for w in _block_weights(p, C, H, dt))
@@ -137,16 +153,41 @@ def _reference_forward(rows: torch.Tensor, p, num_heads: int, train: bool, qkv=N
         Rc = x.shape[0]
         n1 = rnd(layer_norm_f32(x, ln1_s, ln1_b))
         q, k, v = _qkv_heads(n1, w_qkv, rnd, H, qkv, r0 * N)  # (Rc, H, N, D) each
+        if stage == "qkv":
+            outs.append((q + k + v).transpose(1, 2).reshape(Rc, N, C).to(dt))
+            continue
         if int8_attn:
             (qi, sq), (ki, sk) = quantize_rows(q), quantize_rows(k)
             s = (qi @ ki.transpose(-1, -2)) * (sq * sk)
         else:
             s = q @ k.transpose(-1, -2)
-        prob = rnd(torch.exp2(s.clamp(max=SCORE_CLAMP)))
+        if stage == "scores":            # sum over heads of s[.., query n, key c], c < min(C, N)
+            w = min(C, N)
+            cut = torch.zeros(Rc, N, C, device=rows.device)
+            for h in range(H):
+                cut[..., :w] = cut[..., :w] + s[:, h, :, :w]
+            outs.append(cut.to(dt))
+            continue
+        sc = s.clamp(max=SCORE_CLAMP) if clamp else s
+        if score_bf16:
+            prob = rnd(torch.exp(_bf16(_bf16(sc) * LN2_BF16)))
+        else:
+            prob = torch.exp2(sc)
+            prob = prob if p_f32 else rnd(prob)
+        if stage == "exp2":              # [r, key j, h*D + d] = p_h[r, query d, key j]
+            outs.append(prob[:, :, :D, :].permute(0, 3, 1, 2).reshape(Rc, N, C).to(dt))
+            continue
         den = prob.sum(dim=-1, keepdim=True)
         acc = (prob @ v) / den
+        if stage == "av":                # the f32 attention output summed over queries
+            red = acc.sum(dim=2).reshape(Rc, 1, C)
+            outs.append(red.expand(Rc, N, C).to(dt))
+            continue
         acc = rnd(acc.transpose(1, 2).reshape(Rc, N, C))
         y = x + (acc @ w_o + b_o)
+        if stage == "attn":
+            outs.append(y.to(dt))
+            continue
         n2 = rnd(layer_norm_f32(y, ln2_s, ln2_b))
         h1 = rnd(F.gelu(n2 @ w_1 + b_1))
         outs.append((y + (h1 @ w_2 + b_2)).to(dt))
@@ -154,6 +195,8 @@ def _reference_forward(rows: torch.Tensor, p, num_heads: int, train: bool, qkv=N
         if train:
             mids.append(y.to(dt))
             dens.append(den[..., 0])
+    if stage != "full":
+        return torch.cat(outs), None
     if train:
         return torch.cat(outs), torch.cat(attns), torch.cat(mids), torch.cat(dens)
     return torch.cat(outs), torch.cat(attns)
