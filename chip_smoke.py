@@ -12,13 +12,18 @@ serving forward with int8 scores, route "pallas_int8"), B4
 L (lab_row_block, the kernel lab's stage and flag forms of B1).
 Phases, each of which fails the run (exit code 1) when it fails:
   1. the card's name and power limit; build of the CUDA sources (nvcc, sm_90a,
-     one nvcc per source, in parallel);
+     one nvcc per source, in parallel); the SASS of every instantiation of
+     the launches whose products run on the tensor cores (ln_qkv_kernel,
+     post_kernel, B4's proj_kernel and bilinear_attn_kernel) must hold HMMA
+     instructions (cuobjdump --dump-sass of the built libraries);
   2. the fused row-block kernel against its plain PyTorch version at each
      of the 12 (N, C) of the main path (bf16, a slice of 64 rows, three kinds
      of weights: flat, peaked and clamped softmax), on the block's output
      and on its attention output before the out-projection, with
      kernel / plain / library times and the bound at the full row counts of
-     a batch of 8 ten-second segments;
+     a batch of 8 ten-second segments, and the device time of each of its
+     product launches (ln_qkv_kernel, post_kernel) from a profiler trace
+     beside its own bound;
  2a. the kernel lab (L), also under --quick: its 5 stage cuts and 3 flag
      forms against their plain versions (fed the kernel's q|k|v) at the 12
      shapes under the 3 kinds of weights (288 checks), and all 9 forms at
@@ -34,7 +39,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
      the plain version gets the kernel's t and v; its output and its
      attention output before the out-projection within 4 bf16 ULP), B4's
      checks also at the 4 training (N, C) that no serving shape has, since
-     the "pallas_attn" train step runs B4 there;
+     the "pallas_attn" train step runs B4 there; B4's launches (its two
+     projections, its attention) timed from a profiler trace with bounds;
   4. the main path of each serving route ("pallas": B1, "pallas_int8": B3,
      "pallas_attn": B4): the flagship model (random weights from a seed,
      bf16, in/out 4, depths (2,2,6,2), dims (32,64,128,256)) in a
@@ -199,6 +205,124 @@ def bound_bwd_ms(R: int, N: int, C: int, hidden: int):
     return _bound(nbytes, flops, R * HEADS * N * N)
 
 
+def bound_launch_ms(kernel: str, R: int, N: int, C: int, hidden: int):
+    """Least time for one launch of a product kernel at (R, N, C), each of
+    its inputs read once and its outputs written once (bf16, f32 bias),
+    its products over the bf16 tensor-core peak, B4's exp over the MUFU
+    rate:
+      ln_qkv_kernel:        x in, q|k|v out, LN1 and W_qkv; 2 M C 3C FLOPs;
+      post_kernel:          x and acc in, out out, Wo, W1, W2 and vectors;
+                            2 M (C^2 + 2 C hidden) FLOPs;
+      proj_kernel:          B4's two projections together (x -> v, acc ->
+                            out): 2 M C in and out, Wv, Wo, b; 4 M C^2;
+      bilinear_attn_kernel: x and v in, acc out, A; t 2 M H C^2, the scores
+                            2 H N^2 C a row, AV 2 N^2 C a row; H N^2 exp."""
+    M = R * N
+    if kernel == "ln_qkv_kernel":
+        return _bound(2 * (4 * M * C + 3 * C * C + 2 * C), 6 * M * C * C, 0)
+    if kernel == "post_kernel":
+        return _bound(2 * (3 * M * C + C * C + 2 * C * hidden + 5 * C + hidden),
+                      2 * M * (C * C + 2 * C * hidden), 0)
+    if kernel == "proj_kernel":
+        return _bound(2 * 4 * M * C + 2 * 2 * C * C + 4 * C, 4 * M * C * C, 0)
+    if kernel == "bilinear_attn_kernel":
+        return _bound(2 * (3 * M * C + HEADS * C * C),
+                      2 * M * HEADS * C * C + 2 * R * N * N * C * (HEADS + 1),
+                      R * HEADS * N * N)
+    raise ValueError(kernel)
+
+
+# The launches this design runs on the tensor cores, by kernel, as
+# torch.profiler names them and as they appear in the SASS of each library.
+PRODUCT_LAUNCHES = {"B1": ("ln_qkv_kernel", "post_kernel"),
+                    "B4": ("proj_kernel", "bilinear_attn_kernel")}
+SASS_HMMA = {"fused_block": ("ln_qkv_kernel", "post_kernel"),
+             "fused_block_bwd": ("ln_qkv_kernel",),
+             "row_attention": ("proj_kernel", "bilinear_attn_kernel")}
+
+
+def sass_hmma_check():
+    """Every instantiation of the kernels of SASS_HMMA in the built
+    libraries holds HMMA (tensor-core) instructions, by cuobjdump
+    --dump-sass; fails the run if one does not, or if a kernel is not
+    found.  Returns {library: {function: HMMA count}} of those kernels."""
+    from pathlib import Path
+
+    from tfswa_tpu_torch.ops import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    found, bad = {}, []
+    for lib, names in SASS_HMMA.items():
+        res = subprocess.run([str(tool), "--dump-sass", str(_build.BUILD_DIR / f"lib{lib}.so")],
+                             capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            fail(f"cuobjdump --dump-sass lib{lib}.so failed: {res.stderr[-2000:]}")
+        counts, fn = {}, None
+        for line in res.stdout.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                fn = fn if any(n in fn for n in names) else None
+                if fn:
+                    counts[fn] = 0
+            elif fn and "HMMA" in line:
+                counts[fn] += 1
+        found[lib] = counts
+        for n in names:
+            fns = [f for f in counts if n in f]
+            if not fns:
+                bad.append(f"{lib}: no {n} in the SASS")
+            bad += [f"{lib}: {f}: no HMMA" for f in fns if counts[f] == 0]
+        log(f"  SASS {lib}: " + ", ".join(
+            f"{n} {len([f for f in counts if n in f])} instantiations, HMMA "
+            f"{min((c for f, c in counts.items() if n in f), default=0)}-"
+            f"{max((c for f, c in counts.items() if n in f), default=0)}" for n in names))
+    if bad:
+        fail("tensor-core check: " + "; ".join(bad))
+    return found
+
+
+def launch_ms(torch, run, names, reps: int = 2):
+    """Device ms a call of ``run`` spends in each kernel of ``names`` (all
+    its launches of that kernel), from one torch.profiler trace (CUDA
+    activity) of ``reps`` calls; None where the trace holds no such
+    kernel (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)[0]
+    res = {}
+    for n in names:
+        hits = [ms for key, ms, _ in kernels if n in key]
+        res[n] = sum(hits) / reps if hits else None
+    return res
+
+
+def log_launches(label: str, launches) -> None:
+    def ms(t):
+        return "not measured" if t["ms"] is None else f"{t['ms']:.3f} ms"
+
+    log(f"  {label} launches: " + ", ".join(
+        f"{n} {ms(t)} (bound {t['bound_ms']:.4f}, {t['bound_by']})"
+        for n, t in launches.items()))
+
+
+def time_launches(torch, run, kernel: str, R: int, N: int, C: int):
+    """The device time a call of ``run`` spends in each product launch of
+    ``kernel`` (PRODUCT_LAUNCHES), with its bound (bound_launch_ms)."""
+    names = PRODUCT_LAUNCHES[kernel]
+    got = launch_ms(torch, run, names)
+    res = {}
+    for n in names:
+        b_ms, b_by = bound_launch_ms(n, R, N, C, 4 * C)
+        res[n] = {"ms": got[n], "bound_ms": b_ms, "bound_by": b_by}
+    return res
+
+
 # The kernel is checked on three kinds of weights at every shape, so that
 # the attention's own share of the result is large enough to see a fault:
 #   flat:   qkv std 0.05, scores of std ~0.1-1 (log2 units), near-uniform
@@ -274,17 +398,24 @@ def library_block(torch, rows, p, H: int):
 
 def check_shape(torch, N: int, C: int, gen):
     """The kernel against its plain version on CHECK_ROWS rows, for each
-    kind of weights in REGIMES.  Two quantities are held:
+    kind of weights in REGIMES.  The plain version gets the kernel's own
+    q|k|v (as in check_train_shape and check_int8_shape): the qkv product
+    sums on the tensor cores, in another order than cuBLAS's f32 sums, and
+    a bf16 rounding of q or k that flips between the two moves a peaked
+    softmax by percents.  How many elements of each side's q|k|v round
+    otherwise than the exact (f64) product is recorded.  Three quantities
+    are held:
+      qkv:  the kernel's q|k|v within 2 bf16 ULP at max|ref| of the plain
+            recompute (plain_qkv);
       out:  the block's output, max abs err <= 0.0625 * max(max|ref| / 4, 1)
             (2 bf16 ULP at magnitude 4, scaled with the output);
       attn: the attention output before the out-projection, max abs err
-            <= 4 bf16 ULP at max|ref attn|.  Both sides round q, k, v and p
-            to bf16 at the same points; an f32 sum in another order flips a
-            rounding now and then, which moves a peaked softmax by up to
-            ~2 ULP.
+            <= 4 bf16 ULP at max|ref attn|.  Both sides round p to bf16 at
+            the same point; an f32 sum in another order flips a rounding
+            now and then, which moves a peaked softmax by up to ~2 ULP.
     Returns the per-regime results and the flat regime's parameters."""
     from tfswa_tpu_torch.models.attention import RowBlockParams
-    from tfswa_tpu_torch.ops.fused_block import (SCORE_CLAMP, fused_row_block_parts,
+    from tfswa_tpu_torch.ops.fused_block import (SCORE_CLAMP, _forward_kernel,
                                                  fused_row_block_reference_parts)
 
     res, flat = {}, None
@@ -293,9 +424,18 @@ def check_shape(torch, N: int, C: int, gen):
         if regime == "flat":
             flat = p
         x = torch.randn(CHECK_ROWS, N, C, generator=gen).cuda().to(torch.bfloat16)
-        got, got_attn = fused_row_block_parts(x, p, HEADS)
+        run = _forward_kernel(x, p, HEADS)
+        got, got_attn, qkv = run.out, run.attn, run.qkv
         torch.cuda.synchronize()
-        ref, ref_attn = fused_row_block_reference_parts(x, p, HEADS)
+        ref, ref_attn = fused_row_block_reference_parts(x, p, HEADS, qkv=qkv)
+        r_qkv = plain_qkv(torch, x, p, HEADS)
+        qkv_err = _max_abs(qkv, r_qkv)
+        qkv_tol = 2 * bf16_ulp(r_qkv.abs().max().item())
+        # recorded: how often each side's f32 sums round q|k|v otherwise
+        # than the exact product does
+        exact = plain_qkv(torch, x, p, HEADS, torch.float64)
+        off_exact = (int((qkv.float() != exact).sum()), int((r_qkv != exact).sum()),
+                     exact.numel())
         err = (got.float() - ref.float()).abs().max().item()
         scale = ref.float().abs().max().item()
         tol = 0.0625 * max(scale / 4.0, 1.0)
@@ -304,10 +444,11 @@ def check_shape(torch, N: int, C: int, gen):
         a_tol = 4 * bf16_ulp(a_scale)
         s_max = max_score(torch, x, p, HEADS)
         finite = bool(torch.isfinite(got.float()).all() and torch.isfinite(got_attn.float()).all())
-        ok = finite and err <= tol and a_err <= a_tol
+        ok = finite and err <= tol and a_err <= a_tol and qkv_err <= qkv_tol
         if regime == "clamp" and s_max <= SCORE_CLAMP:
             ok = False   # the slice would not test the clamp
-        res[regime] = {"max_abs_err": err, "tol": tol, "max_abs_ref": scale,
+        res[regime] = {"qkv_err": qkv_err, "qkv_tol": qkv_tol, "qkv_off_exact": off_exact,
+                       "max_abs_err": err, "tol": tol, "max_abs_ref": scale,
                        "attn_max_abs_err": a_err, "attn_tol": a_tol,
                        "attn_max_abs_ref": a_scale, "max_score": s_max, "ok": ok}
     return res, flat
@@ -319,13 +460,16 @@ def phase_kernels(torch, quick: bool):
     gen = torch.Generator().manual_seed(1)
     rows_out, misses, max_err = [], [], 0.0
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-              "bound_bytes_ms": 0.0}
+              "bound_bytes_ms": 0.0, "launches": {}}
     for stage, attn, N, C, R in SHAPES:
         checks, p = check_shape(torch, N, C, gen)
         entry = {"stage": stage, "attn": attn, "N": N, "C": C, "R_full": R,
                  "checks": checks}
         for regime, c in checks.items():
-            log(f"kernel check stage {stage} {attn} N={N} C={C} {regime:6s}: "
+            k_off, p_off, n_qkv = c["qkv_off_exact"]
+            log(f"kernel check stage {stage} {attn} N={N} C={C} {regime:6s}: qkv "
+                f"{c['qkv_err']:.4f}/{c['qkv_tol']:.4f} (rounded off the exact product: "
+                f"kernel {k_off}, plain {p_off} of {n_qkv}), "
                 f"out err {c['max_abs_err']:.5f} (tol {c['tol']:.4f}), attn err "
                 f"{c['attn_max_abs_err']:.5f} (tol {c['attn_tol']:.4f}), max score "
                 f"{c['max_score']:.1f} {'ok' if c['ok'] else 'MISS'}")
@@ -348,12 +492,31 @@ def phase_kernels(torch, quick: bool):
                 totals["bound_bytes_ms"] += calls * b_ms
             log(f"  full R={R}: kernel_ms {k_ms:.3f} plain_ms {pl_ms:.3f} "
                 f"library_ms {lib_ms:.3f} bound_ms {b_ms:.4f} ({b_by})")
+            entry["launches"] = time_launches(torch, lambda: fused_row_block(xf, p, HEADS),
+                                              "B1", R, N, C)
+            log_launches("B1", entry["launches"])
+            add_launches(totals, entry["launches"], calls)
             del xf
             torch.cuda.empty_cache()
         rows_out.append(entry)
     if misses:
         fail("fused_row_block disagrees with its plain version at " + "; ".join(misses))
+    if not quick:
+        log_launches("per model forward (66 calls), B1", totals["launches"])
     return rows_out, max_err, totals
+
+
+def add_launches(totals, launches, calls: int) -> None:
+    """Sum the per-call launch times and bounds of a shape into
+    totals["launches"], weighted by its calls a forward; a launch not
+    measured at one shape is not measured in the sum."""
+    for n, t in launches.items():
+        tot = totals["launches"].setdefault(n, {"ms": 0.0, "bound_ms": 0.0, "bound_bytes_ms": 0.0})
+        tot["ms"] = None if tot["ms"] is None or t["ms"] is None else tot["ms"] + calls * t["ms"]
+        tot["bound_ms"] += calls * t["bound_ms"]
+        if t["bound_by"] == "bytes":
+            tot["bound_bytes_ms"] += calls * t["bound_ms"]
+        tot["bound_by"] = "bytes" if 2 * tot["bound_bytes_ms"] >= tot["bound_ms"] else "operations"
 
 
 # The kernel lab's forms (ops/lab_block.py), by name: (stage, flags).  All
@@ -823,7 +986,7 @@ def phase_attn_kernels(torch, quick: bool):
     gen_full = torch.Generator().manual_seed(7)
     rows_out, misses, max_err = [], [], 0.0
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_bytes_ms")
-    totals = dict.fromkeys(keys, 0.0)
+    totals = dict(dict.fromkeys(keys, 0.0), launches={})
     serving_nc = {(N, C) for _, _, N, C, _ in SHAPES}
     train_only = [s for s in TRAIN_SHAPES if (s[2], s[3]) not in serving_nc]
     for path, shapes in (("serving", SHAPES), ("train", train_only)):
@@ -860,12 +1023,19 @@ def phase_attn_kernels(torch, quick: bool):
                     totals["bound_bytes_ms"] += calls * b_ms
                 log(f"  full R={R}: kernel_ms {k_ms:.3f} plain_ms {pl_ms:.3f} (timed on {rs} "
                     f"rows) library_ms {lib_ms:.3f} bound_ms {b_ms:.4f} ({b_by})")
+                with torch.no_grad():
+                    entry["launches"] = time_launches(
+                        torch, lambda: flash_row_attention(xf, *w, HEADS), "B4", R, N, C)
+                log_launches("B4", entry["launches"])
+                add_launches(totals, entry["launches"], calls)
                 del xf
                 torch.cuda.empty_cache()
             rows_out.append(entry)
     log(f"B4 checks: {3 * len(rows_out) - len(misses)} of {3 * len(rows_out)} within limits")
     if misses:
         fail("flash_row_attention disagrees with its plain version at " + "; ".join(misses))
+    if not quick:
+        log_launches("per model forward (66 calls), B4", totals["launches"])
     return rows_out, max_err, totals
 
 
@@ -927,14 +1097,17 @@ def library_fwd_bwd(torch, rows, p, H: int, g):
 AUTOGRAD_FACTOR = 1.1
 
 
-def plain_qkv(torch, x, p, H: int):
-    """The plain q|k|v (R*N, 3C) of B1: bf16(bf16(LN1(x)) @ Wqkv'), f32."""
+def plain_qkv(torch, x, p, H: int, dtype=None):
+    """The plain q|k|v (R*N, 3C) of B1: bf16(bf16(LN1(x)) @ Wqkv'), f32;
+    with ``dtype`` torch.float64, the product summed in f64 (so exactly,
+    but for f64's own rounding) before its bf16 rounding."""
     from tfswa_tpu_torch.ops.fused_block import _block_weights, layer_norm_f32
 
     C = x.shape[-1]
+    dt = dtype or torch.float32
     ln_s, ln_b, w_qkv = (w.float() for w in _block_weights(p, C, H, x.dtype)[:3])
-    n1 = layer_norm_f32(x.float(), ln_s, ln_b).to(x.dtype).float()
-    return (n1 @ w_qkv).to(x.dtype).float().reshape(-1, 3 * C)
+    n1 = layer_norm_f32(x.float(), ln_s, ln_b).to(x.dtype).to(dt)
+    return (n1 @ w_qkv.to(dt)).to(x.dtype).float().reshape(-1, 3 * C)
 
 
 def check_train_shape(torch, N: int, C: int, gen):
@@ -1180,11 +1353,13 @@ def row_block_grads(model):
 # the steps timed after the warm-up, and the device kernels to sum by group
 TRAIN_ROUTES = {
     "pallas": ({"B1-train": 66, "B2": 66}, TRAIN_STEPS,
-               {"B1-train": ("ln_qkv_kernel<false>", "attn_kernel", "post_kernel"),
-                "B2": ("ln_qkv_kernel<true>", "mlp_bwd_kernel", "attn_bwd_q_kernel",
+               {"B1-train": (*(f"ln_qkv_kernel<{C}, false>" for C in (32, 64, 128, 256)),
+                             "attn_kernel", "post_kernel"),
+                "B2": (*(f"ln_qkv_kernel<{C}, true>" for C in (32, 64, 128, 256)),
+                       "mlp_bwd_kernel", "attn_bwd_q_kernel",
                        "attn_bwd_kv_kernel", "ln1_bwd_kernel", "atb_kernel",
                        "reduce_kernel")}),
-    "pallas_attn": ({"B4": 66}, 2, {"B4": ("rows_matmul_kernel", "bilinear_attn_kernel")}),
+    "pallas_attn": ({"B4": 66}, 2, {"B4": ("proj_kernel", "bilinear_attn_kernel")}),
 }
 
 
@@ -1403,7 +1578,7 @@ def read_counts():
 ROUTES = {
     "pallas": ("B1", ("ln_qkv_kernel", "attn_kernel", "post_kernel")),
     "pallas_int8": ("B3", ("ln_qkv_kernel", "qk_scale_kernel", "attn_kernel", "post_kernel")),
-    "pallas_attn": ("B4", ("rows_matmul_kernel", "bilinear_attn_kernel")),
+    "pallas_attn": ("B4", ("proj_kernel", "bilinear_attn_kernel")),
 }
 
 
@@ -1592,6 +1767,7 @@ def main() -> None:
         f"{max(regs, default=0)}, {len(spills)} with spills (all lines in chip_smoke.json)")
     for line in spills:
         log(f"  {line}")
+    hmma = sass_hmma_check()
 
     if args.plant:
         plant_fault(torch, args.plant)
@@ -1618,7 +1794,7 @@ def main() -> None:
                                          shapes)
     at_shapes, at_err, at_totals = timed("B4 kernels", phase_attn_kernels, torch, args.quick)
     results = {"gpu": gpu, "build_s": build_s, "ptxas": ptxas, "spills": spills,
-               "mufu_rate": MUFU_RATE,
+               "sass_hmma": hmma, "mufu_rate": MUFU_RATE,
                "phase_s": phase_s, "shapes": shapes, "totals": totals,
                "int8_shapes": i8_shapes, "int8_totals": i8_totals,
                "attn_shapes": at_shapes, "attn_totals": at_totals, "lab_shapes": lab_shapes,

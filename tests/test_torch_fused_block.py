@@ -160,3 +160,86 @@ def test_wrapper_raises_on_wrong_dtype_for_cuda():
 
     with pytest.raises(TypeError, match="bfloat16"):
         fused_row_block(FakeCuda(), _torch_params(p), 8)
+
+
+# The row-block shapes (R, N, C) of the flagship config (dims 32-256, 8
+# heads, MLP ratio 4) on the serving path (F = 1024 after the crop, T = 862,
+# batches of 8) and the training path (F = 1025, T = 517, batches of 4):
+# at stage s, F and T halve s times; TSA has rows of N = F_s, FSA of N = T_s,
+# SWA windows of 64 tokens.
+FLAGSHIP_PATHS = {"serving": (1024, 862, 8), "training": (1025, 517, 4)}
+
+
+def flagship_row_shapes(path, stage):
+    F, T, B = FLAGSHIP_PATHS[path]
+    f, t, C = F >> stage, T >> stage, 32 << stage
+    return [(B * t, f, C), (B * f, t, C), (B * -(-f // 8) * -(-t // 8), 64, C)]
+
+
+class FakeCuda:
+    """A stand-in for a CUDA tensor (this machine has no card): what the
+    wrappers read before they launch."""
+
+    device = torch.device("cuda", 0)
+    requires_grad = False
+
+    def __init__(self, shape, dtype=torch.bfloat16):
+        self.shape, self.dtype = torch.Size(shape), dtype
+
+    def dim(self):
+        return len(self.shape)
+
+    def is_contiguous(self):
+        return True
+
+    def data_ptr(self):
+        return 0
+
+
+@pytest.mark.parametrize("path", sorted(FLAGSHIP_PATHS))
+@pytest.mark.parametrize("stage", range(4))
+def test_kernel_admits_the_flagship_row_shapes(path, stage):
+    """Every (N, C) of the flagship's serving and training paths is within
+    what the kernels take, shared memory included (which depends on C only)."""
+    for R, N, C in flagship_row_shapes(path, stage):
+        fused_block.check_shape("fused_row_block", R, N, C, 8, 4 * C)
+        assert fused_block.kernel_smem_bytes(C) <= fused_block.MAX_SMEM_BYTES
+
+
+def _wrappers(C, H):
+    """Each kernel wrapper of ops/fused_block.py and ops/lab_block.py, called
+    on a FakeCuda of width C with H heads and its parameters."""
+    from tfswa_tpu_torch.ops.lab_block import lab_row_block
+
+    rng = np.random.default_rng(0)
+    p = _torch_params(_np_params(rng, C))
+    rows = lambda dt: FakeCuda((2, 16, C), dt)  # noqa: E731
+    like = torch.zeros(2, 16, C)
+    return {
+        "B1": lambda dt: fused_row_block(rows(dt), p, H),
+        "B1-train": lambda dt: fused_block.fused_row_block_train(rows(dt), p, H),
+        "B2": lambda dt: fused_block.fused_row_block_bwd(rows(dt), like, like,
+                                                         torch.zeros(2, H, 16), like, p, H),
+        "B3": lambda dt: fused_block.fused_row_block_int8(rows(dt), p, H),
+        "L": lambda dt: lab_row_block(rows(dt), p, H, "attn"),
+    }
+
+
+@pytest.mark.parametrize("C,H", [(48, 8), (32, 16), (512, 8), (64, 32)])
+@pytest.mark.parametrize("kernel", ["B1", "B1-train", "B2", "B3", "L"])
+def test_wrappers_raise_on_a_width_or_head_count_the_kernels_do_not_take(kernel, C, H):
+    """C outside KERNEL_DIMS, or a head dim outside KERNEL_HEAD_DIMS, raises
+    before any launch, with no fallback to the plain version."""
+    with pytest.raises(ValueError, match="no kernel|head dim"):
+        _wrappers(C, H)[kernel](torch.bfloat16)
+
+
+@pytest.mark.parametrize("kernel", ["B1", "B1-train", "B2", "B3", "L"])
+def test_wrappers_raise_on_a_dtype_the_kernels_do_not_take(kernel):
+    with pytest.raises(TypeError, match="bfloat16"):
+        _wrappers(32, 8)[kernel](torch.float16)
+
+
+def test_kernel_refuses_an_mlp_width_off_its_chunks():
+    with pytest.raises(ValueError, match="MLP of 96 units"):
+        fused_block.check_shape("fused_row_block", 2, 16, 32, 8, 96)

@@ -30,7 +30,8 @@ import jax
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
-from test_torch_fused_block import _both, _torch_params
+from test_torch_fused_block import (FLAGSHIP_PATHS, FakeCuda, _both, _torch_params,
+                                    flagship_row_shapes)
 from tfswa_tpu.models import TFSWAUNet as JaxUNet
 from tfswa_tpu.models.attention import RowBlockParams as JaxParams
 from tfswa_tpu.models.attention import row_transformer_block as jax_row_block
@@ -38,7 +39,7 @@ from tfswa_tpu.ops.pallas.row_attention import _bilinear_weights as jax_bilinear
 from tfswa_tpu.ops.pallas.row_attention import flash_row_attention as jax_flash
 from tfswa_tpu_torch.models import TFSWAUNet
 from tfswa_tpu_torch.models.attention import row_transformer_block
-from tfswa_tpu_torch.ops import fused_block
+from tfswa_tpu_torch.ops import fused_block, row_attention
 from tfswa_tpu_torch.ops.row_attention import (bilinear_weights, flash_row_attention,
                                                flash_row_attention_reference,
                                                flash_row_attention_reference_parts)
@@ -250,3 +251,33 @@ def test_load_separator_passes_the_route_through(impl, tmp_path):
     b = SourceSeparator(pm, STFTProcessor(stft), segment_length=1.0, device="cpu").separate(audio)
     for name in a:
         np.testing.assert_array_equal(a[name], b[name])
+
+
+@pytest.mark.parametrize("path", sorted(FLAGSHIP_PATHS))
+@pytest.mark.parametrize("stage", range(4))
+def test_kernel_admits_the_flagship_row_shapes(path, stage):
+    for R, N, C in flagship_row_shapes(path, stage):
+        row_attention.check_shape(R, N, C, 8)
+
+
+@pytest.mark.parametrize("C", row_attention.KERNEL_DIMS)
+@pytest.mark.parametrize("H", row_attention.KERNEL_HEADS)
+def test_admission_does_not_depend_on_n(C, H):
+    """Keys stream through shared memory: one block's shared memory is a
+    function of C and H alone, and any N is admitted."""
+    assert row_attention.kernel_smem_bytes(C, H) <= row_attention.MAX_SMEM_BYTES
+    for N in (1, 63, 64, 1025, 4096, 1 << 16):
+        row_attention.check_shape(1, N, C, H)
+
+
+@pytest.mark.parametrize("C,H", [(48, 8), (32, 16), (64, 3), (512, 8)])
+def test_wrapper_raises_on_a_width_or_head_count_the_kernel_does_not_take(C, H):
+    w = [torch.zeros(C, 3 * C), torch.zeros(C, C), torch.zeros(C)]
+    with pytest.raises(ValueError, match="no kernel"):
+        flash_row_attention(FakeCuda((2, 16, C)), *w, H)
+
+
+def test_wrapper_raises_on_a_dtype_the_kernel_does_not_take():
+    w = [torch.zeros(32, 96), torch.zeros(32, 32), torch.zeros(32)]
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_row_attention(FakeCuda((2, 16, 32), torch.float32), *w, 8)

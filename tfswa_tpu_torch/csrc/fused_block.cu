@@ -28,7 +28,8 @@
 // version's int8 values bit for bit.
 //
 // Design.  Three launches (B3: four):
-//   1. ln_qkv_kernel:  LN1 prologue + the qkv product, 16 tokens a block;
+//   1. ln_qkv_kernel (block_common.cuh): LN1 prologue + the qkv product on
+//                      the tensor cores, 64 tokens a block;
 //  (B3) qk_scale_kernel: one block per row reduces max|q| and max|k| over
 //                      the row's N*C values into an (R, 2) f32 buffer;
 //   2. attn_kernel:    one block per (row, head, block of queries); keys and
@@ -44,25 +45,31 @@
 //                      they enter shared memory, and a score is D/4
 //                      __dp4a (one at D = 4);
 //   3. post_kernel:    out-projection + bias + residual + LN2 + fc1 + erf
-//                      GELU + fc2 + bias + residual, 16 tokens a block, all
-//                      intermediates in shared memory.
-// The products are tiled SIMT: a block holds 16 normalised tokens in shared
-// memory (k-major, so one float4 broadcast feeds 4 tokens) and each thread
-// walks one output column at a time, reading the weight column from global
-// memory (weights are at most 1 MB and stay in L1/L2).  Weights that do not
-// fit shared memory (C = 256: W_qkv 384 KB, fc1 512 KB in bf16) are never
-// staged there.
+//                      GELU + fc2 + bias + residual on the tensor cores, 64
+//                      tokens a block, the MLP chunked over the hidden
+//                      width so that its 4C-wide activation never leaves
+//                      the block (see the kernel).
+// The products of launches 1 and 3 run on mma.sync (bf16 operands, f32
+// sums: the tile of block_common.cuh).  Their A operands are the bf16
+// values the function rounds (n1, acc, n2, the GELU output), held in
+// shared memory; each weight streams through shared memory in k-slices of
+// 32 rows (cp.async, two buffers), since at C = 256 W_qkv (384 KB) and
+// fc1 (512 KB) do not fit.  The residual y stays f32 in shared memory and
+// fc2's sums stay in registers across the hidden chunks.
 //
 // What bounds it on the H100.  The path's attention at stage 0 has D = 4:
 // a score costs 4 FMAs (B3: one __dp4a), one exp2 (MUFU, 16 per clock per
 // SM) and 4 FMAs of AV, so that stage is bound by exp2 throughput and
-// CUDA-core FMAs, not by tensor-core FLOPs (mma needs k = 16).  About 5e11
-// exp2 per 8-segment batch, most of them in stage-0 TSA and FSA.  The split
-// into three launches costs extra device-memory bytes over one fused
-// kernel: q, k, v and the attention output make a round trip, about 16*C
-// bytes a token (~0.5 KB at C = 32; ~3.6 GB, ~1 ms at 3.35 TB/s, at
-// stage-0 TSA with 7 M tokens).  The products run on CUDA cores in f32;
-// moving them to mma/wgmma and fusing the three launches is later work.
+// CUDA-core instructions, not by tensor-core FLOPs (mma needs k = 16).
+// About 5e11 exp2 per 8-segment batch, most of them in stage-0 TSA and
+// FSA.  The products (launches 1 and 3, about 9 C^2 MACs on about 6 C
+// bytes a token, 3 C FLOP a byte) sit below the card's 295 FLOP a byte up
+// to C = 64, where bytes bound them, and above it at C = 128 and 256; on
+// mma.sync they are far from either line.  The split into three launches costs extra device-memory bytes over
+// one fused kernel: q, k, v and the attention output make a round trip,
+// about 16*C bytes a token (~0.5 KB at C = 32; ~3.6 GB, ~1 ms at
+// 3.35 TB/s, at stage-0 TSA with 7 M tokens).  The attention launch on
+// mma and the launches' fusion are later work.
 //
 // The training form and B3 are the same code instantiated with template
 // flags, so the serving form's instructions are unchanged.
@@ -299,68 +306,141 @@ __global__ void attn_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out
     }
 }
 
-// 3. Out-projection + residual + LN2 + MLP + residual.  WITH_MID also
-// writes mid = bf16(y), the residual stream after the attention half.
-// ATTN_ONLY (the lab's stage attn) writes bf16(y) to out and stops there;
-// it needs the shared memory of sa and sy only.
-template <bool WITH_MID, bool ATTN_ONLY = false>
-__global__ void __launch_bounds__(THREADS)
+// 3. Out-projection + residual + LN2 + MLP + residual, on the tensor
+// cores.  64 tokens a block, 8 warps: warp w owns tokens 16 (w % 4) ..
+// + 15 and, in every product, half w / 4 of the chunk's columns.
+//   y = x + (bf16(acc) Wo + bo) into the f32 tile sy (the attention output
+//       acc is the bf16 A tile sa);
+//   n2 = bf16(LN2(y)) (f32 statistics) over sa, the A tile of fc1;
+//   the MLP in chunks of HC hidden units: a chunk's fc1 columns, + b1,
+//       erf GELU, rounded to bf16 into sh (64 x HC), and at once its share
+//       of fc2 (sh W2[chunk rows, :]) summed into registers, so the 4C-wide
+//       hidden activation exists only a chunk at a time, in shared memory;
+//   out = bf16(y + (fc2 + b2)).
+// Each weight is streamed through shared memory in k-slices (block_gemm).
+// WITH_MID also writes mid = bf16(y), the residual stream after the
+// attention half.  ATTN_ONLY (the lab's stage attn) writes bf16(y) to out
+// and stops there; it needs no sh.
+constexpr int POST_TOK = 64;
+constexpr int POST_THREADS = 256;
+constexpr int HC = 128;            // hidden units a chunk of the MLP
+
+template <int C, bool ATTN_ONLY>
+constexpr size_t post_smem_bytes() {
+    return sizeof(float) * POST_TOK * (C + 8)                       // sy
+           + sizeof(bf16) * (POST_TOK * (C + 8)                     // sa
+                             + 2 * KS * ((C > HC ? C : HC) + 8)     // wbuf
+                             + (ATTN_ONLY ? 0 : POST_TOK * (HC + 8)));   // sh
+}
+
+template <int C, bool WITH_MID, bool ATTN_ONLY = false>
+__global__ void __launch_bounds__(POST_THREADS)
 post_kernel(const bf16* __restrict__ x, const bf16* __restrict__ attn,
             const bf16* __restrict__ wo, const bf16* __restrict__ bo,
             const bf16* __restrict__ ln_s, const bf16* __restrict__ ln_b,
             const bf16* __restrict__ w1, const bf16* __restrict__ b1,
             const bf16* __restrict__ w2, const bf16* __restrict__ b2,
-            bf16* __restrict__ out, bf16* __restrict__ mid, int M, int C, int hidden) {
-    extern __shared__ __align__(16) float smem[];
-    float* sa = smem;                  // C x TOK  attention output, k-major
-    float* sy = sa + C * TOK;          // TOK x C  residual stream y, token-major
-    float* sn = sy + TOK * C;          // C x TOK  bf16(LN2(y)), k-major
-    float* sh = sn + C * TOK;          // hidden x TOK  bf16(gelu(fc1)), k-major
-    const int tok0 = blockIdx.x * TOK;
-    const int ntok = min(TOK, M - tok0);
-    for (int i = threadIdx.x; i < TOK * C; i += THREADS) {
-        const int t = i / C, c = i % C;
-        const bool in = t < ntok;
-        sy[i] = in ? ld(x + (size_t)tok0 * C + i) : 0.f;
-        sa[c * TOK + t] = in ? ld(attn + (size_t)tok0 * C + i) : 0.f;
+            bf16* __restrict__ out, bf16* __restrict__ mid, int M, int hidden) {
+    constexpr int LDY = C + 8, LDA = C + 8, LDH = HC + 8;
+    constexpr int PNCH = C < 128 ? C : 128;   // out-projection columns a chunk
+    constexpr int PNT = PNCH / 16;            // n-tiles a warp: out-projection,
+    constexpr int FNT = HC / 16;              // fc1,
+    constexpr int ONT = C / 16;               // fc2 (its sums live across chunks)
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    float* sy = reinterpret_cast<float*>(smem_raw);        // 64 x LDY  y, f32
+    bf16* sa = reinterpret_cast<bf16*>(sy + POST_TOK * LDY);   // 64 x LDA  acc, then n2
+    bf16* wbuf = sa + POST_TOK * LDA;                       // block_gemm's buffers
+    bf16* sh = wbuf + 2 * KS * ((C > HC ? C : HC) + 8);     // 64 x LDH  GELU chunk
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, q = lane & 3;
+    const int mrow = (warp & 3) * 16;
+    const int half = warp >> 2;
+    const size_t tok0 = (size_t)blockIdx.x * POST_TOK;
+    const int ntok = min(POST_TOK, M - (int)tok0);
+    stage_rows<POST_THREADS>(sa, LDA, attn, C, tok0, POST_TOK, ntok, C);
+    cp_async_commit();
+    for (int i = threadIdx.x; i < POST_TOK * C; i += POST_THREADS) {
+        const int t = i / C;
+        sy[t * LDY + i % C] = t < ntok ? ld(x + tok0 * C + i) : 0.f;
     }
-    __syncthreads();
-    float acc[TOK];
-    for (int j = threadIdx.x; j < C; j += THREADS) {
-        column_dot(sa, wo, C, j, C, acc);
-        const float bj = ld(bo + j);
+    // the out-projection (block_gemm's first barrier orders the loads above)
+    for (int n0 = 0; n0 < C; n0 += PNCH) {
+        float acc[PNT][4];
+        zero(acc);
+        block_gemm<PNT, PNCH, POST_THREADS>(acc, sa + mrow * LDA, LDA, wo, C, n0, C, wbuf,
+                                            half * PNCH / 2);
 #pragma unroll
-        for (int t = 0; t < TOK; ++t) sy[t * C + j] += acc[t] + bj;
-    }
-    __syncthreads();
-    if constexpr (ATTN_ONLY) {
-        for (int i = threadIdx.x; i < ntok * C; i += THREADS)
-            out[(size_t)tok0 * C + i] = __float2bfloat16(sy[i]);
-        return;
-    }
-    if (WITH_MID) {
-        for (int i = threadIdx.x; i < ntok * C; i += THREADS)
-            mid[(size_t)tok0 * C + i] = __float2bfloat16(sy[i]);
-    }
-    layer_norm_tile(sy, sn, ln_s, ln_b, C);
-    __syncthreads();
-    for (int j = threadIdx.x; j < hidden; j += THREADS) {
-        column_dot(sn, w1, hidden, j, C, acc);
-        const float bj = ld(b1 + j);
+        for (int j = 0; j < PNT; ++j) {
+            const int col = n0 + half * PNCH / 2 + 8 * j + 2 * q;
+            const float b0 = ld(bo + col), b1v = ld(bo + col + 1);
 #pragma unroll
-        for (int t = 0; t < TOK; ++t) {
-            const float hv = acc[t] + bj;
-            sh[j * TOK + t] = round_bf16(0.5f * hv * (1.0f + erff(hv * 0.70710678118654752f)));
+            for (int hh = 0; hh < 2; ++hh) {
+                float* yp = sy + (mrow + g + 8 * hh) * LDY + col;
+                yp[0] += acc[j][2 * hh] + b0;
+                yp[1] += acc[j][2 * hh + 1] + b1v;
+            }
         }
     }
     __syncthreads();
-    for (int j = threadIdx.x; j < C; j += THREADS) {
-        column_dot(sh, w2, C, j, hidden, acc);
-        const float bj = ld(b2 + j);
+    if constexpr (ATTN_ONLY) {
+        for (int i = threadIdx.x; i < ntok * C; i += POST_THREADS)
+            out[tok0 * C + i] = __float2bfloat16(sy[(i / C) * LDY + i % C]);
+        return;
+    }
+    if (WITH_MID) {
+        for (int i = threadIdx.x; i < ntok * C; i += POST_THREADS)
+            mid[tok0 * C + i] = __float2bfloat16(sy[(i / C) * LDY + i % C]);
+    }
+    // LN2 over sa (the out-projection's last barrier freed it); padded
+    // tokens (y = 0) normalise to the bias and are never written
+    for (int t = warp * (POST_TOK / 8); t < (warp + 1) * (POST_TOK / 8); ++t) {
+        float v[C / 32];
+        bf16 n[C / 32];
 #pragma unroll
-        for (int t = 0; t < TOK; ++t)
-            if (t < ntok)
-                out[(size_t)(tok0 + t) * C + j] = __float2bfloat16(sy[t * C + j] + (acc[t] + bj));
+        for (int i = 0; i < C / 32; ++i) v[i] = sy[t * LDY + lane + 32 * i];
+        layer_norm_row<C>(v, ln_s, ln_b, n);
+#pragma unroll
+        for (int i = 0; i < C / 32; ++i) sa[t * LDA + lane + 32 * i] = n[i];
+    }
+    // the MLP, HC hidden units at a time
+    float o[ONT][4];
+    zero(o);
+    for (int h0 = 0; h0 < hidden; h0 += HC) {
+        float f[FNT][4];
+        zero(f);
+        block_gemm<FNT, HC, POST_THREADS>(f, sa + mrow * LDA, LDA, w1, hidden, h0, C, wbuf,
+                                          half * HC / 2);
+#pragma unroll
+        for (int j = 0; j < FNT; ++j) {
+            const int col = half * HC / 2 + 8 * j + 2 * q;
+            const float c0 = ld(b1 + h0 + col), c1 = ld(b1 + h0 + col + 1);
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+                const float h0v = f[j][2 * hh] + c0, h1v = f[j][2 * hh + 1] + c1;
+                *reinterpret_cast<__nv_bfloat162*>(sh + (mrow + g + 8 * hh) * LDH + col) =
+                    __floats2bfloat162_rn(
+                        0.5f * h0v * (1.0f + erff(h0v * 0.70710678118654752f)),
+                        0.5f * h1v * (1.0f + erff(h1v * 0.70710678118654752f)));
+            }
+        }
+        // fc2's share of the chunk (block_gemm's first barrier orders sh)
+        block_gemm<ONT, C, POST_THREADS>(o, sh + mrow * LDH, LDH, w2 + (size_t)h0 * C, C, 0,
+                                         HC, wbuf, half * C / 2);
+    }
+#pragma unroll
+    for (int j = 0; j < ONT; ++j) {
+        const int col = half * C / 2 + 8 * j + 2 * q;
+        const float c0 = ld(b2 + col), c1 = ld(b2 + col + 1);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+            const int t = mrow + g + 8 * hh;
+            if (t < ntok) {
+                const float* yp = sy + t * LDY + col;
+                *reinterpret_cast<__nv_bfloat162*>(out + (tok0 + t) * C + col) =
+                    __floats2bfloat162_rn(yp[0] + (o[j][2 * hh] + c0),
+                                          yp[1] + (o[j][2 * hh + 1] + c1));
+            }
+        }
     }
 }
 
@@ -394,37 +474,33 @@ cudaError_t launch_attn(const bf16* qkv, bf16* attn, float* den, const float* sc
     return cudaGetLastError();
 }
 
-// 1. LN1 + qkv into qkv_buf (M tokens, 3C).
-cudaError_t launch_ln_qkv(const void* x, const void* ln1_s, const void* ln1_b,
-                          const void* w_qkv, void* qkv_buf, int M, int C,
-                          cudaStream_t stream) {
-    const size_t ln_smem = 2 * (size_t)TOK * C * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        ln_qkv_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ln_smem);
-    if (err != cudaSuccess) return err;
-    ln_qkv_kernel<false><<<(unsigned)((M + TOK - 1) / TOK), THREADS, ln_smem, stream>>>(
-        (const bf16*)x, (const bf16*)ln1_s, (const bf16*)ln1_b, (const bf16*)w_qkv,
-        (bf16*)qkv_buf, nullptr, M, C);
-    return cudaGetLastError();
-}
-
-// 3. The out-projection and (unless ATTN_ONLY) the MLP half.
+// 3. The out-projection and (unless ATTN_ONLY) the MLP half, at the given
+// C (32, 64, 128 or 256).
 template <bool WITH_MID, bool ATTN_ONLY>
 cudaError_t launch_post(const void* x, const bf16* attn, const void* w_o, const void* b_o,
                         const void* ln2_s, const void* ln2_b, const void* w_1,
                         const void* b_1, const void* w_2, const void* b_2, void* out,
                         void* mid, int M, int C, int hidden, cudaStream_t stream) {
-    const size_t post_smem =
-        (size_t)(ATTN_ONLY ? 2 * C : 3 * C + hidden) * TOK * sizeof(float);
-    auto post = post_kernel<WITH_MID, ATTN_ONLY>;
-    cudaError_t err = cudaFuncSetAttribute(
-        post, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)post_smem);
-    if (err != cudaSuccess) return err;
-    post<<<(unsigned)((M + TOK - 1) / TOK), THREADS, post_smem, stream>>>(
-        (const bf16*)x, attn, (const bf16*)w_o, (const bf16*)b_o,
-        (const bf16*)ln2_s, (const bf16*)ln2_b, (const bf16*)w_1, (const bf16*)b_1,
-        (const bf16*)w_2, (const bf16*)b_2, (bf16*)out, (bf16*)mid, M, C, hidden);
-    return cudaGetLastError();
+    if (hidden % HC) return cudaErrorInvalidValue;
+    auto go = [&](auto kernel, size_t smem) {
+        cudaError_t err =
+            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return err;
+        kernel<<<(unsigned)((M + POST_TOK - 1) / POST_TOK), POST_THREADS, smem, stream>>>(
+            (const bf16*)x, attn, (const bf16*)w_o, (const bf16*)b_o, (const bf16*)ln2_s,
+            (const bf16*)ln2_b, (const bf16*)w_1, (const bf16*)b_1, (const bf16*)w_2,
+            (const bf16*)b_2, (bf16*)out, (bf16*)mid, M, hidden);
+        return cudaGetLastError();
+    };
+    switch (C) {
+        case 32: return go(post_kernel<32, WITH_MID, ATTN_ONLY>, post_smem_bytes<32, ATTN_ONLY>());
+        case 64: return go(post_kernel<64, WITH_MID, ATTN_ONLY>, post_smem_bytes<64, ATTN_ONLY>());
+        case 128:
+            return go(post_kernel<128, WITH_MID, ATTN_ONLY>, post_smem_bytes<128, ATTN_ONLY>());
+        case 256:
+            return go(post_kernel<256, WITH_MID, ATTN_ONLY>, post_smem_bytes<256, ATTN_ONLY>());
+        default: return cudaErrorInvalidValue;
+    }
 }
 
 // The whole block: launches 1-3, with B3's scale launch before the
@@ -436,7 +512,9 @@ cudaError_t forward(const void* x, const void* ln1_s, const void* ln1_b, const v
                     void* scales, void* qk_out, int R, int N, int C, int H, int hidden,
                     cudaStream_t stream) {
     const int M = R * N;
-    cudaError_t err = launch_ln_qkv(x, ln1_s, ln1_b, w_qkv, qkv_buf, M, C, stream);
+    cudaError_t err = launch_ln_qkv<false>((const bf16*)x, (const bf16*)ln1_s,
+                                           (const bf16*)ln1_b, (const bf16*)w_qkv,
+                                           (bf16*)qkv_buf, nullptr, M, C, stream);
     if (err != cudaSuccess) return err;
 
     const bf16* qkv = (const bf16*)qkv_buf;
@@ -600,7 +678,9 @@ cudaError_t lab_forward(const void* x, const void* ln1_s, const void* ln1_b,
                         void* attn_buf, void* out, void* scratch, int R, int N, int C,
                         int H, int hidden, int stage, int flags, cudaStream_t stream) {
     const int M = R * N;
-    cudaError_t err = launch_ln_qkv(x, ln1_s, ln1_b, w_qkv, qkv_buf, M, C, stream);
+    cudaError_t err = launch_ln_qkv<false>((const bf16*)x, (const bf16*)ln1_s,
+                                           (const bf16*)ln1_b, (const bf16*)w_qkv,
+                                           (bf16*)qkv_buf, nullptr, M, C, stream);
     if (err != cudaSuccess) return err;
     const bf16* qkv = (const bf16*)qkv_buf;
     if (stage == STAGE_QKV) {

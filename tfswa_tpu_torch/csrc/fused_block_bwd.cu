@@ -29,7 +29,8 @@
 // written as one partial per block (or per token split) and reduced in a
 // second pass in a fixed order: the result does not depend on scheduling,
 // and no float atomics are used.  Launches, all on the caller's stream:
-//   1. ln_qkv_kernel<true>: LN1 + qkv recompute, also writes bf16 normed;
+//   1. ln_qkv_kernel<C, true>: B1's LN1 + qkv launch (tensor cores, 64
+//                           tokens a block), also writes bf16 normed;
 //   2. mlp_bwd_kernel:      per 16-token tile, the MLP half's VJP, LN2
 //                           backward, d_acc and d_oe / d_den; writes the
 //                           bf16 operands of the weight gradients and
@@ -585,15 +586,10 @@ extern "C" int fused_block_backward(
           *g_b2 = g_w2 + hidden * C;
     const bf16 *bx = (const bf16*)x, *bg = (const bf16*)g, *bacc = (const bf16*)acc;
 
-    // 1. LN1 + qkv recompute
-    const unsigned tok_blocks = (unsigned)((M + TOK - 1) / TOK);
-    const size_t ln_smem = 2 * (size_t)TOK * C * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        ln_qkv_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ln_smem);
+    // 1. LN1 + qkv recompute (B1's launch, on the tensor cores)
+    cudaError_t err = launch_ln_qkv<true>(bx, (const bf16*)ln1_s, (const bf16*)ln1_b,
+                                          (const bf16*)w_qkv, s.qkv, s.normed, M, C, stream);
     if (err != cudaSuccess) return err;
-    ln_qkv_kernel<true><<<tok_blocks, THREADS, ln_smem, stream>>>(
-        bx, (const bf16*)ln1_s, (const bf16*)ln1_b, (const bf16*)w_qkv, s.qkv, s.normed, M, C);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
     // 2. MLP half + LN2 backward + d_oe / d_den
     const int G = tile_blocks(M);

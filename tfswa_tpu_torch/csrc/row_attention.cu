@@ -14,36 +14,57 @@
 // p is normalised before its bf16 rounding, as the TPU kernel's
 // jax.nn.softmax(...).astype(bf16) rounds it.
 //
-// Design.  Three launches:
-//   1. rows_matmul_kernel: v = bf16(x @ Wv), 16 tokens a block (the tiled
-//      SIMT product of block_common.cuh);
-//   2. bilinear_attn_kernel: one block per (row, block of queries), looping
-//      over the heads.  The row's keys x (N x C bf16, rows padded to C + 8
-//      so that each thread's 16-byte reads of its own query's row fall on
-//      distinct banks) stay in shared memory for the whole block, so every
-//      head reads them from there; the current head's v (N x D) is
-//      reloaded per head.  G = C / 32 adjacent threads own one query: each
-//      holds 32 of t's C values in registers (lanes 8g + 8Gj + e, so that
-//      the G threads read neighbouring 16-byte pieces of a key),
-//      computes them from x[n] and A_h (read through L1/L2) and rounds them
-//      to bf16; a score is the sum over its 32 lanes plus a shuffle across
-//      the G threads.  t never goes to device memory (H * C values a token:
-//      3.6 GB at the serving batch's stage-0 TSA).  Per head, pass 1 walks
-//      the keys for the max and the f32 sum of exp(s - max) (rescaled when
-//      the max moves); pass 2 recomputes each score, forms p = bf16(exp(s -
-//      max) / sum) and adds p * v into D / G accumulator lanes a thread.
+// Design.  Every product runs on the tensor cores (mma.sync m16n8k16,
+// bf16 operands, f32 sums: the tile of block_common.cuh).  Three launches:
+//   1. proj_kernel: v = bf16(x @ Wv), 64 tokens a block (4 warps of 16), Wv
+//      streamed through shared memory in k-slices (block_gemm);
+//   2. bilinear_attn_kernel: one block per (row, 128 queries), 8 warps (64
+//      queries, 4 warps, where N <= 64), warp w owning queries
+//      16w..16w+15; the heads in a loop inside the block.  Every key tile
+//      streamed serves all the block's queries, so the larger block halves
+//      the keys' traffic from L2.  Per head:
+//      - t = bf16(x_q A_h) is an mma over K = C, A_h streamed through
+//        shared memory 64 columns at a time; each chunk's f32 accumulators
+//        are rounded to bf16 and packed in registers as the A fragments of
+//        the score product (two adjacent n-tiles make one k16 fragment,
+//        pack_a).  t never goes to device memory (H C values a token:
+//        3.6 GB at the serving batch's stage-0 TSA) nor to shared memory:
+//        C / 4 registers a thread;
+//      - the row's keys x stream through shared memory in tiles of 128
+//        keys (64 at C >= 128 and in 4-warp blocks; cp.async, two
+//        buffers), so shared memory does not grow with N;
+//        the scores s = t . x_key are an mma with K = C whose B operand is
+//        the key rows themselves (ldmatrix without .trans);
+//      - pass 1: per query the running max (reduced across the 4 threads
+//        that share an accumulator row, every tile) and each thread's f32
+//        sum of exp(s - max), rescaled when the max moves, summed across
+//        the 4 threads at the end;
+//      - pass 2 recomputes the scores and forms p = bf16(exp(s - max) /
+//        sum) in registers as the A fragments of P v_h (keys as K), v_h
+//        read by ldmatrix.trans from a key tile that holds only the head's
+//        columns of v.  At D = 4 the tile holds the 8 columns of the
+//        n-tile that holds the head (its even neighbour's 4 beside it:
+//        cp.async and ldmatrix need 16-byte aligned rows); all 8 are
+//        multiplied and the head's 4 kept.
 //      The rounding point of p forces the two passes: an online softmax
-//      that rescales the accumulator rounds p elsewhere.  No (N, N) plane
-//      exists anywhere;
-//   3. rows_matmul_kernel: out = bf16(acc @ Wo + b), acc as written (bf16).
+//      that rescales the accumulator rounds p elsewhere.  A ragged last key
+//      tile has its keys past N zero-filled and its scores set to -inf,
+//      so they add exactly 0 to the sums (zero keys alone would add
+//      exp(0 - max)).  No (N, N) plane exists anywhere;
+//   3. proj_kernel: out = bf16(acc @ Wo + b), acc as written (bf16).
+// exp is ex2.approx.ftz (MUFU.EX2, results below 2^-126 flushed to 0) of a
+// pre-scaled argument: exp(s - max) = exp2(s log2 e - max log2 e), one FMA
+// and one MUFU op, and pass 2 folds the division by the sum into the
+// exponent, p = exp2(s log2 e - (max log2 e + log2 sum)), so a p costs one
+// FMA and one exp2 (the f32 result differs from the division in its last
+// bits only; p is then rounded to bf16).
 //
-// What bounds it on the H100.  The function's scores are H * N^2 * C MACs
-// a row (t is rounded to bf16, so no rank-D shortcut computes the same
-// function), t adds H * N * C^2, and exp runs H * N^2 times.  This kernel
-// runs the scores twice (the two passes) and every product on CUDA cores
-// in f32, so it is bound by FMA throughput, far above the tensor-core
-// bound of its bf16 operands (about 4.2e12 MACs a serving forward).
-// Moving the scores to mma/wgmma is later work.
+// What bounds it on the H100.  The function's scores are H N^2 C MACs a
+// row (t is rounded to bf16, so no rank-D shortcut computes the same
+// function), t adds H N C^2, and exp runs H N^2 times.  At the serving
+// shapes exp decides the bound (16 a clock an SM on the MUFU), and two
+// passes run it twice: that, not the tensor cores (under 50 ms a serving
+// forward even with the scores counted twice), is this design's floor.
 //
 // Interface: plain C, loaded with ctypes.  Each launch goes on the caller's
 // stream; the function returns the first non-zero cudaGetLastError().
@@ -52,226 +73,350 @@
 
 namespace {
 
-constexpr int ATT_THREADS = 128;
-constexpr size_t MAX_SMEM = 232448;   // dynamic shared memory a block may use
+constexpr int PROJ_TOK = 64;       // tokens a block of proj_kernel
+constexpr int PROJ_THREADS = 128;
+constexpr int TCH = 64;            // columns of t a chunk
+constexpr float LOG2E_F = 1.4426950408889634f;
 
-// out = bf16(a @ w + bias) for TOK tokens a block: a (M, K) bf16, w (K,
-// Nout) bf16, bias (Nout) f32 or null.
-__global__ void __launch_bounds__(THREADS)
-rows_matmul_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
-                   const float* __restrict__ bias, bf16* __restrict__ out,
-                   int M, int K, int Nout) {
-    extern __shared__ __align__(16) float smem[];
-    float* sa = smem;                  // K x TOK, k-major
-    const int tok0 = blockIdx.x * TOK;
-    const int ntok = min(TOK, M - tok0);
-    for (int i = threadIdx.x; i < TOK * K; i += THREADS) {
-        const int t = i / K, k = i % K;
-        sa[k * TOK + t] = t < ntok ? ld(a + (size_t)tok0 * K + i) : 0.f;
-    }
-    __syncthreads();
-    float acc[TOK];
-    for (int j = threadIdx.x; j < Nout; j += THREADS) {
-        column_dot(sa, w, Nout, j, K, acc);
-        const float bj = bias != nullptr ? bias[j] : 0.f;
-#pragma unroll
-        for (int t = 0; t < TOK; ++t)
-            if (t < ntok) out[(size_t)(tok0 + t) * Nout + j] = __float2bfloat16(acc[t] + bj);
-    }
+template <int C>
+__host__ __device__ constexpr int proj_nch() { return C < 128 ? C : 128; }
+
+template <int C>
+constexpr size_t proj_smem_bytes() {
+    return sizeof(bf16) * ((size_t)PROJ_TOK * (C + 8) + 2 * KS * (proj_nch<C>() + 8));
 }
 
-// Eight bf16 (16 bytes) as f32.
-__device__ __forceinline__ void unpack8(const uint4 u, float (&f)[8]) {
-    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const float2 v = __bfloat1622float2(p[i]);
-        f[2 * i] = v.x;
-        f[2 * i + 1] = v.y;
-    }
+template <int C>
+__host__ __device__ constexpr int t_chunk() { return C < TCH ? C : TCH; }
+
+// keys a shared-memory tile: 128 in the 8-warp blocks (rows of more than
+// 64 keys) at C <= 64, for fewer barriers a key and more independent work
+// a warp between them; else 64 (registers, and no half-empty tile at N = 64)
+template <int C, int NW>
+__host__ __device__ constexpr int key_tile() { return NW == 8 && C <= 64 ? 128 : 64; }
+
+// columns of v a key tile holds: the head's, at least the 8 of one n-tile
+template <int D>
+__host__ __device__ constexpr int v_width() { return D < 8 ? 8 : D; }
+
+// the NW x 16 queries' x, A_h's slices, and two buffers each of key rows x
+// and of the head's columns of their v
+template <int C, int H, int NW>
+constexpr size_t attn_smem_bytes() {
+    return sizeof(bf16) * ((size_t)16 * NW * (C + 8) + 2 * KS * (t_chunk<C>() + 8)
+                           + 2 * (size_t)key_tile<C, NW>() * (C + 8 + v_width<C / H>() + 8));
 }
 
-// The score t . x[m] of the thread's query: its 32 lanes, then the sum over
-// the G threads of the query (a butterfly, so all G hold the same value).
-template <int G>
-__device__ __forceinline__ float score(const float (&t)[32], const bf16* xm, int g) {
-    float s0 = 0.f, s1 = 0.f;
+// 2^x on the MUFU (ex2.approx, results below 2^-126 flushed to 0), x <= 0
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// 1, 3. out = bf16(a @ w + bias) for 64 tokens a block: a (M, C) bf16, w
+// (C, C) bf16, bias (C) f32 or null.  Warp w owns tokens 16w..16w+15.
+template <int C>
+__global__ void __launch_bounds__(PROJ_THREADS)
+proj_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
+            const float* __restrict__ bias, bf16* __restrict__ out, int M) {
+    constexpr int LDA = C + 8, NCH = proj_nch<C>(), NT = NCH / 8;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* sa = reinterpret_cast<bf16*>(smem_raw);       // PROJ_TOK x LDA
+    bf16* wbuf = sa + PROJ_TOK * LDA;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, q = lane & 3;
+    const size_t tok0 = (size_t)blockIdx.x * PROJ_TOK;
+    const int ntok = min(PROJ_TOK, M - (int)tok0);
+    stage_rows<PROJ_THREADS>(sa, LDA, a, C, tok0, PROJ_TOK, ntok, C);
+    cp_async_commit();
+    for (int n0 = 0; n0 < C; n0 += NCH) {
+        float acc[NT][4];
+        zero(acc);
+        block_gemm<NT, NCH, PROJ_THREADS>(acc, sa + warp * 16 * LDA, LDA, w, C, n0, C, wbuf, 0);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        float f[8];
-        unpack8(*reinterpret_cast<const uint4*>(xm + 8 * g + 8 * G * j), f);
+        for (int j = 0; j < NT; ++j) {
+            const int col = n0 + 8 * j + 2 * q;
+            const float b0 = bias != nullptr ? bias[col] : 0.f;
+            const float b1 = bias != nullptr ? bias[col + 1] : 0.f;
 #pragma unroll
-        for (int e = 0; e < 8; e += 2) {
-            s0 = fmaf(t[8 * j + e], f[e], s0);
-            s1 = fmaf(t[8 * j + e + 1], f[e + 1], s1);
+            for (int hh = 0; hh < 2; ++hh) {
+                const int t = warp * 16 + g + 8 * hh;
+                if (t < ntok)
+                    *reinterpret_cast<__nv_bfloat162*>(out + (tok0 + t) * C + col) =
+                        __floats2bfloat162_rn(acc[j][2 * hh] + b0, acc[j][2 * hh + 1] + b1);
+            }
         }
     }
-    float s = s0 + s1;
-#pragma unroll
-    for (int o = 1; o < G; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    return s;
 }
 
-// 2. One block per (row, block of queries); see the design note above.
-// t_out, if non-null, (R*N, H*C) bf16, receives t of every head.
-template <int C, int H>
-__global__ void __launch_bounds__(ATT_THREADS)
+// The scores of the warp's 16 queries against a tile of 8 SNT keys (rows of
+// a key tile of row stride ld): t's A fragments tf against the key rows as
+// B (n-major), K = C.
+template <int KSTEPS, int SNT>
+__device__ __forceinline__ void tile_scores(float (&s)[SNT][4], const uint32_t (&tf)[KSTEPS][4],
+                                            const bf16* keys, int ld) {
+    zero(s);
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk)
+#pragma unroll
+        for (int j = 0; j < SNT; j += 2) {
+            uint32_t b[4];
+            ldsm_b_nmajor(b, keys, ld, 16 * kk, 8 * j);
+            mma_bf16(s[j], tf[kk], b[0], b[1]);
+            mma_bf16(s[j + 1], tf[kk], b[2], b[3]);
+        }
+}
+
+// Scores of keys at or past N (the ragged last tile, first key k0) to -inf.
+template <int SNT>
+__device__ __forceinline__ void mask_keys(float (&s)[SNT][4], int k0, int N) {
+    if (k0 + 8 * SNT <= N) return;
+    const int q = threadIdx.x & 3;
+#pragma unroll
+    for (int j = 0; j < SNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            if (k0 + 8 * j + 2 * q + (e & 1) >= N) s[j][e] = -INFINITY;
+}
+
+// 2. One block per (row, 16 NW queries), NW warps; see the design note
+// above.  t_out, if non-null, (R*N, H*C) bf16, receives t of every head.
+template <int C, int H, int NW>
+__global__ void __launch_bounds__(32 * NW)
 bilinear_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
                      const bf16* __restrict__ v, bf16* __restrict__ acc_out,
                      bf16* __restrict__ t_out, int N, int nqb) {
-    constexpr int G = C / 32;          // threads a query
-    constexpr int D = C / H;           // lanes a head
-    constexpr int DL = D / G;          // accumulator lanes a thread
-    constexpr int LDX = C + 8;         // padded row of x in shared memory
-    static_assert(G * 32 == C && DL * G == D && DL >= 1, "unsupported C, H");
+    constexpr int D = C / H;                 // lanes a head
+    constexpr int LDX = C + 8;               // padded rows: ldmatrix's 8 rows on distinct banks
+    constexpr int TC = t_chunk<C>();
+    constexpr int TNT = TC / 8;              // n-tiles of a chunk of t
+    constexpr int KSTEPS = C / 16;           // k16 steps of the scores
+    constexpr int AK = key_tile<C, NW>();    // keys a tile
+    constexpr int SNT = AK / 8;              // n-tiles of a key tile's scores
+    constexpr int VW = v_width<D>();         // columns of a v tile,
+    constexpr int LDV = VW + 8;              // padded
+    constexpr int VNT = VW / 8;              // n-tiles of P v_h
+    constexpr int AQ = 16 * NW;              // queries a block
+    constexpr int NTHR = 32 * NW;
+    static_assert(C % 32 == 0 && C % H == 0 && (D == 4 || D % 8 == 0) && (VNT == 1 || VNT % 2 == 0),
+                  "unsupported C, H");
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    bf16* xs = reinterpret_cast<bf16*>(smem_raw);      // N x LDX
-    bf16* vs = xs + (size_t)N * LDX;                    // N x D, this head's v
-    const int qb = blockIdx.x % nqb;
+    bf16* xq = reinterpret_cast<bf16*>(smem_raw);      // AQ x LDX: the block's queries
+    bf16* abuf = xq + AQ * LDX;                         // A_h's k-slices (block_gemm)
+    bf16* kx = abuf + 2 * KS * (TC + 8);                // 2 x AK x LDX: key rows x
+    bf16* kv = kx + 2 * AK * LDX;                       // 2 x AK x LDV: the head's v
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, q = lane & 3;
+    const int q0 = (blockIdx.x % nqb) * AQ;
     const size_t row0 = (size_t)(blockIdx.x / nqb) * N;
-    const int g = threadIdx.x % G;
-    const int n = qb * (blockDim.x / G) + threadIdx.x / G;
-    const bool valid = n < N;
-    // threads past the last query shadow it (they take part in the
-    // shuffles and barriers) and write nothing
-    const bf16* xn = xs + (size_t)(valid ? n : N - 1) * LDX;
+    const bf16* xrow = x + row0 * C;
+    const bf16* vrow = v + row0 * C;
+    const int nkt = (N + AK - 1) / AK;
+    stage_rows<NTHR>(xq, LDX, xrow, C, q0, AQ, N - q0, C);
+    cp_async_commit();
 
-    for (int i = threadIdx.x; i < N * (C / 8); i += blockDim.x) {
-        const int m = i / (C / 8), c8 = i % (C / 8);
-        *reinterpret_cast<uint4*>(xs + (size_t)m * LDX + 8 * c8) =
-            *reinterpret_cast<const uint4*>(x + (row0 + m) * C + 8 * c8);
-    }
+    // the pipeline over key tiles: tile kt + 1 in flight while tile kt is
+    // used; with v_col >= 0 also the VW columns of v from v_col on
+    auto key_pass = [&](int v_col, auto&& use) {
+        auto load = [&](int kt) {
+            const int k0 = kt * AK;
+            stage_rows<NTHR>(kx + (kt & 1) * AK * LDX, LDX, xrow, C, k0, AK, N - k0, C);
+            if (v_col >= 0)
+                stage_rows<NTHR>(kv + (kt & 1) * AK * LDV, LDV, vrow + v_col, C, k0, AK, N - k0,
+                                 VW);
+        };
+        load(0);
+        cp_async_commit();
+        for (int kt = 0; kt < nkt; ++kt) {
+            if (kt + 1 < nkt) load(kt + 1);
+            cp_async_commit();
+            cp_async_wait<1>();
+            __syncthreads();
+            use(kt, kx + (kt & 1) * AK * LDX, kv + (kt & 1) * AK * LDV);
+            __syncthreads();      // the buffers are free before they are refilled
+        }
+    };
 
     for (int h = 0; h < H; ++h) {
-        __syncthreads();               // x loaded; the previous head's v read
-        for (int i = threadIdx.x; i < N * D; i += blockDim.x)
-            vs[i] = v[(row0 + i / D) * C + h * D + i % D];
-        __syncthreads();
+        // t = bf16(x_q A_h) as A fragments: tf[kk] holds t's columns 16kk..16kk+15
+        uint32_t tf[KSTEPS][4];
+#pragma unroll
+        for (int c0 = 0; c0 < C; c0 += TC) {
+            float acc[TNT][4];
+            zero(acc);
+            block_gemm<TNT, TC, NTHR>(acc, xq + warp * 16 * LDX, LDX,
+                                             a + (size_t)h * C * C, C, c0, C, abuf, 0);
+#pragma unroll
+            for (int j = 0; j < TNT; j += 2) pack_a(tf[(c0 + 8 * j) / 16], acc[j], acc[j + 1]);
+            if (t_out != nullptr) {
+#pragma unroll
+                for (int j = 0; j < TNT; ++j)
+#pragma unroll
+                    for (int hh = 0; hh < 2; ++hh) {
+                        const int n = q0 + warp * 16 + g + 8 * hh;
+                        if (n < N)
+                            *reinterpret_cast<__nv_bfloat162*>(
+                                t_out + ((row0 + n) * H + h) * C + c0 + 8 * j + 2 * q) =
+                                __floats2bfloat162_rn(acc[j][2 * hh], acc[j][2 * hh + 1]);
+                    }
+            }
+        }
 
-        // t = bf16(x[n] @ A_h) on the thread's 32 lanes
-        float t[32];
+        // pass 1: per query (rows g, g + 8 of the warp's tile) the max and
+        // the f32 sum of exp(s - max)
+        float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+        key_pass(-1, [&](int kt, const bf16* keys, const bf16*) {
+            float s[SNT][4];
+            tile_scores(s, tf, keys, LDX);
+            mask_keys(s, kt * AK, N);
 #pragma unroll
-        for (int i = 0; i < 32; ++i) t[i] = 0.f;
-        const bf16* ah = a + (size_t)h * C * C + 8 * g;
-        for (int k0 = 0; k0 < C; k0 += 8) {
-            float xk[8];
-            unpack8(*reinterpret_cast<const uint4*>(xn + k0), xk);
+            for (int hh = 0; hh < 2; ++hh) {
+                float mt = m[hh];
 #pragma unroll
-            for (int kk = 0; kk < 8; ++kk) {
-                const bf16* arow = ah + (size_t)(k0 + kk) * C;
+                for (int j = 0; j < SNT; ++j) mt = fmaxf(mt, fmaxf(s[j][2 * hh], s[j][2 * hh + 1]));
+                mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+                mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+                const float ms = mt * LOG2E_F;
+                float sum0 = 0.f, sum1 = 0.f;     // two chains of adds
 #pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    float f[8];
-                    unpack8(__ldg(reinterpret_cast<const uint4*>(arow + 8 * G * j)), f);
+                for (int j = 0; j < SNT; ++j) {
+                    sum0 += ex2(fmaf(s[j][2 * hh], LOG2E_F, -ms));
+                    sum1 += ex2(fmaf(s[j][2 * hh + 1], LOG2E_F, -ms));
+                }
+                l[hh] = l[hh] * ex2((m[hh] - mt) * LOG2E_F) + (sum0 + sum1);
+                m[hh] = mt;
+            }
+        });
+        float bias2[2];           // max log2 e + log2 sum, per row
 #pragma unroll
-                    for (int e = 0; e < 8; ++e) t[8 * j + e] = fmaf(xk[kk], f[e], t[8 * j + e]);
+        for (int hh = 0; hh < 2; ++hh) {
+            l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+            l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+            bias2[hh] = fmaf(m[hh], LOG2E_F, log2f(l[hh]));
+        }
+
+        // pass 2: p = bf16(exp(s - max) / sum), o += p v_h
+        const int vcol = (h * D) & ~7;      // the n-tile(s) holding the head's columns
+        float o[VNT][4];
+        zero(o);
+        key_pass(vcol, [&](int kt, const bf16* keys, const bf16* vt) {
+            float s[SNT][4];
+            tile_scores(s, tf, keys, LDX);
+            mask_keys(s, kt * AK, N);
+#pragma unroll
+            for (int j = 0; j < SNT; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] = ex2(fmaf(s[j][e], LOG2E_F, -bias2[e >> 1]));
+#pragma unroll
+            for (int kk = 0; kk < AK / 16; ++kk) {
+                uint32_t pf[4];
+                pack_a(pf, s[2 * kk], s[2 * kk + 1]);
+                if constexpr (VNT == 1) {
+                    uint32_t bv[2];
+                    ldsm_x2_t(bv, vt + (16 * kk + (lane & 15)) * LDV);
+                    mma_bf16(o[0], pf, bv[0], bv[1]);
+                } else {
+#pragma unroll
+                    for (int j = 0; j < VNT; j += 2) {
+                        uint32_t bv[4];
+                        ldsm_b_kmajor(bv, vt, LDV, 16 * kk, 8 * j);
+                        mma_bf16(o[j], pf, bv[0], bv[1]);
+                        mma_bf16(o[j + 1], pf, bv[2], bv[3]);
+                    }
                 }
             }
-        }
+        });
 #pragma unroll
-        for (int i = 0; i < 32; ++i) t[i] = round_bf16(t[i]);
-        if (t_out != nullptr && valid) {
-            bf16* tp = t_out + ((row0 + n) * H + h) * C + 8 * g;
+        for (int j = 0; j < VNT; ++j) {
+            const int col = vcol + 8 * j + 2 * q;
+            if (col < h * D || col >= (h + 1) * D) continue;
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
-#pragma unroll
-                for (int e = 0; e < 8; ++e) tp[8 * G * j + e] = __float2bfloat16(t[8 * j + e]);
-        }
-
-        // pass 1: the max and the f32 sum of exp(s - max) over the keys
-        float mx = __int_as_float(0xff800000), l = 0.f;   // -inf
-        for (int m = 0; m < N; ++m) {
-            const float s = score<G>(t, xs + (size_t)m * LDX, g);
-            if (s > mx) {
-                l = l * expf(mx - s) + 1.f;
-                mx = s;
-            } else {
-                l += expf(s - mx);
+            for (int hh = 0; hh < 2; ++hh) {
+                const int n = q0 + warp * 16 + g + 8 * hh;
+                if (n < N)
+                    *reinterpret_cast<__nv_bfloat162*>(acc_out + (row0 + n) * C + col) =
+                        __floats2bfloat162_rn(o[j][2 * hh], o[j][2 * hh + 1]);
             }
-        }
-        // pass 2: p = bf16(exp(s - max) / sum), acc += p v
-        float acc[DL];
-#pragma unroll
-        for (int e = 0; e < DL; ++e) acc[e] = 0.f;
-        for (int m = 0; m < N; ++m) {
-            const float s = score<G>(t, xs + (size_t)m * LDX, g);
-            const float p = round_bf16(expf(s - mx) / l);
-            const bf16* vm = vs + m * D + g * DL;
-#pragma unroll
-            for (int e = 0; e < DL; ++e) acc[e] = fmaf(p, ld(vm + e), acc[e]);
-        }
-        if (valid) {
-#pragma unroll
-            for (int e = 0; e < DL; ++e)
-                acc_out[(row0 + n) * C + h * D + g * DL + e] = __float2bfloat16(acc[e]);
         }
     }
 }
 
-cudaError_t launch_matmul(const bf16* a, const bf16* w, const float* bias, bf16* out, int M,
-                          int K, int Nout, cudaStream_t stream) {
-    const size_t smem = (size_t)K * TOK * sizeof(float);
-    rows_matmul_kernel<<<(unsigned)((M + TOK - 1) / TOK), THREADS, smem, stream>>>(
-        a, w, bias, out, M, K, Nout);
+template <int C>
+cudaError_t launch_proj(const bf16* a, const bf16* w, const float* bias, bf16* out, int M,
+                        cudaStream_t stream) {
+    constexpr size_t smem = proj_smem_bytes<C>();
+    cudaError_t err = cudaFuncSetAttribute(
+        proj_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    proj_kernel<C><<<(unsigned)((M + PROJ_TOK - 1) / PROJ_TOK), PROJ_THREADS, smem, stream>>>(
+        a, w, bias, out, M);
     return cudaGetLastError();
 }
 
-template <int C, int H>
-cudaError_t launch_attn(const bf16* x, const bf16* a, const bf16* v, bf16* acc, bf16* t_out,
-                        int R, int N, cudaStream_t stream) {
-    constexpr int G = C / 32;
-    const int threads = min(ATT_THREADS, ((N * G + 31) / 32) * 32);
-    const int qpb = threads / G;
-    const int nqb = (N + qpb - 1) / qpb;
+template <int C, int H, int NW>
+cudaError_t launch_attn_nw(const bf16* x, const bf16* a, const bf16* v, bf16* acc,
+                           bf16* t_out, int R, int N, cudaStream_t stream) {
+    const int nqb = (N + 16 * NW - 1) / (16 * NW);
     const size_t blocks = (size_t)R * nqb;
-    const size_t smem = (size_t)N * (C + 8 + C / H) * sizeof(bf16);
-    if (blocks > 0x7fffffffULL || smem > MAX_SMEM) return cudaErrorInvalidConfiguration;
+    constexpr size_t smem = attn_smem_bytes<C, H, NW>();
+    if (blocks > 0x7fffffffULL) return cudaErrorInvalidConfiguration;
     cudaError_t err = cudaFuncSetAttribute(
-        bilinear_attn_kernel<C, H>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        bilinear_attn_kernel<C, H, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    bilinear_attn_kernel<C, H><<<(unsigned)blocks, threads, smem, stream>>>(
+    bilinear_attn_kernel<C, H, NW><<<(unsigned)blocks, 32 * NW, smem, stream>>>(
         x, a, v, acc, t_out, N, nqb);
     return cudaGetLastError();
 }
 
+// 128 queries a block (8 warps) where a row has more than 64, so that each
+// pass over the keys serves twice the queries; else 64 (4 warps).
+template <int C, int H>
+cudaError_t launch_attn(const bf16* x, const bf16* a, const bf16* v, bf16* acc, bf16* t_out,
+                        int R, int N, cudaStream_t stream) {
+    return N > 64 ? launch_attn_nw<C, H, 8>(x, a, v, acc, t_out, R, N, stream)
+                  : launch_attn_nw<C, H, 4>(x, a, v, acc, t_out, R, N, stream);
+}
+
+// The three launches at C.
 template <int C>
-cudaError_t launch_attn_heads(const bf16* x, const bf16* a, const bf16* v, bf16* acc,
-                              bf16* t_out, int R, int N, int H, cudaStream_t stream) {
+cudaError_t forward(const bf16* x, const bf16* a, const bf16* wv, const bf16* wp,
+                    const float* bias, bf16* v, bf16* acc, bf16* out, bf16* t_out, int R, int N,
+                    int H, cudaStream_t stream) {
+    const int M = R * N;
+    cudaError_t err = launch_proj<C>(x, wv, nullptr, v, M, stream);
+    if (err != cudaSuccess) return err;
     switch (H) {
-        case 2: return launch_attn<C, 2>(x, a, v, acc, t_out, R, N, stream);
-        case 4: return launch_attn<C, 4>(x, a, v, acc, t_out, R, N, stream);
-        case 8: return launch_attn<C, 8>(x, a, v, acc, t_out, R, N, stream);
+        case 2: err = launch_attn<C, 2>(x, a, v, acc, t_out, R, N, stream); break;
+        case 4: err = launch_attn<C, 4>(x, a, v, acc, t_out, R, N, stream); break;
+        case 8: err = launch_attn<C, 8>(x, a, v, acc, t_out, R, N, stream); break;
         default: return cudaErrorInvalidValue;
     }
+    if (err != cudaSuccess) return err;
+    return launch_proj<C>(acc, wp, bias, out, M, stream);
 }
 
 }  // namespace
 
-// x (R, N, C), a (H, C, C), wv and wp (C, C), all bf16; bias (C) f32.
-// v_buf (R*N, C) and acc_buf (R, N, C) bf16 receive v and the attention
-// output before the out-projection, out (R, N, C) bf16 the result;
-// t_out, if non-null, (R*N, H*C) bf16 receives t.
+// x (R, N, C), a (H, C, C), wv and wp (C, C), all bf16 and 16-byte aligned;
+// bias (C) f32.  v_buf (R*N, C) and acc_buf (R, N, C) bf16 receive v and
+// the attention output before the out-projection, out (R, N, C) bf16 the
+// result; t_out, if non-null, (R*N, H*C) bf16 receives t.
 extern "C" int row_attention_forward(
     const void* x, const void* a, const void* wv, const void* wp, const void* bias,
     void* v_buf, void* acc_buf, void* out, void* t_out, int R, int N, int C, int H,
     void* stream_ptr) {
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     if (R <= 0 || N <= 0 || H <= 0 || C % H) return cudaErrorInvalidValue;
-    const int M = R * N;
-    const bf16* xb = (const bf16*)x;
-    bf16* v = (bf16*)v_buf;
-    bf16* acc = (bf16*)acc_buf;
-    cudaError_t err = launch_matmul(xb, (const bf16*)wv, nullptr, v, M, C, C, stream);
-    if (err != cudaSuccess) return err;
-    const bf16* ab = (const bf16*)a;
-    bf16* tb = (bf16*)t_out;
+    const bf16 *xb = (const bf16*)x, *ab = (const bf16*)a, *wvb = (const bf16*)wv,
+               *wpb = (const bf16*)wp;
+    const float* bb = (const float*)bias;
+    bf16 *v = (bf16*)v_buf, *acc = (bf16*)acc_buf, *o = (bf16*)out, *tb = (bf16*)t_out;
     switch (C) {
-        case 32: err = launch_attn_heads<32>(xb, ab, v, acc, tb, R, N, H, stream); break;
-        case 64: err = launch_attn_heads<64>(xb, ab, v, acc, tb, R, N, H, stream); break;
-        case 128: err = launch_attn_heads<128>(xb, ab, v, acc, tb, R, N, H, stream); break;
-        case 256: err = launch_attn_heads<256>(xb, ab, v, acc, tb, R, N, H, stream); break;
+        case 32: return forward<32>(xb, ab, wvb, wpb, bb, v, acc, o, tb, R, N, H, stream);
+        case 64: return forward<64>(xb, ab, wvb, wpb, bb, v, acc, o, tb, R, N, H, stream);
+        case 128: return forward<128>(xb, ab, wvb, wpb, bb, v, acc, o, tb, R, N, H, stream);
+        case 256: return forward<256>(xb, ab, wvb, wpb, bb, v, acc, o, tb, R, N, H, stream);
         default: return cudaErrorInvalidValue;
     }
-    if (err != cudaSuccess) return err;
-    return launch_matmul(acc, (const bf16*)wp, (const float*)bias, (bf16*)out, M, C, C, stream);
 }

@@ -45,7 +45,14 @@ LN2 = 0.6931471805599453
 # ln 2 rounded to bf16: what XLA multiplies a bf16 argument of exp2 by
 LN2_BF16 = 0.69140625
 INV_SQRT_2PI = 0.3989422804014327
+# What the CUDA kernels are instantiated for: the width C (ln_qkv_kernel and
+# post_kernel are templates on it), the head dims of attn_kernel, and an MLP
+# hidden width in whole chunks of HIDDEN_CHUNK units (post_kernel).
+KERNEL_DIMS = (32, 64, 128, 256)
 KERNEL_HEAD_DIMS = (4, 8, 16, 32)
+HIDDEN_CHUNK = 128
+# dynamic shared memory a block may use on the H100 (227 KB)
+MAX_SMEM_BYTES = 232448
 # The plain versions materialise f32 score planes; they chunk over rows so
 # that at most this many bytes of one plane exist at once (the backward
 # keeps four such planes alive, so it takes a quarter of the rows).
@@ -202,10 +209,11 @@ def _reference_forward(rows: torch.Tensor, p, num_heads: int, train: bool, qkv=N
     return torch.cat(outs), torch.cat(attns)
 
 
-def fused_row_block_reference_parts(rows: torch.Tensor, p, num_heads: int):
+def fused_row_block_reference_parts(rows: torch.Tensor, p, num_heads: int, qkv=None):
     """Plain PyTorch version of B1: the block's output and its attention
-    output before the out-projection, both (R, N, C) in ``rows.dtype``."""
-    return _reference_forward(rows, p, num_heads, train=False)
+    output before the out-projection, both (R, N, C) in ``rows.dtype``.
+    ``qkv``: see :func:`fused_row_block_bwd_reference`."""
+    return _reference_forward(rows, p, num_heads, train=False, qkv=qkv)
 
 
 def fused_row_block_reference(rows: torch.Tensor, p, num_heads: int) -> torch.Tensor:
@@ -330,6 +338,33 @@ def fused_row_block_bwd_reference(rows: torch.Tensor, mid: torch.Tensor,
                                    dfc1, df1b, dfc2, df2b)
 
 
+def kernel_smem_bytes(C: int) -> int:
+    """Dynamic shared memory of B1's largest launch at width C, from the
+    layouts in csrc/: ln_qkv_kernel holds 64 rows of bf16 n1 and two
+    32-row slices of 96 weight columns; post_kernel 64 rows of f32 y, of
+    bf16 acc / n2 and of a 128-unit GELU chunk, and two 32-row weight
+    slices (rows padded by 8).  No launch's shared memory depends on N."""
+    ln_qkv = 2 * (64 * (C + 8) + 2 * 32 * (96 + 8))
+    post = 4 * 64 * (C + 8) + 2 * (64 * (C + 8) + 2 * 32 * (max(C, HIDDEN_CHUNK) + 8)
+                                   + 64 * (HIDDEN_CHUNK + 8))
+    return max(ln_qkv, post)
+
+
+def check_shape(name: str, R: int, N: int, C: int, num_heads: int, hidden: int) -> None:
+    """The shapes the CUDA kernels take: raise ValueError on any other."""
+    if C not in KERNEL_DIMS:
+        raise ValueError(f"{name}: no kernel for C={C} (C in {KERNEL_DIMS})")
+    if C % num_heads or C // num_heads not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {C}/{num_heads} not in {KERNEL_HEAD_DIMS}")
+    if hidden % HIDDEN_CHUNK:
+        raise ValueError(f"{name}: no kernel for an MLP of {hidden} units (a multiple of "
+                         f"{HIDDEN_CHUNK})")
+    if kernel_smem_bytes(C) > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: C={C} does not fit the kernels' shared memory")
+    if R * N * max(3 * C, hidden) >= 2 ** 31:
+        raise ValueError(f"{name}: too many tokens for 32-bit counts")
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_block")
     fn = lib.fused_block_forward
@@ -354,18 +389,15 @@ def _bwd_lib() -> ctypes.CDLL:
 def _check_cuda(name: str, rows: torch.Tensor, num_heads: int, p, like=(),
                 den=None) -> None:
     """What the CUDA kernels take: raise on anything else, before any of
-    ``p`` (a RowBlockParams) is read."""
+    ``p`` (a RowBlockParams) is read but its shapes."""
     if rows.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {rows.device}")
     if rows.dtype != torch.bfloat16:
         raise TypeError(f"{name}: the kernel takes bfloat16, got {rows.dtype}")
-    if rows.dim() != 3 or not rows.is_contiguous():
-        raise ValueError(f"{name}: rows must be a contiguous (R, N, C) tensor")
+    if rows.dim() != 3 or not rows.is_contiguous() or rows.data_ptr() % 16:
+        raise ValueError(f"{name}: rows must be a contiguous, 16-byte aligned (R, N, C) tensor")
     R, N, C = rows.shape
-    if C % num_heads or C // num_heads not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {C}/{num_heads} not in {KERNEL_HEAD_DIMS}")
-    if R * N * max(3 * C, 4 * C) >= 2 ** 31:
-        raise ValueError(f"{name}: too many tokens for 32-bit counts")
+    check_shape(name, R, N, C, num_heads, p.fc1_kernel.shape[1])
     for t in like:
         if (t.shape != rows.shape or t.dtype != rows.dtype or t.device != rows.device
                 or not t.is_contiguous()):

@@ -25,20 +25,37 @@ import ctypes
 import torch
 
 from . import _build
-from .fused_block import MAX_SCORE_BYTES
+from .fused_block import MAX_SCORE_BYTES, MAX_SMEM_BYTES
 
-# what the kernel is instantiated for: C = 32 * G with G threads a query,
-# and H heads with D = C / H lanes each split over the G threads
+# what the kernels are instantiated for: C (templates on it) and H heads,
+# D = C / H from 4 to 128
 KERNEL_DIMS = (32, 64, 128, 256)
 KERNEL_HEADS = (2, 4, 8)
-# dynamic shared memory a block may use on the H100 (227 KB)
-MAX_SMEM_BYTES = 232448
 
 
-def kernel_smem_bytes(N: int, C: int, num_heads: int) -> int:
-    """Shared memory of one attention block: the row's keys x (N rows of
-    C + 8 bf16, padded against bank conflicts) and one head's v (N x D)."""
-    return 2 * N * (C + 8 + C // num_heads)
+def kernel_smem_bytes(C: int, num_heads: int) -> int:
+    """Shared memory of the largest attention block (csrc/row_attention.cu
+    attn_smem_bytes, 8 warps): its 128 queries' x, two 32-row slices of
+    A_h's columns (64 at a time), and two key tiles (128 keys at C <= 64,
+    else 64) each of x (C columns) and of the head's v (D, at least 8),
+    rows padded by 8 bf16.  Keys stream through the tiles, so it does not
+    depend on N."""
+    vw = max(C // num_heads, 8)
+    keys = 128 if C <= 64 else 64
+    return 2 * (128 * (C + 8) + 2 * 32 * (min(C, 64) + 8) + 2 * keys * (C + 8 + vw + 8))
+
+
+def check_shape(R: int, N: int, C: int, num_heads: int) -> None:
+    """The shapes the CUDA kernels take: raise ValueError on any other."""
+    name = "flash_row_attention"
+    if C not in KERNEL_DIMS or num_heads not in KERNEL_HEADS:
+        raise ValueError(f"{name}: no kernel for C={C}, {num_heads} heads (C in "
+                         f"{KERNEL_DIMS}, heads in {KERNEL_HEADS})")
+    if kernel_smem_bytes(C, num_heads) > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: C={C} does not fit the kernel's shared memory "
+                         f"({kernel_smem_bytes(C, num_heads)} bytes)")
+    if R * N * C >= 2 ** 31:
+        raise ValueError(f"{name}: too many tokens for 32-bit counts")
 
 
 def bilinear_weights(qkv_kernel: torch.Tensor, num_heads: int):
@@ -143,15 +160,8 @@ def _check_cuda(rows: torch.Tensor, weights, num_heads: int) -> None:
         raise TypeError(f"{name}: the kernel takes bfloat16, got {rows.dtype}")
     if rows.dim() != 3 or not rows.is_contiguous() or rows.data_ptr() % 16:
         raise ValueError(f"{name}: rows must be a contiguous, 16-byte aligned (R, N, C) tensor")
-    R, N, C = rows.shape
-    if C not in KERNEL_DIMS or num_heads not in KERNEL_HEADS:
-        raise ValueError(f"{name}: no kernel for C={C}, {num_heads} heads (C in "
-                         f"{KERNEL_DIMS}, heads in {KERNEL_HEADS})")
-    if kernel_smem_bytes(N, C, num_heads) > MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: a row of N={N}, C={C} does not fit the kernel's "
-                         f"shared memory ({kernel_smem_bytes(N, C, num_heads)} bytes)")
-    if R * N * C >= 2 ** 31:
-        raise ValueError(f"{name}: too many tokens for 32-bit counts")
+    check_shape(*rows.shape, num_heads)
+    C = rows.shape[2]
     if [tuple(w.shape) for w in weights] != [(C, 3 * C), (C, C), (C,)]:
         raise ValueError(f"{name}: weights must be qkv (C, 3C), proj (C, C) and bias (C,)")
     if any(w.device != rows.device for w in weights):
