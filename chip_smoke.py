@@ -13,17 +13,20 @@ L (lab_row_block, the kernel lab's stage and flag forms of B1).
 Phases, each of which fails the run (exit code 1) when it fails:
   1. the card's name and power limit; build of the CUDA sources (nvcc, sm_90a,
      one nvcc per source, in parallel); the SASS of every instantiation of
-     the launches whose products run on the tensor cores (ln_qkv_kernel,
-     post_kernel, B4's proj_kernel and bilinear_attn_kernel) must hold HMMA
-     instructions (cuobjdump --dump-sass of the built libraries);
+     the launches whose products run on the tensor cores (B1's ln_qkv_kernel,
+     attn_kernel and post_kernel, B2's mlp_bwd_kernel and atb_kernel, B4's
+     proj_kernel and bilinear_attn_kernel) must hold HMMA instructions, and
+     B3's int8 forms of attn_kernel IMMA (cuobjdump --dump-sass of the built
+     libraries);
   2. the fused row-block kernel against its plain PyTorch version at each
      of the 12 (N, C) of the main path (bf16, a slice of 64 rows, three kinds
      of weights: flat, peaked and clamped softmax), on the block's output
      and on its attention output before the out-projection, with
      kernel / plain / library times and the bound at the full row counts of
      a batch of 8 ten-second segments, and the device time of each of its
-     product launches (ln_qkv_kernel, post_kernel) from a profiler trace
-     beside its own bound;
+     launches (ln_qkv_kernel, attn_kernel, post_kernel) from a profiler
+     trace beside its own bound; then the same checks at one shape with an
+     MLP of 96 units (C = 32), a ragged last hidden chunk;
  2a. the kernel lab (L), also under --quick: its 5 stage cuts and 3 flag
      forms against their plain versions (fed the kernel's q|k|v) at the 12
      shapes under the 3 kinds of weights (288 checks), and all 9 forms at
@@ -35,7 +38,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
      CLI (python -m tfswa_tpu_torch.tools.kernel_lab --ablate, then
      --check) in a subprocess, whose lab launches are counted;
   3. B3 the same way (the plain version gets the kernel's q|k|v; the int8 q
-     and k and the row scales must agree exactly), and B4 (on LN1 output;
+     and k and the row scales must agree exactly; its attention launch timed
+     beside its bound), and B4 (on LN1 output;
      the plain version gets the kernel's t and v; its output and its
      attention output before the out-projection within 4 bf16 ULP), B4's
      checks also at the 4 training (N, C) that no serving shape has, since
@@ -54,8 +58,10 @@ Phases, each of which fails the run (exit code 1) when it fails:
   6. B1-train and B2 against their plain versions at the 12 (N, C) of the
      training path (a batch of 4 six-second segments, F = 1025), 64-row
      slices under the same three kinds of weights, B2 also against autograd
-     through the plain block in f32; kernel / plain / library times and the
-     bound at the full row counts;
+     through the plain block in f32, and the same checks at one shape with an
+     MLP of 96 units (C = 32); kernel / plain / library times and the bound
+     at the full row counts, and the device time of B1-train's attention
+     launch and of B2's mlp_bwd_kernel and atb_kernel beside their bounds;
   7. the training main path: the flagship model in train mode through
      make_train_step (TrainConfig defaults) on a fixed batch of 4 x 6 s from
      the port's SyntheticDataset: a warm-up step and 5 timed steps, each
@@ -78,6 +84,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -106,6 +113,9 @@ SHAPES = [
 BLOCKS_PER_STAGE = {0: 4, 1: 4, 2: 12, 3: 2}
 HEADS = 8
 CHECK_ROWS = 64
+# (N, C, hidden) of the checks at an MLP width off the kernels' hidden
+# chunks (64 and 128 units): a ragged last chunk, and a ragged N
+RAGGED_MLP = (517, 32, 96)
 SNR_MIN_DB = 30.0
 
 
@@ -205,19 +215,51 @@ def bound_bwd_ms(R: int, N: int, C: int, hidden: int):
     return _bound(nbytes, flops, R * HEADS * N * N)
 
 
-def bound_launch_ms(kernel: str, R: int, N: int, C: int, hidden: int):
-    """Least time for one launch of a product kernel at (R, N, C), each of
-    its inputs read once and its outputs written once (bf16, f32 bias),
-    its products over the bf16 tensor-core peak, B4's exp over the MUFU
-    rate:
+def bound_launch_ms(kernel: str, R: int, N: int, C: int, hidden: int, form: str = "B1"):
+    """Least time for one launch of a kernel at (R, N, C) in B1, B1-train,
+    B2, B3 or B4 (``form``), each of its inputs read once and its outputs
+    written once (bf16, f32 where the kernel keeps f32), its products over
+    the bf16 tensor-core peak (B3's scores over the int8 peak), exp2 or exp
+    over the MUFU rate:
       ln_qkv_kernel:        x in, q|k|v out, LN1 and W_qkv; 2 M C 3C FLOPs;
+      k_norm_kernel:        k in, the rows' largest |k_h| (f32) out (B3:
+                            and k in int8);
+      attn_kernel:          q|k|v in, acc out (B1-train: and den, f32);
+                            scores 2 N^2 C and AV 2 N^2 C a row; H N^2 exp2
+                            a row;
       post_kernel:          x and acc in, out out, Wo, W1, W2 and vectors;
                             2 M (C^2 + 2 C hidden) FLOPs;
+      mlp_bwd_kernel:       mid, g, acc in, den (f32), W1, W1^T, W2^T, Wo^T,
+                            LN2 and b1; n2, h1, d_h1pre, d_mid (f32 and
+                            bf16), d_oe, d_den (f32) and the five vectors
+                            (f32) out; fc1, g W2^T, d_n2 and d_acc, 2 M (3 C
+                            hidden + C^2) FLOPs;
+      atb_kernel:           B2's four weight gradients together: their
+                            operands (h1 and g, n2 and d_h1pre, acc and
+                            d_mid, normed and d_qkv) in, the gradients (f32)
+                            out; 2 M (2 C hidden + 4 C^2) FLOPs;
       proj_kernel:          B4's two projections together (x -> v, acc ->
                             out): 2 M C in and out, Wv, Wo, b; 4 M C^2;
       bilinear_attn_kernel: x and v in, acc out, A; t 2 M H C^2, the scores
                             2 H N^2 C a row, AV 2 N^2 C a row; H N^2 exp."""
     M = R * N
+    if kernel == "k_norm_kernel":
+        return _bound(2 * M * C + 4 * R * HEADS + (M * C if form == "B3" else 0), 0, 0)
+    if kernel == "attn_kernel":
+        nbytes = 2 * 4 * M * C + (4 * R * HEADS * N if form == "B1-train" else 0)
+        scores, av = 2 * R * N * N * C, 2 * R * N * N * C
+        if form == "B3":
+            return _bound(nbytes, av, R * HEADS * N * N, scores)
+        return _bound(nbytes, scores + av, R * HEADS * N * N)
+    if kernel == "mlp_bwd_kernel":
+        nbytes = (2 * 3 * M * C + 4 * R * HEADS * N + 2 * (3 * C * hidden + C * C)
+                  + 2 * (2 * C + hidden)
+                  + 2 * M * (2 * C + 2 * hidden) + 4 * M * C + 2 * 2 * M * C + 4 * M * HEADS
+                  + 4 * (4 * C + hidden))
+        return _bound(nbytes, 2 * M * (3 * C * hidden + C * C), 0)
+    if kernel == "atb_kernel":
+        return _bound(2 * M * (2 * hidden + 7 * C) + 4 * (2 * C * hidden + 4 * C * C),
+                      2 * M * (2 * C * hidden + 4 * C * C), 0)
     if kernel == "ln_qkv_kernel":
         return _bound(2 * (4 * M * C + 3 * C * C + 2 * C), 6 * M * C * C, 0)
     if kernel == "post_kernel":
@@ -232,20 +274,35 @@ def bound_launch_ms(kernel: str, R: int, N: int, C: int, hidden: int):
     raise ValueError(kernel)
 
 
-# The launches this design runs on the tensor cores, by kernel, as
-# torch.profiler names them and as they appear in the SASS of each library.
-PRODUCT_LAUNCHES = {"B1": ("ln_qkv_kernel", "post_kernel"),
+# The launches of each kernel timed one by one from a profiler trace, as
+# torch.profiler names them (B1-train and B3 share B1's product launches:
+# only their k_norm_kernel and attention launch are timed on their own),
+# and the launches that run on the tensor cores, as they appear in the SASS
+# of each library.
+# Every form of attn_kernel runs its scores and AV on mma (P_F32 too: its
+# f32 p goes through two bf16 products, hi and lo); none is SIMT by design.
+PRODUCT_LAUNCHES = {"B1": ("ln_qkv_kernel", "k_norm_kernel", "attn_kernel", "post_kernel"),
+                    "B1-train": ("k_norm_kernel", "attn_kernel"),
+                    "B3": ("k_norm_kernel", "attn_kernel"),
+                    "B2": ("mlp_bwd_kernel", "atb_kernel"),
                     "B4": ("proj_kernel", "bilinear_attn_kernel")}
-SASS_HMMA = {"fused_block": ("ln_qkv_kernel", "post_kernel"),
-             "fused_block_bwd": ("ln_qkv_kernel",),
+SASS_HMMA = {"fused_block": ("ln_qkv_kernel", "attn_kernel", "post_kernel"),
+             "fused_block_bwd": ("ln_qkv_kernel", "mlp_bwd_kernel", "atb_kernel"),
              "row_attention": ("proj_kernel", "bilinear_attn_kernel")}
+
+
+def int8_form(fn: str) -> bool:
+    """Whether a mangled attn_kernel<D, WITH_DEN, INT8, ...> name is an INT8
+    (B3) instantiation, whose scores must run as IMMA."""
+    return re.search(r"attn_kernelILi\d+ELb[01]ELb1E", fn) is not None
 
 
 def sass_hmma_check():
     """Every instantiation of the kernels of SASS_HMMA in the built
-    libraries holds HMMA (tensor-core) instructions, by cuobjdump
-    --dump-sass; fails the run if one does not, or if a kernel is not
-    found.  Returns {library: {function: HMMA count}} of those kernels."""
+    libraries holds HMMA (tensor-core) instructions, and every INT8 form of
+    attn_kernel IMMA ones, by cuobjdump --dump-sass; fails the run if one
+    does not, or if a kernel is not found.  Returns {library: {function:
+    count of HMMA, IMMA for the INT8 forms}} of those kernels."""
     from pathlib import Path
 
     from tfswa_tpu_torch.ops import _build
@@ -264,41 +321,50 @@ def sass_hmma_check():
                 fn = fn if any(n in fn for n in names) else None
                 if fn:
                     counts[fn] = 0
-            elif fn and "HMMA" in line:
+            elif fn and ("IMMA" if int8_form(fn) else "HMMA") in line:
                 counts[fn] += 1
         found[lib] = counts
         for n in names:
             fns = [f for f in counts if n in f]
             if not fns:
                 bad.append(f"{lib}: no {n} in the SASS")
-            bad += [f"{lib}: {f}: no HMMA" for f in fns if counts[f] == 0]
+            bad += [f"{lib}: {f}: no {'IMMA' if int8_form(f) else 'HMMA'}"
+                for f in fns if counts[f] == 0]
+        def span(n, int8):
+            cs = [c for f, c in counts.items() if n in f and int8_form(f) == int8]
+            return f"{len(cs)} with {'IMMA' if int8 else 'HMMA'} {min(cs)}-{max(cs)}" if cs else ""
+
         log(f"  SASS {lib}: " + ", ".join(
-            f"{n} {len([f for f in counts if n in f])} instantiations, HMMA "
-            f"{min((c for f, c in counts.items() if n in f), default=0)}-"
-            f"{max((c for f, c in counts.items() if n in f), default=0)}" for n in names))
+            f"{n} " + "; ".join(x for x in (span(n, False), span(n, True)) if x)
+            for n in names))
     if bad:
         fail("tensor-core check: " + "; ".join(bad))
     return found
 
 
-def launch_ms(torch, run, names, reps: int = 2):
+def launch_ms(torch, run, names, reps: int = 2, tries: int = 3):
     """Device ms a call of ``run`` spends in each kernel of ``names`` (all
-    its launches of that kernel), from one torch.profiler trace (CUDA
-    activity) of ``reps`` calls; None where the trace holds no such
+    its launches of that kernel), from a torch.profiler trace (CUDA
+    activity) of ``reps`` calls; a trace that misses one of the kernels is
+    taken again, up to ``tries`` traces (the profiler now and then records
+    no device events); None where the last trace still holds no such
     kernel (not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            run()
-        torch.cuda.synchronize()
-    kernels = device_kernels(prof)[0]
-    res = {}
-    for n in names:
-        hits = [ms for key, ms, _ in kernels if n in key]
-        res[n] = sum(hits) / reps if hits else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)[0]
+        res = {}
+        for n in names:
+            hits = [ms for key, ms, _ in kernels if n in key]
+            res[n] = sum(hits) / reps if hits else None
+        if None not in res.values():
+            break
     return res
 
 
@@ -311,14 +377,25 @@ def log_launches(label: str, launches) -> None:
         for n, t in launches.items()))
 
 
+def runs_at(name: str, N: int, kernel: str) -> bool:
+    """Whether launch ``name`` of ``kernel`` runs at rows of N keys:
+    k_norm_kernel only for rows longer than one 64-key tile, but in B3
+    always (it quantises k; csrc/fused_block.cu launch_attn_form)."""
+    return name != "k_norm_kernel" or N > 64 or kernel == "B3"
+
+
 def time_launches(torch, run, kernel: str, R: int, N: int, C: int):
-    """The device time a call of ``run`` spends in each product launch of
-    ``kernel`` (PRODUCT_LAUNCHES), with its bound (bound_launch_ms)."""
+    """The device time a call of ``run`` spends in each launch of ``kernel``
+    in PRODUCT_LAUNCHES, with its bound (bound_launch_ms); 0 for a launch
+    that does not run at this N."""
     names = PRODUCT_LAUNCHES[kernel]
-    got = launch_ms(torch, run, names)
+    got = launch_ms(torch, run, [n for n in names if runs_at(n, N, kernel)])
     res = {}
     for n in names:
-        b_ms, b_by = bound_launch_ms(n, R, N, C, 4 * C)
+        if not runs_at(n, N, kernel):
+            res[n] = {"ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes"}
+            continue
+        b_ms, b_by = bound_launch_ms(n, R, N, C, 4 * C, kernel)
         res[n] = {"ms": got[n], "bound_ms": b_ms, "bound_by": b_by}
     return res
 
@@ -334,8 +411,9 @@ def time_launches(torch, run, kernel: str, R: int, N: int, C: int):
 REGIMES = {"flat": (None, 1.0), "peaked": (1.44, 1.0), "clamp": (1.44, 6.0)}
 
 
-def random_params(torch, RowBlockParams, C: int, gen, regime: str = "flat"):
-    hid = 4 * C
+def random_params(torch, RowBlockParams, C: int, gen, regime: str = "flat",
+                  hidden=None):
+    hid = 4 * C if hidden is None else hidden
     qkv_c, ln_scale = REGIMES[regime]
     qkv_std = 0.05 if qkv_c is None else qkv_c / C ** 0.5
 
@@ -396,7 +474,7 @@ def library_block(torch, rows, p, H: int):
     return torch.cat(outs)
 
 
-def check_shape(torch, N: int, C: int, gen):
+def check_shape(torch, N: int, C: int, gen, hidden=None):
     """The kernel against its plain version on CHECK_ROWS rows, for each
     kind of weights in REGIMES.  The plain version gets the kernel's own
     q|k|v (as in check_train_shape and check_int8_shape): the qkv product
@@ -413,14 +491,15 @@ def check_shape(torch, N: int, C: int, gen):
             <= 4 bf16 ULP at max|ref attn|.  Both sides round p to bf16 at
             the same point; an f32 sum in another order flips a rounding
             now and then, which moves a peaked softmax by up to ~2 ULP.
-    Returns the per-regime results and the flat regime's parameters."""
+    ``hidden``: the MLP's width (default 4 C).  Returns the per-regime
+    results and the flat regime's parameters."""
     from tfswa_tpu_torch.models.attention import RowBlockParams
     from tfswa_tpu_torch.ops.fused_block import (SCORE_CLAMP, _forward_kernel,
                                                  fused_row_block_reference_parts)
 
     res, flat = {}, None
     for regime in REGIMES:
-        p = random_params(torch, RowBlockParams, C, gen, regime)
+        p = random_params(torch, RowBlockParams, C, gen, regime, hidden)
         if regime == "flat":
             flat = p
         x = torch.randn(CHECK_ROWS, N, C, generator=gen).cuda().to(torch.bfloat16)
@@ -454,6 +533,24 @@ def check_shape(torch, N: int, C: int, gen):
     return res, flat
 
 
+def log_b1_checks(label: str, checks, misses) -> float:
+    """Log B1's checks of one shape; a miss goes to ``misses``.  Returns the
+    largest block-output error."""
+    err = 0.0
+    for regime, c in checks.items():
+        k_off, p_off, n_qkv = c["qkv_off_exact"]
+        log(f"kernel check {label} {regime:6s}: qkv "
+            f"{c['qkv_err']:.4f}/{c['qkv_tol']:.4f} (rounded off the exact product: "
+            f"kernel {k_off}, plain {p_off} of {n_qkv}), "
+            f"out err {c['max_abs_err']:.5f} (tol {c['tol']:.4f}), attn err "
+            f"{c['attn_max_abs_err']:.5f} (tol {c['attn_tol']:.4f}), max score "
+            f"{c['max_score']:.1f} {'ok' if c['ok'] else 'MISS'}")
+        if not c["ok"]:
+            misses.append(f"{label} {regime}")
+        err = max(err, c["max_abs_err"])
+    return err
+
+
 def phase_kernels(torch, quick: bool):
     from tfswa_tpu_torch.ops.fused_block import fused_row_block, fused_row_block_reference
 
@@ -465,17 +562,8 @@ def phase_kernels(torch, quick: bool):
         checks, p = check_shape(torch, N, C, gen)
         entry = {"stage": stage, "attn": attn, "N": N, "C": C, "R_full": R,
                  "checks": checks}
-        for regime, c in checks.items():
-            k_off, p_off, n_qkv = c["qkv_off_exact"]
-            log(f"kernel check stage {stage} {attn} N={N} C={C} {regime:6s}: qkv "
-                f"{c['qkv_err']:.4f}/{c['qkv_tol']:.4f} (rounded off the exact product: "
-                f"kernel {k_off}, plain {p_off} of {n_qkv}), "
-                f"out err {c['max_abs_err']:.5f} (tol {c['tol']:.4f}), attn err "
-                f"{c['attn_max_abs_err']:.5f} (tol {c['attn_tol']:.4f}), max score "
-                f"{c['max_score']:.1f} {'ok' if c['ok'] else 'MISS'}")
-            if not c["ok"]:
-                misses.append(f"N={N} C={C} {regime}")
-            max_err = max(max_err, c["max_abs_err"])
+        max_err = max(max_err, log_b1_checks(f"stage {stage} {attn} N={N} C={C}", checks,
+                                             misses))
         if not quick:
             xf = torch.randn(R, N, C, generator=gen).cuda().to(torch.bfloat16)
             k_ms = cuda_ms(torch, lambda: fused_row_block(xf, p, HEADS), 3)
@@ -499,6 +587,10 @@ def phase_kernels(torch, quick: bool):
             del xf
             torch.cuda.empty_cache()
         rows_out.append(entry)
+    N, C, hid = RAGGED_MLP
+    checks, _ = check_shape(torch, N, C, torch.Generator().manual_seed(10), hid)
+    max_err = max(max_err, log_b1_checks(f"MLP of {hid} N={N} C={C}", checks, misses))
+    rows_out.append({"N": N, "C": C, "hidden": hid, "checks": checks})
     if misses:
         fail("fused_row_block disagrees with its plain version at " + "; ".join(misses))
     if not quick:
@@ -634,26 +726,30 @@ def bound_lab_ms(name: str, R: int, N: int, C: int, hidden: int):
     return _bound(nbytes, flops, R * HEADS * N * N if k >= 2 else 0)
 
 
-def lab_own_ms(torch, rows, p, reps: int = 2):
+def lab_own_ms(torch, rows, p, reps: int = 2, tries: int = 3):
     """Device ms of one launch of each cut's own kernel (LAB_OWN_KERNELS), and
-    of B1's ln_qkv_kernel, from one torch.profiler trace (CUDA activity) of
-    ``reps`` calls of each of those cuts; None for a kernel the trace does not
-    hold (the profiler recorded no device time: not measured)."""
+    of B1's ln_qkv_kernel, from a torch.profiler trace (CUDA activity) of
+    ``reps`` calls of each of those cuts, taken again (up to ``tries``
+    traces) while one of them is missing; None for a kernel the last trace
+    does not hold (the profiler recorded no device time: not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     from tfswa_tpu_torch.ops.lab_block import lab_row_block_parts
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for name in LAB_OWN_KERNELS:
-            for _ in range(reps):
-                lab_row_block_parts(rows, p, HEADS, name)
-        torch.cuda.synchronize()
-    kernels = device_kernels(prof)[0]
-    per_call = {}
-    for kernel, calls in [*((k, reps) for k in LAB_OWN_KERNELS.values()),
-                          ("ln_qkv_kernel", reps * len(LAB_OWN_KERNELS))]:
-        hits = [ms for key, ms, _ in kernels if kernel in key]
-        per_call[kernel] = sum(hits) / calls if hits else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for name in LAB_OWN_KERNELS:
+                for _ in range(reps):
+                    lab_row_block_parts(rows, p, HEADS, name)
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)[0]
+        per_call = {}
+        for kernel, calls in [*((k, reps) for k in LAB_OWN_KERNELS.values()),
+                              ("ln_qkv_kernel", reps * len(LAB_OWN_KERNELS))]:
+            hits = [ms for key, ms, _ in kernels if kernel in key]
+            per_call[kernel] = sum(hits) / calls if hits else None
+        if None not in per_call.values():
+            break
     return per_call
 
 
@@ -812,7 +908,7 @@ def check_int8_shape(torch, N: int, C: int, gen):
         if regime == "flat":
             flat = p
         x = torch.randn(CHECK_ROWS, N, C, generator=gen).cuda().to(torch.bfloat16)
-        run = _forward_kernel(x, p, HEADS, int8=True, export=True)
+        run = _forward_kernel(x, p, HEADS, int8=True)
         out, attn, qkv, scales, qk = run.out, run.attn, run.qkv, run.scales, run.qk
         torch.cuda.synchronize()
         r_out, r_attn = fused_row_block_int8_reference_parts(x, p, HEADS, qkv=qkv)
@@ -849,7 +945,7 @@ def phase_int8_kernels(torch, quick: bool, b1_shapes):
     gen_full = torch.Generator().manual_seed(5)
     rows_out, misses, max_err = [], [], 0.0
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None,
-              "b1_library_ms": 0.0, "bound_bytes_ms": 0.0}
+              "b1_library_ms": 0.0, "bound_bytes_ms": 0.0, "launches": {}}
     for (stage, attn, N, C, R), b1 in zip(SHAPES, b1_shapes):
         checks, p = check_int8_shape(torch, N, C, gen)
         entry = {"stage": stage, "attn": attn, "N": N, "C": C, "R_full": R, "checks": checks}
@@ -881,11 +977,17 @@ def phase_int8_kernels(torch, quick: bool, b1_shapes):
             log(f"  full R={R}: kernel_ms {k_ms:.3f} plain_ms {pl_ms:.3f} (timed on {rs} "
                 f"rows) library_ms none (B1's library block {b1['library_ms']:.3f}) "
                 f"bound_ms {b_ms:.4f} ({b_by})")
+            entry["launches"] = time_launches(torch, lambda: fused_row_block_int8(xf, p, HEADS),
+                                              "B3", R, N, C)
+            log_launches("B3", entry["launches"])
+            add_launches(totals, entry["launches"], calls)
             del xf
             torch.cuda.empty_cache()
         rows_out.append(entry)
     if misses:
         fail("fused_row_block_int8 disagrees with its plain version at " + "; ".join(misses))
+    if not quick:
+        log_launches("per model forward (66 calls), B3", totals["launches"])
     return rows_out, max_err, totals
 
 
@@ -1110,7 +1212,7 @@ def plain_qkv(torch, x, p, H: int, dtype=None):
     return (n1 @ w_qkv.to(dt)).to(x.dtype).float().reshape(-1, 3 * C)
 
 
-def check_train_shape(torch, N: int, C: int, gen):
+def check_train_shape(torch, N: int, C: int, gen, hidden=None):
     """B1-train and B2 against their plain versions on CHECK_ROWS rows, for
     each kind of weights in REGIMES.  The plain versions get the kernel's
     own q|k|v (B1-train's buffer; B2 recomputes it with the same code, so
@@ -1133,7 +1235,8 @@ def check_train_shape(torch, N: int, C: int, gen):
                 gradient, a sum over tokens with cancellation, holds bf16
                 noise whose maximum moves by chance; the norm averages
                 it).  Autograd through the plain block in bf16 is recorded
-                beside them, by norm and by max."""
+                beside them, by norm and by max.
+    ``hidden``: the MLP's width (default 4 C)."""
     from tfswa_tpu_torch.models.attention import RowBlockParams
     from tfswa_tpu_torch.ops.fused_block import (
         SCORE_CLAMP, _forward_kernel, fused_row_block_bwd, fused_row_block_bwd_reference,
@@ -1144,7 +1247,7 @@ def check_train_shape(torch, N: int, C: int, gen):
 
     res, flat = {}, None
     for regime in REGIMES:
-        p = random_params(torch, RowBlockParams, C, gen, regime)
+        p = random_params(torch, RowBlockParams, C, gen, regime, hidden)
         if regime == "flat":
             flat = p
         x = torch.randn(CHECK_ROWS, N, C, generator=gen).cuda().to(torch.bfloat16)
@@ -1197,9 +1300,33 @@ def check_train_shape(torch, N: int, C: int, gen):
     return res, flat
 
 
+def log_train_checks(label: str, checks, misses, err) -> None:
+    """Log B1-train's and B2's checks of one shape; a miss goes to
+    ``misses``, the largest errors to ``err``."""
+    for regime, c in checks.items():
+        worst = max(c["autograd"], key=lambda e: e[0] / (AUTOGRAD_FACTOR * e[2] + 1e-3))
+        max_ratio = max((k - 1e-3) / max(b, 1e-30) for k, b in c["autograd_max"])
+        log(f"train check {label} {regime:6s}: "
+            f"qkv {c['qkv_err']:.4f}/{c['qkv_tol']:.4f}; B1-train out "
+            f"{c['out_err']:.4f}/{c['out_tol']:.4f} mid "
+            f"{c['mid_err']:.4f}/{c['mid_tol']:.4f} acc {c['acc_err']:.5f}/"
+            f"{c['acc_tol']:.4f} den {c['den_rel']:.1e}; B2 dx {c['dx_err']:.5f}/"
+            f"{c['dx_tol']:.4f} params {c['dp_rel']:.1e}/1e-2 autograd worst "
+            f"{worst[0]:.1e} vs plain B2 {worst[2]:.1e} x{AUTOGRAD_FACTOR} (plain "
+            f"bf16 route {worst[1]:.1e}; by max: ratio {max_ratio:.2f}); max score "
+            f"{c['max_score']:.1f} "
+            f"{'ok' if c['ok'] else 'MISS'}")
+        if not c["ok"]:
+            misses.append(f"{label} {regime}")
+        err["train"] = max(err["train"], c["max_abs_err"])
+        err["bwd"] = max(err["bwd"], c["bwd_max_abs_err"])
+
+
 def phase_train_kernels(torch, quick: bool):
     """B1-train and B2 at the 12 training shapes: checks on 64 rows, then
-    kernel / plain / library times and bounds at the full row count."""
+    kernel / plain / library times and bounds at the full row count, and
+    the device time of B1-train's attention launch and of B2's two product
+    launches beside their bounds; then the checks at RAGGED_MLP."""
     from tfswa_tpu_torch.ops.fused_block import (
         fused_row_block_bwd, fused_row_block_bwd_reference, fused_row_block_train,
         fused_row_block_train_reference)
@@ -1209,28 +1336,13 @@ def phase_train_kernels(torch, quick: bool):
     rows_out, misses = [], []                     # inputs do not depend on --quick
     err = {"train": 0.0, "bwd": 0.0}
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_bytes_ms")
-    totals = {"train": dict.fromkeys(keys, 0.0), "bwd": dict.fromkeys(keys, 0.0)}
+    totals = {"train": dict(dict.fromkeys(keys, 0.0), launches={}),
+              "bwd": dict(dict.fromkeys(keys, 0.0), launches={})}
     for stage, attn, N, C, R in TRAIN_SHAPES:
         checks, p = check_train_shape(torch, N, C, gen)
         entry = {"stage": stage, "attn": attn, "N": N, "C": C, "R_full": R,
                  "checks": checks}
-        for regime, c in checks.items():
-            worst = max(c["autograd"], key=lambda e: e[0] / (AUTOGRAD_FACTOR * e[2] + 1e-3))
-            max_ratio = max((k - 1e-3) / max(b, 1e-30) for k, b in c["autograd_max"])
-            log(f"train check stage {stage} {attn} N={N} C={C} {regime:6s}: "
-                f"qkv {c['qkv_err']:.4f}/{c['qkv_tol']:.4f}; B1-train out "
-                f"{c['out_err']:.4f}/{c['out_tol']:.4f} mid "
-                f"{c['mid_err']:.4f}/{c['mid_tol']:.4f} acc {c['acc_err']:.5f}/"
-                f"{c['acc_tol']:.4f} den {c['den_rel']:.1e}; B2 dx {c['dx_err']:.5f}/"
-                f"{c['dx_tol']:.4f} params {c['dp_rel']:.1e}/1e-2 autograd worst "
-                f"{worst[0]:.1e} vs plain B2 {worst[2]:.1e} x{AUTOGRAD_FACTOR} (plain "
-                f"bf16 route {worst[1]:.1e}; by max: ratio {max_ratio:.2f}); max score "
-                f"{c['max_score']:.1f} "
-                f"{'ok' if c['ok'] else 'MISS'}")
-            if not c["ok"]:
-                misses.append(f"N={N} C={C} {regime}")
-            err["train"] = max(err["train"], c["max_abs_err"])
-            err["bwd"] = max(err["bwd"], c["bwd_max_abs_err"])
+        log_train_checks(f"stage {stage} {attn} N={N} C={C}", checks, misses, err)
         if not quick:
             xf = torch.randn(R, N, C, generator=gen_full).cuda().to(torch.bfloat16)
             gf = torch.randn(R, N, C, generator=gen_full).cuda().to(torch.bfloat16)
@@ -1264,11 +1376,24 @@ def phase_train_kernels(torch, quick: bool):
                     f"{e['ms']:.3f} plain_ms {e['plain_ms']:.3f} (timed on {rs} rows) "
                     f"library_ms {e['library_ms']:.3f} bound_ms {e['bound_ms']:.4f} "
                     f"({e['bound_by']})")
+            for kind, label, run in (
+                    ("train", "B1-train", lambda: fused_row_block_train(xf, p, HEADS)),
+                    ("bwd", "B2", lambda: fused_row_block_bwd(xf, mid, acc, den, gf, p, HEADS))):
+                entry[kind]["launches"] = time_launches(torch, run, label, R, N, C)
+                log_launches(label, entry[kind]["launches"])
+                add_launches(totals[kind], entry[kind]["launches"], calls)
             del xf, gf, mid, acc, den
             torch.cuda.empty_cache()
         rows_out.append(entry)
+    N, C, hid = RAGGED_MLP
+    checks, _ = check_train_shape(torch, N, C, torch.Generator().manual_seed(11), hid)
+    log_train_checks(f"MLP of {hid} N={N} C={C}", checks, misses, err)
+    rows_out.append({"N": N, "C": C, "hidden": hid, "checks": checks})
     if misses:
         fail("B1-train / B2 disagree with their plain versions at " + "; ".join(misses))
+    if not quick:
+        log_launches("per train step (66 calls), B1-train", totals["train"]["launches"])
+        log_launches("per train step (66 calls), B2", totals["bwd"]["launches"])
     return rows_out, err, totals
 
 
@@ -1354,7 +1479,7 @@ def row_block_grads(model):
 TRAIN_ROUTES = {
     "pallas": ({"B1-train": 66, "B2": 66}, TRAIN_STEPS,
                {"B1-train": (*(f"ln_qkv_kernel<{C}, false>" for C in (32, 64, 128, 256)),
-                             "attn_kernel", "post_kernel"),
+                             "k_norm_kernel", "attn_kernel", "post_kernel"),
                 "B2": (*(f"ln_qkv_kernel<{C}, true>" for C in (32, 64, 128, 256)),
                        "mlp_bwd_kernel", "attn_bwd_q_kernel",
                        "attn_bwd_kv_kernel", "ln1_bwd_kernel", "atb_kernel",
@@ -1576,8 +1701,9 @@ def read_counts():
 # the kernel each serving route runs, and the device kernels it is made of
 # (names as torch.profiler reports them)
 ROUTES = {
-    "pallas": ("B1", ("ln_qkv_kernel", "attn_kernel", "post_kernel")),
-    "pallas_int8": ("B3", ("ln_qkv_kernel", "qk_scale_kernel", "attn_kernel", "post_kernel")),
+    "pallas": ("B1", ("ln_qkv_kernel", "k_norm_kernel", "attn_kernel", "post_kernel")),
+    "pallas_int8": ("B3", ("ln_qkv_kernel", "qk_scale_kernel", "k_norm_kernel", "attn_kernel",
+                           "post_kernel")),
     "pallas_attn": ("B4", ("proj_kernel", "bilinear_attn_kernel")),
 }
 

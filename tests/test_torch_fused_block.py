@@ -26,8 +26,8 @@ from tfswa_tpu_torch.ops.fused_block import (SCORE_CLAMP, fused_row_block,
                                              fused_row_block_reference)
 
 
-def _np_params(rng, C, scale=0.05):
-    hid = 4 * C
+def _np_params(rng, C, scale=0.05, hid=None):
+    hid = 4 * C if hid is None else hid
 
     def r(*s, sc=scale):
         return (rng.standard_normal(s) * sc).astype(np.float32)
@@ -41,10 +41,10 @@ def _np_params(rng, C, scale=0.05):
     )
 
 
-def _both(R, N, C, seed, qkv_scale=0.05):
+def _both(R, N, C, seed, qkv_scale=0.05, hid=None):
     rng = np.random.default_rng(seed)
     rows = rng.standard_normal((R, N, C)).astype(np.float32)
-    p = _np_params(rng, C)
+    p = _np_params(rng, C, hid=hid)
     p["qkv_kernel"] = (p["qkv_kernel"] / 0.05 * qkv_scale).astype(np.float32)
     return rows, p
 
@@ -66,6 +66,59 @@ def test_reference_matches_pallas_kernel_f32(N, C):
     ref = _jax(rows, p, 8)
     out = fused_row_block_reference(torch.from_numpy(rows), _torch_params(p), 8)
     np.testing.assert_allclose(out.numpy(), ref, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reference_matches_pallas_kernel_at_an_mlp_width_off_the_kernels_chunks(dtype):
+    """An MLP of 96 units at C = 32, a multiple of 8 but not of the CUDA
+    kernels' hidden chunks (64 and 128 units: a ragged last chunk on the
+    card): the plain version still computes the TPU kernel's function.
+    Tolerances as the f32 and bf16 tests above."""
+    rows, p = _both(3, 37, 32, seed=96, qkv_scale=0.25, hid=96)
+    if dtype == "float32":
+        ref = _jax(rows, p, 8)
+        out = fused_row_block_reference(torch.from_numpy(rows), _torch_params(p), 8)
+        np.testing.assert_allclose(out.numpy(), ref, atol=2e-5, rtol=2e-5)
+        return
+    rows_bf = rows.astype(jnp.bfloat16)
+    ref = _jax(rows_bf, p, 8).astype(np.float32)
+    out = fused_row_block_reference(
+        torch.from_numpy(np.asarray(rows_bf, np.float32)).to(torch.bfloat16),
+        _torch_params(p), 8).float().numpy()
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(ref), 2.0 ** -20))) - 7)
+    assert np.all(np.abs(out - ref) <= 2 * ulp)
+
+
+def test_padded_keys_masked_to_minus_inf_add_exactly_zero():
+    """The attention kernel pads a row's keys to whole 16-key chunks with
+    zero k and v.  Unmasked, a zero key has s = 0 and p = bf16(exp2(0)) = 1,
+    and adds 1 to the denominator (the planted fault "padded keys adding
+    exp2(0)"); masked to -inf before the exp2 it has p = 0, so with the
+    sums taken key by key in order (as the kernel's mma chain takes them)
+    the padded row's acc and denominator are bit for bit the unpadded
+    row's."""
+    rng = np.random.default_rng(7)
+    N, Np, D = 37, 48, 4
+    q, k, v = (torch.from_numpy(rng.standard_normal((N, D)).astype(np.float32))
+               .to(torch.bfloat16).float() for _ in range(3))
+    pad = torch.zeros(Np - N, D)
+    kp, vp = torch.cat([k, pad]), torch.cat([v, pad])
+
+    def line(s):
+        return torch.exp2(s.clamp(max=SCORE_CLAMP)).to(torch.bfloat16).float()
+
+    def sums(p, v):                     # [sum_k p v | sum_k p * 1], key by key
+        terms = p[:, :, None] * torch.cat([v, torch.ones(v.shape[0], 1)], 1)[None]
+        return torch.cumsum(terms, dim=1)[:, -1]
+
+    s = q @ k.t()
+    s_pad = q @ kp.t()
+    assert torch.equal(s_pad[:, N:], torch.zeros(N, Np - N))
+    unmasked = sums(line(s_pad), vp)
+    masked = sums(line(torch.where(torch.arange(Np) < N, s_pad, float("-inf"))), vp)
+    plain = sums(line(s), v)
+    assert torch.equal(masked, plain)
+    assert torch.equal(unmasked[:, D] - plain[:, D], torch.full((N,), float(Np - N)))
 
 
 def test_reference_matches_pallas_kernel_saturated_scores():
@@ -241,5 +294,10 @@ def test_wrappers_raise_on_a_dtype_the_kernels_do_not_take(kernel):
 
 
 def test_kernel_refuses_an_mlp_width_off_its_chunks():
-    with pytest.raises(ValueError, match="MLP of 96 units"):
-        fused_block.check_shape("fused_row_block", 2, 16, 32, 8, 96)
+    """The kernels take any MLP width whose bf16 rows are whole 16-byte
+    cp.async copies (a multiple of 8 units): their hidden chunks may end
+    ragged, so 96 is admitted; 100 is refused."""
+    fused_block.check_shape("fused_row_block", 2, 16, 32, 8, 96)
+    assert fused_block.kernel_smem_bytes(32, 96) <= fused_block.MAX_SMEM_BYTES
+    with pytest.raises(ValueError, match="MLP of 100 units"):
+        fused_block.check_shape("fused_row_block", 2, 16, 32, 8, 100)

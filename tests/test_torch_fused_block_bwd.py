@@ -42,17 +42,18 @@ def _own_autotune_dir(monkeypatch, tmp_path):
     autotune.reset()
 
 
-def _inputs(R, N, C, seed, qkv_scale=0.25, hot_row=False):
+def _inputs(R, N, C, seed, qkv_scale=0.25, hot_row=False, hidden=None):
     rng = np.random.default_rng(seed)
 
     def r(*s, sc=0.05):
         return (rng.standard_normal(s) * sc).astype(np.float32)
 
+    hid = 4 * C if hidden is None else hidden
     p = dict(norm1_scale=1.0 + r(C, sc=0.1), norm1_bias=r(C, sc=0.1),
              qkv_kernel=r(C, 3 * C, sc=qkv_scale), proj_kernel=r(C, C),
              proj_bias=r(C, sc=0.01), norm2_scale=1.0 + r(C, sc=0.1),
-             norm2_bias=r(C, sc=0.1), fc1_kernel=r(C, 4 * C), fc1_bias=r(4 * C, sc=0.01),
-             fc2_kernel=r(4 * C, C), fc2_bias=r(C, sc=0.01))
+             norm2_bias=r(C, sc=0.1), fc1_kernel=r(C, hid), fc1_bias=r(hid, sc=0.01),
+             fc2_kernel=r(hid, C), fc2_bias=r(C, sc=0.01))
     rows = r(R, N, C, sc=0.5)
     if hot_row:
         rows[0] *= 30.0
@@ -111,6 +112,20 @@ def test_bwd_reference_matches_pallas_f32_with_clamped_row(R, N):
 def test_bwd_reference_matches_pallas_bf16(R, N):
     rows, p, g = _inputs(R, N, 32, seed=200 + N)
     got, ref = _bwd_both(rows, p, g, jnp.bfloat16)
+    dx_scale = np.abs(ref[0]).max()
+    assert np.abs(got[0] - ref[0]).max() <= 4 * _ulp(dx_scale)
+    for i, (a, b) in enumerate(zip(got[1:], ref[1:])):
+        scale = max(np.abs(b).max(), 1e-30)
+        assert np.abs(a - b).max() <= 1e-2 * scale, (i, np.abs(a - b).max(), scale)
+
+
+def test_bwd_reference_matches_pallas_at_an_mlp_width_off_the_kernels_chunks():
+    """An MLP of 96 units at C = 32, a multiple of 8 but not of the CUDA
+    kernels' hidden chunks (a ragged last chunk on the card), in bf16 with
+    the limits of test_bwd_reference_matches_pallas_bf16."""
+    rows, p, g = _inputs(2, 37, 32, seed=296, hidden=96)
+    got, ref = _bwd_both(rows, p, g, jnp.bfloat16)
+    assert got[9].shape == (96,)                 # fc1_bias
     dx_scale = np.abs(ref[0]).max()
     assert np.abs(got[0] - ref[0]).max() <= 4 * _ulp(dx_scale)
     for i, (a, b) in enumerate(zip(got[1:], ref[1:])):

@@ -63,6 +63,38 @@ def test_train_forward_reference_matches_pallas_bf16(N):
     np.testing.assert_allclose(got[3].numpy(), ref[3], rtol=2e-5)
 
 
+def test_denominator_is_the_ones_column_of_the_rounded_p():
+    """The attention kernel takes each head's denominator from its AV
+    product: a ones column beside the head's v columns, so den = sum_k
+    p_k * 1 over the bf16-rounded p (the TPU kernel's appended ones row),
+    and each head's score from a 16-channel product whose q channels
+    outside the head are zero.  That form, on the plain version's q|k|v,
+    gives the plain B1-train's den up to the f32 summation order (rtol
+    1e-6), and the plain den is the JAX kernel's (rtol 2e-5, as above)."""
+    R, N, C, D = 2, 37, 32, 4
+    rows, p, _ = _inputs(R, N, C, seed=41)
+    rows_bf = rows.astype(jnp.bfloat16)
+    jax_den = _jax_forward(rows_bf, p)[3]
+    x, tp = _t(rows_bf, torch.bfloat16), _tp(p)
+    ln_s, ln_b, w_qkv = (w.float() for w in fused_block._block_weights(tp, C, H,
+                                                                        torch.bfloat16)[:3])
+    n1 = fused_block.layer_norm_f32(x.float(), ln_s, ln_b).to(torch.bfloat16).float()
+    qkv = (n1 @ w_qkv).to(torch.bfloat16)
+    q, k, v = qkv.float()[..., :C], qkv.float()[..., C:2 * C], qkv.float()[..., 2 * C:]
+    den = torch.empty(R, H, N)
+    for h in range(H):
+        grp = slice(16 * (h * D // 16), 16 * (h * D // 16) + 16)
+        lanes = torch.zeros(C)
+        lanes[h * D:(h + 1) * D] = 1.0
+        s = (q * lanes)[..., grp] @ k[..., grp].transpose(-1, -2)
+        prob = torch.exp2(s.clamp(max=fused_block.SCORE_CLAMP)).to(torch.bfloat16).float()
+        vo = torch.cat([v[..., h * D:(h + 1) * D], torch.ones(R, N, 1)], dim=-1)
+        den[:, h] = (prob @ vo)[..., D]
+    got = fused_row_block_train_reference(x, tp, H, qkv=qkv.reshape(R * N, 3 * C))[3]
+    torch.testing.assert_close(den, got, rtol=1e-6, atol=0.0)
+    np.testing.assert_allclose(got.numpy(), jax_den, rtol=2e-5)
+
+
 def _grads(fn, rows, p, g):
     x = rows.clone().requires_grad_()
     pr = RowBlockParams(*(t.clone().requires_grad_() for t in p))

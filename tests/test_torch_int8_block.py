@@ -95,6 +95,34 @@ def test_quantize_rows_matches_numpy(case):
         assert qi[0, 0, 0, :5].tolist() == [127.0, 2.0, 4.0, 0.0, -2.0]
 
 
+def test_int8_scores_are_the_same_in_any_order():
+    """B3's kernel sums each head's int8 products in int32 on the tensor
+    cores (m16n8k32, K = 32 channels, the bytes outside the head zeroed, in
+    the hardware's order); the plain version sums them in f32 in its own
+    order.  Every sum is an integer of magnitude at most 32 * 127^2 < 2^24,
+    so f32 holds each partial sum exactly: the scores, and the scores times
+    sq * sk, are the same bits in any order."""
+    rng = np.random.default_rng(3)
+    R, N, C, D = 2, 37, 32, 4
+    q, k = (torch.from_numpy(rng.standard_normal((R, N, C)).astype(np.float32))
+            .to(torch.bfloat16).float() for _ in range(2))
+    (qi, sq), (ki, sk) = quantize_rows(q), quantize_rows(k)
+    perm = torch.from_numpy(rng.permutation(C))
+    for h in range(C // D):
+        lanes = slice(h * D, (h + 1) * D)
+        plain = qi[..., lanes] @ ki[..., lanes].transpose(-1, -2)
+        exact = (qi[..., lanes].double() @ ki[..., lanes].double().transpose(-1, -2))
+        mask = torch.zeros(C)
+        mask[lanes] = 1.0
+        masked = (qi * mask) @ ki.transpose(-1, -2)              # all 32 channels
+        shuffled = (qi * mask)[..., perm] @ ki[..., perm].transpose(-1, -2)
+        serial = torch.cumsum((qi * mask)[:, :, None, :] * ki[:, None, :, :], dim=-1)[..., -1]
+        assert torch.equal(plain.double(), exact)
+        for other in (masked, shuffled, serial):
+            assert torch.equal(other, plain)
+            assert torch.equal(other * (sq * sk), plain * (sq * sk))
+
+
 def test_quantize_rows_all_zero_row_gives_zero():
     """An all-zero q row: s = 0.  The TPU kernel computes 0/0 = NaN and casts
     it to int8 0 (on the CPU); the port produces the 0 explicitly."""

@@ -15,7 +15,17 @@ from typing import Optional, Tuple
 @dataclass
 class ModelConfig:
     """TFSWA-UNet architecture config.  The stock widths give 15,404,834
-    parameters at in/out_channels=2."""
+    parameters at in/out_channels=2.
+
+    On the card the kernel routes (``attention_impl`` "pallas",
+    "pallas_int8", "pallas_attn") take bf16 rows only: with the default
+    ``dtype="float32"`` their wrappers raise (set ``dtype="bfloat16"``, as
+    every shipped config does, or use "xla").  They take the widths in
+    ``dims`` from (32, 64, 128, 256); "pallas" and "pallas_int8" a head dim
+    of 4, 8, 16 or 32 and an MLP width (``mlp_ratio`` times the width) that
+    is a multiple of 8; "pallas_attn" 2, 4 or 8 heads.  Any other shape
+    raises; none falls back to the plain route.  On the CPU every route
+    computes."""
 
     in_channels: int = 4          # stereo complex spectrogram: [re_L, re_R, im_L, im_R]
     out_channels: int = 4         # 2 * n_stems mask channels

@@ -3,13 +3,16 @@
 // header is compiled into each.
 //
 // Two kinds of helper:
-//   - the SIMT pieces of B2's launches (TOK-token tiles, column_dot);
+//   - the SIMT pieces of B2's LN1 launch (TOK-token tiles, column_dot);
 //   - the tensor-core tile: a warp-level bf16 product on
-//     mma.sync.aligned.m16n8k16 with f32 sums, its fragments loaded from
-//     shared memory by ldmatrix, and the block-level product block_gemm,
-//     which streams a weight through shared memory with cp.async.  The
-//     products of ln_qkv_kernel (below), post_kernel (fused_block.cu) and
-//     every product of B4 (row_attention.cu) run on it.
+//     mma.sync.aligned.m16n8k16 with f32 sums (and its int8 form,
+//     m16n8k32 with exact int32 sums), its fragments loaded from shared
+//     memory by ldmatrix, and the block-level product block_gemm, which
+//     streams a weight through shared memory with cp.async.  Every product
+//     of B1's three launches (ln_qkv_kernel below; attn_kernel and
+//     post_kernel in fused_block.cu), of B2's mlp_bwd_kernel and
+//     atb_kernel (fused_block_bwd.cu) and of B4 (row_attention.cu) runs
+//     on it.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -18,8 +21,8 @@
 
 namespace {
 
-constexpr int TOK = 16;        // tokens per block in B2's O(N*C) kernels
-constexpr int THREADS = 128;   // threads per block in B2's O(N*C) kernels
+constexpr int TOK = 16;        // tokens per tile of B2's SIMT LN1 launch
+constexpr int THREADS = 128;   // threads per block of B2's SIMT launches
 constexpr int KT = 128;        // keys (or queries) per shared-memory tile
 constexpr float SCORE_CLAMP = 110.0f;
 
@@ -102,6 +105,25 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32: D (16 x 8, int32) =
+// A (16 x 32, int8) B (32 x 8, int8) + C, summed exactly.  Four int8 a
+// register, the lowest k in the lowest byte:
+//   a[0] = (row g, k 4q..4q+3)       a[1] = (row g + 8, k 4q..4q+3)
+//   a[2] = (row g, k 4q+16..4q+19)   a[3] = (row g + 8, k 4q+16..4q+19)
+//   b[0] = (k 4q..4q+3; col g)       b[1] = (k 4q+16..4q+19; col g)
+// and C, D as for the bf16 form.  An n-major int8 tile (rows = n, 32 bytes
+// of k contiguous) gives its B fragments through ldsm_b_nmajor on the same
+// bytes read as bf16 pairs (k0 = 0): byte pair 2q, 2q+1 of b16 lanes is
+// bytes 4q..4q+3.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -144,6 +166,15 @@ __device__ __forceinline__ void ldsm_b_nmajor(uint32_t (&b)[4], const bf16* tile
                                               int k0, int n0) {
     const int l = threadIdx.x & 31;
     ldsm_x4(b, tile + (n0 + (l & 7) + ((l >> 4) << 3)) * ld + k0 + ((l >> 3) & 1) * 8);
+}
+
+// The A fragment of rows m0..m0+15, k rows k0..k0+15 of a k-major tile
+// (rows = k, the rows of A stored contiguously: A^T as stored), by
+// ldmatrix.trans: matrix i is k rows 8 (i / 2).. and A rows 8 (i % 2)..
+__device__ __forceinline__ void ldsm_a_kmajor(uint32_t (&a)[4], const bf16* tile, int ld,
+                                              int k0, int m0) {
+    const int l = threadIdx.x & 31;
+    ldsm_x4_t(a, tile + (k0 + (l & 7) + ((l >> 4) << 3)) * ld + m0 + ((l >> 3) & 1) * 8);
 }
 
 // Two f32 rounded to bf16 and packed, the first in the lower half.
@@ -205,22 +236,26 @@ __device__ __forceinline__ void stage_rows(bf16* dst, int ld, const bf16* src, i
 // while the warps multiply the current one.  Every thread of the block
 // calls it (it holds barriers), with the same n0 and K; the caller's shared
 // writes of A before the call are seen.  K % KS == 0, NT even, ldw and n0
-// multiples of 8, W 16-byte aligned.
+// multiples of 8, W 16-byte aligned.  W's rows from k_valid on and its
+// columns from n_valid on are read as zeros, and nothing past them is read
+// (a ragged last chunk of the MLP's hidden units).
 constexpr int KS = 32;
 
 template <int NT, int NCH, int NTHR>
 __device__ __forceinline__ void block_gemm(float (&acc)[NT][4], const bf16* a, int lda,
                                            const bf16* w, int ldw, int n0, int K, bf16* wbuf,
-                                           int wcol0) {
+                                           int wcol0, int k_valid = 1 << 30,
+                                           int n_valid = 1 << 30) {
     static_assert(NT % 2 == 0 && NCH % 8 == 0, "block_gemm: NT even, NCH a multiple of 8");
     constexpr int LDB = NCH + 8;
     constexpr int PER_ROW = NCH / 8;
     auto stage = [&](int s) {
         bf16* dst = wbuf + (s & 1) * KS * LDB;
-        const bf16* src = w + (size_t)s * KS * ldw + n0;
         for (int i = threadIdx.x; i < KS * PER_ROW; i += NTHR) {
             const int r = i / PER_ROW, c = (i % PER_ROW) * 8;
-            cp_async16(dst + r * LDB + c, src + (size_t)r * ldw + c);
+            const int k = s * KS + r;
+            const bool ok = k < k_valid && n0 + c < n_valid;
+            cp_async16(dst + r * LDB + c, ok ? w + (size_t)k * ldw + n0 + c : w, ok);
         }
     };
     const int nk = K / KS;

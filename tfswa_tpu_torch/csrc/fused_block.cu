@@ -21,55 +21,53 @@
 // B3 replaces the score q.k by (qi.ki) * (sq * sk): sq = max|q| / 127 over
 // the row's N*C values of q (all heads), the same for k, in f32;
 // qi = rint(q / sq) as int8 (a true division, rounded half to even; 0 where
-// the scale is 0); the int8 dot product summed exactly in int32 (__dp4a).
+// the scale is 0); the int8 dot product summed exactly in int32 (the
+// tensor cores' m16n8k32 int8 product).
 // v is not quantised: the TPU kernel's int8_av is False, and p, the AV
 // sums and the denominator stay as in B1.  The build must not use
 // --use_fast_math: the division and the rounding have to give the plain
 // version's int8 values bit for bit.
 //
-// Design.  Three launches (B3: four):
-//   1. ln_qkv_kernel (block_common.cuh): LN1 prologue + the qkv product on
-//                      the tensor cores, 64 tokens a block;
+// Design.  Three launches (B3: four), every product on the tensor cores
+// (mma.sync, the tile of block_common.cuh):
+//   1. ln_qkv_kernel (block_common.cuh): LN1 prologue + the qkv product, 64
+//                      tokens a block;
 //  (B3) qk_scale_kernel: one block per row reduces max|q| and max|k| over
 //                      the row's N*C values into an (R, 2) f32 buffer;
-//   2. attn_kernel:    one block per (row, head, block of queries); keys and
-//                      values of the head stream through shared memory in
-//                      tiles of 128 keys; each thread owns one query and
-//                      keeps q, acc and the denominator in registers.  No
-//                      (N, N) score or probability plane exists anywhere:
-//                      a score lives in one register for one key.  Keys past
-//                      N are never visited, so a ragged last tile adds
-//                      exactly 0 to the denominator.  In B3 (template flag
-//                      INT8) each thread quantises its query once into D/4
-//                      packed int8 words, the key tiles are quantised as
-//                      they enter shared memory, and a score is D/4
-//                      __dp4a (one at D = 4);
+//  (N > 64; B3 always) k_norm_kernel: one block per row, the row's largest
+//                      |k_h| per head, the bound of the attention's exp2
+//                      fast path (B3: and the row's k quantised to int8);
+//   2. attn_kernel:    one block per (row, 128 queries), the heads in passes
+//                      of 32 channels, the keys streamed through shared
+//                      memory for all the pass's heads: scores and P V
+//                      (with the denominator as a ones column) on mma, the
+//                      score -> p line in registers (see the kernel).  No
+//                      (N, N) score or probability plane exists anywhere;
 //   3. post_kernel:    out-projection + bias + residual + LN2 + fc1 + erf
-//                      GELU + fc2 + bias + residual on the tensor cores, 64
-//                      tokens a block, the MLP chunked over the hidden
-//                      width so that its 4C-wide activation never leaves
-//                      the block (see the kernel).
-// The products of launches 1 and 3 run on mma.sync (bf16 operands, f32
-// sums: the tile of block_common.cuh).  Their A operands are the bf16
-// values the function rounds (n1, acc, n2, the GELU output), held in
-// shared memory; each weight streams through shared memory in k-slices of
-// 32 rows (cp.async, two buffers), since at C = 256 W_qkv (384 KB) and
-// fc1 (512 KB) do not fit.  The residual y stays f32 in shared memory and
-// fc2's sums stay in registers across the hidden chunks.
+//                      GELU + fc2 + bias + residual, 64 tokens a block, the
+//                      MLP chunked over the hidden width so that its
+//                      4C-wide activation never leaves the block (see the
+//                      kernel).
+// The A operands of launches 1 and 3 are the bf16 values the function
+// rounds (n1, acc, n2, the GELU output), held in shared memory; each weight
+// streams through shared memory in k-slices of 32 rows (cp.async, two
+// buffers), since at C = 256 W_qkv (384 KB) and fc1 (512 KB) do not fit.
+// The residual y stays f32 in shared memory and fc2's sums stay in
+// registers across the hidden chunks.
 //
-// What bounds it on the H100.  The path's attention at stage 0 has D = 4:
-// a score costs 4 FMAs (B3: one __dp4a), one exp2 (MUFU, 16 per clock per
-// SM) and 4 FMAs of AV, so that stage is bound by exp2 throughput and
-// CUDA-core instructions, not by tensor-core FLOPs (mma needs k = 16).
-// About 5e11 exp2 per 8-segment batch, most of them in stage-0 TSA and
-// FSA.  The products (launches 1 and 3, about 9 C^2 MACs on about 6 C
-// bytes a token, 3 C FLOP a byte) sit below the card's 295 FLOP a byte up
-// to C = 64, where bytes bound them, and above it at C = 128 and 256; on
-// mma.sync they are far from either line.  The split into three launches costs extra device-memory bytes over
-// one fused kernel: q, k, v and the attention output make a round trip,
-// about 16*C bytes a token (~0.5 KB at C = 32; ~3.6 GB, ~1 ms at
-// 3.35 TB/s, at stage-0 TSA with 7 M tokens).  The attention launch on
-// mma and the launches' fusion are later work.
+// What bounds it on the H100.  The attention at stage 0 has D = 4: its
+// scores and AV are a few percent of the tensor cores' rate, and the
+// function's floor is exp2, H N^2 a row at 16 a clock an SM on the MUFU
+// (about 125 ms a serving forward, 105 of it at stage 0).  With the
+// products on mma a (query, key) pair costs on the CUDA cores the clamp,
+// the exp2 (one MUFU op; its range fix-up only where a score can fall
+// under -126) and half a packed bf16 convert, so the line is meant to be
+// MUFU-bound (B3 adds an int -> f32 convert and the scale's multiply).  The products (launches 1 and 3, about 9 C^2 MACs on about
+// 6 C bytes a token) sit below the card's 295 FLOP a byte up to C = 64,
+// where bytes bound them.  The split into three launches costs extra
+// device-memory bytes over one fused kernel: q, k, v and the attention
+// output make a round trip, about 16*C bytes a token (~0.5 KB at C = 32;
+// ~3.6 GB, ~1 ms at 3.35 TB/s, at stage-0 TSA with 7 M tokens).
 //
 // The training form and B3 are the same code instantiated with template
 // flags, so the serving form's instructions are unchanged.
@@ -116,11 +114,17 @@ __device__ __forceinline__ int quant_i8(float x, float s) {
     return s > 0.f ? (int)rintf(x / s) : 0;
 }
 
-// Four int8 values in one word, the first in the lowest byte (the order
-// __dp4a pairs them in, and the order of an int8 array in memory).
+// Four int8 values in one word, the first in the lowest byte (the order of
+// an int8 array in memory, and of the int8 mma's k).
 __device__ __forceinline__ int pack4(int a, int b, int c, int d) {
     return (int)((unsigned)(a & 0xff) | ((unsigned)(b & 0xff) << 8) |
                  ((unsigned)(c & 0xff) << 16) | ((unsigned)(d & 0xff) << 24));
+}
+
+// |x|^2 of the two bf16 in a 32-bit word
+__device__ __forceinline__ float sq_bf16x2(uint32_t w) {
+    const float lo = __uint_as_float(w << 16), hi = __uint_as_float(w & 0xffff0000u);
+    return lo * lo + hi * hi;
 }
 
 // B3: the per-row scales of q and k, max|.| / 127 over the row's N*C values
@@ -158,151 +162,525 @@ qk_scale_kernel(const bf16* __restrict__ qkv, float* __restrict__ scales, int N,
     }
 }
 
-// 2. Attention, one block per (row, head, block of queries).
+// The row bound of attn_kernel's exp2 fast path: per row and head the
+// largest |k_h| over the row's N keys, into kmax (R, H) f32.  INT8 (B3)
+// also quantises the row's k with its scale (scales (R, 2)) into the k
+// half of qk (R*N, 2C) int8, as 32-bit words: once a row, for every query
+// block of the attention.  One block per row; each thread keeps one head
+// (NORM_THREADS is a multiple of H).
+constexpr int NORM_THREADS = 256;
+template <bool INT8>
+__global__ void __launch_bounds__(NORM_THREADS)
+k_norm_kernel(const bf16* __restrict__ qkv, float* __restrict__ kmax,
+              const float* __restrict__ scales, int* __restrict__ qk, int N, int C, int H) {
+    __shared__ float red[NORM_THREADS];
+    const int D = C / H, h = threadIdx.x % H, step = NORM_THREADS / H;
+    const size_t row0 = (size_t)blockIdx.x * N;
+    const bf16* kcol = qkv + row0 * 3 * C + C + h * D;
+    const float sk = INT8 ? scales[2 * blockIdx.x + 1] : 0.f;
+    float km = 0.f;
+    for (int j = threadIdx.x / H; j < N; j += step) {
+        const bf16* kp = kcol + (size_t)j * 3 * C;
+        float k2 = 0.f;
+        for (int d = 0; d < D; d += 4) {
+            const uint2 w = *reinterpret_cast<const uint2*>(kp + d);
+            k2 += sq_bf16x2(w.x) + sq_bf16x2(w.y);
+            if constexpr (INT8)
+                qk[((row0 + j) * 2 * C + C + h * D + d) / 4] =
+                    pack4(quant_i8(__uint_as_float(w.x << 16), sk),
+                          quant_i8(__uint_as_float(w.x & 0xffff0000u), sk),
+                          quant_i8(__uint_as_float(w.y << 16), sk),
+                          quant_i8(__uint_as_float(w.y & 0xffff0000u), sk));
+        }
+        km = fmaxf(km, k2);
+    }
+    red[threadIdx.x] = km;
+    __syncthreads();
+    if (threadIdx.x < H) {
+        for (int t = threadIdx.x + H; t < NORM_THREADS; t += H) km = fmaxf(km, red[t]);
+        kmax[(size_t)blockIdx.x * H + threadIdx.x] = sqrtf(km);
+    }
+}
+
+// 2. Attention on the tensor cores.  One block per (row, 16 NW queries),
+// NW warps (8 where N > 64, else 4); warp w owns the queries q0 + 16 w ..
+// + 15.  The heads go in passes of AT_LANES = 32 channels (32 / D heads a
+// pass, C / 32 passes); in a pass the block streams the row's keys through
+// shared memory in tiles of AK keys (128 where N > 64, else 64): the
+// pass's 32 channels of k and of v, whole 16-byte rows (at D = 4 a head's
+// k is 8 bytes a key, under what cp.async and ldmatrix move), double
+// buffered with cp.async, so that each tile serves every head of the pass
+// and all the block's queries.  Per 16 keys and head h, in registers:
+//   - the scores of the warp's 16 queries on mma (m16n8k16, K = 16
+//     channels spanning 16 / D heads): q's A fragment with the channels
+//     outside head h zeroed, so that the sum over the 16 channels is head
+//     h's f32 score (the TPU kernel masks the same way); D = 16 takes one
+//     k step, D = 32 two.  INT8: the int8 q and k on m16n8k32 (K = the
+//     pass's 32 channels, q's bytes outside head h zeroed), exact int32
+//     sums times sq * sk;
+//   - p = bf16(exp2(min(s, SCORE_CLAMP))) (exp2_line), rounded and packed
+//     by cvt.rn.bf16x2 straight into the A fragment of P V (pack_a): no p
+//     goes to shared memory.  exp2 is exp2f's (ex2.approx, subnormal
+//     results kept); its range fix-up (an FSETP and two predicated FMUL a
+//     score) is skipped where no score can fall below -126, by |s| <=
+//     |q_h| |k_h| with the warp's largest |q_h| and the row's largest
+//     |k_h| (k_norm_kernel, rows of more than 64 keys); elsewhere each
+//     chunk's scores are tested and the fix-up runs only where one is
+//     below -126;
+//   - P V and the denominator on mma: the B fragment is head h's v columns
+//     plus a ones column built in registers, so sum_k p_k * 1 is the f32
+//     sum of the rounded p, as the TPU kernel's appended ones row gives
+//     it.  At D = 4 one n-tile holds the head's 4 v columns, the ones
+//     column and 3 zeros (its neighbour head's columns replaced in
+//     registers); at D >= 8 the ones column is an n-tile of its own.
+// Keys past N are zero-filled and their scores set to -inf before the
+// exp2 (p = 0: a zero key alone would give s = 0, p = 1 and add 1 to the
+// denominator); 16-key chunks wholly past N are skipped; queries past N
+// compute on zeros and write nothing.
 // WITH_DEN also writes den (R, H, N), the f32 sum of the rounded p.
-// INT8 (B3) takes int8 scores with the row scales in scales (R, 2); with
-// qk_out non-null it also writes the int8 q | k it used, (R*N, 2C) int8
-// as 32-bit words (keys by the blocks of query block 0).
+// INT8 (B3) takes int8 scores with the row scales in scales (R, 2) and
+// the int8 q | k in qk_out, (R*N, 2C) int8 as 32-bit words: k quantised
+// once a row by k_norm_kernel<true> and streamed from there as int8 key
+// tiles, q quantised here once a pass into its A fragments and written
+// back; both with a true division and rintf.
 // The lab: STAGE cuts the attention after the scores (all kept in the
-// checksum only), after p (out is then the final (R, N, C) output: p of
+// checksum only), after p (packed to bf16 pairs as P V takes them, their
+// bits in the checksum; out is then the final (R, N, C) output: p of
 // queries n < D at [r, key, h*D + n]) or after the AV sums (acc / den
-// summed over the block's queries to lab, (R*H*nqb, D) f32); FLAGS change
-// the score -> p line.
+// summed over the block's queries to lab, (R*H*nqb, D) f32, over the
+// warps in order); FLAGS change the score -> p line.  Every form runs its
+// products on the tensor cores; P_F32, which has no bf16 p, splits p into
+// its bf16 hi and the bf16 of p - hi and runs P V twice (hi + lo carries p
+// to about 2^-17 of itself).
+constexpr int AT_LANES = 32;                  // channels a pass
+constexpr int AT_LD = 2 * AT_LANES + 8;       // bf16 a staged key row: k | v | padding
+constexpr int AT_LD8 = AT_LANES + 16;         // bytes a row of the int8 key tile
+constexpr int AT_MAX_WARPS = 8;
+constexpr uint32_t BF16_ONES = 0x3F803F80u;   // two bf16 1.0
+
+size_t attn_smem_bytes(int ak) {
+    return sizeof(bf16) * 2 * (size_t)ak * AT_LD + 2 * (size_t)ak * AT_LD8
+           + sizeof(float) * AT_MAX_WARPS * AT_LANES;
+}
+
+// |q_h| |k_h| at most this: no score of the head can be below -126 (with
+// room for the f32 sums' rounding)
+constexpr float SAFE_BOUND = 120.0f;
+
+// 2^x on the MUFU, results below 2^-126 flushed to 0 (ex2.approx.ftz)
+__device__ __forceinline__ float ex2_ftz(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// The score -> p line of the warp's 16 queries x 16 keys (two
+// accumulators of 8 keys), in place: the f32 value that p's bf16 rounding
+// takes (SCORE_BF16: already rounded).  Keys from nvalid on (of the 16)
+// get p = 0.  exp2 is exp2f's: ex2.approx, whose results under 2^-126 are
+// kept (subnormal).  The flushing form gives the same bits with no range
+// fix-up where no score is below -126: so where ``safe`` (a bound on the
+// head's |q| |k| says no score can be) it runs alone, else the warp's
+// scores are tested and the fix-up runs only for chunks that need it.
+template <int FLAGS>
+__device__ __forceinline__ void exp2_line(float (&s)[2][4], int nvalid, bool safe) {
+    const int q = threadIdx.x & 3;
+    if ((FLAGS & NO_CLAMP) == 0) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = fminf(s[j][e], SCORE_CLAMP);
+    }
+    float lo = INFINITY;
+    if (!safe) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) lo = fminf(lo, s[j][e]);
+    }
+    if (nvalid < 16) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                if (8 * j + 2 * q + (e & 1) >= nvalid) s[j][e] = -INFINITY;
+    }
+    if constexpr ((FLAGS & SCORE_BF16) != 0) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                s[j][e] = round_bf16(expf(round_bf16(round_bf16(s[j][e]) * LN2_BF16)));
+    } else if (!safe && __any_sync(0xffffffffu, lo < -126.0f)) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = exp2f(s[j][e]);
+    } else {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = ex2_ftz(s[j][e]);
+    }
+}
+
 template <int D, bool WITH_DEN, bool INT8, int STAGE = STAGE_FULL, int FLAGS = 0>
-__global__ void attn_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-                            float* __restrict__ den_out, const float* __restrict__ scales,
-                            int* __restrict__ qk_out, int N, int C, int H, int nqb,
-                            float* __restrict__ lab, float* __restrict__ sink) {
+__global__ void __launch_bounds__(32 * AT_MAX_WARPS, 3)
+attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ kmax,
+            bf16* __restrict__ out, float* __restrict__ den_out,
+            const float* __restrict__ scales, int* __restrict__ qk_out, int N, int C, int H,
+            int nqb, int ak, float* __restrict__ lab, float* __restrict__ sink) {
     static_assert(STAGE == STAGE_FULL || (!WITH_DEN && !INT8 && FLAGS == 0),
                   "the lab cuts B1's serving form, flags only on the full attention");
-    extern __shared__ __align__(16) float smem[];
-    float* ks = smem;              // KT x D (INT8: KT x D/4 packed words)
-    float* vs = smem + KT * D;     // KT x D
+    static_assert(D == 4 || D == 8 || D == 16 || D == 32, "head dim");
+    constexpr int HP = AT_LANES / D;             // heads a pass
+    constexpr int VT = D < 8 ? 1 : D / 8;        // n-tiles of a head's v
+    constexpr int OT = D < 8 ? 1 : VT + 1;       // ... with its ones column
+    constexpr bool SPLIT = (FLAGS & P_F32) != 0 && (FLAGS & SCORE_BF16) == 0;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* kv = reinterpret_cast<bf16*>(smem_raw);                 // 2 x ak x AT_LD
+    unsigned char* k8 = reinterpret_cast<unsigned char*>(kv + 2 * ak * AT_LD);  // 2 x ak x AT_LD8
+    float* red = reinterpret_cast<float*>(k8 + 2 * ak * AT_LD8);   // AT_MAX_WARPS x AT_LANES
+    const int nw = blockDim.x >> 5;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, q = lane & 3;
     const int qb = blockIdx.x % nqb;
-    const int h = (blockIdx.x / nqb) % H;
-    const size_t r = blockIdx.x / ((size_t)nqb * H);
-    const int n = qb * blockDim.x + threadIdx.x;
-    const bool valid = n < N;
+    const size_t r = blockIdx.x / nqb;
     const size_t row0 = r * N;
+    const int qrow = qb * 16 * nw + warp * 16;   // the warp's first query
     const int ldq = 3 * C;
-
-    float q[D], acc[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-        q[d] = valid ? ld(qkv + (row0 + n) * ldq + h * D + d) : 0.f;
-        acc[d] = 0.f;
-    }
-    float den = 0.f;
-    float chk = 0.f;               // the lab's cut stages: checksum of the work
-    int qw[INT8 ? D / 4 : 1];
-    float sk = 0.f, ss = 0.f;
+    const int nkt = (N + ak - 1) / ak;
+    float sk = 0.f, ss = 0.f, sq = 0.f;
     if constexpr (INT8) {
-        const float sq = scales[2 * r];
+        sq = scales[2 * r];
         sk = scales[2 * r + 1];
         ss = sq * sk;
-#pragma unroll
-        for (int c = 0; c < D / 4; ++c)
-            qw[c] = pack4(quant_i8(q[4 * c], sq), quant_i8(q[4 * c + 1], sq),
-                          quant_i8(q[4 * c + 2], sq), quant_i8(q[4 * c + 3], sq));
-        if (qk_out != nullptr && valid) {
-#pragma unroll
-            for (int c = 0; c < D / 4; ++c)
-                qk_out[((row0 + n) * 2 * C + h * D) / 4 + c] = qw[c];
-        }
     }
+    // the checksums of the lab's cut stages: scores summed, p's bf16 bits
+    float chk = 0.f;
+    uint32_t chk_bits = 0u;
+    // B fragment of the ones n-tile (D >= 8): column 0 all ones
+    const uint32_t ones_b = g == 0 ? BF16_ONES : 0u;
 
-    for (int t0 = 0; t0 < N; t0 += KT) {
-        const int nk = min(KT, N - t0);
-        __syncthreads();
+    for (int l0 = 0; l0 < C; l0 += AT_LANES) {
+        // q's A fragments for the pass: masked per head (qm) where a k
+        // step spans several heads
+        uint32_t qm[D == 32 ? 2 : HP][4];
         if constexpr (INT8) {
-            int* kw = reinterpret_cast<int*>(ks);
-            for (int i = threadIdx.x; i < nk * (D / 4); i += blockDim.x) {
-                const int j = i / (D / 4), c = i % (D / 4);
-                const bf16* kp = qkv + (row0 + t0 + j) * ldq + C + h * D + 4 * c;
-                const int w = pack4(quant_i8(ld(kp), sk), quant_i8(ld(kp + 1), sk),
-                                    quant_i8(ld(kp + 2), sk), quant_i8(ld(kp + 3), sk));
-                kw[i] = w;
-                if (qk_out != nullptr && qb == 0)
-                    qk_out[((row0 + t0 + j) * 2 * C + C + h * D) / 4 + c] = w;
+            uint32_t qi[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int n = qrow + g + 8 * (i & 1);
+                const int c = l0 + 4 * q + 16 * (i >> 1);
+                int w = 0;
+                if (n < N) {
+                    const bf16* qp = qkv + (row0 + n) * ldq + c;
+                    w = pack4(quant_i8(ld(qp), sq), quant_i8(ld(qp + 1), sq),
+                              quant_i8(ld(qp + 2), sq), quant_i8(ld(qp + 3), sq));
+                    qk_out[((row0 + n) * 2 * C + c) / 4] = w;
+                }
+                qi[i] = (uint32_t)w;
             }
-            for (int i = threadIdx.x; i < nk * D; i += blockDim.x)
-                vs[i] = ld(qkv + (row0 + t0 + i / D) * ldq + 2 * C + h * D + i % D);
+#pragma unroll
+            for (int hh = 0; hh < HP; ++hh)
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+                    qm[hh][i] = (4 * q + 16 * (i >> 1)) / D == hh ? qi[i] : 0u;
         } else {
-            for (int i = threadIdx.x; i < nk * D; i += blockDim.x) {
-                const size_t base = (row0 + t0 + i / D) * ldq + h * D + i % D;
-                ks[i] = ld(qkv + base + C);
-                if (STAGE >= STAGE_AV) vs[i] = ld(qkv + base + 2 * C);
-            }
-        }
-        __syncthreads();
-        for (int j = 0; j < nk; ++j) {
-            const float4* v4 = reinterpret_cast<const float4*>(vs + j * D);
-            float s = 0.f;
-            if constexpr (INT8) {
-                const int* k4 = reinterpret_cast<const int*>(ks) + j * (D / 4);
-                int si = 0;
+            uint32_t qa[2][4];
 #pragma unroll
-                for (int c = 0; c < D / 4; ++c) si = __dp4a(qw[c], k4[c], si);
-                s = (float)si * ss;
+            for (int kg = 0; kg < 2; ++kg)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const int n = qrow + g + 8 * (i & 1);
+                    const int c = l0 + 16 * kg + 2 * q + 8 * (i >> 1);
+                    qa[kg][i] = n < N ? *reinterpret_cast<const uint32_t*>(
+                                            qkv + (row0 + n) * ldq + c)
+                                      : 0u;
+                }
+            if constexpr (D == 32) {
+#pragma unroll
+                for (int kg = 0; kg < 2; ++kg)
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) qm[kg][i] = qa[kg][i];
             } else {
-                const float4* k4 = reinterpret_cast<const float4*>(ks + j * D);
 #pragma unroll
-                for (int c = 0; c < D / 4; ++c) {
-                    const float4 kk = k4[c];
-                    s += q[4 * c] * kk.x + q[4 * c + 1] * kk.y
-                       + q[4 * c + 2] * kk.z + q[4 * c + 3] * kk.w;
+                for (int hh = 0; hh < HP; ++hh) {
+                    constexpr int HG = 16 / D;   // heads a k step (one at D = 16)
+#pragma unroll
+                    for (int i = 0; i < 4; ++i)
+                        qm[hh][i] = (2 * q + 8 * (i >> 1)) / D == hh % HG ? qa[hh / HG][i]
+                                                                        : 0u;
                 }
             }
-            if constexpr (STAGE == STAGE_SCORES) {
-                chk += s;
-                continue;
-            }
-            const float sc = (FLAGS & NO_CLAMP) ? s : fminf(s, SCORE_CLAMP);
-            float e;
-            if constexpr ((FLAGS & SCORE_BF16) != 0)
-                e = expf(round_bf16(round_bf16(sc) * LN2_BF16));
-            else
-                e = exp2f(sc);
-            const float p = ((FLAGS & P_F32) && !(FLAGS & SCORE_BF16)) ? e : round_bf16(e);
-            if constexpr (STAGE == STAGE_EXP2) {
-                if (n < D) out[(row0 + t0 + j) * C + h * D + n] = __float2bfloat16(p);
-                chk += p;
-                continue;
-            }
-            den += p;
+        }
+        // safe[hh]: no score of head hh in this warp can fall below -126,
+        // by |s| <= |q_h| |k_h| with the warp's largest |q_h| and the row's
+        // largest |k_h| (kmax, from k_norm_kernel; null: no bound, every
+        // chunk's scores are tested), and a margin for the f32
+        // sums (INT8: the int8 q's norm times sq, and |k_h| + sqrt(D) sk / 2
+        // for k's rounding to int8)
+        constexpr bool BOUND = STAGE >= STAGE_EXP2 && (FLAGS & SCORE_BF16) == 0;
+        bool safe[HP];
 #pragma unroll
-            for (int c = 0; c < D / 4; ++c) {
-                const float4 vv = v4[c];
-                acc[4 * c] += p * vv.x;
-                acc[4 * c + 1] += p * vv.y;
-                acc[4 * c + 2] += p * vv.z;
-                acc[4 * c + 3] += p * vv.w;
+        for (int hh = 0; hh < HP; ++hh) {
+            safe[hh] = false;
+            if (BOUND && kmax != nullptr) {
+                float q2[2];     // |q|^2 of rows g, g + 8: this thread's channels
+#pragma unroll
+                for (int hr = 0; hr < 2; ++hr) {
+                    if constexpr (INT8)
+                        q2[hr] = (float)__dp4a((int)qm[hh][hr], (int)qm[hh][hr],
+                                               __dp4a((int)qm[hh][hr + 2], (int)qm[hh][hr + 2], 0));
+                    else if constexpr (D == 32)
+                        q2[hr] = sq_bf16x2(qm[0][hr]) + sq_bf16x2(qm[0][hr + 2])
+                                 + sq_bf16x2(qm[1][hr]) + sq_bf16x2(qm[1][hr + 2]);
+                    else
+                        q2[hr] = sq_bf16x2(qm[hh][hr]) + sq_bf16x2(qm[hh][hr + 2]);
+                    q2[hr] += __shfl_xor_sync(0xffffffffu, q2[hr], 1);
+                    q2[hr] += __shfl_xor_sync(0xffffffffu, q2[hr], 2);
+                }
+                float qn = fmaxf(q2[0], q2[1]);
+#pragma unroll
+                for (int o_ = 4; o_ < 32; o_ <<= 1)
+                    qn = fmaxf(qn, __shfl_xor_sync(0xffffffffu, qn, o_));
+                qn = sqrtf(qn);
+                float kn = kmax[r * H + l0 / D + hh];
+                if constexpr (INT8) {
+                    qn *= sq;
+                    kn += 0.5f * sqrtf((float)D) * sk;
+                }
+                safe[hh] = qn * kn <= SAFE_BOUND;
             }
+        }
+        float o[HP][OT][4];
+#pragma unroll
+        for (int hh = 0; hh < HP; ++hh) zero(o[hh]);
+
+        // a key tile: k (INT8: its int8 words, from qk_out), then v, in
+        // 16-byte chunks
+        auto load = [&](int kt) {
+            const int k0 = kt * ak;
+            bf16* dst = kv + (kt & 1) * ak * AT_LD;
+            constexpr int KCH = INT8 ? 2 : 4;
+            constexpr int CHUNKS = KCH + (STAGE >= STAGE_AV ? 4 : 0);
+            for (int i = threadIdx.x; i < ak * CHUNKS; i += blockDim.x) {
+                const int j = i / CHUNKS, c = i % CHUNKS;
+                const bool valid = k0 + j < N;
+                const size_t tok = row0 + (valid ? k0 + j : 0);
+                if (c >= KCH)
+                    cp_async16(dst + j * AT_LD + AT_LANES + 8 * (c - KCH),
+                               qkv + tok * ldq + 2 * C + l0 + 8 * (c - KCH), valid);
+                else if (INT8)
+                    cp_async16(reinterpret_cast<bf16*>(k8 + ((kt & 1) * ak + j) * AT_LD8 + 16 * c),
+                               reinterpret_cast<const bf16*>(
+                                   reinterpret_cast<const unsigned char*>(qk_out)
+                                   + tok * 2 * C + C + l0 + 16 * c),
+                               valid);
+                else
+                    cp_async16(dst + j * AT_LD + 8 * c, qkv + tok * ldq + C + l0 + 8 * c, valid);
+            }
+        };
+        load(0);
+        cp_async_commit();
+        for (int kt = 0; kt < nkt; ++kt) {
+            const int k0 = kt * ak;
+            if (kt + 1 < nkt) load(kt + 1);
+            cp_async_commit();
+            cp_async_wait<1>();
+            __syncthreads();
+            const bf16* tile = kv + (kt & 1) * ak * AT_LD;
+            for (int kc = 0; kc < ak && k0 + kc < N; kc += 16) {
+                const int nvalid = min(16, N - k0 - kc);
+                uint32_t kf[INT8 ? 1 : 2][4];
+                if constexpr (INT8)
+                    ldsm_b_nmajor(kf[0], reinterpret_cast<const bf16*>(k8 + (kt & 1) * ak * AT_LD8),
+                                  AT_LD8 / 2, 0, kc);
+                else {
+                    ldsm_b_nmajor(kf[0], tile, AT_LD, 0, kc);
+                    ldsm_b_nmajor(kf[1], tile, AT_LD, 16, kc);
+                }
+                uint32_t vf[4][2];
+                if constexpr (STAGE >= STAGE_AV) {
+                    uint32_t b[4];
+                    ldsm_b_kmajor(b, tile + AT_LANES, AT_LD, kc, 0);
+                    vf[0][0] = b[0]; vf[0][1] = b[1]; vf[1][0] = b[2]; vf[1][1] = b[3];
+                    ldsm_b_kmajor(b, tile + AT_LANES, AT_LD, kc, 16);
+                    vf[2][0] = b[0]; vf[2][1] = b[1]; vf[3][0] = b[2]; vf[3][1] = b[3];
+                }
+#pragma unroll
+                for (int hh = 0; hh < HP; ++hh) {
+                    float s[2][4];
+                    if constexpr (INT8) {
+                        int si[2][4] = {};
+                        mma_s8(si[0], qm[hh], kf[0][0], kf[0][1]);
+                        mma_s8(si[1], qm[hh], kf[0][2], kf[0][3]);
+#pragma unroll
+                        for (int j = 0; j < 2; ++j)
+#pragma unroll
+                            for (int e = 0; e < 4; ++e) s[j][e] = (float)si[j][e] * ss;
+                    } else {
+                        zero(s);
+                        if constexpr (D == 32) {
+#pragma unroll
+                            for (int kg = 0; kg < 2; ++kg) {
+                                mma_bf16(s[0], qm[kg], kf[kg][0], kf[kg][1]);
+                                mma_bf16(s[1], qm[kg], kf[kg][2], kf[kg][3]);
+                            }
+                        } else {
+                            constexpr int HG = 16 / D;
+                            mma_bf16(s[0], qm[hh], kf[hh / HG][0], kf[hh / HG][1]);
+                            mma_bf16(s[1], qm[hh], kf[hh / HG][2], kf[hh / HG][3]);
+                        }
+                    }
+                    if constexpr (STAGE == STAGE_SCORES) {
+#pragma unroll
+                        for (int j = 0; j < 2; ++j)
+#pragma unroll
+                            for (int e = 0; e < 4; ++e) chk += s[j][e];
+                        continue;
+                    }
+                    exp2_line<FLAGS>(s, nvalid, safe[hh]);
+                    uint32_t pf[4];
+                    pack_a(pf, s[0], s[1]);
+                    if constexpr (STAGE == STAGE_EXP2) {
+                        // p's bf16 pairs, as P V would take them, kept in
+                        // a checksum; p of the queries n < D written out
+                        chk_bits ^= pf[0] ^ pf[1] ^ pf[2] ^ pf[3];
+                        if (qrow < D) {
+                            const int h = l0 / D + hh;
+#pragma unroll
+                            for (int j = 0; j < 2; ++j)
+#pragma unroll
+                                for (int e = 0; e < 4; ++e) {
+                                    const int n = qrow + g + 8 * (e >> 1);
+                                    const int key = k0 + kc + 8 * j + 2 * q + (e & 1);
+                                    if (n < D && key < N)
+                                        out[(row0 + key) * C + h * D + n] =
+                                            __float2bfloat16(s[j][e]);
+                                }
+                        }
+                        continue;
+                    }
+                    uint32_t pl[4];
+                    if constexpr (SPLIT) {
+                        float lo[2][4];
+#pragma unroll
+                        for (int j = 0; j < 2; ++j)
+#pragma unroll
+                            for (int e = 0; e < 4; ++e) {
+                                const float hi = round_bf16(s[j][e]);
+                                lo[j][e] = fabsf(hi) < INFINITY ? s[j][e] - hi : 0.f;
+                            }
+                        pack_a(pl, lo[0], lo[1]);
+                    }
+                    // P V (and the ones column) for head hh
+                    if constexpr (D == 4) {
+                        const bool own = (g >> 2) == (hh & 1);
+                        const uint32_t fill = g == 4 * (1 - (hh & 1)) ? BF16_ONES : 0u;
+                        const uint32_t b0 = own ? vf[hh >> 1][0] : fill;
+                        const uint32_t b1 = own ? vf[hh >> 1][1] : fill;
+                        mma_bf16(o[hh][0], pf, b0, b1);
+                        if constexpr (SPLIT) mma_bf16(o[hh][0], pl, b0, b1);
+                    } else {
+#pragma unroll
+                        for (int t = 0; t < VT; ++t) {
+                            mma_bf16(o[hh][t], pf, vf[hh * VT + t][0], vf[hh * VT + t][1]);
+                            if constexpr (SPLIT)
+                                mma_bf16(o[hh][t], pl, vf[hh * VT + t][0], vf[hh * VT + t][1]);
+                        }
+                        mma_bf16(o[hh][VT], pf, ones_b, ones_b);
+                        if constexpr (SPLIT) mma_bf16(o[hh][VT], pl, ones_b, ones_b);
+                    }
+                }
+            }
+            __syncthreads();      // the buffers are free before they are refilled
+        }
+        if constexpr (STAGE == STAGE_SCORES || STAGE == STAGE_EXP2) continue;
+
+        // acc = (sum p v) / (sum p) per head: the denominator is column
+        // 4 (1 - hh % 2) of the head's n-tile (D = 4) or column 0 of its ones
+        // n-tile, held by thread q = dq of each quad (rows g, g + 8)
+#pragma unroll
+        for (int hh = 0; hh < HP; ++hh) {
+            const int h = l0 / D + hh;
+            const int dq = D == 4 ? 2 * (1 - (hh & 1)) : 0;
+            const int dt = D == 4 ? 0 : VT;
+            float den[2];
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr)
+                den[hr] = __shfl_sync(0xffffffffu, o[hh][dt][2 * hr], (lane & ~3) | dq);
+            float part[VT][2] = {};      // STAGE_AV: the two rows' sum
+#pragma unroll
+            for (int t = 0; t < VT; ++t) {
+                // this thread's columns d, d + 1 of the head (D = 4: only the
+                // head's own half of the n-tile)
+                const int d = D == 4 ? 2 * q - 4 * (hh & 1) : 8 * t + 2 * q;
+                if (D == 4 && (q >> 1) != (hh & 1)) continue;
+#pragma unroll
+                for (int hr = 0; hr < 2; ++hr) {
+                    const int n = qrow + g + 8 * hr;
+                    const float a0 = o[hh][t][2 * hr] / den[hr];
+                    const float a1 = o[hh][t][2 * hr + 1] / den[hr];
+                    if constexpr (STAGE == STAGE_AV) {
+                        if (n < N) {
+                            part[t][0] += a0;
+                            part[t][1] += a1;
+                        }
+                    } else if (n < N) {
+                        *reinterpret_cast<__nv_bfloat162*>(out + (row0 + n) * C + h * D + d) =
+                            __floats2bfloat162_rn(a0, a1);
+                    }
+                }
+            }
+            if constexpr (WITH_DEN) {
+                if (q == dq) {
+#pragma unroll
+                    for (int hr = 0; hr < 2; ++hr) {
+                        const int n = qrow + g + 8 * hr;
+                        if (n < N) den_out[(r * H + h) * N + n] = den[hr];
+                    }
+                }
+            }
+            if constexpr (STAGE == STAGE_AV) {
+                // the warp's 16 queries summed (over g), then the block's
+                // warps in order below
+#pragma unroll
+                for (int t = 0; t < VT; ++t)
+#pragma unroll
+                    for (int i = 0; i < 2; ++i)
+#pragma unroll
+                        for (int o_ = 4; o_ < 32; o_ <<= 1)
+                            part[t][i] += __shfl_xor_sync(0xffffffffu, part[t][i], o_);
+                if (g == 0) {
+#pragma unroll
+                    for (int t = 0; t < VT; ++t) {
+                        const int d = D == 4 ? 2 * q - 4 * (hh & 1) : 8 * t + 2 * q;
+                        if (D == 4 && (q >> 1) != (hh & 1)) continue;
+                        red[warp * AT_LANES + hh * D + d] = part[t][0];
+                        red[warp * AT_LANES + hh * D + d + 1] = part[t][1];
+                    }
+                }
+            }
+        }
+        if constexpr (STAGE == STAGE_AV) {
+            __syncthreads();
+            if (threadIdx.x < AT_LANES) {
+                float sum = 0.f;
+                for (int w = 0; w < nw; ++w) sum += red[w * AT_LANES + threadIdx.x];
+                const int c = l0 + threadIdx.x, h = c / D;
+                lab[((r * H + h) * nqb + qb) * D + c % D] = sum;
+            }
+            __syncthreads();
         }
     }
-    if constexpr (STAGE == STAGE_SCORES || STAGE == STAGE_EXP2) {
+    if constexpr (STAGE == STAGE_SCORES) {
         chk = warp_sum(chk);
-        if ((threadIdx.x & 31) == 0)
-            sink[(size_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)] = chk;
-    } else if constexpr (STAGE == STAGE_AV) {
-        __syncthreads();           // the key tile is free: the block's acc / den
-        const float inv = 1.0f / den;
+        if (lane == 0) sink[(size_t)blockIdx.x * nw + warp] = chk;
+    } else if constexpr (STAGE == STAGE_EXP2) {
 #pragma unroll
-        for (int d = 0; d < D; ++d) ks[threadIdx.x * D + d] = valid ? acc[d] * inv : 0.f;
-        __syncthreads();
-        if (threadIdx.x < D) {
-            float sum = 0.f;
-            for (int t = 0; t < (int)blockDim.x; ++t) sum += ks[t * D + threadIdx.x];
-            lab[(size_t)blockIdx.x * D + threadIdx.x] = sum;
-        }
-    } else {
-        if (valid) {
-            const float inv = 1.0f / den;
-#pragma unroll
-            for (int d = 0; d < D; ++d)
-                out[(row0 + n) * C + h * D + d] = __float2bfloat16(acc[d] * inv);
-            if (WITH_DEN) den_out[(r * H + h) * N + n] = den;
-        }
+        for (int o = 16; o > 0; o >>= 1) chk_bits ^= __shfl_xor_sync(0xffffffffu, chk_bits, o);
+        if (lane == 0) sink[(size_t)blockIdx.x * nw + warp] = __uint_as_float(chk_bits);
     }
 }
 
@@ -315,7 +693,10 @@ __global__ void attn_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out
 //   the MLP in chunks of HC hidden units: a chunk's fc1 columns, + b1,
 //       erf GELU, rounded to bf16 into sh (64 x HC), and at once its share
 //       of fc2 (sh W2[chunk rows, :]) summed into registers, so the 4C-wide
-//       hidden activation exists only a chunk at a time, in shared memory;
+//       hidden activation exists only a chunk at a time, in shared memory.
+//       A ragged last chunk (hidden a multiple of 8, not of HC) reads fc1's
+//       columns and fc2's rows past hidden as zeros and b1 as 0 there, so
+//       its units past hidden add GELU(0) * 0 = 0;
 //   out = bf16(y + (fc2 + b2)).
 // Each weight is streamed through shared memory in k-slices (block_gemm).
 // WITH_MID also writes mid = bf16(y), the residual stream after the
@@ -409,11 +790,12 @@ post_kernel(const bf16* __restrict__ x, const bf16* __restrict__ attn,
         float f[FNT][4];
         zero(f);
         block_gemm<FNT, HC, POST_THREADS>(f, sa + mrow * LDA, LDA, w1, hidden, h0, C, wbuf,
-                                          half * HC / 2);
+                                          half * HC / 2, 1 << 30, hidden);
 #pragma unroll
         for (int j = 0; j < FNT; ++j) {
             const int col = half * HC / 2 + 8 * j + 2 * q;
-            const float c0 = ld(b1 + h0 + col), c1 = ld(b1 + h0 + col + 1);
+            const bool in = h0 + col < hidden;     // a ragged last chunk: b1 = 0 past it
+            const float c0 = in ? ld(b1 + h0 + col) : 0.f, c1 = in ? ld(b1 + h0 + col + 1) : 0.f;
 #pragma unroll
             for (int hh = 0; hh < 2; ++hh) {
                 const float h0v = f[j][2 * hh] + c0, h1v = f[j][2 * hh + 1] + c1;
@@ -425,7 +807,7 @@ post_kernel(const bf16* __restrict__ x, const bf16* __restrict__ attn,
         }
         // fc2's share of the chunk (block_gemm's first barrier orders sh)
         block_gemm<ONT, C, POST_THREADS>(o, sh + mrow * LDH, LDH, w2 + (size_t)h0 * C, C, 0,
-                                         HC, wbuf, half * C / 2);
+                                         HC, wbuf, half * C / 2, hidden - h0);
     }
 #pragma unroll
     for (int j = 0; j < ONT; ++j) {
@@ -444,34 +826,59 @@ post_kernel(const bf16* __restrict__ x, const bf16* __restrict__ attn,
     }
 }
 
-// The attention's grid: one block per (row, head, block of queries).
+// The attention's grid: one block per (row, block of 16 x warps queries),
+// 8 warps and 128-key tiles where N > 64, else 4 warps and 64-key tiles.
 struct AttnGrid {
-    int threads, nqb;
+    int threads, nqb, keys;
     size_t blocks;
 };
 
-AttnGrid attn_grid(int R, int N, int H) {
-    const int threads = N <= 64 ? 64 : 128;
-    const int nqb = (N + threads - 1) / threads;
-    return {threads, nqb, (size_t)R * H * nqb};
+AttnGrid attn_grid(int R, int N) {
+    const int warps = N > 64 ? AT_MAX_WARPS : 4;
+    const int nqb = (N + 16 * warps - 1) / (16 * warps);
+    return {32 * warps, nqb, N > 64 ? 128 : 64, (size_t)R * nqb};
+}
+
+// One launch of attn_kernel in the given form.
+// One launch of attn_kernel in the given form, after k_norm_kernel where
+// the form takes the exp2 bound (kmax: R * H floats of scratch) and the
+// rows are longer than one 64-key tile (shorter rows test their scores:
+// the launch and the load would cost more than the test).
+template <int D, bool WITH_DEN, bool INT8, int STAGE = STAGE_FULL, int FLAGS = 0>
+cudaError_t launch_attn_form(const bf16* qkv, float* kmax, bf16* out, float* den,
+                             const float* scales, int* qk_out, float* lab, float* sink, int R,
+                             int N, int C, int H, cudaStream_t stream) {
+    const AttnGrid g = attn_grid(R, N);
+    if (g.blocks > 0x7fffffffULL || NORM_THREADS % H) return cudaErrorInvalidConfiguration;
+    cudaError_t err;
+    const bool bound = STAGE >= STAGE_EXP2 && (FLAGS & SCORE_BF16) == 0 && N > 64;
+    if (bound || INT8) {
+        k_norm_kernel<INT8><<<(unsigned)R, NORM_THREADS, 0, stream>>>(qkv, kmax, scales, qk_out,
+                                                                      N, C, H);
+        if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+    auto kernel = attn_kernel<D, WITH_DEN, INT8, STAGE, FLAGS>;
+    const size_t smem = attn_smem_bytes(g.keys);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<(unsigned)g.blocks, g.threads, smem, stream>>>(qkv, bound ? kmax : nullptr, out,
+                                                           den, scales, qk_out, N, C, H, g.nqb,
+                                                           g.keys, lab, sink);
+    return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_attn(const bf16* qkv, bf16* attn, float* den, const float* scales,
-                        int* qk_out, int R, int N, int C, int H, cudaStream_t stream) {
-    const AttnGrid g = attn_grid(R, N, H);
-    if (g.blocks > 0x7fffffffULL) return cudaErrorInvalidConfiguration;
-    const size_t smem = 2 * KT * D * sizeof(float);
+cudaError_t launch_attn(const bf16* qkv, float* kmax, bf16* attn, float* den,
+                        const float* scales, int* qk_out, int R, int N, int C, int H,
+                        cudaStream_t stream) {
     if (scales)
-        attn_kernel<D, false, true><<<(unsigned)g.blocks, g.threads, smem, stream>>>(
-            qkv, attn, nullptr, scales, qk_out, N, C, H, g.nqb, nullptr, nullptr);
-    else if (den)
-        attn_kernel<D, true, false><<<(unsigned)g.blocks, g.threads, smem, stream>>>(
-            qkv, attn, den, nullptr, nullptr, N, C, H, g.nqb, nullptr, nullptr);
-    else
-        attn_kernel<D, false, false><<<(unsigned)g.blocks, g.threads, smem, stream>>>(
-            qkv, attn, nullptr, nullptr, nullptr, N, C, H, g.nqb, nullptr, nullptr);
-    return cudaGetLastError();
+        return launch_attn_form<D, false, true>(qkv, kmax, attn, nullptr, scales, qk_out,
+                                                nullptr, nullptr, R, N, C, H, stream);
+    if (den)
+        return launch_attn_form<D, true, false>(qkv, kmax, attn, den, nullptr, nullptr, nullptr,
+                                                nullptr, R, N, C, H, stream);
+    return launch_attn_form<D, false, false>(qkv, kmax, attn, nullptr, nullptr, nullptr,
+                                             nullptr, nullptr, R, N, C, H, stream);
 }
 
 // 3. The out-projection and (unless ATTN_ONLY) the MLP half, at the given
@@ -481,7 +888,7 @@ cudaError_t launch_post(const void* x, const bf16* attn, const void* w_o, const 
                         const void* ln2_s, const void* ln2_b, const void* w_1,
                         const void* b_1, const void* w_2, const void* b_2, void* out,
                         void* mid, int M, int C, int hidden, cudaStream_t stream) {
-    if (hidden % HC) return cudaErrorInvalidValue;
+    if (hidden <= 0 || hidden % 8) return cudaErrorInvalidValue;
     auto go = [&](auto kernel, size_t smem) {
         cudaError_t err =
             cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -508,9 +915,9 @@ cudaError_t launch_post(const void* x, const bf16* attn, const void* w_o, const 
 cudaError_t forward(const void* x, const void* ln1_s, const void* ln1_b, const void* w_qkv,
                     const void* w_o, const void* b_o, const void* ln2_s, const void* ln2_b,
                     const void* w_1, const void* b_1, const void* w_2, const void* b_2,
-                    void* qkv_buf, void* attn_buf, void* out, void* mid, void* den,
-                    void* scales, void* qk_out, int R, int N, int C, int H, int hidden,
-                    cudaStream_t stream) {
+                    void* qkv_buf, void* kmax_buf, void* attn_buf, void* out, void* mid,
+                    void* den, void* scales, void* qk_out, int R, int N, int C, int H,
+                    int hidden, cudaStream_t stream) {
     const int M = R * N;
     cudaError_t err = launch_ln_qkv<false>((const bf16*)x, (const bf16*)ln1_s,
                                            (const bf16*)ln1_b, (const bf16*)w_qkv,
@@ -523,14 +930,15 @@ cudaError_t forward(const void* x, const void* ln1_s, const void* ln1_b, const v
         if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
     bf16* attn = (bf16*)attn_buf;
+    float* km = (float*)kmax_buf;
     float* dn = (float*)den;
     const float* sc = (const float*)scales;
     int* qk = (int*)qk_out;
     switch (C / H) {
-        case 4: err = launch_attn<4>(qkv, attn, dn, sc, qk, R, N, C, H, stream); break;
-        case 8: err = launch_attn<8>(qkv, attn, dn, sc, qk, R, N, C, H, stream); break;
-        case 16: err = launch_attn<16>(qkv, attn, dn, sc, qk, R, N, C, H, stream); break;
-        case 32: err = launch_attn<32>(qkv, attn, dn, sc, qk, R, N, C, H, stream); break;
+        case 4: err = launch_attn<4>(qkv, km, attn, dn, sc, qk, R, N, C, H, stream); break;
+        case 8: err = launch_attn<8>(qkv, km, attn, dn, sc, qk, R, N, C, H, stream); break;
+        case 16: err = launch_attn<16>(qkv, km, attn, dn, sc, qk, R, N, C, H, stream); break;
+        case 32: err = launch_attn<32>(qkv, km, attn, dn, sc, qk, R, N, C, H, stream); break;
         default: return cudaErrorInvalidValue;
     }
     if (err != cudaSuccess) return err;
@@ -627,33 +1035,34 @@ __global__ void av_sum_kernel(const float* __restrict__ part, bf16* __restrict__
 }
 
 template <int D, int STAGE, int FLAGS>
-cudaError_t launch_attn_lab(const bf16* qkv, bf16* out, float* lab, float* sink, int R,
-                            int N, int C, int H, cudaStream_t stream) {
-    const AttnGrid g = attn_grid(R, N, H);
-    if (g.blocks > 0x7fffffffULL) return cudaErrorInvalidConfiguration;
-    attn_kernel<D, false, false, STAGE, FLAGS>
-        <<<(unsigned)g.blocks, g.threads, 2 * KT * D * sizeof(float), stream>>>(
-            qkv, out, nullptr, nullptr, nullptr, N, C, H, g.nqb, lab, sink);
-    return cudaGetLastError();
+cudaError_t launch_attn_lab(const bf16* qkv, float* kmax, bf16* out, float* lab, float* sink,
+                            int R, int N, int C, int H, cudaStream_t stream) {
+    return launch_attn_form<D, false, false, STAGE, FLAGS>(qkv, kmax, out, nullptr, nullptr,
+                                                           nullptr, lab, sink, R, N, C, H,
+                                                           stream);
 }
 
 // The lab's attention at head dim D: a cut stage, or the full attention
 // with the flags.
 template <int D>
-cudaError_t lab_attn(int stage, int flags, const bf16* qkv, bf16* out, float* lab,
-                     float* sink, int R, int N, int C, int H, cudaStream_t stream) {
+cudaError_t lab_attn(int stage, int flags, const bf16* qkv, float* kmax, bf16* out,
+                     float* lab, float* sink, int R, int N, int C, int H, cudaStream_t stream) {
     switch (stage) {
         case STAGE_SCORES:
-            return launch_attn_lab<D, STAGE_SCORES, 0>(qkv, out, lab, sink, R, N, C, H, stream);
+            return launch_attn_lab<D, STAGE_SCORES, 0>(qkv, kmax, out, lab, sink, R, N, C, H,
+                                                       stream);
         case STAGE_EXP2:
-            return launch_attn_lab<D, STAGE_EXP2, 0>(qkv, out, lab, sink, R, N, C, H, stream);
+            return launch_attn_lab<D, STAGE_EXP2, 0>(qkv, kmax, out, lab, sink, R, N, C, H,
+                                                     stream);
         case STAGE_AV:
-            return launch_attn_lab<D, STAGE_AV, 0>(qkv, out, lab, sink, R, N, C, H, stream);
+            return launch_attn_lab<D, STAGE_AV, 0>(qkv, kmax, out, lab, sink, R, N, C, H,
+                                                   stream);
         default:
             break;
     }
-#define LAB_FLAGS(F) \
-    case F: return launch_attn_lab<D, STAGE_FULL, F>(qkv, out, lab, sink, R, N, C, H, stream);
+#define LAB_FLAGS(F)                                                                       \
+    case F:                                                                                \
+        return launch_attn_lab<D, STAGE_FULL, F>(qkv, kmax, out, lab, sink, R, N, C, H, stream);
     switch (flags) {
         LAB_FLAGS(0) LAB_FLAGS(1) LAB_FLAGS(2) LAB_FLAGS(3)
         LAB_FLAGS(4) LAB_FLAGS(5) LAB_FLAGS(6) LAB_FLAGS(7)
@@ -662,13 +1071,15 @@ cudaError_t lab_attn(int stage, int flags, const bf16* qkv, bf16* out, float* la
 #undef LAB_FLAGS
 }
 
-// Scratch of a lab launch, in floats: stages scores and exp2 the sink, av
+// Scratch of a lab launch, in floats: from stage scores on the rows'
+// largest |k_h| (R * H) and after them, stages scores and exp2 the sink, av
 // the per-block sums.
 size_t lab_scratch_floats(int R, int N, int C, int H, int stage) {
-    const AttnGrid g = attn_grid(R, N, H);
-    if (stage == STAGE_SCORES || stage == STAGE_EXP2) return g.blocks * (g.threads / 32);
-    if (stage == STAGE_AV) return (size_t)R * C * g.nqb;
-    return 0;
+    const AttnGrid g = attn_grid(R, N);
+    const size_t kmax = (size_t)R * H;
+    if (stage == STAGE_SCORES || stage == STAGE_EXP2) return kmax + g.blocks * (g.threads / 32);
+    if (stage == STAGE_AV) return kmax + (size_t)R * C * g.nqb;
+    return stage == STAGE_QKV ? 0 : kmax;
 }
 
 cudaError_t lab_forward(const void* x, const void* ln1_s, const void* ln1_b,
@@ -689,14 +1100,23 @@ cudaError_t lab_forward(const void* x, const void* ln1_s, const void* ln1_b,
         qkv_sum_kernel<<<(unsigned)blocks, 256, 0, stream>>>(qkv, (bf16*)out, total, C);
         return cudaGetLastError();
     }
-    float* lab = (float*)scratch;
-    float* sink = (float*)scratch;
+    float* kmax = (float*)scratch;
+    float* lab = kmax + (size_t)R * H;
+    float* sink = lab;
     bf16* attn = stage == STAGE_EXP2 ? (bf16*)out : (bf16*)attn_buf;
     switch (C / H) {
-        case 4: err = lab_attn<4>(stage, flags, qkv, attn, lab, sink, R, N, C, H, stream); break;
-        case 8: err = lab_attn<8>(stage, flags, qkv, attn, lab, sink, R, N, C, H, stream); break;
-        case 16: err = lab_attn<16>(stage, flags, qkv, attn, lab, sink, R, N, C, H, stream); break;
-        case 32: err = lab_attn<32>(stage, flags, qkv, attn, lab, sink, R, N, C, H, stream); break;
+        case 4:
+            err = lab_attn<4>(stage, flags, qkv, kmax, attn, lab, sink, R, N, C, H, stream);
+            break;
+        case 8:
+            err = lab_attn<8>(stage, flags, qkv, kmax, attn, lab, sink, R, N, C, H, stream);
+            break;
+        case 16:
+            err = lab_attn<16>(stage, flags, qkv, kmax, attn, lab, sink, R, N, C, H, stream);
+            break;
+        case 32:
+            err = lab_attn<32>(stage, flags, qkv, kmax, attn, lab, sink, R, N, C, H, stream);
+            break;
         default: return cudaErrorInvalidValue;
     }
     if (err != cudaSuccess || stage == STAGE_EXP2) return err;
@@ -710,7 +1130,7 @@ cudaError_t lab_forward(const void* x, const void* ln1_s, const void* ln1_b,
     }
     if (stage == STAGE_AV) {
         av_sum_kernel<<<(unsigned)(((size_t)R * C + 127) / 128), 128, 0, stream>>>(
-            lab, (bf16*)out, R, N, C, H, attn_grid(R, N, H).nqb);
+            lab, (bf16*)out, R, N, C, H, attn_grid(R, N).nqb);
         return cudaGetLastError();
     }
     if (stage == STAGE_ATTN)
@@ -722,30 +1142,32 @@ cudaError_t lab_forward(const void* x, const void* ln1_s, const void* ln1_b,
 
 }  // namespace
 
-// B1, B1-train and B3.  Serving form (B1): mid, den, scales and qk_out
-// null.  Training form (B1-train): mid (R, N, C) bf16 and den (R, H, N) f32
+// B1, B1-train and B3.  qkv_buf (R*N, 3C) bf16 receives q|k|v, kmax_buf
+// (R, H) f32 the rows' largest |k_h| (scratch of the attention's bound).
+// Serving form (B1): mid, den, scales and qk_out null.  Training form (B1-train): mid (R, N, C) bf16 and den (R, H, N) f32
 // both given.  Int8 scores (B3, serving only): scales (R, 2) f32 receives
-// the per-row scales of q and k and qk_out, if non-null, (R*N, 2C) int8 the
-// int8 q | k the attention used.
+// the per-row scales of q and k and qk_out (R*N, 2C) int8 the int8 q | k
+// the attention used.
 extern "C" int fused_block_forward(
     const void* x, const void* ln1_s, const void* ln1_b, const void* w_qkv,
     const void* w_o, const void* b_o, const void* ln2_s, const void* ln2_b,
     const void* w_1, const void* b_1, const void* w_2, const void* b_2,
-    void* qkv_buf, void* attn_buf, void* out, void* mid, void* den,
+    void* qkv_buf, void* kmax_buf, void* attn_buf, void* out, void* mid, void* den,
     void* scales, void* qk_out, int R, int N, int C, int H, int hidden, void* stream_ptr) {
     if (R <= 0 || N <= 0 || H <= 0 || C % H || (mid == nullptr) != (den == nullptr)
-        || (scales != nullptr && mid != nullptr) || (qk_out != nullptr && scales == nullptr))
+        || (scales != nullptr && mid != nullptr) || (qk_out == nullptr) != (scales == nullptr)
+        || kmax_buf == nullptr)
         return cudaErrorInvalidValue;
     return forward(x, ln1_s, ln1_b, w_qkv, w_o, b_o, ln2_s, ln2_b, w_1, b_1, w_2, b_2,
-                   qkv_buf, attn_buf, out, mid, den, scales, qk_out, R, N, C, H, hidden,
-                   static_cast<cudaStream_t>(stream_ptr));
+                   qkv_buf, kmax_buf, attn_buf, out, mid, den, scales, qk_out, R, N, C, H,
+                   hidden, static_cast<cudaStream_t>(stream_ptr));
 }
 
 // The kernel lab (L): B1 cut at stage (0 qkv, 1 scores, 2 exp2, 3 av, 4 attn,
 // 5 full) with flags (1 score_bf16, 2 p_f32, 4 no clamp; attn and full
 // only); out (R, N, C) bf16.  qkv_buf (R*N, 3C) bf16 receives q|k|v;
 // attn_buf (R, N, C) bf16 is needed by the attn and full stages, scratch of
-// fused_block_lab_scratch_bytes by scores, exp2 and av.
+// fused_block_lab_scratch_bytes by every stage but qkv.
 extern "C" size_t fused_block_lab_scratch_bytes(int R, int N, int C, int H, int stage) {
     return lab_scratch_floats(R, N, C, H, stage) * sizeof(float);
 }

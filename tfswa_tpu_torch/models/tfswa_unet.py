@@ -30,6 +30,15 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 class TFSWAUNet(nn.Module):
+    """The TFSWA U-Net (the JAX package's ``TFSWAUNet``, its state_dict
+    names the reference's).  ``attention_impl`` picks the row-block route
+    (see ``ModelConfig``).  On a CUDA device the kernel routes take bf16
+    rows only (``dtype=torch.bfloat16``; the float32 default raises there),
+    widths in (32, 64, 128, 256), for "pallas" / "pallas_int8" a head dim
+    in (4, 8, 16, 32) and an MLP width a multiple of 8, for "pallas_attn"
+    2, 4 or 8 heads; their wrappers raise on anything else, with no
+    fallback."""
+
     def __init__(self, in_channels: int, out_channels: int,
                  depths: Sequence[int] = (2, 2, 6, 2),
                  dims: Sequence[int] = (32, 64, 128, 256),

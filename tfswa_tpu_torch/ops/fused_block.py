@@ -45,12 +45,14 @@ LN2 = 0.6931471805599453
 # ln 2 rounded to bf16: what XLA multiplies a bf16 argument of exp2 by
 LN2_BF16 = 0.69140625
 INV_SQRT_2PI = 0.3989422804014327
-# What the CUDA kernels are instantiated for: the width C (ln_qkv_kernel and
-# post_kernel are templates on it), the head dims of attn_kernel, and an MLP
-# hidden width in whole chunks of HIDDEN_CHUNK units (post_kernel).
+# What the CUDA kernels are instantiated for: the width C (ln_qkv_kernel,
+# post_kernel and mlp_bwd_kernel are templates on it), the head dims of
+# attn_kernel, and an MLP hidden width that is a multiple of HIDDEN_ALIGN
+# units (a bf16 row of it is whole 16-byte cp.async copies; a last chunk of
+# the kernels' hidden chunks may be ragged).
 KERNEL_DIMS = (32, 64, 128, 256)
 KERNEL_HEAD_DIMS = (4, 8, 16, 32)
-HIDDEN_CHUNK = 128
+HIDDEN_ALIGN = 8
 # dynamic shared memory a block may use on the H100 (227 KB)
 MAX_SMEM_BYTES = 232448
 # The plain versions materialise f32 score planes; they chunk over rows so
@@ -338,16 +340,24 @@ def fused_row_block_bwd_reference(rows: torch.Tensor, mid: torch.Tensor,
                                    dfc1, df1b, dfc2, df2b)
 
 
-def kernel_smem_bytes(C: int) -> int:
-    """Dynamic shared memory of B1's largest launch at width C, from the
-    layouts in csrc/: ln_qkv_kernel holds 64 rows of bf16 n1 and two
-    32-row slices of 96 weight columns; post_kernel 64 rows of f32 y, of
-    bf16 acc / n2 and of a 128-unit GELU chunk, and two 32-row weight
-    slices (rows padded by 8).  No launch's shared memory depends on N."""
+def kernel_smem_bytes(C: int, hidden: Optional[int] = None) -> int:
+    """Shared memory of the largest launch of B1 and B2 at width C and MLP
+    width ``hidden`` (default 4 C), from the layouts in csrc/:
+    ln_qkv_kernel holds 64 rows of bf16 n1 and two 32-row slices of 96
+    weight columns; attn_kernel two 128-key tiles of 64 bf16 channels and
+    two of 32 int8 channels (rows padded by 16 bytes) and a 1 KB sum; post_kernel 64 rows of f32 y, of bf16
+    acc / n2 and of a 128-unit GELU chunk, and two 32-row weight slices;
+    mlp_bwd_kernel 64 rows of bf16 g, n2 and mid and of a 64-unit d_h1
+    chunk, two 32-row weight slices, and f32 sums: the block's vector
+    partials (4 C + hidden), 16 C + 256 of column sums and 384 of row
+    statistics (rows padded by 8).  No launch's shared memory depends on N."""
+    hidden = 4 * C if hidden is None else hidden
     ln_qkv = 2 * (64 * (C + 8) + 2 * 32 * (96 + 8))
-    post = 4 * 64 * (C + 8) + 2 * (64 * (C + 8) + 2 * 32 * (max(C, HIDDEN_CHUNK) + 8)
-                                   + 64 * (HIDDEN_CHUNK + 8))
-    return max(ln_qkv, post)
+    attn = 2 * 2 * 128 * 72 + 2 * 128 * 48 + 4 * 8 * 32
+    post = 4 * 64 * (C + 8) + 2 * (64 * (C + 8) + 2 * 32 * (max(C, 128) + 8) + 64 * (128 + 8))
+    mlp_bwd = (2 * (3 * 64 * (C + 8) + 64 * (64 + 8) + 2 * 32 * (max(C, 64) + 8))
+               + 4 * (4 * C + hidden + 16 * C + 4 * 64 + 6 * 64))
+    return max(ln_qkv, attn, post, mlp_bwd)
 
 
 def check_shape(name: str, R: int, N: int, C: int, num_heads: int, hidden: int) -> None:
@@ -356,11 +366,12 @@ def check_shape(name: str, R: int, N: int, C: int, num_heads: int, hidden: int) 
         raise ValueError(f"{name}: no kernel for C={C} (C in {KERNEL_DIMS})")
     if C % num_heads or C // num_heads not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {C}/{num_heads} not in {KERNEL_HEAD_DIMS}")
-    if hidden % HIDDEN_CHUNK:
+    if hidden <= 0 or hidden % HIDDEN_ALIGN:
         raise ValueError(f"{name}: no kernel for an MLP of {hidden} units (a multiple of "
-                         f"{HIDDEN_CHUNK})")
-    if kernel_smem_bytes(C) > MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: C={C} does not fit the kernels' shared memory")
+                         f"{HIDDEN_ALIGN})")
+    if kernel_smem_bytes(C, hidden) > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: C={C}, an MLP of {hidden} units, does not fit the "
+                         "kernels' shared memory")
     if R * N * max(3 * C, hidden) >= 2 ** 31:
         raise ValueError(f"{name}: too many tokens for 32-bit counts")
 
@@ -369,7 +380,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_block")
     fn = lib.fused_block_forward
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -400,8 +411,9 @@ def _check_cuda(name: str, rows: torch.Tensor, num_heads: int, p, like=(),
     check_shape(name, R, N, C, num_heads, p.fc1_kernel.shape[1])
     for t in like:
         if (t.shape != rows.shape or t.dtype != rows.dtype or t.device != rows.device
-                or not t.is_contiguous()):
-            raise ValueError(f"{name}: saved tensors must be contiguous bf16 like rows")
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{name}: saved tensors must be contiguous, 16-byte aligned "
+                             "bf16 like rows")
     if den is not None and (den.shape != (R, num_heads, N) or den.dtype != torch.float32
                             or den.device != rows.device or not den.is_contiguous()):
         raise ValueError(f"{name}: den must be a contiguous f32 (R, H, N) tensor")
@@ -413,8 +425,8 @@ class _Launch(NamedTuple):
     """What one launch of fused_block_forward wrote: the block's output, its
     attention output, the (R*N, 3C) q|k|v buffer (a check feeds it to the
     plain versions); B1-train's mid and den; B3's (R, 2) f32 row scales of
-    q and k and, when exported, its (R*N, 2C) int8 q | k.  None where the
-    form does not write it."""
+    q and k and its (R*N, 2C) int8 q | k.  None where the form does not
+    write it."""
 
     out: torch.Tensor
     attn: torch.Tensor
@@ -426,9 +438,9 @@ class _Launch(NamedTuple):
 
 
 def _forward_kernel(rows: torch.Tensor, p, num_heads: int, train: bool = False,
-                    int8: bool = False, export: bool = False) -> _Launch:
+                    int8: bool = False) -> _Launch:
     """One launch of fused_block_forward: B1, B1-train (``train``) or B3
-    (``int8``; ``export`` also writes the int8 q | k)."""
+    (``int8``)."""
     name = ("fused_row_block_train" if train else
             "fused_row_block_int8" if int8 else "fused_row_block")
     if train and int8:
@@ -446,16 +458,17 @@ def _forward_kernel(rows: torch.Tensor, p, num_heads: int, train: bool = False,
                   qkv=buf((R * N, 3 * C), rows.dtype), mid=buf((R, N, C), rows.dtype, train),
                   den=buf((R, num_heads, N), torch.float32, train),
                   scales=buf((R, 2), torch.float32, int8),
-                  qk=buf((R * N, 2 * C), torch.int8, int8 and export))
+                  qk=buf((R * N, 2 * C), torch.int8, int8))
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    kmax = buf((R, num_heads), torch.float32)     # scratch: the rows' largest |k_h|
     # the library launches on the current device: make it the rows' device
     with torch.cuda.device(dev):
         err = _lib().fused_block_forward(
             rows.data_ptr(), *(w.data_ptr() for w in weights),
-            ptr(res.qkv), ptr(res.attn), ptr(res.out), ptr(res.mid), ptr(res.den),
+            ptr(res.qkv), ptr(kmax), ptr(res.attn), ptr(res.out), ptr(res.mid), ptr(res.den),
             ptr(res.scales), ptr(res.qk), R, N, C, num_heads, hidden,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
