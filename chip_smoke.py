@@ -14,8 +14,9 @@ Phases, each of which fails the run (exit code 1) when it fails:
   1. the card's name and power limit; build of the CUDA sources (nvcc, sm_90a,
      one nvcc per source, in parallel); the SASS of every instantiation of
      the launches whose products run on the tensor cores (B1's ln_qkv_kernel,
-     attn_kernel and post_kernel, B2's mlp_bwd_kernel and atb_kernel, B4's
-     proj_kernel and bilinear_attn_kernel) must hold HMMA instructions, and
+     attn_kernel and post_kernel, B2's mlp_bwd_kernel, attn_bwd_q_kernel,
+     attn_bwd_kv_kernel, ln1_bwd_kernel and atb_kernel, B4's proj_kernel and
+     bilinear_attn_kernel) must hold HMMA instructions, and
      B3's int8 forms of attn_kernel IMMA (cuobjdump --dump-sass of the built
      libraries);
   2. the fused row-block kernel against its plain PyTorch version at each
@@ -58,10 +59,13 @@ Phases, each of which fails the run (exit code 1) when it fails:
   6. B1-train and B2 against their plain versions at the 12 (N, C) of the
      training path (a batch of 4 six-second segments, F = 1025), 64-row
      slices under the same three kinds of weights, B2 also against autograd
-     through the plain block in f32, and the same checks at one shape with an
-     MLP of 96 units (C = 32); kernel / plain / library times and the bound
-     at the full row counts, and the device time of B1-train's attention
-     launch and of B2's mlp_bwd_kernel and atb_kernel beside their bounds;
+     through the plain block in f32, its attention backward's own output
+     (dqkv) against the plain attention backward, and two runs of B2 bit
+     for bit, and the same checks at one shape with an MLP of 96 units
+     (C = 32); kernel / plain / library times and the bound at the full row
+     counts, and the device time of B1-train's attention launch and of B2's
+     mlp_bwd_kernel, attention backward, ln1_bwd_kernel and atb_kernel
+     beside their bounds;
   7. the training main path: the flagship model in train mode through
      make_train_step (TrainConfig defaults) on a fixed batch of 4 x 6 s from
      the port's SyntheticDataset: a warm-up step and 5 timed steps, each
@@ -234,6 +238,17 @@ def bound_launch_ms(kernel: str, R: int, N: int, C: int, hidden: int, form: str 
                             bf16), d_oe, d_den (f32) and the five vectors
                             (f32) out; fc1, g W2^T, d_n2 and d_acc, 2 M (3 C
                             hidden + C^2) FLOPs;
+      attn_bwd:             B2's attention backward, its launches
+                            (attn_bwd_q_kernel, attn_bwd_kv_kernel and the
+                            small attn_bwd_norm_kernel before them) together:
+                            q|k|v and d_oe in, d_den (f32) in, dqkv out; five
+                            products of 2 N^2 C a row (s, d_p, d_q, d_k,
+                            d_v); H N^2 exp2 a row, once, so that a
+                            two-pass design shows its second pass as a gap;
+      ln1_bwd_kernel:       x, dqkv and d_mid (f32) in, dx out (14 C bytes a
+                            token), W_qkv^T and ln1_s in, the two vector
+                            partials (f32) of each 64-token block out; 6 M
+                            C^2 FLOPs;
       atb_kernel:           B2's four weight gradients together: their
                             operands (h1 and g, n2 and d_h1pre, acc and
                             d_mid, normed and d_qkv) in, the gradients (f32)
@@ -257,6 +272,11 @@ def bound_launch_ms(kernel: str, R: int, N: int, C: int, hidden: int, form: str 
                   + 2 * M * (2 * C + 2 * hidden) + 4 * M * C + 2 * 2 * M * C + 4 * M * HEADS
                   + 4 * (4 * C + hidden))
         return _bound(nbytes, 2 * M * (3 * C * hidden + C * C), 0)
+    if kernel == "attn_bwd":
+        return _bound(2 * 7 * M * C + 4 * M * HEADS, 5 * 2 * R * N * N * C, R * HEADS * N * N)
+    if kernel == "ln1_bwd_kernel":
+        blocks = min(-(-M // 64), 1024)
+        return _bound(14 * M * C + 2 * (3 * C * C + C) + 4 * 2 * C * blocks, 6 * M * C * C, 0)
     if kernel == "atb_kernel":
         return _bound(2 * M * (2 * hidden + 7 * C) + 4 * (2 * C * hidden + 4 * C * C),
                       2 * M * (2 * C * hidden + 4 * C * C), 0)
@@ -275,8 +295,10 @@ def bound_launch_ms(kernel: str, R: int, N: int, C: int, hidden: int, form: str 
 
 
 # The launches of each kernel timed one by one from a profiler trace, as
-# torch.profiler names them (B1-train and B3 share B1's product launches:
-# only their k_norm_kernel and attention launch are timed on their own),
+# torch.profiler names them, matched as substrings ("attn_bwd": B2's
+# attention-backward launches together, LAUNCH_PARTS; B1-train and B3 share
+# B1's product launches: only their k_norm_kernel and attention launch are
+# timed on their own),
 # and the launches that run on the tensor cores, as they appear in the SASS
 # of each library.
 # Every form of attn_kernel runs its scores and AV on mma (P_F32 too: its
@@ -284,10 +306,14 @@ def bound_launch_ms(kernel: str, R: int, N: int, C: int, hidden: int, form: str 
 PRODUCT_LAUNCHES = {"B1": ("ln_qkv_kernel", "k_norm_kernel", "attn_kernel", "post_kernel"),
                     "B1-train": ("k_norm_kernel", "attn_kernel"),
                     "B3": ("k_norm_kernel", "attn_kernel"),
-                    "B2": ("mlp_bwd_kernel", "atb_kernel"),
+                    "B2": ("mlp_bwd_kernel", "attn_bwd", "ln1_bwd_kernel", "atb_kernel"),
                     "B4": ("proj_kernel", "bilinear_attn_kernel")}
+# A launch group of PRODUCT_LAUNCHES timed against one bound, and its
+# launches, each timed on its own from the same trace.
+LAUNCH_PARTS = {"attn_bwd": ("attn_bwd_norm_kernel", "attn_bwd_q_kernel", "attn_bwd_kv_kernel")}
 SASS_HMMA = {"fused_block": ("ln_qkv_kernel", "attn_kernel", "post_kernel"),
-             "fused_block_bwd": ("ln_qkv_kernel", "mlp_bwd_kernel", "atb_kernel"),
+             "fused_block_bwd": ("ln_qkv_kernel", "mlp_bwd_kernel", "attn_bwd_q_kernel",
+                                 "attn_bwd_kv_kernel", "ln1_bwd_kernel", "atb_kernel"),
              "row_attention": ("proj_kernel", "bilinear_attn_kernel")}
 
 
@@ -369,11 +395,16 @@ def launch_ms(torch, run, names, reps: int = 2, tries: int = 3):
 
 
 def log_launches(label: str, launches) -> None:
-    def ms(t):
-        return "not measured" if t["ms"] is None else f"{t['ms']:.3f} ms"
+    def ms(v):
+        return "not measured" if v is None else f"{v:.3f} ms"
+
+    def parts(t):
+        if "parts" not in t:
+            return ""
+        return " (" + ", ".join(f"{m} {ms(v)}" for m, v in t["parts"].items()) + ")"
 
     log(f"  {label} launches: " + ", ".join(
-        f"{n} {ms(t)} (bound {t['bound_ms']:.4f}, {t['bound_by']})"
+        f"{n} {ms(t['ms'])}{parts(t)} (bound {t['bound_ms']:.4f}, {t['bound_by']})"
         for n, t in launches.items()))
 
 
@@ -389,7 +420,8 @@ def time_launches(torch, run, kernel: str, R: int, N: int, C: int):
     in PRODUCT_LAUNCHES, with its bound (bound_launch_ms); 0 for a launch
     that does not run at this N."""
     names = PRODUCT_LAUNCHES[kernel]
-    got = launch_ms(torch, run, [n for n in names if runs_at(n, N, kernel)])
+    timed = [n for n in names if runs_at(n, N, kernel)]
+    got = launch_ms(torch, run, timed + [m for n in timed for m in LAUNCH_PARTS.get(n, ())])
     res = {}
     for n in names:
         if not runs_at(n, N, kernel):
@@ -397,6 +429,8 @@ def time_launches(torch, run, kernel: str, R: int, N: int, C: int):
             continue
         b_ms, b_by = bound_launch_ms(n, R, N, C, 4 * C, kernel)
         res[n] = {"ms": got[n], "bound_ms": b_ms, "bound_by": b_by}
+        if n in LAUNCH_PARTS:
+            res[n]["parts"] = {m: got[m] for m in LAUNCH_PARTS[n]}
     return res
 
 
@@ -609,6 +643,10 @@ def add_launches(totals, launches, calls: int) -> None:
         if t["bound_by"] == "bytes":
             tot["bound_bytes_ms"] += calls * t["bound_ms"]
         tot["bound_by"] = "bytes" if 2 * tot["bound_bytes_ms"] >= tot["bound_ms"] else "operations"
+        for m, ms in t.get("parts", {}).items():
+            parts = tot.setdefault("parts", {})
+            parts[m] = None if ms is None or parts.get(m, 0.0) is None else (
+                parts.get(m, 0.0) + calls * ms)
 
 
 # The kernel lab's forms (ops/lab_block.py), by name: (stage, flags).  All
@@ -1227,7 +1265,15 @@ def check_train_shape(torch, N: int, C: int, gen, hidden=None):
       B2:       fed the same rows, mid, acc, den and g as its plain version:
                 dx within 4 bf16 ULP at max|dx_ref|, each parameter gradient
                 within 1e-2 * max|ref leaf| (f32 sums over 64 rows of bf16
-                products in another order);
+                products in another order); two runs give the same bits
+                (dx, the gradients, dqkv);
+      attention backward: the kernel's dqkv against the plain attention
+                backward fed the kernel's q|k|v, d_oe and d_den
+                (fused_row_block_bwd_reference_parts), q's, k's and v's
+                gradients each within 4 bf16 ULP at its max|ref| (both round
+                d_s and p at the same points; an f32 sum in another order
+                flips a rounding now and then); the kernel's d_oe and d_den
+                against the plain version's own are recorded;
       autograd: against autograd through the plain block in f32 (the
                 truth), B2's relative error on each of the 12 gradients is
                 at most AUTOGRAD_FACTOR times that of its plain version,
@@ -1239,8 +1285,9 @@ def check_train_shape(torch, N: int, C: int, gen, hidden=None):
     ``hidden``: the MLP's width (default 4 C)."""
     from tfswa_tpu_torch.models.attention import RowBlockParams
     from tfswa_tpu_torch.ops.fused_block import (
-        SCORE_CLAMP, _forward_kernel, fused_row_block_bwd, fused_row_block_bwd_reference,
-        fused_row_block_reference, fused_row_block_train, fused_row_block_train_reference)
+        SCORE_CLAMP, _forward_kernel, fused_row_block_bwd_parts,
+        fused_row_block_bwd_reference_parts, fused_row_block_reference, fused_row_block_train,
+        fused_row_block_train_reference)
 
     def plain(a, q):
         return fused_row_block_reference(a, q, HEADS)
@@ -1270,12 +1317,29 @@ def check_train_shape(torch, N: int, C: int, gen, hidden=None):
              "acc_err": _max_abs(acc, r_acc),
              "acc_tol": 4 * bf16_ulp(r_acc.float().abs().max().item()),
              "den_rel": ((den - r_den).abs() / r_den.abs()).max().item(), "den_tol": 1e-2}
-        dx, dp = fused_row_block_bwd(x, mid, acc, den, g, p, HEADS)
+        parts = fused_row_block_bwd_parts(x, mid, acc, den, g, p, HEADS)
+        twice = fused_row_block_bwd_parts(x, mid, acc, den, g, p, HEADS)
         torch.cuda.synchronize()
-        r_dx, r_dp = fused_row_block_bwd_reference(x, mid, acc, den, g, p, HEADS, qkv=qkv)
+        dx, dp = parts.dx, parts.dp
+        ref = fused_row_block_bwd_reference_parts(x, mid, acc, den, g, p, HEADS, qkv=qkv)
+        r_dx, r_dp = ref.dx, ref.dp
+        r_dqkv = fused_row_block_bwd_reference_parts(x, mid, acc, den, g, p, HEADS, qkv=qkv,
+                                                     d_oe=parts.d_oe, d_den=parts.d_den).dqkv
+        C3 = parts.dqkv.shape[-1] // 3
+        qkv_parts = [(parts.dqkv[..., i * C3:(i + 1) * C3], r_dqkv[..., i * C3:(i + 1) * C3])
+                     for i in range(3)]
         c.update(dx_err=_max_abs(dx, r_dx),
                  dx_tol=4 * bf16_ulp(r_dx.float().abs().max().item()),
-                 dp_rel=max(_rel_max(a, b) for a, b in zip(dp, r_dp)), dp_tol=1e-2)
+                 dp_rel=max(_rel_max(a, b) for a, b in zip(dp, r_dp)), dp_tol=1e-2,
+                 dqkv_err=[_max_abs(a, b) for a, b in qkv_parts],
+                 dqkv_tol=[4 * bf16_ulp(b.float().abs().max().item()) for _, b in qkv_parts],
+                 d_oe_err=_max_abs(parts.d_oe, ref.d_oe),
+                 d_oe_max=ref.d_oe.float().abs().max().item(),
+                 d_den_err=_max_abs(parts.d_den, ref.d_den),
+                 d_den_max=ref.d_den.abs().max().item(),
+                 bwd_repeat_equal=all(bool(torch.equal(a, b)) for a, b in zip(
+                     (dx, *dp, parts.dqkv), (twice.dx, *twice.dp, twice.dqkv))))
+        del twice, ref, r_dqkv, qkv_parts
         truth = autograd_grads(torch, plain, x.float(), p, g.float())
         plain_bf16 = autograd_grads(torch, plain, x, p, g)
         leaves = list(zip([dx, *dp], plain_bf16, truth, [r_dx, *r_dp]))
@@ -1290,12 +1354,13 @@ def check_train_shape(torch, N: int, C: int, gen, hidden=None):
                    and c["out_err"] <= c["out_tol"]
                    and c["mid_err"] <= c["mid_tol"] and c["acc_err"] <= c["acc_tol"]
                    and c["den_rel"] <= c["den_tol"] and c["dx_err"] <= c["dx_tol"]
-                   and c["dp_rel"] <= c["dp_tol"]
+                   and c["dp_rel"] <= c["dp_tol"] and c["bwd_repeat_equal"]
+                   and all(e <= t for e, t in zip(c["dqkv_err"], c["dqkv_tol"]))
                    and (regime != "clamp" or c["max_score"] > SCORE_CLAMP))
         c["max_abs_err"] = max(c["out_err"], c["mid_err"], c["acc_err"])
         c["bwd_max_abs_err"] = c["dx_err"]
         res[regime] = c
-        del truth, plain_bf16, again, qkv
+        del truth, plain_bf16, again, qkv, parts
         torch.cuda.empty_cache()
     return res, flat
 
@@ -1311,7 +1376,11 @@ def log_train_checks(label: str, checks, misses, err) -> None:
             f"{c['out_err']:.4f}/{c['out_tol']:.4f} mid "
             f"{c['mid_err']:.4f}/{c['mid_tol']:.4f} acc {c['acc_err']:.5f}/"
             f"{c['acc_tol']:.4f} den {c['den_rel']:.1e}; B2 dx {c['dx_err']:.5f}/"
-            f"{c['dx_tol']:.4f} params {c['dp_rel']:.1e}/1e-2 autograd worst "
+            f"{c['dx_tol']:.4f} params {c['dp_rel']:.1e}/1e-2 dq|dk|dv "
+            + "|".join(f"{e:.2e}/{t:.2e}" for e, t in zip(c["dqkv_err"], c["dqkv_tol"]))
+            + f" (d_oe {c['d_oe_err']:.1e} of {c['d_oe_max']:.1e}, d_den "
+            f"{c['d_den_err']:.1e} of {c['d_den_max']:.1e}) twice "
+            f"{'same' if c['bwd_repeat_equal'] else 'DIFFERENT'}; autograd worst "
             f"{worst[0]:.1e} vs plain B2 {worst[2]:.1e} x{AUTOGRAD_FACTOR} (plain "
             f"bf16 route {worst[1]:.1e}; by max: ratio {max_ratio:.2f}); max score "
             f"{c['max_score']:.1f} "
@@ -1325,8 +1394,8 @@ def log_train_checks(label: str, checks, misses, err) -> None:
 def phase_train_kernels(torch, quick: bool):
     """B1-train and B2 at the 12 training shapes: checks on 64 rows, then
     kernel / plain / library times and bounds at the full row count, and
-    the device time of B1-train's attention launch and of B2's two product
-    launches beside their bounds; then the checks at RAGGED_MLP."""
+    the device time of B1-train's attention launch and of B2's launches
+    (PRODUCT_LAUNCHES) beside their bounds; then the checks at RAGGED_MLP."""
     from tfswa_tpu_torch.ops.fused_block import (
         fused_row_block_bwd, fused_row_block_bwd_reference, fused_row_block_train,
         fused_row_block_train_reference)
@@ -1397,14 +1466,17 @@ def phase_train_kernels(torch, quick: bool):
     return rows_out, err, totals
 
 
-# Faults for --plant: text substitutions in a copy of csrc/fused_block_bwd.cu,
-# each of which the B2 check must catch.
+# Faults for --plant: text substitutions in a copy of csrc/fused_block_bwd.cu
+# (each text occurs once there), each of which the B2 check must catch.
 PLANTS = {
     # d_den = 0: the softmax denominator's share of d_p is lost
     "no_d_den": ("d_den[(size_t)tok * H + h] = round_bf16(-r * s);",
                  "d_den[(size_t)tok * H + h] = 0.f;"),
-    # d_s = d_p * p * ln 2 also where the score was clamped
-    "no_clamp": ("s < SCORE_CLAMP ? dp * p * LN2F : 0.f", "dp * p * LN2F"),
+    # d_s = d_p * p * ln 2 also where the score was clamped (both passes)
+    "no_clamp": ("s[j][e] < SCORE_CLAMP ? dp[j][e] * p * LN2F : 0.f", "dp[j][e] * p * LN2F"),
+    # the q pass's key tiles read the tokens past N (the next row's) where
+    # they are zero-filled: a ragged row's d_q takes keys that are not its own
+    "ragged_keys": ("const bool key_in = k0 + j < N;", "const bool key_in = true;"),
     # the last token split of every weight-gradient sum left out
     "drop_last_split": ("for (int k = 0; k < S; ++k)", "for (int k = 0; k < S - 1; ++k)"),
 }
@@ -1481,7 +1553,7 @@ TRAIN_ROUTES = {
                {"B1-train": (*(f"ln_qkv_kernel<{C}, false>" for C in (32, 64, 128, 256)),
                              "k_norm_kernel", "attn_kernel", "post_kernel"),
                 "B2": (*(f"ln_qkv_kernel<{C}, true>" for C in (32, 64, 128, 256)),
-                       "mlp_bwd_kernel", "attn_bwd_q_kernel",
+                       "mlp_bwd_kernel", "attn_bwd_norm_kernel", "attn_bwd_q_kernel",
                        "attn_bwd_kv_kernel", "ln1_bwd_kernel", "atb_kernel",
                        "reduce_kernel")}),
     "pallas_attn": ({"B4": 66}, 2, {"B4": ("proj_kernel", "bilinear_attn_kernel")}),

@@ -131,3 +131,41 @@ def test_bwd_reference_matches_pallas_at_an_mlp_width_off_the_kernels_chunks():
     for i, (a, b) in enumerate(zip(got[1:], ref[1:])):
         scale = max(np.abs(b).max(), 1e-30)
         assert np.abs(a - b).max() <= 1e-2 * scale, (i, np.abs(a - b).max(), scale)
+
+
+@pytest.mark.parametrize("N", [37, 65])
+def test_bwd_parts_dqkv_matches_autograd_through_the_clamped_attention(N):
+    """The attention backward's own output: the plain B2's dqkv in f32
+    against torch.autograd through the plain clamped max-free attention
+    (the block's forward with the same q|k|v), at a ragged N.  Row 0's q
+    and k are scaled so that some of its scores pass SCORE_CLAMP (their
+    gradient is 0) and others do not.  Limit: 1e-4 of each of q's, k's and
+    v's largest gradient in the row (f32 sums in another order)."""
+    R, C = 2, 32
+    rows, p, g = _inputs(R, N, C, seed=300 + N)
+    tp = _tp(p)
+    x, gt = torch.from_numpy(rows), torch.from_numpy(g)
+    from tfswa_tpu_torch.ops.fused_block import (
+        SCORE_CLAMP, _block_weights, _reference_forward, fused_row_block_bwd_reference,
+        fused_row_block_bwd_reference_parts, fused_row_block_train_reference, layer_norm_f32)
+    ln_s, ln_b, w_qkv = _block_weights(tp, C, H, torch.float32)[:3]
+    qkv = (layer_norm_f32(x, ln_s, ln_b) @ w_qkv).reshape(R * N, 3 * C)
+    qkv[:N, :2 * C] *= 6.0                       # row 0: q and k
+    q, k = (qkv[:N, i * C:(i + 1) * C].view(N, H, C // H).transpose(0, 1) for i in (0, 1))
+    s0 = q @ k.transpose(-1, -2)
+    assert s0.max() > SCORE_CLAMP and (s0 < SCORE_CLAMP).float().mean() > 0.5
+    _, mid, acc, den = fused_row_block_train_reference(x, tp, H, qkv=qkv)
+    parts = fused_row_block_bwd_reference_parts(x, mid, acc, den, gt, tp, H, qkv=qkv)
+    assert parts.dqkv.shape == (R, N, 3 * C) and parts.d_oe.shape == (R, N, C)
+    assert parts.d_den.shape == (R, N, H)
+    dx, dp = fused_row_block_bwd_reference(x, mid, acc, den, gt, tp, H, qkv=qkv)
+    assert torch.equal(dx, parts.dx) and all(torch.equal(a, b) for a, b in zip(dp, parts.dp))
+
+    qkv_var = qkv.clone().requires_grad_()
+    _reference_forward(x, tp, H, train=False, qkv=qkv_var)[0].backward(gt)
+    ref = qkv_var.grad.view(R, N, 3 * C)
+    for r in range(R):
+        for i in range(3):
+            a, b = (t[r, :, i * C:(i + 1) * C] for t in (parts.dqkv, ref))
+            scale = b.abs().max().item()
+            assert (a - b).abs().max().item() <= 1e-4 * scale, (r, i, scale)

@@ -2,17 +2,14 @@
 // fused_block_bwd.cu, row_attention.cu).  Each .cu is its own library; this
 // header is compiled into each.
 //
-// Two kinds of helper:
-//   - the SIMT pieces of B2's LN1 launch (TOK-token tiles, column_dot);
-//   - the tensor-core tile: a warp-level bf16 product on
-//     mma.sync.aligned.m16n8k16 with f32 sums (and its int8 form,
-//     m16n8k32 with exact int32 sums), its fragments loaded from shared
-//     memory by ldmatrix, and the block-level product block_gemm, which
-//     streams a weight through shared memory with cp.async.  Every product
-//     of B1's three launches (ln_qkv_kernel below; attn_kernel and
-//     post_kernel in fused_block.cu), of B2's mlp_bwd_kernel and
-//     atb_kernel (fused_block_bwd.cu) and of B4 (row_attention.cu) runs
-//     on it.
+// The tensor-core tile: a warp-level bf16 product on
+// mma.sync.aligned.m16n8k16 with f32 sums (and its int8 form, m16n8k32
+// with exact int32 sums), its fragments loaded from shared memory by
+// ldmatrix, and the block-level product block_gemm, which streams a weight
+// through shared memory with cp.async.  Every product of B1's three
+// launches (ln_qkv_kernel below; attn_kernel and post_kernel in
+// fused_block.cu), of B2's launches (fused_block_bwd.cu) and of B4
+// (row_attention.cu) runs on it.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -21,9 +18,7 @@
 
 namespace {
 
-constexpr int TOK = 16;        // tokens per tile of B2's SIMT LN1 launch
-constexpr int THREADS = 128;   // threads per block of B2's SIMT launches
-constexpr int KT = 128;        // keys (or queries) per shared-memory tile
+constexpr int THREADS = 128;   // threads per block of the lab's SIMT launches
 constexpr float SCORE_CLAMP = 110.0f;
 
 typedef __nv_bfloat16 bf16;
@@ -40,23 +35,11 @@ __device__ __forceinline__ float warp_sum(float v) {
     return v;
 }
 
-// acc[t] = sum_k a[k*TOK + t] * w[k*ldw + j] for the block's TOK tokens.
-__device__ __forceinline__ void column_dot(const float* a, const bf16* w, int ldw,
-                                           int j, int K, float (&acc)[TOK]) {
-#pragma unroll
-    for (int t = 0; t < TOK; ++t) acc[t] = 0.f;
-    for (int k = 0; k < K; ++k) {
-        const float wk = ld(w + (size_t)k * ldw + j);
-        const float4* a4 = reinterpret_cast<const float4*>(a + k * TOK);
-#pragma unroll
-        for (int q = 0; q < TOK / 4; ++q) {
-            const float4 v = a4[q];
-            acc[4 * q + 0] += v.x * wk;
-            acc[4 * q + 1] += v.y * wk;
-            acc[4 * q + 2] += v.z * wk;
-            acc[4 * q + 3] += v.w * wk;
-        }
-    }
+// 2^x on the MUFU, results below 2^-126 flushed to 0 (ex2.approx.ftz)
+__device__ __forceinline__ float ex2_ftz(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
 }
 
 // ---------------------------------------------------------------------------
@@ -103,6 +86,32 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
         "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
         : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The same product into d, from an accumulator c that is kept (a seed used
+// for several products).
+__device__ __forceinline__ void mma_bf16_to(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                            uint32_t b1, const float (&c)[4]) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+          "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+// m16n8k8: D (16 x 8, f32) = A (16 x 8, bf16) B (8 x 8, bf16) + c, half the
+// k16 product's work: A 2 registers, a[0] = (row g, k 2q, 2q+1), a[1] = (row
+// g + 8, k 2q, 2q+1), the k16 fragment's a[0], a[1] (k 0-7) or a[2], a[3]
+// (k 8-15); B one register (k 2q, 2q+1; col g), the k16 fragment's b[0] or
+// b[1].
+__device__ __forceinline__ void mma_bf16_k8_to(float (&d)[4], uint32_t a0, uint32_t a1,
+                                               uint32_t b, const float (&c)[4]) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %8, %9, %10};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a0), "r"(a1), "r"(b), "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
 }
 
 // mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32: D (16 x 8, int32) =

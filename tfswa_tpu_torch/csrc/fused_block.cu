@@ -267,13 +267,6 @@ size_t attn_smem_bytes(int ak) {
 // room for the f32 sums' rounding)
 constexpr float SAFE_BOUND = 120.0f;
 
-// 2^x on the MUFU, results below 2^-126 flushed to 0 (ex2.approx.ftz)
-__device__ __forceinline__ float ex2_ftz(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-    return y;
-}
-
 // The score -> p line of the warp's 16 queries x 16 keys (two
 // accumulators of 8 keys), in place: the f32 value that p's bf16 rounding
 // takes (SCORE_BF16: already rounded).  Keys from nvalid on (of the 16)

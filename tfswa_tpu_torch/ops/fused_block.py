@@ -12,8 +12,10 @@ launch counter (``<wrapper>.launches``):
     :func:`fused_row_block_reference_parts`;
   - B1-train, the forward that also exports ``mid``, ``acc`` and ``den``:
     :func:`fused_row_block_train` / :func:`fused_row_block_train_reference`;
-  - B2, the whole-block VJP: :func:`fused_row_block_bwd` /
-    :func:`fused_row_block_bwd_reference` (``csrc/fused_block_bwd.cu``);
+  - B2, the whole-block VJP: :func:`fused_row_block_bwd_parts` /
+    :func:`fused_row_block_bwd_reference_parts` (``csrc/fused_block_bwd.cu``;
+    also the attention backward's operands and result), and
+    :func:`fused_row_block_bwd` / :func:`fused_row_block_bwd_reference`;
   - B3, the serving form with int8 scores (``int8_attn=True`` of the TPU
     kernel): :func:`fused_row_block_int8` /
     :func:`fused_row_block_int8_reference`.  It has no VJP: under grad the
@@ -246,25 +248,45 @@ def fused_row_block_train_reference(rows: torch.Tensor, p, num_heads: int, qkv=N
     return out, mid, acc, den
 
 
-def fused_row_block_bwd_reference(rows: torch.Tensor, mid: torch.Tensor,
-                                  acc: torch.Tensor, den: torch.Tensor,
-                                  g: torch.Tensor, p, num_heads: int, qkv=None):
+class BwdParts(NamedTuple):
+    """What B2 computes: ``dx`` (R, N, C) in ``rows.dtype`` and ``dp`` (a
+    RowBlockParams of f32 gradients), and the attention backward's operands
+    and result: ``d_oe`` (R, N, C) and ``d_den`` (R, N, H) f32, both with
+    values of ``rows.dtype``, and ``dqkv`` (R, N, 3C) in ``rows.dtype``, the
+    gradients of the (pre-scaled) q, k and v."""
+
+    dx: torch.Tensor
+    dp: object
+    d_oe: torch.Tensor
+    d_den: torch.Tensor
+    dqkv: torch.Tensor
+
+
+def fused_row_block_bwd_reference_parts(rows: torch.Tensor, mid: torch.Tensor,
+                                        acc: torch.Tensor, den: torch.Tensor,
+                                        g: torch.Tensor, p, num_heads: int, qkv=None,
+                                        d_oe=None, d_den=None) -> BwdParts:
     """Plain PyTorch version of B2: the block's VJP at cotangent ``g``,
     written out (not ``torch.autograd``) in f32 arithmetic with the TPU
     kernel's rounding to ``rows.dtype``:
       - LN2 statistics from the rounded ``mid``; ``d_mid`` in f32, rounded
         only as a product operand;
-      - p in f32 for d_s = where(s < SCORE_CLAMP, d_p * p * ln 2, 0), rounded
-        for d_v; d_oe = rnd([d_acc / den, -(1/den) * sum_D(d_acc * acc)]);
+      - d_oe = rnd(d_acc / den), d_den = rnd(-(1/den) * sum_D(d_acc * acc));
+      - p in f32 for d_s = where(s < SCORE_CLAMP, d_p * p * ln 2, 0) with
+        d_p = d_oe v^T + d_den, rounded for d_v;
       - d_q, d_k, d_v summed in f32, then rounded.
-    Returns ``(dx, dp)``: dx in ``rows.dtype`` and a RowBlockParams of f32
-    gradients in the parameters' layout (d qkv[:, :C] re-scaled).
+    Returns :class:`BwdParts`; ``dp`` in the parameters' layout (d qkv[:, :C]
+    re-scaled).
 
     ``qkv`` (R*N, 3C) in ``rows.dtype``, if given, is used instead of the
-    recomputed q|k|v.  A check on the card passes the kernel's own: a
-    rounding of q or k that flips between two summation orders moves a
-    peaked softmax by percents and a score past SCORE_CLAMP across it, so
-    only shared q, k, v leave the attention's own arithmetic to compare."""
+    recomputed q|k|v, and ``d_oe`` (R, N, C) and ``d_den`` (R, N, H), if
+    given, instead of the computed ones.  A check on the card passes the
+    kernel's own: a rounding of q or k that flips between two summation
+    orders moves a peaked softmax by percents and a score past SCORE_CLAMP
+    across it, so only shared q, k, v leave the attention's own arithmetic
+    to compare (and shared d_oe, d_den the attention backward's alone)."""
+    if (d_oe is None) != (d_den is None):
+        raise ValueError("fused_row_block_bwd_reference_parts: give d_oe and d_den together")
     R, N, C = rows.shape
     H = num_heads
     D = C // H
@@ -282,7 +304,7 @@ def fused_row_block_bwd_reference(rows: torch.Tensor, mid: torch.Tensor,
     z = lambda *s: torch.zeros(*s, dtype=torch.float32, device=rows.device)  # noqa: E731
     dln1s, dln1b, dob, dln2s, dln2b, df2b = (z(C) for _ in range(6))
     dwqkv, dwo, dfc1, df1b, dfc2 = z(C, 3 * C), z(C, C), z(C, hidden), z(hidden), z(hidden, C)
-    dxs = []
+    dxs, d_oes, d_dens, dqkvs = [], [], [], []
     chunk = max(1, MAX_SCORE_BYTES // (4 * H * N * N * 4))
     for r0 in range(0, R, chunk):
         sl = slice(r0, r0 + chunk)
@@ -316,18 +338,22 @@ def fused_row_block_bwd_reference(rows: torch.Tensor, mid: torch.Tensor,
         normed = rnd(nhat1 * ln1_s + ln1_b)
         q, k, v = _qkv_heads(normed, w_qkv, rnd, H, qkv, r0 * N)
         heads = lambda t: t.view(Rc, N, H, D).transpose(1, 2)  # noqa: E731
-        r_h = 1.0 / den[sl].unsqueeze(-1)                     # (Rc, H, N, 1)
-        d_acc_h = heads(d_acc)
-        d_oe = rnd(d_acc_h * r_h)
-        d_den = rnd(-r_h * (d_acc_h * heads(accf)).sum(dim=-1, keepdim=True))
+        if d_oe is None:
+            r_h = 1.0 / den[sl].unsqueeze(-1)                 # (Rc, H, N, 1)
+            d_acc_h = heads(d_acc)
+            d_oe_h = rnd(d_acc_h * r_h)
+            d_den_h = rnd(-r_h * (d_acc_h * heads(accf)).sum(dim=-1, keepdim=True))
+        else:
+            d_oe_h = heads(d_oe[sl].float())
+            d_den_h = d_den[sl].float().transpose(1, 2).unsqueeze(-1)
         s = q @ k.transpose(-1, -2)                           # (Rc, H, Nq, Nk)
         prob = torch.exp2(s.clamp(max=SCORE_CLAMP))
-        d_p = d_oe @ v.transpose(-1, -2) + d_den
+        d_p = d_oe_h @ v.transpose(-1, -2) + d_den_h
         d_sc = rnd(torch.where(s < SCORE_CLAMP, d_p * prob * LN2, 0.0))
         del d_p, s
         d_q = d_sc @ k
         d_k = d_sc.transpose(-1, -2) @ q
-        d_v = rnd(prob).transpose(-1, -2) @ d_oe
+        d_v = rnd(prob).transpose(-1, -2) @ d_oe_h
         del d_sc, prob
         dqkv = rnd(torch.stack([d_q, d_k, d_v]).permute(1, 3, 0, 2, 4).reshape(Rc, N, 3 * C))
         d_normed = dqkv @ w_qkv.t()
@@ -335,9 +361,22 @@ def fused_row_block_bwd_reference(rows: torch.Tensor, mid: torch.Tensor,
         dln1s += (d_normed * nhat1).sum(dim=(0, 1))
         dln1b += d_normed.sum(dim=(0, 1))
         dxs.append((d_mid + _ln_bwd(d_normed * ln1_s, nhat1, rstd1)).to(dt))
+        d_oes.append(d_oe_h.transpose(1, 2).reshape(Rc, N, C).to(dt))
+        d_dens.append(d_den_h[..., 0].transpose(1, 2))
+        dqkvs.append(dqkv.to(dt))
     dwqkv[:, :C] *= _qk_scale(C, H)
-    return torch.cat(dxs), type(p)(dln1s, dln1b, dwqkv, dwo, dob, dln2s, dln2b,
-                                   dfc1, df1b, dfc2, df2b)
+    dp = type(p)(dln1s, dln1b, dwqkv, dwo, dob, dln2s, dln2b, dfc1, df1b, dfc2, df2b)
+    return BwdParts(torch.cat(dxs), dp, torch.cat(d_oes), torch.cat(d_dens), torch.cat(dqkvs))
+
+
+def fused_row_block_bwd_reference(rows: torch.Tensor, mid: torch.Tensor,
+                                  acc: torch.Tensor, den: torch.Tensor,
+                                  g: torch.Tensor, p, num_heads: int, qkv=None):
+    """``(dx, dp)`` of :func:`fused_row_block_bwd_reference_parts`: dx in
+    ``rows.dtype`` and a RowBlockParams of f32 gradients in the parameters'
+    layout."""
+    res = fused_row_block_bwd_reference_parts(rows, mid, acc, den, g, p, num_heads, qkv)
+    return res.dx, res.dp
 
 
 def kernel_smem_bytes(C: int, hidden: Optional[int] = None) -> int:
@@ -350,14 +389,21 @@ def kernel_smem_bytes(C: int, hidden: Optional[int] = None) -> int:
     mlp_bwd_kernel 64 rows of bf16 g, n2 and mid and of a 64-unit d_h1
     chunk, two 32-row weight slices, and f32 sums: the block's vector
     partials (4 C + hidden), 16 C + 256 of column sums and 384 of row
-    statistics (rows padded by 8).  No launch's shared memory depends on N."""
+    statistics (rows padded by 8); attn_bwd_kv_kernel (the larger of the
+    attention backward's two) two 128-token tiles of two tensors' 32
+    channels (16 where D < 16) and their d_den; ln1_bwd_kernel 64 rows of
+    bf16 dqkv and x, two 32-row weight slices, and f32 sums: the block's
+    two vector partials, 8 C of column sums and 384 of row statistics.  No
+    launch's shared memory depends on N."""
     hidden = 4 * C if hidden is None else hidden
     ln_qkv = 2 * (64 * (C + 8) + 2 * 32 * (96 + 8))
     attn = 2 * 2 * 128 * 72 + 2 * 128 * 48 + 4 * 8 * 32
     post = 4 * 64 * (C + 8) + 2 * (64 * (C + 8) + 2 * 32 * (max(C, 128) + 8) + 64 * (128 + 8))
     mlp_bwd = (2 * (3 * 64 * (C + 8) + 64 * (64 + 8) + 2 * 32 * (max(C, 64) + 8))
                + 4 * (4 * C + hidden + 16 * C + 4 * 64 + 6 * 64))
-    return max(ln_qkv, attn, post, mlp_bwd)
+    attn_bwd = 2 * 2 * 128 * 72 + 4 * 2 * 4 * 128
+    ln1_bwd = 2 * (64 * (3 * C + 8) + 64 * (C + 8) + 2 * 32 * (C + 8)) + 4 * (10 * C + 6 * 64)
+    return max(ln_qkv, attn, post, mlp_bwd, attn_bwd, ln1_bwd)
 
 
 def check_shape(name: str, R: int, N: int, C: int, num_heads: int, hidden: int) -> None:
@@ -394,6 +440,9 @@ def _bwd_lib() -> ctypes.CDLL:
         sz = lib.fused_block_backward_scratch_bytes
         sz.argtypes = [ctypes.c_int] * 5
         sz.restype = ctypes.c_size_t
+        off = lib.fused_block_backward_part_offsets
+        off.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        off.restype = None
     return lib
 
 
@@ -518,13 +567,14 @@ def fused_row_block_train(rows: torch.Tensor, p, num_heads: int):
     return res.out, res.mid, res.attn, res.den
 
 
-def fused_row_block_bwd(rows: torch.Tensor, mid: torch.Tensor, acc: torch.Tensor,
-                        den: torch.Tensor, g: torch.Tensor, p, num_heads: int):
-    """B2: the block's VJP from B1-train's residuals, ``(dx, dp)`` as
-    :func:`fused_row_block_bwd_reference` gives them.  Counts each launch in
-    ``fused_row_block_bwd.launches``."""
+def fused_row_block_bwd_parts(rows: torch.Tensor, mid: torch.Tensor, acc: torch.Tensor,
+                              den: torch.Tensor, g: torch.Tensor, p, num_heads: int) -> BwdParts:
+    """B2: the block's VJP from B1-train's residuals, :class:`BwdParts` as
+    :func:`fused_row_block_bwd_reference_parts` gives them (on the card
+    ``d_oe``, ``d_den`` and ``dqkv`` are views of the launch's scratch
+    buffer).  Counts each launch in ``fused_row_block_bwd.launches``."""
     if rows.device.type == "cpu":
-        return fused_row_block_bwd_reference(rows, mid, acc, den, g, p, num_heads)
+        return fused_row_block_bwd_reference_parts(rows, mid, acc, den, g, p, num_heads)
     H = num_heads
     _check_cuda("fused_row_block_bwd", rows, H, p, like=(mid, acc, g), den=den)
     R, N, C = rows.shape
@@ -555,7 +605,22 @@ def fused_row_block_bwd(rows: torch.Tensor, mid: torch.Tensor, acc: torch.Tensor
         [(C,), (C,), (C, 3 * C), (C, C), (C,), (C,), (C,), (C, hidden), (hidden,),
          (hidden, C), (C,)])]
     leaves[2][:, :C] *= _qk_scale(C, H)
-    return dx, type(p)(*leaves)
+    offsets = (ctypes.c_size_t * 3)()
+    lib.fused_block_backward_part_offsets(R, N, C, H, hidden, ctypes.addressof(offsets))
+
+    def part(i, width, dtype):
+        n = R * N * width * torch.finfo(dtype).bits // 8
+        return scratch[offsets[i]:offsets[i] + n].view(dtype).view(R, N, width)
+
+    return BwdParts(dx, type(p)(*leaves), part(0, C, rows.dtype), part(1, H, torch.float32),
+                    part(2, 3 * C, rows.dtype))
+
+
+def fused_row_block_bwd(rows: torch.Tensor, mid: torch.Tensor, acc: torch.Tensor,
+                        den: torch.Tensor, g: torch.Tensor, p, num_heads: int):
+    """B2: ``(dx, dp)`` of :func:`fused_row_block_bwd_parts`."""
+    res = fused_row_block_bwd_parts(rows, mid, acc, den, g, p, num_heads)
+    return res.dx, res.dp
 
 
 class _FusedRowBlock(torch.autograd.Function):
