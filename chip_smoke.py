@@ -65,7 +65,11 @@ Phases, each of which fails the run (exit code 1) when it fails:
      (C = 32); kernel / plain / library times and the bound at the full row
      counts, and the device time of B1-train's attention launch and of B2's
      mlp_bwd_kernel, attention backward, ln1_bwd_kernel and atb_kernel
-     beside their bounds;
+     beside their bounds; then, also under --quick, the same checks of
+     B1-train and B2 at each (N, C) of configs/musdb_repro.yaml's train
+     steps (crop_pow2, 5.938 s: F = 1024, T = 512), and phase 2's checks of
+     B1 at each (N, C) of its validation and SDR evaluation (F = 1025,
+     T = 862), that the training and serving shapes lack;
   7. the training main path: the flagship model in train mode through
      make_train_step (TrainConfig defaults) on a fixed batch of 4 x 6 s from
      the port's SyntheticDataset: a warm-up step and 5 timed steps, each
@@ -77,7 +81,23 @@ Phases, each of which fails the run (exit code 1) when it fails:
   8. one train step through each kernel route ("pallas", "pallas_attn")
      against the plain route (same weights and batch): loss and gradient
      cosine;
-  9. a JSON line of the kernels, then the last line
+  9. remat against no remat on phase 7's fixed batch: one step each from
+     the same weights (loss within 1e-3 rel., gradient cosine >= 0.999,
+     equal num_batches_tracked, running stats within 1e-3 rel.; 132
+     B1-train + 66 B2 launches with remat, 66 + 66 without), two more
+     timed steps each and the peak memory of each;
+ 10. the training entry point, python -m tfswa_tpu_torch.cli.train on
+     configs/musdb_repro.yaml and the synthetic set, in a subprocess: 2
+     epochs of 4 steps, then a third resumed from latest (the restored
+     state equal to the saved one, global_step 12); the launches counted
+     inside the trainer's steps (B1-train, B2), validation and SDR
+     evaluation (B1) against the design, and the (N, C) of every launch
+     there, which must be the recipe's and checked in phase 6; a track
+     that fails in the SDR evaluation fails the run; finite train / val /
+     sdr records, the checkpoint layout; the best checkpoint served through
+     "pallas"; ms a step (the trainer's own mean), audio-s trained/s, peak
+     GB and the SDR evaluation's seconds;
+ 11. a JSON line of the kernels, then the last line
      {"ok": true, "device": {...}}.
 Long results go to chiprun_out/chip_smoke.json.  Without a CUDA device, or
 outside a checkout of the repository, the run exits non-zero with no result.
@@ -1466,6 +1486,74 @@ def phase_train_kernels(torch, quick: bool):
     return rows_out, err, totals
 
 
+RECIPE = "configs/musdb_repro.yaml"
+
+
+def row_shapes(F: int, T: int, dims, window: int):
+    """(N, C) of the row blocks of one forward on an F x T spectrogram:
+    each stage runs TSA along F, FSA along T and SWA over window x window
+    tokens, and the next stage halves F and T (rounding down), as
+    SHAPES and TRAIN_SHAPES list them."""
+    out = set()
+    for C in dims:
+        out |= {(F, C), (T, C), (window * window, C)}
+        F, T = F // 2, T // 2
+    return out
+
+
+def recipe_row_shapes(cfg):
+    """(N, C) of the row blocks of the recipe's CLI run, by phase: its
+    train steps (B1-train and B2) and validation (B1) on segments of
+    data.segment_seconds under train.freq_policy, and its SDR evaluation
+    (B1), whose separator cuts sdr_eval_segment_seconds and keeps every
+    STFT row (freq_policy "full")."""
+    d, s, m = cfg.data, cfg.stft, cfg.model
+    F = s.n_fft // 2 + 1
+
+    def frames(seconds):
+        return int(seconds * d.sample_rate) // s.hop_length + 1
+
+    F_train = F - 1 if cfg.train.freq_policy == "crop_pow2" and F % 2 else F
+    train = row_shapes(F_train, frames(d.segment_seconds), m.dims, m.window_size)
+    return {"train": train, "val": train,
+            "sdr": row_shapes(F, frames(cfg.train.sdr_eval_segment_seconds), m.dims,
+                              m.window_size)}
+
+
+def phase_recipe_kernels(torch):
+    """B1-train and B2 (check_train_shape) at each (N, C) of the recipe's
+    train steps, and B1 (check_shape) at each of its validation and SDR
+    evaluation, that TRAIN_SHAPES and SHAPES lack, at the same limits.
+    Returns the checks, the largest errors and the (N, C) now covered for
+    each kernel, which phase_train_cli holds the CLI run's shapes to."""
+    from tfswa_tpu_torch.config import Config
+
+    cfg = Config.from_yaml(os.path.join(HERE, RECIPE)).apply_overrides(
+        [a for flag, a in zip(TRAIN_CLI, TRAIN_CLI[1:]) if flag == "--set"])
+    want = recipe_row_shapes(cfg)
+    covered = {"train": {(N, C) for _, _, N, C, _ in TRAIN_SHAPES},
+               "B1": {(N, C) for _, _, N, C, _ in SHAPES}}
+    gen = torch.Generator().manual_seed(12)
+    rows_out, misses = [], []
+    err = {"train": 0.0, "bwd": 0.0, "B1": 0.0}
+    for N, C in sorted(want["train"] - covered["train"]):
+        checks, _ = check_train_shape(torch, N, C, gen)
+        log_train_checks(f"recipe N={N} C={C}", checks, misses, err)
+        rows_out.append({"kernels": "B1-train/B2", "N": N, "C": C, "checks": checks})
+        covered["train"].add((N, C))
+    for N, C in sorted((want["val"] | want["sdr"]) - covered["B1"]):
+        checks, _ = check_shape(torch, N, C, gen)
+        err["B1"] = max(err["B1"], log_b1_checks(f"recipe N={N} C={C}", checks, misses))
+        rows_out.append({"kernels": "B1", "N": N, "C": C, "checks": checks})
+        covered["B1"].add((N, C))
+    log(f"recipe {RECIPE}: {len(rows_out)} (N, C) checked beyond the serving and "
+        f"training shapes: {[(r['kernels'], r['N'], r['C']) for r in rows_out]}")
+    if misses:
+        fail("the kernels disagree with their plain versions at the recipe's shapes: "
+             + "; ".join(misses))
+    return rows_out, err, covered
+
+
 # Faults for --plant: text substitutions in a copy of csrc/fused_block_bwd.cu
 # (each text occurs once there), each of which the B2 check must catch.
 PLANTS = {
@@ -1521,7 +1609,7 @@ def train_batch(torch, np):
     return mix, targets
 
 
-def make_trainer(torch, impl: str):
+def make_trainer(torch, impl: str, remat: bool = False):
     """The flagship bf16 model (f32 parameters, weights from seed 0) in a
     TrainState with the TrainConfig defaults, and its train and eval steps."""
     from tfswa_tpu_torch.config import Config, ModelConfig, TrainConfig
@@ -1530,7 +1618,7 @@ def make_trainer(torch, impl: str):
                                           make_train_step)
 
     cfg = Config(model=ModelConfig(in_channels=4, out_channels=4, attention_impl=impl,
-                                   dtype="bfloat16"), train=TrainConfig(seed=0))
+                                   dtype="bfloat16", remat=remat), train=TrainConfig(seed=0))
     model, state = create_train_state(cfg, device="cuda")
     proc = STFTProcessor(cfg.stft)
     stems = cfg.data.stems
@@ -1721,6 +1809,316 @@ def phase_train_routes(torch, np):
         if not (rel <= 1e-2 and cos >= 0.99):
             fail(f"route {impl} vs plain route: loss rel {rel}, gradient cosine {cos}")
     return res
+
+
+def step_launches(depths=(2, 2, 6, 2), remat: bool = False):
+    """B1-train and B2 launches of one "pallas" train step: three row blocks
+    (TSA, FSA, SWA) a TFSWABlock, 2 (d0 + d1 + d2) + d3 blocks; with remat
+    the backward runs each block's forward again, B1-train included."""
+    blocks = 3 * (2 * sum(depths[:3]) + depths[3])
+    return {"B1-train": blocks * (2 if remat else 1), "B2": blocks}
+
+
+def phase_remat(torch, np, gpu: str):
+    """One train step with remat and one without from the same weights, on
+    phase 7's fixed batch: loss within 1e-3 rel., gradient cosine >= 0.999,
+    equal num_batches_tracked, running stats within 1e-3 rel., the launch
+    counts of ``step_launches``; then two more steps each, timed, and the
+    peak memory of each."""
+    mix, targets = train_batch(torch, np)
+    res, grads, stats = {}, {}, {}
+    for remat in (False, True):
+        state, step = make_trainer(torch, "pallas", remat)[:2]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        state, loss = step(state, mix, targets)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        grads[remat] = torch.cat([p.grad.flatten().double() for p in state.model.parameters()])
+        stats[remat] = {k: v.clone() for k, v in state.model.state_dict().items()
+                        if "running" in k or "num_batches" in k}
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            step(state, mix, targets)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        want = {k: step_launches(remat=remat).get(k, 0) for k in counts}
+        res[remat] = {"total_loss": float(loss["total_loss"]), "launches": counts,
+                      "step_s": times, "best_ms_per_step": min(times) * 1e3,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"remat={remat}: first step launches {counts} (expected {want}), loss "
+            f"{res[remat]['total_loss']:.6f}; steps {[round(t * 1e3, 3) for t in times]} ms, "
+            f"best {min(times) * 1e3:.3f} ms/step, peak memory "
+            f"{res[remat]['peak_mem_gb']:.3f} GB on {gpu}")
+        if counts != want:
+            fail(f"remat={remat}: expected launches {want} in a step, got {counts}")
+        del state, step
+        torch.cuda.empty_cache()
+    a, b = grads[True], grads[False]
+    cos = float((a @ b) / (a.norm() * b.norm()))
+    rel = abs(res[True]["total_loss"] - res[False]["total_loss"]) / abs(res[False]["total_loss"])
+    tracked = all(torch.equal(stats[True][k], v) for k, v in stats[False].items()
+                  if "num_batches" in k)
+    stat_rel = max(float(((stats[True][k] - v).abs().max() / v.abs().max().clamp_min(1e-12)))
+                   for k, v in stats[False].items() if "running" in k)
+    res.update(loss_rel=rel, grad_cosine=cos, num_batches_tracked_equal=tracked,
+               running_stats_rel=stat_rel)
+    log(f"remat vs no remat, one step: loss rel {rel:.2e} (limit 1e-3), gradient cosine "
+        f"{cos:.6f} (min 0.999), num_batches_tracked equal {tracked}, running stats rel "
+        f"{stat_rel:.2e} (limit 1e-3)")
+    if not (rel <= 1e-3 and cos >= 0.999 and tracked and stat_rel <= 1e-3):
+        fail(f"remat vs no remat: loss rel {rel}, cosine {cos}, num_batches_tracked equal "
+             f"{tracked}, running stats rel {stat_rel}")
+    return {str(k): v for k, v in res.items()}
+
+
+# the recipe's own CLI run, with one train record an epoch (the recipe logs
+# every 50 steps, more than a run of these epochs takes)
+TRAIN_CLI = ["--config", RECIPE, "--synthetic",
+             "--set", "train.steps_per_epoch=4", "--set", "train.sdr_eval_num_tracks=2",
+             "--set", "train.log_every_n_steps=4",
+             "--checkpoint_dir", "chiprun_out/train_ck", "--log_dir", "chiprun_out/train_log"]
+# Runs the training CLI's module as __main__ with the given arguments and
+# prints, as its last line, the launches of each kernel counted inside the
+# trainer's train_epoch, validate and evaluate_sdr, the (N, C) each kernel
+# was launched at there, and, on a resume, whether the restored state equals
+# the checkpoint's.  A track that fails in the SDR evaluation, which the
+# trainer warns about and leaves out, is an error here.
+CLI_RUNNER = r"""
+import json, runpy, sys, warnings, torch
+import chip_smoke as cs
+from tfswa_tpu_torch.ops import fused_block as fb
+from tfswa_tpu_torch.training import trainer as tr
+warnings.filterwarnings("error", message="SDR eval failed")
+out = {"launches": {}, "shapes": {}}
+phase = []
+
+def counted(name, fn):
+    def run(self, *a, **k):
+        before = cs.read_counts()
+        phase.append(name)
+        try:
+            return fn(self, *a, **k)
+        finally:
+            phase.pop()
+            acc = out["launches"].setdefault(name, {})
+            for key, n in cs.read_counts().items():
+                acc[key] = acc.get(key, 0) + n - before[key]
+    return run
+
+def seen(kind, rows):
+    if phase:
+        shapes = out["shapes"].setdefault(phase[-1], {}).setdefault(kind, [])
+        if list(rows.shape[1:]) not in shapes:
+            shapes.append(list(rows.shape[1:]))
+
+forward, backward = fb._forward_kernel, fb.fused_row_block_bwd_parts
+
+def forward_seen(rows, p, num_heads, train=False, int8=False):
+    seen("B1-train" if train else "B3" if int8 else "B1", rows)
+    return forward(rows, p, num_heads, train, int8)
+
+def backward_seen(rows, *a):
+    seen("B2", rows)
+    return backward(rows, *a)
+
+fb._forward_kernel, fb.fused_row_block_bwd_parts = forward_seen, backward_seen
+
+for name in ("train_epoch", "validate", "evaluate_sdr"):
+    setattr(tr.Trainer, name, counted(name, getattr(tr.Trainer, name)))
+load = tr.Trainer.load_checkpoint
+
+def checked_load(self, which="latest"):
+    load(self, which)
+    tree, meta = self.ckpt.restore(which)
+    sd, opt = self.model.state_dict(), self.state.tx.state_dict()
+    bad = [k for k, v in tree["model_state_dict"].items() if not torch.equal(sd[k].cpu(), v)]
+    saved = tree["optimizer"]["adamw"]["state"]
+    bad += [f"adamw/{i}/{k}" for i, s in saved.items() for k, v in s.items()
+            if not torch.equal(opt["adamw"]["state"][i][k].cpu(), v)]
+    if opt["count"] != tree["optimizer"]["count"] or self.state.step != meta["global_step"]:
+        bad.append("count or step")
+    out["restored"] = {"mismatches": bad, "params_and_buffers": len(sd),
+                       "moments": len(saved), "step": self.state.step, "meta": meta}
+
+tr.Trainer.load_checkpoint = checked_load
+sys.argv = ["tfswa_tpu_torch.cli.train"] + json.loads(sys.argv[1])
+runpy.run_module("tfswa_tpu_torch.cli.train", run_name="__main__")
+print(json.dumps(out))
+"""
+
+
+def run_train_cli(argv):
+    """The training CLI in a subprocess from the checkout (CLI_RUNNER): its
+    output lines and its last line's launch counts and restore check."""
+    res = subprocess.run([sys.executable, "-c", CLI_RUNNER, json.dumps(argv)], cwd=HERE,
+                         capture_output=True, text=True, timeout=600)
+    lines = res.stdout.strip().splitlines()
+    for line in lines:
+        log(f"  | {line[:300]}")
+    if res.returncode != 0:
+        fail(f"train CLI {' '.join(argv)} exited {res.returncode}:\n{res.stderr[-3000:]}")
+    return json.loads(lines[-1])
+
+
+def cli_designed_launches(cfg, steps: int, validations: int, sdr_evals: int):
+    """Launches the CLI run should make: B1-train and B2 in its steps
+    (``step_launches``), B1 (66 a forward) in its validations (one forward
+    a batch of the synthetic validation set) and its SDR evaluations (one
+    forward a segment_batch of 8 segments of each 30 s track, host OLA)."""
+    from tfswa_tpu_torch.data.synthetic import SyntheticDataset
+
+    d, t = cfg.data, cfg.train
+    val = SyntheticDataset(num_tracks=4, track_seconds=30.0, segment_seconds=d.segment_seconds,
+                           sample_rate=d.sample_rate, random_segments=False)
+    seg = int(t.sdr_eval_segment_seconds * d.sample_rate)
+    hop = int(seg * (1 - t.sdr_eval_overlap))
+    total = int(30.0 * d.sample_rate)
+    segments = (total - seg) // hop + 1 if total > seg else 1
+    per_step = step_launches(cfg.model.depths, cfg.model.remat)
+    forward = 3 * (2 * sum(cfg.model.depths[:3]) + cfg.model.depths[3])
+    return {"train_epoch": {k: v * steps for k, v in per_step.items()},
+            "validate": {"B1": forward * -(-len(val) // d.batch_size) * validations},
+            "evaluate_sdr": {"B1": forward * -(-segments // 8) * min(
+                t.sdr_eval_num_tracks, 4) * sdr_evals}}
+
+
+def check_cli_launches(got, want, label: str) -> None:
+    for phase, kernels in want.items():
+        full = {k: kernels.get(k, 0) for k in got.get(phase, kernels)}
+        log(f"{label} {phase}: launches {got.get(phase)} (designed {full})")
+        if got.get(phase) != full:
+            fail(f"{label} {phase}: expected launches {full}, got {got.get(phase)}")
+
+
+def read_cli_log(np, log_dir: str):
+    """The records of metrics.jsonl, every value finite, with train, val
+    and sdr records."""
+    with open(os.path.join(log_dir, "metrics.jsonl")) as fh:
+        recs = [json.loads(line) for line in fh]
+    keys = set().union(*recs)
+    bad = [(r["step"], k) for r in recs for k, v in r.items() if not math.isfinite(v)]
+    for prefix in ("train/", "val/", "sdr/", "si_sdr/", "epoch_train/"):
+        if not any(k.startswith(prefix) for k in keys):
+            fail(f"metrics.jsonl: no {prefix} record")
+    if bad:
+        fail(f"metrics.jsonl: non-finite values {bad[:5]}")
+    return recs
+
+
+def check_cli_shapes(got, want, covered, label: str) -> None:
+    """The (N, C) each kernel was launched at in each phase of a CLI run
+    (CLI_RUNNER) must be the recipe's (recipe_row_shapes), and each must
+    have been checked against the plain version (phase_recipe_kernels)."""
+    design = {"train_epoch": {"B1-train": want["train"], "B2": want["train"]},
+              "validate": {"B1": want["val"]}, "evaluate_sdr": {"B1": want["sdr"]}}
+    for phase, kinds in design.items():
+        seen = {k: {tuple(s) for s in v} for k, v in got.get(phase, {}).items()}
+        log(f"{label} {phase}: (N, C) launched " + "; ".join(
+            f"{k} {sorted(v)}" for k, v in sorted(seen.items())))
+        if seen != kinds:
+            fail(f"{label} {phase}: launched at {seen}, designed {kinds}")
+        unchecked = {k: v - covered["train" if k != "B1" else "B1"] for k, v in seen.items()}
+        if any(unchecked.values()):
+            fail(f"{label} {phase}: launched at (N, C) never checked: {unchecked}")
+
+
+def cli_numbers(recs, batch: int, seconds: float):
+    """Step time, audio-s trained/s, peak memory and the SDR evaluation's
+    seconds of one CLI run's records.  The step time is the trainer's own
+    epoch_train/step_time_s of the run's last epoch: the mean interval
+    between consecutive steps of an epoch, over every epoch of the run
+    (StepTimer's window of 50 holds them all), the batch's loading and
+    augmentation included and the first step of each epoch left out.  The
+    SDR evaluation runs between the val record and the sdr record."""
+    step_s = [r for r in recs if "epoch_train/step_time_s" in r][-1]["epoch_train/step_time_s"]
+    sdr_s = [b["time"] - a["time"] for a, b in zip(recs, recs[1:])
+             if any(k.startswith("val/") for k in a) and "sdr/avg" in b]
+    peak = max(r.get("epoch_train/mem/peak_gb", 0.0) for r in recs)
+    return {"ms_per_step": step_s * 1e3, "audio_s_trained_per_s": batch * seconds / step_s,
+            "peak_mem_gb": peak, "sdr_eval_s": sdr_s}
+
+
+def phase_train_cli(torch, np, gpu: str, covered):
+    """The training entry point (python -m tfswa_tpu_torch.cli.train) on
+    configs/musdb_repro.yaml and the synthetic set, in a subprocess: two
+    epochs of 4 steps (remat, augment + mixup, direct masks, crop_pow2,
+    4 x 5.938 s), validation and SDR evaluation, checkpoints; then a third
+    epoch resumed from latest; then the best checkpoint served through
+    "pallas".  Launches counted by phase against the design, the (N, C)
+    of each against the recipe's and against ``covered`` (the shapes that
+    phase_recipe_kernels and the kernel phases checked), the log's
+    records finite, the checkpoint layout, the restored state equal to the
+    saved one, global_step 12 at the end.  The checkpoints (about 1 GB) are
+    deleted after the checks; the log stays in chiprun_out/train_log."""
+    import shutil
+
+    from tfswa_tpu_torch.config import Config
+    from tfswa_tpu_torch.evaluation import load_separator_from_checkpoint
+
+    ck, log_dir = (os.path.join(HERE, "chiprun_out", n) for n in ("train_ck", "train_log"))
+    for d in (ck, log_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    first = run_train_cli(TRAIN_CLI + ["--num_epochs", "2"])
+    first_s = time.perf_counter() - t0
+    with open(os.path.join(ck, "config.json")) as fh:
+        cfg = Config.from_dict(json.load(fh))
+    check_cli_launches(first["launches"], cli_designed_launches(cfg, 8, 2, 1), "CLI run")
+    shapes = recipe_row_shapes(cfg)
+    check_cli_shapes(first["shapes"], shapes, covered, "CLI run")
+    layout = sorted(os.listdir(ck))
+    want = ["best", "config.json", "epoch_000000", "epoch_000001", "latest"]
+    log(f"CLI run: {first_s:.1f} s; checkpoint directory {layout}")
+    if layout != want:
+        fail(f"checkpoint layout {layout}, expected {want}")
+    recs = read_cli_log(np, log_dir)
+    n_first = len(recs)
+
+    t0 = time.perf_counter()
+    second = run_train_cli(TRAIN_CLI + ["--num_epochs", "3", "--resume", "latest"])
+    second_s = time.perf_counter() - t0
+    restored = second.get("restored", {})
+    log(f"resume: {second_s:.1f} s; restored {restored}")
+    if restored.get("mismatches") != [] or restored.get("step") != 8:
+        fail(f"resume: the restored state differs from the saved one: {restored}")
+    check_cli_launches(second["launches"], cli_designed_launches(cfg, 4, 1, 1), "resumed run")
+    check_cli_shapes(second["shapes"], shapes, covered, "resumed run")
+    meta = torch.load(os.path.join(ck, "latest", "checkpoint.pt"), map_location="cpu",
+                      weights_only=True)["meta"]
+    log(f"resume: latest meta {meta}")
+    if meta["global_step"] != 12 or meta["epoch"] != 2:
+        fail(f"resume: latest meta {meta}, expected global_step 12 and epoch 2")
+    recs = read_cli_log(np, log_dir)
+
+    sep = load_separator_from_checkpoint(
+        os.path.join(ck, "best", "checkpoint.pt"), model_config=cfg.model,
+        stft_config=cfg.stft, eval_config=cfg.eval, stem_names=cfg.data.stems, device="cuda")
+    audio = synthetic_track(np, 10.0, sep.sample_rate)
+    reset_counts()
+    out = sep.separate(audio)
+    torch.cuda.synchronize()
+    served = read_counts()
+    finite = all(np.isfinite(v).all() and v.shape == (1, audio.size) for v in out.values())
+    log(f"best checkpoint served through {cfg.model.attention_impl}: 10 s, launches {served}, "
+        f"finite {finite}")
+    if served != {k: (66 if k == "B1" else 0) for k in served} or not finite:
+        fail(f"serving the best checkpoint: launches {served}, finite {finite}")
+    del sep
+    shutil.rmtree(ck)
+
+    nums = cli_numbers(recs[:n_first], cfg.data.batch_size, cfg.data.segment_seconds)
+    nums_resumed = cli_numbers(recs[n_first:], cfg.data.batch_size, cfg.data.segment_seconds)
+    log(f"CLI run on {gpu}: {nums['ms_per_step']:.3f} ms/step (mean of the steps after each epoch's first), "
+        f"{nums['audio_s_trained_per_s']:.4f} audio-s trained/s, peak memory "
+        f"{nums['peak_mem_gb']:.3f} GB, SDR evaluation {nums['sdr_eval_s']} s; resumed run "
+        f"{nums_resumed['ms_per_step']:.3f} ms/step, SDR evaluation {nums_resumed['sdr_eval_s']} s")
+    return {"first": dict(first, seconds=first_s, **nums),
+            "resumed": dict(second, seconds=second_s, **nums_resumed),
+            "served_launches": served}
 
 
 def make_separator(torch, impl: str):
@@ -2004,7 +2402,11 @@ def main() -> None:
         results["serving"] = serving
     t_shapes, t_err, t_totals = timed("B1-train/B2 kernels", phase_train_kernels, torch,
                                       args.quick)
-    results.update(train_shapes=t_shapes, train_totals=t_totals)
+    r_shapes, r_err, covered = timed("recipe kernels", phase_recipe_kernels, torch)
+    for k in ("train", "bwd"):
+        t_err[k] = max(t_err[k], r_err[k])
+    max_err = max(max_err, r_err["B1"])
+    results.update(train_shapes=t_shapes, train_totals=t_totals, recipe_shapes=r_shapes)
     train = {"launches": {}}
     if not args.quick:
         train = timed("train pallas", phase_train, torch, np, gpu)
@@ -2012,6 +2414,9 @@ def main() -> None:
         results["train_path_attn"] = timed("train pallas_attn", phase_train, torch, np, gpu,
                                            "pallas_attn")
         results["train_routes"] = timed("train routes", phase_train_routes, torch, np)
+        results["remat"] = timed("remat", phase_remat, torch, np, gpu)
+        results["train_cli"] = timed("train CLI", phase_train_cli, torch, np, gpu,
+                                     covered)
         for kind, label in (("train", "B1-train"), ("bwd", "B2")):
             log(f"per train step (66 calls), {label}: kernel_ms {{ms:.3f}} plain_ms "
                 f"{{plain_ms:.3f}} library_ms {{library_ms:.3f}} bound_ms "

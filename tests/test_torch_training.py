@@ -106,7 +106,7 @@ def test_batch_norm_train_mode_matches_flax():
     np.testing.assert_allclose(y.detach().numpy(), np.asarray(ref_eval), atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("field,value", [("remat", True), ("param_dtype", "bfloat16")])
+@pytest.mark.parametrize("field,value", [("dropout", 0.1), ("param_dtype", "bfloat16")])
 def test_from_config_raises_on_unported_fields(field, value):
     cfg = ModelConfig(in_channels=4, out_channels=4, **SMALL, **{field: value})
     with pytest.raises(NotImplementedError, match=field):
@@ -145,14 +145,13 @@ def test_crop_pow2_drops_the_nyquist_row():
     assert pts._crop_nyquist(spec[..., :128, :]).shape[-2] == 128
 
 
-@pytest.mark.parametrize("kw", [dict(use_mrstft=True), dict(spec_augment=object()),
-                                dict(data_axis="data")])
+@pytest.mark.parametrize("kw", [dict(use_mrstft=True), dict(data_axis="data")])
 def test_unported_train_step_options_raise(kw):
     with pytest.raises(NotImplementedError):
         pts.make_train_step(_port_model("xla"), STFTProcessor(STFTConfig()), STEMS, **kw)
 
 
-@pytest.mark.parametrize("field", ["use_mrstft_loss", "checkpoint_dir", "steps_per_epoch"])
+@pytest.mark.parametrize("field", ["use_mrstft_loss", "mrstft_weight"])
 def test_train_config_refuses_options_nothing_reads(field):
     """TrainConfig keeps only the fields the port reads: an option that no
     code honours is refused, not dropped."""

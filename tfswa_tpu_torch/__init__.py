@@ -1,14 +1,19 @@
 """tfswa_tpu_torch: the PyTorch + CUDA port of tfswa_tpu for NVIDIA Hopper.
 
   - config.py     model / STFT / data / train / evaluation configs (copies of
-                  the JAX ones)
+                  the JAX ones), YAML and dotted overrides
   - ops/          STFT, masks, windowing, the kernel wrappers (fused row
                   block, bilinear row attention, the kernel lab's forms)
   - csrc/         hand-written CUDA C++ kernels (sm_90a), built by ops/_build.py
   - models/       TFSWA-UNet under the reference's state_dict names
-  - training/     losses, optimizer, the train and eval steps
-  - data/         the synthetic dataset
-  - evaluation/   overlap-add separation (SourceSeparator)
+  - training/     losses, optimizer, the train and eval steps, checkpoints,
+                  the Trainer
+  - data/         MUSDB18 and synthetic datasets, the numpy WAV reader, the
+                  loader and device prefetch, augmentation
+  - evaluation/   overlap-add separation (SourceSeparator), metrics
+  - optimization/ remat helpers
+  - utils/        step timing and device memory
+  - cli/          the training entry point (python -m tfswa_tpu_torch.cli.train)
   - tools/        the kernel lab's command line (python -m tfswa_tpu_torch.tools.kernel_lab)
   - weights.py    JAX variables <-> the port's state_dict
 

@@ -1,15 +1,20 @@
 """Configuration dataclasses of the PyTorch port.
 
 Copies of the model, STFT, data, train and evaluation configs of the JAX
-package (``tfswa_tpu/config.py``), so that configs carry over field for
-field.  The port keeps its own copy: it imports nothing of the JAX package.
-The YAML round trip and the CLI overrides are not ported yet.
+package (``tfswa_tpu/config.py``), with its YAML round trip and dotted CLI
+overrides, so that configs carry over field for field.  The port keeps its
+own copy: it imports nothing of the JAX package.
+
+Unlike the JAX ``from_dict``, which drops unknown keys, the port raises on
+them.  The fields the port does not read yet (``UNPORTED``: the MR-STFT
+loss and the device mesh) load only at the JAX default and raise, naming
+the field, at any other value.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 
 @dataclass
@@ -46,7 +51,7 @@ class ModelConfig:
     # Unused by the port: its plain route chunks rows by the bytes of the
     # score planes (ops/fused_block.MAX_SCORE_BYTES), not by a row count.
     attn_chunk_size: int = 16
-    remat: bool = False           # not ported yet: from_config raises on True
+    remat: bool = False           # torch.utils.checkpoint around each TFSWABlock
     dtype: str = "float32"        # compute dtype ("float32" | "bfloat16")
     param_dtype: str = "float32"  # only "float32" is ported
 
@@ -69,22 +74,39 @@ class STFTConfig:
 
 @dataclass
 class DataConfig:
-    """Data config: the one field of the JAX package's DataConfig that the
-    training path reads (the data pipeline is not ported)."""
+    """MUSDB18 data pipeline, loader and augmentation config."""
 
+    musdb_root: str = ""
     stems: Tuple[str, ...] = ("vocals", "other")
+    segment_seconds: float = 6.0
+    sample_rate: int = 44100
+    batch_size: int = 4
+    random_segments: bool = True    # the training dataset's segment sampling
+    segment_overlap: float = 0.5    # validation index
+    max_segments_per_track: int = 8
+    num_workers: int = 4            # loader threads
+    prefetch: int = 2               # batches copied to the device ahead
+    augment: bool = False           # AudioAugmentation (stretch, pitch, gain)
+    aug_time_stretch: Tuple[float, float] = (0.9, 1.1)
+    aug_pitch_shift_semitones: Tuple[float, float] = (-2.0, 2.0)
+    aug_gain_db: Tuple[float, float] = (-6.0, 6.0)
+    aug_prob: float = 0.5
+    mixup: bool = False
+    mixup_alpha: float = 0.4
+    spec_augment: bool = False      # freq / time masks on the model input
+    aug_freq_mask_param: int = 30
+    aug_time_mask_param: int = 40
 
 
 @dataclass
 class TrainConfig:
-    """Training config: the JAX package's fields that the train step and
-    its optimizer read, with its defaults.  The others (the MR-STFT loss,
-    the Trainer's epochs, logging, SDR evaluation and checkpoints) wait
-    for what reads them, so that no option is dropped without a word."""
+    """Training config: the JAX package's fields with its defaults, less
+    the MR-STFT loss's (``UNPORTED``)."""
 
     learning_rate: float = 1e-4
     weight_decay: float = 1e-4
     max_epochs: int = 300
+    steps_per_epoch: int = 0        # 0 = derive from the dataset
     warmup_steps: int = 0
     lr_min: float = 1e-6            # cosine eta_min
     gradient_clip_val: float = 1.0
@@ -92,6 +114,14 @@ class TrainConfig:
     train_mask_mode: str = "parity"  # "parity" (double sigmoid) | "direct"
     freq_policy: str = "full"       # "full" | "crop_pow2" (drop the Nyquist row)
     seed: int = 42
+    log_every_n_steps: int = 50
+    val_every_n_epochs: int = 1
+    sdr_eval_num_tracks: int = 5
+    sdr_eval_segment_seconds: float = 10.0
+    sdr_eval_overlap: float = 0.5
+    checkpoint_dir: str = "checkpoints"
+    log_dir: str = "logs"
+    keep_checkpoints: int = 5
 
 
 @dataclass
@@ -126,6 +156,24 @@ class EvalConfig:
         return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
+# JAX config fields the port does not read yet: (section, field) -> (the JAX
+# default, the ROADMAP.md item that ports it).  They load at the default only.
+UNPORTED = {
+    ("train", "use_mrstft_loss"): (False, "queue 1 item 9 (the MR-STFT loss)"),
+    ("train", "mrstft_weight"): (0.5, "queue 1 item 9 (the MR-STFT loss)"),
+    ("mesh", "data_axis"): (-1, "queue 1 item 12 (parallel)"),
+    ("mesh", "model_axis"): (1, "queue 1 item 12 (parallel)"),
+}
+
+
+def _check_unported(section: str, attr: str, value: Any) -> None:
+    default, item = UNPORTED[(section, attr)]
+    if value != default:
+        raise NotImplementedError(
+            f"{section}.{attr}={value!r} is not ported (only the default {default!r} "
+            f"loads): ROADMAP.md {item}")
+
+
 @dataclass
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
@@ -133,3 +181,92 @@ class Config:
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
+
+    # ------------------------------------------------------------------ io
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Config":
+        """Sections and fields as :meth:`to_dict` writes them; lists become
+        tuples.  An unknown section or key raises ``ValueError``."""
+        sections = {f.name: f.default_factory for f in dataclasses.fields(cls)}
+        kwargs = {}
+        for name, sub in (d or {}).items():
+            if name not in sections and not any(s == name for s, _ in UNPORTED):
+                raise ValueError(f"unknown config section {name!r}")
+            sub_cls = sections.get(name)
+            valid = _field_names(sub_cls) if sub_cls else set()
+            filtered = {}
+            for k, v in (sub or {}).items():
+                if (name, k) in UNPORTED:
+                    _check_unported(name, k, v)
+                    continue
+                if k not in valid:
+                    raise ValueError(f"unknown config key {name}.{k}")
+                filtered[k] = tuple(v) if isinstance(v, list) else v
+            if sub_cls:
+                kwargs[name] = sub_cls(**filtered)
+        return cls(**kwargs)
+
+    def to_yaml(self, path: str) -> None:
+        import yaml
+
+        with open(path, "w") as fh:
+            yaml.safe_dump(self.to_dict(), fh, sort_keys=False)
+
+    @classmethod
+    def from_yaml(cls, path: str) -> "Config":
+        import yaml
+
+        with open(path) as fh:
+            return cls.from_dict(yaml.safe_load(fh))
+
+    # ------------------------------------------------------- cli overrides
+    def apply_overrides(self, overrides: Sequence[str]) -> "Config":
+        """Apply dotted-path overrides, e.g. ["model.dims=(16,32,64,128)"]."""
+        cfg = self
+        for ov in overrides:
+            key, _, raw = ov.partition("=")
+            section, _, attr = key.strip().partition(".")
+            if (section, attr) in UNPORTED:
+                _check_unported(section, attr,
+                                _parse_value(raw, UNPORTED[(section, attr)][0]))
+                continue
+            sub = getattr(cfg, section) if section in _field_names(cfg) else None
+            if sub is None or attr not in _field_names(sub):
+                raise ValueError(f"unknown config key {key.strip()!r}")
+            val = _parse_value(raw, getattr(sub, attr))
+            cfg = dataclasses.replace(cfg, **{section: dataclasses.replace(sub, **{attr: val})})
+        return cfg
+
+
+def _field_names(obj) -> set:
+    return {f.name for f in dataclasses.fields(obj)}
+
+
+def _parse_value(raw: str, current: Any) -> Any:
+    """The JAX package's parse of an override against the field's current
+    value: bools from 1/true/yes, tuples of the first element's type,
+    int, float, None from none/null, else the string."""
+    raw = raw.strip()
+    if isinstance(current, bool):
+        return raw.lower() in ("1", "true", "yes")
+    if isinstance(current, tuple):
+        inner = raw.strip("()[]")
+        parts = [p for p in inner.split(",") if p.strip()]
+        elem = current[0] if current else None
+        conv = type(elem) if elem is not None else str
+        return tuple(conv(p.strip()) for p in parts)
+    if isinstance(current, int):
+        return int(raw)
+    if isinstance(current, float):
+        return float(raw)
+    if current is None:
+        if raw.lower() in ("none", "null"):
+            return None
+        try:
+            return int(raw)
+        except ValueError:
+            return raw
+    return raw

@@ -286,7 +286,9 @@ def load_separator_from_checkpoint(
     device="cuda",
 ) -> SourceSeparator:
     """A SourceSeparator from a PyTorch ``.pt`` / ``.pth`` checkpoint in the
-    reference's state_dict naming.  Every ported EvalConfig knob is honoured
+    reference's state_dict naming, such as the trainer's
+    ``<checkpoint_dir>/best/checkpoint.pt`` (pass the ModelConfig of its
+    ``config.json`` for its compute dtype and route).  Every ported EvalConfig knob is honoured
     (``EvalConfig.fast_serving()`` for the serving preset); the STFT runs in
     float32 whatever ``stft_precision`` says.  Orbax checkpoints are a JAX
     format and are not read here."""

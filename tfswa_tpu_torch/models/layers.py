@@ -13,7 +13,8 @@ are applied here in the compute dtype:
 """
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+from typing import Iterator, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,20 +51,39 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     over (B, H, W) in f32 with the biased variance E[x^2] - E[x]^2, used
     both to normalise and, as ``(1 - m) * old + m * batch`` with torch's
     momentum m = 0.1 (flax's 0.9), to update the running stats.  torch's
-    ``F.batch_norm`` would store the unbiased variance instead."""
+    ``F.batch_norm`` would store the unbiased variance instead.  Under
+    :func:`frozen_stats` (a remat recompute) the running stats stay as
+    they are."""
     if not bn.training:
         y = (x.float() - bn.running_mean) * torch.rsqrt(bn.running_var + bn.eps)
         return (y * bn.weight + bn.bias).to(x.dtype)
     xf = x.float()
     mean = xf.mean(dim=(0, 1, 2))
     var = (xf.square().mean(dim=(0, 1, 2)) - mean.square()).clamp_min(0.0)
-    with torch.no_grad():
-        m = bn.momentum
-        bn.running_mean.copy_((1.0 - m) * bn.running_mean + m * mean)
-        bn.running_var.copy_((1.0 - m) * bn.running_var + m * var)
-        bn.num_batches_tracked += 1
+    if not getattr(bn, "stats_frozen", False):
+        with torch.no_grad():
+            m = bn.momentum
+            bn.running_mean.copy_((1.0 - m) * bn.running_mean + m * mean)
+            bn.running_var.copy_((1.0 - m) * bn.running_var + m * var)
+            bn.num_batches_tracked += 1
     y = (xf - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
     return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def frozen_stats(module: nn.Module) -> Iterator[None]:
+    """Train-mode BatchNorms under ``module`` normalise with the batch's
+    statistics but leave their running stats and ``num_batches_tracked``
+    alone: the context of a remat recompute, which runs a forward that
+    has already updated them once."""
+    bns = [m for m in module.modules() if isinstance(m, nn.BatchNorm2d)]
+    for bn in bns:
+        bn.stats_frozen = True
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.stats_frozen = False
 
 
 def bilinear_resize(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:

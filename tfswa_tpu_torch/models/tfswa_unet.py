@@ -12,18 +12,27 @@ A new model is in eval mode, as the JAX model's ``train=False`` default:
 the ``"pallas"`` route sends every row block through B1-train + B2, the
 ``"pallas_attn"`` route through B4 and the plain attention's VJP, and the
 serving-only ``"pallas_int8"`` route raises.
+
+``remat=True`` (the JAX model's ``nn.remat`` of each ``TFSWABlock``) runs
+each block under ``torch.utils.checkpoint`` in train mode with autograd
+on: the block keeps only its input and is run again in the backward.  The
+recompute leaves the BatchNorm running stats alone (flax updates them
+once), and on the ``"pallas"`` route it launches B1-train a second time:
+132 B1-train and 66 B2 launches a step instead of 66 and 66.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from .attention import check_attention_impl
 from .blocks import DownsampleBlock, TFSWABlock, UpsampleBlock
-from .layers import batch_norm, bilinear_resize, conv2d, gelu, init_weights
+from .layers import batch_norm, bilinear_resize, conv2d, frozen_stats, gelu, init_weights
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -45,7 +54,7 @@ class TFSWAUNet(nn.Module):
                  window_size: int = 8, shift_size: int = 4, num_heads: int = 8,
                  mlp_ratio: float = 4.0, attention_impl: str = "xla",
                  use_shift_mask: bool = False, dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 remat: bool = False, generator: Optional[torch.Generator] = None):
         super().__init__()
         if len(depths) != 4 or len(dims) != 4:
             raise ValueError("Expected 4 stages (3 encoder + bottleneck)")
@@ -56,6 +65,7 @@ class TFSWAUNet(nn.Module):
         self.dims = tuple(dims)
         self.attention_impl = attention_impl
         self.dtype = dtype
+        self.remat = remat
 
         def blk(dim: int, i: int) -> TFSWABlock:
             # alternating W-MSA / SW-MSA shift
@@ -84,18 +94,23 @@ class TFSWAUNet(nn.Module):
                     generator: Optional[torch.Generator] = None) -> "TFSWAUNet":
         if cfg.dropout > 0.0:
             raise NotImplementedError("dropout (training) is not ported yet")
-        if cfg.remat:
-            raise NotImplementedError("remat=True is not ported yet (ROADMAP.md)")
         if cfg.param_dtype != "float32":
             raise NotImplementedError(
                 f"param_dtype={cfg.param_dtype!r} is not ported (float32 only)")
         return cls(cfg.in_channels, cfg.out_channels, tuple(cfg.depths),
                    tuple(cfg.dims), cfg.window_size, cfg.shift_size, cfg.num_heads,
                    cfg.mlp_ratio, cfg.attention_impl, cfg.use_shift_mask,
-                   _DTYPES[cfg.dtype], generator)
+                   _DTYPES[cfg.dtype], cfg.remat, generator)
 
     def count_parameters(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+    def _block(self, blk: TFSWABlock, x: torch.Tensor,
+                skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return blk(x, skip)
+        return checkpoint(blk, x, skip, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(), frozen_stats(blk)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, in_channels, F, T) -> (B, out_channels, F, T) sigmoid masks, f32."""
@@ -104,17 +119,17 @@ class TFSWAUNet(nn.Module):
         skips = []
         for s in range(3):
             for blk in self.encoder_stages[s]:
-                x = blk(x)
+                x = self._block(blk, x)
             skips.append(x)
             x = self.downsample_layers[s](x)
         for blk in self.bottleneck:
-            x = blk(x)
+            x = self._block(blk, x)
         for d, s in enumerate((2, 1, 0)):
             x = self.upsample_layers[d](x)
             skip = skips[s]
             x = bilinear_resize(x, skip.shape[1:3])
             for i, blk in enumerate(self.decoder_stages[d]):
-                x = blk(x, skip if i == 0 else None)
+                x = self._block(blk, x, skip if i == 0 else None)
         head = self.output_head
         x = gelu(batch_norm(conv2d(x, head[0]), head[1]))
         x = torch.sigmoid(conv2d(x, head[3]).float())

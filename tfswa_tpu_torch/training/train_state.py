@@ -15,6 +15,7 @@ import math
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import Config
@@ -83,6 +84,14 @@ class ClippedAdamW:
         self.count += 1
         return norm
 
+    def state_dict(self) -> dict:
+        """The update count and AdamW's state (moments, its own step)."""
+        return {"count": self.count, "adamw": self.adamw.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        self.adamw.load_state_dict(state["adamw"])
+
 
 def make_optimizer(cfg: Config, steps_per_epoch: int,
                    params: Iterable[torch.nn.Parameter]) -> Tuple[ClippedAdamW, Schedule]:
@@ -150,18 +159,23 @@ def _check_policy(freq_policy: str) -> None:
 def make_train_step(model: TFSWAUNet, stft_processor: STFTProcessor,
                     stems: Tuple[str, ...], l1_weight: float = 1.0,
                     use_mrstft: bool = False, spec_augment=None,
-                    mask_mode: str = "parity",
+                    rng_seed: int = 0, mask_mode: str = "parity",
                     freq_policy: str = "full",
                     data_axis: Optional[str] = None) -> Callable:
     """``train_step(state, mixtures (B, 2, S), targets {stem: (B, 2, S)})
     -> (state, loss_dict)``: the model in train mode (batch-statistics BN,
     every row block through B1-train + B2 on the card), the JAX loss_dict
     keys plus ``grad_norm`` (taken before the clip), as f32 tensors on the
-    model's device."""
+    model's device.
+
+    ``spec_augment`` (a ``data.augment.SpectrogramAugmentation``) masks the
+    model input, the targets stay clean; its draws come from a generator
+    seeded with (``rng_seed``, ``state.step``), so that they are fixed by
+    the seed and the same after a resume, as the JAX step folds the step
+    into its key."""
     if use_mrstft:
-        raise NotImplementedError("use_mrstft (the MR-STFT loss) is not ported yet")
-    if spec_augment is not None:
-        raise NotImplementedError("spec_augment is not ported yet")
+        raise NotImplementedError("use_mrstft (the MR-STFT loss) is not ported yet: "
+                                  "ROADMAP.md queue 1 item 9")
     if data_axis is not None:
         raise NotImplementedError("data_axis (multi-GPU) is not ported yet")
     _check_policy(freq_policy)
@@ -173,6 +187,9 @@ def make_train_step(model: TFSWAUNet, stft_processor: STFTProcessor,
         model.train()
         model_input, mixture_mag, target_mags = _spectrograms(
             stft_processor, mixtures, targets, freq_policy)
+        if spec_augment is not None:
+            model_input = spec_augment(np.random.default_rng((rng_seed, state.step)),
+                                       model_input)
         pred = apply_magnitude_masks(model(model_input), mixture_mag, n_stems, mask_mode)
         loss_dict = source_separation_loss(
             {k: pred[:, i] for i, k in enumerate(stems)}, target_mags, l1_weight)
