@@ -97,7 +97,29 @@ Phases, each of which fails the run (exit code 1) when it fails:
      sdr records, the checkpoint layout; the best checkpoint served through
      "pallas"; ms a step (the trainer's own mean), audio-s trained/s, peak
      GB and the SDR evaluation's seconds;
- 11. a JSON line of the kernels, then the last line
+ 11. the serving and evaluation entry points: separate_stream of three
+     synthetic tracks (120, 75 and 8 s; the last through separate()) with
+     two in flight, the flagship model through "pallas" at the fast serving
+     knobs: each result equal to its own separate() bit for bit, 66 B1
+     launches a forward and no other kernel, audio-s/s of the stream
+     against the separate() calls one at a time, the idle share and the
+     host's waits on the card in one profiled stream; the 120 s track
+     through the int8 output codec, within one int8 step of each stem's
+     peak of the float32 transfers, with the float16 run, their rates and
+     the bytes each sends back; python -m tfswa_tpu_torch.cli.separate on
+     phase 10's checkpoint directory (its best/), --preset fast, a 120 s
+     WAV at 44.1 kHz and a 30 s one at 48 kHz, with --stream and through
+     BatchSeparator: PCM16 stems at 44.1 kHz as long as the resampled
+     inputs, the two runs within one PCM16 step, B1's launches as designed
+     at checked (N, C); python -m tfswa_tpu_torch.cli.evaluate on 2
+     synthetic tracks and on a custom dataset of 2: every track in
+     results.json (a track the evaluator skips fails the run), finite
+     metrics and aggregate, launches as designed; then the MR-STFT train
+     step on phase 7's batch through "pallas" against the plain route in
+     float32 at phase 8's limits (the plain route in bf16 recorded beside
+     it), 66 B1-train + 66 B2 launches a step, ms a step and peak GB;
+     phase 10's checkpoints are deleted after it;
+ 12. a JSON line of the kernels, then the last line
      {"ok": true, "device": {...}}.
 Long results go to chiprun_out/chip_smoke.json.  Without a CUDA device, or
 outside a checkout of the repository, the run exits non-zero with no result.
@@ -109,6 +131,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1609,22 +1632,27 @@ def train_batch(torch, np):
     return mix, targets
 
 
-def make_trainer(torch, impl: str, remat: bool = False):
-    """The flagship bf16 model (f32 parameters, weights from seed 0) in a
-    TrainState with the TrainConfig defaults, and its train and eval steps."""
+def make_trainer(torch, impl: str, remat: bool = False, mrstft: bool = False,
+                 dtype: str = "bfloat16"):
+    """The flagship model (bf16 compute unless ``dtype`` says otherwise, f32
+    parameters, weights from seed 0) in a TrainState with the TrainConfig
+    defaults (``mrstft``: with the MR-STFT loss at its default weight), and
+    its train and eval steps."""
     from tfswa_tpu_torch.config import Config, ModelConfig, TrainConfig
     from tfswa_tpu_torch.ops.stft import STFTProcessor
     from tfswa_tpu_torch.training import (create_train_state, make_eval_step,
                                           make_train_step)
 
     cfg = Config(model=ModelConfig(in_channels=4, out_channels=4, attention_impl=impl,
-                                   dtype="bfloat16", remat=remat), train=TrainConfig(seed=0))
+                                   dtype=dtype, remat=remat),
+                 train=TrainConfig(seed=0, use_mrstft_loss=mrstft))
     model, state = create_train_state(cfg, device="cuda")
     proc = STFTProcessor(cfg.stft)
     stems = cfg.data.stems
     kw = dict(l1_weight=cfg.train.l1_weight, mask_mode=cfg.train.train_mask_mode,
               freq_policy=cfg.train.freq_policy)
-    return (state, make_train_step(model, proc, stems, **kw),
+    return (state, make_train_step(model, proc, stems, mrstft_weight=cfg.train.mrstft_weight,
+                                   use_mrstft=cfg.train.use_mrstft_loss, **kw),
             make_eval_step(model, proc, stems, **kw))
 
 
@@ -1874,6 +1902,7 @@ def phase_remat(torch, np, gpu: str):
     return {str(k): v for k, v in res.items()}
 
 
+TRAIN_CK = os.path.join(HERE, "chiprun_out", "train_ck")
 # the recipe's own CLI run, with one train record an epoch (the recipe logs
 # every 50 steps, more than a run of these epochs takes)
 TRAIN_CLI = ["--config", RECIPE, "--synthetic",
@@ -2051,14 +2080,14 @@ def phase_train_cli(torch, np, gpu: str, covered):
     of each against the recipe's and against ``covered`` (the shapes that
     phase_recipe_kernels and the kernel phases checked), the log's
     records finite, the checkpoint layout, the restored state equal to the
-    saved one, global_step 12 at the end.  The checkpoints (about 1 GB) are
-    deleted after the checks; the log stays in chiprun_out/train_log."""
-    import shutil
+    saved one, global_step 12 at the end.  The checkpoints (about 1 GB)
+    stay for phase_serve_clis, which serves them and deletes them; the log
+    stays in chiprun_out/train_log."""
 
     from tfswa_tpu_torch.config import Config
     from tfswa_tpu_torch.evaluation import load_separator_from_checkpoint
 
-    ck, log_dir = (os.path.join(HERE, "chiprun_out", n) for n in ("train_ck", "train_log"))
+    ck, log_dir = TRAIN_CK, os.path.join(HERE, "chiprun_out", "train_log")
     for d in (ck, log_dir):
         shutil.rmtree(d, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -2108,7 +2137,6 @@ def phase_train_cli(torch, np, gpu: str, covered):
     if served != {k: (66 if k == "B1" else 0) for k in served} or not finite:
         fail(f"serving the best checkpoint: launches {served}, finite {finite}")
     del sep
-    shutil.rmtree(ck)
 
     nums = cli_numbers(recs[:n_first], cfg.data.batch_size, cfg.data.segment_seconds)
     nums_resumed = cli_numbers(recs[n_first:], cfg.data.batch_size, cfg.data.segment_seconds)
@@ -2312,6 +2340,483 @@ def phase_serving(torch, np, gpu: str, totals):
     return res
 
 
+# ------------------------------------------------ the serving entry points
+# the separate_stream phase's tracks, seconds: two through the device OLA,
+# the last (one segment or less) through separate()
+STREAM_TRACKS = (120.0, 75.0, 8.0)
+STREAM_RUNS = 3
+SERVE_WORK = os.path.join(HERE, "chiprun_out", "serve_work")
+# the serving CLI's inputs: (seconds, sample rate) of two stereo WAVs
+CLI_INPUTS = ((120.0, 44100), (30.0, 48000))
+# the evaluation CLI's tracks: 2 of the synthetic set (30 s), then a custom
+# dataset of 2 tracks of CUSTOM_SECONDS
+EVAL_TRACKS, CUSTOM_SECONDS = 2, 20.0
+
+
+def track_forwards(sep, total: int) -> int:
+    """Model forwards of one separate() of ``total`` samples: one batch of
+    one for a track of one segment or less; with device OLA, each window's
+    K segments in batches of the size the separator picks; on the host
+    path ceil(segments / segment_batch)."""
+    seg, hop = sep.segment_samples, sep.hop_samples
+    if total <= seg:
+        return 1
+    if not sep.device_ola:
+        return -(-((total - seg) // hop + 1) // sep.segment_batch)
+    K = sep.ola_window_segments
+    bs = min(range(1, sep.segment_batch + 1), key=lambda b: ((-(-K // b)) * b - K, -b))
+    n_seg = -(-(total - seg) // hop) + 1
+    return -(-n_seg // K) * -(-K // bs)
+
+
+def d2h_bytes(sep, total: int) -> int:
+    """Bytes one device-OLA track sends back to the host: each window's
+    (n_stems, W) accumulation in the transfer dtype, or under "int8" its
+    int8 codes and the scales, padded to 8 float32."""
+    seg, hop, K = sep.segment_samples, sep.hop_samples, sep.ola_window_segments
+    W = (K - 1) * hop + seg
+    n_seg = -(-(total - seg) // hop) + 1
+    n_win = -(-n_seg // K)
+    if sep.int8_output:
+        return n_win * (sep.n_stems * W + 4 * max(8, sep.n_stems))
+    return n_win * sep.n_stems * W * sep.transfer_dtype.itemsize
+
+
+def resampled_frames(frames: int, sr_in: int, sr_out: int) -> int:
+    """Frames of scipy's resample_poly output: ceil(frames * up / down)."""
+    g = math.gcd(sr_in, sr_out)
+    return -(-frames * (sr_out // g) // (sr_in // g))
+
+
+def int8_step(scale: float) -> float:
+    """One step of the int8 output codec at a scale: the codec rounds each
+    window's acc / env to steps of its largest magnitude (the window's
+    scale) / 127, and a track's stems are held to one step of their peak."""
+    return scale / 127.0
+
+
+def int8_window_errors(torch, np, sep8, sep32, audio):
+    """The int8 codec on each device-OLA window of ``audio``, against the
+    same window's float32 accumulation: both separators (int8 and float32
+    transfers, one model) get the same float16 window, so only the codec
+    differs.  -> (max |decoded - acc / env|, scale) per window and stem;
+    the codec's rounding bounds the first by half a step of the second."""
+    seg, hop, K = sep8.segment_samples, sep8.hop_samples, sep8.ola_window_segments
+    W = (K - 1) * hop + seg
+    n_seg = -(-max(audio.size - seg, 0) // hop) + 1
+    n_win = -(-n_seg // K)
+    from tfswa_tpu_torch.evaluation.inference import _hann
+
+    track = sep8._encode_host(np.pad(audio, (0, ((n_win * K - 1) * hop + seg) - audio.size)))
+    hann = _hann(seg)
+    out = []
+    with torch.inference_mode():
+        for w in range(n_win):
+            nv = min(K, n_seg - w * K)
+            x = sep8._put(track[w * K * hop:w * K * hop + W])
+            q, scales = (sep8._host(sep8._fetch(t)) for t in sep8._device_ola_window(x, nv))
+            acc = sep32._host(sep32._fetch(sep32._device_ola_window(x, nv)))
+            env = np.zeros(W, np.float32)
+            for i in range(nv):
+                env[i * hop:i * hop + seg] += hann
+            y = acc / np.maximum(env, 1e-12)[None]
+            scales = scales[: sep8.n_stems].astype(np.float32)
+            dec = q.astype(np.float32) * (scales / 127.0)[:, None]
+            out.append([(float(np.abs(dec[i] - y[i]).max()), float(scales[i]))
+                        for i in range(sep8.n_stems)])
+    return out
+
+
+def served_shapes():
+    """The (N, C) the fast serving preset gives B1, which phase 2 checks."""
+    return {(N, C) for _, _, N, C, _ in SHAPES}
+
+
+def sync_counts(prof):
+    """Host waits on the device in a torch.profiler trace: the calls that
+    read a device value (``aten::_local_scalar_dense``, e.g. ``.item()``)
+    and the CUDA runtime's synchronising calls."""
+    keys = ("aten::_local_scalar_dense", "cudaStreamSynchronize", "cudaEventSynchronize",
+            "cudaDeviceSynchronize", "cudaMemcpy")
+    return {e.key: e.count for e in prof.key_averages() if e.key in keys}
+
+
+def phase_stream(torch, np, gpu: str):
+    """separate_stream of three tracks (120, 75 and 8 s) with two in flight,
+    the flagship bf16 model through "pallas" with the fast serving knobs:
+    each result equal to its own separate() bit for bit; B1 launched 66
+    times a forward and no other kernel; audio-s/s of the stream against
+    the three separate() calls, best of STREAM_RUNS each; the idle share
+    and the host's waits on the device in one profiled stream."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sep = make_separator(torch, "pallas")
+    tracks = [synthetic_track(np, t, sep.sample_rate) for t in STREAM_TRACKS]
+    total_s = sum(STREAM_TRACKS)
+    singles = [sep.separate(a) for a in tracks]           # warm-up, and the reference
+    torch.cuda.synchronize()
+    reset_counts()
+    outs = sep.separate_stream(tracks, max_in_flight=2)
+    counts = read_counts()
+    forwards = sum(track_forwards(sep, a.size) for a in tracks)
+    want = {k: (66 * forwards if k == "B1" else 0) for k in counts}
+    log(f"stream: {len(tracks)} tracks {STREAM_TRACKS} s, launches {counts} (designed "
+        f"{want}: {forwards} forwards)")
+    if counts != want:
+        fail(f"stream: expected launches {want}, got {counts}")
+    for t, out, single in zip(STREAM_TRACKS, outs, singles):
+        for name, wav in out.items():
+            diff = float(np.abs(wav - single[name]).max())
+            if wav.shape != (1, int(t * sep.sample_rate)) or not np.isfinite(wav).all():
+                fail(f"stream: {t} s track, stem {name}: shape {wav.shape} or non-finite values")
+            if not np.array_equal(wav, single[name]):
+                fail(f"stream: {t} s track, stem {name} differs from separate() by up to {diff}")
+    log("stream: every stem of every track equals its separate() bit for bit")
+
+    stream_s, seq_s = [], []
+    for _ in range(STREAM_RUNS):
+        t0 = time.perf_counter()
+        sep.separate_stream(tracks, max_in_flight=2)
+        stream_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for a in tracks:
+            sep.separate(a)
+        seq_s.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sep.separate_stream(tracks, max_in_flight=2)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, _ = device_kernels(prof)
+    busy_ms = sum(k[1] for k in kernels)
+    syncs = sync_counts(prof)
+    res = {"tracks_s": list(STREAM_TRACKS), "launches": counts, "forwards": forwards,
+           "stream_s": stream_s, "sequential_s": seq_s,
+           "stream_audio_s_per_s": total_s / min(stream_s),
+           "sequential_audio_s_per_s": total_s / min(seq_s),
+           "profile": {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                       "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+                       "host_waits": syncs}}
+    log(f"stream on {gpu}: {res['stream_audio_s_per_s']:.4f} audio-s/s (runs "
+        f"{[round(t, 4) for t in stream_s]} s) against separate() one track at a time "
+        f"{res['sequential_audio_s_per_s']:.4f} (runs {[round(t, 4) for t in seq_s]} s)")
+    log("stream profile: wall {:.3f} ms, device busy {:.3f} ms, idle share {}; host waits "
+        "{}".format(wall_ms, busy_ms, "not measured" if not busy_ms else
+                    f"{res['profile']['idle_share']:.4f}", syncs))
+    return res, sep, tracks[0]
+
+
+def phase_int8(torch, np, gpu: str, sep, audio):
+    """The 120 s track through the int8 output codec, float16 and float32
+    transfers (the same model).  The codec on each window against the same
+    window's float32 accumulation (int8_window_errors): within half a step
+    of the window's scale.  The int8 track against the float16 one (the
+    same float16 input) within one step of each stem's peak (int8_step)
+    where the Hann envelope is at least 0.5, as the CPU tests hold float16:
+    below it, on the first quarter segment, float16 underflows (acc is
+    weighted by a Hann near 0 before the transfer).  Against the float32
+    transfers, whose input is float32 and so moves the bf16 model's
+    roundings, the distance and SNR are recorded.  Audio-s/s of int8 and
+    float16, best of STREAM_RUNS, and the bytes a track sends back."""
+    from tfswa_tpu_torch.evaluation import SourceSeparator
+
+    seps = {td: SourceSeparator(sep.model, sep.stft_processor, segment_length=sep.segment_length,
+                                overlap=sep.overlap, segment_batch=sep.segment_batch,
+                                transfer_dtype=td, device_ola=True,
+                                ola_bucket_seconds=sep.ola_bucket_samples / sep.sample_rate,
+                                freq_policy=sep.freq_policy, device="cuda")
+            for td in ("int8", "float16", "float32")}
+    outs, runs = {}, {}
+    for td, s in seps.items():
+        s.separate(audio)                                  # warm-up
+        times = []
+        for _ in range(STREAM_RUNS if td != "float32" else 1):
+            reset_counts()
+            t0 = time.perf_counter()
+            outs[td] = s.separate(audio)
+            times.append(time.perf_counter() - t0)
+            got = read_counts()
+            if got != {k: (66 * track_forwards(s, audio.size) if k == "B1" else 0)
+                       for k in got}:
+                fail(f"{td} codec: launches {got}")
+        runs[td] = times
+    windows = int8_window_errors(torch, np, seps["int8"], seps["float32"], audio)
+    worst = max(e / int8_step(sc) for win in windows for e, sc in win)
+    log(f"int8 codec, each window against its float32 accumulation (same input): worst "
+        f"{worst:.4f} of a step of the window's scale (limit 0.501); (error, scale) "
+        f"{[[(round(e, 6), round(sc, 4)) for e, sc in win] for win in windows]}")
+    if not worst <= 0.501:
+        fail(f"int8 codec: a window's decoded acc / env off by {worst} steps of its scale")
+    res = {"runs_s": runs, "stems": {}, "windows": windows, "worst_window_steps": worst}
+    tail = slice(sep.hop_samples // 3, None)               # the Hann envelope >= 0.5
+    for name, exact in outs["float32"].items():
+        peak = float(np.abs(exact).max())
+        i8, f16 = outs["int8"][name], outs["float16"][name]
+        vs16 = float(np.abs(i8 - f16)[:, tail].max())
+        errs = {td: float(np.abs(outs[td][name] - exact).max()) for td in ("int8", "float16")}
+        snrs = {td: float(10 * np.log10(np.sum(exact.astype(np.float64) ** 2) / max(
+            np.sum((outs[td][name] - exact).astype(np.float64) ** 2), 1e-30)))
+            for td in ("int8", "float16")}
+        res["stems"][name] = {"peak": peak, "int8_vs_float16": vs16, "step": int8_step(peak),
+                              "int8_vs_float16_whole": float(np.abs(i8 - f16).max()),
+                              "vs_float32": errs, "snr_db_vs_float32": snrs}
+        log(f"int8 codec, stem {name}: max |int8 - f16| {vs16:.6f} where the envelope >= 0.5 "
+            f"(limit one step {int8_step(peak):.6f} of peak {peak:.4f}; the whole track "
+            f"{res['stems'][name]['int8_vs_float16_whole']:.6f}); against float32 transfers: "
+            f"int8 {errs['int8']:.6f} ({errs['int8'] / int8_step(peak):.3f} steps), SNR "
+            f"{snrs['int8']:.2f} dB, float16 {errs['float16']:.6f}, SNR {snrs['float16']:.2f} dB")
+        if not vs16 <= int8_step(peak):
+            fail(f"int8 codec, stem {name}: {vs16} from float16 above one step {int8_step(peak)}")
+    for td in ("int8", "float16"):
+        res[td] = {"audio_s_per_s": audio.size / sep.sample_rate / min(runs[td]),
+                   "d2h_bytes_a_track": d2h_bytes(seps[td], audio.size)}
+        log(f"{td} codec on {gpu}: {res[td]['audio_s_per_s']:.4f} audio-s/s (runs "
+            f"{[round(t, 4) for t in runs[td]]} s), {res[td]['d2h_bytes_a_track']} bytes "
+            f"device to host a {audio.size / sep.sample_rate:.0f} s track")
+    return res
+
+
+# Runs a CLI module as __main__ with the given arguments and prints, as its
+# last line, the launches of each kernel in the whole process, the (N, C)
+# of each kernel's launches and the seconds of each top-level separate().
+SERVE_RUNNER = r"""
+import json, runpy, sys, time
+import chip_smoke as cs
+from tfswa_tpu_torch.evaluation import inference
+from tfswa_tpu_torch.ops import fused_block as fb
+out = {"shapes": {}, "separate_s": []}
+forward = fb._forward_kernel
+
+def forward_seen(rows, p, num_heads, train=False, int8=False):
+    seen = out["shapes"].setdefault("B1-train" if train else "B3" if int8 else "B1", [])
+    if list(rows.shape[1:]) not in seen:
+        seen.append(list(rows.shape[1:]))
+    return forward(rows, p, num_heads, train, int8)
+
+fb._forward_kernel = forward_seen
+separate = inference.SourceSeparator.separate
+
+def timed(self, *a, **k):
+    t0 = time.perf_counter()
+    r = separate(self, *a, **k)
+    out["separate_s"].append(time.perf_counter() - t0)
+    return r
+
+inference.SourceSeparator.separate = timed
+cs.reset_counts()
+sys.argv = [sys.argv[1]] + json.loads(sys.argv[2])
+runpy.run_module(sys.argv[0], run_name="__main__")
+out["launches"] = cs.read_counts()
+print(json.dumps(out))
+"""
+
+
+def run_serve_cli(module: str, argv):
+    """A serving or evaluation CLI in a subprocess from the checkout
+    (SERVE_RUNNER): its output lines, its last line's record and its
+    seconds."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", SERVE_RUNNER, module, json.dumps(argv)],
+                         cwd=HERE, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = res.stdout.strip().splitlines()
+    for line in lines:
+        log(f"  | {line[:300]}")
+    if res.returncode != 0:
+        fail(f"{module} {' '.join(argv)} exited {res.returncode}:\n{res.stderr[-3000:]}")
+    return lines, dict(json.loads(lines[-1]), seconds=seconds)
+
+
+def check_serve_launches(rec, forwards: int, label: str) -> None:
+    """66 B1 launches a forward, no other kernel, at the served (N, C)."""
+    want = {k: (66 * forwards if k == "B1" else 0) for k in rec["launches"]}
+    shapes = {tuple(s) for s in rec["shapes"].get("B1", [])}
+    log(f"{label}: launches {rec['launches']} (designed {want}: {forwards} forwards), B1 at "
+        f"(N, C) {sorted(shapes)}; {rec['seconds']:.1f} s")
+    if rec["launches"] != want or set(rec["shapes"]) - {"B1"}:
+        fail(f"{label}: expected launches {want}, got {rec['launches']} {rec['shapes']}")
+    if not shapes <= served_shapes():
+        fail(f"{label}: B1 launched at (N, C) never checked: {shapes - served_shapes()}")
+
+
+def phase_serve_clis(torch, np, gpu: str, design):
+    """The serving and evaluation entry points in subprocesses, on phase
+    10's checkpoint directory (its best/, with the ModelConfig of its
+    config.json: bf16, "pallas").  python -m tfswa_tpu_torch.cli.separate
+    --preset fast on a 120 s WAV at 44.1 kHz and a 30 s WAV at 48 kHz, once
+    with --stream and once through BatchSeparator: every stem PCM16 at 44.1
+    kHz and as long as its resampled input, the two runs within one PCM16
+    step, B1's launches as designed.  python -m tfswa_tpu_torch.cli.evaluate
+    --preset fast on 2 synthetic tracks, then on a custom dataset of 2
+    tracks: results.json with every track, finite metrics and the
+    aggregate, B1's launches as designed.  ``design`` is a separator with
+    the CLIs' knobs (the fast preset at the default STFT), from which the
+    launches are designed (track_forwards)."""
+    from tfswa_tpu_torch.data.synthetic import SyntheticDataset
+    from tfswa_tpu_torch.data.wav import wav_info, wav_read, write_wav
+
+    work = SERVE_WORK
+    os.makedirs(work, exist_ok=True)
+    res = {}
+
+    inputs, frames = [], []
+    for i, (secs, sr) in enumerate(CLI_INPUTS):
+        path = os.path.join(work, f"in{i}_{sr}.wav")
+        write_wav(path, np.stack([synthetic_track(np, secs, sr)] * 2) * 0.9, sr)
+        inputs.append(path)
+        frames.append(resampled_frames(int(secs * sr), sr, 44100))
+    forwards = sum(track_forwards(design, n) for n in frames)
+    stems = {}
+    for mode, extra in (("stream", ["--stream"]), ("batch", [])):
+        out_dir = os.path.join(work, mode)
+        lines, rec = run_serve_cli("tfswa_tpu_torch.cli.separate", [
+            "--checkpoint", TRAIN_CK, "--preset", "fast", "-o", out_dir, *extra, *inputs])
+        oks = [ln for ln in lines[:-1] if ": ok {" in ln]
+        if len(oks) != len(inputs):
+            fail(f"cli.separate {mode}: not every file separated: {lines[:-1]}")
+        check_serve_launches(rec, forwards, f"cli.separate {mode}")
+        for path, n in zip(inputs, frames):
+            base = os.path.splitext(os.path.basename(path))[0]
+            for stem in ("vocals", "other"):
+                f = os.path.join(out_dir, f"{base}_{stem}.wav")
+                info = wav_info(f)
+                if info != (n, 1, 44100):
+                    fail(f"cli.separate {mode}: {f}: (frames, channels, rate) {info}, "
+                         f"expected ({n}, 1, 44100)")
+                stems.setdefault((base, stem), []).append(wav_read(f, 0, n, 1))
+        res[f"separate_{mode}"] = rec
+    worst = max(float(np.abs(a - b).max()) for a, b in stems.values()) * 32768
+    log(f"cli.separate: stream and BatchSeparator stems differ by at most {worst:.1f} PCM16 "
+        f"steps (limit 1)")
+    if worst > 1.0:
+        fail(f"cli.separate: the two runs' stems differ by {worst} PCM16 steps")
+    res["separate_runs_max_pcm_steps"] = worst
+
+    ds = SyntheticDataset(num_tracks=EVAL_TRACKS, track_seconds=CUSTOM_SECONDS, seed=7)
+    mix_dir, ref_dir = os.path.join(work, "mix"), os.path.join(work, "refs")
+    os.makedirs(mix_dir, exist_ok=True)
+    for i in range(EVAL_TRACKS):
+        mix, refs = ds.get_full_track(i)
+        os.makedirs(os.path.join(ref_dir, f"t{i}"), exist_ok=True)
+        write_wav(os.path.join(mix_dir, f"t{i}.wav"), mix, 44100)
+        for stem, ref in refs.items():
+            write_wav(os.path.join(ref_dir, f"t{i}", f"{stem}.wav"), ref, 44100)
+    for mode, extra, secs in (
+            ("synthetic", ["--synthetic", "--max_tracks", str(EVAL_TRACKS)], 30.0),
+            ("custom", ["--mixtures_dir", mix_dir, "--references_dir", ref_dir], CUSTOM_SECONDS)):
+        out_dir = os.path.join(work, f"eval_{mode}")
+        _, rec = run_serve_cli("tfswa_tpu_torch.cli.evaluate", [
+            "--checkpoint", TRAIN_CK, "--preset", "fast", "--no_museval", "--output_dir",
+            out_dir, *extra])
+        check_serve_launches(rec, EVAL_TRACKS * track_forwards(design, int(secs * 44100)),
+                             f"cli.evaluate {mode}")
+        with open(os.path.join(out_dir, "results.json")) as fh:
+            results = json.load(fh)
+        values = [v for t in results["tracks"].values() for m in t.values() for v in m.values()]
+        agg = results["aggregated"]
+        if (len(results["tracks"]) != EVAL_TRACKS or not values
+                or not all(math.isfinite(v) for v in values)
+                or not math.isfinite(agg.get("overall", {}).get("sdr_mean", math.nan))):
+            fail(f"cli.evaluate {mode}: results.json holds {len(results['tracks'])} tracks "
+                 f"(expected {EVAL_TRACKS}), finite {values}, aggregate {agg}")
+        rec["results"] = results
+        log(f"cli.evaluate {mode} on {gpu}: {len(results['tracks'])} tracks of {secs:.0f} s, "
+            f"separate() {[round(t, 3) for t in rec['separate_s']]} s a track, "
+            f"{rec['seconds'] / EVAL_TRACKS:.2f} s a track with the process; overall SDR "
+            f"{agg['overall']['sdr_mean']:.3f} dB")
+        res[f"evaluate_{mode}"] = rec
+    return res
+
+
+def phase_mrstft(torch, np, gpu: str, plain_ms):
+    """The MR-STFT train step (TrainConfig's weight 0.5) on phase 7's fixed
+    batch through "pallas": 66 B1-train + 66 B2 launches a step and no
+    other kernel, best of 3 steps after the first, peak GB; its first step
+    against the plain route's at phase 8's limits (loss within 1e-2 rel.,
+    gradient cosine >= 0.99), the plain route computing in float32.  The
+    loss's log-magnitude term weighs each STFT bin by 1 / (|X| + 1e-5), so
+    its gradient follows the phase of near-silent bins, which bf16 compute
+    moves: two bf16 routes miss the float32 gradient each by about as much,
+    in different directions.  So the plain route in bf16 is run too, and
+    its cosines with the other two are recorded."""
+    mix, targets = train_batch(torch, np)
+    res, grads = {}, {}
+    for impl, dtype in (("pallas", "bfloat16"), ("xla", "bfloat16"), ("xla", "float32")):
+        key = f"{impl}_{dtype}"
+        state, step = make_trainer(torch, impl, mrstft=True, dtype=dtype)[:2]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, loss = step(state, mix, targets)
+        torch.cuda.synchronize()
+        grads[key] = torch.cat([p.grad.flatten() for p in state.model.parameters()]).double()
+        res[key] = {k: float(v) for k, v in loss.items()}
+        if impl == "pallas":
+            times, per_step = [], []
+            for _ in range(3):
+                reset_counts()
+                t0 = time.perf_counter()
+                step(state, mix, targets)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                per_step.append(read_counts())
+            want = {k: step_launches().get(k, 0) for k in per_step[0]}
+            res.update(launches=per_step, step_s=times, best_ms_per_step=min(times) * 1e3,
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            log(f"MR-STFT step pallas: launches per step {per_step} (designed {want}); "
+                f"loss {res[key]['total_loss']:.6f} (mrstft {res[key]['mrstft_loss']:.6f}); "
+                f"steps {[round(t * 1e3, 3) for t in times]} ms, best "
+                f"{res['best_ms_per_step']:.3f} ms/step against {plain_ms:.3f} without "
+                f"(phase 7), peak memory {res['peak_mem_gb']:.3f} GB on {gpu}")
+            if any(c != want for c in per_step):
+                fail(f"MR-STFT step: expected launches {want} a step, got {per_step}")
+        del state, step
+        torch.cuda.empty_cache()
+
+    def cos(a, b):
+        return float((grads[a] @ grads[b]) / (grads[a].norm() * grads[b].norm()))
+
+    ref, kern, bf16 = "xla_float32", "pallas_bfloat16", "xla_bfloat16"
+    rel = abs(res[kern]["total_loss"] - res[ref]["total_loss"]) / abs(res[ref]["total_loss"])
+    finite = all(math.isfinite(v) for k in (kern, bf16, ref) for v in res[k].values())
+    res.update(loss_rel=rel, grad_cosine=cos(kern, ref),
+               plain_bf16_cosine=cos(bf16, ref), kernel_vs_plain_bf16_cosine=cos(kern, bf16))
+    log(f"MR-STFT step, route pallas vs plain route in float32: loss {res[kern]['total_loss']:.6f}"
+        f" vs {res[ref]['total_loss']:.6f} (rel {rel:.2e}, limit 1e-2), gradient cosine "
+        f"{res['grad_cosine']:.6f} (min 0.99); the plain route in bf16 against float32 "
+        f"{res['plain_bf16_cosine']:.6f}, pallas against it {res['kernel_vs_plain_bf16_cosine']:.6f}")
+    if not (finite and rel <= 1e-2 and res["grad_cosine"] >= 0.99):
+        fail(f"MR-STFT step vs plain route: loss rel {rel}, gradient cosine "
+             f"{res['grad_cosine']}, finite {finite}")
+    return res
+
+
+def phase_serving_entry(torch, np, gpu: str, plain_ms):
+    """Phase 11: the stream, the int8 codec, the two CLIs on phase 10's
+    checkpoints, the MR-STFT step.  The CLIs' WAVs are deleted after them,
+    and after a failure too."""
+    res, seconds = {}, {}
+
+    def part(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t0
+        log(f"  {name}: {seconds[name]:.1f} s")
+        return out
+
+    res["stream"], sep, track = part("stream", phase_stream, torch, np, gpu)
+    res["int8"] = part("int8", phase_int8, torch, np, gpu, sep, track)
+    torch.cuda.empty_cache()
+    try:
+        res["clis"] = part("clis", phase_serve_clis, torch, np, gpu, sep)
+    finally:
+        shutil.rmtree(SERVE_WORK, ignore_errors=True)
+    del sep
+    torch.cuda.empty_cache()
+    res["mrstft"] = part("mrstft", phase_mrstft, torch, np, gpu, plain_ms)
+    res["seconds"] = seconds
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -2415,8 +2920,13 @@ def main() -> None:
                                            "pallas_attn")
         results["train_routes"] = timed("train routes", phase_train_routes, torch, np)
         results["remat"] = timed("remat", phase_remat, torch, np, gpu)
-        results["train_cli"] = timed("train CLI", phase_train_cli, torch, np, gpu,
-                                     covered)
+        try:
+            results["train_cli"] = timed("train CLI", phase_train_cli, torch, np, gpu,
+                                         covered)
+            results["serving_entry"] = timed("serving entry points", phase_serving_entry,
+                                             torch, np, gpu, train["best_ms_per_step"])
+        finally:
+            shutil.rmtree(TRAIN_CK, ignore_errors=True)      # about 1 GB
         for kind, label in (("train", "B1-train"), ("bwd", "B2")):
             log(f"per train step (66 calls), {label}: kernel_ms {{ms:.3f}} plain_ms "
                 f"{{plain_ms:.3f}} library_ms {{library_ms:.3f}} bound_ms "

@@ -202,3 +202,137 @@ def test_recipe_shapes_are_what_the_trainer_launches(chip_smoke, monkeypatch, tm
     assert seen == {("train_epoch", "B1-train"): want["train"],
                     ("train_epoch", "B2"): want["train"],
                     ("validate", "B1"): want["val"], ("evaluate_sdr", "B1"): want["sdr"]}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Tier-1 runs six test workers on the machine's cores: two intra-op
+    threads keep the separations below from oversubscribing them."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def _separator(**knobs):
+    """A small separator on the CPU (8 kHz, n_fft 256, 1 s segments)."""
+    import torch
+
+    from tfswa_tpu_torch.config import STFTConfig
+    from tfswa_tpu_torch.evaluation import SourceSeparator
+    from tfswa_tpu_torch.models import TFSWAUNet
+    from tfswa_tpu_torch.ops.stft import STFTProcessor
+
+    model = TFSWAUNet(4, 4, depths=(1, 1, 1, 1), dims=(8, 16, 32, 64), window_size=4,
+                      shift_size=2, num_heads=2, generator=torch.Generator().manual_seed(0))
+    kw = dict(segment_length=1.0, overlap=0.25, segment_batch=3, ola_bucket_seconds=3.0,
+              transfer_dtype="float16", device_ola=True, freq_policy="crop_pow2")
+    return SourceSeparator(model, STFTProcessor(STFTConfig(n_fft=256, hop_length=64,
+                                                           sample_rate=8000)),
+                           device="cpu", **dict(kw, **knobs))
+
+
+@pytest.mark.parametrize("knobs", [{}, {"device_ola": False}, {"segment_batch": 8}],
+                         ids=["device_ola", "host_ola", "one_batch"])
+def test_track_forwards_counts_the_separators_forwards(chip_smoke, knobs):
+    import numpy as np
+
+    sep = _separator(**knobs)
+    batches = []
+    sep.model.register_forward_pre_hook(lambda m, a: batches.append(a[0].shape[0]))
+    for seconds in (0.6, 1.0, 2.3, 5.3):
+        total = int(seconds * 8000)
+        batches.clear()
+        sep.separate(np.zeros(total, np.float32))
+        assert len(batches) == chip_smoke.track_forwards(sep, total), seconds
+
+
+def test_phase_11_designs_its_launches_from_the_fast_preset(chip_smoke):
+    """At the fast preset (10 s segments, 25 % overlap, windows of 8
+    segments, batches of 8): one forward a window of 62.5 s, one for a
+    track of a segment or less.  So the stream's 120, 75 and 8 s tracks
+    take 2 + 2 + 1 forwards, each CLI input 2 and 1, each evaluated 30 s
+    or 20 s track 1."""
+    import torch
+
+    from tfswa_tpu_torch.config import EvalConfig
+    from tfswa_tpu_torch.evaluation import SourceSeparator
+    from tfswa_tpu_torch.models import TFSWAUNet
+    from tfswa_tpu_torch.ops.stft import STFTProcessor
+
+    ev = EvalConfig.fast_serving()
+    sep = SourceSeparator(
+        TFSWAUNet(4, 4, depths=(1, 1, 1, 1), generator=torch.Generator().manual_seed(0)),
+        STFTProcessor(), segment_length=ev.segment_seconds, overlap=ev.overlap,
+        segment_batch=ev.segment_batch, transfer_dtype=ev.transfer_dtype, device_ola=True,
+        ola_bucket_seconds=ev.ola_bucket_seconds, freq_policy=ev.freq_policy, device="cpu")
+    assert sep.ola_window_segments == 8
+    f = lambda s: chip_smoke.track_forwards(sep, int(s * 44100))        # noqa: E731
+    assert [f(s) for s in chip_smoke.STREAM_TRACKS] == [2, 2, 1]
+    frames = [chip_smoke.resampled_frames(int(s * sr), sr, 44100)
+              for s, sr in chip_smoke.CLI_INPUTS]
+    assert frames == [5292000, 1323000]
+    assert [chip_smoke.track_forwards(sep, n) for n in frames] == [2, 1]
+    assert f(30.0) == f(chip_smoke.CUSTOM_SECONDS) == 1
+    # a 120 s track sends back 2 windows of 2 x 2,756,250 samples: 22.05 MB
+    # in float16, half that and 64 bytes of scales in int8
+    assert chip_smoke.d2h_bytes(sep, 5292000) == 2 * 2 * 2756250 * 2
+    sep.int8_output = True
+    assert chip_smoke.d2h_bytes(sep, 5292000) == 2 * (2 * 2756250 + 32)
+
+
+@pytest.mark.parametrize("transfer_dtype", ["int8", "float16"])
+def test_d2h_bytes_are_the_bytes_a_track_fetches(chip_smoke, monkeypatch, transfer_dtype):
+    """d2h_bytes against the bytes of every tensor the separation copies
+    back."""
+    import numpy as np
+
+    from tfswa_tpu_torch.evaluation import SourceSeparator
+
+    sep = _separator(transfer_dtype=transfer_dtype)
+    fetched = []
+    real = SourceSeparator._fetch
+    monkeypatch.setattr(SourceSeparator, "_fetch",
+                        staticmethod(lambda t: fetched.append(t.nbytes) or real(t)))
+    audio = np.sin(np.arange(int(5.3 * 8000)) * 0.05).astype(np.float32) * 0.5
+    sep.separate(audio)
+    assert sum(fetched) == chip_smoke.d2h_bytes(sep, audio.size)
+
+
+def test_int8_checks_of_phase_11(chip_smoke):
+    """int8_window_errors on the CPU: each window's decoded codes within
+    half a step of its scale of the float32 accumulation of the same
+    input, and each window's scales the ones the codec sent; the int8
+    track within one step of the peak (int8_step) of the float16 track
+    where the Hann envelope is at least 0.5."""
+    import numpy as np
+    import torch
+
+    sep8, sep16, sep32 = (_separator(transfer_dtype=td) for td in ("int8", "float16", "float32"))
+    audio = (np.sin(np.arange(int(5.3 * 8000)) * 0.05) * 0.5).astype(np.float32)
+    windows = chip_smoke.int8_window_errors(torch, np, sep8, sep32, audio)
+    with torch.inference_mode():
+        meta = sep8._dispatch_long_device(audio[None])
+    assert [[sc for _, sc in w] for w in windows] == \
+        [sep8._host(h[1])[:2].tolist() for h in meta["handles"]]
+    assert len(windows) == 2 and all(e <= 0.501 * chip_smoke.int8_step(sc)
+                                      for w in windows for e, sc in w)
+    i8, f16 = sep8.separate(audio), sep16.separate(audio)
+    for name in i8:
+        peak = np.abs(sep32.separate(audio)[name]).max()
+        assert chip_smoke.int8_step(peak) == peak / 127
+        assert np.abs(i8[name] - f16[name])[:, sep8.hop_samples // 3:].max() <= \
+            chip_smoke.int8_step(peak)
+
+
+@pytest.mark.parametrize("frames,sr_in", [(1440000, 48000), (12345, 48000), (999, 22050),
+                                         (44100, 44100)])
+def test_resampled_frames_is_the_length_resample_poly_gives(chip_smoke, frames, sr_in):
+    import numpy as np
+
+    from tfswa_tpu_torch.evaluation.inference import _resample_poly
+
+    out = _resample_poly(np.zeros((1, frames), np.float32), sr_in, 44100)
+    assert out.shape[1] == chip_smoke.resampled_frames(frames, sr_in, 44100)

@@ -65,7 +65,6 @@ def test_apply_overrides_matches_jax():
 
 
 @pytest.mark.parametrize("section,attr,value", [
-    ("train", "use_mrstft_loss", True), ("train", "mrstft_weight", 0.25),
     ("mesh", "data_axis", 4), ("mesh", "model_axis", 2)])
 def test_unported_field_loads_at_its_default_and_raises_otherwise(section, attr, value):
     default = UNPORTED[(section, attr)][0]
@@ -88,9 +87,20 @@ def test_unknown_override_raises(key):
         Config().apply_overrides([f"{key}=1"])
 
 
-def test_data_and_train_fields_are_the_jax_ones_less_the_mrstft_loss():
+def test_data_and_train_fields_are_the_jax_ones():
     assert [f.name for f in dataclasses.fields(DataConfig)] == \
         [f.name for f in dataclasses.fields(jcfg.DataConfig)]
     assert [f.name for f in dataclasses.fields(TrainConfig)] == \
-        [f.name for f in dataclasses.fields(jcfg.TrainConfig)
-         if f.name not in ("use_mrstft_loss", "mrstft_weight")]
+        [f.name for f in dataclasses.fields(jcfg.TrainConfig)]
+    assert not any(section == "train" for section, _ in UNPORTED)
+
+
+@pytest.mark.parametrize("override", ["train.use_mrstft_loss=true", "train.mrstft_weight=0.25"])
+def test_mrstft_fields_round_trip_as_in_jax(override, tmp_path):
+    port = Config().apply_overrides([override])
+    assert port.to_dict() == _jax_dict_without_unported(jcfg.Config().apply_overrides([override]))
+    port.to_yaml(str(tmp_path / "c.yaml"))
+    assert Config.from_yaml(str(tmp_path / "c.yaml")) == port
+    jax_back = jcfg.Config.from_yaml(str(tmp_path / "c.yaml"))
+    assert (jax_back.train.use_mrstft_loss, jax_back.train.mrstft_weight) == \
+        (port.train.use_mrstft_loss, port.train.mrstft_weight)

@@ -40,6 +40,16 @@ KNOBS = dict(segment_length=1.0, overlap=0.25, segment_batch=3,
              ola_bucket_seconds=3.0, stem_names=("vocals", "other"))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Tier-1 runs six test workers on the machine's cores: two intra-op
+    threads keep these CPU-bound separations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _audio(seconds, seed=0):
     n = int(seconds * SR)
     t = np.arange(n) / SR
@@ -114,10 +124,53 @@ def test_stereo_input_is_forced_mono(models):
                                   ps.separate(a)["vocals"])
 
 
-def test_unported_transfer_codec_raises(models):
-    with pytest.raises(NotImplementedError, match="int8"):
+def test_unknown_transfer_codec_raises(models):
+    with pytest.raises(ValueError, match="bfloat16"):
         SourceSeparator(models[2], STFTProcessor(STFTConfig(n_fft=256, hop_length=64)),
-                        transfer_dtype="int8", device="cpu")
+                        transfer_dtype="bfloat16", device="cpu")
+
+
+def test_int8_output_codec_matches_jax_and_float32(models):
+    """The int8 codec against JAX's int8 codec: within one int8 step of the
+    stem's peak (a rounding that the route's f32 differences flip) plus
+    the float16 route tolerance above (1e-3: the input rides float16).
+    Against the port's own float32 transfers: within one int8 step of the
+    peak, the codec's error (the half step of its rounding, in units of
+    each window's peak of acc / env)."""
+    js, ps = _pair(models, transfer_dtype="int8", device_ola=True, freq_policy="crop_pow2")
+    assert ps.int8_output and ps.transfer_dtype == np.float16
+    audio = _audio(5.3)
+    ref, out = js.separate(audio), ps.separate(audio)
+    _, p32 = _pair(models, transfer_dtype="float32", device_ola=True, freq_policy="crop_pow2")
+    exact = p32.separate(audio)
+    for name in ("vocals", "other"):
+        step = np.abs(ref[name]).max() / 127
+        assert out[name].shape == ref[name].shape == (1, audio.size)
+        np.testing.assert_allclose(out[name], ref[name], atol=step + 1e-3, rtol=0)
+        assert np.abs(out[name] - exact[name]).max() <= np.abs(exact[name]).max() / 127
+
+
+@pytest.mark.parametrize("device_ola", [True, False])
+def test_separate_stream_equals_separate_and_matches_jax(models, device_ola):
+    """separate_stream with two tracks in flight: each result equal to the
+    port's own separate() bit for bit, and to JAX's separate_stream within
+    the float16 tolerance above (the first samples, where the envelope
+    goes to 0, by SNR).  The 0.6 s track (one segment or less) and, with
+    device_ola off, every track take the sequential branch."""
+    js, ps = _pair(models, transfer_dtype="float16", device_ola=device_ola,
+                   freq_policy="crop_pow2")
+    tracks = [_audio(5.3), _audio(2.1, seed=1), _audio(0.6, seed=2), _audio(3.3, seed=3)]
+    outs = ps.separate_stream(tracks, max_in_flight=2)
+    refs = js.separate_stream(tracks, max_in_flight=2)
+    hop = ps.hop_samples
+    for audio, out, ref in zip(tracks, outs, refs):
+        alone = ps.separate(audio)
+        for name in ("vocals", "other"):
+            np.testing.assert_array_equal(out[name], alone[name])
+            assert out[name].shape == ref[name].shape == (1, audio.size)
+            np.testing.assert_allclose(out[name][:, hop // 3:], ref[name][:, hop // 3:],
+                                       atol=1e-3, rtol=0)
+            assert _snr_db(ref[name], out[name]) > 50.0
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

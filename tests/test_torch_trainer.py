@@ -127,11 +127,21 @@ def test_cli_trains_logs_checkpoints_and_resumes(tmp_path, capsys):
 @pytest.mark.parametrize("flag,item", [("--mesh=2,1", "item 12"), ("--multihost", "item 12"),
                                        ("--coordinator=localhost:1", "item 12"),
                                        ("--num_processes=2", "item 12"),
-                                       ("--process_id=0", "item 12"),
-                                       ("--use_mrstft", "item 9")])
+                                       ("--process_id=0", "item 12")])
 def test_cli_refuses_the_unported_flags(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.config_from_args(cli.build_parser().parse_args([flag]))
+
+
+def test_cli_use_mrstft_gives_the_jax_clis_config():
+    from tfswa_tpu.cli import train as jcli
+
+    argv = ["--use_mrstft", "--set", "train.mrstft_weight=0.25"]
+    port = cli.config_from_args(cli.build_parser().parse_args(argv)).train
+    jax_train = jcli.config_from_args(jcli.build_parser().parse_args(argv)).train
+    assert (port.use_mrstft_loss, port.mrstft_weight) == (True, 0.25)
+    assert dataclasses.asdict(port) == dataclasses.asdict(jax_train)
+    assert cli.config_from_args(cli.build_parser().parse_args([])).train.use_mrstft_loss is False
 
 
 def test_cli_overrides_and_the_output_channels_rule():

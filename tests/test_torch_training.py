@@ -145,19 +145,18 @@ def test_crop_pow2_drops_the_nyquist_row():
     assert pts._crop_nyquist(spec[..., :128, :]).shape[-2] == 128
 
 
-@pytest.mark.parametrize("kw", [dict(use_mrstft=True), dict(data_axis="data")])
+@pytest.mark.parametrize("kw", [dict(data_axis="data")])
 def test_unported_train_step_options_raise(kw):
     with pytest.raises(NotImplementedError):
         pts.make_train_step(_port_model("xla"), STFTProcessor(STFTConfig()), STEMS, **kw)
 
 
-@pytest.mark.parametrize("field", ["use_mrstft_loss", "mrstft_weight"])
-def test_train_config_refuses_options_nothing_reads(field):
-    """TrainConfig keeps only the fields the port reads: an option that no
-    code honours is refused, not dropped."""
-    assert hasattr(JaxConfig().train, field)
-    with pytest.raises(TypeError, match=field):
-        TrainConfig(**{field: getattr(JaxConfig().train, field)})
+@pytest.mark.parametrize("field,value", [("use_mrstft_loss", True), ("mrstft_weight", 0.25)])
+def test_train_config_takes_the_mrstft_fields_at_the_jax_defaults(field, value):
+    """The MR-STFT fields are TrainConfig's, with JAX's defaults, and the
+    train step reads them (``test_torch_mrstft.py``)."""
+    assert getattr(TrainConfig(), field) == getattr(JaxConfig().train, field)
+    assert getattr(TrainConfig(**{field: value}), field) == value
 
 
 def test_synthetic_dataset_matches_jax():

@@ -6,7 +6,7 @@ dotted overrides and the reference's common flags as shortcuts.
     python -m tfswa_tpu_torch.cli.train --config configs/musdb_repro.yaml --synthetic
 
 Training runs on ``--device`` ("cuda" unless "cpu" is asked for).  The
-multi-GPU flags and the MR-STFT loss are not ported yet and raise.
+multi-GPU flags are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -19,7 +19,6 @@ _UNPORTED_FLAGS = {
     "coordinator": "queue 1 item 12 (parallel)",
     "num_processes": "queue 1 item 12 (parallel)",
     "process_id": "queue 1 item 12 (parallel)",
-    "use_mrstft": "queue 1 item 9 (the MR-STFT loss)",
 }
 
 
@@ -45,7 +44,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     p.add_argument("--augment", action="store_true")
     p.add_argument("--mixup", action="store_true")
-    p.add_argument("--use_mrstft", action="store_true", help="not ported yet: raises")
+    p.add_argument("--use_mrstft", action="store_true",
+                   help="add the multi-resolution STFT loss")
     p.add_argument("--checkpoint_dir", type=str, default=None)
     p.add_argument("--log_dir", type=str, default=None)
     p.add_argument("--resume", type=str, default=None,
@@ -82,7 +82,8 @@ def config_from_args(args):
         overrides.append(f"data.stems=({args.stems})")
     for flag, override in (("use_checkpointing", "model.remat=true"),
                            ("bf16", "model.dtype=bfloat16"), ("augment", "data.augment=true"),
-                           ("mixup", "data.mixup=true")):
+                           ("mixup", "data.mixup=true"),
+                           ("use_mrstft", "train.use_mrstft_loss=true")):
         if getattr(args, flag):
             overrides.append(override)
     cfg = cfg.apply_overrides(overrides)

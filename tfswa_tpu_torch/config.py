@@ -6,9 +6,9 @@ overrides, so that configs carry over field for field.  The port keeps its
 own copy: it imports nothing of the JAX package.
 
 Unlike the JAX ``from_dict``, which drops unknown keys, the port raises on
-them.  The fields the port does not read yet (``UNPORTED``: the MR-STFT
-loss and the device mesh) load only at the JAX default and raise, naming
-the field, at any other value.
+them.  The fields the port does not read yet (``UNPORTED``: the device
+mesh) load only at the JAX default and raise, naming the field, at any
+other value.
 """
 from __future__ import annotations
 
@@ -100,8 +100,7 @@ class DataConfig:
 
 @dataclass
 class TrainConfig:
-    """Training config: the JAX package's fields with its defaults, less
-    the MR-STFT loss's (``UNPORTED``)."""
+    """Training config: the JAX package's fields with its defaults."""
 
     learning_rate: float = 1e-4
     weight_decay: float = 1e-4
@@ -110,7 +109,9 @@ class TrainConfig:
     warmup_steps: int = 0
     lr_min: float = 1e-6            # cosine eta_min
     gradient_clip_val: float = 1.0
+    use_mrstft_loss: bool = False   # the multi-resolution STFT loss on the stems' audio
     l1_weight: float = 1.0
+    mrstft_weight: float = 0.5
     train_mask_mode: str = "parity"  # "parity" (double sigmoid) | "direct"
     freq_policy: str = "full"       # "full" | "crop_pow2" (drop the Nyquist row)
     seed: int = 42
@@ -134,7 +135,7 @@ class EvalConfig:
     normalize: bool = False         # SpectrogramNormalizer on model input
     framewise_seconds: float = 10.0
     segment_batch: int = 8          # segments per device batch
-    transfer_dtype: str = "float32" # "float32" | "float16" | "int16"
+    transfer_dtype: str = "float32" # "float32" | "float16" | "int16" | "int8"
     device_ola: bool = False        # overlap-add on the device
     ola_bucket_seconds: float = 60.0
     freq_policy: str = "full"       # "full" | "crop_pow2" (drop the Nyquist row)
@@ -159,8 +160,6 @@ class EvalConfig:
 # JAX config fields the port does not read yet: (section, field) -> (the JAX
 # default, the ROADMAP.md item that ports it).  They load at the default only.
 UNPORTED = {
-    ("train", "use_mrstft_loss"): (False, "queue 1 item 9 (the MR-STFT loss)"),
-    ("train", "mrstft_weight"): (0.5, "queue 1 item 9 (the MR-STFT loss)"),
     ("mesh", "data_axis"): (-1, "queue 1 item 12 (parallel)"),
     ("mesh", "model_axis"): (1, "queue 1 item 12 (parallel)"),
 }

@@ -10,17 +10,29 @@ segments.  Two overlap-add paths:
     brings the window back.  Every window is dispatched before any is
     fetched.  Normalisation by the analytic Hann envelope is on the host.
   - host OLA: the reference's loop with last-segment clamping.
-Audio crosses the host-device boundary in ``transfer_dtype``.
+Audio crosses the host-device boundary in ``transfer_dtype``; "int8" sends
+the device-OLA windows back as int8 with one scale a stem (input audio,
+the host-OLA path and the single-segment path ride float16).
+
+On the card every copy is asynchronous: uploads are staged in pinned host
+memory and copied with ``non_blocking=True`` (a copy from pageable memory
+would first wait for all the work queued on the stream), and each result
+comes back into a pinned host buffer through a ``non_blocking`` copy and a
+CUDA event that the collecting side waits on.  PyTorch's pinned-memory
+allocator records each copy's event and reuses no buffer until it has
+passed.  So the host can queue the next window, or the next track
+(``separate_stream``), while the card works.
 """
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..config import EvalConfig, ModelConfig, STFTConfig
+from ..data.wav import wav_info, wav_read, write_wav
 from ..models.tfswa_unet import TFSWAUNet
 from ..ops.masking import (apply_direct_masks, apply_magnitude_masks,
                            trainer_masked_complex)
@@ -28,7 +40,7 @@ from ..ops.stft import STFTProcessor, SpectrogramNormalizer, get_window
 
 # int16 transfer scaling: 4x headroom over full-scale audio.
 _INT16_SCALE = 8192.0
-_TRANSFER_DTYPES = ("float32", "float16", "int16")
+_TRANSFER_DTYPES = ("float32", "float16", "int16", "int8")
 
 
 def _hann(length: int) -> np.ndarray:
@@ -55,9 +67,8 @@ class SourceSeparator:
                  device_ola: bool = False, ola_bucket_seconds: float = 60.0,
                  freq_policy: str = "full", device="cuda"):
         if transfer_dtype not in _TRANSFER_DTYPES:
-            raise NotImplementedError(
-                f"transfer_dtype={transfer_dtype!r} is not ported (ported: "
-                f"{_TRANSFER_DTYPES})")
+            raise ValueError(f"unknown transfer_dtype {transfer_dtype!r} (known: "
+                             f"{_TRANSFER_DTYPES})")
         if freq_policy not in ("full", "crop_pow2"):
             raise ValueError(f"unknown freq_policy {freq_policy!r}")
         if mask_mode not in ("trainer", "mag_direct", "direct"):
@@ -71,7 +82,10 @@ class SourceSeparator:
         self.mask_mode = mask_mode
         self.default_stems = tuple(stem_names)
         self.segment_batch = segment_batch
-        self.transfer_dtype = np.dtype(transfer_dtype)
+        # "int8": the device-OLA windows come back as int8 with a scale a
+        # stem; everything else rides float16
+        self.int8_output = transfer_dtype == "int8"
+        self.transfer_dtype = np.dtype("float16" if self.int8_output else transfer_dtype)
         self.device_ola = device_ola
         self.freq_policy = freq_policy
         self.sample_rate = stft_processor.sample_rate
@@ -109,7 +123,34 @@ class SourceSeparator:
         return x.float()
 
     def _put(self, x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        """Host array -> tensor on the model's device; on the card through a
+        pinned staging buffer and a ``non_blocking`` copy."""
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        staged = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        staged.copy_(t)
+        return staged.to(self.device, non_blocking=True)
+
+    @staticmethod
+    def _fetch(t: torch.Tensor) -> Tuple[torch.Tensor, Optional["torch.cuda.Event"]]:
+        """Start the copy of ``t`` to the host: on the card a ``non_blocking``
+        copy into a pinned buffer and the event that marks its end; on the
+        CPU ``t`` itself.  :meth:`_host` waits for it."""
+        if t.device.type != "cuda":
+            return t, None
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    @staticmethod
+    def _host(fetched) -> np.ndarray:
+        host, done = fetched
+        if done is not None:
+            done.synchronize()
+        return host.numpy()
 
     # --------------------------------------------------------------- core
     def _separate_batch(self, segments: torch.Tensor) -> torch.Tensor:
@@ -148,10 +189,11 @@ class SourceSeparator:
         masked = apply_direct_masks(out, spec, self.n_stems)   # (B, S, C, F, T)
         return self.stft_processor.istft(masked, length=S).mean(dim=2)
 
-    def _device_ola_window(self, window: torch.Tensor, n_valid: int) -> torch.Tensor:
+    def _device_ola_window(self, window: torch.Tensor, n_valid: int):
         """One OLA window: the window's K segments, masked to the first
         ``n_valid``; returns the un-normalised Hann-weighted accumulation
-        (n_stems, W), encoded."""
+        (n_stems, W), encoded, or under "int8" its int8 codes and the
+        stems' scales padded to 8."""
         seg, hop = self.segment_samples, self.hop_samples
         K = self.ola_window_segments
         W = (K - 1) * hop + seg
@@ -168,12 +210,26 @@ class SourceSeparator:
         outs = torch.cat([self._separate_core(segments[i * bs:(i + 1) * bs])
                           for i in range(nb)])[:K]           # (K, n_stems, seg)
         valid = (torch.arange(K, device=dev) < n_valid).float()
-        hann = torch.from_numpy(_hann(seg)).to(dev)
+        hann = self._put(_hann(seg))
         weighted = outs * (hann[None, None, :] * valid[:, None, None])
         acc = torch.zeros((self.n_stems, W), dtype=torch.float32, device=dev)
         acc.index_add_(1, idx.reshape(-1),
                        weighted.permute(1, 0, 2).reshape(self.n_stems, -1))
-        return self._encode_dev(acc)
+        if not self.int8_output:
+            return self._encode_dev(acc)
+        # Quantise y = acc / env, not acc: the error of env * round(y) shrinks
+        # with the envelope, where the final division by it would magnify a
+        # constant one at the track's edges (the envelope goes to 0).  Where
+        # covered, y is an envelope-weighted mean of the segments' audio, so
+        # it stays at signal scale; uncovered samples have acc == 0, and the
+        # floor only guards 0 / 0.  The host rebuilds env from hann and
+        # n_valid.
+        env = torch.zeros(W, dtype=torch.float32, device=dev)
+        env.index_add_(0, idx.reshape(-1), (hann[None, :] * valid[:, None]).reshape(-1))
+        y = acc / env.clamp_min(1e-12)[None]
+        smax = y.abs().amax(dim=1).clamp_min(1e-12)
+        q = torch.clamp(torch.round(y * (127.0 / smax)[:, None]), -127, 127).to(torch.int8)
+        return q, torch.nn.functional.pad(smax, (0, max(8, self.n_stems) - self.n_stems))
 
     def _dispatch_long_device(self, audio: np.ndarray) -> Dict:
         """Enqueue every OLA window of one track; returns what
@@ -189,8 +245,9 @@ class SourceSeparator:
         handles = []
         for w in range(n_win):
             o = w * K * hop
-            handles.append(self._device_ola_window(self._put(track[o:o + W]),
-                                                   min(K, n_seg - w * K)))
+            out = self._device_ola_window(self._put(track[o:o + W]), min(K, n_seg - w * K))
+            handles.append(tuple(self._fetch(t) for t in out) if self.int8_output
+                           else self._fetch(out))
         return {"handles": handles, "total": total, "n_seg": n_seg,
                 "S_needed": S_needed}
 
@@ -201,10 +258,22 @@ class SourceSeparator:
         K = self.ola_window_segments
         W = (K - 1) * hop + seg
         acc = np.zeros((self.n_stems, S_needed), np.float32)
+        hann = _hann(seg)
+        idx = np.arange(K)[:, None] * hop + np.arange(seg)[None, :]
         for w, h in enumerate(meta["handles"]):
             o = w * K * hop
-            acc[:, o:o + W] += self._decode_host(h.cpu().numpy())
-        hann = _hann(seg)
+            if self.int8_output:
+                # acc = env * y, env as the device built it from hann and
+                # the window's valid segments
+                q, smax = (self._host(f) for f in h)
+                s = smax[: self.n_stems].astype(np.float32)
+                nv = min(K, n_seg - w * K)
+                env = np.zeros(W, np.float32)
+                np.add.at(env, idx[:nv].ravel(), np.broadcast_to(hann, (nv, seg)).ravel())
+                y = q.astype(np.float32) * (s / 127.0)[:, None]
+                acc[:, o:o + W] += np.maximum(env, 1e-12)[None] * y
+            else:
+                acc[:, o:o + W] += self._decode_host(self._host(h))
         norm = np.zeros(S_needed, dtype=np.float32)
         for i in range(n_seg):
             norm[i * hop:i * hop + seg] += hann
@@ -226,12 +295,61 @@ class SourceSeparator:
         seg = self.segment_samples
         if total <= seg:
             block = self._encode_host(np.pad(audio[0], (0, seg - total)))[None]
-            out = self._decode_host(
-                self._separate_batch(self._put(block)).cpu().numpy())[0, :, :total]
+            out = self._decode_host(self._host(self._fetch(
+                self._separate_batch(self._put(block)))))[0, :, :total]
             return {name: out[i:i + 1] for i, name in enumerate(stems)}
         if self.device_ola:
             return self._collect_long_device(self._dispatch_long_device(audio), stems)
         return self._separate_long(audio, stems)
+
+    @torch.inference_mode()
+    def separate_stream(self, tracks: Sequence, stem_names: Optional[Sequence[str]] = None,
+                        max_in_flight: int = 2) -> List[Dict[str, np.ndarray]]:
+        """Separate several tracks with up to ``max_in_flight`` of them
+        dispatched to the device at once, collected in order, so that the
+        card works on track k+1 while the host collects track k.  Each
+        result equals :meth:`separate` on its track (the same launches and
+        the same decode).  A track of one segment or less, or any track
+        when ``device_ola`` is off, goes through :meth:`separate` after the
+        tracks queued before it are collected."""
+        stems = list(stem_names or self.default_stems)[: self.n_stems]
+        queue: List[Tuple[int, Dict]] = []
+        results: List[Optional[Dict[str, np.ndarray]]] = [None] * len(tracks)
+
+        def drain_one() -> None:
+            i, meta = queue.pop(0)
+            results[i] = self._collect_long_device(meta, stems)
+
+        for i, audio in enumerate(tracks):
+            audio = np.asarray(audio, dtype=np.float32)
+            if audio.ndim == 1:
+                audio = audio[None]
+            if audio.shape[0] > 1:
+                audio = audio.mean(axis=0, keepdims=True)
+            if not self.device_ola or audio.shape[1] <= self.segment_samples:
+                while queue:
+                    drain_one()
+                results[i] = self.separate(audio, stems)
+                continue
+            # collect before dispatching, so that at most max_in_flight
+            # tracks' windows are live on the device
+            while len(queue) >= max_in_flight:
+                drain_one()
+            queue.append((i, self._dispatch_long_device(audio)))
+        while queue:
+            drain_one()
+        return results
+
+    def separate_file(self, input_path: str, output_dir: str,
+                      stem_names: Optional[Sequence[str]] = None) -> Dict[str, str]:
+        """Read a WAV, resample it to the separator's rate, separate it and
+        write ``<output_dir>/<name>_<stem>.wav`` (PCM16) for each stem;
+        returns {stem: path}."""
+        audio, sr = read_audio(input_path)
+        if sr != self.sample_rate:
+            audio = _resample_poly(audio, sr, self.sample_rate)
+        return write_stems(self.separate(audio, stem_names), input_path, output_dir,
+                           self.sample_rate)
 
     def _separate_long(self, audio: np.ndarray, stems: List[str]) -> Dict[str, np.ndarray]:
         """Hann overlap-add over fixed segments with the reference's
@@ -258,9 +376,9 @@ class SourceSeparator:
             block = batch[j0:j0 + bs]
             if block.shape[0] < bs:
                 block = np.pad(block, ((0, bs - block.shape[0]), (0, 0)))
-            handles.append(self._separate_batch(self._put(block)))
+            handles.append(self._fetch(self._separate_batch(self._put(block))))
         separated = np.concatenate([
-            self._decode_host(h.cpu().numpy())[: min(bs, n - j0)]
+            self._decode_host(self._host(h))[: min(bs, n - j0)]
             for j0, h in zip(range(0, n, bs), handles)])     # (n, n_stems, seg)
 
         out = {name: np.zeros((1, total), dtype=np.float32) for name in stems}
@@ -277,6 +395,53 @@ class SourceSeparator:
         return out
 
 
+def read_audio(path: str) -> Tuple[np.ndarray, int]:
+    """A WAV file -> (float32 (channels, frames), sample rate)."""
+    frames, channels, sr = wav_info(path)
+    return wav_read(path, 0, frames, channels), sr
+
+
+def _resample_poly(audio: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
+    """Polyphase resampling along the last axis (scipy), float32 out."""
+    from math import gcd
+
+    from scipy.signal import resample_poly
+
+    g = gcd(sr_in, sr_out)
+    return resample_poly(audio, sr_out // g, sr_in // g, axis=-1).astype(np.float32)
+
+
+def write_stems(separated: Dict[str, np.ndarray], input_path: str, output_dir: str,
+                sample_rate: int) -> Dict[str, str]:
+    """Write each (1, S) stem of ``separated`` as
+    ``<output_dir>/<input name>_<stem>.wav`` (PCM16); returns {stem: path}."""
+    os.makedirs(output_dir, exist_ok=True)
+    base = os.path.splitext(os.path.basename(input_path))[0]
+    paths = {}
+    for name, wav in separated.items():
+        paths[name] = os.path.join(output_dir, f"{base}_{name}.wav")
+        write_wav(paths[name], wav, sample_rate)
+    return paths
+
+
+class BatchSeparator:
+    """Sequential multi-file separation; a file that fails is recorded as
+    ``{"status": "error", "error": message}`` and the next one goes on."""
+
+    def __init__(self, separator: SourceSeparator):
+        self.separator = separator
+
+    def separate_files(self, input_paths: Sequence[str], output_dir: str) -> Dict[str, Dict]:
+        results = {}
+        for path in input_paths:
+            try:
+                results[path] = {"status": "ok",
+                                 "outputs": self.separator.separate_file(path, output_dir)}
+            except Exception as exc:  # noqa: BLE001 (as the JAX package: keep going)
+                results[path] = {"status": "error", "error": str(exc)}
+        return results
+
+
 def load_separator_from_checkpoint(
     checkpoint_path: str,
     model_config: Optional[ModelConfig] = None,
@@ -285,32 +450,41 @@ def load_separator_from_checkpoint(
     stem_names: Sequence[str] = ("vocals", "other"),
     device="cuda",
 ) -> SourceSeparator:
-    """A SourceSeparator from a PyTorch ``.pt`` / ``.pth`` checkpoint in the
-    reference's state_dict naming, such as the trainer's
-    ``<checkpoint_dir>/best/checkpoint.pt`` (pass the ModelConfig of its
-    ``config.json`` for its compute dtype and route).  Every ported EvalConfig knob is honoured
-    (``EvalConfig.fast_serving()`` for the serving preset); the STFT runs in
-    float32 whatever ``stft_precision`` says.  Orbax checkpoints are a JAX
-    format and are not read here."""
-    if not (os.path.isfile(checkpoint_path)
-            and checkpoint_path.endswith((".pt", ".pth"))):
-        raise NotImplementedError(
-            "only .pt/.pth checkpoints load into the PyTorch port")
+    """A SourceSeparator from a checkpoint: a PyTorch ``.pt`` / ``.pth``
+    file in the reference's state_dict naming, or a directory the port's
+    trainer wrote (its checkpoint directory, whose ``best/`` or else
+    ``latest/`` is read, or one epoch directory).  The ModelConfig is
+    ``model_config`` when given; else the ``.pt`` file's flat ``config``
+    dict, or the ``model`` section of the directory's ``config.json``, so
+    that the compute dtype and ``attention_impl`` trained with come back.
+    A directory with neither raises ``ValueError``.  Every EvalConfig knob
+    is honoured (``EvalConfig.fast_serving()`` for the serving preset); the
+    STFT runs in float32 whatever ``stft_precision`` says."""
+    from ..training.checkpointing import restore_variables
+
     stft_config = stft_config or STFTConfig()
     eval_config = eval_config or EvalConfig()
-    ckpt = torch.load(checkpoint_path, map_location="cpu", weights_only=False)
-    state_dict = ckpt.get("model_state_dict", ckpt)
-    cfg = ckpt.get("config", {}) if isinstance(ckpt, dict) else {}
-    if model_config is None:
-        model_config = ModelConfig(
-            in_channels=cfg.get("in_channels", 2),
-            out_channels=cfg.get("out_channels", 2),
-            depths=tuple(cfg.get("depths", (2, 2, 6, 2))),
-            dims=tuple(cfg.get("dims", (32, 64, 128, 256))),
-            window_size=cfg.get("window_size", 8),
-            shift_size=cfg.get("shift_size", 4),
-            num_heads=cfg.get("num_heads", 8),
-        )
+    if os.path.isfile(checkpoint_path) and checkpoint_path.endswith((".pt", ".pth")):
+        ckpt = torch.load(checkpoint_path, map_location="cpu", weights_only=False)
+        state_dict = ckpt.get("model_state_dict", ckpt)
+        cfg = ckpt.get("config", {}) if isinstance(ckpt, dict) else {}
+        if model_config is None:
+            model_config = ModelConfig(
+                in_channels=cfg.get("in_channels", 2),
+                out_channels=cfg.get("out_channels", 2),
+                depths=tuple(cfg.get("depths", (2, 2, 6, 2))),
+                dims=tuple(cfg.get("dims", (32, 64, 128, 256))),
+                window_size=cfg.get("window_size", 8),
+                shift_size=cfg.get("shift_size", 4),
+                num_heads=cfg.get("num_heads", 8),
+            )
+    else:
+        state_dict, saved_cfg = restore_variables(checkpoint_path)
+        if model_config is None and saved_cfg is not None:
+            model_config = ModelConfig(**{k: tuple(v) if isinstance(v, list) else v
+                                          for k, v in saved_cfg["model"].items()})
+        if model_config is None:
+            raise ValueError("model_config required for this checkpoint")
     model = TFSWAUNet.from_config(model_config)
     # the reference registers an unused SWA mask buffer
     model.load_state_dict({k: v for k, v in state_dict.items() if "attn_mask" not in k})

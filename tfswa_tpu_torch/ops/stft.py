@@ -1,9 +1,13 @@
 """STFT / iSTFT front end (counterpart of ``tfswa_tpu/ops/stft.py``).
 
 The JAX package computes the transforms as framed matmuls against DFT bases;
-here they are ``torch.stft`` / ``torch.istft`` with the same semantics
+here the STFT is ``torch.stft`` and the inverse is ``torch.fft.irfft`` of
+each frame, windowed and overlap-added (``fold``), with the same semantics
 (center=True, reflect padding, periodic window, sum-of-squared-window
-normalisation).  Both run in float32.  The JAX serving preset's
+normalisation).  ``torch.istft`` computes the same, but reads its window
+envelope's minimum back to the host to check it, so that every call would
+wait for the card; here nothing does, and the window goes up from pinned
+memory without a wait either.  Both transforms run in float32.  The JAX serving preset's
 ``precision="default"`` is a 1-pass bf16 DFT on a TPU; the port has no such
 mode and always keeps float32.
 """
@@ -31,8 +35,17 @@ def get_window(name: str, win_length: int) -> np.ndarray:
     raise ValueError(f"Unknown window function: {name}")
 
 
+# floor of the overlap-added squared window, as the JAX package divides by it
+_EPS = 1e-11
+
+
 def _window(name: str, win_length: int, device) -> torch.Tensor:
-    return torch.from_numpy(get_window(name, win_length).astype(np.float32)).to(device)
+    """The window as float32 on ``device``; to the card from pinned memory
+    with ``non_blocking``, so that the call does not wait for the stream."""
+    w = torch.from_numpy(get_window(name, win_length).astype(np.float32))
+    if torch.device(device).type == "cuda":
+        return w.pin_memory().to(device, non_blocking=True)
+    return w
 
 
 def stft(x: torch.Tensor, n_fft: int = 2048, hop_length: int = 512,
@@ -51,14 +64,28 @@ def stft(x: torch.Tensor, n_fft: int = 2048, hop_length: int = 512,
 def istft(spec: torch.Tensor, n_fft: int = 2048, hop_length: int = 512,
           win_length: Optional[int] = None, window: str = "hann",
           center: bool = True, length: Optional[int] = None) -> torch.Tensor:
-    """Batched inverse STFT.  (..., F, T) complex -> (..., S) float32.
-    With ``length`` the output is cut or zero-padded to it."""
+    """Batched inverse STFT.  (..., F, T) complex -> (..., S) float32: each
+    frame's inverse real FFT times the window, overlap-added, divided by the
+    overlap-added squared window (floored at 1e-11); with ``center`` the
+    first and last n_fft / 2 samples go.  With ``length`` the output is cut
+    or zero-padded to it."""
     win_length = win_length or n_fft
-    lead = spec.shape[:-2]
-    out = torch.istft(
-        spec.reshape(-1, *spec.shape[-2:]).to(torch.complex64), n_fft=n_fft,
-        hop_length=hop_length, win_length=win_length,
-        window=_window(window, win_length, spec.device), center=center)
+    lead, T = spec.shape[:-2], spec.shape[-1]
+    win = _window(window, win_length, spec.device)
+    if win_length < n_fft:                      # centred in n_fft, as torch pads it
+        left = (n_fft - win_length) // 2
+        win = torch.nn.functional.pad(win, (left, n_fft - win_length - left))
+    frames = torch.fft.irfft(spec.reshape(-1, *spec.shape[-2:]).to(torch.complex64)
+                             .transpose(-1, -2), n=n_fft) * win      # (B, T, n_fft)
+    total = n_fft + hop_length * (T - 1)
+
+    def overlap_add(x):                          # (B, T, n_fft) -> (B, total)
+        return torch.nn.functional.fold(x.transpose(-1, -2), (1, total), (1, n_fft),
+                                        stride=(1, hop_length)).reshape(x.shape[0], total)
+
+    out = overlap_add(frames) / overlap_add((win * win).expand(1, T, n_fft)).clamp_min(_EPS)
+    if center:
+        out = out[:, n_fft // 2:total - n_fft // 2]
     if length is not None:
         cur = out.shape[-1]
         out = out[..., :length] if cur >= length else \

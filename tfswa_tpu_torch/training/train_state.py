@@ -2,8 +2,9 @@
 ``tfswa_tpu/training/train_state.py``).
 
 One train step: stereo STFT (no gradient) -> mono complex mean and its
-magnitude -> the model in train mode -> magnitude masks -> L1 loss ->
-backward -> clip by global norm -> AdamW with a per-step cosine schedule.
+magnitude -> the model in train mode -> magnitude masks -> L1 loss (and,
+with ``use_mrstft``, the MR-STFT loss on the masked magnitudes under the
+mixture phase, through the iSTFT) -> backward -> clip by global norm -> AdamW with a per-step cosine schedule.
 The JAX step is a pure function of its state; here the state holds the
 model and the optimizer, which the step updates in place (parameters,
 BatchNorm running stats, moments), and returns.  bf16 compute needs no
@@ -138,7 +139,8 @@ def _crop_nyquist(spec: torch.Tensor) -> torch.Tensor:
 
 def _spectrograms(stft_processor: STFTProcessor, mixtures: torch.Tensor,
                   targets: Dict[str, torch.Tensor], freq_policy: str):
-    """Model input, mono mixture magnitude and mono target magnitudes."""
+    """Model input, mono mixture complex spectrogram (B, F, T) and mono
+    target magnitudes."""
     with torch.no_grad():
         mixture_spec = stft_processor.stft(mixtures)              # (B, 2, F, T) c64
         target_mags = {k: stft_processor.stft(v).mean(dim=1).abs()
@@ -146,9 +148,9 @@ def _spectrograms(stft_processor: STFTProcessor, mixtures: torch.Tensor,
         if freq_policy == "crop_pow2":
             mixture_spec = _crop_nyquist(mixture_spec)
             target_mags = {k: _crop_nyquist(v) for k, v in target_mags.items()}
-        mixture_mag = mixture_spec.mean(dim=1).abs()              # (B, F, T)
+        mono = mixture_spec.mean(dim=1)
         model_input = stft_processor.to_model_input(mixture_spec)
-    return model_input, mixture_mag, target_mags
+    return model_input, mono, target_mags
 
 
 def _check_policy(freq_policy: str) -> None:
@@ -158,7 +160,8 @@ def _check_policy(freq_policy: str) -> None:
 
 def make_train_step(model: TFSWAUNet, stft_processor: STFTProcessor,
                     stems: Tuple[str, ...], l1_weight: float = 1.0,
-                    use_mrstft: bool = False, spec_augment=None,
+                    mrstft_weight: float = 0.5, use_mrstft: bool = False,
+                    spec_augment=None,
                     rng_seed: int = 0, mask_mode: str = "parity",
                     freq_policy: str = "full",
                     data_axis: Optional[str] = None) -> Callable:
@@ -172,10 +175,12 @@ def make_train_step(model: TFSWAUNet, stft_processor: STFTProcessor,
     model input, the targets stay clean; its draws come from a generator
     seeded with (``rng_seed``, ``state.step``), so that they are fixed by
     the seed and the same after a resume, as the JAX step folds the step
-    into its key."""
-    if use_mrstft:
-        raise NotImplementedError("use_mrstft (the MR-STFT loss) is not ported yet: "
-                                  "ROADMAP.md queue 1 item 9")
+    into its key.
+
+    ``use_mrstft`` adds ``mrstft_weight`` times the MR-STFT loss between
+    each stem's predicted audio (its masked magnitude under the mixture
+    phase, the Nyquist row zero-padded back under crop_pow2, through the
+    iSTFT) and the channel mean of its target audio."""
     if data_axis is not None:
         raise NotImplementedError("data_axis (multi-GPU) is not ported yet")
     _check_policy(freq_policy)
@@ -185,14 +190,21 @@ def make_train_step(model: TFSWAUNet, stft_processor: STFTProcessor,
     def train_step(state: TrainState, mixtures: torch.Tensor,
                    targets: Dict[str, torch.Tensor]):
         model.train()
-        model_input, mixture_mag, target_mags = _spectrograms(
+        model_input, mono, target_mags = _spectrograms(
             stft_processor, mixtures, targets, freq_policy)
         if spec_augment is not None:
             model_input = spec_augment(np.random.default_rng((rng_seed, state.step)),
                                        model_input)
-        pred = apply_magnitude_masks(model(model_input), mixture_mag, n_stems, mask_mode)
+        pred = apply_magnitude_masks(model(model_input), mono.abs(), n_stems, mask_mode)
+        pred_mags = {k: pred[:, i] for i, k in enumerate(stems)}
+        pred_audios = target_audios = None
+        if use_mrstft:
+            pred_audios = {k: _stem_audio(stft_processor, v, mono.angle(), freq_policy,
+                                          mixtures.shape[-1]) for k, v in pred_mags.items()}
+            target_audios = {k: targets[k].mean(dim=1, keepdim=True) for k in stems}
         loss_dict = source_separation_loss(
-            {k: pred[:, i] for i, k in enumerate(stems)}, target_mags, l1_weight)
+            pred_mags, target_mags, pred_audios, target_audios, l1_weight=l1_weight,
+            mrstft_weight=mrstft_weight, use_mrstft=use_mrstft)
         state.tx.zero_grad()
         loss_dict["total_loss"].backward()
         grad_norm = state.tx.step()
@@ -202,6 +214,16 @@ def make_train_step(model: TFSWAUNet, stft_processor: STFTProcessor,
         return state, loss_dict
 
     return train_step
+
+
+def _stem_audio(stft_processor: STFTProcessor, mag: torch.Tensor, phase: torch.Tensor,
+                freq_policy: str, length: int) -> torch.Tensor:
+    """(B, F, T) magnitude under the mixture phase -> (B, 1, S) audio; under
+    crop_pow2 a zero Nyquist row goes back for the full-width iSTFT."""
+    spec = mag.float() * torch.exp(1j * phase)
+    if freq_policy == "crop_pow2":
+        spec = torch.nn.functional.pad(spec, (0, 0, 0, 1))
+    return stft_processor.istft(spec, length=length)[:, None, :]
 
 
 def make_eval_step(model: TFSWAUNet, stft_processor: STFTProcessor,
@@ -220,11 +242,11 @@ def make_eval_step(model: TFSWAUNet, stft_processor: STFTProcessor,
     def eval_step(state: TrainState, mixtures: torch.Tensor,
                   targets: Dict[str, torch.Tensor]):
         model.eval()
-        model_input, mixture_mag, target_mags = _spectrograms(
+        model_input, mono, target_mags = _spectrograms(
             stft_processor, mixtures, targets, freq_policy)
-        pred = apply_magnitude_masks(model(model_input), mixture_mag, n_stems, mask_mode)
+        pred = apply_magnitude_masks(model(model_input), mono.abs(), n_stems, mask_mode)
         loss_dict = source_separation_loss(
-            {k: pred[:, i] for i, k in enumerate(stems)}, target_mags, l1_weight)
+            {k: pred[:, i] for i, k in enumerate(stems)}, target_mags, l1_weight=l1_weight)
         return {k: v.float() for k, v in loss_dict.items()}
 
     return eval_step

@@ -98,6 +98,7 @@ class Trainer:
         train = config.train
         self._train_step = make_train_step(
             self.model, self.stft_processor, self.stems, l1_weight=train.l1_weight,
+            mrstft_weight=train.mrstft_weight, use_mrstft=train.use_mrstft_loss,
             spec_augment=self.spec_aug, rng_seed=train.seed + 2,
             mask_mode=train.train_mask_mode, freq_policy=train.freq_policy)
         self._eval_step = make_eval_step(
