@@ -119,7 +119,33 @@ Phases, each of which fails the run (exit code 1) when it fails:
      float32 at phase 8's limits (the plain route in bf16 recorded beside
      it), 66 B1-train + 66 B2 launches a step, ms a step and peak GB;
      phase 10's checkpoints are deleted after it;
- 12. a JSON line of the kernels, then the last line
+ 12. the model's options and the deployment path (flagship, conditioned
+     weights: seed 0, convs x0.4 and BatchNorm statistics from the seed, so
+     that the sigmoid head does not saturate): (a) use_shift_mask=True
+     through "pallas" on 8 x 10 s segments, 55 B1 launches and no other
+     kernel, ms and peak GB against the unmasked forward (the extra peak
+     under a quarter of the 1.81 GB a dense mask would take), the route
+     SNR against the plain route (as phase 5) and the output moved by the
+     mask; (b) dropout 0.1: eval bit-identical to dropout 0 (66 B1), one
+     train step on the first of phase 7's 4 segments (the plain route is
+     host-bound: 21-24 s a step at all 4 on an H100) with no kernel launch,
+     finite non-zero row-block gradients, the loss equal bit for bit across
+     two runs, remat within 1e-3 rel. and cosine >= 0.999; (c)
+     quantize_dynamic(compute="int8"): all 264 torch._int_mm products of a
+     forward equal to their plain f32-of-int8 version and the forward equal
+     to the plain-product forward bit for bit, the rate against bf16
+     "pallas", compare_models against f32, quantize_static on 2 batches
+     (every scale > 0, static vs dynamic within 0.05), the 120 s track
+     through "int8" (rate, SNR vs "pallas") and python -m
+     tfswa_tpu_torch.tools.bench_int8 --seconds 3 10 --iters 1 in a subprocess; (d)
+     fold_batch_norms: float32 plain route within 1e-4 rel., bf16 "pallas"
+     at SNR >= 30 dB with 66 B1, benchmark_model of both; (e) export at
+     (1, 4, 1025, 259) of the float32 plain route at depths (1, 1, 1, 1)
+     (full widths): torch.export and TorchScript saved, loaded, within 1e-4,
+     ONNX bytes or the reason, the reference .pt served back equal,
+     export_model_info's count, a kernel route refused; (f) trace with an
+     annotation, detect_chip() == "h100", flops_of a plain forward, MFU;
+ 13. a JSON line of the kernels, then the last line
      {"ok": true, "device": {...}}.
 Long results go to chiprun_out/chip_smoke.json.  Without a CUDA device, or
 outside a checkout of the repository, the run exits non-zero with no result.
@@ -1633,7 +1659,7 @@ def train_batch(torch, np):
 
 
 def make_trainer(torch, impl: str, remat: bool = False, mrstft: bool = False,
-                 dtype: str = "bfloat16"):
+                 dtype: str = "bfloat16", dropout: float = 0.0):
     """The flagship model (bf16 compute unless ``dtype`` says otherwise, f32
     parameters, weights from seed 0) in a TrainState with the TrainConfig
     defaults (``mrstft``: with the MR-STFT loss at its default weight), and
@@ -1644,7 +1670,7 @@ def make_trainer(torch, impl: str, remat: bool = False, mrstft: bool = False,
                                           make_train_step)
 
     cfg = Config(model=ModelConfig(in_channels=4, out_channels=4, attention_impl=impl,
-                                   dtype=dtype, remat=remat),
+                                   dtype=dtype, remat=remat, dropout=dropout),
                  train=TrainConfig(seed=0, use_mrstft_loss=mrstft))
     model, state = create_train_state(cfg, device="cuda")
     proc = STFTProcessor(cfg.stft)
@@ -2149,14 +2175,14 @@ def phase_train_cli(torch, np, gpu: str, covered):
             "served_launches": served}
 
 
-def make_separator(torch, impl: str):
+def make_separator(torch, impl: str, **model_kw):
     from tfswa_tpu_torch.config import EvalConfig, ModelConfig, STFTConfig
     from tfswa_tpu_torch.evaluation import SourceSeparator
     from tfswa_tpu_torch.models import TFSWAUNet
     from tfswa_tpu_torch.ops.stft import STFTProcessor
 
     cfg = ModelConfig(in_channels=4, out_channels=4, attention_impl=impl,
-                      dtype="bfloat16")
+                      dtype="bfloat16", **model_kw)
     model = TFSWAUNet.from_config(cfg, generator=torch.Generator().manual_seed(0))
     ev = EvalConfig.fast_serving()
     return SourceSeparator(
@@ -2293,17 +2319,18 @@ def phase_profile(torch, np, sep, impl: str):
     return res
 
 
-def phase_routes(torch, np, sep_kernel, impl: str, against):
+def phase_routes(torch, np, sep_kernel, impl: str, against, **model_kw):
     """One 10 s segment through the kernel route ``impl`` and through each
-    route of ``against`` (same weights): the SNR per stem.  The plain route
-    ("xla") is held to SNR_MIN_DB; the others are recorded."""
+    route of ``against`` (same weights, the same ``model_kw``): the SNR per
+    stem.  The plain route ("xla") is held to SNR_MIN_DB; the others are
+    recorded."""
     seg = synthetic_track(np, 10.0, sep_kernel.sample_rate)[None]
     res = {}
     with torch.inference_mode():
         x = torch.from_numpy(seg).cuda()
         a = sep_kernel._separate_core(x).double().cpu().numpy()
         for other in against:
-            sep_other = make_separator(torch, other)
+            sep_other = make_separator(torch, other, **model_kw)
             sep_other.model.load_state_dict(sep_kernel.model.state_dict())
             b = sep_other._separate_core(x).double().cpu().numpy()
             snrs = [float(10 * np.log10(np.sum(b[:, s] ** 2) / np.sum((a[:, s] - b[:, s]) ** 2)))
@@ -2817,6 +2844,516 @@ def phase_serving_entry(torch, np, gpu: str, plain_ms):
     return res
 
 
+# ------------------------------------------------ phase 12: the model's options
+# and the deployment path
+OPT_BATCH = (8, 4, 1024, 862)        # 8 x 10 s segments at the fast-serving knobs
+EXPORT_SHAPE = (1, 4, 1025, 259)     # the JAX export default, the flagship's 4 channels
+EXPORT_DEPTHS = (1, 1, 1, 1)         # the export round trips' depth (widths full)
+DROPOUT = 0.1
+# the dropout steps take the first segment of phase 7's batch: the plain
+# route is host-bound, 21.4-23.9 s a step at all 4 segments on an H100
+DROPOUT_SEGMENTS = 1
+OPT_WORK = os.path.join(HERE, "chiprun_out", "opt_work")
+
+
+def shifted_blocks(depths=(2, 2, 6, 2)) -> int:
+    """TFSWABlocks whose SWA is shifted: the odd indices of each stage
+    (encoder, bottleneck, decoder; JAX tfswa_unet.py:75)."""
+    return sum(d // 2 for d in (*depths[:3], depths[3], *depths[:3]))
+
+
+def forward_launches(depths=(2, 2, 6, 2), masked: bool = False) -> int:
+    """B1 launches of one "pallas" forward: three row blocks a TFSWABlock,
+    less the shifted SWAs when the shift mask sends them to the plain route."""
+    blocks = 2 * sum(depths[:3]) + depths[3]
+    return 3 * blocks - (shifted_blocks(depths) if masked else 0)
+
+
+def dense_mask_gb(batch: int, F: int, T: int, ws: int = 8) -> float:
+    """GB of the dense per-window shift mask of a batch at stage 0, f32:
+    batch x windows x (ws^2)^2 x 4 bytes (windows of the padded map)."""
+    windows = -(-F // ws) * -(-T // ws)
+    return batch * windows * (ws * ws) ** 2 * 4 / 1e9
+
+
+def rel_max(a, b) -> float:
+    """max |a - b| / max |b|."""
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def condition_weights(torch, np, model, seed: int = 0) -> None:
+    """Weights whose sigmoid head does not saturate (at the seed's init every
+    flagship output is exactly 0 or 1): convs x0.4, as the CPU tests have
+    them, and BatchNorm parameters and statistics drawn from numpy ``seed``
+    (mean 0.05 N, var U(0.5, 1.5), gamma 1 + 0.1 N, beta 0.05 N)."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                m.weight.mul_(0.4)
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                c = m.num_features
+                for t, v in ((m.running_mean, 0.05 * rng.standard_normal(c)),
+                             (m.running_var, rng.uniform(0.5, 1.5, c)),
+                             (m.weight, 1.0 + 0.1 * rng.standard_normal(c)),
+                             (m.bias, 0.05 * rng.standard_normal(c))):
+                    t.copy_(torch.from_numpy(v.astype(np.float32)))
+
+
+def opt_model(torch, np, impl: str = "pallas", dtype: str = "bfloat16", **kw):
+    """The flagship with weights from seed 0, conditioned, on the card."""
+    from tfswa_tpu_torch.config import ModelConfig
+    from tfswa_tpu_torch.models import TFSWAUNet
+
+    cfg = ModelConfig(in_channels=4, out_channels=4, attention_impl=impl, dtype=dtype, **kw)
+    model = TFSWAUNet.from_config(cfg, generator=torch.Generator().manual_seed(0))
+    condition_weights(torch, np, model)
+    return model.cuda().eval()
+
+
+def opt_input(torch, shape=OPT_BATCH, seed: int = 0):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g).cuda()
+
+
+def counted_forward(torch, model, x, **kw):
+    """One forward under inference_mode with every launch counter set to 0
+    just before: (output, launches, seconds, peak GB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out = model(x, **kw)
+    torch.cuda.synchronize()
+    return (out, read_counts(), time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def separator_with(torch, model, impl: str, **model_kw):
+    """A fast-serving separator through ``impl`` with ``model``'s weights."""
+    sep = make_separator(torch, impl, **model_kw)
+    sep.model.load_state_dict(model.state_dict())
+    return sep
+
+
+def opt_masked(torch, np, gpu: str):
+    """(a) masked SWA through "pallas": the launches (B1 only, 55), ms a
+    forward and peak GB against the unmasked forward, the route SNR against
+    every block on the plain route, and the output moved by the mask."""
+    res = {}
+    x = opt_input(torch)
+    want = forward_launches(masked=True)
+    for masked in (False, True):
+        model = opt_model(torch, np, use_shift_mask=masked)
+        counted_forward(torch, model, x)                         # warm-up
+        out, counts, sec, peak = counted_forward(torch, model, x)
+        res["masked" if masked else "unmasked"] = {"ms": sec * 1e3, "peak_gb": peak,
+                                                   "launches": counts}
+        log(f"opt (a): {'masked' if masked else 'unmasked'} forward of {OPT_BATCH}: "
+            f"{sec * 1e3:.3f} ms, peak {peak:.3f} GB, launches {counts} on {gpu}")
+        if masked and counts != {k: (want if k == "B1" else 0) for k in counts}:
+            fail(f"masked forward: expected {want} B1 launches and no other, got {counts}")
+        del model, out
+        torch.cuda.empty_cache()
+    extra = res["masked"]["peak_gb"] - res["unmasked"]["peak_gb"]
+    dense = dense_mask_gb(OPT_BATCH[0], OPT_BATCH[2], OPT_BATCH[3])
+    res.update(extra_peak_gb=extra, dense_mask_gb=dense)
+    log(f"opt (a): the mask adds {extra:.3f} GB of peak (limit: a quarter of the "
+        f"{dense:.3f} GB a dense mask would take)")
+    if not extra < dense / 4:
+        fail(f"masked forward: {extra} GB over the unmasked peak, limit {dense / 4}")
+    masked = separator_with(torch, opt_model(torch, np, use_shift_mask=True), "pallas",
+                            use_shift_mask=True)
+    res["route_snr_db"] = phase_routes(torch, np, masked, "pallas", ("xla",),
+                                       use_shift_mask=True)
+    seg = torch.from_numpy(synthetic_track(np, 10.0, masked.sample_rate)[None]).cuda()
+    unmasked = separator_with(torch, masked.model, "pallas")
+    with torch.inference_mode():
+        a = masked._separate_core(seg).double()
+        b = unmasked._separate_core(seg).double()
+    moved = float((a - b).abs().max())
+    res["masked_vs_unmasked_max_abs"] = moved
+    log(f"opt (a): masked vs unmasked output, one 10 s segment: max |diff| {moved:.4e}")
+    if not moved > 0:
+        fail("masked SWA: the output equals the unmasked model's")
+    return res
+
+
+def opt_dropout(torch, np, gpu: str, segments: int = DROPOUT_SEGMENTS):
+    """(b) dropout 0.1: eval through "pallas" bit-identical to dropout 0 with
+    66 B1 launches; one train step on the first ``segments`` of phase 7's
+    batch with no kernel launch (every row block on the plain route),
+    finite non-zero row-block gradients, the loss equal bit for bit across
+    two runs from the same weights and seed; the same step with remat
+    within 1e-3 rel. and a gradient cosine >= 0.999."""
+    res = {}
+    x = opt_input(torch)
+    a = opt_model(torch, np, dropout=DROPOUT)
+    b = opt_model(torch, np)
+    out_a, counts, _, _ = counted_forward(torch, a, x,
+                                          generator=torch.Generator().manual_seed(0))
+    out_b = counted_forward(torch, b, x)[0]
+    equal = bool(torch.equal(out_a, out_b))
+    log(f"opt (b): eval with dropout {DROPOUT} vs 0: bit-identical {equal}, launches {counts}")
+    if not equal or counts != {k: (66 if k == "B1" else 0) for k in counts}:
+        fail(f"dropout in eval mode: equal {equal}, launches {counts}")
+    del a, b, out_a, out_b
+    torch.cuda.empty_cache()
+
+    mix, targets = train_batch(torch, np)
+    mix, targets = mix[:segments], {k: v[:segments] for k, v in targets.items()}
+    runs = {}
+    for label, remat in (("first", False), ("again", False), ("remat", True)):
+        state, step = make_trainer(torch, "pallas", remat=remat, dropout=DROPOUT)[:2]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, loss = step(state, mix, targets)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = read_counts()
+        grads = row_block_grads(state.model)
+        bad = [n for n, g in grads if g is None or not bool(torch.isfinite(g).all())
+               or not bool((g != 0).any())]
+        runs[label] = {"loss": float(loss["total_loss"]), "ms": sec * 1e3,
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "launches": counts,
+                       "grad": torch.cat([p.grad.flatten().double()
+                                          for p in state.model.parameters()])}
+        log(f"opt (b): dropout train step ({label}, remat {remat}, {segments} x "
+            f"{TRAIN_SECONDS} s): loss "
+            f"{runs[label]['loss']!r}, {sec * 1e3:.3f} ms (the first step of a fresh "
+            f"model), peak {runs[label]['peak_gb']:.3f} GB, launches {counts} on {gpu}")
+        if any(counts.values()) or len(grads) != 66 * 11 or bad:
+            fail(f"dropout step ({label}): launches {counts}, {len(grads)} row-block "
+                 f"gradients, missing / non-finite / zero: {bad[:5]}")
+        del state, step
+        torch.cuda.empty_cache()
+    same = runs["first"]["loss"] == runs["again"]["loss"]
+    g0, g1 = runs["first"]["grad"], runs["remat"]["grad"]
+    cos = float((g0 @ g1) / (g0.norm() * g1.norm()))
+    rel = abs(runs["remat"]["loss"] - runs["first"]["loss"]) / abs(runs["first"]["loss"])
+    log(f"opt (b): the loss twice from the same weights and seed: equal {same}; remat vs "
+        f"no remat: loss rel {rel:.2e} (limit 1e-3), gradient cosine {cos:.6f} (min 0.999)")
+    if not (same and rel <= 1e-3 and cos >= 0.999):
+        fail(f"dropout step: loss equal {same}, remat loss rel {rel}, cosine {cos}")
+    for r in runs.values():
+        del r["grad"]
+    res.update(segments=segments, steps=runs, loss_equal=same, remat_loss_rel=rel,
+               remat_grad_cosine=cos)
+    return res
+
+
+def check_int8_products(torch, qmodel, x):
+    """One forward of ``qmodel`` with every int8 product run both ways
+    (``torch._int_mm`` and its plain f32-of-int8 version): the number of
+    products and how many differ; the output."""
+    from tfswa_tpu_torch.ops import int8 as int8_ops
+
+    real, seen = int8_ops.int8_product, []
+
+    def both(xq, wq):
+        got = real(xq, wq)
+        seen.append(bool(torch.equal(got, int8_ops.int8_product_reference(xq, wq))))
+        return got
+
+    int8_ops.int8_product = both
+    try:
+        out = qmodel(x)
+    finally:
+        int8_ops.int8_product = real
+    return len(seen), seen.count(False), out
+
+
+def plain_products_forward(torch, qmodel, x):
+    """``qmodel``'s forward with every int8 product on its plain version."""
+    from tfswa_tpu_torch.ops import int8 as int8_ops
+
+    real = int8_ops.int8_product
+    int8_ops.int8_product = int8_ops.int8_product_reference
+    try:
+        return qmodel(x)
+    finally:
+        int8_ops.int8_product = real
+
+
+def timed_forward_ms(torch, fn, x, iters: int = 2, warm: bool = True) -> float:
+    """ms a call of ``fn(x)`` (after a warm-up call unless ``warm`` is
+    False, where one has run already), host clock ending in a synchronize."""
+    with torch.inference_mode():
+        if warm:
+            fn(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn(x)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def opt_int8(torch, np, gpu: str):
+    """(c) quantize_dynamic(compute="int8"): every torch._int_mm product of
+    one forward equal to its plain version, the whole forward equal to the
+    plain-product forward, the rate against bf16 "pallas", compare_models
+    against the f32 model, quantize_static on 2 calibration batches, one
+    separation of the 120 s track, and the int8 tool in a subprocess."""
+    from tfswa_tpu_torch.optimization import compare_models, quantize_dynamic, quantize_static
+
+    res = {}
+    model = opt_model(torch, np)
+    qmodel, stats = quantize_dynamic(model, compute="int8")
+    x = opt_input(torch)
+    n, differ, out = check_int8_products(torch, qmodel, x)
+    plain_out = plain_products_forward(torch, qmodel, x)
+    same = bool(torch.equal(out, plain_out))
+    res.update(products=n, products_differing=differ, forward_equal_plain=same,
+               compression_ratio=stats["compression_ratio"])
+    log(f"opt (c): {n} int8 products in one forward of {OPT_BATCH} (4 a row block), "
+        f"{differ} differ from their plain version; the forward equal to the plain-product "
+        f"forward bit for bit: {same} (limit: equal)")
+    if n != 4 * 66 or differ or not same:
+        fail(f"int8 products: {n} products, {differ} differ, forward equal {same}")
+    del out, plain_out
+    res["int8_ms"] = timed_forward_ms(torch, qmodel, x, iters=1, warm=False)
+    res["bf16_pallas_ms"] = timed_forward_ms(torch, model, x)
+    log(f"opt (c): int8 forward {res['int8_ms']:.3f} ms vs bf16 \"pallas\" "
+        f"{res['bf16_pallas_ms']:.3f} ms of {OPT_BATCH} on {gpu}")
+    f32 = opt_model(torch, np, impl="xla", dtype="float32")
+    res["vs_f32"] = compare_models(f32, qmodel, input_shape=(1, 4, 257, 65))
+    log(f"opt (c): compare_models vs f32 at (1, 4, 257, 65): mae {res['vs_f32']['mae']:.4e}, "
+        f"max {res['vs_f32']['max_abs']:.4e} (JAX's CPU test: mae < 0.02 at small width)")
+    del f32
+    batches = [opt_input(torch, (1, 4, 1024, 862), seed=s).cpu().numpy() for s in (1, 2)]
+    static, sstats = quantize_static(model, calibration_batches=batches)
+    scales = [float(v) for blk in static.act_scales.values() for v in blk.values()]
+    xb = torch.from_numpy(batches[0]).cuda()
+    dyn_static = float((static(xb) - qmodel(xb)).abs().max())
+    res.update(static_scales=len(scales), static_min_scale=min(scales),
+               static_vs_dynamic_max_abs=dyn_static)
+    log(f"opt (c): quantize_static on 2 batches: {len(scales)} scales, least "
+        f"{min(scales):.4e}; static vs dynamic max |diff| {dyn_static:.4e} (limit 0.05)")
+    if len(scales) != 4 * 66 or not min(scales) > 0 or not dyn_static <= 0.05:
+        fail(f"quantize_static: {len(scales)} scales, least {min(scales)}, static vs "
+             f"dynamic {dyn_static}")
+    del static, xb, x
+    torch.cuda.empty_cache()
+
+    sep8 = separator_with(torch, qmodel.model, "int8")
+    sep16 = separator_with(torch, model, "pallas")
+    audio = synthetic_track(np, 120.0, sep8.sample_rate)
+    sep8.separate(audio[: 10 * sep8.sample_rate])                 # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out8 = sep8.separate(audio)
+    sec = time.perf_counter() - t0
+    out16 = sep16.separate(audio)
+    snrs = [float(10 * np.log10(np.sum(out16[k].astype(np.float64) ** 2)
+                                / np.sum((out8[k].astype(np.float64) - out16[k]) ** 2)))
+            for k in out16]
+    res.update(separation_audio_s_per_s=120.0 / sec, separation_snr_vs_pallas_db=snrs)
+    log(f"opt (c): 120 s track through \"int8\": {120.0 / sec:.4f} audio-s/s on {gpu}; "
+        f"SNR vs \"pallas\" per stem {[round(v, 3) for v in snrs]} dB (recorded)")
+    if not all(np.isfinite(v).all() for v in out8.values()):
+        fail("int8 separation: non-finite stems")
+    del sep8, sep16, qmodel, model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "tfswa_tpu_torch.tools.bench_int8",
+                        "--seconds", "3", "10", "--iters", "1"], cwd=HERE,
+                       capture_output=True, text=True, timeout=600)
+    res["tool_s"] = time.perf_counter() - t0
+    for line in r.stdout.strip().splitlines():
+        log(f"  bench_int8: {line}")
+    if r.returncode != 0:
+        fail(f"tools.bench_int8 exited {r.returncode}: {r.stderr[-2000:]}")
+    res["tool"] = json.loads(r.stdout.strip().splitlines()[-1])
+    return res
+
+
+def opt_fold(torch, np, gpu: str):
+    """(d) fold_batch_norms: float32 on the plain route within 1e-4 rel.;
+    bf16 through "pallas" at SNR >= 30 dB a stem with 66 B1 launches;
+    benchmark_model of both forwards at the serving batch."""
+    from tfswa_tpu_torch.optimization import benchmark_model, fold_batch_norms, make_forward_fn
+
+    res = {}
+    m32 = opt_model(torch, np, impl="xla", dtype="float32")
+    f32 = fold_batch_norms(m32)
+    x = opt_input(torch, EXPORT_SHAPE)
+    with torch.inference_mode():
+        a, b = m32(x), f32(x)
+    res["f32_rel"] = rel_max(b, a)
+    log(f"opt (d): folded vs unfolded, float32 plain route at {EXPORT_SHAPE}: rel "
+        f"{res['f32_rel']:.3e} (limit 1e-4)")
+    if not res["f32_rel"] <= 1e-4:
+        fail(f"fold_batch_norms: float32 rel {res['f32_rel']}")
+    del m32, f32, a, b
+    model = opt_model(torch, np)
+    folded = fold_batch_norms(model)
+    counts = counted_forward(torch, folded, opt_input(torch))[1]
+    if counts != {k: (66 if k == "B1" else 0) for k in counts}:
+        fail(f"folded forward: launches {counts}")
+    sep_f = separator_with(torch, folded, "pallas")
+    sep_u = separator_with(torch, model, "pallas")
+    seg = torch.from_numpy(synthetic_track(np, 10.0, sep_f.sample_rate)[None]).cuda()
+    with torch.inference_mode():
+        a = sep_u._separate_core(seg).double().cpu().numpy()
+        b = sep_f._separate_core(seg).double().cpu().numpy()
+    snrs = [float(10 * np.log10(np.sum(a[:, s] ** 2) / max(np.sum((a[:, s] - b[:, s]) ** 2),
+                                                           1e-300)))
+            for s in range(a.shape[1])]
+    res.update(launches=counts, bf16_snr_db=snrs)
+    log(f"opt (d): folded vs unfolded through \"pallas\" (bf16), one 10 s segment: SNR per "
+        f"stem {[round(v, 3) for v in snrs]} dB (min {SNR_MIN_DB}); launches {counts}")
+    if min(snrs) < SNR_MIN_DB:
+        fail(f"folded bf16 route: SNR {snrs}")
+    for label, m in (("unfolded", model), ("folded", folded)):
+        res[label] = benchmark_model(make_forward_fn(m), input_shape=OPT_BATCH,
+                                     num_warmup=1, num_iters=3)
+        log(f"opt (d): benchmark_model {label} at {OPT_BATCH}: "
+            f"{res[label]['ms_per_iter']:.3f} ms/iter, "
+            f"{res[label]['audio_sec_per_sec']:.4f} audio-s/s, RTF {res[label]['rtf']:.5f} "
+            f"on {gpu}")
+    return res
+
+
+def opt_export(torch, np, gpu: str):
+    """(e) the float32 plain route at EXPORT_SHAPE (depth EXPORT_DEPTHS):
+    torch.export and the TorchScript trace saved, loaded and run within 1e-4
+    of eager; ONNX bytes or the reason it was refused; the reference .pt
+    served back equal; export_model_info of the flagship; a kernel route
+    refused."""
+    from tfswa_tpu_torch.evaluation import load_separator_from_checkpoint
+    from tfswa_tpu_torch.optimization import (export_model_info, export_savedmodel,
+                                              export_stablehlo, export_to_onnx,
+                                              export_torch_checkpoint)
+
+    res, seconds = {}, {}
+    os.makedirs(OPT_WORK, exist_ok=True)
+    model = opt_model(torch, np, impl="xla", dtype="float32", depths=EXPORT_DEPTHS)
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    res["torch_export"] = step("torch_export", lambda: export_stablehlo(
+        model, os.path.join(OPT_WORK, "model.pt2"), EXPORT_SHAPE))
+    res["torchscript"] = step("torchscript", lambda: export_savedmodel(
+        model, os.path.join(OPT_WORK, "ts"), EXPORT_SHAPE))
+    try:
+        # the TorchScript round trip above already ran the traced graph
+        res["onnx"] = step("onnx", lambda: export_to_onnx(
+            model, os.path.join(OPT_WORK, "model.onnx"), EXPORT_SHAPE, verify=False))
+    except ImportError as exc:
+        res["onnx"] = {"refused": str(exc)}
+    ck = os.path.join(OPT_WORK, "model.pt")
+    res["checkpoint"] = export_torch_checkpoint(model, ck)
+    sep = load_separator_from_checkpoint(ck, device="cuda")
+    served = all(torch.equal(v, model.state_dict()[k].to(v.device))
+                 for k, v in sep.model.state_dict().items())
+    flagship = opt_model(torch, np)
+    res["model_info"] = export_model_info(flagship)
+    try:
+        export_stablehlo(flagship, os.path.join(OPT_WORK, "kernel.pt2"), EXPORT_SHAPE)
+        refused = None
+    except NotImplementedError as exc:
+        refused = str(exc)
+    res.update(checkpoint_served_equal=served, kernel_route_refused=refused, seconds=seconds)
+    log(f"opt (e): at {EXPORT_SHAPE}, depths {EXPORT_DEPTHS}: torch.export "
+        f"{res['torch_export']['bytes']} bytes, max |diff| {res['torch_export']['max_abs_diff']:.3e}; "
+        f"TorchScript {res['torchscript']['bytes']} bytes, max |diff| "
+        f"{res['torchscript']['max_abs_diff']:.3e} (limit 1e-4); ONNX "
+        + (f"{res['onnx']['bytes']} bytes" if "bytes" in res["onnx"]
+           else f"refused: {res['onnx']['refused']}")
+        + f"; the .pt served back equal {served}; seconds {seconds}")
+    log(f"opt (e): export_model_info of the flagship: {res['model_info']['num_parameters']} "
+        f"parameters; a \"pallas\" export refused: {refused is not None}")
+    if not served or refused is None or "torch.library" not in refused:
+        fail(f"export: checkpoint served equal {served}, kernel route refused {refused}")
+    if res["model_info"]["num_parameters"] != FLAGSHIP_PARAMETERS:
+        fail(f"export_model_info: {res['model_info']['num_parameters']} parameters, "
+             f"expected {FLAGSHIP_PARAMETERS}")
+    return res
+
+
+# the flagship's parameters at in/out 4 (15,404,834 at in/out 2, as the
+# reference counts; the CPU tests hold the port's count to JAX's)
+FLAGSHIP_PARAMETERS = 15408036
+
+
+def opt_profiling(torch, np, gpu: str):
+    """(f) trace around one forward writes a trace with the annotation in
+    it; detect_chip() is "h100"; flops_of one plain-route forward at the
+    training batch; StepTimer's MFU over two "pallas" train steps."""
+    from tfswa_tpu_torch.utils.profiling import (StepTimer, annotate, detect_chip, flops_of,
+                                                 trace)
+
+    res = {}
+    chip = detect_chip()
+    model = opt_model(torch, np)
+    x = opt_input(torch, (1, 4, 1024, 862))
+    log_dir = os.path.join(OPT_WORK, "trace")
+    with trace(log_dir) as prof:
+        with annotate("chip_smoke/forward"), torch.inference_mode():
+            model(x)
+    names = {e.name for e in prof.events()}
+    files = [f for f in os.listdir(log_dir) if f.endswith(".json")]
+    res.update(chip=chip, trace_files=files, annotated="chip_smoke/forward" in names)
+    del model, x
+    plain = opt_model(torch, np, impl="xla")
+    spec = opt_input(torch, (1, 4, 1025, 517))
+    with torch.inference_mode():        # FLOPs scale with the batch: one segment, x4
+        fwd = TRAIN_BATCH * flops_of(plain, spec)
+    del plain, spec
+    torch.cuda.empty_cache()
+    state, step = make_trainer(torch, "pallas")[:2]
+    mix, targets = train_batch(torch, np)
+    timer = StepTimer(flops_per_step=3 * fwd, items_per_step=TRAIN_BATCH)
+    step(state, mix, targets)
+    torch.cuda.synchronize()
+    timer.tick()
+    for _ in range(2):
+        step(state, mix, targets)
+        torch.cuda.synchronize()
+        timer.tick()
+    m = timer.metrics()
+    res.update(forward_flops=fwd, step_metrics=m)
+    log(f"opt (f): detect_chip {chip!r}; trace files {files}, annotation seen "
+        f"{res['annotated']}; flops_of one plain forward at the training batch {fwd:.4e}; "
+        f"StepTimer over 2 \"pallas\" steps: {m['step_time_s'] * 1e3:.3f} ms a step, MFU "
+        f"{m['mfu']:.4f} (3 x the forward's FLOPs over 989e12) on {gpu}")
+    if chip != "h100" or not files or not res["annotated"] or not fwd or not fwd > 0:
+        fail(f"profiling: chip {chip}, trace files {files}, annotated {res['annotated']}, "
+             f"flops {fwd}")
+    del state, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_options(torch, np, gpu: str):
+    """Phase 12: the model's options (masked SWA, dropout) and the deployment
+    path (int8, BN folding, export, profiling).  The export and trace files
+    under chiprun_out/opt_work are deleted after it, on a failure too."""
+    res, seconds = {}, {}
+    try:
+        for name, fn in (("masked", opt_masked), ("dropout", opt_dropout),
+                         ("int8", opt_int8), ("fold", opt_fold), ("export", opt_export),
+                         ("profiling", opt_profiling)):
+            t0 = time.perf_counter()
+            res[name] = fn(torch, np, gpu)
+            seconds[name] = time.perf_counter() - t0
+            log(f"  {name}: {seconds[name]:.1f} s")
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(OPT_WORK, ignore_errors=True)
+    res["seconds"] = seconds
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -2927,6 +3464,7 @@ def main() -> None:
                                              torch, np, gpu, train["best_ms_per_step"])
         finally:
             shutil.rmtree(TRAIN_CK, ignore_errors=True)      # about 1 GB
+        results["options"] = timed("options and deployment", phase_options, torch, np, gpu)
         for kind, label in (("train", "B1-train"), ("bwd", "B2")):
             log(f"per train step (66 calls), {label}: kernel_ms {{ms:.3f}} plain_ms "
                 f"{{plain_ms:.3f}} library_ms {{library_ms:.3f}} bound_ms "

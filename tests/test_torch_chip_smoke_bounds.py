@@ -13,6 +13,7 @@ The bounds are reckoned here from the shapes, independently of the script:
 import importlib.util
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -336,3 +337,91 @@ def test_resampled_frames_is_the_length_resample_poly_gives(chip_smoke, frames, 
 
     out = _resample_poly(np.zeros((1, frames), np.float32), sr_in, 44100)
     assert out.shape[1] == chip_smoke.resampled_frames(frames, sr_in, 44100)
+
+
+# ------------------------------------------------ phase 12's pure helpers
+
+def test_phase_12_designs_its_launches_from_the_shift_pattern(chip_smoke, monkeypatch):
+    """55 B1 launches a masked forward of the flagship (the 11 shifted SWAs
+    go to the plain route), 66 unmasked; the design holds for a small model
+    whose row blocks are counted on the CPU."""
+    import torch
+
+    from tfswa_tpu_torch.models import TFSWAUNet
+    from tfswa_tpu_torch.models import attention
+
+    assert chip_smoke.shifted_blocks() == 11
+    assert chip_smoke.forward_launches() == 66
+    assert chip_smoke.forward_launches(masked=True) == 55
+    small = dict(depths=(3, 1, 2, 1), dims=(8, 16, 32, 64), window_size=4, shift_size=2,
+                 num_heads=2)
+    calls = []
+    real = attention.fused_row_block
+    monkeypatch.setattr(attention, "fused_row_block",
+                        lambda rows, *a: calls.append(rows.shape) or real(rows, *a))
+    for masked in (False, True):
+        calls.clear()
+        model = TFSWAUNet(4, 4, attention_impl="pallas", use_shift_mask=masked, **small)
+        with torch.no_grad():
+            model(torch.zeros(1, 4, 16, 16))
+        assert len(calls) == chip_smoke.forward_launches(small["depths"], masked)
+
+
+def test_dense_mask_size_of_the_serving_batch(chip_smoke):
+    """8 segments x 128 x 108 windows x 64 x 64 x 4 B (T = 862 pads to 864)."""
+    assert chip_smoke.dense_mask_gb(8, 1024, 862) == pytest.approx(
+        8 * 128 * 108 * 64 * 64 * 4 / 1e9, rel=1e-12)
+    assert chip_smoke.dense_mask_gb(8, 1024, 862) == pytest.approx(1.81, abs=0.005)
+
+
+def test_flagship_parameter_count_is_jaxs(chip_smoke):
+    import jax
+    import jax.numpy as jnp
+
+    from tfswa_tpu.models import TFSWAUNet as JaxUNet
+    from tfswa_tpu_torch.models import TFSWAUNet
+
+    shapes = jax.eval_shape(JaxUNet(in_channels=4, out_channels=4).init,
+                            jax.random.PRNGKey(0), jnp.zeros((1, 4, 32, 32)))
+    count = sum(int(np.prod(s.shape)) for s in jax.tree_util.tree_leaves(shapes["params"]))
+    assert count == chip_smoke.FLAGSHIP_PARAMETERS == TFSWAUNet(4, 4).count_parameters()
+
+
+def test_conditioned_weights_do_not_saturate_the_head(chip_smoke):
+    """At the seed's init the head saturates (every output 0 or 1); the
+    conditioned weights keep it inside (0.05, 0.95) at a small width."""
+    import torch
+
+    from tfswa_tpu_torch.models import TFSWAUNet
+
+    small = dict(depths=(1, 1, 1, 1), dims=(16, 32, 64, 128), window_size=4, shift_size=2,
+                 num_heads=4)
+    model = TFSWAUNet(4, 4, generator=torch.Generator().manual_seed(0), **small)
+    before = model.stem[1].running_var.clone()
+    chip_smoke.condition_weights(torch, np, model)
+    assert not torch.equal(before, model.stem[1].running_var)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 4, 33, 13))
+                         .astype(np.float32))
+    with torch.no_grad():
+        y = model(x)
+    assert ((y > 0.05) & (y < 0.95)).all()
+
+
+def test_int8_product_check_counts_every_product(chip_smoke):
+    """check_int8_products runs each product both ways (on the CPU both are
+    the plain version): 4 a row block; the plain-product forward equals it."""
+    import torch
+
+    from tfswa_tpu_torch.models import TFSWAUNet
+    from tfswa_tpu_torch.ops import int8 as int8_ops
+    from tfswa_tpu_torch.optimization import quantize_dynamic
+
+    small = dict(depths=(1, 1, 1, 1), dims=(16, 32, 64, 128), window_size=4, shift_size=2,
+                 num_heads=4)
+    qmodel, _ = quantize_dynamic(TFSWAUNet(4, 4, **small), compute="int8")
+    x = torch.zeros(1, 4, 16, 16).normal_(generator=torch.Generator().manual_seed(0))
+    n, differ, out = chip_smoke.check_int8_products(torch, qmodel, x)
+    assert (n, differ) == (4 * 3 * 7, 0)
+    assert int8_ops.int8_product.__name__ == "int8_product"     # restored
+    assert torch.equal(out, chip_smoke.plain_products_forward(torch, qmodel, x))
+    assert chip_smoke.rel_max(torch.tensor([1.0, 2.5]), torch.tensor([1.0, 2.0])) == 0.25

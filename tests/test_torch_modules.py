@@ -177,7 +177,7 @@ def test_whole_model_matches_jax(small_models, impl):
 
 def test_unported_attention_impl_raises():
     with pytest.raises(NotImplementedError, match="not ported"):
-        TFSWAUNet(2, 2, attention_impl="int8")
+        TFSWAUNet(2, 2, attention_impl="triton")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -106,7 +106,7 @@ def test_batch_norm_train_mode_matches_flax():
     np.testing.assert_allclose(y.detach().numpy(), np.asarray(ref_eval), atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("field,value", [("dropout", 0.1), ("param_dtype", "bfloat16")])
+@pytest.mark.parametrize("field,value", [("param_dtype", "bfloat16")])
 def test_from_config_raises_on_unported_fields(field, value):
     cfg = ModelConfig(in_channels=4, out_channels=4, **SMALL, **{field: value})
     with pytest.raises(NotImplementedError, match=field):

@@ -2,8 +2,9 @@
 
   - config.py     model / STFT / data / train / evaluation configs (copies of
                   the JAX ones), YAML and dotted overrides
-  - ops/          STFT, masks, windowing, the kernel wrappers (fused row
-                  block, bilinear row attention, the kernel lab's forms)
+  - ops/          STFT, masks, windowing and the Swin shift masks, the kernel
+                  wrappers (fused row block, bilinear row attention, the kernel
+                  lab's forms), the int8 products
   - csrc/         hand-written CUDA C++ kernels (sm_90a), built by ops/_build.py
   - models/       TFSWA-UNet under the reference's state_dict names
   - training/     losses, optimizer, the train and eval steps, checkpoints,
@@ -11,10 +12,15 @@
   - data/         MUSDB18 and synthetic datasets, the numpy WAV reader, the
                   loader and device prefetch, augmentation
   - evaluation/   overlap-add separation (SourceSeparator), metrics
-  - optimization/ remat helpers
-  - utils/        step timing and device memory
-  - cli/          the training entry point (python -m tfswa_tpu_torch.cli.train)
+  - optimization/ remat helpers, int8 quantization (QuantizedModel, static
+                  calibration, QAT), BatchNorm folding, export (torch.export,
+                  TorchScript, ONNX, the reference .pt), inference benchmarks
+  - utils/        profiler traces and annotations, FLOPs, step timing and MFU,
+                  device memory
+  - cli/          the training, separation and evaluation entry points
+                  (python -m tfswa_tpu_torch.cli.train / .separate / .evaluate)
   - tools/        the kernel lab's command line (python -m tfswa_tpu_torch.tools.kernel_lab)
+                  and the int8 A/B (python -m tfswa_tpu_torch.tools.bench_int8)
   - weights.py    JAX variables <-> the port's state_dict
 
 The package imports torch and never JAX or the JAX package.

@@ -30,7 +30,9 @@ class ModelConfig:
     of 4, 8, 16 or 32 and an MLP width (``mlp_ratio`` times the width) that
     is a multiple of 8; "pallas_attn" 2, 4 or 8 heads.  Any other shape
     raises; none falls back to the plain route.  On the CPU every route
-    computes."""
+    computes.  ``use_shift_mask`` (the Swin mask on the shifted SWA
+    blocks) and ``dropout`` (in train mode) send the row blocks concerned
+    to the plain route on any ``attention_impl``, as in the JAX package."""
 
     in_channels: int = 4          # stereo complex spectrogram: [re_L, re_R, im_L, im_R]
     out_channels: int = 4         # 2 * n_stems mask channels
@@ -45,11 +47,14 @@ class ModelConfig:
     # "pallas": the fused row-block kernel (CUDA on the card);
     # "pallas_int8": the fused block with int8 scores (serving only: the
     # train step refuses it); "pallas_attn": the bilinear attention kernel
-    # between plain LN and MLP; "xla": the plain PyTorch row-block path.
-    # The names are the JAX package's, so configs carry over.
+    # between plain LN and MLP; "xla": the plain PyTorch row-block path;
+    # "int8": the plain path with its four dense products in int8
+    # (torch._int_mm on the card; serving only).  The names are the JAX
+    # package's, so configs carry over.
     attention_impl: str = "xla"
     # Unused by the port: its plain route chunks rows by the bytes of the
-    # score planes (ops/fused_block.MAX_SCORE_BYTES), not by a row count.
+    # score planes (ops/fused_block.MAX_SCORE_BYTES; SWA by
+    # models/attention.SWA_CHUNK_BYTES), not by a row count.
     attn_chunk_size: int = 16
     remat: bool = False           # torch.utils.checkpoint around each TFSWABlock
     dtype: str = "float32"        # compute dtype ("float32" | "bfloat16")

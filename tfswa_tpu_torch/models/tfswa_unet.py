@@ -19,11 +19,18 @@ on: the block keeps only its input and is run again in the backward.  The
 recompute leaves the BatchNorm running stats alone (flax updates them
 once), and on the ``"pallas"`` route it launches B1-train a second time:
 132 B1-train and 66 B2 launches a step instead of 66 and 66.
+
+``dropout`` (the reference's three sites in every row block) is drawn in
+train mode when ``forward`` gets a ``generator``: one seed a block from it,
+passed into the (checkpointed) block, so that a remat recompute draws the
+same masks.  It sends every row block to the plain route, as the JAX
+model does.  In eval mode it is a no-op and the kernel routes run.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Sequence
+import copy
+from typing import Mapping, Optional, Sequence
 
 import torch
 from torch import nn
@@ -41,12 +48,14 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 class TFSWAUNet(nn.Module):
     """The TFSWA U-Net (the JAX package's ``TFSWAUNet``, its state_dict
     names the reference's).  ``attention_impl`` picks the row-block route
-    (see ``ModelConfig``).  On a CUDA device the kernel routes take bf16
+    (see ``ModelConfig``; "int8" is the int8-product serving route of
+    ``ops/int8.py``).  On a CUDA device the kernel routes take bf16
     rows only (``dtype=torch.bfloat16``; the float32 default raises there),
     widths in (32, 64, 128, 256), for "pallas" / "pallas_int8" a head dim
     in (4, 8, 16, 32) and an MLP width a multiple of 8, for "pallas_attn"
     2, 4 or 8 heads; their wrappers raise on anything else, with no
-    fallback."""
+    fallback.  ``use_shift_mask`` (the Swin mask on the shifted SWA
+    blocks) and active dropout send those row blocks to the plain route."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  depths: Sequence[int] = (2, 2, 6, 2),
@@ -54,7 +63,8 @@ class TFSWAUNet(nn.Module):
                  window_size: int = 8, shift_size: int = 4, num_heads: int = 8,
                  mlp_ratio: float = 4.0, attention_impl: str = "xla",
                  use_shift_mask: bool = False, dtype: torch.dtype = torch.float32,
-                 remat: bool = False, generator: Optional[torch.Generator] = None):
+                 remat: bool = False, generator: Optional[torch.Generator] = None,
+                 dropout: float = 0.0):
         super().__init__()
         if len(depths) != 4 or len(dims) != 4:
             raise ValueError("Expected 4 stages (3 encoder + bottleneck)")
@@ -63,14 +73,18 @@ class TFSWAUNet(nn.Module):
         self.out_channels = out_channels
         self.depths = tuple(depths)
         self.dims = tuple(dims)
+        self.window_size = window_size
+        self.shift_size = shift_size
+        self.num_heads = num_heads
         self.attention_impl = attention_impl
         self.dtype = dtype
         self.remat = remat
+        self.dropout = dropout
 
         def blk(dim: int, i: int) -> TFSWABlock:
             # alternating W-MSA / SW-MSA shift
             return TFSWABlock(dim, window_size, 0 if i % 2 == 0 else shift_size,
-                              num_heads, mlp_ratio, attention_impl, use_shift_mask)
+                              num_heads, mlp_ratio, attention_impl, use_shift_mask, dropout)
 
         self.stem = nn.Sequential(nn.Conv2d(in_channels, dims[0], 7, 1, 3),
                                   nn.BatchNorm2d(dims[0]), nn.GELU())
@@ -92,44 +106,77 @@ class TFSWAUNet(nn.Module):
     @classmethod
     def from_config(cls, cfg: ModelConfig,
                     generator: Optional[torch.Generator] = None) -> "TFSWAUNet":
-        if cfg.dropout > 0.0:
-            raise NotImplementedError("dropout (training) is not ported yet")
         if cfg.param_dtype != "float32":
             raise NotImplementedError(
                 f"param_dtype={cfg.param_dtype!r} is not ported (float32 only)")
         return cls(cfg.in_channels, cfg.out_channels, tuple(cfg.depths),
                    tuple(cfg.dims), cfg.window_size, cfg.shift_size, cfg.num_heads,
                    cfg.mlp_ratio, cfg.attention_impl, cfg.use_shift_mask,
-                   _DTYPES[cfg.dtype], cfg.remat, generator)
+                   _DTYPES[cfg.dtype], cfg.remat, generator, cfg.dropout)
 
     def count_parameters(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
-    def _block(self, blk: TFSWABlock, x: torch.Tensor,
-                skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def get_model_info(self, params=None) -> dict:
+        """The JAX model's info dict, key for key; ``num_parameters`` when
+        ``params`` (a mapping or an iterable of tensors, e.g.
+        ``model.parameters()``) is given: their element count."""
+        info = {
+            "architecture": "TFSWA-UNet (tfswa_tpu_torch)",
+            "in_channels": self.in_channels,
+            "out_channels": self.out_channels,
+            "depths": list(self.depths),
+            "dims": list(self.dims),
+            "num_stages": len(self.depths),
+        }
+        if params is not None:
+            tensors = params.values() if isinstance(params, Mapping) else params
+            info["num_parameters"] = int(sum(t.numel() for t in tensors))
+        return info
+
+    def clone(self, attention_impl: Optional[str] = None) -> "TFSWAUNet":
+        """A deep copy (weights, running stats, mode), with every row block
+        on ``attention_impl`` if given (the JAX ``model.clone``)."""
+        out = copy.deepcopy(self)
+        if attention_impl is not None:
+            check_attention_impl(attention_impl)
+            for m in out.modules():
+                if hasattr(m, "attention_impl"):
+                    m.attention_impl = attention_impl
+        return out
+
+    def _block(self, blk: TFSWABlock, x: torch.Tensor, skip: Optional[torch.Tensor],
+               seed: Optional[int]) -> torch.Tensor:
         if not (self.remat and self.training and torch.is_grad_enabled()):
-            return blk(x, skip)
-        return checkpoint(blk, x, skip, use_reentrant=False,
+            return blk(x, skip, seed)
+        return checkpoint(blk, x, skip, seed, use_reentrant=False,
                           context_fn=lambda: (contextlib.nullcontext(), frozen_stats(blk)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, in_channels, F, T) -> (B, out_channels, F, T) sigmoid masks, f32."""
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, in_channels, F, T) -> (B, out_channels, F, T) sigmoid masks, f32.
+        ``generator`` (a CPU ``torch.Generator``): the dropout randomness in
+        train mode; without it, or in eval mode, no dropout."""
+        seeds = iter(())
+        if self.training and self.dropout > 0.0 and generator is not None:
+            n = 2 * sum(self.depths[:3]) + self.depths[3]
+            seeds = iter(torch.randint(0, 2 ** 62, (n,), generator=generator).tolist())
         x = x.permute(0, 2, 3, 1).to(self.dtype)
         x = gelu(batch_norm(conv2d(x, self.stem[0]), self.stem[1]))
         skips = []
         for s in range(3):
             for blk in self.encoder_stages[s]:
-                x = self._block(blk, x)
+                x = self._block(blk, x, None, next(seeds, None))
             skips.append(x)
             x = self.downsample_layers[s](x)
         for blk in self.bottleneck:
-            x = self._block(blk, x)
+            x = self._block(blk, x, None, next(seeds, None))
         for d, s in enumerate((2, 1, 0)):
             x = self.upsample_layers[d](x)
             skip = skips[s]
             x = bilinear_resize(x, skip.shape[1:3])
             for i, blk in enumerate(self.decoder_stages[d]):
-                x = self._block(blk, x, skip if i == 0 else None)
+                x = self._block(blk, x, skip if i == 0 else None, next(seeds, None))
         head = self.output_head
         x = gelu(batch_norm(conv2d(x, head[0]), head[1]))
         x = torch.sigmoid(conv2d(x, head[3]).float())

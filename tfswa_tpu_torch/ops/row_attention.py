@@ -70,19 +70,48 @@ def bilinear_weights(qkv_kernel: torch.Tensor, num_heads: int):
     return torch.einsum("hcd,hed->hce", wq, wk) * D ** -0.5, qkv_kernel[:, 2 * C:]
 
 
-def mha_rows(rows: torch.Tensor, qkv_kernel: torch.Tensor, proj_kernel: torch.Tensor,
-             proj_bias: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """The plain multi-head self-attention over rows (R, N, C) -> (R, N, C),
-    in the rows' dtype with f32 scores and softmax."""
-    dt = rows.dtype
-    R, N, C = rows.shape
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout with torch ``nn.Dropout``'s semantics (the JAX
+    package's ``_dropout``): each element kept with probability 1 - rate
+    and scaled by 1 / (1 - rate), in x's dtype.  The keep mask is drawn
+    from ``generator``, which lies on x's device."""
+    keep = 1.0 - rate
+    kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(kept, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+                   mask=None, dropout_rate: float = 0.0, generator=None) -> torch.Tensor:
+    """Multi-head softmax(q k^T / sqrt(D)) v on (R, N, C) q, k, v -> (R, N, C)
+    in q's dtype, the scores and softmax in f32.  ``mask``, if given, is
+    additive, (R or 1, 1, N, N) f32, on the scores (query n, key m at
+    [.., n, m]).  With ``generator``, dropout at ``dropout_rate`` on the
+    weights after their cast to q's dtype (the reference's site)."""
+    dt = q.dtype
+    R, N, C = q.shape
     H = num_heads
     D = C // H
-    qkv = (rows @ qkv_kernel.to(dt)).view(R, N, 3, H, D).permute(2, 0, 3, 1, 4)
-    q, k, v = qkv[0], qkv[1], qkv[2]                          # (R, H, N, D)
-    scores = (q * D ** -0.5).float() @ k.float().transpose(-1, -2)
+    qh, kh, vh = (t.reshape(R, N, H, D).transpose(1, 2) for t in (q, k, v))   # (R, H, N, D)
+    scores = (qh * D ** -0.5).float() @ kh.float().transpose(-1, -2)
+    if mask is not None:
+        scores = scores + mask
     weights = torch.softmax(scores, dim=-1).to(dt)
-    out = (weights @ v).transpose(1, 2).reshape(R, N, C)
+    if dropout_rate > 0.0 and generator is not None:
+        weights = dropout(weights, dropout_rate, generator)
+    return (weights @ vh).transpose(1, 2).reshape(R, N, C)
+
+
+def mha_rows(rows: torch.Tensor, qkv_kernel: torch.Tensor, proj_kernel: torch.Tensor,
+             proj_bias: torch.Tensor, num_heads: int, mask=None, dropout_rate: float = 0.0,
+             generator=None) -> torch.Tensor:
+    """The plain multi-head self-attention over rows (R, N, C) -> (R, N, C),
+    in the rows' dtype with f32 scores and softmax; ``mask``, dropout as in
+    :func:`attention_core`."""
+    dt = rows.dtype
+    C = rows.shape[2]
+    qkv = rows @ qkv_kernel.to(dt)
+    out = attention_core(qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:], num_heads,
+                         mask, dropout_rate, generator)
     return out @ proj_kernel.to(dt) + proj_bias.to(dt)
 
 

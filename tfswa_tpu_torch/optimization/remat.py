@@ -3,8 +3,8 @@
 
 The model applies it itself through ``ModelConfig.remat`` (each TFSWABlock
 under ``torch.utils.checkpoint``, ``models/tfswa_unet.py``); this module
-holds the config object, the activation-memory estimate and the device
-memory counters.  ``torch.utils.checkpoint`` saves nothing of the
+holds the config object, ``checkpoint_fn`` / ``checkpoint_sequential``,
+the activation-memory estimate and the device memory counters.  ``torch.utils.checkpoint`` saves nothing of the
 function's inside, which is the JAX package's policy ``"none"``; its save
 policies (``"dots"``, ...) have no torch counterpart and raise.
 """
@@ -28,6 +28,27 @@ def checkpoint_fn(fn: Callable, policy: str = "none") -> Callable:
         return checkpoint(fn, *args, use_reentrant=False)
 
     return wrapped
+
+
+def checkpoint_sequential(fns: Sequence[Callable], segments: int = 2) -> Callable:
+    """A chain of functions in ``segments`` segments, each recomputed in the
+    backward instead of keeping its inside (the JAX function)."""
+    fns = list(fns)
+    seg_size = max(1, (len(fns) + segments - 1) // segments)
+
+    def run(fs, x):
+        for f in fs:
+            x = f(x)
+        return x
+
+    segs = [fns[i:i + seg_size] for i in range(0, len(fns), seg_size)]
+
+    def forward(x):
+        for fs in segs:
+            x = checkpoint(run, fs, x, use_reentrant=False)
+        return x
+
+    return forward
 
 
 @dataclasses.dataclass

@@ -21,11 +21,14 @@ import torch
 
 from ..config import Config
 from ..models import TFSWAUNet
+from ..models.attention import sub_seed
 from ..ops.masking import apply_magnitude_masks
 from ..ops.stft import STFTProcessor
 from .losses import source_separation_loss
 
 Schedule = Callable[[int], float]
+# the key that keeps a step's dropout seed apart from its spec-augment draws
+DROPOUT_STREAM = 1
 
 
 def make_learning_rate_schedule(cfg: Config, steps_per_epoch: int) -> Schedule:
@@ -129,6 +132,18 @@ def _check_trainable(attention_impl: str) -> None:
     if attention_impl == "pallas_int8":
         raise ValueError("attention_impl='pallas_int8' is serving only (B3 has no "
                          "gradient); train with 'pallas', 'pallas_attn' or 'xla'")
+    if attention_impl == "int8":
+        raise ValueError(
+            "attention_impl='int8' is inference-only: rounding has zero gradient, so "
+            "training would not learn.  Train with 'pallas' or 'xla' and quantize the "
+            "result (optimization/quantization.py).")
+
+
+def dropout_generator(rng_seed: int, step: int) -> torch.Generator:
+    """The CPU generator of a train step's dropout, seeded from
+    (``rng_seed``, ``step``): the same pair gives the same masks, after a
+    resume too (the JAX step folds the step into its key)."""
+    return torch.Generator().manual_seed(sub_seed(rng_seed, step, DROPOUT_STREAM))
 
 
 def _crop_nyquist(spec: torch.Tensor) -> torch.Tensor:
@@ -175,7 +190,9 @@ def make_train_step(model: TFSWAUNet, stft_processor: STFTProcessor,
     model input, the targets stay clean; its draws come from a generator
     seeded with (``rng_seed``, ``state.step``), so that they are fixed by
     the seed and the same after a resume, as the JAX step folds the step
-    into its key.
+    into its key.  The model's dropout, when its rate is above 0, draws
+    from :func:`dropout_generator` (``rng_seed``, ``state.step``); it sends
+    every row block to the plain route, as in JAX.
 
     ``use_mrstft`` adds ``mrstft_weight`` times the MR-STFT loss between
     each stem's predicted audio (its masked magnitude under the mixture
@@ -195,7 +212,9 @@ def make_train_step(model: TFSWAUNet, stft_processor: STFTProcessor,
         if spec_augment is not None:
             model_input = spec_augment(np.random.default_rng((rng_seed, state.step)),
                                        model_input)
-        pred = apply_magnitude_masks(model(model_input), mono.abs(), n_stems, mask_mode)
+        gen = dropout_generator(rng_seed, state.step) if model.dropout > 0.0 else None
+        pred = apply_magnitude_masks(model(model_input, generator=gen), mono.abs(), n_stems,
+                                     mask_mode)
         pred_mags = {k: pred[:, i] for i, k in enumerate(stems)}
         pred_audios = target_audios = None
         if use_mrstft:

@@ -36,7 +36,8 @@ from ..evaluation.metrics import sdr as sdr_metric, si_sdr as si_sdr_metric
 from ..ops.stft import STFTProcessor
 from ..utils.profiling import StepTimer, device_memory_report
 from .checkpointing import CheckpointManager
-from .train_state import create_train_state, make_eval_step, make_train_step
+from .train_state import (_check_trainable, create_train_state, make_eval_step,
+                          make_train_step)
 
 
 class MetricLogger:
@@ -73,12 +74,9 @@ class Trainer:
     asks for "cpu"."""
 
     def __init__(self, config: Config, train_dataset, val_dataset=None, device="cuda"):
-        if config.model.attention_impl == "int8":
-            # a serving route: rounding has no gradient, so its quantised
-            # weights would never train
-            raise ValueError(
-                "attention_impl='int8' is inference-only: rounding has zero gradient, "
-                "so training would not learn; train with 'pallas' or 'xla'")
+        # create_train_state refuses the serving-only routes (int8: rounding
+        # has no gradient) before anything is built
+        _check_trainable(config.model.attention_impl)
         self.config = config
         self.device = torch.device(device)
         self.stems = tuple(config.data.stems)

@@ -1,24 +1,101 @@
-"""Step timing and device memory for the training loop (counterpart of
-``StepTimer`` and ``device_memory_report`` in
-``tfswa_tpu/utils/profiling.py``).  The trace and annotation helpers are
-not ported yet."""
+"""Profiling and step timing (counterpart of ``tfswa_tpu/utils/profiling.py``).
+
+  - :func:`trace`: ``torch.profiler`` around a region (CPU, and CUDA when
+    there is a card), written as a Chrome trace into a directory;
+  - :func:`annotate`: a named region in that trace
+    (``torch.profiler.record_function``) and, on the card, an NVTX range;
+  - :func:`detect_chip`, :data:`PEAK_FLOPS`, :func:`flops_of` (FLOPs of
+    one call, counted by ``torch.utils.flop_counter``: the matrix products
+    and convolutions of PyTorch's operators; the hand-written kernels,
+    called through ctypes, are not seen);
+  - :class:`StepTimer` (step time, rates, MFU against the chip's peak) and
+    :func:`device_memory_report`.
+"""
 from __future__ import annotations
 
+import contextlib
+import os
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
+
+# Peak dense bf16 compute a device, FLOP/s (public figures: NVIDIA's data
+# sheet for the H100 SXM at 700 W; the JAX package's nominal CPU figure)
+PEAK_FLOPS = {
+    "h100": 989e12,
+    "cpu": 1e11,
+}
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
+    """Profile the enclosed region (CPU activity, and CUDA activity when a
+    card is there) and write it as a Chrome trace,
+    ``log_dir/trace_<pid>_<ns>.json``.  Yields the profiler, whose
+    ``events()`` hold the region's operators and annotations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_"
+                                                   f"{time.time_ns()}.json"))
+
+
+@contextlib.contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """A named region in profiler timelines (and an NVTX range on the card)."""
+    nvtx = torch.cuda.is_available()
+    if nvtx:
+        torch.cuda.nvtx.range_push(name)
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        if nvtx:
+            torch.cuda.nvtx.range_pop()
+
+
+def detect_chip() -> str:
+    """"h100" on an H100, "cpu" without a card, "gpu" on another card
+    (which has no entry in PEAK_FLOPS)."""
+    if not torch.cuda.is_available():
+        return "cpu"
+    return "h100" if "H100" in torch.cuda.get_device_name(0) else "gpu"
+
+
+def flops_of(fn, *args) -> Optional[float]:
+    """The FLOPs of one call ``fn(*args)`` (run once, under
+    ``FlopCounterMode``), or None when it counts none."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter = FlopCounterMode(display=False)
+    with counter:
+        fn(*args)
+    return float(counter.get_total_flops()) or None
 
 
 class StepTimer:
     """Host-clock time between consecutive :meth:`tick` calls.  In a
     device-bound loop the host is held back by the device's queue, so the
     interval is the step's time.  :meth:`restart` forgets the last tick, so
-    that a pause (validation, checkpoints) is not counted as a step."""
+    that a pause (validation, checkpoints) is not counted as a step.  With
+    ``flops_per_step``, :meth:`metrics` gives the MFU against the peak of
+    every card (PEAK_FLOPS; none on a card without an entry)."""
 
-    def __init__(self, items_per_step: Optional[int] = None):
+    def __init__(self, flops_per_step: Optional[float] = None,
+                 items_per_step: Optional[int] = None):
+        self.flops_per_step = flops_per_step
         self.items_per_step = items_per_step
+        peak = PEAK_FLOPS.get(detect_chip())
+        self.peak = None if peak is None else peak * max(1, torch.cuda.device_count())
         self._times: list = []
         self._last: Optional[float] = None
 
@@ -39,6 +116,8 @@ class StepTimer:
         out = {"step_time_s": step_time, "steps_per_sec": 1.0 / step_time}
         if self.items_per_step:
             out["items_per_sec"] = self.items_per_step / step_time
+        if self.flops_per_step and self.peak:
+            out["mfu"] = self.flops_per_step / step_time / self.peak
         return out
 
 

@@ -10,6 +10,12 @@ transforms:
   - BatchNorm scale/bias, mean/var    -> weight/bias, running_mean/running_var
 :func:`variables_from_state_dict` goes the other way, for a state_dict or a
 dict of gradients by parameter name, so that tests can compare leaf by leaf.
+
+The int8 route's activation scales, which the JAX model keeps in its
+``act_scales`` / ``act_stats`` collections (per row block ``{"scales":
+{"qkv", "proj", "fc1", "fc2"}}``), map onto the port's per-block scales by
+row-block module name (:func:`act_scales_from_jax`, :func:`act_scales_to_jax`);
+:func:`conv_bn_pairs` names each BatchNorm with the conv it follows.
 """
 from __future__ import annotations
 
@@ -120,4 +126,58 @@ def variables_from_state_dict(tensors: Mapping[str, torch.Tensor],
             node = node.setdefault(key, {})
         arr = tensors[name].detach().float().cpu().numpy()
         node[path[-1]] = np.ascontiguousarray(_INVERSE[transform](arr))
+    return out
+
+
+def row_blocks(depths: Sequence[int]) -> Iterator[Tuple[str, Tuple[str, ...]]]:
+    """(row-block module name, JAX module path) of every TSA, FSA and SWA."""
+    for name, path, _ in mapping(depths):
+        if name.endswith(".norm1.weight"):
+            yield name[: -len(".norm1.weight")], path[1:-1]
+
+
+def conv_bn_pairs(depths: Sequence[int]) -> Iterator[Tuple[str, str]]:
+    """(conv module name, BatchNorm module name) of every BatchNorm, from the
+    JAX package's pairing by name (``X_bn`` with ``X_conv`` / ``X_conv1`` /
+    ``X_deconv``; a bare ``bn`` with its module's ``conv`` / ``deconv``)."""
+    convs = {}
+    for name, path, _ in mapping(depths):
+        if path[-1] == "kernel" and len(path) >= 2:
+            convs[path[1:-1]] = name[: -len(".weight")]
+    for name, path, _ in mapping(depths):
+        if path[0] != "batch_stats" or path[-1] != "mean":
+            continue
+        *parent, bn = path[1:-1]
+        stems = ("conv", "deconv") if bn == "bn" else tuple(
+            bn[: -len("_bn")] + tail for tail in ("_conv", "_conv1", "_deconv"))
+        conv = next(convs[tuple(parent) + (c,)] for c in stems
+                    if tuple(parent) + (c,) in convs)
+        yield conv, name[: -len(".running_mean")]
+
+
+def act_scales_from_jax(tree: Mapping, depths: Sequence[int]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX ``act_scales`` (or ``act_stats``) collection -> {row-block name:
+    {site: f32 scalar tensor}} for the blocks it holds."""
+    out = {}
+    for name, path in row_blocks(depths):
+        node = tree
+        for key in path:
+            node = node.get(key) if isinstance(node, Mapping) else None
+        if node is not None:
+            out[name] = {k: torch.tensor(float(np.asarray(v)), dtype=torch.float32)
+                         for k, v in node["scales"].items()}
+    return out
+
+
+def act_scales_to_jax(scales: Mapping[str, Mapping], depths: Sequence[int]) -> Dict:
+    """The inverse of :func:`act_scales_from_jax`: a nested dict in the
+    JAX collection's layout, numpy f32 scalars."""
+    out: Dict = {}
+    for name, path in row_blocks(depths):
+        if name not in scales:
+            continue
+        node = out
+        for key in path:
+            node = node.setdefault(key, {})
+        node["scales"] = {k: np.float32(float(v)) for k, v in scales[name].items()}
     return out
