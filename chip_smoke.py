@@ -145,7 +145,34 @@ Phases, each of which fails the run (exit code 1) when it fails:
      ONNX bytes or the reason, the reference .pt served back equal,
      export_model_info's count, a kernel route refused; (f) trace with an
      annotation, detect_chip() == "h100", flops_of a plain forward, MFU;
- 13. a JSON line of the kernels, then the last line
+ 13. the multi-GPU path on the one card (tfswa_tpu_torch/parallel): (a) world
+     size 1 over NCCL, mesh (1, 1): make_sharded_train_step for 3 steps
+     against make_train_step from the same state, loss and parameters bit
+     for bit, at configs/musdb_repro.yaml's aligned 4 x 5.938 s (crop_pow2,
+     F = 1024, T = 512: no decoder resize, so the plain step is
+     reproducible under cudnn.deterministic; at 4 x 6 s the resizes'
+     backward sums with atomics, and the plain step's own run-to-run spread
+     is recorded beside the sharded one's), its collectives a step from a
+     trace (2 x 52 BatchNorms + gradients + losses), ms a step beside phase
+     7's, its MFU; the 120 s track through SourceSeparator(mesh=(1, 1))
+     against the plain separator bit for bit, audio-s/s beside phase 4's;
+     (b) two ranks spawned on the one card over gloo with CUDA tensors
+     (each with a timeout), clip + SGD, at crop_pow2 under
+     cudnn.deterministic (where one process reproduces itself): at (2, 1)
+     2 train steps of a global 4 x 5.938 s and at (1, 2) of a global
+     2 x 5.938 s through "pallas" in bf16, and at (2, 1) 2 steps of a
+     global 2 x 1.0101 s (T = 88) through the plain route in float32; each
+     against one process on the same batch: loss within 1e-3 rel., each
+     parameter's update at cosine >= 0.999 (held at (1, 2) and in float32,
+     every leaf but the 118 whose gradient is 0 in exact arithmetic, those
+     within 1e-2 of the largest update element; at (2, 1) in bf16 recorded:
+     each rank rounds its half-batch weight gradients to bf16 before the
+     sum, which moves the leaves where the halves cancel), a 30 s track's
+     stems at SNR >= 60 dB, and per rank 66 B1-train + 66 B2 launches a
+     step on half the rows at (2, 1) and on whole rows at (1, 2), the
+     collectives of a step from its trace, ms a step (two ranks share one
+     card: no measure of scaling);
+ 14. a JSON line of the kernels, then the last line
      {"ok": true, "device": {...}}.
 Long results go to chiprun_out/chip_smoke.json.  Without a CUDA device, or
 outside a checkout of the repository, the run exits non-zero with no result.
@@ -153,6 +180,7 @@ outside a checkout of the repository, the run exits non-zero with no result.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import math
 import os
@@ -2175,7 +2203,7 @@ def phase_train_cli(torch, np, gpu: str, covered):
             "served_launches": served}
 
 
-def make_separator(torch, impl: str, **model_kw):
+def make_separator(torch, impl: str, mesh=None, **model_kw):
     from tfswa_tpu_torch.config import EvalConfig, ModelConfig, STFTConfig
     from tfswa_tpu_torch.evaluation import SourceSeparator
     from tfswa_tpu_torch.models import TFSWAUNet
@@ -2191,7 +2219,7 @@ def make_separator(torch, impl: str, **model_kw):
         mask_mode=ev.mask_mode, segment_batch=ev.segment_batch,
         transfer_dtype=ev.transfer_dtype, device_ola=ev.device_ola,
         ola_bucket_seconds=ev.ola_bucket_seconds, freq_policy=ev.freq_policy,
-        device="cuda")
+        device="cuda", mesh=mesh)
 
 
 def synthetic_track(np, seconds: float, sr: int):
@@ -3354,13 +3382,569 @@ def phase_options(torch, np, gpu: str):
     return res
 
 
+# ------------------------------------------------------------------ phase 13
+PARALLEL_WORK = os.path.join(HERE, "chiprun_out", "parallel_work")
+PARALLEL_TIMEOUT_S = 300
+# configs/musdb_repro.yaml's train segment: at crop_pow2 (F = 1024, T = 512)
+# no decoder stage resizes, so the plain step is bit-reproducible with
+# cudnn.deterministic; at 6 s (T = 517) the bilinear resizes' backward
+# (atomics) is not
+ALIGNED_SECONDS = 5.938
+PARALLEL_STEPS = 3
+# (b): two ranks against one process: loss within PAR_LOSS_REL, stems SNR,
+# and each parameter's update at cosine >= PAR_COSINE, held where the
+# direction means something: every leaf but the 118 whose gradient is 0 in
+# exact arithmetic (conv biases just before a train-mode BatchNorm, row
+# blocks' fc2 biases), whose update is held to NOISE_LIMIT of the largest
+# update element instead.  NOISE_LIMIT lies between the sound runs'
+# largest reading, 5.7e-5 (bf16 at (2, 1)), and that of a data-parallel
+# fault planted in those leaves, 5.3e-2 (`--plant unsummed_zero_leaves`),
+# both on an H100.
+#
+# In bf16 at (2, 1) the ranks' rows change the rounding (each rank's
+# half-batch gradients, cuDNN's algorithms at half the batch), and where a
+# leaf's gradient is a small sum of large terms that cancel, that rounding
+# alone moves its update's direction.  The witness "2,1 xla" runs the same
+# mesh, batch and dtype on the plain route, which carries that rounding and
+# none of the kernels; the kernel run holds each leaf at PAR_COSINE or at
+# 1 - cosine within WITNESS_FACTOR times the witness's on that leaf.  The
+# plain route takes 20-30 s a step there on an H100 (a profiled step 95 s),
+# more than the whole run's time allows, so the witness runs alone
+# (`--witness`, which writes chiprun_out/chip_smoke_witness.json) and its
+# cosines are read from WITNESS_FILE, that file as committed.
+PAR_LOSS_REL, PAR_COSINE, PAR_SNR_DB, NOISE_LIMIT = 1e-3, 0.999, 60.0, 1e-3
+WITNESS_FACTOR = 4.0
+PAR_LR = 1e-2
+# the float32 run's segment: 87 hops, T = 88, a multiple of 8, so that no
+# decoder stage resizes (the half sample keeps int() from rounding down)
+F32_SECONDS = (87 * 512 + 0.5) / 44100
+# (tag, mesh, global batch, seconds a segment, route, dtype, how the
+# cosines are held: None at PAR_COSINE, a witness's tag against that
+# witness, "witness" recorded as one); all at crop_pow2 with
+# cudnn.deterministic, where one process reproduces itself, so that what
+# differs is the ranks' doing
+RANK_RUNS = (("2,1", (2, 1), 4, ALIGNED_SECONDS, "pallas", "bfloat16", "2,1 xla"),
+             ("1,2", (1, 2), 2, ALIGNED_SECONDS, "pallas", "bfloat16", None),
+             ("2,1 f32", (2, 1), 2, F32_SECONDS, "xla", "float32", None))
+WITNESS_RUN = ("2,1 xla", (2, 1), 4, ALIGNED_SECONDS, "xla", "bfloat16", "witness")
+WITNESS_FILE = os.path.join(HERE, "chip_smoke_witness.json")
+# faults planted in phase 13 (b)'s ranks alone (`--plant NAME`): exit 0 when
+# (b) catches them
+DP_PLANTS = {
+    # the zero-gradient leaves left out of the gradients' sum over "data":
+    # each rank steps with its own half-batch gradient of them, over d;
+    # planted in the bf16 (2, 1) run
+    "unsummed_zero_leaves": "2,1",
+}
+BN_LAYERS = 52        # flagship BatchNorms: stem, 2 in each of 22 blocks, 3 down, 3 up, head
+
+
+def parallel_state(torch, mesh, freq_policy="full", sgd=False, impl="pallas",
+                   dtype="bfloat16"):
+    """The flagship (seed 0, ``impl``, ``dtype``) on ``mesh`` (None: this
+    process alone) and its train step; ``sgd``: clip + SGD at PAR_LR in place of
+    clip + AdamW (Adam's first update is about lr * sign(g), so the sum
+    order's noise in near-zero gradients would flip signs)."""
+    from tfswa_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from tfswa_tpu_torch.ops.stft import STFTProcessor
+    from tfswa_tpu_torch.training.train_state import (ClippedAdamW, create_train_state,
+                                                      make_sharded_train_step,
+                                                      make_train_step)
+
+    cfg = Config(model=ModelConfig(in_channels=4, out_channels=4, attention_impl=impl,
+                                   dtype=dtype),
+                 train=TrainConfig(seed=0, freq_policy=freq_policy))
+    model, state = create_train_state(cfg, device="cuda", mesh=mesh)
+    if sgd:
+        tx = state.tx
+        state.tx = ClippedAdamW(tx.params, lambda count: PAR_LR, 1.0, 0.0, tx.model_axis,
+                                tx.sharded)
+        state.tx.adamw = torch.optim.SGD(state.tx.params, lr=PAR_LR)
+    proc, stems = STFTProcessor(cfg.stft), cfg.data.stems
+    kw = dict(freq_policy=freq_policy)
+    step = make_train_step(model, proc, stems, **kw) if mesh is None else \
+        make_sharded_train_step(model, proc, stems, mesh, **kw)
+    return state, step
+
+
+def segments_batch(torch, np, n: int, seconds: float):
+    """The first ``n`` of phase 7's segments at ``seconds`` each, on the card."""
+    from tfswa_tpu_torch.data import SyntheticDataset
+
+    ds = SyntheticDataset(num_tracks=TRAIN_BATCH, track_seconds=12.0, segment_seconds=seconds,
+                          sample_rate=44100, seed=0)
+    items = [ds[i] for i in range(n)]
+    mix = torch.from_numpy(np.stack([m for m, _ in items])).cuda()
+    return mix, {k: torch.from_numpy(np.stack([t[k] for _, t in items])).cuda()
+                 for k in ds.stems}
+
+
+def run_steps(torch, state, step, mix, targets, steps: int):
+    """(losses, ms a step, the parameters after) of ``steps`` steps."""
+    losses, ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, mix, targets)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in loss.items()})
+    return losses, ms, [p.detach().clone() for p in state.model.parameters()]
+
+
+def step_collectives(torch, run):
+    """Per-op counts and bytes of the collectives of one call, from a
+    profiler trace of its CPU activity (where c10d records them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tfswa_tpu_torch.parallel.analysis import collective_stats
+
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        run()
+        torch.cuda.synchronize()
+    stats = collective_stats(prof)
+    return {"counts": stats.counts, "bytes": stats.bytes}
+
+
+def par_world_one(torch, np, gpu: str, phase7_ms, serve_rate):
+    """(a) World size 1 over NCCL, mesh (1, 1): make_sharded_train_step
+    against make_train_step from the same state, bit for bit, at the
+    recipe's aligned 4 x 5.938 s (and, recorded, the plain step's own
+    run-to-run spread at 4 x 6 s); the 120 s track through
+    SourceSeparator(mesh=) against the plain separator, bit for bit."""
+    import torch.distributed as dist
+
+    from tfswa_tpu_torch.config import STFTConfig
+    from tfswa_tpu_torch.ops.stft import STFTProcessor
+    from tfswa_tpu_torch.parallel import create_mesh, initialize_distributed
+    from tfswa_tpu_torch.training.train_state import _spectrograms
+    from tfswa_tpu_torch.utils.profiling import flops_of
+
+    store = os.path.join(PARALLEL_WORK, "store_a")
+    initialize_distributed(f"file://{store}", 1, 0, device="cuda")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    res = {"backend": dist.get_backend()}
+    try:
+        if res["backend"] != "nccl":
+            fail(f"parallel (a): backend {res['backend']}, not nccl")
+        mesh = create_mesh((1, 1))
+        runs = {}
+        mix, targets = segments_batch(torch, np, TRAIN_BATCH, ALIGNED_SECONDS)
+        for name, m in (("plain", None), ("sharded", mesh)):
+            state, step = parallel_state(torch, m, "crop_pow2")
+            runs[name] = run_steps(torch, state, step, mix, targets, PARALLEL_STEPS)
+            if name == "sharded":
+                res["collectives"] = step_collectives(torch, lambda: step(state, mix, targets))
+                # the MFU's FLOPs: 3 x one plain-route forward of the rows
+                x = _spectrograms(STFTProcessor(STFTConfig()), mix[:1], {}, "crop_pow2")[0]
+                plain = state.model.clone(attention_impl="xla").eval()
+                with torch.no_grad():
+                    flops = 3 * TRAIN_BATCH * flops_of(plain, x)
+                del plain
+            del state, step
+            torch.cuda.empty_cache()
+        (pl, pms, pp), (sl, sms, sp) = runs["plain"], runs["sharded"]
+        same = pl == sl and all(torch.equal(a, b) for a, b in zip(pp, sp))
+        want = {"all_reduce": 2 * BN_LAYERS + 2}
+        log(f"parallel (a): world size 1 over {res['backend']}, mesh (1, 1), "
+            f"{PARALLEL_STEPS} steps at {TRAIN_BATCH} x {ALIGNED_SECONDS} s (crop_pow2): losses "
+            f"{[l['total_loss'] for l in sl]}, bit-identical to make_train_step: {same}; "
+            f"collectives a step {res['collectives']['counts']} (want {want}); ms a step "
+            f"sharded {[round(v, 3) for v in sms]} plain {[round(v, 3) for v in pms]} "
+            f"(phase 7's best at 4 x 6 s: {phase7_ms:.3f}) on {gpu}")
+        res.update(aligned_losses=sl, bit_identical=same, sharded_ms=sms, plain_ms=pms,
+                   phase7_ms=phase7_ms)
+        if not same or res["collectives"]["counts"] != want:
+            fail("parallel (a): the sharded step at world size 1 is not the plain step bit "
+                 f"for bit ({same}) or its collectives are {res['collectives']['counts']}")
+        res["mfu"] = flops / (min(sms) / 1e3) / 989e12
+        log(f"parallel (a): MFU of the sharded step {res['mfu']:.4f} (3 x one plain forward, "
+            f"{flops:.4e} FLOPs a step, over 989e12; the unsharded recipe step read "
+            f"0.027-0.028 before)")
+
+        # the plain step's own spread at 4 x 6 s, where the resizes' backward
+        # sums with atomics: recorded, with the sharded step beside it
+        mix6, targets6 = segments_batch(torch, np, TRAIN_BATCH, TRAIN_SECONDS)
+        six = {}
+        for name, m in (("plain", None), ("plain_again", None), ("sharded", mesh)):
+            state, step = parallel_state(torch, m)
+            six[name] = run_steps(torch, state, step, mix6, targets6, 2)
+            del state, step
+            torch.cuda.empty_cache()
+
+        def spread(a, b):
+            d = [float((x - y).abs().max()) for x, y in zip(six[a][2], six[b][2])]
+            return sum(v > 0 for v in d), max(d)
+
+        res["six_s"] = {"plain_vs_plain": spread("plain", "plain_again"),
+                        "sharded_vs_plain": spread("sharded", "plain"),
+                        "first_losses": [six[k][0][0]["total_loss"] for k in six]}
+        log(f"parallel (a): at 4 x 6 s (T = 517, resizes) two plain runs differ in "
+            f"{res['six_s']['plain_vs_plain'][0]} of 936 leaves (max "
+            f"{res['six_s']['plain_vs_plain'][1]:.3e}) after 2 steps, the sharded run from a "
+            f"plain one in {res['six_s']['sharded_vs_plain'][0]} (max "
+            f"{res['six_s']['sharded_vs_plain'][1]:.3e}); first losses "
+            f"{res['six_s']['first_losses']}")
+        if len(set(res["six_s"]["first_losses"])) != 1:
+            fail("parallel (a): the first step's loss differs at 4 x 6 s")
+
+        # serving: the 120 s track through SourceSeparator(mesh=(1, 1))
+        audio = synthetic_track(np, 120.0, 44100)
+        outs, rates = {}, {}
+        for name, m in (("plain", None), ("mesh", mesh)):
+            sep = make_separator(torch, "pallas", mesh=m)
+            sep.separate(audio)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[name] = sep.separate(audio)
+            rates[name] = 120.0 / (time.perf_counter() - t0)
+            del sep
+            torch.cuda.empty_cache()
+        same = all(np.array_equal(outs["plain"][k], outs["mesh"][k]) for k in outs["plain"])
+        res.update(serving_bit_identical=same, serving_rate=rates, phase4_rate=serve_rate)
+        log(f"parallel (a): the 120 s track through SourceSeparator(mesh=(1, 1)): stems "
+            f"bit-identical {same}; {rates['mesh']:.4f} audio-s/s against {rates['plain']:.4f} "
+            f"without a mesh (phase 4's best: {serve_rate:.4f}) on {gpu}")
+        if not same:
+            fail("parallel (a): SourceSeparator(mesh=(1, 1)) stems differ")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        dist.destroy_process_group()
+    return res
+
+
+def rows_of(forward_kernel, rows):
+    """``fused_block._forward_kernel`` that also appends the rows of each
+    B1-train launch to ``rows`` (the launch counters stay the wrappers')."""
+    def run(r, p, num_heads, train=False, int8=False):
+        if train:
+            rows.append(int(r.shape[0]))
+        return forward_kernel(r, p, num_heads, train=train, int8=int8)
+
+    return run
+
+
+def zero_gradient_leaves(depths=(2, 2, 6, 2)):
+    """The parameters whose gradient is 0 in exact arithmetic: every conv
+    bias just before a train-mode BatchNorm (its mean removes the bias),
+    and every row block's fc2 bias (the block's output reaches the loss
+    only through the fusion conv and its BatchNorm, which removes a
+    per-channel constant)."""
+    from tfswa_tpu_torch.weights import conv_bn_pairs, row_blocks
+
+    return ({f"{conv}.bias" for conv, _ in conv_bn_pairs(depths)}
+            | {f"{name}.mlp.3.bias" for name, _ in row_blocks(depths)})
+
+
+def update_cosines(torch, names, before, after, ref_after):
+    """{name: (cosine of the update after - before against the one-process
+    update, the one-process update's norm over the largest leaf's)}, and
+    the largest update element."""
+    ups = {n: (a.double() - b.double(), r.double() - b.double())
+           for n, b, a, r in zip(names, before, after, ref_after)}
+    top = max(float(r.norm()) for _, r in ups.values())
+    big = max(float(r.abs().max()) for _, r in ups.values())
+    def cosine(u, r):
+        den = float(u.norm() * r.norm())
+        return float((u * r).sum()) / den if den else float(torch.equal(u, r))
+
+    return {n: (cosine(u, r), float(r.norm()) / top, float((u - r).abs().max()) / big)
+            for n, (u, r) in ups.items()}
+
+
+def plant_unsummed_zero_leaves(train_state, zero_ids) -> None:
+    """DP_PLANTS' "unsummed_zero_leaves": the gradients of the parameters
+    in ``zero_ids`` (ids) keep this rank's own value over d after the sum
+    over "data"."""
+    average = train_state._average_gradients
+
+    def faulty(params, axis):
+        params = list(params)
+        own = {id(p): p.grad.clone() for p in params
+               if id(p) in zero_ids and p.grad is not None}
+        average(params, axis)
+        for p in params:
+            if id(p) in own:
+                p.grad.copy_(own[id(p)] / axis.size)
+
+    train_state._average_gradients = faulty
+
+
+def rank_main(rank: int, world: int, store: str, out: str, tags, plant=None) -> None:
+    """One of phase 13 (b)'s ranks: gloo on CUDA tensors, both ranks on
+    cuda:0.  For each run of RANK_RUNS named in ``tags``: 2 train steps of
+    the global batch's rows of this rank, launches and rows a step, the
+    collectives of one profiled step, ms a step; on "pallas" a 30 s track
+    separated.  Rank 0 writes the losses, the whole parameters and the
+    stems.  ``plant``: a fault of DP_PLANTS, planted in every run."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from tfswa_tpu_torch.ops import fused_block
+    from tfswa_tpu_torch.parallel import (create_mesh, gather_state_dict, initialize_distributed,
+                                          shard_batch)
+
+    torch.backends.cudnn.deterministic = True
+    train_state = importlib.import_module("tfswa_tpu_torch.training.train_state")
+    initialize_distributed(f"file://{store}", world, rank, device="cuda", backend="gloo")
+    rows = []
+    fused_block._forward_kernel = rows_of(fused_block._forward_kernel, rows)
+    zero_ids = set()
+    if plant == "unsummed_zero_leaves":
+        plant_unsummed_zero_leaves(train_state, zero_ids)
+    res = {}
+    zero = zero_gradient_leaves()
+    for tag, shape, n, seconds, impl, dtype, held_by in RANK_RUNS + (WITNESS_RUN,):
+        if tag not in tags:
+            continue
+        mesh = create_mesh(shape)
+        state, step = parallel_state(torch, mesh, "crop_pow2", True, impl, dtype)
+        zero_ids.clear()
+        zero_ids.update(id(p) for k, p in state.model.named_parameters() if k in zero)
+        mix, targets = shard_batch(segments_batch(torch, np, n, seconds), mesh)
+        reset_counts()
+        rows.clear()
+        losses, ms, _ = run_steps(torch, state, step, mix, targets, 1)
+        launches, step_rows = read_counts(), sum(rows)
+        second = []              # the second step, profiled but for the witness
+        t0 = time.perf_counter()
+        if held_by == "witness":
+            second.append(step(state, mix, targets)[1])
+            torch.cuda.synchronize()
+            coll = {"counts": None}
+        else:
+            coll = step_collectives(torch, lambda: second.append(step(state, mix, targets)[1]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in second[0].items()})
+        whole = {k: v.detach().cpu() for k, v in gather_state_dict(state.model).items()}
+        del state, step
+        torch.cuda.empty_cache()
+        stems = None
+        if impl == "pallas":
+            sep = make_separator(torch, "pallas", mesh=mesh)
+            stems = sep.separate(synthetic_track(np, 30.0, 44100))
+            del sep
+            torch.cuda.empty_cache()
+        res[tag] = {"losses": losses, "ms": ms, "launches_step1": launches,
+                    "rows_step1": step_rows, "collectives": coll,
+                    "params": whole if rank == 0 else None,
+                    "stems": stems if rank == 0 else None}
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def witness_cosines(tag: str) -> dict:
+    """{leaf: update cosine} of witness run ``tag`` from WITNESS_FILE."""
+    if not os.path.exists(WITNESS_FILE):
+        fail(f"parallel (b): {WITNESS_FILE} is missing (python3 chip_smoke.py --witness "
+             "writes it under chiprun_out)")
+    rec = json.load(open(WITNESS_FILE))
+    if rec["run"][0] != tag:
+        fail(f"parallel (b): {WITNESS_FILE} holds run {rec['run'][0]!r}, not {tag!r}")
+    return {k: (v,) for k, v in rec["cosines"].items()}
+
+
+def par_two_ranks(torch, np, gpu: str, tags=None, plant=None):
+    """(b) Two ranks on the one card over gloo with CUDA tensors, the runs
+    of RANK_RUNS and WITNESS_RUN named in ``tags`` (default: RANK_RUNS), each against one
+    process on the same batch (losses, every parameter's update, the 30 s
+    track's stems), the launches, rows and collectives a step per rank.
+    ``plant``: a fault of DP_PLANTS, planted in the ranks alone; the
+    result's "bad" then lists what the checks caught, where it fails the
+    run without one."""
+    from tfswa_tpu_torch.ops import fused_block
+
+    runs = [r for r in RANK_RUNS + (WITNESS_RUN,)
+            if r[0] in (tags or [r_[0] for r_ in RANK_RUNS])]
+    tags = [r[0] for r in runs]
+    refs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for tag, shape, n, seconds, impl, dtype, _ in runs:
+        state, step = parallel_state(torch, None, "crop_pow2", True, impl, dtype)
+        before = [p.detach().clone() for p in state.model.parameters()]
+        mix, targets = segments_batch(torch, np, n, seconds)
+        rows = []
+        orig = fused_block._forward_kernel
+        fused_block._forward_kernel = rows_of(orig, rows)
+        try:
+            losses, ms, after = run_steps(torch, state, step, mix, targets, 2)
+        finally:
+            fused_block._forward_kernel = orig
+        names = [k for k, _ in state.model.named_parameters()]
+        del state, step
+        torch.cuda.empty_cache()
+        state, step = parallel_state(torch, None, "crop_pow2", True, impl, dtype)   # again
+        again = run_steps(torch, state, step, mix, targets, 2)[2]
+        refs[tag] = dict(losses=losses, ms=ms, before=before, after=after, again=again,
+                         names=names, rows_step1=sum(rows) // 2)
+        del state, step
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = deterministic
+    sep = make_separator(torch, "pallas")
+    ref_stems = sep.separate(synthetic_track(np, 30.0, 44100))
+    del sep
+    torch.cuda.empty_cache()
+
+    work = os.path.join(PARALLEL_WORK, "ranks")
+    os.makedirs(work, exist_ok=True)
+    store = os.path.join(work, "store")
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for r in range(2):
+        logs.append(open(os.path.join(work, f"rank{r}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--rank", str(r),
+             "--world", "2", "--store", store, "--out", work, "--tags", ";".join(tags)]
+            + (["--plant", plant] if plant else []),
+            stdout=logs[-1], stderr=subprocess.STDOUT, env=env))
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, PARALLEL_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, fh in zip(procs, logs):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            fh.close()
+    wall = time.perf_counter() - t0
+    if any(p.returncode != 0 for p in procs):
+        for r in range(2):
+            log(f"rank {r} (rc {procs[r].returncode}):\n" +
+                open(os.path.join(work, f"rank{r}.log")).read()[-4000:])
+        fail("parallel (b): a rank failed or hung")
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    res = {"wall_s": wall}
+    bad = []
+    zero = zero_gradient_leaves()
+    cosines = {}
+    for tag, *_ in runs:
+        ref = refs[tag]
+        after = [ranks[0][tag]["params"][k].cuda() for k in ref["names"]]
+        cosines[tag] = update_cosines(torch, ref["names"], ref["before"], after, ref["after"])
+    for tag, shape, n, seconds, impl, dtype, held_by in runs:
+        ref, got = refs[tag], ranks[0][tag]
+        rel = max(abs(a["total_loss"] - b["total_loss"]) / abs(b["total_loss"])
+                  for a, b in zip(got["losses"], ref["losses"]))
+        ranks_cos = cosines[tag]
+        self_cos = update_cosines(torch, ref["names"], ref["before"], ref["again"],
+                                  ref["after"])
+        held = {n_: v for n_, v in ranks_cos.items() if n_ not in zero}
+        worst = min(held, key=lambda n_: held[n_][0])
+        cos = held[worst][0]
+        floor_cos = min(v[0] for v in held.values() if v[1] >= 1e-3)
+        noise = max(v[2] for n_, v in ranks_cos.items() if n_ in zero)
+        short = [n_ for n_, v in held.items() if v[0] < PAR_COSINE]
+        if held_by is None:
+            failing, rule = short, f"limit {PAR_COSINE}"
+        elif held_by == "witness":
+            failing, rule = [], "recorded: the witness"
+        else:
+            wit = cosines[held_by] if held_by in cosines else witness_cosines(held_by)
+            ratio = {n_: (1.0 - held[n_][0]) / max(1.0 - wit[n_][0], 1e-300) for n_ in short}
+            failing = [n_ for n_ in short if ratio[n_] > WITNESS_FACTOR]
+            rule = (f"limit {PAR_COSINE}, or 1 - cosine within {WITNESS_FACTOR} x the "
+                    f"witness {held_by!r}'s on the leaf; "
+                    f"{len(short)} leaves short of {PAR_COSINE}, "
+                    f"{sum(wit[n_][0] < PAR_COSINE for n_ in held)} in the witness, largest "
+                    f"ratio {max(ratio.values(), default=0.0):.3f}")
+        snr = None if got["stems"] is None else [
+            float(10 * np.log10(np.sum(ref_stems[k].astype(np.float64) ** 2)
+                                / max(np.sum((got["stems"][k].astype(np.float64)
+                                              - ref_stems[k]) ** 2), 1e-30)))
+            for k in ref_stems]
+        per_rank = [{"launches": rk[tag]["launches_step1"], "rows": rk[tag]["rows_step1"],
+                     "collectives": rk[tag]["collectives"]["counts"], "ms": rk[tag]["ms"]}
+                    for rk in ranks]
+        want_rows = ref["rows_step1"] // shape[0]          # half the rows at (2, 1)
+        res[tag] = dict(loss_rel=rel, update_cosine_min=cos, worst_leaf=worst,
+                        update_cosine_min_over_1e3=floor_cos, zero_leaves_max=noise,
+                        stems_snr_db=snr, per_rank=per_rank, one_process_ms=ref["ms"],
+                        one_process_rows=ref["rows_step1"], held_by=held_by,
+                        leaves_short=len(short), leaves_failing=failing,
+                        cosines={n_: v[0] for n_, v in held.items()})
+        order = sorted(held, key=lambda n_: held[n_][0])[:3]
+        log(f"parallel (b) {tag} on {n} x {seconds:.4f} s, {impl} {dtype}, two ranks sharing "
+            f"one card (gloo, CUDA tensors){', planted ' + plant if plant else ''}: loss rel "
+            f"{rel:.3e} (limit {PAR_LOSS_REL}); update cosine min {cos:.6f} over the "
+            f"{len(held)} leaves of nonzero gradient ({rule}; {floor_cos:.6f} over those of "
+            f"update norm >= 1e-3 of the largest), the 118 of zero gradient within "
+            f"{noise:.3e} of the largest update element (limit {NOISE_LIMIT}); lowest (ranks, "
+            f"one process run twice, norm over the largest): " + "; ".join(
+                f"{n_} {held[n_][0]:.6f}, {self_cos[n_][0]:.6f}, {held[n_][1]:.2e}"
+                for n_ in order) + ("" if snr is None else
+                                    f"; stems SNR {[round(v, 2) for v in snr]} dB "
+                                    f"(limit {PAR_SNR_DB})"))
+        for r, pr in enumerate(per_rank):
+            log(f"  rank {r}: launches a step {pr['launches']}, B1-train rows a step "
+                f"{pr['rows']} (one process on the global batch: {ref['rows_step1']}), "
+                f"collectives a step {pr['collectives']}, ms a step "
+                f"{[round(v, 1) for v in pr['ms']]} ("
+                f"{'the second profiled; ' if pr['collectives'] is not None else ''}two ranks "
+                f"share one card: no measure of scaling)")
+            kernels = ("B1-train", "B2") if impl == "pallas" else ()
+            want = {k: (66 if k in kernels else 0) for k in pr["launches"]}
+            if pr["launches"] != want or pr["rows"] != want_rows:
+                bad.append(f"{tag} rank {r}: launches {pr['launches']}, rows {pr['rows']} "
+                           f"(want {want}, {want_rows})")
+        if not (rel <= PAR_LOSS_REL and noise <= NOISE_LIMIT and not failing
+                and (snr is None or min(snr) >= PAR_SNR_DB)):
+            bad.append(f"{tag}: loss rel {rel}, cosine {cos} ({worst}), leaves failing "
+                       f"{failing[:5]}, noise {noise}, SNR {snr}")
+    log("parallel (b): one-process steps, ms: " + "; ".join(
+        f"{tag}: {[round(v, 1) for v in refs[tag]['ms']]}" for tag in refs)
+        + f"; the ranks' run {wall:.1f} s on {gpu}")
+    res["bad"] = bad
+    if bad and not plant:
+        fail("parallel (b): " + "; ".join(bad))
+    return res
+
+
+def phase_parallel(torch, np, gpu: str, phase7_ms, serve_rate):
+    """Phase 13: the multi-GPU path on the one card.  Its work directory
+    under chiprun_out is deleted after it, on a failure too."""
+    res = {}
+    try:
+        os.makedirs(PARALLEL_WORK, exist_ok=True)
+        for name, fn, args in (("world_one", par_world_one, (phase7_ms, serve_rate)),
+                               ("two_ranks", par_two_ranks, ())):
+            t0 = time.perf_counter()
+            res[name] = fn(torch, np, gpu, *args)
+            log(f"  {name}: {time.perf_counter() - t0:.1f} s")
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(PARALLEL_WORK, ignore_errors=True)
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="build and kernel checks only")
-    ap.add_argument("--plant", choices=sorted(PLANTS),
+    ap.add_argument("--plant", choices=sorted(PLANTS) + sorted(DP_PLANTS),
                     help="plant a fault in a copy of B2's source and run only the "
-                         "B1-train / B2 checks: exit 0 if they catch it, 1 if not")
+                         "B1-train / B2 checks, or one of DP_PLANTS in phase 13 (b)'s "
+                         "ranks and run only its run: exit 0 if they catch it, 1 if not")
+    ap.add_argument("--witness", action="store_true",
+                    help="run phase 13 (b)'s witness (WITNESS_RUN) alone and write its "
+                         "cosines to chiprun_out/chip_smoke_witness.json")
+    # one rank of phase 13 (b), which the phase spawns
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, default=2, help=argparse.SUPPRESS)
+    ap.add_argument("--store", type=str, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--out", type=str, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tags", type=str, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     try:
@@ -3376,6 +3960,10 @@ def main() -> None:
     sys.path.insert(0, HERE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.rank is not None:
+        rank_main(args.rank, args.world, args.store, args.out, args.tags.split(";"),
+                  args.plant)
+        return
 
     gpu = gpu_line()
     log(gpu)
@@ -3407,6 +3995,34 @@ def main() -> None:
         log(f"  {line}")
     hmma = sass_hmma_check()
 
+    if args.witness:
+        os.makedirs(PARALLEL_WORK, exist_ok=True)
+        try:
+            out = par_two_ranks(torch, np, gpu, (WITNESS_RUN[0],))[WITNESS_RUN[0]]
+        finally:
+            shutil.rmtree(PARALLEL_WORK, ignore_errors=True)
+        rec = {"written_by": "python3 chip_smoke.py --witness", "device": gpu,
+               "torch": f"{torch.__version__} cuda {torch.version.cuda}",
+               "run": list(WITNESS_RUN[:6]),
+               **{k: out[k] for k in ("loss_rel", "update_cosine_min", "worst_leaf",
+                                      "update_cosine_min_over_1e3", "zero_leaves_max",
+                                      "leaves_short", "cosines")}}
+        path = os.path.join(HERE, "chiprun_out", "chip_smoke_witness.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as fh:
+            json.dump(rec, fh, indent=0)
+        log(f"witness {WITNESS_RUN[0]!r} written to {path}")
+        sys.exit(0)
+    if args.plant in DP_PLANTS:
+        os.makedirs(PARALLEL_WORK, exist_ok=True)
+        try:
+            res = par_two_ranks(torch, np, gpu, (DP_PLANTS[args.plant],), args.plant)
+        finally:
+            shutil.rmtree(PARALLEL_WORK, ignore_errors=True)
+        if not res["bad"]:
+            fail(f"planted fault {args.plant}: phase 13 (b) passed it")
+        log(f"planted fault {args.plant}: caught by phase 13 (b): {res['bad']}")
+        sys.exit(0)
     if args.plant:
         plant_fault(torch, args.plant)
         try:
@@ -3465,6 +4081,9 @@ def main() -> None:
         finally:
             shutil.rmtree(TRAIN_CK, ignore_errors=True)      # about 1 GB
         results["options"] = timed("options and deployment", phase_options, torch, np, gpu)
+        results["parallel"] = timed("parallel", phase_parallel, torch, np, gpu,
+                                    train["best_ms_per_step"],
+                                    serving["pallas"]["audio_s_per_s"])
         for kind, label in (("train", "B1-train"), ("bwd", "B2")):
             log(f"per train step (66 calls), {label}: kernel_ms {{ms:.3f}} plain_ms "
                 f"{{plain_ms:.3f}} library_ms {{library_ms:.3f}} bound_ms "

@@ -425,3 +425,50 @@ def test_int8_product_check_counts_every_product(chip_smoke):
     assert int8_ops.int8_product.__name__ == "int8_product"     # restored
     assert torch.equal(out, chip_smoke.plain_products_forward(torch, qmodel, x))
     assert chip_smoke.rel_max(torch.tensor([1.0, 2.5]), torch.tensor([1.0, 2.0])) == 0.25
+
+
+def test_witness_file_holds_every_leaf_phase_13_holds_against_it(chip_smoke):
+    """The committed witness of phase 13 (b) is the run WITNESS_RUN names,
+    and it holds a cosine (within f64 rounding of [-1, 1]) for every
+    flagship leaf of nonzero gradient: the leaves the kernel run is held
+    on against it."""
+    import json
+
+    import torch
+
+    from tfswa_tpu_torch.models import TFSWAUNet
+
+    rec = json.load(open(chip_smoke.WITNESS_FILE))
+    tag, mesh, n, seconds, impl, dtype, held_by = chip_smoke.WITNESS_RUN
+    assert rec["run"] == [tag, list(mesh), n, seconds, impl, dtype] and held_by == "witness"
+    assert [r[6] for r in chip_smoke.RANK_RUNS if r[6] not in (None,)] == [tag]
+    with torch.device("meta"):
+        names = {k for k, _ in TFSWAUNet(4, 4).named_parameters()}
+    zero = chip_smoke.zero_gradient_leaves()
+    assert len(zero) == 118 and zero <= names
+    assert set(rec["cosines"]) == names - zero
+    assert all(abs(v) <= 1.0 + 1e-12 for v in rec["cosines"].values())     # f64 rounding
+
+
+def test_dp_plant_keeps_each_ranks_own_gradient_of_the_planted_leaves(chip_smoke):
+    """DP_PLANTS["unsummed_zero_leaves"]: after the (stubbed) sum over the
+    data axis, the planted leaves hold their own gradient over d, the rest
+    the sum's result."""
+    import types
+
+    import torch
+
+    params = [torch.nn.Parameter(torch.zeros(3)) for _ in range(2)]
+    for p, g in zip(params, (1.0, 2.0)):
+        p.grad = torch.full((3,), g)
+
+    def summed(ps, axis):
+        for p in ps:
+            p.grad.mul_(axis.size).add_(10.0)
+
+    module = types.SimpleNamespace(_average_gradients=summed)
+    chip_smoke.plant_unsummed_zero_leaves(module, {id(params[0])})
+    module._average_gradients(params, types.SimpleNamespace(size=2))
+    assert params[0].grad.tolist() == [0.5] * 3
+    assert params[1].grad.tolist() == [14.0] * 3
+    assert chip_smoke.DP_PLANTS == {"unsummed_zero_leaves": chip_smoke.RANK_RUNS[0][0]}

@@ -1,6 +1,7 @@
 """The port's Config against the JAX package's: the shipped YAMLs, the
-YAML round trip, the override parser, and the refusals (an unknown key; a
-field the port does not read yet, set off its JAX default).  Exact
+YAML round trip, the override parser, and the refusals (an unknown key;
+``model.attn_chunk_size``, which the port does not read, set off its JAX
+default).  Exact
 comparisons: configs hold no arithmetic."""
 import dataclasses
 from pathlib import Path
@@ -8,34 +9,25 @@ from pathlib import Path
 import pytest
 
 from tfswa_tpu import config as jcfg
-from tfswa_tpu_torch.config import UNPORTED, Config, DataConfig, TrainConfig, _parse_value
+from tfswa_tpu_torch.config import Config, DataConfig, MeshConfig, ModelConfig, TrainConfig, _parse_value
 
 CONFIGS = sorted((Path(__file__).resolve().parents[1] / "configs").glob("*.yaml"))
 
 
-def _jax_dict_without_unported(cfg) -> dict:
-    d = cfg.to_dict()
-    for section, attr in UNPORTED:
-        d[section].pop(attr)
-    return {k: v for k, v in d.items() if v}
-
-
 def test_every_jax_field_is_ported_or_listed_as_unported():
+    """Every section and field, the mesh's too, at the JAX defaults."""
     port, jax = Config().to_dict(), jcfg.Config().to_dict()
     for section, fields in jax.items():
         for attr, value in fields.items():
-            if (section, attr) in UNPORTED:
-                assert UNPORTED[(section, attr)][0] == value
-            else:
-                assert port[section][attr] == value, (section, attr)
-    assert {s for s in port} == {s for s in jax} - {"mesh"}
+            assert port[section][attr] == value, (section, attr)
+    assert port == jax
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=[p.stem for p in CONFIGS])
 def test_shipped_yaml_loads_as_in_the_jax_package(path):
     assert len(CONFIGS) == 3
     port = Config.from_yaml(str(path))
-    assert port.to_dict() == _jax_dict_without_unported(jcfg.Config.from_yaml(str(path)))
+    assert port.to_dict() == jcfg.Config.from_yaml(str(path)).to_dict()
 
 
 def test_yaml_round_trip_is_the_identity(tmp_path):
@@ -60,19 +52,28 @@ def test_apply_overrides_matches_jax():
            "train.steps_per_epoch=4", "train.sdr_eval_num_tracks=2", "data.mixup=yes",
            "train.use_mrstft_loss=false", "mesh.model_axis=1"]
     port = Config().apply_overrides(ovs)
-    assert port.to_dict() == _jax_dict_without_unported(jcfg.Config().apply_overrides(ovs))
+    assert port.to_dict() == jcfg.Config().apply_overrides(ovs).to_dict()
     assert Config().model.remat is False
 
 
-@pytest.mark.parametrize("section,attr,value", [
-    ("mesh", "data_axis", 4), ("mesh", "model_axis", 2)])
-def test_unported_field_loads_at_its_default_and_raises_otherwise(section, attr, value):
-    default = UNPORTED[(section, attr)][0]
-    assert Config.from_dict({section: {attr: default}}) == Config()
-    with pytest.raises(NotImplementedError, match=f"{section}.{attr}"):
-        Config.from_dict({section: {attr: value}})
-    with pytest.raises(NotImplementedError, match=f"{section}.{attr}"):
-        Config().apply_overrides([f"{section}.{attr}={value}"])
+@pytest.mark.parametrize("override", ["mesh.data_axis=4", "mesh.model_axis=2"])
+def test_mesh_fields_load_and_round_trip_as_in_jax(override, tmp_path):
+    port = Config().apply_overrides([override])
+    assert port.to_dict() == jcfg.Config().apply_overrides([override]).to_dict()
+    port.to_yaml(str(tmp_path / "c.yaml"))
+    assert Config.from_yaml(str(tmp_path / "c.yaml")) == port
+    assert dataclasses.asdict(MeshConfig()) == dataclasses.asdict(jcfg.MeshConfig())
+
+
+@pytest.mark.parametrize("value", [8, 32])
+def test_attn_chunk_size_loads_at_its_default_and_raises_otherwise(value):
+    assert Config.from_dict({"model": {"attn_chunk_size": 16}}) == Config()
+    with pytest.raises(NotImplementedError, match="model.attn_chunk_size"):
+        Config.from_dict({"model": {"attn_chunk_size": value}})
+    with pytest.raises(NotImplementedError, match="model.attn_chunk_size"):
+        Config().apply_overrides([f"model.attn_chunk_size={value}"])
+    with pytest.raises(NotImplementedError, match="model.attn_chunk_size"):
+        ModelConfig(attn_chunk_size=value)
 
 
 @pytest.mark.parametrize("d", [{"train": {"bogus": 1}}, {"nosuch": {}}, {"model": {"remats": True}}])
@@ -92,13 +93,12 @@ def test_data_and_train_fields_are_the_jax_ones():
         [f.name for f in dataclasses.fields(jcfg.DataConfig)]
     assert [f.name for f in dataclasses.fields(TrainConfig)] == \
         [f.name for f in dataclasses.fields(jcfg.TrainConfig)]
-    assert not any(section == "train" for section, _ in UNPORTED)
 
 
 @pytest.mark.parametrize("override", ["train.use_mrstft_loss=true", "train.mrstft_weight=0.25"])
 def test_mrstft_fields_round_trip_as_in_jax(override, tmp_path):
     port = Config().apply_overrides([override])
-    assert port.to_dict() == _jax_dict_without_unported(jcfg.Config().apply_overrides([override]))
+    assert port.to_dict() == jcfg.Config().apply_overrides([override]).to_dict()
     port.to_yaml(str(tmp_path / "c.yaml"))
     assert Config.from_yaml(str(tmp_path / "c.yaml")) == port
     jax_back = jcfg.Config.from_yaml(str(tmp_path / "c.yaml"))

@@ -30,13 +30,14 @@ from tfswa_tpu.ops.windowing import window_reverse as jax_reverse
 from tfswa_tpu_torch.models import TFSWAUNet
 from tfswa_tpu_torch.models.layers import bilinear_resize
 from tfswa_tpu_torch.ops import masking
-from tfswa_tpu_torch.ops import stft as port_stft
 from tfswa_tpu_torch.ops.windowing import window_partition, window_reverse
 from tfswa_tpu_torch.weights import mapping, state_dict_from_jax
 
-# tfswa_tpu.ops re-exports functions under these module names
+# tfswa_tpu.ops and tfswa_tpu_torch.ops re-export functions under these
+# module names
 jax_masking = importlib.import_module("tfswa_tpu.ops.masking")
 jax_stft = importlib.import_module("tfswa_tpu.ops.stft")
+port_stft = importlib.import_module("tfswa_tpu_torch.ops.stft")
 
 SMALL = dict(depths=(2, 1, 1, 1), dims=(16, 32, 64, 128), window_size=4,
              shift_size=2, num_heads=4)

@@ -124,15 +124,6 @@ def test_cli_trains_logs_checkpoints_and_resumes(tmp_path, capsys):
     assert os.listdir(logs) == ["metrics.jsonl"]
 
 
-@pytest.mark.parametrize("flag,item", [("--mesh=2,1", "item 12"), ("--multihost", "item 12"),
-                                       ("--coordinator=localhost:1", "item 12"),
-                                       ("--num_processes=2", "item 12"),
-                                       ("--process_id=0", "item 12")])
-def test_cli_refuses_the_unported_flags(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        cli.config_from_args(cli.build_parser().parse_args([flag]))
-
-
 def test_cli_use_mrstft_gives_the_jax_clis_config():
     from tfswa_tpu.cli import train as jcli
 

@@ -1,8 +1,8 @@
 """The port's training pieces against the JAX package, on the CPU: the
 optimizer and its schedule against optax, train-mode BatchNorm against
-flax, ``from_config``'s refusals, the eval step, the Nyquist crop, the
-train-step options not ported yet and the synthetic dataset.  The whole
-step is in ``test_torch_train_step.py``.
+flax, ``from_config``'s refusals, the eval step, the Nyquist crop and the
+synthetic dataset.  The whole step is in ``test_torch_train_step.py``;
+its ``data_axis`` (multi-GPU) in ``test_torch_parallel*.py``.
 
 Tolerances: the optimizer, fed identical gradients, 1e-6 (the same f32
 update arithmetic) and its schedule 1e-6 relative; BatchNorm's output
@@ -143,12 +143,6 @@ def test_crop_pow2_drops_the_nyquist_row():
     spec = torch.zeros(2, 2, 129, 5)
     assert pts._crop_nyquist(spec).shape[-2] == 128
     assert pts._crop_nyquist(spec[..., :128, :]).shape[-2] == 128
-
-
-@pytest.mark.parametrize("kw", [dict(data_axis="data")])
-def test_unported_train_step_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        pts.make_train_step(_port_model("xla"), STFTProcessor(STFTConfig()), STEMS, **kw)
 
 
 @pytest.mark.parametrize("field,value", [("use_mrstft_loss", True), ("mrstft_weight", 0.25)])

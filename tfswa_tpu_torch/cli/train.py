@@ -4,22 +4,20 @@ dotted overrides and the reference's common flags as shortcuts.
     python -m tfswa_tpu_torch.cli.train --config configs/musdb_repro.yaml \\
         --data_root /data/musdb18hq
     python -m tfswa_tpu_torch.cli.train --config configs/musdb_repro.yaml --synthetic
+    torchrun --nproc_per_node 4 -m tfswa_tpu_torch.cli.train --mesh 2,2 ...
+    python -m tfswa_tpu_torch.cli.train --mesh 2,1 --multihost \
+        --coordinator host0:29500 --num_processes 2 --process_id 0 ...
 
-Training runs on ``--device`` ("cuda" unless "cpu" is asked for).  The
-multi-GPU flags are not ported yet and raise.
+Training runs on ``--device`` ("cuda" unless "cpu" is asked for).  Multi-GPU
+runs one process a card: ``--mesh d,m`` trains on a (data, model) mesh of
+d * m ranks (from a launcher's environment, or from ``--multihost`` with
+``--coordinator``, ``--num_processes`` and ``--process_id``); a world of
+another size raises.  ``--multihost`` alone puts every rank on the data
+axis.  Rank 0 writes the checkpoints and the metrics.
 """
 from __future__ import annotations
 
 import argparse
-
-# flag -> the ROADMAP.md item that ports it
-_UNPORTED_FLAGS = {
-    "mesh": "queue 1 item 12 (parallel)",
-    "multihost": "queue 1 item 12 (parallel)",
-    "coordinator": "queue 1 item 12 (parallel)",
-    "num_processes": "queue 1 item 12 (parallel)",
-    "process_id": "queue 1 item 12 (parallel)",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -50,11 +48,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log_dir", type=str, default=None)
     p.add_argument("--resume", type=str, default=None,
                    help="'latest', 'best', or epoch_NNNNNN")
-    p.add_argument("--mesh", type=str, default=None, help="not ported yet: raises")
-    p.add_argument("--multihost", action="store_true", help="not ported yet: raises")
-    p.add_argument("--coordinator", type=str, default=None, help="not ported yet: raises")
-    p.add_argument("--num_processes", type=int, default=None, help="not ported yet: raises")
-    p.add_argument("--process_id", type=int, default=None, help="not ported yet: raises")
+    p.add_argument("--mesh", type=str, default=None,
+                   help="data,model e.g. 4,2 (one rank a card; default: all ranks on data)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join the process group before training, from --coordinator / "
+                        "--num_processes / --process_id or a launcher's RANK, WORLD_SIZE "
+                        "and LOCAL_RANK.  Each rank loads its own slice of every global "
+                        "batch; rank 0 writes checkpoints and logs.")
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="host:port of rank 0 (or a file:// store) for --multihost")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)
     return p
 
@@ -64,9 +68,6 @@ def config_from_args(args):
     overrides; the model's output channels follow the stems (2 a stem)."""
     from ..config import Config
 
-    for flag, item in _UNPORTED_FLAGS.items():
-        if getattr(args, flag) is not None and getattr(args, flag) is not False:
-            raise NotImplementedError(f"--{flag} is not ported yet: ROADMAP.md {item}")
     cfg = Config.from_yaml(args.config) if args.config else Config()
 
     overrides = list(args.set)
@@ -118,16 +119,38 @@ def build_datasets(cfg, synthetic: bool):
     return train, val
 
 
+def mesh_from_args(args):
+    """The mesh of ``--mesh`` / ``--multihost`` after joining the process
+    group (a launcher's environment is read with ``--mesh`` alone), or
+    None to train in this process alone."""
+    if not (args.mesh or args.multihost):
+        return None
+    from ..parallel import create_mesh, initialize_distributed
+
+    if args.multihost:
+        initialize_distributed(args.coordinator, args.num_processes, args.process_id,
+                               device=args.device)
+    else:
+        initialize_distributed(device=args.device)
+    if args.mesh:
+        d, m = (int(x) for x in args.mesh.split(","))
+        return create_mesh((d, m), device=args.device)
+    return create_mesh(device=args.device)
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     from ..training.trainer import Trainer
 
-    trainer = Trainer(cfg, *build_datasets(cfg, args.synthetic), device=args.device)
+    mesh = mesh_from_args(args)
+    trainer = Trainer(cfg, *build_datasets(cfg, args.synthetic), device=args.device,
+                      mesh=mesh)
     if args.resume:
         trainer.load_checkpoint(args.resume)
     metrics = trainer.train()
-    print({k: round(v, 5) for k, v in metrics.items()})
+    if trainer.is_main_process:
+        print({k: round(v, 5) for k, v in metrics.items()})
 
 
 if __name__ == "__main__":

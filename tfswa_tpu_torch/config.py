@@ -6,9 +6,8 @@ overrides, so that configs carry over field for field.  The port keeps its
 own copy: it imports nothing of the JAX package.
 
 Unlike the JAX ``from_dict``, which drops unknown keys, the port raises on
-them.  The fields the port does not read yet (``UNPORTED``: the device
-mesh) load only at the JAX default and raise, naming the field, at any
-other value.
+them.  ``ModelConfig.attn_chunk_size``, which the port does not read, loads
+only at the JAX default and raises, naming the field, at any other value.
 """
 from __future__ import annotations
 
@@ -52,13 +51,21 @@ class ModelConfig:
     # (torch._int_mm on the card; serving only).  The names are the JAX
     # package's, so configs carry over.
     attention_impl: str = "xla"
-    # Unused by the port: its plain route chunks rows by the bytes of the
-    # score planes (ops/fused_block.MAX_SCORE_BYTES; SWA by
-    # models/attention.SWA_CHUNK_BYTES), not by a row count.
+    # Not read by the port, and refused at any value but the JAX default:
+    # its plain route chunks rows by the bytes of the score planes
+    # (ops/fused_block.MAX_SCORE_BYTES; SWA by models/attention.SWA_CHUNK_BYTES),
+    # not by a row count, which at 16 would multiply its host-bound loop.
     attn_chunk_size: int = 16
     remat: bool = False           # torch.utils.checkpoint around each TFSWABlock
     dtype: str = "float32"        # compute dtype ("float32" | "bfloat16")
     param_dtype: str = "float32"  # only "float32" is ported
+
+    def __post_init__(self):
+        if self.attn_chunk_size != 16:
+            raise NotImplementedError(
+                f"model.attn_chunk_size={self.attn_chunk_size!r} is not read by the port "
+                "(only the JAX default 16 loads): its plain route chunks rows by the "
+                "bytes of the score planes")
 
 
 @dataclass
@@ -162,20 +169,14 @@ class EvalConfig:
         return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
-# JAX config fields the port does not read yet: (section, field) -> (the JAX
-# default, the ROADMAP.md item that ports it).  They load at the default only.
-UNPORTED = {
-    ("mesh", "data_axis"): (-1, "queue 1 item 12 (parallel)"),
-    ("mesh", "model_axis"): (1, "queue 1 item 12 (parallel)"),
-}
+@dataclass
+class MeshConfig:
+    """The (data, model) mesh of ranks (``parallel/mesh.py``): one rank is
+    one process on one card.  ``data_axis`` -1 takes the world size divided
+    by ``model_axis``."""
 
-
-def _check_unported(section: str, attr: str, value: Any) -> None:
-    default, item = UNPORTED[(section, attr)]
-    if value != default:
-        raise NotImplementedError(
-            f"{section}.{attr}={value!r} is not ported (only the default {default!r} "
-            f"loads): ROADMAP.md {item}")
+    data_axis: int = -1
+    model_axis: int = 1
 
 
 @dataclass
@@ -185,6 +186,7 @@ class Config:
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
     # ------------------------------------------------------------------ io
     def to_dict(self) -> dict:
@@ -197,20 +199,16 @@ class Config:
         sections = {f.name: f.default_factory for f in dataclasses.fields(cls)}
         kwargs = {}
         for name, sub in (d or {}).items():
-            if name not in sections and not any(s == name for s, _ in UNPORTED):
+            if name not in sections:
                 raise ValueError(f"unknown config section {name!r}")
-            sub_cls = sections.get(name)
-            valid = _field_names(sub_cls) if sub_cls else set()
+            sub_cls = sections[name]
+            valid = _field_names(sub_cls)
             filtered = {}
             for k, v in (sub or {}).items():
-                if (name, k) in UNPORTED:
-                    _check_unported(name, k, v)
-                    continue
                 if k not in valid:
                     raise ValueError(f"unknown config key {name}.{k}")
                 filtered[k] = tuple(v) if isinstance(v, list) else v
-            if sub_cls:
-                kwargs[name] = sub_cls(**filtered)
+            kwargs[name] = sub_cls(**filtered)
         return cls(**kwargs)
 
     def to_yaml(self, path: str) -> None:
@@ -233,10 +231,6 @@ class Config:
         for ov in overrides:
             key, _, raw = ov.partition("=")
             section, _, attr = key.strip().partition(".")
-            if (section, attr) in UNPORTED:
-                _check_unported(section, attr,
-                                _parse_value(raw, UNPORTED[(section, attr)][0]))
-                continue
             sub = getattr(cfg, section) if section in _field_names(cfg) else None
             if sub is None or attr not in _field_names(sub):
                 raise ValueError(f"unknown config key {key.strip()!r}")

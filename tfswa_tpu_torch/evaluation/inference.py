@@ -22,6 +22,14 @@ CUDA event that the collecting side waits on.  PyTorch's pinned-memory
 allocator records each copy's event and reuses no buffer until it has
 passed.  So the host can queue the next window, or the next track
 (``separate_stream``), while the card works.
+
+Under a mesh (``mesh=``, every rank calling with the same track) each
+batch of segments is split over the data axis: each data rank separates
+``bs / d`` of them (through the tensor-parallel model when the model axis
+has more than one rank) and the stems are gathered to every rank, so that
+the overlap-add, and the result, are the same on each.  The batch is
+rounded up to a multiple of d, the device OLA picks its batch from the
+multiples of d, and a track of one segment or less is padded to d rows.
 """
 from __future__ import annotations
 
@@ -37,6 +45,8 @@ from ..models.tfswa_unet import TFSWAUNet
 from ..ops.masking import (apply_direct_masks, apply_magnitude_masks,
                            trainer_masked_complex)
 from ..ops.stft import STFTProcessor, SpectrogramNormalizer, get_window
+from ..parallel.comm import gather_rows
+from ..parallel.sharding import load_whole_state_dict, shard_model
 
 # int16 transfer scaling: 4x headroom over full-scale audio.
 _INT16_SCALE = 8192.0
@@ -65,7 +75,7 @@ class SourceSeparator:
                  stem_names: Sequence[str] = ("vocals", "other"),
                  segment_batch: int = 8, transfer_dtype: str = "float32",
                  device_ola: bool = False, ola_bucket_seconds: float = 60.0,
-                 freq_policy: str = "full", device="cuda"):
+                 freq_policy: str = "full", device="cuda", mesh=None):
         if transfer_dtype not in _TRANSFER_DTYPES:
             raise ValueError(f"unknown transfer_dtype {transfer_dtype!r} (known: "
                              f"{_TRANSFER_DTYPES})")
@@ -73,6 +83,11 @@ class SourceSeparator:
             raise ValueError(f"unknown freq_policy {freq_policy!r}")
         if mask_mode not in ("trainer", "mag_direct", "direct"):
             raise ValueError(f"unknown mask_mode {mask_mode!r}")
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.device
+            if getattr(model, "mesh", None) is not mesh:
+                model = shard_model(model, mesh)
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.stft_processor = stft_processor
@@ -81,7 +96,9 @@ class SourceSeparator:
         self.overlap = overlap
         self.mask_mode = mask_mode
         self.default_stems = tuple(stem_names)
-        self.segment_batch = segment_batch
+        self.data_ranks = 1 if mesh is None else mesh.data.size
+        # every data rank gets equal work
+        self.segment_batch = -(-segment_batch // self.data_ranks) * self.data_ranks
         # "int8": the device-OLA windows come back as int8 with a scale a
         # stem; everything else rides float16
         self.int8_output = transfer_dtype == "int8"
@@ -100,6 +117,11 @@ class SourceSeparator:
         self.n_stems = model.out_channels // 2
         # in_channels 2: mono [re, im]; 4: mono duplicated to stereo
         self.model_audio_channels = model.in_channels // 2
+
+    def update_variables(self, state_dict) -> None:
+        """Load new weights (a whole state_dict) into the model, cut to the
+        rank's shards under a mesh."""
+        load_whole_state_dict(self.model, state_dict)
 
     # ----------------------------------------------------- transfer codecs
     def _encode_host(self, x: np.ndarray) -> np.ndarray:
@@ -155,7 +177,17 @@ class SourceSeparator:
     # --------------------------------------------------------------- core
     def _separate_batch(self, segments: torch.Tensor) -> torch.Tensor:
         """(B, S) encoded mono segments -> (B, n_stems, S) encoded."""
-        return self._encode_dev(self._separate_core(self._decode_dev(segments)))
+        return self._encode_dev(self._separate_rows(self._decode_dev(segments)))
+
+    def _separate_rows(self, segments: torch.Tensor) -> torch.Tensor:
+        """:meth:`_separate_core` of (B, S) segments; under a mesh this
+        data rank's B / d of them, the stems gathered over the data axis."""
+        if self.mesh is None:
+            return self._separate_core(segments)
+        axis = self.mesh.data
+        b = segments.shape[0] // axis.size
+        return gather_rows(self._separate_core(segments[axis.index * b:(axis.index + 1) * b]),
+                           axis)
 
     def _separate_core(self, segments: torch.Tensor) -> torch.Tensor:
         """(B, S) mono segments -> (B, n_stems, S) separated audio (f32)."""
@@ -201,13 +233,15 @@ class SourceSeparator:
         idx = (torch.arange(K, device=dev)[:, None] * hop
                + torch.arange(seg, device=dev)[None, :])
         segments = self._decode_dev(window)[idx]             # (K, seg)
-        # least padding, then the largest batch <= segment_batch
-        bs = min(range(1, self.segment_batch + 1),
+        # least padding, then the largest batch <= segment_batch, from the
+        # multiples of the data ranks
+        d = self.data_ranks
+        bs = min(range(d, self.segment_batch + 1, d),
                  key=lambda b: ((-(-K // b)) * b - K, -b))
         nb = -(-K // bs)
         if nb * bs > K:
             segments = torch.nn.functional.pad(segments, (0, 0, 0, nb * bs - K))
-        outs = torch.cat([self._separate_core(segments[i * bs:(i + 1) * bs])
+        outs = torch.cat([self._separate_rows(segments[i * bs:(i + 1) * bs])
                           for i in range(nb)])[:K]           # (K, n_stems, seg)
         valid = (torch.arange(K, device=dev) < n_valid).float()
         hann = self._put(_hann(seg))
@@ -294,7 +328,9 @@ class SourceSeparator:
         total = audio.shape[1]
         seg = self.segment_samples
         if total <= seg:
+            # one row a data rank
             block = self._encode_host(np.pad(audio[0], (0, seg - total)))[None]
+            block = np.pad(block, ((0, self.data_ranks - 1), (0, 0)))
             out = self._decode_host(self._host(self._fetch(
                 self._separate_batch(self._put(block)))))[0, :, :total]
             return {name: out[i:i + 1] for i, name in enumerate(stems)}
@@ -449,6 +485,7 @@ def load_separator_from_checkpoint(
     eval_config: Optional[EvalConfig] = None,
     stem_names: Sequence[str] = ("vocals", "other"),
     device="cuda",
+    mesh=None,
 ) -> SourceSeparator:
     """A SourceSeparator from a checkpoint: a PyTorch ``.pt`` / ``.pth``
     file in the reference's state_dict naming, or a directory the port's
@@ -459,7 +496,9 @@ def load_separator_from_checkpoint(
     that the compute dtype and ``attention_impl`` trained with come back.
     A directory with neither raises ``ValueError``.  Every EvalConfig knob
     is honoured (``EvalConfig.fast_serving()`` for the serving preset); the
-    STFT runs in float32 whatever ``stft_precision`` says."""
+    STFT runs in float32 whatever ``stft_precision`` says.  With a ``mesh``
+    the whole model is put on it (``parallel.sharding.shard_model``) and
+    the separator splits its batches over the data axis."""
     from ..training.checkpointing import restore_variables
 
     stft_config = stft_config or STFTConfig()
@@ -502,4 +541,5 @@ def load_separator_from_checkpoint(
         ola_bucket_seconds=eval_config.ola_bucket_seconds,
         freq_policy=eval_config.freq_policy,
         device=device,
+        mesh=mesh,
     )

@@ -44,6 +44,22 @@ row block carries in ``act_scales`` (set by ``optimization/quantization.py``,
 kept out of the state_dict); with ``act_stats`` set to a dict, a block
 records the running max of the scales it used (calibration).  Masked SWA
 under ``"int8"`` takes the float plain route, as in JAX.
+
+Under tensor parallelism (``parallel/sharding.shard_model``: a row block's
+``tp`` is a model axis of more than one rank) each rank holds the q, k and
+v columns of its ``H / m`` heads, the matching rows of ``proj_kernel``,
+its columns of fc1 (and of its bias) and rows of fc2:
+  - the plain route (``"xla"``, and every masked or dropout block on any
+    route) runs Megatron's form: the local heads' attention, the local
+    out-projection summed over the axis, then ``+ proj_bias`` and the
+    residual; LN2, the local fc1 columns and GELU, the local fc2 rows
+    summed over the axis, then ``+ fc2_bias`` and the residual.  Dropout
+    draws each mask whole from the block's generator and keeps its slice;
+  - the kernel routes (``"pallas"``, ``"pallas_int8"``, ``"pallas_attn"``,
+    ``"int8"``) gather the block's weights over the axis and run the whole
+    block on every model rank (B1 fuses proj, LN2 and the MLP in one
+    launch: there is no point for a sum to go); the weight gradients come
+    back narrowed to the shards.
 """
 from __future__ import annotations
 
@@ -61,6 +77,7 @@ from ..ops.fused_block import fused_row_block, fused_row_block_int8, layer_norm_
 from ..ops.int8 import int8_row_block
 from ..ops.row_attention import dropout, flash_row_attention, mha_rows
 from ..ops.windowing import swin_mask_table, window_partition, window_reverse
+from ..parallel.comm import copy_to, gather_shard, reduce_from
 from .layers import gelu, init_weights
 
 ATTENTION_IMPLS = ("pallas", "pallas_int8", "pallas_attn", "xla", "int8")
@@ -105,15 +122,23 @@ def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> tor
 
 
 def _mlp_half(rows: torch.Tensor, p: RowBlockParams, dropout_rate: float = 0.0,
-              generator=None) -> torch.Tensor:
+              generator=None, tp=None) -> torch.Tensor:
     """rows + MLP(LN2(rows)) in the rows' dtype; with ``generator``, dropout
-    after the GELU and after fc2."""
+    after the GELU and after fc2.  Under tensor parallelism (``tp``) fc1's
+    columns and fc2's rows are this rank's, and fc2's product is summed
+    over the axis, in f32, before its bias."""
     dt = rows.dtype
     h = _layer_norm(rows, p.norm2_scale, p.norm2_bias)
+    if tp is not None:
+        h = copy_to(h, tp)
     h = gelu(h @ p.fc1_kernel.to(dt) + p.fc1_bias.to(dt))
     if generator is not None:
-        h = dropout(h, dropout_rate, generator)
-    h = h @ p.fc2_kernel.to(dt) + p.fc2_bias.to(dt)
+        h = dropout(h, dropout_rate, generator) if tp is None else \
+            dropout(h, dropout_rate, generator, (2, tp.index, tp.size))
+    h = h @ p.fc2_kernel.to(dt)
+    if tp is not None:
+        h = reduce_from(h.float(), tp).to(dt)
+    h = h + p.fc2_bias.to(dt)
     if generator is not None:
         h = dropout(h, dropout_rate, generator)
     return rows + h
@@ -126,20 +151,26 @@ def _plain_attn(rows: torch.Tensor, p: RowBlockParams, num_heads: int) -> torch.
 
 
 def _plain_block(rows: torch.Tensor, p: RowBlockParams, num_heads: int, mask=None,
-                 mask_idx=None, dropout_rate: float = 0.0, seed=None) -> torch.Tensor:
+                 mask_idx=None, dropout_rate: float = 0.0, seed=None, tp=None) -> torch.Tensor:
     """The plain block on rows (R, N, C): rows + MHA(LN(rows)), then
     + MLP(LN(.)), in the rows' dtype with f32 LN statistics and softmax.
     ``mask``: an additive (R or 1, 1, N, N) mask, or with ``mask_idx`` (R,)
     a pattern table (K, 1, N, N) gathered here.  ``seed``: dropout at
     ``dropout_rate`` from a generator built here, drawn at the weights, then
-    after the GELU, then after fc2."""
+    after the GELU, then after fc2.  ``tp``: Megatron tensor parallelism
+    over that model axis, ``p`` holding this rank's shards (its
+    ``num_heads / tp.size`` heads) and every dropout mask drawn whole."""
     if mask_idx is not None:
         mask = mask[mask_idx]
     gen = None if seed is None else torch.Generator(device=rows.device).manual_seed(seed)
     normed = _layer_norm(rows, p.norm1_scale, p.norm1_bias)
-    attn = mha_rows(normed, p.qkv_kernel, p.proj_kernel, p.proj_bias, num_heads, mask,
-                    dropout_rate, gen)
-    return _mlp_half(rows + attn, p, dropout_rate, gen)
+    heads = num_heads
+    if tp is not None:
+        normed = copy_to(normed, tp)
+        heads = num_heads // tp.size
+    attn = mha_rows(normed, p.qkv_kernel, p.proj_kernel, p.proj_bias, heads, mask,
+                    dropout_rate, gen, tp)
+    return _mlp_half(rows + attn, p, dropout_rate, gen, tp)
 
 
 def _bilinear_attn(rows: torch.Tensor, p: RowBlockParams, num_heads: int) -> torch.Tensor:
@@ -210,7 +241,7 @@ class _BilinearBlock(torch.autograd.Function):
 def row_transformer_block(rows: torch.Tensor, p: RowBlockParams, num_heads: int, *,
                           attention_impl: str = "xla", mask=None, dropout_rate: float = 0.0,
                           dropout_seed: Optional[int] = None,
-                          chunk_rows: Optional[int] = None) -> torch.Tensor:
+                          chunk_rows: Optional[int] = None, tp=None) -> torch.Tensor:
     """Pre-LN transformer block on rows (R, N, C):
     rows + MHA(LN(rows)); then + MLP(LN(.)).
 
@@ -218,14 +249,17 @@ def row_transformer_block(rows: torch.Tensor, p: RowBlockParams, num_heads: int,
     (K, 1, N, N), idx (R,))``.  Dropout is active with ``dropout_rate`` > 0
     and a ``dropout_seed``.  Either sends the block to the plain route, a
     chunk of ``chunk_rows`` rows at a time (default: a score plane of
-    MAX_SCORE_BYTES), chunk i drawing from ``sub_seed(dropout_seed, i)``.
-    ``"int8"`` here is the plain route: the modules run its int8 block."""
+    MAX_SCORE_BYTES at all ``num_heads`` heads), chunk i drawing from
+    ``sub_seed(dropout_seed, i)``.  ``"int8"`` here is the plain route: the
+    modules run its int8 block.  ``tp`` (a model axis of more than one
+    rank, ``p`` its rank's shards) runs the plain route as Megatron tensor
+    parallelism whatever the route, in the same chunks."""
     check_attention_impl(attention_impl)
     mask_idx = None
     if isinstance(mask, tuple):
         mask, mask_idx = mask
     use_dropout = dropout_rate > 0.0 and dropout_seed is not None
-    if mask is None and not use_dropout:
+    if mask is None and not use_dropout and tp is None:
         if attention_impl == "pallas":
             return fused_row_block(rows.contiguous(), p, num_heads)
         if attention_impl == "pallas_int8":
@@ -238,7 +272,7 @@ def row_transformer_block(rows: torch.Tensor, p: RowBlockParams, num_heads: int,
     rate = dropout_rate if use_dropout else 0.0
     if R <= chunk:
         return _plain_block(rows, p, num_heads, mask, mask_idx, rate,
-                            sub_seed(dropout_seed, 0) if use_dropout else None)
+                            sub_seed(dropout_seed, 0) if use_dropout else None, tp)
     per_row = mask is not None and mask_idx is None and mask.shape[0] == R
     remat = torch.is_grad_enabled()     # else the chunks go into one output
     out = None if remat else torch.empty_like(rows)
@@ -251,7 +285,7 @@ def row_transformer_block(rows: torch.Tensor, p: RowBlockParams, num_heads: int,
         elif per_row:
             m = mask[s]
         args = (rows[s], p, num_heads, m, mi, rate,
-                sub_seed(dropout_seed, i) if use_dropout else None)
+                sub_seed(dropout_seed, i) if use_dropout else None, tp)
         y = checkpoint(_plain_block, *args, use_reentrant=False) if remat else _plain_block(*args)
         if out is None:
             outs.append(y)
@@ -327,6 +361,9 @@ class _RowBlock(nn.Module):
         self.num_heads = num_heads
         self.attention_impl = attention_impl
         self.dropout = dropout
+        # the model axis this block's weights are split over (tensor
+        # parallelism, set by parallel.sharding.shard_model), or None
+        self.tp = None
         self.act_scales: Optional[dict] = None
         self.act_stats: Optional[dict] = None
         self.norm1 = nn.LayerNorm(dim)
@@ -337,17 +374,24 @@ class _RowBlock(nn.Module):
         self.mlp = nn.Sequential(nn.Linear(dim, hidden), nn.GELU(), nn.Dropout(0.0),
                                  nn.Linear(hidden, dim))
 
-    def params(self) -> RowBlockParams:
+    def params(self, whole: bool = False) -> RowBlockParams:
+        """The block's parameters in the JAX layout: under tensor
+        parallelism this rank's shards, or with ``whole`` the weights
+        gathered over the model axis (gradients narrowed back)."""
+        g = lambda t, dim, parts=1: t                    # noqa: E731
+        if whole and self.tp is not None:
+            g = lambda t, dim, parts=1: gather_shard(t, self.tp, dim, parts)  # noqa: E731
         return RowBlockParams(
             norm1_scale=self.norm1.weight, norm1_bias=self.norm1.bias,
-            qkv_kernel=self.attn.qkv.weight.t(),
-            proj_kernel=self.attn.proj.weight.t(), proj_bias=self.attn.proj.bias,
+            qkv_kernel=g(self.attn.qkv.weight, 0, 3).t(),
+            proj_kernel=g(self.attn.proj.weight, 1).t(), proj_bias=self.attn.proj.bias,
             norm2_scale=self.norm2.weight, norm2_bias=self.norm2.bias,
-            fc1_kernel=self.mlp[0].weight.t(), fc1_bias=self.mlp[0].bias,
-            fc2_kernel=self.mlp[3].weight.t(), fc2_bias=self.mlp[3].bias)
+            fc1_kernel=g(self.mlp[0].weight, 0).t(), fc1_bias=g(self.mlp[0].bias, 0),
+            fc2_kernel=g(self.mlp[3].weight, 1).t(), fc2_bias=self.mlp[3].bias)
 
     def _int8_block(self, rows: torch.Tensor) -> torch.Tensor:
-        out, used = int8_row_block(rows, self.params(), self.num_heads, self.act_scales)
+        out, used = int8_row_block(rows, self.params(whole=True), self.num_heads,
+                                   self.act_scales)
         if self.act_stats is not None:
             for k, v in used.items():
                 self.act_stats[k] = v if k not in self.act_stats \
@@ -356,12 +400,17 @@ class _RowBlock(nn.Module):
 
     def _rows(self, rows: torch.Tensor, dropout_seed: Optional[int] = None, mask=None,
               chunk_rows: Optional[int] = None) -> torch.Tensor:
+        rate = self.dropout if self.training else 0.0
+        plain = mask is not None or (rate > 0.0 and dropout_seed is not None)
         if self.attention_impl == "int8" and mask is None:
             return self._int8_block(rows)
+        # tensor parallelism: Megatron on the plain route, else the whole
+        # block on the gathered weights
+        tp = self.tp if plain or self.attention_impl == "xla" else None
         return row_transformer_block(
-            rows, self.params(), self.num_heads, attention_impl=self.attention_impl,
-            mask=mask, dropout_rate=self.dropout if self.training else 0.0,
-            dropout_seed=dropout_seed, chunk_rows=chunk_rows)
+            rows, self.params(whole=tp is None), self.num_heads,
+            attention_impl=self.attention_impl, mask=mask, dropout_rate=rate,
+            dropout_seed=dropout_seed, chunk_rows=chunk_rows, tp=tp)
 
 
 class TemporalSequenceAttention(_RowBlock):

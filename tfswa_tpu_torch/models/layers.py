@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.comm import average_over
+
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU."""
@@ -59,7 +61,11 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
         return (y * bn.weight + bn.bias).to(x.dtype)
     xf = x.float()
     mean = xf.mean(dim=(0, 1, 2))
-    var = (xf.square().mean(dim=(0, 1, 2)) - mean.square()).clamp_min(0.0)
+    mean_sq = xf.square().mean(dim=(0, 1, 2))
+    axis = getattr(bn, "sync_axis", None)
+    if axis is not None:
+        mean, mean_sq = average_over(torch.stack([mean, mean_sq]), axis).unbind(0)
+    var = (mean_sq - mean.square()).clamp_min(0.0)
     if not getattr(bn, "stats_frozen", False):
         with torch.no_grad():
             m = bn.momentum

@@ -25,6 +25,11 @@ train mode when ``forward`` gets a ``generator``: one seed a block from it,
 passed into the (checkpointed) block, so that a remat recompute draws the
 same masks.  It sends every row block to the plain route, as the JAX
 model does.  In eval mode it is a no-op and the kernel routes run.
+
+Under a mesh (``parallel/sharding.shard_model``) ``bn_axis`` is the data
+axis, over which every train-mode BatchNorm averages its statistics (the
+JAX model's ``bn_axis_name``), and ``tp_axis`` the model axis the row
+blocks' weights are split over (``models/attention.py``).
 """
 from __future__ import annotations
 
@@ -113,6 +118,23 @@ class TFSWAUNet(nn.Module):
                    tuple(cfg.dims), cfg.window_size, cfg.shift_size, cfg.num_heads,
                    cfg.mlp_ratio, cfg.attention_impl, cfg.use_shift_mask,
                    _DTYPES[cfg.dtype], cfg.remat, generator, cfg.dropout)
+
+    @property
+    def bn_axis(self):
+        """The mesh axis train-mode BatchNorm statistics are averaged over
+        (None: this process's batch alone)."""
+        return getattr(self.stem[1], "sync_axis", None)
+
+    @bn_axis.setter
+    def bn_axis(self, axis) -> None:
+        for m in self.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                m.sync_axis = axis
+
+    @property
+    def tp_axis(self):
+        """The model axis the row blocks' weights are split over, or None."""
+        return next((m.tp for m in self.modules() if hasattr(m, "tp")), None)
 
     def count_parameters(self) -> int:
         return sum(p.numel() for p in self.parameters())

@@ -24,6 +24,7 @@ import ctypes
 
 import torch
 
+from ..parallel.comm import reduce_from
 from . import _build
 from .fused_block import MAX_SCORE_BYTES, MAX_SMEM_BYTES
 
@@ -70,23 +71,35 @@ def bilinear_weights(qkv_kernel: torch.Tensor, num_heads: int):
     return torch.einsum("hcd,hed->hce", wq, wk) * D ** -0.5, qkv_kernel[:, 2 * C:]
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+            part=None) -> torch.Tensor:
     """Inverted dropout with torch ``nn.Dropout``'s semantics (the JAX
     package's ``_dropout``): each element kept with probability 1 - rate
     and scaled by 1 / (1 - rate), in x's dtype.  The keep mask is drawn
-    from ``generator``, which lies on x's device."""
+    from ``generator``, which lies on x's device.  ``part`` (dim, index,
+    parts): ``x`` is piece ``index`` of ``parts`` along ``dim`` of the
+    whole tensor (a tensor-parallel shard); the whole mask is drawn and
+    that piece of it kept, so that the bits are the whole tensor's."""
     keep = 1.0 - rate
-    kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = list(x.shape)
+    if part is not None:
+        shape[part[0]] *= part[2]
+    kept = torch.rand(shape, generator=generator, device=x.device) < keep
+    if part is not None:
+        n = x.shape[part[0]]
+        kept = kept.narrow(part[0], part[1] * n, n)
     return torch.where(kept, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
-                   mask=None, dropout_rate: float = 0.0, generator=None) -> torch.Tensor:
+                   mask=None, dropout_rate: float = 0.0, generator=None,
+                   tp=None) -> torch.Tensor:
     """Multi-head softmax(q k^T / sqrt(D)) v on (R, N, C) q, k, v -> (R, N, C)
     in q's dtype, the scores and softmax in f32.  ``mask``, if given, is
     additive, (R or 1, 1, N, N) f32, on the scores (query n, key m at
     [.., n, m]).  With ``generator``, dropout at ``dropout_rate`` on the
-    weights after their cast to q's dtype (the reference's site)."""
+    weights after their cast to q's dtype (the reference's site); ``tp``
+    (the model axis) when these are its rank's heads of the whole block."""
     dt = q.dtype
     R, N, C = q.shape
     H = num_heads
@@ -97,22 +110,29 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads:
         scores = scores + mask
     weights = torch.softmax(scores, dim=-1).to(dt)
     if dropout_rate > 0.0 and generator is not None:
-        weights = dropout(weights, dropout_rate, generator)
+        weights = dropout(weights, dropout_rate, generator) if tp is None else \
+            dropout(weights, dropout_rate, generator, (1, tp.index, tp.size))
     return (weights @ vh).transpose(1, 2).reshape(R, N, C)
 
 
 def mha_rows(rows: torch.Tensor, qkv_kernel: torch.Tensor, proj_kernel: torch.Tensor,
              proj_bias: torch.Tensor, num_heads: int, mask=None, dropout_rate: float = 0.0,
-             generator=None) -> torch.Tensor:
+             generator=None, tp=None) -> torch.Tensor:
     """The plain multi-head self-attention over rows (R, N, C) -> (R, N, C),
     in the rows' dtype with f32 scores and softmax; ``mask``, dropout as in
-    :func:`attention_core`."""
+    :func:`attention_core`.  Under tensor parallelism (``tp``, the model
+    axis) the kernels are this rank's shards (the q, k and v columns of
+    its ``num_heads`` heads, the matching rows of ``proj_kernel``), and the
+    out-projection is summed over the axis, in f32, before the bias."""
     dt = rows.dtype
-    C = rows.shape[2]
+    C = qkv_kernel.shape[1] // 3
     qkv = rows @ qkv_kernel.to(dt)
     out = attention_core(qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:], num_heads,
-                         mask, dropout_rate, generator)
-    return out @ proj_kernel.to(dt) + proj_bias.to(dt)
+                         mask, dropout_rate, generator, tp)
+    out = out @ proj_kernel.to(dt)
+    if tp is not None:
+        out = reduce_from(out.float(), tp).to(dt)
+    return out + proj_bias.to(dt)
 
 
 def flash_row_attention_reference_parts(rows: torch.Tensor, qkv_kernel: torch.Tensor,

@@ -93,6 +93,13 @@ def istft(spec: torch.Tensor, n_fft: int = 2048, hop_length: int = 512,
     return out.reshape(*lead, out.shape[-1])
 
 
+def num_frames(num_samples: int, n_fft: int, hop_length: int, center: bool = True) -> int:
+    """Frame count of a signal of ``num_samples``."""
+    if center:
+        return 1 + num_samples // hop_length
+    return 1 + (num_samples - n_fft) // hop_length
+
+
 class STFTProcessor:
     """STFT front end with the JAX package's API surface."""
 
@@ -135,6 +142,16 @@ class STFTProcessor:
     def to_model_input(complex_spec: torch.Tensor) -> torch.Tensor:
         """complex (B, C, F, T) -> real (B, 2C, F, T) as [re..., im...]."""
         return torch.cat([complex_spec.real, complex_spec.imag], dim=1)
+
+    @staticmethod
+    def from_model_output(model_output: torch.Tensor,
+                          mixture_spec: torch.Tensor) -> torch.Tensor:
+        """Masks (B, n_stems * C, F, T) times the mixture (B, C, F, T) ->
+        (B, n_stems, C, F, T) complex."""
+        B, _, F, T = model_output.shape
+        C = mixture_spec.shape[1]
+        masks = model_output.reshape(B, model_output.shape[1] // C, C, F, T)
+        return mixture_spec[:, None] * masks
 
 
 class SpectrogramNormalizer:

@@ -17,6 +17,13 @@ Where the JAX package writes orbax trees, a checkpoint here is one
   - ``meta``: epoch, global_step, best_val_loss;
   - ``config``: the ModelConfig as a flat dict.
 Only the newest ``keep`` epoch directories stay.
+
+Under a mesh the tree is always in the whole (JAX) layout: every rank
+builds it (:func:`checkpoint_tree` gathers the tensor-parallel shards of
+the weights and of AdamW's moments over the model axis) and rank 0 alone
+writes it; every rank reads it back and :func:`load_checkpoint_tree` cuts
+it to its shards.  So a checkpoint written under any mesh loads under any
+other, or on one card.
 """
 from __future__ import annotations
 
@@ -29,8 +36,48 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..config import Config
+from ..parallel.comm import gather_shards, shard_of
+from ..parallel.sharding import gather_state_dict, load_whole_state_dict, tp_split
 
 CHECKPOINT_FILE = "checkpoint.pt"
+
+
+def _map_moments(opt: Dict, model, fn) -> Dict:
+    """A ``ClippedAdamW.state_dict()`` with the moments of each
+    tensor-parallel parameter passed through ``fn(tensor, (dim, blocks))``."""
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    adam = dict(opt["adamw"])
+    adam["state"] = {i: dict(st) for i, st in adam["state"].items()}
+    for i, st in adam["state"].items():
+        split = tp_split(names[int(i)])
+        if split is not None:
+            for k in ("exp_avg", "exp_avg_sq"):
+                st[k] = fn(st[k], split)
+    return dict(opt, adamw=adam)
+
+
+def checkpoint_tree(state) -> Dict:
+    """The model's state_dict and the optimizer's state in the whole
+    layout: under tensor parallelism gathered over the model axis (a
+    collective, which every rank of the axis calls)."""
+    opt = state.tx.state_dict()
+    axis = state.model.tp_axis
+    if axis is not None:
+        opt = _map_moments(opt, state.model, lambda t, split: gather_shards(
+            t.contiguous(), axis, *split))
+    return {"model_state_dict": gather_state_dict(state.model), "optimizer": opt}
+
+
+def load_checkpoint_tree(state, tree: Dict) -> None:
+    """Load a checkpoint's model and optimizer state (whole layout) into
+    ``state``, cut to this rank's shards under tensor parallelism."""
+    load_whole_state_dict(state.model, tree["model_state_dict"])
+    opt = tree["optimizer"]
+    axis = state.model.tp_axis
+    if axis is not None:
+        opt = _map_moments(opt, state.model, lambda t, split: shard_of(
+            t, split[0], split[1], axis.index, axis.size).clone())
+    state.tx.load_state_dict(opt)
 
 
 def _replace_dir(tmp: str, path: str) -> None:
@@ -55,14 +102,13 @@ class CheckpointManager:
              is_best: bool = False) -> str:
         """Write the epoch's checkpoint, copy it to ``latest`` (and to
         ``best`` when flagged), drop the epochs past ``keep``.  Each
-        directory is written beside its place and then moved there."""
-        tree = {
-            "model_state_dict": state.model.state_dict(),
-            "optimizer": state.tx.state_dict(),
-            "meta": {"epoch": epoch, "global_step": global_step,
-                     "best_val_loss": best_val_loss},
-            "config": self.model_config,
-        }
+        directory is written beside its place and then moved there.  Under
+        tensor parallelism the other model ranks call
+        :func:`checkpoint_tree` meanwhile (its gather is a collective)."""
+        tree = checkpoint_tree(state)
+        tree.update(meta={"epoch": epoch, "global_step": global_step,
+                          "best_val_loss": best_val_loss},
+                    config=self.model_config)
         path = os.path.join(self.ckpt_dir, f"epoch_{epoch:06d}")
         tmp = path + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
@@ -87,11 +133,16 @@ class CheckpointManager:
     def restore(self, which: str = "latest") -> Tuple[Dict, Dict]:
         """(checkpoint dict, its meta) of ``which``: "latest", "best" or an
         epoch directory's name, tensors on the CPU."""
-        path = os.path.join(self.ckpt_dir, which, CHECKPOINT_FILE)
-        if not os.path.isfile(path):
-            raise FileNotFoundError(path)
-        tree = torch.load(path, map_location="cpu", weights_only=True)
-        return tree, tree.get("meta", {})
+        return read_checkpoint(self.ckpt_dir, which)
+
+
+def read_checkpoint(ckpt_dir: str, which: str = "latest") -> Tuple[Dict, Dict]:
+    """(checkpoint dict, its meta) of ``ckpt_dir/which``, tensors on the CPU."""
+    path = os.path.join(os.path.abspath(ckpt_dir), which, CHECKPOINT_FILE)
+    if not os.path.isfile(path):
+        raise FileNotFoundError(path)
+    tree = torch.load(path, map_location="cpu", weights_only=True)
+    return tree, tree.get("meta", {})
 
 
 def restore_variables(checkpoint_path: str) -> Tuple[Dict, Optional[Dict]]:

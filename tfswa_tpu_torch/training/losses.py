@@ -52,6 +52,19 @@ def multi_resolution_stft_loss(pred_audio: torch.Tensor, target_audio: torch.Ten
     return _guard(total / len(fft_sizes))
 
 
+class PerceptualLoss:
+    """A stub with the JAX package's API: the reference declares the class
+    and leaves it unimplemented, so calling it raises."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __call__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "PerceptualLoss is a declared-but-unimplemented capability in the "
+            "reference as well (reference: losses.py:296-297)")
+
+
 def source_separation_loss(pred_specs: Dict[str, torch.Tensor],
                            target_specs: Dict[str, torch.Tensor],
                            pred_audios: Optional[Dict[str, torch.Tensor]] = None,

@@ -9,6 +9,15 @@ The JAX step is a pure function of its state; here the state holds the
 model and the optimizer, which the step updates in place (parameters,
 BatchNorm running stats, moments), and returns.  bf16 compute needs no
 loss scaling.
+
+On a mesh (``create_train_state(mesh=)``, ``make_sharded_train_step``)
+each rank runs its ``B / d`` rows end to end; BatchNorm averages its
+statistics over "data" in the forward; after the backward the gradients
+are summed over "data" and divided by d (one ``all_reduce``), before the
+clip, so that ``grad_norm`` is the averaged gradient's, and the losses are
+averaged over "data".  Under tensor parallelism the clip's global norm sums
+the shards' squares over "model" and counts each replicated parameter
+once.
 """
 from __future__ import annotations
 
@@ -24,6 +33,8 @@ from ..models import TFSWAUNet
 from ..models.attention import sub_seed
 from ..ops.masking import apply_magnitude_masks
 from ..ops.stft import STFTProcessor
+from ..parallel.comm import active, all_reduce_
+from ..parallel.sharding import shard_model, tp_split
 from .losses import source_separation_loss
 
 Schedule = Callable[[int], float]
@@ -59,11 +70,22 @@ class ClippedAdamW:
     0.999, 1e-8, weight_decay)): the gradients are scaled by
     max_norm / norm when norm >= max_norm (optax's formula; torch's
     ``clip_grad_norm_`` adds 1e-6 to the norm), then ``torch.optim.AdamW``,
-    whose update is optax's adamw update, runs with lr = schedule(count)."""
+    whose update is optax's adamw update, runs with lr = schedule(count).
+
+    ``model_axis`` (tensor parallelism, more than one rank) with
+    ``sharded`` (a flag a parameter, True for a shard of a split weight):
+    the global norm is the square root of the shards' squares summed over
+    the axis plus the replicated parameters' squares, counted once."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], schedule: Schedule,
-                 max_norm: float, weight_decay: float):
-        self.params = [p for p in params if p.requires_grad]
+                 max_norm: float, weight_decay: float, model_axis=None,
+                 sharded: Optional[Iterable[bool]] = None):
+        params = list(params)
+        flags = [False] * len(params) if sharded is None else list(sharded)
+        keep = [i for i, p in enumerate(params) if p.requires_grad]
+        self.params = [params[i] for i in keep]
+        self.sharded = [flags[i] for i in keep]
+        self.model_axis = model_axis
         self.schedule = schedule
         self.max_norm = max_norm
         self.adamw = torch.optim.AdamW(self.params, lr=schedule(0), betas=(0.9, 0.999),
@@ -77,8 +99,15 @@ class ClippedAdamW:
     def step(self) -> torch.Tensor:
         """Clip, update, count.  Returns the global norm of the gradients
         before the clip (an f32 tensor on the parameters' device)."""
-        grads = [p.grad for p in self.params if p.grad is not None]
-        norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        pairs = [(p.grad, f) for p, f in zip(self.params, self.sharded) if p.grad is not None]
+        grads = [g for g, _ in pairs]
+        if self.model_axis is None:
+            norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        else:
+            split = sum(g.float().square().sum() for g, f in pairs if f)
+            whole = sum(g.float().square().sum() for g, f in pairs if not f)
+            norm = torch.sqrt(all_reduce_(torch.as_tensor(split, device=grads[0].device),
+                                          self.model_axis) + whole)
         keep = norm < self.max_norm
         for g in grads:
             g.copy_(torch.where(keep, g, g / norm * self.max_norm))
@@ -98,12 +127,14 @@ class ClippedAdamW:
 
 
 def make_optimizer(cfg: Config, steps_per_epoch: int,
-                   params: Iterable[torch.nn.Parameter]) -> Tuple[ClippedAdamW, Schedule]:
+                   params: Iterable[torch.nn.Parameter], model_axis=None,
+                   sharded: Optional[Iterable[bool]] = None) -> Tuple[ClippedAdamW, Schedule]:
     """clip-by-global-norm(gradient_clip_val) -> AdamW(weight_decay) on a
-    per-step cosine schedule; returns (optimizer, schedule)."""
+    per-step cosine schedule; returns (optimizer, schedule).  ``model_axis``
+    and ``sharded``: the clip under tensor parallelism (``ClippedAdamW``)."""
     schedule = make_learning_rate_schedule(cfg, steps_per_epoch)
     tx = ClippedAdamW(params, schedule, cfg.train.gradient_clip_val,
-                      cfg.train.weight_decay)
+                      cfg.train.weight_decay, model_axis, sharded)
     return tx, schedule
 
 
@@ -118,13 +149,25 @@ class TrainState:
 
 
 def create_train_state(cfg: Config, steps_per_epoch: int = 1000,
-                       device: str = "cuda") -> Tuple[TFSWAUNet, TrainState]:
+                       device: str = "cuda", mesh=None) -> Tuple[TFSWAUNet, TrainState]:
     """Model from ``cfg.model`` with weights from a ``torch.Generator``
-    seeded with ``cfg.train.seed``, on ``device``, and its optimizer."""
+    seeded with ``cfg.train.seed``, on ``device``, and its optimizer.
+
+    With a ``mesh`` every rank builds the same whole model and
+    ``parallel.sharding.shard_model`` puts it on the mesh (BatchNorm over
+    "data", the split weights cut to the rank's shards, the rank's device
+    in place of ``device``); the clip then takes the model axis."""
     _check_trainable(cfg.model.attention_impl)
     gen = torch.Generator().manual_seed(cfg.train.seed)
-    model = TFSWAUNet.from_config(cfg.model, generator=gen).to(device)
-    tx, _ = make_optimizer(cfg, steps_per_epoch, model.parameters())
+    model = TFSWAUNet.from_config(cfg.model, generator=gen)
+    if mesh is None:
+        model = model.to(device)
+        tx, _ = make_optimizer(cfg, steps_per_epoch, model.parameters())
+    else:
+        model = shard_model(model, mesh)
+        named = list(model.named_parameters())
+        tx, _ = make_optimizer(cfg, steps_per_epoch, [p for _, p in named], model.tp_axis,
+                               [tp_split(n) is not None for n, _ in named])
     return model, TrainState(step=0, model=model, tx=tx)
 
 
@@ -179,7 +222,7 @@ def make_train_step(model: TFSWAUNet, stft_processor: STFTProcessor,
                     spec_augment=None,
                     rng_seed: int = 0, mask_mode: str = "parity",
                     freq_policy: str = "full",
-                    data_axis: Optional[str] = None) -> Callable:
+                    data_axis=None) -> Callable:
     """``train_step(state, mixtures (B, 2, S), targets {stem: (B, 2, S)})
     -> (state, loss_dict)``: the model in train mode (batch-statistics BN,
     every row block through B1-train + B2 on the card), the JAX loss_dict
@@ -197,9 +240,14 @@ def make_train_step(model: TFSWAUNet, stft_processor: STFTProcessor,
     ``use_mrstft`` adds ``mrstft_weight`` times the MR-STFT loss between
     each stem's predicted audio (its masked magnitude under the mixture
     phase, the Nyquist row zero-padded back under crop_pow2, through the
-    iSTFT) and the channel mean of its target audio."""
-    if data_axis is not None:
-        raise NotImplementedError("data_axis (multi-GPU) is not ported yet")
+    iSTFT) and the channel mean of its target audio.
+
+    ``data_axis`` (a mesh's data axis; ``make_sharded_train_step``): this
+    rank's rows of the batch; the gradients summed over the axis and
+    divided by its size before the clip, the losses averaged over it.  The
+    model must average its BatchNorm statistics over the same axis
+    (``model.bn_axis``; ``create_train_state(mesh=)`` sets it)."""
+    _check_data_axis(model, data_axis)
     _check_policy(freq_policy)
     _check_trainable(model.attention_impl)
     n_stems = len(stems)
@@ -226,13 +274,49 @@ def make_train_step(model: TFSWAUNet, stft_processor: STFTProcessor,
             mrstft_weight=mrstft_weight, use_mrstft=use_mrstft)
         state.tx.zero_grad()
         loss_dict["total_loss"].backward()
+        if active(data_axis):
+            _average_gradients(state.tx.params, data_axis)
         grad_norm = state.tx.step()
         state.step += 1
-        loss_dict = {k: v.detach().float() for k, v in loss_dict.items()}
+        loss_dict = _average_losses({k: v.detach().float() for k, v in loss_dict.items()},
+                                    data_axis)
         loss_dict["grad_norm"] = grad_norm
         return state, loss_dict
 
     return train_step
+
+
+def _check_data_axis(model: TFSWAUNet, data_axis) -> None:
+    if data_axis is not None and model.bn_axis is not data_axis:
+        raise ValueError(
+            f"data_axis={data_axis!r} needs the model's BatchNorm statistics averaged over "
+            f"it (model.bn_axis is {model.bn_axis!r}) so that they are the global batch's")
+
+
+def _average_gradients(params, axis) -> None:
+    """Each gradient summed over ``axis`` and divided by its size, in one
+    ``all_reduce`` of the gradients laid end to end."""
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    all_reduce_(flat, axis).div_(axis.size)
+    for g, part in zip(grads, torch.split(flat, [g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def _average_losses(loss_dict: Dict[str, torch.Tensor], axis) -> Dict[str, torch.Tensor]:
+    """The losses averaged over ``axis`` (one ``all_reduce``)."""
+    if not active(axis):
+        return loss_dict
+    flat = all_reduce_(torch.stack(list(loss_dict.values())), axis) / axis.size
+    return dict(zip(loss_dict, flat.unbind(0)))
+
+
+def make_sharded_train_step(model: TFSWAUNet, stft_processor: STFTProcessor,
+                            stems: Tuple[str, ...], mesh, **kwargs) -> Callable:
+    """The data-parallel train step over ``mesh``: :func:`make_train_step`
+    with ``data_axis=mesh.data`` (every rank calls it with its own rows of
+    the batch).  The model must come from ``create_train_state(mesh=)``."""
+    return make_train_step(model, stft_processor, stems, data_axis=mesh.data, **kwargs)
 
 
 def _stem_audio(stft_processor: STFTProcessor, mag: torch.Tensor, phase: torch.Tensor,
@@ -248,12 +332,11 @@ def _stem_audio(stft_processor: STFTProcessor, mag: torch.Tensor, phase: torch.T
 def make_eval_step(model: TFSWAUNet, stft_processor: STFTProcessor,
                    stems: Tuple[str, ...], l1_weight: float = 1.0,
                    mask_mode: str = "parity", freq_policy: str = "full",
-                   data_axis: Optional[str] = None) -> Callable:
+                   data_axis=None) -> Callable:
     """``eval_step(state, mixtures, targets) -> loss_dict``: the same mask
     pipeline with eval-mode BN and no gradient (row blocks through B1's
-    serving form)."""
-    if data_axis is not None:
-        raise NotImplementedError("data_axis (multi-GPU) is not ported yet")
+    serving form).  ``data_axis``: the losses averaged over it (eval-mode
+    BatchNorm reads its running stats, so nothing else crosses ranks)."""
     _check_policy(freq_policy)
     n_stems = len(stems)
 
@@ -266,6 +349,13 @@ def make_eval_step(model: TFSWAUNet, stft_processor: STFTProcessor,
         pred = apply_magnitude_masks(model(model_input), mono.abs(), n_stems, mask_mode)
         loss_dict = source_separation_loss(
             {k: pred[:, i] for i, k in enumerate(stems)}, target_mags, l1_weight=l1_weight)
-        return {k: v.float() for k, v in loss_dict.items()}
+        return _average_losses({k: v.float() for k, v in loss_dict.items()}, data_axis)
 
     return eval_step
+
+
+def make_sharded_eval_step(model: TFSWAUNet, stft_processor: STFTProcessor,
+                           stems: Tuple[str, ...], mesh, **kwargs) -> Callable:
+    """The validation step over ``mesh``: :func:`make_eval_step` with
+    ``data_axis=mesh.data``."""
+    return make_eval_step(model, stft_processor, stems, data_axis=mesh.data, **kwargs)

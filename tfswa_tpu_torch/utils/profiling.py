@@ -87,15 +87,15 @@ class StepTimer:
     device-bound loop the host is held back by the device's queue, so the
     interval is the step's time.  :meth:`restart` forgets the last tick, so
     that a pause (validation, checkpoints) is not counted as a step.  With
-    ``flops_per_step``, :meth:`metrics` gives the MFU against the peak of
-    every card (PEAK_FLOPS; none on a card without an entry)."""
+    ``flops_per_step`` (one process's, which drives one card), :meth:`metrics`
+    gives the MFU against one card's peak (PEAK_FLOPS; none on a card
+    without an entry)."""
 
     def __init__(self, flops_per_step: Optional[float] = None,
                  items_per_step: Optional[int] = None):
         self.flops_per_step = flops_per_step
         self.items_per_step = items_per_step
-        peak = PEAK_FLOPS.get(detect_chip())
-        self.peak = None if peak is None else peak * max(1, torch.cuda.device_count())
+        self.peak = PEAK_FLOPS.get(detect_chip())
         self._times: list = []
         self._last: Optional[float] = None
 
