@@ -76,8 +76,9 @@ Phases, each of which fails the run (exit code 1) when it fails:
      with 66 B1-train and 66 B2 launches and no serving launch, finite
      non-zero gradients for every row-block parameter, a falling loss; one
      profiled step; make_eval_step with 66 serving launches; then the same
-     model through "pallas_attn": a warm-up step and 2 timed steps with 66
-     B4 launches each and no other kernel, finite non-zero gradients;
+     model through "pallas_attn" on the first 2 segments: a warm-up step
+     and 1 timed step with 66 B4 launches and no other kernel, finite
+     non-zero gradients;
   8. one train step through each kernel route ("pallas", "pallas_attn")
      against the plain route (same weights and batch): loss and gradient
      cosine;
@@ -122,9 +123,9 @@ Phases, each of which fails the run (exit code 1) when it fails:
  12. the model's options and the deployment path (flagship, conditioned
      weights: seed 0, convs x0.4 and BatchNorm statistics from the seed, so
      that the sigmoid head does not saturate): (a) use_shift_mask=True
-     through "pallas" on 8 x 10 s segments, 55 B1 launches and no other
+     through "pallas" on 4 x 10 s segments, 55 B1 launches and no other
      kernel, ms and peak GB against the unmasked forward (the extra peak
-     under a quarter of the 1.81 GB a dense mask would take), the route
+     under a quarter of the 0.91 GB a dense mask would take), the route
      SNR against the plain route (as phase 5) and the output moved by the
      mask; (b) dropout 0.1: eval bit-identical to dropout 0 (66 B1), one
      train step on the first of phase 7's 4 segments (the plain route is
@@ -172,7 +173,25 @@ Phases, each of which fails the run (exit code 1) when it fails:
      step on half the rows at (2, 1) and on whole rows at (1, 2), the
      collectives of a step from its trace, ms a step (two ranks share one
      card: no measure of scaling);
- 14. a JSON line of the kernels, then the last line
+ 14. the quality tools (tfswa_tpu_torch/tools): (a), also under --quick,
+     B1-train and B2 against their plain versions at each (N, C) of the
+     quality A/B's train steps (2 s segments at F = 1025: T = 173), and B1
+     at each of its validation and SDR evaluation, that no earlier check
+     covered ((173, 32), (86, 64), (43, 128), (21, 256)), at phase 6's
+     limits; (b) python -m tfswa_tpu_torch.tools.sdr_baseline, untrained,
+     in a subprocess beside (c): finite SDR; (c) python -m tfswa_tpu_torch.tools.
+     quality_ab --arms direct --epochs 1 in a subprocess (its training CLI
+     through phase 10's counters): 60 steps of 132 B1-train + 66 B2, one
+     validation and one SDR evaluation of B1 launches as designed, each
+     at a checked (N, C), and the step-60 val loss at most 0.55 and sdr/avg
+     at least (b)'s + 1.5 dB (guard rails against a port that does not
+     learn); (d) that trained checkpoint through overlap_ab's
+     overlap_table at overlaps 0.5 and 0.25 (B1's launches as designed,
+     finite SDRs), one 10 s segment through "pallas" against the plain
+     route at SNR >= 30 dB a stem with the share of unsaturated head
+     outputs, and tools/visualize at the flagship, whose total must be the
+     model's 15,408,036 parameters; the checkpoints are deleted after it;
+ 15. a JSON line of the kernels, then the last line
      {"ok": true, "device": {...}}.
 Long results go to chiprun_out/chip_smoke.json.  Without a CUDA device, or
 outside a checkout of the repository, the run exits non-zero with no result.
@@ -189,6 +208,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -1597,37 +1617,64 @@ def recipe_row_shapes(cfg):
                               m.window_size)}
 
 
-def phase_recipe_kernels(torch):
-    """B1-train and B2 (check_train_shape) at each (N, C) of the recipe's
-    train steps, and B1 (check_shape) at each of its validation and SDR
-    evaluation, that TRAIN_SHAPES and SHAPES lack, at the same limits.
-    Returns the checks, the largest errors and the (N, C) now covered for
-    each kernel, which phase_train_cli holds the CLI run's shapes to."""
+def unchecked_shapes(want, covered):
+    """The (N, C) of a CLI run's phases (``recipe_row_shapes``) that no
+    check has covered yet: {"train": B1-train / B2's, "B1": B1's}, sorted."""
+    return {"train": sorted(want["train"] - covered["train"]),
+            "B1": sorted((want["val"] | want["sdr"]) - covered["B1"])}
+
+
+def initial_covered():
+    """The (N, C) that phases 2 and 6 check: B1 at SHAPES, B1-train and B2
+    at TRAIN_SHAPES."""
+    return {"train": {(N, C) for _, _, N, C, _ in TRAIN_SHAPES},
+            "B1": {(N, C) for _, _, N, C, _ in SHAPES}}
+
+
+def recipe_config():
+    """configs/musdb_repro.yaml with phase 10's overrides (TRAIN_CLI)."""
     from tfswa_tpu_torch.config import Config
 
-    cfg = Config.from_yaml(os.path.join(HERE, RECIPE)).apply_overrides(
+    return Config.from_yaml(os.path.join(HERE, RECIPE)).apply_overrides(
         [a for flag, a in zip(TRAIN_CLI, TRAIN_CLI[1:]) if flag == "--set"])
-    want = recipe_row_shapes(cfg)
-    covered = {"train": {(N, C) for _, _, N, C, _ in TRAIN_SHAPES},
-               "B1": {(N, C) for _, _, N, C, _ in SHAPES}}
-    gen = torch.Generator().manual_seed(12)
+
+
+def check_cli_run_shapes(torch, cfg, covered, label: str, seed: int):
+    """B1-train and B2 (check_train_shape) at each (N, C) of ``cfg``'s
+    train steps, and B1 (check_shape) at each of its validation and SDR
+    evaluation, that ``covered`` lacks, at the same limits; ``covered``
+    takes them.  Returns the checks and the largest errors."""
+    gen = torch.Generator().manual_seed(seed)
+    todo = unchecked_shapes(recipe_row_shapes(cfg), covered)
     rows_out, misses = [], []
     err = {"train": 0.0, "bwd": 0.0, "B1": 0.0}
-    for N, C in sorted(want["train"] - covered["train"]):
+    for N, C in todo["train"]:
         checks, _ = check_train_shape(torch, N, C, gen)
-        log_train_checks(f"recipe N={N} C={C}", checks, misses, err)
+        log_train_checks(f"{label} N={N} C={C}", checks, misses, err)
         rows_out.append({"kernels": "B1-train/B2", "N": N, "C": C, "checks": checks})
         covered["train"].add((N, C))
-    for N, C in sorted((want["val"] | want["sdr"]) - covered["B1"]):
+    for N, C in todo["B1"]:
         checks, _ = check_shape(torch, N, C, gen)
-        err["B1"] = max(err["B1"], log_b1_checks(f"recipe N={N} C={C}", checks, misses))
+        err["B1"] = max(err["B1"], log_b1_checks(f"{label} N={N} C={C}", checks, misses))
         rows_out.append({"kernels": "B1", "N": N, "C": C, "checks": checks})
         covered["B1"].add((N, C))
-    log(f"recipe {RECIPE}: {len(rows_out)} (N, C) checked beyond the serving and "
-        f"training shapes: {[(r['kernels'], r['N'], r['C']) for r in rows_out]}")
+    log(f"{label}: {len(rows_out)} (N, C) checked beyond the shapes checked before: "
+        f"{[(r['kernels'], r['N'], r['C']) for r in rows_out]}")
     if misses:
-        fail("the kernels disagree with their plain versions at the recipe's shapes: "
+        fail(f"the kernels disagree with their plain versions at the {label}'s shapes: "
              + "; ".join(misses))
+    return rows_out, err
+
+
+def phase_recipe_kernels(torch):
+    """B1-train and B2 at each (N, C) of the recipe's train steps, and B1
+    at each of its validation and SDR evaluation, that TRAIN_SHAPES and
+    SHAPES lack (check_cli_run_shapes).  Returns the checks, the largest
+    errors and the (N, C) now covered for each kernel, which
+    phase_train_cli holds the CLI run's shapes to."""
+    covered = initial_covered()
+    rows_out, err = check_cli_run_shapes(torch, recipe_config(), covered, f"recipe {RECIPE}",
+                                         12)
     return rows_out, err, covered
 
 
@@ -1718,6 +1765,8 @@ def row_block_grads(model):
 
 # per train step, the launches of each kernel route (any other kernel: 0),
 # the steps timed after the warm-up, and the device kernels to sum by group
+# per route: launches a step, timed steps, the profile's kernel groups, and
+# the segments of phase 7's batch it trains on
 TRAIN_ROUTES = {
     "pallas": ({"B1-train": 66, "B2": 66}, TRAIN_STEPS,
                {"B1-train": (*(f"ln_qkv_kernel<{C}, false>" for C in (32, 64, 128, 256)),
@@ -1725,8 +1774,11 @@ TRAIN_ROUTES = {
                 "B2": (*(f"ln_qkv_kernel<{C}, true>" for C in (32, 64, 128, 256)),
                        "mlp_bwd_kernel", "attn_bwd_norm_kernel", "attn_bwd_q_kernel",
                        "attn_bwd_kv_kernel", "ln1_bwd_kernel", "atb_kernel",
-                       "reduce_kernel")}),
-    "pallas_attn": ({"B4": 66}, 2, {"B4": ("proj_kernel", "bilinear_attn_kernel")}),
+                       "reduce_kernel")}, TRAIN_BATCH),
+    # one timed step on half the batch: the route's step is host-bound (about
+    # 10 s at 4 segments on an H100), and the profiler's post-processing of
+    # its launches takes about a minute more at 4
+    "pallas_attn": ({"B4": 66}, 1, {"B4": ("proj_kernel", "bilinear_attn_kernel")}, 2),
 }
 
 
@@ -1734,11 +1786,13 @@ def phase_train(torch, np, gpu: str, impl: str = "pallas"):
     """The training main path through one route: a warm-up step, then
     counted and timed steps on one fixed batch (every launch counter set to
     0 just before and read just after), the checks, one profiled step and,
-    for "pallas", an eval step.  The loss must fall over the "pallas"
-    route's 5 steps; the "pallas_attn" route's 2 are recorded."""
-    per_kernel, steps, groups = TRAIN_ROUTES[impl]
+    for "pallas", an eval step, on the route's segments of phase 7's batch.
+    The loss must fall over the "pallas" route's 5 steps; the "pallas_attn"
+    route's one is recorded."""
+    per_kernel, steps, groups, segments = TRAIN_ROUTES[impl]
     state, step, eval_step = make_trainer(torch, impl)
     mix, targets = train_batch(torch, np)
+    mix, targets = mix[:segments], {k: v[:segments] for k, v in targets.items()}
     t0 = time.perf_counter()
     state, _ = step(state, mix, targets)                     # warm-up
     torch.cuda.synchronize()
@@ -1776,8 +1830,8 @@ def phase_train(torch, np, gpu: str, impl: str = "pallas"):
         fail(f"the loss did not fall on the fixed batch: {losses[0]['total_loss']} -> "
              f"{losses[-1]['total_loss']}")
     best = min(times)
-    rate = TRAIN_BATCH * TRAIN_SECONDS / best
-    log(f"train path {impl}: {steps} steps of {TRAIN_BATCH} x {TRAIN_SECONDS} s, "
+    rate = segments * TRAIN_SECONDS / best
+    log(f"train path {impl}: {steps} steps of {segments} x {TRAIN_SECONDS} s, "
         f"best {best * 1e3:.3f} ms/step (warm-up {warm_s:.3f} s): {rate:.4f} "
         f"audio-s trained per s on {gpu}; peak memory {peak_gb:.3f} GB")
 
@@ -2033,17 +2087,25 @@ print(json.dumps(out))
 """
 
 
-def run_train_cli(argv):
-    """The training CLI in a subprocess from the checkout (CLI_RUNNER): its
-    output lines and its last line's launch counts and restore check."""
-    res = subprocess.run([sys.executable, "-c", CLI_RUNNER, json.dumps(argv)], cwd=HERE,
-                         capture_output=True, text=True, timeout=600)
+def run_tool(module: str, argv, runner=None, timeout: int = 900):
+    """``python -m tfswa_tpu_torch.tools.<module>`` (or ``runner`` with
+    the arguments as JSON) in a subprocess from the checkout: its last
+    line as JSON."""
+    cmd = ([sys.executable, "-c", runner, json.dumps(argv)] if runner else
+           [sys.executable, "-m", f"tfswa_tpu_torch.tools.{module}", *argv])
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=timeout)
     lines = res.stdout.strip().splitlines()
     for line in lines:
         log(f"  | {line[:300]}")
     if res.returncode != 0:
-        fail(f"train CLI {' '.join(argv)} exited {res.returncode}:\n{res.stderr[-3000:]}")
+        fail(f"{module} {' '.join(argv)} exited {res.returncode}:\n{res.stderr[-3000:]}")
     return json.loads(lines[-1])
+
+
+def run_train_cli(argv):
+    """The training CLI in a subprocess from the checkout (CLI_RUNNER): its
+    last line's launch counts and restore check."""
+    return run_tool("cli.train", argv, runner=CLI_RUNNER, timeout=600)
 
 
 def cli_designed_launches(cfg, steps: int, validations: int, sdr_evals: int):
@@ -2875,6 +2937,7 @@ def phase_serving_entry(torch, np, gpu: str, plain_ms):
 # ------------------------------------------------ phase 12: the model's options
 # and the deployment path
 OPT_BATCH = (8, 4, 1024, 862)        # 8 x 10 s segments at the fast-serving knobs
+MASKED_BATCH = (4, 4, 1024, 862)     # (a)'s forwards: half of them, for the run's time limit
 EXPORT_SHAPE = (1, 4, 1025, 259)     # the JAX export default, the flagship's 4 channels
 EXPORT_DEPTHS = (1, 1, 1, 1)         # the export round trips' depth (widths full)
 DROPOUT = 0.1
@@ -2970,7 +3033,7 @@ def opt_masked(torch, np, gpu: str):
     forward and peak GB against the unmasked forward, the route SNR against
     every block on the plain route, and the output moved by the mask."""
     res = {}
-    x = opt_input(torch)
+    x = opt_input(torch, MASKED_BATCH)
     want = forward_launches(masked=True)
     for masked in (False, True):
         model = opt_model(torch, np, use_shift_mask=masked)
@@ -2978,14 +3041,14 @@ def opt_masked(torch, np, gpu: str):
         out, counts, sec, peak = counted_forward(torch, model, x)
         res["masked" if masked else "unmasked"] = {"ms": sec * 1e3, "peak_gb": peak,
                                                    "launches": counts}
-        log(f"opt (a): {'masked' if masked else 'unmasked'} forward of {OPT_BATCH}: "
+        log(f"opt (a): {'masked' if masked else 'unmasked'} forward of {MASKED_BATCH}: "
             f"{sec * 1e3:.3f} ms, peak {peak:.3f} GB, launches {counts} on {gpu}")
         if masked and counts != {k: (want if k == "B1" else 0) for k in counts}:
             fail(f"masked forward: expected {want} B1 launches and no other, got {counts}")
         del model, out
         torch.cuda.empty_cache()
     extra = res["masked"]["peak_gb"] - res["unmasked"]["peak_gb"]
-    dense = dense_mask_gb(OPT_BATCH[0], OPT_BATCH[2], OPT_BATCH[3])
+    dense = dense_mask_gb(MASKED_BATCH[0], MASKED_BATCH[2], MASKED_BATCH[3])
     res.update(extra_peak_gb=extra, dense_mask_gb=dense)
     log(f"opt (a): the mask adds {extra:.3f} GB of peak (limit: a quarter of the "
         f"{dense:.3f} GB a dense mask would take)")
@@ -3928,6 +3991,211 @@ def phase_parallel(torch, np, gpu: str, phase7_ms, serve_rate):
     return res
 
 
+QUALITY_WORK = os.path.join(HERE, "chiprun_out", "quality_work")
+QUALITY_ARM, QUALITY_STEPS = "direct", 60       # one epoch of the quality A/B's recipe
+QUALITY_OVERLAPS = (0.5, 0.25)
+# guard rails of the 60-step direct run, fixed before its first run on the
+# card (the JAX package's TPU run at step 60: val loss 0.410, sdr/avg 5.39):
+# a port that learns passes them, one that does not fails them
+QUALITY_VAL_LOSS_MAX = 0.55
+QUALITY_SDR_GAIN_DB = 1.5                       # over the untrained baseline
+# Runs tfswa_tpu_torch.tools.quality_ab's main with the given arguments, its
+# arm's training CLI through CLI_RUNNER (its launch counters and shapes), and
+# prints as its last line the tool's exit code and each CLI run's counts.
+QUALITY_RUNNER = r"""
+import json, subprocess, sys
+import chip_smoke as cs
+from tfswa_tpu_torch.tools import quality_ab
+run, runs = subprocess.run, []
+
+def counted_run(cmd, check, cwd):
+    i = cmd.index("tfswa_tpu_torch.cli.train")
+    res = run([sys.executable, "-c", cs.CLI_RUNNER, json.dumps(cmd[i + 1:])], cwd=cwd,
+              capture_output=True, text=True)
+    print(res.stdout, end="", flush=True)
+    if res.returncode:
+        print(res.stderr[-3000:], file=sys.stderr)
+        if check:
+            raise subprocess.CalledProcessError(res.returncode, cmd)
+    runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+
+quality_ab.subprocess.run = counted_run
+rc = quality_ab.main(json.loads(sys.argv[1]))
+print(json.dumps({"rc": rc, "runs": runs}))
+"""
+
+
+def quality_config(out: str = QUALITY_WORK, arm: str = QUALITY_ARM):
+    """The Config that tools/quality_ab.py's command for ``arm`` gives the
+    training CLI."""
+    from tfswa_tpu_torch.cli import train as cli
+    from tfswa_tpu_torch.tools import quality_ab
+
+    cmd = quality_ab.arm_command(arm, 1, out)
+    return cli.config_from_args(cli.build_parser().parse_args(
+        cmd[cmd.index("tfswa_tpu_torch.cli.train") + 1:]))
+
+
+def phase_quality_kernels(torch, covered):
+    """Phase 14 (a): B1-train and B2 at each (N, C) of the quality A/B's
+    train steps (2 s segments, F = 1025: T = 173), and B1 at each of its
+    validation and SDR evaluation, that the earlier phases did not check
+    (check_cli_run_shapes, their limits)."""
+    return check_cli_run_shapes(torch, quality_config(), covered, "quality A/B", 14)
+
+
+def overlap_launches(cfg, overlaps, tracks: int = 4, seconds: float = 30.0,
+                     segment_seconds: float = 10.0, batch: int = 8) -> int:
+    """B1 launches of overlap_ab.overlap_table on the 4 synthetic
+    validation tracks: 66 a forward, ceil(segments / 8) forwards a track
+    and overlap (host OLA)."""
+    sr = cfg.stft.sample_rate
+    seg, total = int(segment_seconds * sr), int(seconds * sr)
+    forward = 3 * (2 * sum(cfg.model.depths[:3]) + cfg.model.depths[3])
+    return sum(forward * tracks * -(-((total - seg) // int(seg * (1 - ov)) + 1) // batch)
+               for ov in overlaps)
+
+
+def quality_route_check(torch, np, model, cfg):
+    """One 10 s segment of the first validation track through the trained
+    model on "pallas" and on the plain route (a clone, same weights, bf16):
+    the SNR per stem, and the share of the sigmoid head's outputs that are
+    not saturated (inside (1e-3, 1 - 1e-3))."""
+    from tfswa_tpu_torch.data.synthetic import SyntheticDataset
+    from tfswa_tpu_torch.evaluation import SourceSeparator
+    from tfswa_tpu_torch.ops.stft import STFTProcessor
+
+    d = cfg.data
+    mix, _ = SyntheticDataset(num_tracks=4, track_seconds=30.0, segment_seconds=d.segment_seconds,
+                              sample_rate=d.sample_rate, stems=d.stems, random_segments=False,
+                              seed=999).get_full_track(0)
+    proc = STFTProcessor(cfg.stft)
+    x = torch.from_numpy(mix.mean(axis=0)[None, :10 * proc.sample_rate]).cuda()
+    outs = []
+    with torch.inference_mode():
+        for m in (model, model.clone("xla")):
+            sep = SourceSeparator(m, proc, segment_length=10.0, mask_mode="mag_direct",
+                                  stem_names=d.stems, device="cuda")
+            outs.append(sep._separate_core(x).double().cpu().numpy())
+        spec = proc.stft(x.float()[:, None].expand(-1, model.in_channels // 2, -1))
+        head = model(proc.to_model_input(spec)).float()
+        live = float(((head > 1e-3) & (head < 1 - 1e-3)).float().mean())
+    a, b = outs
+    snrs = [float(10 * np.log10(np.sum(b[:, s] ** 2) / np.sum((a[:, s] - b[:, s]) ** 2)))
+            for s in range(a.shape[1])]
+    log(f"trained direct checkpoint, one 10 s segment: route pallas vs xla SNR per stem "
+        f"{[round(v, 3) for v in snrs]} dB (min {SNR_MIN_DB} dB); head outputs not "
+        f"saturated: {live:.4f}")
+    if not np.isfinite(a).all() or min(snrs) < SNR_MIN_DB:
+        fail(f"trained checkpoint: route pallas vs xla SNR {snrs} below {SNR_MIN_DB} dB")
+    return {"snr_db": snrs, "head_live_share": live}
+
+
+def quality_visualize(torch, model):
+    """tools/visualize at the flagship (in/out 4) on the card: its TOTAL
+    must be the model's parameter count, FLAGSHIP_PARAMETERS."""
+    import contextlib
+    import io
+
+    from tfswa_tpu_torch.tools import visualize
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = visualize.main(["--in_channels", "4", "--out_channels", "4", "--device", "cuda"])
+    total = next(int(line.split()[1].replace(",", "")) for line in buf.getvalue().splitlines()
+                 if line.startswith("TOTAL"))
+    count = model.count_parameters()
+    log(f"visualize at the flagship: exit {rc}, TOTAL {total:,d}, the trained model's "
+        f"{count:,d}, FLAGSHIP_PARAMETERS {FLAGSHIP_PARAMETERS:,d}")
+    if rc != 0 or not total == count == FLAGSHIP_PARAMETERS:
+        fail(f"visualize: exit {rc}, TOTAL {total} against {count} / {FLAGSHIP_PARAMETERS}")
+    return total
+
+
+def phase_quality(torch, np, gpu: str, covered):
+    """Phase 14 (b)-(d): the untrained sdr_baseline in a subprocess, beside
+    the quality A/B's direct arm for one epoch (QUALITY_STEPS steps, one
+    validation, one SDR evaluation) through tools/quality_ab.py in a
+    subprocess (QUALITY_RUNNER), its launches against the design and the
+    (N, C) of each against ``covered``, its step-60 val loss and sdr/avg
+    held to the guard rails; then that checkpoint through
+    overlap_ab.overlap_table at QUALITY_OVERLAPS (B1's launches as
+    designed, finite SDRs), "pallas" against the plain route on one 10 s
+    segment, and visualize at the flagship.  The checkpoints are deleted
+    after it, on a failure too; the arm's metrics.jsonl is kept in
+    chiprun_out/quality_direct_metrics.jsonl."""
+    from tfswa_tpu_torch.tools import overlap_ab
+
+    shutil.rmtree(QUALITY_WORK, ignore_errors=True)
+    os.makedirs(QUALITY_WORK)
+    res = {}
+    try:
+        # the baseline beside the run: both processes wait mostly on the host
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(1) as pool:
+            baseline = pool.submit(run_tool, "sdr_baseline", [])
+            out = run_tool("quality_ab", ["--arms", QUALITY_ARM, "--epochs", "1",
+                                          "--out", QUALITY_WORK], runner=QUALITY_RUNNER)
+            res["run_s"] = time.perf_counter() - t0
+            base = baseline.result()["untrained"]
+        log(f"sdr_baseline, untrained: sdr/avg {base.get('sdr/avg')} (JAX TPU record 2.32)")
+        if not all(math.isfinite(v) for v in base.values()) or "sdr/avg" not in base:
+            fail(f"sdr_baseline: {base}")
+        res["baseline"] = base
+        arm_dir = os.path.join(QUALITY_WORK, QUALITY_ARM)
+        shutil.copy(os.path.join(arm_dir, "metrics.jsonl"),
+                    os.path.join(HERE, "chiprun_out", "quality_direct_metrics.jsonl"))
+        if out["rc"] != 0 or len(out["runs"]) != 1:
+            fail(f"quality_ab: exit {out['rc']}, {len(out['runs'])} runs")
+        from tfswa_tpu_torch.config import Config
+
+        with open(os.path.join(arm_dir, "ck", "config.json")) as fh:
+            cfg = Config.from_dict(json.load(fh))
+        cli_run = out["runs"][0]
+        check_cli_launches(cli_run["launches"], cli_designed_launches(cfg, QUALITY_STEPS, 1, 1),
+                           "quality run")
+        check_cli_shapes(cli_run["shapes"], recipe_row_shapes(cfg), covered, "quality run")
+        recs = read_cli_log(np, arm_dir)
+        with open(os.path.join(QUALITY_WORK, "summary.json")) as fh:
+            summary = json.load(fh)[QUALITY_ARM]
+        (val,), (sdr,) = summary["val_curve"], summary["sdr_curve"]
+        nums = cli_numbers(recs, cfg.data.batch_size, cfg.data.segment_seconds)
+        res.update(launches=cli_run["launches"], shapes=cli_run["shapes"], summary=summary,
+                   **nums)
+        floor = base["sdr/avg"] + QUALITY_SDR_GAIN_DB
+        log(f"quality A/B {QUALITY_ARM}, {QUALITY_STEPS} steps on {gpu}: {res['run_s']:.1f} s, "
+            f"{nums['ms_per_step']:.3f} ms/step, peak {nums['peak_mem_gb']:.3f} GB; step "
+            f"{val['step']} val loss {val['val_loss']:.4f} (at most {QUALITY_VAL_LOSS_MAX}; "
+            f"JAX TPU 0.410), sdr/avg {sdr['sdr/avg']:.4f} (at least {floor:.4f}: the "
+            f"baseline + {QUALITY_SDR_GAIN_DB} dB; JAX TPU 5.39)")
+        if (val["step"], sdr["step"]) != (QUALITY_STEPS, QUALITY_STEPS):
+            fail(f"quality run: records at steps {val['step']}, {sdr['step']}")
+        if not val["val_loss"] <= QUALITY_VAL_LOSS_MAX or not sdr["sdr/avg"] >= floor:
+            fail(f"quality run: val loss {val['val_loss']}, sdr/avg {sdr['sdr/avg']} "
+                 f"outside the guard rails ({QUALITY_VAL_LOSS_MAX}, {floor})")
+
+        model, cfg = overlap_ab.load_model(os.path.join(arm_dir, "ck"), "latest")
+        t0 = time.perf_counter()
+        reset_counts()
+        table = overlap_ab.overlap_table(model, cfg, QUALITY_OVERLAPS, device="cuda")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = {k: overlap_launches(cfg, QUALITY_OVERLAPS) if k == "B1" else 0 for k in counts}
+        res["overlap"] = dict(table=table, launches=counts, seconds=time.perf_counter() - t0)
+        log(f"overlap_ab at {QUALITY_OVERLAPS}: {table}; launches {counts} (designed {want}), "
+            f"{res['overlap']['seconds']:.1f} s")
+        if counts != want or not all(math.isfinite(v) for e in table.values()
+                                     for v in e.values()):
+            fail(f"overlap_ab: launches {counts} (designed {want}), table {table}")
+        res["route"] = quality_route_check(torch, np, model, cfg)
+        res["visualize_total"] = quality_visualize(torch, model)
+        del model
+    finally:
+        shutil.rmtree(QUALITY_WORK, ignore_errors=True)      # about 0.2 GB of checkpoints
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -4061,10 +4329,12 @@ def main() -> None:
     t_shapes, t_err, t_totals = timed("B1-train/B2 kernels", phase_train_kernels, torch,
                                       args.quick)
     r_shapes, r_err, covered = timed("recipe kernels", phase_recipe_kernels, torch)
+    q_shapes, q_err = timed("quality kernels", phase_quality_kernels, torch, covered)
     for k in ("train", "bwd"):
-        t_err[k] = max(t_err[k], r_err[k])
-    max_err = max(max_err, r_err["B1"])
-    results.update(train_shapes=t_shapes, train_totals=t_totals, recipe_shapes=r_shapes)
+        t_err[k] = max(t_err[k], r_err[k], q_err[k])
+    max_err = max(max_err, r_err["B1"], q_err["B1"])
+    results.update(train_shapes=t_shapes, train_totals=t_totals, recipe_shapes=r_shapes,
+                   quality_shapes=q_shapes)
     train = {"launches": {}}
     if not args.quick:
         train = timed("train pallas", phase_train, torch, np, gpu)
@@ -4084,6 +4354,7 @@ def main() -> None:
         results["parallel"] = timed("parallel", phase_parallel, torch, np, gpu,
                                     train["best_ms_per_step"],
                                     serving["pallas"]["audio_s_per_s"])
+        results["quality"] = timed("quality", phase_quality, torch, np, gpu, covered)
         for kind, label in (("train", "B1-train"), ("bwd", "B2")):
             log(f"per train step (66 calls), {label}: kernel_ms {{ms:.3f}} plain_ms "
                 f"{{plain_ms:.3f}} library_ms {{library_ms:.3f}} bound_ms "

@@ -1,6 +1,7 @@
 """chip_smoke.py's yardstick for B2's attention backward and LN1 backward,
 its planted faults, the launch counts of its training phases and the
-row shapes of the training recipe it checks, on the CPU.
+row shapes of the training recipe and of the quality A/B it checks, on the
+CPU.
 
 The script is loaded by file path with the H100's exp2 rate set by hand
 (16 a clock an SM x 132 SMs x 1980 MHz), as main() sets it from the card.
@@ -203,6 +204,55 @@ def test_recipe_shapes_are_what_the_trainer_launches(chip_smoke, monkeypatch, tm
     assert seen == {("train_epoch", "B1-train"): want["train"],
                     ("train_epoch", "B2"): want["train"],
                     ("validate", "B1"): want["val"], ("evaluate_sdr", "B1"): want["sdr"]}
+
+
+def test_quality_shapes_beyond_the_earlier_phases(chip_smoke):
+    """Phase 14 (a): the quality A/B trains on 2 s segments at F = 1025 (T =
+    173), validates there and evaluates SDR on 10 s (T = 862): the (N, C)
+    that phases 2, 6 and the recipe's checks lack are its four FSA rows,
+    for B1-train / B2 and for B1 alike."""
+    cfg = chip_smoke.quality_config()
+    shapes = chip_smoke.recipe_row_shapes(cfg)
+    assert shapes["train"] == shapes["val"] == chip_smoke.row_shapes(
+        1025, 173, (32, 64, 128, 256), 8)
+    assert shapes["sdr"] == chip_smoke.row_shapes(1025, 862, (32, 64, 128, 256), 8)
+    covered = chip_smoke.initial_covered()
+    recipe = chip_smoke.recipe_row_shapes(chip_smoke.recipe_config())
+    covered["train"] |= recipe["train"]
+    covered["B1"] |= recipe["val"] | recipe["sdr"]
+    new = [(21, 256), (43, 128), (86, 64), (173, 32)]
+    assert chip_smoke.unchecked_shapes(shapes, covered) == {"train": new, "B1": new}
+
+
+def test_quality_config_is_the_tools_direct_arm(chip_smoke, tmp_path):
+    """quality_config() is what tools/quality_ab.py's direct arm trains:
+    the flagship in bf16 with remat through "pallas", 2 x 2 s, 60 steps an
+    epoch, direct masks, its directories under the output root."""
+    cfg = chip_smoke.quality_config(str(tmp_path))
+    m, d, t = cfg.model, cfg.data, cfg.train
+    assert (m.depths, m.dims, m.in_channels, m.out_channels) == (
+        (2, 2, 6, 2), (32, 64, 128, 256), 4, 4)
+    assert (m.dtype, m.remat, m.attention_impl) == ("bfloat16", True, "pallas")
+    assert (d.batch_size, d.segment_seconds, d.num_workers) == (2, 2.0, 0)
+    assert (t.steps_per_epoch, t.train_mask_mode, t.max_epochs) == (60, "direct", 1)
+    assert (t.checkpoint_dir, t.log_dir) == (str(tmp_path / "direct" / "ck"),
+                                             str(tmp_path / "direct"))
+
+
+def test_quality_launches_are_designed_from_the_recipe(chip_smoke):
+    """Phase 14 (c) and (d): 60 steps of 132 B1-train + 66 B2 (remat), one
+    validation of the 60 two-second segments of the 4 validation tracks in
+    batches of 2 (30 forwards of 66 B1), one SDR evaluation of 4 tracks of
+    5 ten-second segments at 50 % overlap (one forward each); overlap_table
+    at 0.5 and 0.25 separates each track in one forward of 8 segments (5
+    and 3 of them)."""
+    cfg = chip_smoke.quality_config()
+    assert chip_smoke.cli_designed_launches(cfg, chip_smoke.QUALITY_STEPS, 1, 1) == {
+        "train_epoch": {"B1-train": 60 * 132, "B2": 60 * 66},
+        "validate": {"B1": 30 * 66}, "evaluate_sdr": {"B1": 4 * 66}}
+    assert chip_smoke.overlap_launches(cfg, chip_smoke.QUALITY_OVERLAPS) == 2 * 4 * 66
+    assert chip_smoke.overlap_launches(cfg, (0.1,)) == 4 * 66     # 3 segments
+    assert chip_smoke.overlap_launches(cfg, (0.9,)) == 4 * 3 * 66  # 21 segments
 
 
 @pytest.fixture(scope="module", autouse=True)

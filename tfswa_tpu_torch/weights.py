@@ -15,10 +15,13 @@ The int8 route's activation scales, which the JAX model keeps in its
 ``act_scales`` / ``act_stats`` collections (per row block ``{"scales":
 {"qkv", "proj", "fc1", "fc2"}}``), map onto the port's per-block scales by
 row-block module name (:func:`act_scales_from_jax`, :func:`act_scales_to_jax`);
-:func:`conv_bn_pairs` names each BatchNorm with the conv it follows.
+:func:`conv_bn_pairs` names each BatchNorm with the conv it follows, and
+:func:`top_modules` the port module of each of the JAX model's top-level
+modules (``tools/visualize``'s table).
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, Iterator, Mapping, Sequence, Tuple
 
 import numpy as np
@@ -127,6 +130,19 @@ def variables_from_state_dict(tensors: Mapping[str, torch.Tensor],
         arr = tensors[name].detach().float().cpu().numpy()
         node[path[-1]] = np.ascontiguousarray(_INVERSE[transform](arr))
     return out
+
+
+def top_modules(depths: Sequence[int]) -> Dict[str, str]:
+    """{port module name: JAX top-level module} for each top-level entry of
+    the JAX model's ``params``, in the model's order: the port module is
+    the longest dotted prefix that every state_dict name of that entry
+    shares (``stem_conv`` -> ``stem.0``, ``enc0_block0`` ->
+    ``encoder_stages.0.0``, ``down0`` -> ``downsample_layers.0.downsample``)."""
+    groups: Dict[str, list] = {}
+    for name, path, _ in mapping(depths):
+        if path[0] == "params":
+            groups.setdefault(path[1], []).append(name.split(".")[:-1])
+    return {".".join(os.path.commonprefix(names)): top for top, names in groups.items()}
 
 
 def row_blocks(depths: Sequence[int]) -> Iterator[Tuple[str, Tuple[str, ...]]]:
