@@ -9,7 +9,9 @@ Six kernels: B1 (fused_row_block, the serving forward), B1-train
 (fused_row_block_bwd, the whole-block VJP), B3 (fused_row_block_int8, the
 serving forward with int8 scores, route "pallas_int8"), B4
 (flash_row_attention, the bilinear row attention, route "pallas_attn") and
-L (lab_row_block, the kernel lab's stage and flag forms of B1).
+L (lab_row_block, the kernel lab's stage and flag forms of B1); and the
+f32 forms of B1, B1-train, B2, B3 and B4 (csrc/*_f32*: f32 FFMA, counted
+apart as "<kernel>-f32").
 Phases, each of which fails the run (exit code 1) when it fails:
   1. the card's name and power limit; build of the CUDA sources (nvcc, sm_90a,
      one nvcc per source, in parallel); the SASS of every instantiation of
@@ -18,7 +20,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
      attn_bwd_kv_kernel, ln1_bwd_kernel and atb_kernel, B4's proj_kernel and
      bilinear_attn_kernel) must hold HMMA instructions, and
      B3's int8 forms of attn_kernel IMMA (cuobjdump --dump-sass of the built
-     libraries);
+     libraries), and every kernel of the f32 libraries FFMA, each function
+     in them one of the port's (no library kernel);
   2. the fused row-block kernel against its plain PyTorch version at each
      of the 12 (N, C) of the main path (bf16, a slice of 64 rows, three kinds
      of weights: flat, peaked and clamped softmax), on the block's output
@@ -76,12 +79,12 @@ Phases, each of which fails the run (exit code 1) when it fails:
      with 66 B1-train and 66 B2 launches and no serving launch, finite
      non-zero gradients for every row-block parameter, a falling loss; one
      profiled step; make_eval_step with 66 serving launches; then the same
-     model through "pallas_attn" on the first 2 segments: a warm-up step
+     model through "pallas_attn" on the first segment: a warm-up step
      and 1 timed step with 66 B4 launches and no other kernel, finite
      non-zero gradients;
   8. one train step through each kernel route ("pallas", "pallas_attn")
-     against the plain route (same weights and batch): loss and gradient
-     cosine;
+     against the plain route (same weights, the first 2 of phase 7's
+     segments): loss and gradient cosine;
   9. remat against no remat on phase 7's fixed batch: one step each from
      the same weights (loss within 1e-3 rel., gradient cosine >= 0.999,
      equal num_batches_tracked, running stats within 1e-3 rel.; 132
@@ -116,7 +119,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
      synthetic tracks and on a custom dataset of 2: every track in
      results.json (a track the evaluator skips fails the run), finite
      metrics and aggregate, launches as designed; then the MR-STFT train
-     step on phase 7's batch through "pallas" against the plain route in
+     step on the first 2 of phase 7's segments through "pallas" against
+     the plain route in
      float32 at phase 8's limits (the plain route in bf16 recorded beside
      it), 66 B1-train + 66 B2 launches a step, ms a step and peak GB;
      phase 10's checkpoints are deleted after it;
@@ -141,10 +145,11 @@ Phases, each of which fails the run (exit code 1) when it fails:
      tfswa_tpu_torch.tools.bench_int8 --seconds 3 10 --iters 1 in a subprocess; (d)
      fold_batch_norms: float32 plain route within 1e-4 rel., bf16 "pallas"
      at SNR >= 30 dB with 66 B1, benchmark_model of both; (e) export at
-     (1, 4, 1025, 259) of the float32 plain route at depths (1, 1, 1, 1)
+     (1, 4, 1025, 87) of the float32 plain route at depths (1, 1, 1, 1)
      (full widths): torch.export and TorchScript saved, loaded, within 1e-4,
      ONNX bytes or the reason, the reference .pt served back equal,
-     export_model_info's count, a kernel route refused; (f) trace with an
+     export_model_info's count (the kernel routes' exports: phase 15 (d));
+     (f) trace with an
      annotation, detect_chip() == "h100", flops_of a plain forward, MFU;
  13. the multi-GPU path on the one card (tfswa_tpu_torch/parallel): (a) world
      size 1 over NCCL, mesh (1, 1): make_sharded_train_step for 3 steps
@@ -191,8 +196,33 @@ Phases, each of which fails the run (exit code 1) when it fails:
      route at SNR >= 30 dB a stem with the share of unsaturated head
      outputs, and tools/visualize at the flagship, whose total must be the
      model's 15,408,036 parameters; the checkpoints are deleted after it;
- 15. a JSON line of the kernels, then the last line
-     {"ok": true, "device": {...}}.
+ 15. the f32 forms and the remaining options (the flagship in float32,
+     TF32 off): (a), after phase 14 (a), each f32 kernel against its plain
+     f32 version on 64 rows at the 12 serving (N, C) (B1, B3, B4) and the
+     12 training (N, C) (B1-train, B2), flat and clamp weights: outputs,
+     q|k|v and mid within 1e-4 x max(max|ref| / 4, 1), den 1e-4 rel., B3's
+     int8 q, k and scales exact, B2's dx and gradients within 1e-4 of each
+     leaf's max and twice bit for bit, B4 against its f64 function (at the
+     plain f32 version's distance where that is larger); kernel / plain /
+     library (f32) ms at the full row counts with the bound (3xTF32's
+     rate; FFMA's beside); then, after phase 14: (b) the 120 s track
+     through "pallas" in f32 (132 f32 B1 launches, nothing else), its
+     audio-s/s, and one 10 s segment through "pallas", "pallas_int8" and
+     "pallas_attn" (66 f32 launches of the route's kernel each) against
+     the f32 plain route at SNR >= 70 dB a stem, on conditioned weights;
+     (c) one f32 train step through "pallas" on 2 x 6 s without remat (66
+     f32 B1-train + 66 f32 B2) against the plain route's: loss within
+     1e-5 rel., gradient cosine >= 0.99999, each row-block leaf >= 0.9999
+     (but the leaves whose gradient is 0 in exact arithmetic), ms and peak
+     GB; (d) the .pt2 and TorchScript exports of the three kernel routes
+     at depths (1, 1, 1, 1), each loaded back: 21 launches of its f32
+     kernel a forward and equal to the model bit for bit; (e)
+     param_dtype="bfloat16" with bf16 compute through "pallas": two steps,
+     falling loss, every parameter, gradient and Adam moment bf16; (f) one
+     "dots" remat step against the no-remat step (phase 9's limits), 132
+     + 66 launches, the peak GB of each;
+ 16. a JSON line of the kernels (the f32 forms as their own entries), then
+     the last line {"ok": true, "device": {...}}.
 Long results go to chiprun_out/chip_smoke.json.  Without a CUDA device, or
 outside a checkout of the repository, the run exits non-zero with no result.
 """
@@ -271,6 +301,8 @@ def mufu_rate(torch) -> float:
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
+    """Device ms a call of ``fn``, over ``reps`` calls after one warm-up
+    call."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -717,6 +749,7 @@ def phase_kernels(torch, quick: bool):
                                              misses))
         if not quick:
             xf = torch.randn(R, N, C, generator=gen).cuda().to(torch.bfloat16)
+            # the model's route: the wrapper, through its custom op
             k_ms = cuda_ms(torch, lambda: fused_row_block(xf, p, HEADS), 3)
             pl_ms = cuda_ms(torch, lambda: fused_row_block_reference(xf, p, HEADS), 1)
             lib_ms = cuda_ms(torch, lambda: library_block(torch, xf, p, HEADS), 3)
@@ -746,6 +779,7 @@ def phase_kernels(torch, quick: bool):
         fail("fused_row_block disagrees with its plain version at " + "; ".join(misses))
     if not quick:
         log_launches("per model forward (66 calls), B1", totals["launches"])
+        log(f"per model forward (66 calls), B1 {totals['ms']:.3f} ms")
     return rows_out, max_err, totals
 
 
@@ -1694,28 +1728,41 @@ PLANTS = {
 }
 
 
+# Faults for --plant in a copy of csrc/row_attention_f32.cu, each of which
+# phase 15 (a)'s B4 check must catch: "b4_tf32_scores", the score
+# products on operands rounded to TF32's 10-bit mantissa (one TF32 pass).
+TF32 = "__uint_as_float((__float_as_uint({}) + 0x1000u) & 0xffffe000u)"
+F32_PLANTS = {
+    "b4_tf32_scores": ("part = fma(tq[c], xs[j][g][c], part);",
+                       "part = fma((double)" + TF32.format("(float)tq[c]") + ", (double)"
+                       + TF32.format("(float)xs[j][g][c]") + ", part);"),
+}
+
+
 def plant_fault(torch, name: str) -> None:
-    """Build csrc/fused_block_bwd.cu with fault ``name`` of PLANTS into
-    build/planted/ (outside the sources) with the port's nvcc flags, and
-    swap the library in for B2."""
+    """Build csrc/fused_block_bwd.cu with fault ``name`` of PLANTS (or
+    csrc/row_attention_f32.cu with one of F32_PLANTS) into build/planted/
+    (outside the sources) with the port's nvcc flags, and swap the library
+    in for B2 (B4's f32 form)."""
     import ctypes
 
     from tfswa_tpu_torch.ops import _build
 
-    old, new = PLANTS[name]
-    src = (_build.CSRC / "fused_block_bwd.cu").read_text()
+    source = "row_attention_f32" if name in F32_PLANTS else "fused_block_bwd"
+    old, new = {**PLANTS, **F32_PLANTS}[name]
+    src = (_build.CSRC / f"{source}.cu").read_text()
     if old not in src:
         fail(f"planted fault {name}: its text is not in the source")
     out = _build.BUILD_DIR.parent / "planted"
     out.mkdir(parents=True, exist_ok=True)
-    cu = out / f"fused_block_bwd_{name}.cu"
+    cu = out / f"{source}_{name}.cu"
     cu.write_text(src.replace(old, new))
-    lib = out / f"libfused_block_bwd_{name}.so"
+    lib = out / f"lib{source}_{name}.so"
     res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
                           "-o", str(lib), str(cu)], capture_output=True, text=True)
     if res.returncode != 0:
         fail(f"planted fault {name}: nvcc failed:\n{res.stdout}{res.stderr}")
-    _build._loaded["fused_block_bwd"] = ctypes.CDLL(str(lib))
+    _build._loaded[source] = ctypes.CDLL(str(lib))
     log(f"planted fault {name}: {old!r} -> {new!r}")
 
 
@@ -1734,9 +1781,10 @@ def train_batch(torch, np):
 
 
 def make_trainer(torch, impl: str, remat: bool = False, mrstft: bool = False,
-                 dtype: str = "bfloat16", dropout: float = 0.0):
+                 dtype: str = "bfloat16", dropout: float = 0.0, param_dtype: str = "float32"):
     """The flagship model (bf16 compute unless ``dtype`` says otherwise, f32
-    parameters, weights from seed 0) in a TrainState with the TrainConfig
+    parameters unless ``param_dtype`` says otherwise, weights from seed 0)
+    in a TrainState with the TrainConfig
     defaults (``mrstft``: with the MR-STFT loss at its default weight), and
     its train and eval steps."""
     from tfswa_tpu_torch.config import Config, ModelConfig, TrainConfig
@@ -1745,7 +1793,8 @@ def make_trainer(torch, impl: str, remat: bool = False, mrstft: bool = False,
                                           make_train_step)
 
     cfg = Config(model=ModelConfig(in_channels=4, out_channels=4, attention_impl=impl,
-                                   dtype=dtype, remat=remat, dropout=dropout),
+                                   dtype=dtype, remat=remat, dropout=dropout,
+                                   param_dtype=param_dtype),
                  train=TrainConfig(seed=0, use_mrstft_loss=mrstft))
     model, state = create_train_state(cfg, device="cuda")
     proc = STFTProcessor(cfg.stft)
@@ -1775,10 +1824,11 @@ TRAIN_ROUTES = {
                        "mlp_bwd_kernel", "attn_bwd_norm_kernel", "attn_bwd_q_kernel",
                        "attn_bwd_kv_kernel", "ln1_bwd_kernel", "atb_kernel",
                        "reduce_kernel")}, TRAIN_BATCH),
-    # one timed step on half the batch: the route's step is host-bound (about
-    # 10 s at 4 segments on an H100), and the profiler's post-processing of
-    # its launches takes about a minute more at 4
-    "pallas_attn": ({"B4": 66}, 1, {"B4": ("proj_kernel", "bilinear_attn_kernel")}, 2),
+    # one timed step on the first segment: the route's step is host-bound
+    # (about 10 s at 2 segments on an H100, 111 s for the phase), and the
+    # profiler's post-processing of its launches takes about a minute more
+    # at 4
+    "pallas_attn": ({"B4": 66}, 1, {"B4": ("proj_kernel", "bilinear_attn_kernel")}, 1),
 }
 
 
@@ -1910,13 +1960,18 @@ def profile_step(torch, run, groups, cpu: bool = False):
     return res
 
 
+ROUTE_SEGMENTS = 2
+
+
 def phase_train_routes(torch, np):
     """One train step through each kernel route ("pallas", "pallas_attn")
     and through the plain route (attention_impl="xla", autograd through
     plain PyTorch), same weights and batch: for each kernel route the loss
     within 1e-2 relative of the plain route's, the flattened gradients at a
-    cosine similarity of at least 0.99."""
+    cosine similarity of at least 0.99.  On the first ROUTE_SEGMENTS of
+    phase 7's segments (the plain and "pallas_attn" steps are host-bound)."""
     mix, targets = train_batch(torch, np)
+    mix, targets = mix[:ROUTE_SEGMENTS], {k: v[:ROUTE_SEGMENTS] for k, v in targets.items()}
     res = {}
     grads = {}
     for impl in ("pallas", "pallas_attn", "xla"):
@@ -2265,14 +2320,14 @@ def phase_train_cli(torch, np, gpu: str, covered):
             "served_launches": served}
 
 
-def make_separator(torch, impl: str, mesh=None, **model_kw):
+def make_separator(torch, impl: str, mesh=None, dtype: str = "bfloat16", **model_kw):
     from tfswa_tpu_torch.config import EvalConfig, ModelConfig, STFTConfig
     from tfswa_tpu_torch.evaluation import SourceSeparator
     from tfswa_tpu_torch.models import TFSWAUNet
     from tfswa_tpu_torch.ops.stft import STFTProcessor
 
     cfg = ModelConfig(in_channels=4, out_channels=4, attention_impl=impl,
-                      dtype="bfloat16", **model_kw)
+                      dtype=dtype, **model_kw)
     model = TFSWAUNet.from_config(cfg, generator=torch.Generator().manual_seed(0))
     ev = EvalConfig.fast_serving()
     return SourceSeparator(
@@ -2292,24 +2347,27 @@ def synthetic_track(np, seconds: float, sr: int):
 
 
 def counters():
-    """The launch counter of every kernel wrapper, by kernel."""
+    """The launch counter of every kernel, by kernel: (wrapper, attribute);
+    the f32 forms ("-f32") count on the same wrappers apart."""
     from tfswa_tpu_torch.ops.fused_block import (fused_row_block, fused_row_block_bwd,
                                                  fused_row_block_int8, fused_row_block_train)
     from tfswa_tpu_torch.ops.lab_block import lab_row_block
     from tfswa_tpu_torch.ops.row_attention import flash_row_attention
 
-    return {"B1": fused_row_block, "B1-train": fused_row_block_train,
-            "B2": fused_row_block_bwd, "B3": fused_row_block_int8, "B4": flash_row_attention,
-            "L": lab_row_block}
+    forms = {"B1": fused_row_block, "B1-train": fused_row_block_train,
+             "B2": fused_row_block_bwd, "B3": fused_row_block_int8, "B4": flash_row_attention}
+    return {**{k: (w, "launches") for k, w in forms.items()},
+            "L": (lab_row_block, "launches"),
+            **{f"{k}-f32": (w, "launches_f32") for k, w in forms.items()}}
 
 
 def reset_counts() -> None:
-    for c in counters().values():
-        c.launches = 0
+    for wrapper, attr in counters().values():
+        setattr(wrapper, attr, 0)
 
 
 def read_counts():
-    return {k: c.launches for k, c in counters().items()}
+    return {k: getattr(wrapper, attr) for k, (wrapper, attr) in counters().items()}
 
 
 # the kernel each serving route runs, and the device kernels it is made of
@@ -2845,6 +2903,9 @@ def phase_serve_clis(torch, np, gpu: str, design):
     return res
 
 
+MRSTFT_SEGMENTS = 2
+
+
 def phase_mrstft(torch, np, gpu: str, plain_ms):
     """The MR-STFT train step (TrainConfig's weight 0.5) on phase 7's fixed
     batch through "pallas": 66 B1-train + 66 B2 launches a step and no
@@ -2855,8 +2916,11 @@ def phase_mrstft(torch, np, gpu: str, plain_ms):
     its gradient follows the phase of near-silent bins, which bf16 compute
     moves: two bf16 routes miss the float32 gradient each by about as much,
     in different directions.  So the plain route in bf16 is run too, and
-    its cosines with the other two are recorded."""
+    its cosines with the other two are recorded.  The steps take the first
+    MRSTFT_SEGMENTS of phase 7's segments (the plain routes' steps take
+    most of the phase's time)."""
     mix, targets = train_batch(torch, np)
+    mix, targets = mix[:MRSTFT_SEGMENTS], {k: v[:MRSTFT_SEGMENTS] for k, v in targets.items()}
     res, grads = {}, {}
     for impl, dtype in (("pallas", "bfloat16"), ("xla", "bfloat16"), ("xla", "float32")):
         key = f"{impl}_{dtype}"
@@ -2882,8 +2946,9 @@ def phase_mrstft(torch, np, gpu: str, plain_ms):
             log(f"MR-STFT step pallas: launches per step {per_step} (designed {want}); "
                 f"loss {res[key]['total_loss']:.6f} (mrstft {res[key]['mrstft_loss']:.6f}); "
                 f"steps {[round(t * 1e3, 3) for t in times]} ms, best "
-                f"{res['best_ms_per_step']:.3f} ms/step against {plain_ms:.3f} without "
-                f"(phase 7), peak memory {res['peak_mem_gb']:.3f} GB on {gpu}")
+                f"{res['best_ms_per_step']:.3f} ms/step on {MRSTFT_SEGMENTS} segments "
+                f"({plain_ms:.3f} without it on phase 7's {TRAIN_BATCH}), peak memory "
+                f"{res['peak_mem_gb']:.3f} GB on {gpu}")
             if any(c != want for c in per_step):
                 fail(f"MR-STFT step: expected launches {want} a step, got {per_step}")
         del state, step
@@ -2938,7 +3003,9 @@ def phase_serving_entry(torch, np, gpu: str, plain_ms):
 # and the deployment path
 OPT_BATCH = (8, 4, 1024, 862)        # 8 x 10 s segments at the fast-serving knobs
 MASKED_BATCH = (4, 4, 1024, 862)     # (a)'s forwards: half of them, for the run's time limit
-EXPORT_SHAPE = (1, 4, 1025, 259)     # the JAX export default, the flagship's 4 channels
+# 2 s of audio (87 frames) with the flagship's 4 channels: the JAX export
+# default's 1025 bins, its 259 frames (6 s) cut for the run's time limit
+EXPORT_SHAPE = (1, 4, 1025, 87)
 EXPORT_DEPTHS = (1, 1, 1, 1)         # the export round trips' depth (widths full)
 DROPOUT = 0.1
 # the dropout steps take the first segment of phase 7's batch: the plain
@@ -3314,8 +3381,8 @@ def opt_export(torch, np, gpu: str):
     """(e) the float32 plain route at EXPORT_SHAPE (depth EXPORT_DEPTHS):
     torch.export and the TorchScript trace saved, loaded and run within 1e-4
     of eager; ONNX bytes or the reason it was refused; the reference .pt
-    served back equal; export_model_info of the flagship; a kernel route
-    refused."""
+    served back equal; export_model_info of the flagship.  The kernel
+    routes' exports are phase 15 (d)'s."""
     from tfswa_tpu_torch.evaluation import load_separator_from_checkpoint
     from tfswa_tpu_torch.optimization import (export_model_info, export_savedmodel,
                                               export_stablehlo, export_to_onnx,
@@ -3348,12 +3415,7 @@ def opt_export(torch, np, gpu: str):
                  for k, v in sep.model.state_dict().items())
     flagship = opt_model(torch, np)
     res["model_info"] = export_model_info(flagship)
-    try:
-        export_stablehlo(flagship, os.path.join(OPT_WORK, "kernel.pt2"), EXPORT_SHAPE)
-        refused = None
-    except NotImplementedError as exc:
-        refused = str(exc)
-    res.update(checkpoint_served_equal=served, kernel_route_refused=refused, seconds=seconds)
+    res.update(checkpoint_served_equal=served, seconds=seconds)
     log(f"opt (e): at {EXPORT_SHAPE}, depths {EXPORT_DEPTHS}: torch.export "
         f"{res['torch_export']['bytes']} bytes, max |diff| {res['torch_export']['max_abs_diff']:.3e}; "
         f"TorchScript {res['torchscript']['bytes']} bytes, max |diff| "
@@ -3362,9 +3424,9 @@ def opt_export(torch, np, gpu: str):
            else f"refused: {res['onnx']['refused']}")
         + f"; the .pt served back equal {served}; seconds {seconds}")
     log(f"opt (e): export_model_info of the flagship: {res['model_info']['num_parameters']} "
-        f"parameters; a \"pallas\" export refused: {refused is not None}")
-    if not served or refused is None or "torch.library" not in refused:
-        fail(f"export: checkpoint served equal {served}, kernel route refused {refused}")
+        f"parameters")
+    if not served:
+        fail(f"export: checkpoint served equal {served}")
     if res["model_info"]["num_parameters"] != FLAGSHIP_PARAMETERS:
         fail(f"export_model_info: {res['model_info']['num_parameters']} parameters, "
              f"expected {FLAGSHIP_PARAMETERS}")
@@ -4196,14 +4258,705 @@ def phase_quality(torch, np, gpu: str, covered):
     return res
 
 
+# ------------------------------------------------ phase 15: f32 and the remaining options
+# The f32 forms of B1, B1-train, B2, B3 and B4 (csrc/*_f32*) against their
+# plain versions in f32, on both sides with TF32 off (main() sets it):
+F32_REGIMES = ("flat", "clamp")
+# block and attention outputs (and q|k|v, mid): within F32_LIMIT x
+# max(max|ref| / 4, 1); den within F32_LIMIT relative, elementwise
+F32_LIMIT = 1e-4
+# B2's dx and each gradient leaf within F32_LIMIT x the leaf's max|ref|
+# the whole f32 model through a kernel route against the f32 plain route,
+# one 10 s segment on conditioned weights, per stem (a TF32-class product
+# lands near 60 dB; bf16's limit is SNR_MIN_DB)
+F32_SNR_MIN_DB = 70.0
+# one f32 train step against the plain route: loss, gradient cosine over
+# all parameters and over each row-block leaf (but the ones whose gradient
+# is 0 in exact arithmetic, zero_gradient_leaves, which hold noise)
+F32_STEP_LOSS_REL = 1e-5
+F32_STEP_COSINE = 0.99999
+F32_STEP_LEAF_COSINE = 0.9999
+# the f32 step's segments of phase 7's batch (no remat: 2 x 6 s fits the
+# card with room to spare), and those of (e) and (f)
+F32_TRAIN_SEGMENTS = 2
+OPTION_SEGMENTS = 2
+# the f32 bound: products at 3xTF32's rate, the fastest f32-accurate route
+# on the card (the kernels use FFMA, 67 TFLOP/s, recorded beside it)
+PEAK_TF32_FLOPS = 495e12
+PEAK_F32_FLOPS = PEAK_TF32_FLOPS / 3
+PEAK_FFMA_FLOPS = 67e12
+F32_TIMING_ROWS = PLAIN_ROWS
+# the f32 libraries: every kernel FFMA, every function one of ours
+SASS_FFMA = {"fused_block_f32": ("gemm_kernel", "attn_kernel", "qk_scale_kernel"),
+             "fused_block_bwd_f32": ("gemm_kernel", "atb_kernel", "attn_bwd_q_kernel",
+                                     "attn_bwd_kv_kernel"),
+             "row_attention_f32": ("gemm_kernel", "attn_kernel")}
+# and B4's f64 parts (t and the scores): DFMA
+SASS_DFMA = {"row_attention_f32": ("t_kernel", "attn_kernel")}
+F32_LIBS = tuple(SASS_FFMA)
+F32_ROUTES = {"pallas": "B1-f32", "pallas_int8": "B3-f32", "pallas_attn": "B4-f32"}
+
+
+def f32_tol(ref_max: float) -> float:
+    """The f32 kernels' limit at a result whose largest magnitude is ref_max."""
+    return F32_LIMIT * max(ref_max / 4.0, 1.0)
+
+
+def f32_forward_launches(depths=(2, 2, 6, 2), seconds: float = 120.0) -> int:
+    """f32 B1 launches of a fast-serving separation of ``seconds`` of audio:
+    one forward a batch of 8 ten-second segments (2 for 120 s), 3 row blocks
+    a TFSWABlock."""
+    batches = 2 if seconds == 120.0 else 1
+    return batches * forward_launches(depths)
+
+
+def sass_ffma_check():
+    """Every kernel of SASS_FFMA in the f32 libraries holds FFMA, every one
+    of SASS_DFMA DFMA, and every function in them is one of the port's
+    (namespace f32): no library kernel.  Fails the run otherwise; returns
+    {library: {function: FFMA count}} and {library: {function: DFMA
+    count}}."""
+    from pathlib import Path
+
+    from tfswa_tpu_torch.ops import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    found, found_d, bad = {}, {}, []
+    for lib, names in SASS_FFMA.items():
+        res = subprocess.run([str(tool), "--dump-sass", str(_build.BUILD_DIR / f"lib{lib}.so")],
+                             capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            fail(f"cuobjdump --dump-sass lib{lib}.so failed: {res.stderr[-2000:]}")
+        counts, dfma, fn = {}, {}, None
+        for line in res.stdout.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                counts[fn] = dfma[fn] = 0
+                if not fn.startswith("_ZN3f32"):
+                    bad.append(f"{lib}: {fn} is not one of the port's kernels")
+            elif fn and "FFMA" in line:
+                counts[fn] += 1
+            elif fn and "DFMA" in line:
+                dfma[fn] += 1
+        found[lib] = counts
+        found_d[lib] = {f: n for f, n in dfma.items() if n}
+        for n in SASS_DFMA.get(lib, ()):
+            fns = [f for f in dfma if n in f]
+            bad += [f"{lib}: {f}: no DFMA" for f in fns if dfma[f] == 0] or (
+                [] if fns else [f"{lib}: no {n} in the SASS"])
+        for n in names:
+            fns = [f for f in counts if n in f]
+            if not fns:
+                bad.append(f"{lib}: no {n} in the SASS")
+            bad += [f"{lib}: {f}: no FFMA" for f in fns if counts[f] == 0]
+        log(f"  SASS {lib}: {len(counts)} kernels, FFMA " + ", ".join(
+            f"{n} {min(c for f, c in counts.items() if n in f)}-"
+            f"{max(c for f, c in counts.items() if n in f)}"
+            for n in names if any(n in f for f in counts))
+            + "".join(f"; DFMA {n} {min(c for f, c in dfma.items() if n in f)}"
+                      for n in SASS_DFMA.get(lib, ()) if any(n in f for f in dfma)))
+    if bad:
+        fail("f32 SASS check: " + "; ".join(bad))
+    return found, found_d
+
+
+def bound_f32_ms(kind: str, R: int, N: int, C: int, hidden: int, peak: float = PEAK_F32_FLOPS):
+    """Least time for one call of an f32 form (``kind`` B1, B1-train, B3,
+    B2 or B4): its inputs read once and outputs written once in f32 (B1,
+    B3, B1-train: rows, out and the weights; B1-train also mid, acc, den;
+    B2 as bound_bwd_ms with f32 tensors, weights in and f32 gradients out;
+    B4 as bound_attn_ms in f32) over the HBM rate, the products over
+    ``peak`` (3xTF32's third of the TF32 rate unless told otherwise), B3's
+    scores over the int8 peak, and exp2 over the MUFU rate."""
+    M = R * N
+    weights = 4 * C * C + 2 * C * hidden + 6 * C + hidden
+    scores = 2 * R * N * N * C
+    exp2 = R * HEADS * N * N
+    if kind == "B2":
+        nbytes = 4 * 5 * M * C + 4 * R * HEADS * N + 4 * weights + 4 * weights
+        flops = 2 * M * (3 * C * C + C * hidden + 4 * C * hidden + 2 * C * C + 6 * C * C) \
+            + 5 * scores
+        int8 = 0
+    elif kind == "B4":
+        nbytes = 4 * 2 * M * C + 4 * (HEADS + 2) * C * C + 4 * C
+        flops = 2 * M * (2 * C * C + HEADS * C * C) + scores * (HEADS + 1)
+        int8 = 0
+    else:
+        nbytes = 4 * (2 * M * C + weights)
+        if kind == "B1-train":
+            nbytes += 4 * 2 * M * C + 4 * R * HEADS * N
+        flops = 2 * M * (4 * C * C + 2 * C * hidden) + scores + (0 if kind == "B3" else scores)
+        int8 = scores if kind == "B3" else 0
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = max(flops / peak + int8 / PEAK_INT8_OPS, exp2 / MUFU_RATE) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def b4_truth(torch, x, qkv_kernel, proj_kernel, proj_bias, H: int):
+    """B4's function in float64 on ``x`` (R, N, C): (out, acc).  B4's scores
+    t . x run to hundreds in the clamp regime, where the plain version's
+    own f32 rounding of them moves its result by more than the f32 limit
+    (recorded beside the kernel's); the f64 function is the truth the
+    kernel is held to."""
+    from tfswa_tpu_torch.ops.row_attention import bilinear_weights
+
+    C = x.shape[-1]
+    D = C // H
+    a, wv = bilinear_weights(qkv_kernel, H, torch.float64)
+    a, wv, wp, b = a.double(), wv.double(), proj_kernel.double(), proj_bias.double()
+    outs, accs = [], []
+    for r0 in range(0, x.shape[0], 8):
+        xd = x[r0:r0 + 8].double()
+        v = xd @ wv
+        acc = torch.empty_like(xd)
+        for h in range(H):
+            s = (xd @ a[h]) @ xd.transpose(-1, -2)
+            e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+            heads = slice(h * D, (h + 1) * D)
+            acc[..., heads] = (e / e.sum(dim=-1, keepdim=True)) @ v[..., heads]
+        outs.append(acc @ wp + b)
+        accs.append(acc)
+    return torch.cat(outs), torch.cat(accs)
+
+
+def _f32_block_checks(torch, N: int, C: int, gen, train: bool):
+    """B1, B3, B4 (serving) or B1-train, B2 (``train``) in f32 against their
+    plain versions on CHECK_ROWS rows, for each regime of F32_REGIMES.  The
+    plain versions get the kernel's own q|k|v (B3's int8 values and B2's
+    clamp edge are discontinuous in q and k); q|k|v itself is held against
+    the plain recompute.  B4 runs on LN1 output and is held against its
+    function in float64 (b4_truth) at the f32 limit; the plain f32
+    version's distance from that function is recorded beside it (it is
+    over the limit where scores reach the hundreds)."""
+    from tfswa_tpu_torch.models.attention import RowBlockParams
+    from tfswa_tpu_torch.ops import fused_block as fb
+    from tfswa_tpu_torch.ops import row_attention as ra
+
+    def held(name, got, ref, limit=None):
+        m = ref.float().abs().max().item()
+        tol = f32_tol(m) if limit is None else limit * max(m, 1e-30)
+        err = _max_abs(got, ref)
+        finite = bool(torch.isfinite(got.float()).all())
+        return {"err": err, "tol": tol, "ok": finite and err <= tol, "name": name}
+
+    res = {}
+    for regime in F32_REGIMES:
+        p = random_params(torch, RowBlockParams, C, gen, regime)
+        x = torch.randn(CHECK_ROWS, N, C, generator=gen).cuda()
+        c = []
+        if not train:
+            run = fb._forward_kernel(x, p, HEADS)
+            c.append(held("qkv", run.qkv, plain_qkv(torch, x, p, HEADS)))
+            ref, ref_attn = fb.fused_row_block_reference_parts(x, p, HEADS, qkv=run.qkv)
+            c += [held("B1 out", run.out, ref), held("B1 attn", run.attn, ref_attn)]
+            run8 = fb._forward_kernel(x, p, HEADS, int8=True)
+            ref8, ref8_attn = fb.fused_row_block_int8_reference_parts(x, p, HEADS, qkv=run8.qkv)
+            q3 = run8.qkv.view(CHECK_ROWS, N, 3 * C)
+            (qi, sq), (ki, sk) = fb.quantize_rows(q3[..., :C]), fb.quantize_rows(q3[..., C:2 * C])
+            qk = run8.qk.view(CHECK_ROWS, N, 2 * C).float()
+            wrong = int((qk[..., :C] != qi).sum() + (qk[..., C:] != ki).sum()
+                        + (run8.scales[:, 0] != sq.flatten()).sum()
+                        + (run8.scales[:, 1] != sk.flatten()).sum())
+            c += [held("B3 out", run8.out, ref8), held("B3 attn", run8.attn, ref8_attn),
+                  {"name": "B3 int8 mismatches", "err": wrong, "tol": 0, "ok": wrong == 0}]
+            xn = ln1_rows(torch, x, p)
+            w = [p.qkv_kernel, p.proj_kernel, p.proj_bias]
+            out4, acc4, _, _ = ra._kernel(xn, *w, HEADS)
+            truth = b4_truth(torch, xn, *w, HEADS)
+            plain = ra.flash_row_attention_reference_parts(xn, *w, HEADS)
+            for name, got, ref, pl in zip(("out", "acc"), (out4, acc4), truth, plain):
+                e = held(f"B4 {name}", got, ref)
+                c += [e, {"name": f"B4 plain {name} (recorded)", "err": _max_abs(pl, ref),
+                          "tol": e["tol"], "ok": True}]
+        else:
+            g = torch.randn(CHECK_ROWS, N, C, generator=gen).cuda()
+            out, mid, acc, den = fb.fused_row_block_train(x, p, HEADS)
+            again = fb._forward_kernel(x, p, HEADS, train=True)
+            r_out, r_mid, r_acc, r_den = fb.fused_row_block_train_reference(x, p, HEADS,
+                                                                            qkv=again.qkv)
+            c += [held("qkv", again.qkv, plain_qkv(torch, x, p, HEADS)),
+                  held("B1-train out", out, r_out), held("B1-train mid", mid, r_mid),
+                  held("B1-train acc", acc, r_acc)]
+            den_rel = ((den - r_den).abs() / r_den.abs()).max().item()
+            c.append({"name": "B1-train den (rel)", "err": den_rel, "tol": F32_LIMIT,
+                      "ok": den_rel <= F32_LIMIT})
+            parts = fb.fused_row_block_bwd_parts(x, mid, acc, den, g, p, HEADS)
+            twice = fb.fused_row_block_bwd_parts(x, mid, acc, den, g, p, HEADS)
+            ref = fb.fused_row_block_bwd_reference_parts(x, mid, acc, den, g, p, HEADS,
+                                                         qkv=again.qkv)
+            c.append(held("B2 dx", parts.dx, ref.dx, F32_LIMIT))
+            c += [held(f"B2 d{n}", a, b, F32_LIMIT)
+                  for n, a, b in zip(RowBlockParams._fields, parts.dp, ref.dp)]
+            same = all(bool(torch.equal(a, b)) for a, b in zip(
+                (parts.dx, *parts.dp, parts.dqkv), (twice.dx, *twice.dp, twice.dqkv)))
+            c.append({"name": "B2 twice bit for bit", "err": 0 if same else 1, "tol": 0,
+                      "ok": same})
+            del parts, twice, ref, again
+        s_max = max_score(torch, x, p, HEADS)
+        clamp_ok = regime != "clamp" or s_max > fb.SCORE_CLAMP
+        res[regime] = {"checks": c, "max_score": s_max,
+                       "ok": clamp_ok and all(e["ok"] for e in c)}
+        torch.cuda.empty_cache()
+    return res, p
+
+
+def _f32_time(torch, kind: str, R: int, N: int, C: int, p, gen):
+    """kernel / plain / library ms and the bounds of one f32 call at the
+    full row count R (the plain version on F32_TIMING_ROWS rows, scaled by
+    R; the library yardstick in f32 with TF32 off; those two over one call
+    after a warm-up call)."""
+    from tfswa_tpu_torch.ops import fused_block as fb
+    from tfswa_tpu_torch.ops import row_attention as ra
+
+    rs = min(R, F32_TIMING_ROWS)
+    x = torch.randn(R, N, C, generator=gen).cuda()
+    if kind == "B4":
+        x = ln1_rows(torch, x, p)
+        w = [p.qkv_kernel, p.proj_kernel, p.proj_bias]
+        k_ms = cuda_ms(torch, lambda: ra.flash_row_attention(x, *w, HEADS), 1)
+        pl_ms = cuda_ms(torch, lambda: ra.flash_row_attention_reference(x[:rs], *w, HEADS), 1)
+        lib_ms = cuda_ms(torch, lambda: library_attn(torch, x, *w, HEADS), 1)
+    elif kind in ("B1", "B3"):
+        run = fb.fused_row_block if kind == "B1" else fb.fused_row_block_int8
+        plain = fb.fused_row_block_reference if kind == "B1" else fb.fused_row_block_int8_reference
+        k_ms = cuda_ms(torch, lambda: run(x, p, HEADS), 2)
+        pl_ms = cuda_ms(torch, lambda: plain(x[:rs], p, HEADS), 1)
+        lib_ms = cuda_ms(torch, lambda: library_block(torch, x, p, HEADS), 1)
+    else:
+        g = torch.randn(R, N, C, generator=gen).cuda()
+        _, mid, acc, den = fb.fused_row_block_train(x, p, HEADS)
+        if kind == "B1-train":
+            k_ms = cuda_ms(torch, lambda: fb.fused_row_block_train(x, p, HEADS), 2)
+            pl_ms = cuda_ms(torch, lambda: fb.fused_row_block_train_reference(
+                x[:rs], p, HEADS), 1)
+            lib_ms = cuda_ms(torch, lambda: library_block(torch, x, p, HEADS), 1)
+        else:
+            k_ms = cuda_ms(torch, lambda: fb.fused_row_block_bwd(x, mid, acc, den, g, p,
+                                                                 HEADS), 2)
+            pl_ms = cuda_ms(torch, lambda: fb.fused_row_block_bwd_reference(
+                x[:rs], mid[:rs], acc[:rs], den[:rs], g[:rs], p, HEADS), 1)
+            lf = cuda_ms(torch, lambda: library_block(torch, x, p, HEADS), 1)
+            lfb = cuda_ms(torch, lambda: library_fwd_bwd(torch, x, p, HEADS, g), 1)
+            lib_ms = max(lfb - lf, 0.0)
+        del mid, acc, den, g
+    b_ms, b_by = bound_f32_ms(kind, R, N, C, 4 * C)
+    ffma_ms, _ = bound_f32_ms(kind, R, N, C, 4 * C, PEAK_FFMA_FLOPS)
+    del x
+    torch.cuda.empty_cache()
+    return {"ms": k_ms, "plain_ms": pl_ms * R / rs, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "bound_ffma_ms": ffma_ms, "plain_rows_timed": rs}
+
+
+def f32_kernels(torch, quick: bool = False):
+    """(a) each f32 form against its plain version (checks on 64 rows, at
+    the 12 serving (N, C) for B1, B3, B4 and the 12 training (N, C) for
+    B1-train and B2, flat and clamp weights), then its kernel / plain /
+    library time at the full row counts with its bounds, summed a forward
+    (66 calls) or a train step."""
+    gen = torch.Generator().manual_seed(15)
+    gen_full = torch.Generator().manual_seed(16)
+    shapes, misses = [], []
+    err = dict.fromkeys(("B1", "B3", "B4", "B1-train", "B2"), 0.0)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_bytes_ms", "bound_ffma_ms")
+    totals = {k: dict.fromkeys(keys, 0.0) for k in err}
+    for train, table in ((False, SHAPES), (True, TRAIN_SHAPES)):
+        for stage, attn, N, C, R in table:
+            checks, p = _f32_block_checks(torch, N, C, gen, train)
+            label = f"{'train' if train else 'serving'} stage {stage} {attn} N={N} C={C}"
+            for regime, r in checks.items():
+                for e in r["checks"]:
+                    kind = e["name"].split()[0]
+                    if kind in err and not any(w in e["name"] for w in (
+                            "mismatch", "twice", "recorded")):
+                        err[kind] = max(err[kind], e["err"])
+                log(f"f32 check {label} {regime:5s}: " + ", ".join(
+                    f"{e['name']} {e['err']:.2e}/{e['tol']:.2e}" for e in r["checks"])
+                    + f"; max score {r['max_score']:.1f} {'ok' if r['ok'] else 'MISS'}")
+                if not r["ok"]:
+                    misses.append(f"{label} {regime}")
+            entry = {"path": "train" if train else "serving", "stage": stage, "attn": attn,
+                     "N": N, "C": C, "R_full": R, "checks": checks}
+            calls = BLOCKS_PER_STAGE[stage]
+            timed = () if quick else ("B1-train", "B2") if train else ("B1", "B3", "B4")
+            for kind in timed:
+                t = _f32_time(torch, kind, R, N, C, p, gen_full)
+                entry[kind] = t
+                for k in keys:
+                    if k == "bound_bytes_ms":
+                        totals[kind][k] += calls * t["bound_ms"] if t["bound_by"] == "bytes" else 0
+                    else:
+                        totals[kind][k] += calls * t[k]
+                log(f"  full R={R} {kind} f32: kernel_ms {t['ms']:.3f} plain_ms "
+                    f"{t['plain_ms']:.3f} (timed on {t['plain_rows_timed']} rows) library_ms "
+                    f"{t['library_ms']:.3f} bound_ms {t['bound_ms']:.4f} ({t['bound_by']}; "
+                    f"at the FFMA rate {t['bound_ffma_ms']:.4f})")
+            shapes.append(entry)
+    if misses:
+        fail("the f32 kernels disagree with their plain versions at " + "; ".join(misses))
+    for kind, t in () if quick else totals.items():
+        log(f"per {'train step' if kind in ('B1-train', 'B2') else 'model forward'} (66 "
+            f"calls), {kind} f32: kernel_ms {t['ms']:.3f} plain_ms {t['plain_ms']:.3f} "
+            f"library_ms {t['library_ms']:.3f} bound_ms {t['bound_ms']:.4f} (FFMA "
+            f"{t['bound_ffma_ms']:.4f})")
+    return shapes, err, totals
+
+
+def _segment_snr(np, a, b):
+    return [float(10 * np.log10(np.sum(b[:, s] ** 2) / np.sum((a[:, s] - b[:, s]) ** 2)))
+            for s in range(a.shape[1])]
+
+
+def f32_serving(torch, np, gpu: str):
+    """(b) the f32 flagship on conditioned weights: the 120 s track through
+    "pallas" (132 f32 B1 launches, no other kernel: counts set to 0 just
+    before the separation and read just after), its audio-s/s; then one
+    10 s segment through each kernel route ("pallas_int8": 66 f32 B3,
+    "pallas_attn": 66 f32 B4, each alone) against the f32 plain route at
+    F32_SNR_MIN_DB a stem."""
+    res = {}
+    sep = make_separator(torch, "pallas", dtype="float32")
+    condition_weights(torch, np, sep.model)
+    forwards = []
+    sep.model.register_forward_pre_hook(lambda m, a: forwards.append(a[0].shape[0]))
+    audio = synthetic_track(np, 120.0, sep.sample_rate)
+    t0 = time.perf_counter()
+    sep.separate(audio)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    forwards.clear()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = sep.separate(audio)
+    runs = [time.perf_counter() - t0]
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    sep.separate(audio)
+    runs.append(time.perf_counter() - t0)
+    want = {k: (f32_forward_launches() if k == "B1-f32" else 0) for k in counts}
+    bad = [n for n, w in out.items() if w.shape != (1, audio.size) or not np.isfinite(w).all()]
+    rate = 120.0 / min(runs)
+    log(f"f32 (b) pallas: 120 s track, {len(forwards)} forwards, launches {counts}; runs "
+        f"{[round(r, 4) for r in runs]} s (warm-up {warm_s:.3f} s): {rate:.4f} audio-s/s on "
+        f"{gpu}; peak {peak:.3f} GB")
+    if counts != want or bad:
+        fail(f"f32 serving: expected launches {want}, got {counts}; bad stems {bad}")
+    res["pallas"] = {"launches": counts["B1-f32"], "runs_s": runs, "warmup_s": warm_s,
+                     "audio_s_per_s": rate, "peak_mem_gb": peak}
+    seg = torch.from_numpy(synthetic_track(np, 10.0, sep.sample_rate)[None]).cuda()
+    plain = separator_with(torch, sep.model, "xla", dtype="float32")
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        ref = plain._separate_core(seg).double().cpu().numpy()
+        plain_s = time.perf_counter() - t0
+    del plain
+    for impl, kernel in F32_ROUTES.items():
+        s = sep if impl == "pallas" else separator_with(torch, sep.model, impl, dtype="float32")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            got = s._separate_core(seg).double().cpu().numpy()
+        seg_s = time.perf_counter() - t0
+        counts = read_counts()
+        snr = _segment_snr(np, got, ref)
+        want = {k: (66 if k == kernel else 0) for k in counts}
+        log(f"f32 (b) {impl}: one 10 s segment in {seg_s:.3f} s (plain route {plain_s:.3f} s), "
+            f"launches {counts}; SNR against the f32 plain route {[round(v, 3) for v in snr]} "
+            f"dB (min {F32_SNR_MIN_DB})")
+        if counts != want or not np.isfinite(got).all() or min(snr) < F32_SNR_MIN_DB:
+            fail(f"f32 route {impl}: launches {counts} (expected {want}), SNR {snr}")
+        res.setdefault(impl, {}).update(segment_launches=counts[kernel], segment_s=seg_s,
+                                        snr_db=snr, plain_segment_s=plain_s)
+        if impl != "pallas":
+            del s
+        torch.cuda.empty_cache()
+    del sep
+    torch.cuda.empty_cache()
+    return res
+
+
+def _grad_vector(torch, model):
+    return torch.cat([p.grad.flatten().double() for p in model.parameters()])
+
+
+def f32_train(torch, np, gpu: str):
+    """(c) one f32 train step through "pallas" (66 f32 B1-train + 66 f32 B2,
+    nothing else: counts set to 0 just before, read just after) on
+    F32_TRAIN_SEGMENTS x 6 s of phase 7's batch, no remat, against the
+    plain route's first step from the same weights: loss, gradient cosine
+    overall and per row-block leaf; then a second step timed and the
+    peak memory."""
+    mix, targets = train_batch(torch, np)
+    mix = mix[:F32_TRAIN_SEGMENTS]
+    targets = {k: v[:F32_TRAIN_SEGMENTS] for k, v in targets.items()}
+    zero = zero_gradient_leaves()
+    out, grads, leaves = {}, {}, {}
+    for impl in ("pallas", "xla"):
+        state, step = make_trainer(torch, impl, dtype="float32")[:2]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, loss = step(state, mix, targets)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = read_counts()
+        grads[impl] = _grad_vector(torch, state.model)
+        leaves[impl] = {n: p.grad.double().flatten() for n, p in state.model.named_parameters()
+                        if any(f".{a}." in n for a in ("tsa", "fsa", "swa"))}
+        rec = {"total_loss": float(loss["total_loss"]), "launches": counts,
+               "first_step_s": first_s}
+        if impl == "pallas":
+            want = {k: (66 if k in ("B1-train-f32", "B2-f32") else 0) for k in counts}
+            if counts != want:
+                fail(f"f32 train step: expected launches {want}, got {counts}")
+            t0 = time.perf_counter()
+            step(state, mix, targets)
+            torch.cuda.synchronize()
+            rec.update(ms_per_step=(time.perf_counter() - t0) * 1e3,
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        out[impl] = rec
+        del state, step
+        torch.cuda.empty_cache()
+    a, b = grads["pallas"], grads["xla"]
+    cos = float((a @ b) / (a.norm() * b.norm()))
+    ref_loss = out["xla"]["total_loss"]
+    rel = abs(out["pallas"]["total_loss"] - ref_loss) / abs(ref_loss)
+    leaf_cos = {}
+    for n, g in leaves["pallas"].items():
+        r = leaves["xla"][n]
+        den = float(g.norm() * r.norm())
+        leaf_cos[n] = float(g @ r) / den if den else float(torch.equal(g, r))
+    held = {n: c for n, c in leaf_cos.items() if n not in zero}
+    worst = min(held, key=held.get)
+    out.update(loss_rel=rel, grad_cosine=cos, leaf_cosine_min=held[worst], worst_leaf=worst,
+               leaves_held=len(held), leaves_recorded={n: c for n, c in leaf_cos.items()
+                                                       if n in zero})
+    log(f"f32 (c) train step on {F32_TRAIN_SEGMENTS} x {TRAIN_SECONDS} s, no remat: "
+        f"launches {out['pallas']['launches']}, {out['pallas']['ms_per_step']:.3f} ms/step, "
+        f"peak {out['pallas']['peak_mem_gb']:.3f} GB on {gpu}; vs the plain route: loss rel "
+        f"{rel:.2e} (limit {F32_STEP_LOSS_REL}), gradient cosine {cos:.8f} (min "
+        f"{F32_STEP_COSINE}), row-block leaves {len(held)} held, worst {held[worst]:.8f} "
+        f"({worst}; min {F32_STEP_LEAF_COSINE})")
+    if not (rel <= F32_STEP_LOSS_REL and cos >= F32_STEP_COSINE
+            and held[worst] >= F32_STEP_LEAF_COSINE):
+        fail(f"f32 train step vs the plain route: loss rel {rel}, cosine {cos}, worst leaf "
+             f"{worst} {held[worst]}")
+    return out
+
+
+def f32_export(torch, np, gpu: str):
+    """(d) the f32 kernel routes at EXPORT_SHAPE, depths EXPORT_DEPTHS: the
+    torch.export program (.pt2) and the TorchScript trace, each saved,
+    loaded back and run with the counts set to 0 just before and read just
+    after (21 launches of the route's f32 kernel, 3 a TFSWABlock, none of
+    any other) and equal to the model's eager forward bit for bit, under
+    cudnn.deterministic (without it the eager forward itself differs from
+    run to run in its last bits: cuDNN's algorithms for the transposed
+    convs sum in no fixed order; the kernels' launches are bit for bit
+    either way)."""
+    from tfswa_tpu_torch.optimization import (export_savedmodel, export_stablehlo,
+                                              make_forward_fn)
+
+    res = {}
+    os.makedirs(OPT_WORK, exist_ok=True)
+    x = torch.randn(EXPORT_SHAPE, generator=torch.Generator().manual_seed(7)).cuda()
+    want_n = forward_launches(EXPORT_DEPTHS)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for impl, kernel in F32_ROUTES.items():
+            t0 = time.perf_counter()
+            model = opt_model(torch, np, impl=impl, dtype="float32", depths=EXPORT_DEPTHS)
+            eager = make_forward_fn(model)(x)
+            pt2 = os.path.join(OPT_WORK, f"{impl}.pt2")
+            ts = os.path.join(OPT_WORK, f"{impl}_ts")
+            info = {"pt2": export_stablehlo(model, pt2, EXPORT_SHAPE, verify=False),
+                    "torchscript": export_savedmodel(model, ts, EXPORT_SHAPE, verify=False)}
+            loaded = {"pt2": torch.export.load(pt2).module(),
+                      "torchscript": torch.jit.load(os.path.join(ts, "model.pt"),
+                                                    map_location="cuda")}
+            for name, fn in loaded.items():
+                torch.cuda.synchronize()
+                reset_counts()
+                with torch.no_grad():
+                    got = fn(x)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                want = {k: (want_n if k == kernel else 0) for k in counts}
+                equal = bool(torch.equal(got, eager))
+                info[name].update(launches=counts[kernel], equal=equal,
+                                  max_abs_diff=float((got - eager).abs().max()))
+                if counts != want or not equal:
+                    fail(f"f32 export {impl} {name}: launches {counts} (expected {want}), "
+                         f"equal to the model {equal}")
+            info["seconds"] = time.perf_counter() - t0
+            log(f"f32 (d) {impl}: .pt2 {info['pt2']['bytes']} bytes and TorchScript "
+                f"{info['torchscript']['bytes']} bytes loaded back, each {want_n} {kernel} "
+                f"launches and equal to the model bit for bit ({info['seconds']:.1f} s)")
+            res[impl] = info
+            del model, loaded
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(OPT_WORK, ignore_errors=True)
+    return res
+
+
+def f32_param_bf16(torch, np, gpu: str):
+    """(e) param_dtype="bfloat16" with dtype="bfloat16" through "pallas":
+    two train steps on OPTION_SEGMENTS x 6 s, each with 66 B1-train + 66 B2
+    (bf16) launches, finite and falling loss, every parameter, gradient and
+    Adam moment in bf16 (the running statistics f32)."""
+    mix, targets = train_batch(torch, np)
+    mix = mix[:OPTION_SEGMENTS]
+    targets = {k: v[:OPTION_SEGMENTS] for k, v in targets.items()}
+    state, step = make_trainer(torch, "pallas", param_dtype="bfloat16")[:2]
+    losses, per_step = [], []
+    for _ in range(2):
+        reset_counts()
+        state, loss = step(state, mix, targets)
+        torch.cuda.synchronize()
+        per_step.append(read_counts())
+        losses.append(float(loss["total_loss"]))
+    model = state.model
+    dtypes = {str(p.dtype) for p in model.parameters()}
+    grad_dtypes = {str(p.grad.dtype) for p in model.parameters() if p.grad is not None}
+    moments = {str(v.dtype) for s in state.tx.adamw.state.values()
+               for k, v in s.items() if k in ("exp_avg", "exp_avg_sq")}
+    stats = {str(b.dtype) for n, b in model.named_buffers() if "running" in n}
+    want = {k: (66 if k in ("B1-train", "B2") else 0) for k in per_step[0]}
+    res = {"losses": losses, "launches": per_step, "param_dtypes": sorted(dtypes),
+           "grad_dtypes": sorted(grad_dtypes), "moment_dtypes": sorted(moments),
+           "running_stat_dtypes": sorted(stats)}
+    log(f"f32 (e) param_dtype=bfloat16: losses {losses}, launches {per_step[-1]}; parameters "
+        f"{sorted(dtypes)}, gradients {sorted(grad_dtypes)}, Adam moments {sorted(moments)}, "
+        f"running stats {sorted(stats)}")
+    if (any(c != want for c in per_step) or not all(math.isfinite(v) for v in losses)
+            or not losses[1] < losses[0] or dtypes != {"torch.bfloat16"}
+            or grad_dtypes != {"torch.bfloat16"} or moments != {"torch.bfloat16"}
+            or stats != {"torch.float32"}):
+        fail(f"param_dtype=bfloat16 step: {res}")
+    del state, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def f32_remat_policy(torch, np, gpu: str):
+    """(f) one "dots" remat step through "pallas" (bf16) against the
+    no-remat step from the same weights on OPTION_SEGMENTS x 6 s, at
+    phase_remat's limits (loss 1e-3 rel., gradient cosine 0.999), with
+    the launches (the recompute runs B1-train again: 132 + 66) and the
+    peak memory of each."""
+    mix, targets = train_batch(torch, np)
+    mix = mix[:OPTION_SEGMENTS]
+    targets = {k: v[:OPTION_SEGMENTS] for k, v in targets.items()}
+    res, grads = {}, {}
+    for policy in (None, "dots"):
+        state, step = make_trainer(torch, "pallas", remat=policy is not None)[:2]
+        if policy:
+            state.model.remat_policy = policy
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, loss = step(state, mix, targets)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        grads[policy] = _grad_vector(torch, state.model)
+        want = {k: step_launches(remat=policy is not None).get(k, 0) for k in counts}
+        res[str(policy)] = {"total_loss": float(loss["total_loss"]), "launches": counts,
+                            "step_s": time.perf_counter() - t0,
+                            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if counts != want:
+            fail(f"remat policy {policy}: expected launches {want}, got {counts}")
+        del state, step
+        torch.cuda.empty_cache()
+    a, b = grads["dots"], grads[None]
+    cos = float((a @ b) / (a.norm() * b.norm()))
+    ref_loss = res["None"]["total_loss"]
+    rel = abs(res["dots"]["total_loss"] - ref_loss) / abs(ref_loss)
+    res.update(loss_rel=rel, grad_cosine=cos)
+    log(f"f32 (f) remat policy \"dots\" vs no remat on {OPTION_SEGMENTS} x {TRAIN_SECONDS} s: "
+        f"loss rel {rel:.2e} (limit 1e-3), gradient cosine {cos:.6f} (min 0.999); launches "
+        f"{res['dots']['launches']}; peak {res['dots']['peak_mem_gb']:.3f} GB vs "
+        f"{res['None']['peak_mem_gb']:.3f} GB on {gpu}")
+    if not (rel <= 1e-3 and cos >= 0.999):
+        fail(f"remat policy dots vs no remat: loss rel {rel}, cosine {cos}")
+    return res
+
+
+def phase_f32(torch, np, gpu: str):
+    """Phase 15: the f32 kernels (a), the f32 serving (b) and training (c)
+    main paths, the kernel routes' exports (d), param_dtype="bfloat16" (e)
+    and a remat save policy (f)."""
+    res, seconds = {}, {}
+    for name, fn in (("serving", f32_serving), ("train", f32_train), ("export", f32_export),
+                     ("param_bf16", f32_param_bf16), ("remat_policy", f32_remat_policy)):
+        t0 = time.perf_counter()
+        res[name] = fn(torch, np, gpu)
+        seconds[name] = time.perf_counter() - t0
+        log(f"phase 15 {name}: {seconds[name]:.1f} s")
+    res["seconds"] = seconds
+    return res
+
+
+def ab_main(torch, np, label: str) -> None:
+    """--ab CHECKOUT LABEL: the bf16 serving path of the port that sys.path
+    finds first (CHECKOUT's), timed by this script's harness, for an A/B of
+    two commits on one card: one process a checkout, so that each imports
+    its own package, and in one call parent, change, change, parent.  B1, B3
+    and B4 a model forward (their 66 calls at SHAPES, through the public
+    wrappers) and the 120 s track's separation rate through "pallas" (best
+    of 3 after a warm-up).  Prints one JSON line."""
+    from tfswa_tpu_torch.models.attention import RowBlockParams
+    from tfswa_tpu_torch.ops import _build
+    from tfswa_tpu_torch.ops.fused_block import fused_row_block, fused_row_block_int8
+    from tfswa_tpu_torch.ops.row_attention import flash_row_attention
+
+    _build.build(["fused_block", "row_attention"])
+    gen = torch.Generator().manual_seed(1)
+    res = {"label": label, "device": gpu_line(), "B1": 0.0, "B3": 0.0, "B4": 0.0}
+    for stage, _, N, C, R in SHAPES:
+        p = random_params(torch, RowBlockParams, C, gen)
+        x = torch.randn(R, N, C, generator=gen).cuda().to(torch.bfloat16)
+        w = [t.to(torch.bfloat16) for t in (p.qkv_kernel, p.proj_kernel, p.proj_bias)]
+        calls = BLOCKS_PER_STAGE[stage]
+        res["B1"] += calls * cuda_ms(torch, lambda: fused_row_block(x, p, HEADS), 3)
+        res["B3"] += calls * cuda_ms(torch, lambda: fused_row_block_int8(x, p, HEADS), 3)
+        res["B4"] += calls * cuda_ms(torch, lambda: flash_row_attention(x, *w, HEADS), 3)
+        del x
+        torch.cuda.empty_cache()
+    sep = make_separator(torch, "pallas")
+    audio = synthetic_track(np, 120.0, sep.sample_rate)
+    sep.separate(audio)
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        sep.separate(audio)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    res.update(audio_s_per_s=120.0 / min(runs), runs_s=runs)
+    print(json.dumps(res), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="build and kernel checks only")
-    ap.add_argument("--plant", choices=sorted(PLANTS) + sorted(DP_PLANTS),
+    ap.add_argument("--plant", choices=sorted(PLANTS) + sorted(F32_PLANTS) + sorted(DP_PLANTS),
                     help="plant a fault in a copy of B2's source and run only the "
-                         "B1-train / B2 checks, or one of DP_PLANTS in phase 13 (b)'s "
-                         "ranks and run only its run: exit 0 if they catch it, 1 if not")
+                         "B1-train / B2 checks, in a copy of B4's f32 source and run "
+                         "only phase 15 (a)'s checks, or one of DP_PLANTS in phase 13 "
+                         "(b)'s ranks and run only its run: exit 0 if they catch it, 1 "
+                         "if not")
+    ap.add_argument("--ab", nargs=2, metavar=("CHECKOUT", "LABEL"),
+                    help="time CHECKOUT's bf16 serving path (B1, B3, B4 a forward, "
+                         "the 120 s rate) and print it as one JSON line: one process a "
+                         "checkout, for an A/B of two commits in one call")
     ap.add_argument("--witness", action="store_true",
                     help="run phase 13 (b)'s witness (WITNESS_RUN) alone and write its "
                          "cosines to chiprun_out/chip_smoke_witness.json")
@@ -4228,6 +4981,10 @@ def main() -> None:
     sys.path.insert(0, HERE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.ab:
+        sys.path.insert(0, os.path.abspath(args.ab[0]))
+        ab_main(torch, np, args.ab[1])
+        return
     if args.rank is not None:
         rank_main(args.rank, args.world, args.store, args.out, args.tags.split(";"),
                   args.plant)
@@ -4244,7 +5001,7 @@ def main() -> None:
     MUFU_RATE = mufu_rate(torch)
     log(f"exp2 (MUFU) rate {MUFU_RATE:.4e} /s")
     t0 = time.perf_counter()
-    _build.build(["fused_block", "fused_block_bwd", "row_attention"])
+    _build.build(["fused_block", "fused_block_bwd", "row_attention", *F32_LIBS])
     build_s = time.perf_counter() - t0
     log(f"build: {build_s:.3f} s")
     ptxas = [f"{name}: {line.strip()}" for name, report in _build.ptxas_report.items()
@@ -4262,6 +5019,7 @@ def main() -> None:
     for line in spills:
         log(f"  {line}")
     hmma = sass_hmma_check()
+    ffma, dfma = sass_ffma_check()
 
     if args.witness:
         os.makedirs(PARALLEL_WORK, exist_ok=True)
@@ -4293,12 +5051,15 @@ def main() -> None:
         sys.exit(0)
     if args.plant:
         plant_fault(torch, args.plant)
+        check, what = ((lambda: f32_kernels(torch, True), "phase 15 (a)")
+                       if args.plant in F32_PLANTS else
+                       (lambda: phase_train_kernels(torch, True), "the B2 check"))
         try:
-            phase_train_kernels(torch, True)
+            check()
         except SystemExit:
-            log(f"planted fault {args.plant}: caught by the B2 check")
+            log(f"planted fault {args.plant}: caught by {what}")
             sys.exit(0)
-        fail(f"planted fault {args.plant}: the B2 check passed it")
+        fail(f"planted fault {args.plant}: {what} passed it")
 
     phase_s = {"build": build_s}
 
@@ -4316,7 +5077,7 @@ def main() -> None:
                                          shapes)
     at_shapes, at_err, at_totals = timed("B4 kernels", phase_attn_kernels, torch, args.quick)
     results = {"gpu": gpu, "build_s": build_s, "ptxas": ptxas, "spills": spills,
-               "sass_hmma": hmma, "mufu_rate": MUFU_RATE,
+               "sass_hmma": hmma, "sass_ffma": ffma, "sass_dfma": dfma, "mufu_rate": MUFU_RATE,
                "phase_s": phase_s, "shapes": shapes, "totals": totals,
                "int8_shapes": i8_shapes, "int8_totals": i8_totals,
                "attn_shapes": at_shapes, "attn_totals": at_totals, "lab_shapes": lab_shapes,
@@ -4330,11 +5091,12 @@ def main() -> None:
                                       args.quick)
     r_shapes, r_err, covered = timed("recipe kernels", phase_recipe_kernels, torch)
     q_shapes, q_err = timed("quality kernels", phase_quality_kernels, torch, covered)
+    f32_shapes, f32_err, f32_totals = timed("f32 kernels", f32_kernels, torch, args.quick)
     for k in ("train", "bwd"):
         t_err[k] = max(t_err[k], r_err[k], q_err[k])
     max_err = max(max_err, r_err["B1"], q_err["B1"])
     results.update(train_shapes=t_shapes, train_totals=t_totals, recipe_shapes=r_shapes,
-                   quality_shapes=q_shapes)
+                   quality_shapes=q_shapes, f32_shapes=f32_shapes, f32_totals=f32_totals)
     train = {"launches": {}}
     if not args.quick:
         train = timed("train pallas", phase_train, torch, np, gpu)
@@ -4355,6 +5117,7 @@ def main() -> None:
                                     train["best_ms_per_step"],
                                     serving["pallas"]["audio_s_per_s"])
         results["quality"] = timed("quality", phase_quality, torch, np, gpu, covered)
+        results["f32"] = timed("f32 routes", phase_f32, torch, np, gpu)
         for kind, label in (("train", "B1-train"), ("bwd", "B2")):
             log(f"per train step (66 calls), {label}: kernel_ms {{ms:.3f}} plain_ms "
                 f"{{plain_ms:.3f}} library_ms {{library_ms:.3f}} bound_ms "
@@ -4399,6 +5162,26 @@ def main() -> None:
         entry("kernel_lab", fwd_src, "tools/kernel_lab.py:101", lab_path["launches"], lab_err,
               dict(lab_totals["full"], library_ms=totals["library_ms"])),
     ]
+    # the f32 forms, their launches from phase 15's main paths
+    f32 = results.get("f32", {})
+    f32_launches = {} if args.quick else {
+        "B1": f32["serving"]["pallas"]["launches"],
+        "B1-train": f32["train"]["pallas"]["launches"]["B1-train-f32"],
+        "B2": f32["train"]["pallas"]["launches"]["B2-f32"],
+        "B3": f32["serving"]["pallas_int8"]["segment_launches"],
+        "B4": f32["serving"]["pallas_attn"]["segment_launches"]}
+    f32_src = "tfswa_tpu_torch/csrc/fused_block_f32.cu"
+    for name, kind, src, replaces in (
+            ("fused_row_block_f32", "B1", f32_src, "tfswa_tpu/ops/pallas/fused_block.py:140"),
+            ("fused_row_block_train_f32", "B1-train", f32_src,
+             "tfswa_tpu/ops/pallas/fused_block.py:140"),
+            ("fused_row_block_bwd_f32", "B2", "tfswa_tpu_torch/csrc/fused_block_bwd_f32.cu",
+             "tfswa_tpu/ops/pallas/fused_block.py:526"),
+            ("fused_row_block_int8_f32", "B3", f32_src, "tfswa_tpu/ops/pallas/fused_block.py:253"),
+            ("flash_row_attention_f32", "B4", "tfswa_tpu_torch/csrc/row_attention_f32.cu",
+             "tfswa_tpu/ops/pallas/row_attention.py:53")):
+        kernels.append(entry(name, src, replaces, f32_launches.get(kind), f32_err[kind],
+                             f32_totals[kind]))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

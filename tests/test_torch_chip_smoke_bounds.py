@@ -72,6 +72,13 @@ def test_each_planted_fault_edits_one_place_of_the_backward_source(chip_smoke, n
     assert src.count(old) == 1 and old != new
 
 
+@pytest.mark.parametrize("name", ["b4_tf32_scores"])
+def test_each_planted_f32_fault_edits_one_place_of_b4s_f32_source(chip_smoke, name):
+    src = (ROOT / "tfswa_tpu_torch" / "csrc" / "row_attention_f32.cu").read_text()
+    old, new = chip_smoke.F32_PLANTS[name]
+    assert src.count(old) == 1 and old != new
+
+
 @pytest.mark.parametrize("remat", [False, True])
 def test_train_step_launches_with_and_without_remat(chip_smoke, monkeypatch, remat):
     """The new phase's designed counts a step (66 B1-train + 66 B2 at the
@@ -522,3 +529,52 @@ def test_dp_plant_keeps_each_ranks_own_gradient_of_the_planted_leaves(chip_smoke
     assert params[0].grad.tolist() == [0.5] * 3
     assert params[1].grad.tolist() == [14.0] * 3
     assert chip_smoke.DP_PLANTS == {"unsummed_zero_leaves": chip_smoke.RANK_RUNS[0][0]}
+
+
+# ------------------------------------------------ phase 15's pure parts
+
+def test_phase_15_is_in_the_docstring_before_the_kernels_line(chip_smoke):
+    doc = chip_smoke.__doc__
+    at = doc.index(" 15. the f32 forms")
+    assert at < doc.index(" 16. a JSON line of the kernels")
+    for part in ("(a)", "(b)", "(c)", "(d)", "(e)", "(f)"):
+        assert part in doc[at:doc.index(" 16. ")], part
+
+
+@pytest.mark.parametrize("ref_max,tol", [(0.5, 1e-4), (4.0, 1e-4), (40.0, 1e-3)])
+def test_f32_limit_scales_with_the_output(chip_smoke, ref_max, tol):
+    """1e-4 x max(max|ref| / 4, 1): B1's bf16 limit's form at f32's scale."""
+    assert chip_smoke.f32_tol(ref_max) == pytest.approx(tol)
+    assert chip_smoke.F32_SNR_MIN_DB == 70.0 > chip_smoke.SNR_MIN_DB
+    assert (chip_smoke.F32_STEP_LOSS_REL, chip_smoke.F32_STEP_COSINE,
+            chip_smoke.F32_STEP_LEAF_COSINE) == (1e-5, 0.99999, 0.9999)
+
+
+def test_f32_launches_at_full_depth_and_at_the_export_depth(chip_smoke):
+    """132 f32 B1 launches in the 120 s separation (2 forwards of 66), 21 a
+    forward of an exported program at depths (1, 1, 1, 1), 66 + 66 a step."""
+    assert chip_smoke.f32_forward_launches() == 132
+    assert chip_smoke.f32_forward_launches(seconds=10.0) == 66
+    assert chip_smoke.forward_launches(chip_smoke.EXPORT_DEPTHS) == 21
+    assert chip_smoke.step_launches() == {"B1-train": 66, "B2": 66}
+    assert set(chip_smoke.F32_ROUTES.values()) <= set(chip_smoke.counters())
+    assert set(chip_smoke.SASS_FFMA) == set(chip_smoke.F32_LIBS)
+    for lib in chip_smoke.F32_LIBS:
+        assert (ROOT / "tfswa_tpu_torch" / "csrc" / f"{lib}.cu").exists()
+
+
+def test_f32_bound_of_b1_at_stage_0_tsa(chip_smoke):
+    """B1's f32 form at stage-0 TSA of the serving batch (N = 1024, C = 32,
+    R = 6896): f32 rows in and out and the weights over the HBM rate, the
+    products over 495 / 3 TFLOP/s (3xTF32), H N^2 exp2 a row over the MUFU
+    rate; the exp2 bound the largest."""
+    (shape,) = [s for s in chip_smoke.SHAPES if s[:2] == (0, "TSA")]
+    _, _, N, C, R = shape
+    hid, M, H = 4 * C, R * N, 8
+    nbytes = 4 * (2 * M * C + 4 * C * C + 2 * C * hid + 6 * C + hid)
+    flops = 2 * M * (4 * C * C + 2 * C * hid) + 2 * 2 * R * N * N * C
+    want = max(nbytes / 3.35e12, flops / (495e12 / 3), R * H * N * N / MUFU_RATE) * 1e3
+    got, by = chip_smoke.bound_f32_ms("B1", R, N, C, hid)
+    assert got == pytest.approx(want) and by == "operations"
+    ffma, _ = chip_smoke.bound_f32_ms("B1", R, N, C, hid, chip_smoke.PEAK_FFMA_FLOPS)
+    assert ffma >= got

@@ -1,0 +1,280 @@
+"""The f32 forms of B1, B1-train, B3, B2 and B4
+(``tfswa_tpu_torch/csrc/*_f32*``) on the CPU.
+
+The CPU tests run with no card and no nvcc, so the CUDA sources themselves are
+compiled with g++ against a CPU stand-in of the CUDA subset they use
+(``tests/_cuda_emu.h``: a block's threads as std::threads, __syncthreads a
+barrier, a warp's shuffle an exchange between barriers) and called
+through the wrappers' own ctypes launches, on CPU tensors.  Held:
+  - every output against the plain f32 version (the wrappers' CPU path)
+    within 1e-5 of its largest magnitude: f32 sums of at most a few hundred
+    terms in another order (the products' tiles, the key loop), a few f32
+    ulp;
+  - B3's int8 q, k and row scales exactly (the same true division and
+    rounding half to even);
+  - B2 twice bit for bit (no atomics), each gradient leaf within 1e-5 of
+    its largest magnitude;
+  - B1's f32 form against the JAX package's Pallas kernel in f32 (interpret
+    mode) within its tests' 2e-5;
+  - the routing: f32 rows launch the f32 libraries and bf16 rows the
+    others (stand-in libraries), each counted apart; float16 raises; the
+    f32 forms' shared memory admits every flagship shape.
+"""
+import ctypes
+import shutil
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from tfswa_tpu.models.attention import RowBlockParams as JaxParams
+from tfswa_tpu.ops.pallas.fused_block import fused_row_block as jax_fused_row_block
+from tfswa_tpu_torch.models.attention import RowBlockParams
+from tfswa_tpu_torch.ops import _build
+from tfswa_tpu_torch.ops import fused_block as fb
+from tfswa_tpu_torch.ops import row_attention as ra
+
+from test_torch_fused_block import FLAGSHIP_PATHS, FakeCuda, flagship_row_shapes
+
+TESTS = Path(__file__).resolve().parent
+CSRC = TESTS.parent / "tfswa_tpu_torch" / "csrc"
+LIBS = ("fused_block_f32", "fused_block_bwd_f32", "row_attention_f32")
+H = 8
+REL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """The three f32 sources built with g++ against tests/_cuda_emu.h, one
+    process each, in parallel."""
+    gxx = shutil.which("g++")
+    assert gxx, "g++ builds the CUDA sources' CPU stand-in"
+    out = tmp_path_factory.mktemp("emu")
+
+    def build(name):
+        lib = out / f"lib{name}.so"
+        res = subprocess.run(
+            [gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread", "-DTFSWA_EMU",
+             "-include", str(TESTS / "_cuda_emu.h"), f"-I{CSRC}", "-o", str(lib),
+             str(TESTS / "_cuda_emu.cpp"), "-x", "c++", str(CSRC / f"{name}.cu")],
+            capture_output=True, text=True, timeout=600)
+        assert res.returncode == 0, res.stderr[-3000:]
+        return name, ctypes.CDLL(str(lib))
+
+    with ThreadPoolExecutor(len(LIBS)) as pool:
+        return dict(pool.map(build, LIBS))
+
+
+@pytest.fixture
+def kernels(emulated, monkeypatch):
+    """The wrappers' launches on CPU tensors through the emulated libraries:
+    the card's checks and stream left out."""
+    for name, lib in emulated.items():
+        monkeypatch.setitem(_build._loaded, name, lib)
+    monkeypatch.setattr(fb, "_check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(ra, "_check_cuda", lambda *a, **k: None)
+    for mod in (fb, ra):
+        monkeypatch.setattr(mod, "_on_stream", lambda dev, fn, *a: fn(*a, None))
+
+
+def _inputs(R, N, C, seed, regime="flat", hid=None):
+    """Rows and a RowBlockParams from numpy ``seed``; "clamp": qkv std
+    1.44 / sqrt(C) and LN1 scale x6, so that scores pass SCORE_CLAMP."""
+    rng = np.random.default_rng(seed)
+    hid = 4 * C if hid is None else hid
+
+    def r(*s, sc=0.05):
+        return torch.from_numpy((rng.standard_normal(s) * sc).astype(np.float32))
+
+    qkv_std, ln = (0.05, 1.0) if regime == "flat" else (1.44 / C ** 0.5, 6.0)
+    p = RowBlockParams(ln * (1.0 + r(C, sc=0.1)), r(C, sc=0.1), r(C, 3 * C, sc=qkv_std),
+                       r(C, C), r(C, sc=0.01), 1.0 + r(C, sc=0.1), r(C, sc=0.1), r(C, hid),
+                       r(hid, sc=0.01), r(hid, C), r(C, sc=0.01))
+    return r(R, N, C, sc=1.0), p
+
+
+def _close(got, ref, rel=REL):
+    scale = max(float(ref.abs().max()), 1e-30)
+    err = float((got - ref).abs().max())
+    assert err <= rel * scale, f"max |diff| {err:.3e} over {rel} x {scale:.3e}"
+
+
+CASES = [(2, 20, 32, "flat", None), (2, 130, 64, "clamp", 96)]   # 2 key tiles, ragged MLP
+
+
+@pytest.mark.parametrize("R,N,C,regime,hid", CASES)
+def test_f32_forward_forms_match_their_plain_versions(kernels, R, N, C, regime, hid):
+    x, p = _inputs(R, N, C, seed=N, regime=regime, hid=hid)
+    run = fb._forward_kernel(x, p, H)
+    out, attn = fb.fused_row_block_reference_parts(x, p, H, qkv=run.qkv)
+    _close(run.out, out)
+    _close(run.attn, attn)
+    ln1_s, ln1_b, w_qkv = fb._block_weights(p, C, H, torch.float32)[:3]
+    _close(run.qkv, (fb.layer_norm_f32(x, ln1_s, ln1_b) @ w_qkv).reshape(-1, 3 * C))
+    tr = fb._forward_kernel(x, p, H, train=True)
+    r_out, r_mid, r_acc, r_den = fb.fused_row_block_train_reference(x, p, H, qkv=tr.qkv)
+    for got, ref in ((tr.out, r_out), (tr.mid, r_mid), (tr.attn, r_acc), (tr.den, r_den)):
+        _close(got, ref)
+    assert torch.equal(tr.out, run.out)          # the same kernels with the den export on
+    i8 = fb._forward_kernel(x, p, H, int8=True)
+    q3 = i8.qkv.view(R, N, 3 * C)
+    (qi, sq), (ki, sk) = fb.quantize_rows(q3[..., :C]), fb.quantize_rows(q3[..., C:2 * C])
+    qk = i8.qk.view(R, N, 2 * C).float()
+    assert torch.equal(qk[..., :C], qi) and torch.equal(qk[..., C:], ki)
+    assert torch.equal(i8.scales, torch.cat([sq.reshape(R, 1), sk.reshape(R, 1)], dim=1))
+    out8, attn8 = fb.fused_row_block_int8_reference_parts(x, p, H, qkv=i8.qkv)
+    _close(i8.out, out8)
+    _close(i8.attn, attn8)
+    if regime == "clamp":
+        q, k = q3[..., :C].view(R, N, H, -1), q3[..., C:2 * C].view(R, N, H, -1)
+        assert float(torch.einsum("rnhd,rmhd->rhnm", q, k).max()) > fb.SCORE_CLAMP
+
+
+def test_f32_forward_matches_the_jax_kernel(kernels):
+    """B1's f32 form against the TPU kernel with cd = float32, interpret mode."""
+    x, p = _inputs(2, 24, 32, seed=3)
+    jp = JaxParams(**{k: jnp.asarray(v.numpy()) for k, v in p._asdict().items()})
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jax_fused_row_block(jnp.asarray(x.numpy()), jp, H))
+    np.testing.assert_allclose(fb._forward_kernel(x, p, H).out.numpy(), ref,
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("R,N,C,regime,hid", CASES)
+def test_f32_backward_matches_its_plain_version(kernels, R, N, C, regime, hid):
+    x, p = _inputs(R, N, C, seed=N + 1, regime=regime, hid=hid)
+    g = torch.from_numpy(np.random.default_rng(N + 2).standard_normal((R, N, C))
+                         .astype(np.float32))
+    tr = fb._forward_kernel(x, p, H, train=True)
+    got = fb._bwd_kernel(x, tr.mid, tr.attn, tr.den, g, p, H)
+    again = fb._bwd_kernel(x, tr.mid, tr.attn, tr.den, g, p, H)
+    ref = fb.fused_row_block_bwd_reference_parts(x, tr.mid, tr.attn, tr.den, g, p, H,
+                                                 qkv=tr.qkv)
+    for a, b in zip((got.dx, *got.dp, got.d_oe, got.d_den, got.dqkv),
+                    (ref.dx, *ref.dp, ref.d_oe, ref.d_den, ref.dqkv)):
+        _close(a, b)
+    for a, b in zip((got.dx, *got.dp, got.dqkv), (again.dx, *again.dp, again.dqkv)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("R,N,C,heads", [(2, 20, 32, 8), (1, 40, 64, 4), (1, 33, 32, 2),
+                                         (1, 17, 256, 8)])
+def test_f32_row_attention_matches_its_plain_version(kernels, R, N, C, heads):
+    """B4 at each threads-a-query count (C / 32: 1, 2, 8) and each head
+    split of a thread's sums (32 / H: 4, 8, 16), peaked scores."""
+    rng = np.random.default_rng(C + heads)
+    x, wq, wp, b = (torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.standard_normal((R, N, C)), rng.standard_normal((C, 3 * C)) * 1.44 / C ** 0.5,
+        rng.standard_normal((C, C)) * 0.05, rng.standard_normal(C) * 0.01))
+    out, acc, v, t = ra._kernel(x, wq, wp, b, heads, export=True)
+    r_out, r_acc = ra.flash_row_attention_reference_parts(x, wq, wp, b, heads)
+    _close(out, r_out)
+    _close(acc, r_acc)
+    a, wv = ra.bilinear_weights(wq, heads, torch.float64)
+    _close(v, (x @ wv).reshape(-1, C))
+    assert t.dtype == torch.float64                 # t and the scores in f64
+    _close(t.view(R, N, heads, C),
+           torch.stack([x.double() @ a[h] for h in range(heads)], dim=2), rel=1e-12)
+    assert torch.equal(ra._kernel(x, wq, wp, b, heads)[0], out)   # t per head or exported
+
+
+def test_f32_row_attention_holds_the_f32_limit_where_scores_reach_hundreds(kernels):
+    """B4's f32 form against its function in f64, with scores in the
+    hundreds (the clamp regime's weights on LN1-like rows).  Its scores run
+    in f64, since an f32 score that large is off by tens of its ulp: what
+    is left is a few f32 ulp, within a tenth of the f32 limit, 1e-4 x
+    max(max|ref| / 4, 1).  (With f32 scores B4 lands at a fifth of the
+    limit here, the plain f32 version at a quarter of it.)"""
+    R, N, C, heads = 1, 64, 32, 8
+    rng = np.random.default_rng(7)
+    x, wq, wp, b = (torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.standard_normal((R, N, C)) * 6.0, rng.standard_normal((C, 3 * C)) * 1.44 / C ** 0.5,
+        rng.standard_normal((C, C)) * 0.05, rng.standard_normal(C) * 0.01))
+    out, acc, _, _ = ra._kernel(x, wq, wp, b, heads)
+    a, wv = ra.bilinear_weights(wq, heads, torch.float64)
+    xd, D = x.double(), C // heads
+    s = torch.einsum("rnc,hce,rme->rhnm", xd, a, xd)
+    assert float(s.max()) > 100.0
+    p = torch.softmax(s, dim=-1)
+    v = (xd @ wv.double()).view(R, N, heads, D).transpose(1, 2)
+    t_acc = (p @ v).transpose(1, 2).reshape(R, N, C)
+    t_out = t_acc @ wp.double() + b.double()
+    for got, ref in ((out, t_out), (acc, t_acc)):
+        tol = 1e-4 * max(float(ref.abs().max()) / 4, 1.0)
+        assert float((got.double() - ref).abs().max()) <= tol / 10
+
+
+class _StandIn:
+    """A stand-in library: records each function called, returns 0."""
+
+    def __init__(self, name, calls):
+        self.name, self.calls = name, calls
+
+    def __getattr__(self, fn):
+        lib = self
+
+        class Fn:
+            argtypes = restype = None
+
+            def __call__(self, *args):
+                lib.calls.append(f"{lib.name}.{fn}")
+                return 1 << 20 if fn.endswith("scratch_bytes") else 0
+
+        f = Fn()
+        setattr(self, fn, f)
+        return f
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rows_route_to_the_library_of_their_dtype(monkeypatch, dtype):
+    calls = []
+    monkeypatch.setattr(_build, "load", lambda name: _StandIn(name, calls))
+    monkeypatch.setattr(fb, "_check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(ra, "_check_cuda", lambda *a, **k: None)
+    for mod in (fb, ra):
+        monkeypatch.setattr(mod, "_on_stream", lambda dev, fn, *a: fn(*a, None))
+    x, p = _inputs(2, 16, 32, seed=1)
+    x = x.to(dtype)
+    fb._forward_kernel(x, p, H, int8=True)
+    fb._bwd_kernel(x, x, x, torch.zeros(2, H, 16), x, p, H)
+    ra._kernel(x, p.qkv_kernel, p.proj_kernel, p.proj_bias, H)
+    sfx = "_f32" if dtype == torch.float32 else ""
+    assert [c for c in calls if "scratch" not in c and "offsets" not in c] == [
+        f"fused_block{sfx}.fused_block_forward{sfx}",
+        f"fused_block_bwd{sfx}.fused_block_backward{sfx}",
+        f"row_attention{sfx}.row_attention_forward{sfx}"]
+    before = (fb.fused_row_block_bwd.launches, fb.fused_row_block_bwd.launches_f32)
+    fb._count(fb.fused_row_block_bwd, dtype)
+    f32 = dtype == torch.float32
+    assert (fb.fused_row_block_bwd.launches, fb.fused_row_block_bwd.launches_f32) == (
+        before[0] + (not f32), before[1] + f32)
+
+
+@pytest.mark.parametrize("kernel", ["B1", "B3", "B4"])
+def test_float16_rows_are_refused_before_any_launch(kernel):
+    _, p = _inputs(2, 16, 32, seed=1)
+    rows = FakeCuda((2, 16, 32), torch.float16)
+    call = {"B1": lambda: fb.fused_row_block(rows, p, H),
+            "B3": lambda: fb.fused_row_block_int8(rows, p, H),
+            "B4": lambda: ra.flash_row_attention(rows, p.qkv_kernel, p.proj_kernel,
+                                                 p.proj_bias, H)}[kernel]
+    with pytest.raises(TypeError, match="bfloat16 or float32, got torch.float16"):
+        call()
+
+
+@pytest.mark.parametrize("path", sorted(FLAGSHIP_PATHS))
+@pytest.mark.parametrize("stage", range(4))
+def test_f32_shared_memory_rule_admits_the_flagship_shapes(path, stage):
+    """The f32 forms' shared memory is static, under 48 KB, at every
+    flagship (N, C), for B1 / B2 (any MLP width) and B4 (8 heads)."""
+    for R, N, C in flagship_row_shapes(path, stage):
+        fb.check_shape("fused_row_block", R, N, C, 8, 4 * C, torch.float32)
+        ra.check_shape(R, N, C, 8, torch.float32)
+        assert fb.kernel_smem_bytes(C, 4 * C, torch.float32) <= fb.STATIC_SMEM_BYTES
+        assert ra.kernel_smem_bytes(C, 8, torch.float32) <= fb.STATIC_SMEM_BYTES

@@ -202,16 +202,17 @@ def test_wrapper_raises_off_cpu_and_cuda():
 
 
 def test_wrapper_raises_on_wrong_dtype_for_cuda():
-    """A CUDA tensor of another dtype than bf16 raises before any launch.
-    The check runs on a stand-in object, since this machine has no card."""
+    """A CUDA tensor of another dtype than bf16 or f32 raises before any
+    launch.  The check runs on a stand-in object: the CPU tests have no
+    card."""
     _, p = _both(2, 16, 32, seed=1)
 
     class FakeCuda:
         device = torch.device("cuda", 0)
-        dtype = torch.float32
+        dtype = torch.float16
         requires_grad = False
 
-    with pytest.raises(TypeError, match="bfloat16"):
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
         fused_row_block(FakeCuda(), _torch_params(p), 8)
 
 
@@ -289,8 +290,12 @@ def test_wrappers_raise_on_a_width_or_head_count_the_kernels_do_not_take(kernel,
 
 @pytest.mark.parametrize("kernel", ["B1", "B1-train", "B2", "B3", "L"])
 def test_wrappers_raise_on_a_dtype_the_kernels_do_not_take(kernel):
+    """float16 has no kernel; the lab (L) takes bf16 only, f32 too is refused."""
     with pytest.raises(TypeError, match="bfloat16"):
         _wrappers(32, 8)[kernel](torch.float16)
+    if kernel == "L":
+        with pytest.raises(TypeError, match="bfloat16, got torch.float32"):
+            _wrappers(32, 8)[kernel](torch.float32)
 
 
 def test_kernel_refuses_an_mlp_width_off_its_chunks():

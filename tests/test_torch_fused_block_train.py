@@ -169,9 +169,9 @@ def test_training_wrappers_raise_on_wrong_dtype_for_cuda(wrapper):
 
     class FakeCuda:
         device = torch.device("cuda", 0)
-        dtype = torch.float32
+        dtype = torch.float16
 
-    with pytest.raises(TypeError, match="bfloat16"):
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
         if wrapper == "train":
             fused_row_block_train(FakeCuda(), None, H)
         else:

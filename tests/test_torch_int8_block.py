@@ -185,10 +185,10 @@ def test_int8_wrapper_counts_no_launch_on_cpu_and_raises_elsewhere():
 
     class FakeCuda:
         device = torch.device("cuda", 0)
-        dtype = torch.float32
+        dtype = torch.float16
         requires_grad = False
 
-    with pytest.raises(TypeError, match="bfloat16"):
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
         fused_row_block_int8(FakeCuda(), _torch_params(p), H)
 
 

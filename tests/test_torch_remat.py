@@ -9,8 +9,18 @@ small model and batch:
     one batch a step;
   - one step with remat equals the JAX ``make_train_step`` with
     ``remat=True`` within ``test_torch_train_step.py``'s tolerances;
+  - the save policies ("dots", "dots_no_batch", "everything"): a step
+    under each equals the step without remat as above; on a small function
+    (two matmuls, a GELU, a bmm) the gradients equal those without
+    checkpointing bit for bit, and the ops the backward runs again (counted
+    with a TorchDispatchMode) are those whose outputs the same JAX policy
+    does not save (``jax.ad_checkpoint.print_saved_residuals``);
   - the helpers of ``optimization/remat.py``.
 """
+import contextlib
+import io
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -54,10 +64,11 @@ def _batch():
     return mix, targets
 
 
-def _step(impl, remat, depths=SMALL["depths"]):
+def _step(impl, remat, depths=SMALL["depths"], policy="none"):
     """One port train step: (loss, raw gradients, state_dict after)."""
     model = TFSWAUNet(4, 4, attention_impl=impl, remat=remat,
                       generator=torch.Generator().manual_seed(0), **dict(SMALL, depths=depths))
+    model.remat_policy = policy
     tx, _ = pts.make_optimizer(Config(), 10, model.parameters())
     state = pts.TrainState(0, model, tx)
     step = pts.make_train_step(
@@ -73,10 +84,13 @@ def _step(impl, remat, depths=SMALL["depths"]):
             {k: v.clone() for k, v in model.state_dict().items()})
 
 
-@pytest.mark.parametrize("impl", ["pallas", "pallas_attn", "xla"])
-def test_remat_step_equals_the_step_without(impl):
+@pytest.mark.parametrize("impl,policy", [("pallas", "none"), ("pallas_attn", "none"),
+                                         ("xla", "none"), ("pallas", "dots"), ("xla", "dots"),
+                                         ("xla", "dots_no_batch"), ("xla", "everything")])
+def test_remat_step_equals_the_step_without(impl, policy):
     depths = (1, 1, 1, 2)           # every stage, a W-MSA and an SW-MSA block
-    (la, ga, sa), (lb, gb, sb) = _step(impl, False, depths), _step(impl, True, depths)
+    (la, ga, sa), (lb, gb, sb) = (_step(impl, False, depths),
+                                  _step(impl, True, depths, policy))
     assert la.keys() == lb.keys()
     for k in la:
         assert lb[k] == pytest.approx(la[k], rel=1e-6), k
@@ -174,18 +188,117 @@ def test_from_config_carries_remat():
     assert TFSWAUNet.from_config(cfg).remat
     assert premat.CheckpointConfig().apply(ModelConfig()).remat
     assert not premat.CheckpointConfig(enabled=False).apply(cfg).remat
-    with pytest.raises(NotImplementedError, match="dots"):
-        premat.CheckpointConfig(policy="dots").apply(cfg)
+    from tfswa_tpu.config import ModelConfig as JaxModelConfig
+
+    for policy in premat.POLICIES:            # any policy, as the JAX object takes it
+        for enabled in (True, False):
+            ours = premat.CheckpointConfig(enabled, policy).apply(cfg)
+            ref = jremat.CheckpointConfig(enabled, policy).apply(JaxModelConfig())
+            assert ours.remat == ref.remat == enabled
+            assert ours.dims == cfg.dims
 
 
 def test_checkpoint_fn_recomputes_and_refuses_save_policies():
+    """The name is older than the save policies (refused until they were
+    ported): every JAX policy is taken, and an unknown name raises
+    ValueError, as JAX's checkpoint_fn does."""
     x = torch.randn(5, requires_grad=True)
-    f = premat.checkpoint_fn(lambda t: (t.sin() * t).sum())
-    f(x).backward()
-    torch.testing.assert_close(x.grad, x.detach().cos() * x.detach() + x.detach().sin())
-    for policy in ("dots", "dots_no_batch", "everything"):
-        with pytest.raises(NotImplementedError, match=policy):
-            premat.checkpoint_fn(lambda t: t, policy)
+    for policy in premat.POLICIES:
+        x.grad = None
+        f = premat.checkpoint_fn(lambda t: (t.sin() * t).sum(), policy)
+        f(x).backward()
+        torch.testing.assert_close(x.grad, x.detach().cos() * x.detach() + x.detach().sin())
+    assert set(premat.POLICIES) == set(jremat.POLICIES)
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        jremat.checkpoint_fn(lambda t: t, "some")
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        premat.checkpoint_fn(lambda t: t, "some")
+
+
+# the small function of the policy tests, one op a line, in both frameworks
+# (keys: the ops' names below; the JAX residuals name their source line)
+POLICY_OPS = ("mm1", "gelu", "mm2", "bmm")
+
+
+def _policy_inputs():
+    rng = np.random.default_rng(0)
+    return [rng.standard_normal(s).astype(np.float32) for s in
+            ((3, 5, 8), (8, 16), (16, 8), (3, 8, 5))]
+
+
+def _torch_fn(x, w1, w2, y):
+    a = x @ w1                                    # mm1
+    h = torch.nn.functional.gelu(a)               # gelu
+    z = h @ w2                                    # mm2
+    b = torch.bmm(z, y)                           # bmm
+    return (b * b).sum() + (z * z).sum()
+
+
+def _jax_fn(x, w1, w2, y):
+    a = x @ w1                                    # mm1
+    h = jax.nn.gelu(a, approximate=False)         # gelu
+    z = h @ w2                                    # mm2
+    b = jnp.einsum("bnc,bcm->bnm", z, y)          # bmm
+    return (b * b).sum() + (z * z).sum()
+
+
+def _jax_saved_ops(policy):
+    """The ops of POLICY_OPS whose outputs (or, for the GELU, any of its
+    inner values) JAX's policy keeps as residuals, from
+    print_saved_residuals' source lines."""
+    import inspect
+
+    from jax.ad_checkpoint import print_saved_residuals
+
+    src, first = inspect.getsourcelines(_jax_fn)
+    lines = {op: first + i for i, l in enumerate(src) for op in POLICY_OPS
+             if l.rstrip().endswith(f"# {op}")}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        print_saved_residuals(jremat.checkpoint_fn(_jax_fn, policy),
+                              *map(jnp.asarray, _policy_inputs()))
+    saved = {int(m) for m in re.findall(r"test_torch_remat\.py:(\d+)", buf.getvalue())}
+    return {op for op, line in lines.items() if line in saved}
+
+
+class _Ops(torch.utils._python_dispatch.TorchDispatchMode):
+    """The ATen ops run under it, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(func.overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+def _backward_ops(fn, inputs):
+    """The products and GELUs the backward of fn runs, as a multiset."""
+    leaves = [torch.from_numpy(a).requires_grad_(i < 3) for i, a in enumerate(inputs)]
+    out = fn(*leaves)
+    with _Ops() as mode:
+        grads = torch.autograd.grad(out, leaves[:3])
+    names = [n for n in mode.ops if n in ("mm", "bmm", "gelu")]
+    return grads, {n: names.count(n) for n in ("mm", "bmm", "gelu")}
+
+
+@pytest.mark.parametrize("policy", ["none", "dots", "dots_no_batch", "everything"])
+def test_save_policy_recomputes_what_jax_does_not_save(policy):
+    inputs = _policy_inputs()
+    ref_grads, plain = _backward_ops(_torch_fn, inputs)
+    grads, ops = _backward_ops(premat.checkpoint_fn(_torch_fn, policy), inputs)
+    for g, r in zip(grads, ref_grads):
+        assert torch.equal(g, r)
+    again = {n: ops[n] - plain[n] for n in ops}        # the forward's ops run again
+    ran = {op for op, n in (("mm1", again["mm"] >= 1), ("mm2", again["mm"] >= 2),
+                            ("gelu", again["gelu"] >= 1), ("bmm", again["bmm"] >= 1)) if n}
+    saved = _jax_saved_ops(policy)
+    # JAX recomputes an op that its policy does not keep and that the
+    # backward needs: the GELU's input (mm1) only where the GELU's own
+    # values are not kept
+    needed = set(POLICY_OPS) - ({"mm1"} if "gelu" in saved else set())
+    assert ran == needed - saved, (again, saved)
 
 
 @pytest.mark.parametrize("args", [(4, 1024, 512, (32, 64, 128, 256), (2, 2, 6, 2), 2),

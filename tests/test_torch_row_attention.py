@@ -279,5 +279,5 @@ def test_wrapper_raises_on_a_width_or_head_count_the_kernel_does_not_take(C, H):
 
 def test_wrapper_raises_on_a_dtype_the_kernel_does_not_take():
     w = [torch.zeros(32, 96), torch.zeros(32, 32), torch.zeros(32)]
-    with pytest.raises(TypeError, match="bfloat16"):
-        flash_row_attention(FakeCuda((2, 16, 32), torch.float32), *w, 8)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        flash_row_attention(FakeCuda((2, 16, 32), torch.float16), *w, 8)

@@ -108,9 +108,18 @@ def test_batch_norm_train_mode_matches_flax():
 
 @pytest.mark.parametrize("field,value", [("param_dtype", "bfloat16")])
 def test_from_config_raises_on_unported_fields(field, value):
+    """No field is refused any more (the name is older: param_dtype was,
+    until it was ported): a bf16 ``param_dtype`` builds every parameter in
+    bf16 and keeps the BatchNorm running statistics f32, as flax does
+    (held leaf for leaf against JAX in ``test_torch_param_dtype.py``), and
+    the forward still computes in ``dtype``."""
     cfg = ModelConfig(in_channels=4, out_channels=4, **SMALL, **{field: value})
-    with pytest.raises(NotImplementedError, match=field):
-        TFSWAUNet.from_config(cfg)
+    model = TFSWAUNet.from_config(cfg)
+    assert {p.dtype for p in model.parameters()} == {torch.bfloat16}
+    assert {b.dtype for n, b in model.named_buffers() if "running" in n} == {torch.float32}
+    with torch.no_grad():
+        out = model(torch.zeros(1, 4, 33, 12))
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
 
 
 def test_eval_step_keeps_running_stats_and_matches_eval_forward():

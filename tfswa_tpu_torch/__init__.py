@@ -23,9 +23,12 @@
                   and the int8 A/B (python -m tfswa_tpu_torch.tools.bench_int8)
   - weights.py    JAX variables <-> the port's state_dict
 
-The package imports torch and never JAX or the JAX package.
+The package imports torch and never JAX or the JAX package.  Importing it
+registers the serving kernels as torch.library custom ops (ops/custom_ops.py),
+which an exported program loaded back calls.
 """
 
 from .config import Config, DataConfig, EvalConfig, ModelConfig, STFTConfig, TrainConfig
+from .ops import custom_ops  # noqa: F401  (registers the kernels' torch.library ops)
 
 __all__ = ["Config", "DataConfig", "EvalConfig", "ModelConfig", "STFTConfig", "TrainConfig"]

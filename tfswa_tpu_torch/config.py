@@ -58,7 +58,7 @@ class ModelConfig:
     attn_chunk_size: int = 16
     remat: bool = False           # torch.utils.checkpoint around each TFSWABlock
     dtype: str = "float32"        # compute dtype ("float32" | "bfloat16")
-    param_dtype: str = "float32"  # only "float32" is ported
+    param_dtype: str = "float32"
 
     def __post_init__(self):
         if self.attn_chunk_size != 16:

@@ -1,0 +1,206 @@
+// Fused pre-LN row transformer block, forward, in float32, for Hopper
+// (sm_90a): the f32 forms of B1 (serving), B1-train (also mid and den) and
+// B3 (int8 scores).
+//
+// Replaces the TPU kernel tfswa_tpu/ops/pallas/fused_block.py
+// _fused_block_kernel with cd = float32 (it computes in x_ref.dtype), in
+// its serving, with_mid=True and int8_attn=True forms.  Per row of rows
+// (R, N, C), f32 in and out; Wq pre-scaled by log2(e)/sqrt(D) outside:
+//   n1  = LN1(x)                          statistics in f32, eps 1e-5
+//   q,k,v = n1 @ Wq', n1 @ Wk, n1 @ Wv
+//   per head: p = exp2(min(q.k, 110))     the max-free softmax, SCORE_CLAMP
+//             den = sum p, acc = (sum p v) / den
+//   y   = x + (acc @ Wo + bo)              (B1-train: mid = y)
+//   out = y + (gelu(LN2(y) @ W1 + b1) @ W2 + b2)
+// B3: q.k becomes (qi.ki) * (sq * sk), sq = max|q| / 127 over the row's
+// N*C values of q (all heads; the same for k), qi = rint(q / sq) as int8 (a
+// true division, rounded half to even; 0 where the scale is 0), the int8
+// dot product summed exactly (in f32: at most 32 * 127^2 < 2^24); v, p and
+// the sums as in B1.
+//
+// Design (every product f32 FFMA, see block_f32.cuh).  Launches:
+//   ln_stats_kernel (x) -> gemm qkv = LN1(x) @ Wqkv' -> (B3) qk_scale_kernel,
+//   quantize_kernel -> attn_kernel -> gemm y = x + acc @ Wo + bo ->
+//   ln_stats_kernel (y) -> gemm h = gelu(LN2(y) @ W1 + b1) ->
+//   gemm out = y + h @ W2 + b2.
+// attn_kernel: one block per (row, 128 queries) and head, a thread a query
+// holding its q and its D sums in registers; the head's keys and values
+// stream through shared memory 128 keys at a time, read by every thread
+// (broadcast).  No (N, N) plane exists.  q, k, v, the attention output, y
+// and the MLP's hidden activation (4 C a token) go through device memory.
+//
+// What bounds it: the attention's pairs, 2 D FFMA, one exp2 (MUFU) and a
+// few more instructions each, at the CUDA cores' issue rate; the products
+// (24 C^2 FLOPs a token) at the FFMA rate (67 TFLOP/s on an H100 SXM).  The
+// f32 bound the harness states is 3xTF32's (495 / 3 TFLOP/s), the fastest
+// f32-accurate route, which this simple form does not take.
+#include "block_f32.cuh"
+
+namespace f32 {
+namespace {
+
+constexpr int QT = 128;   // queries a block
+constexpr int KT = 128;   // keys a shared-memory tile
+
+// acc_out[(r N + i) C + h D + d] = (sum_j p_ij v_jd) / den_i; den_out[(r H
+// + h) N + i] = den_i (B1-train).  qk (R N, 2C) int8 and scales (R, 2): B3.
+// grid (R * q_tiles, H), QT threads.
+template <int D>
+__global__ void __launch_bounds__(QT)
+attn_kernel(const float* __restrict__ qkv, const int8_t* __restrict__ qk,
+            const float* __restrict__ scales, float* __restrict__ acc_out,
+            float* __restrict__ den_out, int N, int C, int H, int q_tiles) {
+    __shared__ float ks[KT][D];
+    __shared__ float vs[KT][D];
+    const int r = blockIdx.x / q_tiles;
+    const int i = (blockIdx.x % q_tiles) * QT + threadIdx.x;
+    const int h = blockIdx.y;
+    const long row0 = (long)r * N;
+    const long C3 = 3L * C, C2 = 2L * C;
+    const bool int8 = qk != nullptr;
+    const float sqsk = int8 ? scales[2 * r] * scales[2 * r + 1] : 0.0f;
+    const bool live = i < N;
+    float q[D], acc[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+        q[d] = !live ? 0.0f
+               : int8 ? (float)qk[(row0 + i) * C2 + h * D + d]
+                      : qkv[(row0 + i) * C3 + h * D + d];
+        acc[d] = 0.0f;
+    }
+    float den = 0.0f;
+    for (int j0 = 0; j0 < N; j0 += KT) {
+        const int nk = N - j0 < KT ? N - j0 : KT;
+        for (int e = threadIdx.x; e < nk * D; e += QT) {
+            const int j = e / D, d = e % D;
+            const long t = row0 + j0 + j;
+            ks[j][d] = int8 ? (float)qk[t * C2 + C + h * D + d] : qkv[t * C3 + C + h * D + d];
+            vs[j][d] = qkv[t * C3 + 2 * C + h * D + d];
+        }
+        __syncthreads();
+        if (live) {
+            for (int j = 0; j < nk; ++j) {
+                float s = 0.0f;
+#pragma unroll
+                for (int d = 0; d < D; ++d) s = fmaf(q[d], ks[j][d], s);
+                if (int8) s = s * sqsk;
+                const float p = exp2f(fminf(s, SCORE_CLAMP));
+                den += p;
+#pragma unroll
+                for (int d = 0; d < D; ++d) acc[d] = fmaf(p, vs[j][d], acc[d]);
+            }
+        }
+        __syncthreads();
+    }
+    if (live) {
+#pragma unroll
+        for (int d = 0; d < D; ++d) acc_out[(row0 + i) * C + h * D + d] = acc[d] / den;
+        if (den_out) den_out[((long)r * H + h) * N + i] = den;
+    }
+}
+
+// scales[2 r] = max|q| / 127 and scales[2 r + 1] = max|k| / 127 over row r's
+// N * C values; a block of 256 threads a row.
+__global__ void __launch_bounds__(256)
+qk_scale_kernel(const float* __restrict__ qkv, int N, int C, float* __restrict__ scales) {
+    __shared__ float red[2][8];
+    const long row0 = (long)blockIdx.x * N;
+    const long C3 = 3L * C;
+    float mq = 0.0f, mk = 0.0f;
+    for (long e = threadIdx.x; e < (long)N * C; e += 256) {
+        const long t = row0 + e / C;
+        const int c = (int)(e % C);
+        mq = fmaxf(mq, fabsf(qkv[t * C3 + c]));
+        mk = fmaxf(mk, fabsf(qkv[t * C3 + C + c]));
+    }
+    mq = warp_max(mq);
+    mk = warp_max(mk);
+    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (lane == 0) {
+        red[0][w] = mq;
+        red[1][w] = mk;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        for (int k = 1; k < 8; ++k) {
+            mq = fmaxf(mq, red[0][k]);
+            mk = fmaxf(mk, red[1][k]);
+        }
+        scales[2 * blockIdx.x] = mq / 127.0f;
+        scales[2 * blockIdx.x + 1] = mk / 127.0f;
+    }
+}
+
+// qk[t, c] = rint(qkv[t, c] / s) for c < 2C (q then k), s the row's scale
+// of q or k; 0 where s is 0.
+__global__ void __launch_bounds__(256)
+quantize_kernel(const float* __restrict__ qkv, const float* __restrict__ scales, long M, int N,
+                int C, int8_t* __restrict__ qk) {
+    const long e = (long)blockIdx.x * 256 + threadIdx.x;
+    if (e >= M * 2 * C) return;
+    const long t = e / (2 * C);
+    const int c = (int)(e % (2 * C));
+    const float s = scales[2 * (t / N) + (c >= C)];
+    const float v = qkv[t * 3L * C + c];
+    qk[e] = (int8_t)(s > 0.0f ? rintf(v / s) : 0.0f);
+}
+
+template <int D>
+void launch_attn(const float* qkv, const int8_t* qk, const float* scales, float* attn,
+                 float* den, int R, int N, int C, int H, cudaStream_t st) {
+    const int q_tiles = (N + QT - 1) / QT;
+    LAUNCH(attn_kernel<D>, dim3((unsigned)((long)R * q_tiles), (unsigned)H), QT, st, qkv, qk,
+           scales, attn, den, N, C, H, q_tiles);
+}
+
+int forward(const float* x, const float* ln1_s, const float* ln1_b, const float* w_qkv,
+            const float* w_o, const float* b_o, const float* ln2_s, const float* ln2_b,
+            const float* w_1, const float* b_1, const float* w_2, const float* b_2,
+            float* qkv, float* stats, float* y, float* hbuf, float* attn, float* out, float* den,
+            float* scales, int8_t* qk, int R, int N, int C, int H, int hidden,
+            cudaStream_t st) {
+    const long M = (long)R * N;
+    float *mean1 = stats, *rstd1 = stats + M, *mean2 = stats + 2 * M, *rstd2 = stats + 3 * M;
+    ln_stats(x, M, C, mean1, rstd1, st);
+    gemm(ln_a(x, C, mean1, rstd1, ln1_s, ln1_b), w_qkv, 3 * C, qkv, 3 * C, M, 3 * C, C, epi(),
+         st);
+    if (qk) {
+        LAUNCH(qk_scale_kernel, (unsigned)R, 256, st, qkv, N, C, scales);
+        LAUNCH(quantize_kernel, (unsigned)((M * 2 * C + 255) / 256), 256, st, qkv, scales, M, N,
+               C, qk);
+    }
+    switch (C / H) {
+        case 4: launch_attn<4>(qkv, qk, scales, attn, den, R, N, C, H, st); break;
+        case 8: launch_attn<8>(qkv, qk, scales, attn, den, R, N, C, H, st); break;
+        case 16: launch_attn<16>(qkv, qk, scales, attn, den, R, N, C, H, st); break;
+        case 32: launch_attn<32>(qkv, qk, scales, attn, den, R, N, C, H, st); break;
+        default: return cudaErrorInvalidValue;
+    }
+    gemm(plain_a(attn, C), w_o, C, y, C, M, C, C, epi(EPI_NONE, b_o, x, C), st);
+    ln_stats(y, M, C, mean2, rstd2, st);
+    gemm(ln_a(y, C, mean2, rstd2, ln2_s, ln2_b), w_1, hidden, hbuf, hidden, M, hidden, C,
+         epi(EPI_GELU, b_1), st);
+    gemm(plain_a(hbuf, hidden), w_2, C, out, C, M, C, hidden, epi(EPI_NONE, b_2, y, C), st);
+    return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace f32
+
+// B1 (den, scales and qk null), B1-train (den given: y is then mid) or B3
+// (scales and qk given).  All f32 but qk (R N, 2C) int8.  Buffers:
+// qkv (R N, 3C), stats (4 R N), y (R N, C), hbuf (R N, hidden), attn and
+// out (R N, C), den (R, H, N), scales (R, 2).  Returns a CUDA error code.
+extern "C" int fused_block_forward_f32(
+    const float* x, const float* ln1_s, const float* ln1_b, const float* w_qkv,
+    const float* w_o, const float* b_o, const float* ln2_s, const float* ln2_b,
+    const float* w_1, const float* b_1, const float* w_2, const float* b_2,
+    float* qkv, float* stats, float* y, float* hbuf, float* attn, float* out, float* den,
+    float* scales, int8_t* qk, int R, int N, int C, int H, int hidden, void* stream) {
+    if (R <= 0 || N <= 0 || H <= 0 || C % H || hidden <= 0 || (scales == nullptr) != (qk == nullptr)
+        || (den != nullptr && qk != nullptr))
+        return cudaErrorInvalidValue;
+    return f32::forward(x, ln1_s, ln1_b, w_qkv, w_o, b_o, ln2_s, ln2_b, w_1, b_1, w_2, b_2, qkv,
+                        stats, y, hbuf, attn, out, den, scales, qk, R, N, C, H, hidden,
+                        static_cast<cudaStream_t>(stream));
+}

@@ -265,7 +265,12 @@ def row_transformer_block(rows: torch.Tensor, p: RowBlockParams, num_heads: int,
         if attention_impl == "pallas_int8":
             return fused_row_block_int8(rows.contiguous(), p, num_heads)
         if attention_impl == "pallas_attn":
-            return _BilinearBlock.apply(rows, num_heads, type(p), *p)
+            if torch.is_grad_enabled() and (rows.requires_grad
+                                            or any(t.requires_grad for t in p)):
+                return _BilinearBlock.apply(rows, num_heads, type(p), *p)
+            # _BilinearBlock.forward's function, with no autograd.Function
+            # around it (an exported program holds B4's custom op)
+            return _mlp_half(rows + _bilinear_attn(rows, p, num_heads), p)
 
     R, N, _ = rows.shape
     chunk = chunk_rows or max(1, fused_block.MAX_SCORE_BYTES // (num_heads * N * N * 4))

@@ -19,6 +19,9 @@ on: the block keeps only its input and is run again in the backward.  The
 recompute leaves the BatchNorm running stats alone (flax updates them
 once), and on the ``"pallas"`` route it launches B1-train a second time:
 132 B1-train and 66 B2 launches a step instead of 66 and 66.
+``remat_policy`` (default ``"none"``; ``"dots"``, ``"dots_no_batch"``,
+``"everything"``, the JAX package's names) keeps what that save policy
+keeps through the recompute (``optimization/remat.py``).
 
 ``dropout`` (the reference's three sites in every row block) is drawn in
 train mode when ``forward`` gets a ``generator``: one seed a block from it,
@@ -33,7 +36,6 @@ blocks' weights are split over (``models/attention.py``).
 """
 from __future__ import annotations
 
-import contextlib
 import copy
 from typing import Mapping, Optional, Sequence
 
@@ -54,13 +56,17 @@ class TFSWAUNet(nn.Module):
     """The TFSWA U-Net (the JAX package's ``TFSWAUNet``, its state_dict
     names the reference's).  ``attention_impl`` picks the row-block route
     (see ``ModelConfig``; "int8" is the int8-product serving route of
-    ``ops/int8.py``).  On a CUDA device the kernel routes take bf16
-    rows only (``dtype=torch.bfloat16``; the float32 default raises there),
-    widths in (32, 64, 128, 256), for "pallas" / "pallas_int8" a head dim
-    in (4, 8, 16, 32) and an MLP width a multiple of 8, for "pallas_attn"
-    2, 4 or 8 heads; their wrappers raise on anything else, with no
-    fallback.  ``use_shift_mask`` (the Swin mask on the shifted SWA
-    blocks) and active dropout send those row blocks to the plain route."""
+    ``ops/int8.py``).  On a CUDA device the kernel routes take bf16 rows
+    (tensor-core kernels) or f32 rows (the f32 kernels), widths in (32,
+    64, 128, 256), for "pallas" / "pallas_int8" a head dim in (4, 8, 16,
+    32) and an MLP width a multiple of 8, for "pallas_attn" 2, 4 or 8
+    heads; their wrappers raise on anything else (float16 rows too), with
+    no fallback.  ``use_shift_mask`` (the Swin mask on the shifted SWA
+    blocks) and active dropout send those row blocks to the plain route.
+    ``param_dtype`` is every parameter's dtype (the JAX model's: each
+    flax param, BatchNorm's scale and bias included, is made in it; the
+    running statistics stay f32, as flax keeps them); the compute casts
+    the parameters to ``dtype`` where the JAX model casts them."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  depths: Sequence[int] = (2, 2, 6, 2),
@@ -69,7 +75,7 @@ class TFSWAUNet(nn.Module):
                  mlp_ratio: float = 4.0, attention_impl: str = "xla",
                  use_shift_mask: bool = False, dtype: torch.dtype = torch.float32,
                  remat: bool = False, generator: Optional[torch.Generator] = None,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, param_dtype: torch.dtype = torch.float32):
         super().__init__()
         if len(depths) != 4 or len(dims) != 4:
             raise ValueError("Expected 4 stages (3 encoder + bottleneck)")
@@ -84,6 +90,8 @@ class TFSWAUNet(nn.Module):
         self.attention_impl = attention_impl
         self.dtype = dtype
         self.remat = remat
+        # what a remat recompute keeps (optimization/remat.py POLICIES)
+        self.remat_policy = "none"
         self.dropout = dropout
 
         def blk(dim: int, i: int) -> TFSWABlock:
@@ -106,18 +114,18 @@ class TFSWAUNet(nn.Module):
             nn.Conv2d(dims[0], dims[0], 3, 1, 1), nn.BatchNorm2d(dims[0]), nn.GELU(),
             nn.Conv2d(dims[0], out_channels, 1), nn.Sigmoid())
         init_weights(self, generator if generator is not None else torch.Generator())
+        for p in self.parameters():
+            p.data = p.data.to(param_dtype)
         self.eval()   # the JAX model's default is train=False
 
     @classmethod
     def from_config(cls, cfg: ModelConfig,
                     generator: Optional[torch.Generator] = None) -> "TFSWAUNet":
-        if cfg.param_dtype != "float32":
-            raise NotImplementedError(
-                f"param_dtype={cfg.param_dtype!r} is not ported (float32 only)")
         return cls(cfg.in_channels, cfg.out_channels, tuple(cfg.depths),
                    tuple(cfg.dims), cfg.window_size, cfg.shift_size, cfg.num_heads,
                    cfg.mlp_ratio, cfg.attention_impl, cfg.use_shift_mask,
-                   _DTYPES[cfg.dtype], cfg.remat, generator, cfg.dropout)
+                   _DTYPES[cfg.dtype], cfg.remat, generator, cfg.dropout,
+                   _DTYPES[cfg.param_dtype])
 
     @property
     def bn_axis(self):
@@ -169,10 +177,14 @@ class TFSWAUNet(nn.Module):
 
     def _block(self, blk: TFSWABlock, x: torch.Tensor, skip: Optional[torch.Tensor],
                seed: Optional[int]) -> torch.Tensor:
-        if not (self.remat and self.training and torch.is_grad_enabled()):
+        from ..optimization.remat import policy_contexts, recomputes
+
+        if not (self.remat and self.training and torch.is_grad_enabled()
+                and recomputes(self.remat_policy)):
             return blk(x, skip, seed)
         return checkpoint(blk, x, skip, seed, use_reentrant=False,
-                          context_fn=lambda: (contextlib.nullcontext(), frozen_stats(blk)))
+                          context_fn=lambda: policy_contexts(self.remat_policy,
+                                                            frozen_stats(blk)))
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -20,8 +20,14 @@ launch counter (``<wrapper>.launches``):
     kernel): :func:`fused_row_block_int8` /
     :func:`fused_row_block_int8_reference`.  It has no VJP: under grad the
     wrapper raises.
-A CPU tensor goes to the plain version; a contiguous bf16 CUDA tensor
-launches the kernel; anything else raises.
+Each has a bf16 form (``csrc/fused_block.cu``, ``csrc/fused_block_bwd.cu``:
+tensor-core products) and an f32 form (``csrc/fused_block_f32.cu``,
+``csrc/fused_block_bwd_f32.cu``: f32 FFMA products, the TPU kernel with cd
+= float32), counted apart: ``<wrapper>.launches`` (bf16) and
+``<wrapper>.launches_f32``.  A CPU tensor goes to the plain version; a
+contiguous bf16 or f32 CUDA tensor launches the kernel of its dtype;
+anything else raises.  The plain versions compute in f32 with the
+kernels' rounding to ``rows.dtype`` (none in f32).
 
 :func:`fused_row_block`, what the model calls, is differentiable: with grad
 mode on and a tensor that requires a gradient it runs B1-train and saves
@@ -57,6 +63,10 @@ KERNEL_HEAD_DIMS = (4, 8, 16, 32)
 HIDDEN_ALIGN = 8
 # dynamic shared memory a block may use on the H100 (227 KB)
 MAX_SMEM_BYTES = 232448
+# the f32 kernels' shared memory is static: at most 48 KB a block
+STATIC_SMEM_BYTES = 49152
+# the row dtypes the kernels take: bf16 (tensor cores) and f32 (FFMA)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 # The plain versions materialise f32 score planes; they chunk over rows so
 # that at most this many bytes of one plane exist at once (the backward
 # keeps four such planes alive, so it takes a quarter of the rows).
@@ -379,9 +389,16 @@ def fused_row_block_bwd_reference(rows: torch.Tensor, mid: torch.Tensor,
     return res.dx, res.dp
 
 
-def kernel_smem_bytes(C: int, hidden: Optional[int] = None) -> int:
+def kernel_smem_bytes(C: int, hidden: Optional[int] = None,
+                      dtype: torch.dtype = torch.bfloat16) -> int:
     """Shared memory of the largest launch of B1 and B2 at width C and MLP
-    width ``hidden`` (default 4 C), from the layouts in csrc/:
+    width ``hidden`` (default 4 C) in ``dtype``.  float32, from the layouts
+    of csrc/block_f32.cuh, fused_block_f32.cu and fused_block_bwd_f32.cu
+    (static shared memory): gemm_kernel and atb_kernel two 16 x 68 f32
+    tiles; attn_kernel and attn_bwd_q_kernel 128 keys of a head's k and v
+    (D = 32 at most); attn_bwd_kv_kernel 128 queries of q and d_oe and
+    their d_den.  None depends on C, the MLP width or N.  bfloat16, from
+    the layouts in csrc/:
     ln_qkv_kernel holds 64 rows of bf16 n1 and two 32-row slices of 96
     weight columns; attn_kernel two 128-key tiles of 64 bf16 channels and
     two of 32 int8 channels (rows padded by 16 bytes) and a 1 KB sum; post_kernel 64 rows of f32 y, of bf16
@@ -395,6 +412,9 @@ def kernel_smem_bytes(C: int, hidden: Optional[int] = None) -> int:
     bf16 dqkv and x, two 32-row weight slices, and f32 sums: the block's
     two vector partials, 8 C of column sums and 384 of row statistics.  No
     launch's shared memory depends on N."""
+    if dtype == torch.float32:
+        d = max(KERNEL_HEAD_DIMS)
+        return max(4 * 2 * 16 * 68, 4 * 2 * 128 * d, 4 * (2 * 128 * d + 128))
     hidden = 4 * C if hidden is None else hidden
     ln_qkv = 2 * (64 * (C + 8) + 2 * 32 * (96 + 8))
     attn = 2 * 2 * 128 * 72 + 2 * 128 * 48 + 4 * 8 * 32
@@ -406,8 +426,10 @@ def kernel_smem_bytes(C: int, hidden: Optional[int] = None) -> int:
     return max(ln_qkv, attn, post, mlp_bwd, attn_bwd, ln1_bwd)
 
 
-def check_shape(name: str, R: int, N: int, C: int, num_heads: int, hidden: int) -> None:
-    """The shapes the CUDA kernels take: raise ValueError on any other."""
+def check_shape(name: str, R: int, N: int, C: int, num_heads: int, hidden: int,
+                dtype: torch.dtype = torch.bfloat16) -> None:
+    """The shapes the CUDA kernels of ``dtype`` take: raise ValueError on
+    any other."""
     if C not in KERNEL_DIMS:
         raise ValueError(f"{name}: no kernel for C={C} (C in {KERNEL_DIMS})")
     if C % num_heads or C // num_heads not in KERNEL_HEAD_DIMS:
@@ -415,7 +437,8 @@ def check_shape(name: str, R: int, N: int, C: int, num_heads: int, hidden: int) 
     if hidden <= 0 or hidden % HIDDEN_ALIGN:
         raise ValueError(f"{name}: no kernel for an MLP of {hidden} units (a multiple of "
                          f"{HIDDEN_ALIGN})")
-    if kernel_smem_bytes(C, hidden) > MAX_SMEM_BYTES:
+    limit = STATIC_SMEM_BYTES if dtype == torch.float32 else MAX_SMEM_BYTES
+    if kernel_smem_bytes(C, hidden, dtype) > limit:
         raise ValueError(f"{name}: C={C}, an MLP of {hidden} units, does not fit the "
                          "kernels' shared memory")
     if R * N * max(3 * C, hidden) >= 2 ** 31:
@@ -446,23 +469,57 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
+def _lib_f32() -> ctypes.CDLL:
+    lib = _build.load("fused_block_f32")
+    fn = lib.fused_block_forward_f32
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _bwd_lib_f32() -> ctypes.CDLL:
+    lib = _build.load("fused_block_bwd_f32")
+    fn = lib.fused_block_backward_f32
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        sz = lib.fused_block_backward_f32_scratch_bytes
+        sz.argtypes = [ctypes.c_int] * 5
+        sz.restype = ctypes.c_size_t
+        off = lib.fused_block_backward_f32_part_offsets
+        off.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        off.restype = None
+    return lib
+
+
+def _on_stream(dev: torch.device, fn, *args) -> int:
+    """``fn(*args, stream)`` with ``dev`` the current device and its current
+    stream (the libraries launch on the current device)."""
+    with torch.cuda.device(dev):
+        return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+
+
 def _check_cuda(name: str, rows: torch.Tensor, num_heads: int, p, like=(),
-                den=None) -> None:
-    """What the CUDA kernels take: raise on anything else, before any of
-    ``p`` (a RowBlockParams) is read but its shapes."""
+                den=None, dtypes=KERNEL_DTYPES, pointers: bool = True) -> None:
+    """What the CUDA kernels take (rows of one of ``dtypes``): raise on
+    anything else, before any of ``p`` (a RowBlockParams) is read but its
+    shapes.  ``pointers=False`` leaves out the 16-byte alignment (a traced
+    tensor, as torch.export's, has no memory)."""
     if rows.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {rows.device}")
-    if rows.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the kernel takes bfloat16, got {rows.dtype}")
-    if rows.dim() != 3 or not rows.is_contiguous() or rows.data_ptr() % 16:
+    if rows.dtype not in dtypes:
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"{name}: the kernel takes {names}, got {rows.dtype}")
+    if rows.dim() != 3 or not rows.is_contiguous() or (pointers and rows.data_ptr() % 16):
         raise ValueError(f"{name}: rows must be a contiguous, 16-byte aligned (R, N, C) tensor")
     R, N, C = rows.shape
-    check_shape(name, R, N, C, num_heads, p.fc1_kernel.shape[1])
+    check_shape(name, R, N, C, num_heads, p.fc1_kernel.shape[1], rows.dtype)
     for t in like:
         if (t.shape != rows.shape or t.dtype != rows.dtype or t.device != rows.device
                 or not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"{name}: saved tensors must be contiguous, 16-byte aligned "
-                             "bf16 like rows")
+                             "and of the rows' dtype")
     if den is not None and (den.shape != (R, num_heads, N) or den.dtype != torch.float32
                             or den.device != rows.device or not den.is_contiguous()):
         raise ValueError(f"{name}: den must be a contiguous f32 (R, H, N) tensor")
@@ -488,7 +545,8 @@ class _Launch(NamedTuple):
 
 def _forward_kernel(rows: torch.Tensor, p, num_heads: int, train: bool = False,
                     int8: bool = False) -> _Launch:
-    """One launch of fused_block_forward: B1, B1-train (``train``) or B3
+    """One launch of fused_block_forward (bf16 rows) or
+    fused_block_forward_f32 (f32 rows): B1, B1-train (``train``) or B3
     (``int8``)."""
     name = ("fused_row_block_train" if train else
             "fused_row_block_int8" if int8 else "fused_row_block")
@@ -496,6 +554,8 @@ def _forward_kernel(rows: torch.Tensor, p, num_heads: int, train: bool = False,
         raise ValueError(f"{name}: the int8-score form is serving only")
     _check_cuda(name, rows, num_heads, p)
     weights = _block_weights(p, rows.shape[2], num_heads, rows.dtype)
+    if rows.dtype == torch.float32:
+        return _forward_kernel_f32(name, rows, weights, num_heads, train, int8)
     R, N, C = rows.shape
     hidden = weights[7].shape[1]
     dev = rows.device
@@ -513,22 +573,69 @@ def _forward_kernel(rows: torch.Tensor, p, num_heads: int, train: bool = False,
         return None if t is None else t.data_ptr()
 
     kmax = buf((R, num_heads), torch.float32)     # scratch: the rows' largest |k_h|
-    # the library launches on the current device: make it the rows' device
-    with torch.cuda.device(dev):
-        err = _lib().fused_block_forward(
-            rows.data_ptr(), *(w.data_ptr() for w in weights),
-            ptr(res.qkv), ptr(kmax), ptr(res.attn), ptr(res.out), ptr(res.mid), ptr(res.den),
-            ptr(res.scales), ptr(res.qk), R, N, C, num_heads, hidden,
-            torch.cuda.current_stream(dev).cuda_stream)
+    err = _on_stream(dev, _lib().fused_block_forward,
+                     rows.data_ptr(), *(w.data_ptr() for w in weights),
+                     ptr(res.qkv), ptr(kmax), ptr(res.attn), ptr(res.out), ptr(res.mid),
+                     ptr(res.den), ptr(res.scales), ptr(res.qk), R, N, C, num_heads, hidden)
     if err != 0:
         raise RuntimeError(f"fused_block_forward ({name}) failed: CUDA error {err}")
     return res
 
 
+def _forward_kernel_f32(name: str, rows: torch.Tensor, weights, num_heads: int, train: bool,
+                        int8: bool) -> _Launch:
+    """One launch of fused_block_forward_f32 on checked f32 rows and the
+    weights of :func:`_block_weights` in f32.  B1-train's mid is the
+    kernel's y, which B1 and B3 keep in a scratch buffer."""
+    R, N, C = rows.shape
+    hidden = weights[7].shape[1]
+    M = R * N
+
+    def buf(shape, dtype=torch.float32, on=True):
+        return torch.empty(shape, dtype=dtype, device=rows.device) if on else None
+
+    res = _Launch(out=torch.empty_like(rows), attn=buf((R, N, C)), qkv=buf((M, 3 * C)),
+                  mid=buf((R, N, C), on=train), den=buf((R, num_heads, N), on=train),
+                  scales=buf((R, 2), on=int8), qk=buf((M, 2 * C), torch.int8, int8))
+    y = res.mid if train else buf((R, N, C))
+    stats, hbuf = buf((4 * M,)), buf((M, hidden))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = _on_stream(rows.device, _lib_f32().fused_block_forward_f32,
+                     rows.data_ptr(), *(w.data_ptr() for w in weights), res.qkv.data_ptr(),
+                     stats.data_ptr(), y.data_ptr(), hbuf.data_ptr(), res.attn.data_ptr(),
+                     res.out.data_ptr(), ptr(res.den), ptr(res.scales), ptr(res.qk),
+                     R, N, C, num_heads, hidden)
+    if err != 0:
+        raise RuntimeError(f"fused_block_forward_f32 ({name}) failed: CUDA error {err}")
+    return res
+
+
+def _check_op_args(name: str, rows: torch.Tensor, num_heads: int, p) -> None:
+    """What the kernels take, checked before a CUDA tensor reaches its
+    custom op (the alignment left out: a tensor being exported has no
+    memory; the launch checks it)."""
+    if rows.device.type != "cpu":
+        _check_cuda(name, rows, num_heads, p, pointers=False)
+
+
+def _count(wrapper, dtype: torch.dtype) -> None:
+    """One more launch of ``wrapper``'s kernel of ``dtype``."""
+    if dtype == torch.float32:
+        wrapper.launches_f32 += 1
+    else:
+        wrapper.launches += 1
+
+
 def fused_row_block_int8(rows: torch.Tensor, p, num_heads: int) -> torch.Tensor:
     """B3, the block's output with int8 scores, the wrapper the
-    ``"pallas_int8"`` route calls; the plain version on a CPU tensor.
-    Counts each launch in ``fused_row_block_int8.launches``.  Serving only,
+    ``"pallas_int8"`` route calls, through the custom op
+    ``tfswa::fused_row_block_int8`` (``ops/custom_ops.py``): the plain
+    version on a CPU tensor.
+    Counts each launch in ``fused_row_block_int8.launches`` (bf16) or
+    ``.launches_f32``.  Serving only,
     as in the JAX package (no VJP): when grad mode is on and ``rows`` or a
     parameter requires a gradient it raises, rather than return a result
     that no gradient reaches."""
@@ -536,10 +643,20 @@ def fused_row_block_int8(rows: torch.Tensor, p, num_heads: int) -> torch.Tensor:
         raise RuntimeError("fused_row_block_int8 (attention_impl='pallas_int8') is "
                            "serving only and has no gradient: train with 'pallas', "
                            "'pallas_attn' or 'xla'")
+    _check_op_args("fused_row_block_int8", rows, num_heads, p)
+    from .custom_ops import fused_row_block_int8 as op
+
+    return op(rows, list(p), num_heads)
+
+
+def fused_row_block_int8_run(rows: torch.Tensor, p, num_heads: int) -> torch.Tensor:
+    """B3 with no autograd check: the plain version on a CPU tensor, the
+    kernel (counted) on a CUDA one; what ``tfswa::fused_row_block_int8``
+    runs."""
     if rows.device.type == "cpu":
         return fused_row_block_int8_reference(rows, p, num_heads)
     out = _forward_kernel(rows, p, num_heads, int8=True).out
-    fused_row_block_int8.launches += 1
+    _count(fused_row_block_int8, rows.dtype)
     return out
 
 
@@ -548,22 +665,22 @@ def fused_row_block_parts(rows: torch.Tensor, p, num_heads: int):
     is a RowBlockParams.  Returns the block's output and its attention
     output before the out-projection (what a check of the attention alone
     compares), both (R, N, C).  Counts each launch in
-    ``fused_row_block.launches``."""
+    ``fused_row_block.launches`` (bf16) or ``.launches_f32``."""
     if rows.device.type == "cpu":
         return fused_row_block_reference_parts(rows, p, num_heads)
     res = _forward_kernel(rows, p, num_heads)
-    fused_row_block.launches += 1
+    _count(fused_row_block, rows.dtype)
     return res.out, res.attn
 
 
 def fused_row_block_train(rows: torch.Tensor, p, num_heads: int):
     """B1-train: ``(out, mid, acc, den)`` as
     :func:`fused_row_block_train_reference` gives them.  Counts each launch
-    in ``fused_row_block_train.launches``."""
+    in ``fused_row_block_train.launches`` (bf16) or ``.launches_f32``."""
     if rows.device.type == "cpu":
         return fused_row_block_train_reference(rows, p, num_heads)
     res = _forward_kernel(rows, p, num_heads, train=True)
-    fused_row_block_train.launches += 1
+    _count(fused_row_block_train, rows.dtype)
     return res.out, res.mid, res.attn, res.den
 
 
@@ -572,9 +689,19 @@ def fused_row_block_bwd_parts(rows: torch.Tensor, mid: torch.Tensor, acc: torch.
     """B2: the block's VJP from B1-train's residuals, :class:`BwdParts` as
     :func:`fused_row_block_bwd_reference_parts` gives them (on the card
     ``d_oe``, ``d_den`` and ``dqkv`` are views of the launch's scratch
-    buffer).  Counts each launch in ``fused_row_block_bwd.launches``."""
+    buffer).  Counts each launch in ``fused_row_block_bwd.launches`` (bf16)
+    or ``.launches_f32``."""
     if rows.device.type == "cpu":
         return fused_row_block_bwd_reference_parts(rows, mid, acc, den, g, p, num_heads)
+    res = _bwd_kernel(rows, mid, acc, den, g, p, num_heads)
+    _count(fused_row_block_bwd, rows.dtype)
+    return res
+
+
+def _bwd_kernel(rows: torch.Tensor, mid: torch.Tensor, acc: torch.Tensor, den: torch.Tensor,
+                g: torch.Tensor, p, num_heads: int) -> BwdParts:
+    """One launch of fused_block_backward (bf16 rows) or
+    fused_block_backward_f32 (f32 rows)."""
     H = num_heads
     _check_cuda("fused_row_block_bwd", rows, H, p, like=(mid, acc, g), den=den)
     R, N, C = rows.shape
@@ -583,30 +710,30 @@ def fused_row_block_bwd_parts(rows: torch.Tensor, mid: torch.Tensor, acc: torch.
     hidden = w_1.shape[1]
     # transposed copies, so that every product reads its weight by columns
     w_qkv_t, w_o_t, w_1_t, w_2_t = (w.t().contiguous() for w in (w_qkv, w_o, w_1, w_2))
-    lib = _bwd_lib()
-    scratch = torch.empty(lib.fused_block_backward_scratch_bytes(R, N, C, H, hidden),
-                          dtype=torch.uint8, device=rows.device)
+    f32 = rows.dtype == torch.float32
+    lib = _bwd_lib_f32() if f32 else _bwd_lib()
+    sfx = "_f32" if f32 else ""
+    size = getattr(lib, f"fused_block_backward{sfx}_scratch_bytes")(R, N, C, H, hidden)
+    scratch = torch.empty(size, dtype=torch.uint8, device=rows.device)
     sizes = [C, C, 3 * C * C, C * C, C, C, C, C * hidden, hidden, hidden * C, C]
     grads = torch.empty(sum(sizes), dtype=torch.float32, device=rows.device)
     dx = torch.empty_like(rows)
-    with torch.cuda.device(rows.device):
-        err = lib.fused_block_backward(
-            rows.data_ptr(), mid.data_ptr(), acc.data_ptr(), den.data_ptr(), g.data_ptr(),
-            ln1_s.data_ptr(), ln1_b.data_ptr(), w_qkv.data_ptr(), w_qkv_t.data_ptr(),
-            w_o_t.data_ptr(), ln2_s.data_ptr(), ln2_b.data_ptr(), w_1.data_ptr(),
-            w_1_t.data_ptr(), b_1.data_ptr(), w_2_t.data_ptr(),
-            scratch.data_ptr(), dx.data_ptr(), grads.data_ptr(),
-            R, N, C, H, hidden, torch.cuda.current_stream(rows.device).cuda_stream)
+    err = _on_stream(rows.device, getattr(lib, f"fused_block_backward{sfx}"),
+                     rows.data_ptr(), mid.data_ptr(), acc.data_ptr(), den.data_ptr(),
+                     g.data_ptr(), ln1_s.data_ptr(), ln1_b.data_ptr(), w_qkv.data_ptr(),
+                     w_qkv_t.data_ptr(), w_o_t.data_ptr(), ln2_s.data_ptr(), ln2_b.data_ptr(),
+                     w_1.data_ptr(), w_1_t.data_ptr(), b_1.data_ptr(), w_2_t.data_ptr(),
+                     scratch.data_ptr(), dx.data_ptr(), grads.data_ptr(), R, N, C, H, hidden)
     if err != 0:
-        raise RuntimeError(f"fused_block_backward failed: CUDA error {err}")
-    fused_row_block_bwd.launches += 1
+        raise RuntimeError(f"fused_block_backward{sfx} failed: CUDA error {err}")
     leaves = [t.view(s) for t, s in zip(
         torch.split(grads, sizes),
         [(C,), (C,), (C, 3 * C), (C, C), (C,), (C,), (C,), (C, hidden), (hidden,),
          (hidden, C), (C,)])]
     leaves[2][:, :C] *= _qk_scale(C, H)
     offsets = (ctypes.c_size_t * 3)()
-    lib.fused_block_backward_part_offsets(R, N, C, H, hidden, ctypes.addressof(offsets))
+    getattr(lib, f"fused_block_backward{sfx}_part_offsets")(R, N, C, H, hidden,
+                                                            ctypes.addressof(offsets))
 
     def part(i, width, dtype):
         n = R * N * width * torch.finfo(dtype).bits // 8
@@ -644,13 +771,17 @@ class _FusedRowBlock(torch.autograd.Function):
 def fused_row_block(rows: torch.Tensor, p, num_heads: int) -> torch.Tensor:
     """The block's output, the wrapper the model calls.  Differentiable:
     when grad mode is on and ``rows`` or a parameter requires a gradient it
-    runs B1-train and its backward B2; otherwise B1's serving form."""
+    runs B1-train and its backward B2; otherwise B1's serving form, through
+    the custom op ``tfswa::fused_row_block`` (``ops/custom_ops.py``)."""
     if torch.is_grad_enabled() and (rows.requires_grad or any(t.requires_grad for t in p)):
         return _FusedRowBlock.apply(rows, num_heads, type(p), *p)
-    return fused_row_block_parts(rows, p, num_heads)[0]
+    _check_op_args("fused_row_block", rows, num_heads, p)
+    from .custom_ops import fused_row_block as op
+
+    return op(rows, list(p), num_heads)
 
 
-fused_row_block.launches = 0
-fused_row_block_int8.launches = 0
-fused_row_block_train.launches = 0
-fused_row_block_bwd.launches = 0
+for _wrapper in (fused_row_block, fused_row_block_int8, fused_row_block_train,
+                 fused_row_block_bwd):
+    _wrapper.launches = 0
+    _wrapper.launches_f32 = 0

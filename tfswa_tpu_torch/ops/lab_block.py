@@ -91,7 +91,7 @@ def lab_row_block_parts(rows: torch.Tensor, p, num_heads: int, stage: str = "ful
     feeds the plain version).  Raises on a tensor the kernel does not take
     and when the launch fails."""
     flags = _lab_flags(rows, num_heads, stage, score_bf16, p_f32, clamp)
-    _check_cuda("lab_row_block", rows, num_heads, p)
+    _check_cuda("lab_row_block", rows, num_heads, p, dtypes=(torch.bfloat16,))
     R, N, C = rows.shape
     weights = _block_weights(p, C, num_heads, rows.dtype)
     hidden = weights[7].shape[1]

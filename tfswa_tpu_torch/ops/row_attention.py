@@ -10,8 +10,11 @@ then ``bf16(acc) @ Wo + b`` (see ``csrc/row_attention.cu``).
 
 :func:`flash_row_attention` runs the CUDA kernel on a CUDA tensor and the
 plain version (:func:`flash_row_attention_reference`) on a CPU tensor, and
-counts each launch in ``flash_row_attention.launches``.  On a CUDA tensor
-that the kernel does not take, it raises.  It is forward only: the
+counts each launch in ``flash_row_attention.launches`` (bf16 rows,
+``csrc/row_attention.cu``, tensor cores) or
+``flash_row_attention.launches_f32`` (f32 rows, ``csrc/row_attention_f32.cu``,
+f32 FFMA: the TPU kernel with compute_dtype = float32).  On a CUDA tensor
+that the kernels do not take, it raises.  It is forward only: the
 gradient of B4, as in the JAX package, is the plain attention's
 (:func:`mha_rows`), and the ``"pallas_attn"`` block
 (``models/attention.py``, ``_BilinearBlock``) takes it so, a chunk of rows
@@ -26,7 +29,8 @@ import torch
 
 from ..parallel.comm import reduce_from
 from . import _build
-from .fused_block import MAX_SCORE_BYTES, MAX_SMEM_BYTES
+from .fused_block import (KERNEL_DTYPES, MAX_SCORE_BYTES, MAX_SMEM_BYTES, STATIC_SMEM_BYTES,
+                          _count, _on_stream)
 
 # what the kernels are instantiated for: C (templates on it) and H heads,
 # D = C / H from 4 to 128
@@ -34,40 +38,51 @@ KERNEL_DIMS = (32, 64, 128, 256)
 KERNEL_HEADS = (2, 4, 8)
 
 
-def kernel_smem_bytes(C: int, num_heads: int) -> int:
-    """Shared memory of the largest attention block (csrc/row_attention.cu
-    attn_smem_bytes, 8 warps): its 128 queries' x, two 32-row slices of
-    A_h's columns (64 at a time), and two key tiles (128 keys at C <= 64,
-    else 64) each of x (C columns) and of the head's v (D, at least 8),
-    rows padded by 8 bf16.  Keys stream through the tiles, so it does not
-    depend on N."""
+def kernel_smem_bytes(C: int, num_heads: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Shared memory of the largest attention block.  float32
+    (csrc/row_attention_f32.cu attn_kernel, static; t_kernel's and
+    gemm_kernel's are smaller): a tile of 16 keys of x in f64, its C / 32
+    slices of 32 padded to 33, and of the head's v in f32, 16 C / 32
+    columns.  bfloat16
+    (csrc/row_attention.cu attn_smem_bytes, 8 warps): its 128 queries' x,
+    two 32-row slices of A_h's columns (64 at a time), and two key tiles
+    (128 keys at C <= 64, else 64) each of x (C columns) and of the head's
+    v (D, at least 8), rows padded by 8 bf16.  Keys stream through the
+    tiles, so neither depends on N."""
+    if dtype == torch.float32:
+        g = C // 32
+        return 16 * (8 * g * 33 + 4 * 16 * g)
     vw = max(C // num_heads, 8)
     keys = 128 if C <= 64 else 64
     return 2 * (128 * (C + 8) + 2 * 32 * (min(C, 64) + 8) + 2 * keys * (C + 8 + vw + 8))
 
 
-def check_shape(R: int, N: int, C: int, num_heads: int) -> None:
-    """The shapes the CUDA kernels take: raise ValueError on any other."""
+def check_shape(R: int, N: int, C: int, num_heads: int,
+                dtype: torch.dtype = torch.bfloat16) -> None:
+    """The shapes the CUDA kernels of ``dtype`` take: raise ValueError on
+    any other."""
     name = "flash_row_attention"
     if C not in KERNEL_DIMS or num_heads not in KERNEL_HEADS:
         raise ValueError(f"{name}: no kernel for C={C}, {num_heads} heads (C in "
                          f"{KERNEL_DIMS}, heads in {KERNEL_HEADS})")
-    if kernel_smem_bytes(C, num_heads) > MAX_SMEM_BYTES:
+    smem = kernel_smem_bytes(C, num_heads, dtype)
+    if smem > (STATIC_SMEM_BYTES if dtype == torch.float32 else MAX_SMEM_BYTES):
         raise ValueError(f"{name}: C={C} does not fit the kernel's shared memory "
-                         f"({kernel_smem_bytes(C, num_heads)} bytes)")
+                         f"({smem} bytes)")
     if R * N * C >= 2 ** 31:
         raise ValueError(f"{name}: too many tokens for 32-bit counts")
 
 
-def bilinear_weights(qkv_kernel: torch.Tensor, num_heads: int):
-    """A (H, C, C) f32 with A_h = Wq_h Wk_h^T / sqrt(D), from the qkv kernel
-    (C, 3C) as given (the route casts it to the compute dtype first), and
-    Wv (C, C) as given."""
+def bilinear_weights(qkv_kernel: torch.Tensor, num_heads: int,
+                     dtype: torch.dtype = torch.float32):
+    """A (H, C, C) in ``dtype`` (f32, or f64 for B4's f32 form) with A_h =
+    Wq_h Wk_h^T / sqrt(D), from the qkv kernel (C, 3C) as given (the route
+    casts it to the compute dtype first), and Wv (C, C) as given."""
     C = qkv_kernel.shape[0]
     H = num_heads
     D = C // H
-    wq = qkv_kernel[:, :C].float().reshape(C, H, D).permute(1, 0, 2)     # (H, C, D)
-    wk = qkv_kernel[:, C:2 * C].float().reshape(C, H, D).permute(1, 0, 2)
+    wq = qkv_kernel[:, :C].to(dtype).reshape(C, H, D).permute(1, 0, 2)     # (H, C, D)
+    wk = qkv_kernel[:, C:2 * C].to(dtype).reshape(C, H, D).permute(1, 0, 2)
     return torch.einsum("hcd,hed->hce", wq, wk) * D ** -0.5, qkv_kernel[:, 2 * C:]
 
 
@@ -200,16 +215,26 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_cuda(rows: torch.Tensor, weights, num_heads: int) -> None:
-    """What the CUDA kernel takes: raise on anything else."""
+def _lib_f32() -> ctypes.CDLL:
+    lib = _build.load("row_attention_f32")
+    fn = lib.row_attention_forward_f32
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_cuda(rows: torch.Tensor, weights, num_heads: int, pointers: bool = True) -> None:
+    """What the CUDA kernel takes: raise on anything else (``pointers=False``:
+    but the alignment, which a traced tensor has not)."""
     name = "flash_row_attention"
     if rows.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {rows.device}")
-    if rows.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the kernel takes bfloat16, got {rows.dtype}")
-    if rows.dim() != 3 or not rows.is_contiguous() or rows.data_ptr() % 16:
+    if rows.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name}: the kernel takes bfloat16 or float32, got {rows.dtype}")
+    if rows.dim() != 3 or not rows.is_contiguous() or (pointers and rows.data_ptr() % 16):
         raise ValueError(f"{name}: rows must be a contiguous, 16-byte aligned (R, N, C) tensor")
-    check_shape(*rows.shape, num_heads)
+    check_shape(*rows.shape, num_heads, rows.dtype)
     C = rows.shape[2]
     if [tuple(w.shape) for w in weights] != [(C, 3 * C), (C, C), (C,)]:
         raise ValueError(f"{name}: weights must be qkv (C, 3C), proj (C, C) and bias (C,)")
@@ -219,12 +244,18 @@ def _check_cuda(rows: torch.Tensor, weights, num_heads: int) -> None:
 
 def _kernel(rows: torch.Tensor, qkv_kernel: torch.Tensor, proj_kernel: torch.Tensor,
             proj_bias: torch.Tensor, num_heads: int, export: bool = False):
-    """One launch of row_attention_forward: ``(out, acc, v, t)``, with v
-    (R*N, C) the kernel's bf16(x @ Wv) and, with ``export``, t (R*N, H*C)
-    its bf16(x @ A_h) per head (else None)."""
+    """One launch of row_attention_forward (bf16 rows) or
+    row_attention_forward_f32 (f32 rows): ``(out, acc, v, t)``, with v
+    (R*N, C) the kernel's x @ Wv and, with ``export``, t (R*N, H*C) its
+    x @ A_h per head (else None), both in the rows' dtype (t in f64 for f32
+    rows)."""
     _check_cuda(rows, (qkv_kernel, proj_kernel, proj_bias), num_heads)
     R, N, C = rows.shape
     dt, dev = rows.dtype, rows.device
+    if dt == torch.float32:
+        a, wv = bilinear_weights(qkv_kernel, num_heads, torch.float64)
+        return _kernel_f32(rows, a, wv.float(), proj_kernel.float(), proj_bias.float(),
+                           num_heads, export)
     a, wv = bilinear_weights(qkv_kernel, num_heads)
     a, wv, wp = (w.to(dt).contiguous() for w in (a, wv, proj_kernel))
     bias = proj_bias.float().contiguous()
@@ -232,31 +263,67 @@ def _kernel(rows: torch.Tensor, qkv_kernel: torch.Tensor, proj_kernel: torch.Ten
     acc = torch.empty_like(rows)
     out = torch.empty_like(rows)
     t = torch.empty((R * N, num_heads * C), dtype=dt, device=dev) if export else None
-    with torch.cuda.device(dev):
-        err = _lib().row_attention_forward(
-            rows.data_ptr(), a.data_ptr(), wv.data_ptr(), wp.data_ptr(), bias.data_ptr(),
-            v.data_ptr(), acc.data_ptr(), out.data_ptr(), t.data_ptr() if export else None,
-            R, N, C, num_heads, torch.cuda.current_stream(dev).cuda_stream)
+    err = _on_stream(dev, _lib().row_attention_forward,
+                     rows.data_ptr(), a.data_ptr(), wv.data_ptr(), wp.data_ptr(),
+                     bias.data_ptr(), v.data_ptr(), acc.data_ptr(), out.data_ptr(),
+                     t.data_ptr() if export else None, R, N, C, num_heads)
     if err != 0:
         raise RuntimeError(f"row_attention_forward failed: CUDA error {err}")
     return out, acc, v, t
+
+
+def _kernel_f32(rows: torch.Tensor, a: torch.Tensor, wv: torch.Tensor, wp: torch.Tensor,
+                bias: torch.Tensor, num_heads: int, export: bool):
+    """One launch of row_attention_forward_f32 on checked f32 rows, ``a``
+    (H, C, C) f64; t (f64) is written per head into an (R*N, C) scratch, or
+    with ``export`` into the head's columns of the returned (R*N, H*C) t."""
+    R, N, C = rows.shape
+    dev = rows.device
+    a, wv, wp, bias = (w.contiguous() for w in (a, wv, wp, bias))
+    v = torch.empty((R * N, C), dtype=torch.float32, device=dev)
+    acc = torch.empty_like(rows)
+    out = torch.empty_like(rows)
+    t = torch.empty((R * N, num_heads * C if export else C), dtype=torch.float64, device=dev)
+    err = _on_stream(dev, _lib_f32().row_attention_forward_f32,
+                     rows.data_ptr(), a.data_ptr(), wv.data_ptr(), wp.data_ptr(),
+                     bias.data_ptr(), v.data_ptr(), acc.data_ptr(), out.data_ptr(),
+                     t.data_ptr(), int(export), R, N, C, num_heads)
+    if err != 0:
+        raise RuntimeError(f"row_attention_forward_f32 failed: CUDA error {err}")
+    return out, acc, v, t if export else None
 
 
 def flash_row_attention(rows: torch.Tensor, qkv_kernel: torch.Tensor,
                         proj_kernel: torch.Tensor, proj_bias: torch.Tensor,
                         num_heads: int) -> torch.Tensor:
     """softmax((x Wq)(x Wk)^T / sqrt(D)) (x Wv) Wo + b over rows (R, N, C)
-    through B4; kernels as in RowBlockParams.  Forward only."""
+    through B4, by the custom op ``tfswa::flash_row_attention``;
+    kernels as in RowBlockParams.  Forward only."""
     args = (rows, qkv_kernel, proj_kernel, proj_bias)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         raise RuntimeError("flash_row_attention has no gradient of its own: train "
                            "through attention_impl='pallas_attn', whose block takes "
                            "the plain attention's VJP")
+    if rows.device.type != "cpu":     # before the op (the launch checks the alignment)
+        _check_cuda(rows, args[1:], num_heads, pointers=False)
+    from .custom_ops import flash_row_attention as op
+
+    return op(*args, num_heads)
+
+
+def flash_row_attention_run(rows: torch.Tensor, qkv_kernel: torch.Tensor,
+                            proj_kernel: torch.Tensor, proj_bias: torch.Tensor,
+                            num_heads: int) -> torch.Tensor:
+    """B4 with no autograd check: the plain version on a CPU tensor, the
+    kernel (counted) on a CUDA one; what ``tfswa::flash_row_attention``
+    runs."""
     if rows.device.type == "cpu":
-        return flash_row_attention_reference(*args, num_heads)
-    out = _kernel(*args, num_heads)[0]
-    flash_row_attention.launches += 1
+        return flash_row_attention_reference(rows, qkv_kernel, proj_kernel, proj_bias,
+                                             num_heads)
+    out = _kernel(rows, qkv_kernel, proj_kernel, proj_bias, num_heads)[0]
+    _count(flash_row_attention, rows.dtype)
     return out
 
 
 flash_row_attention.launches = 0
+flash_row_attention.launches_f32 = 0

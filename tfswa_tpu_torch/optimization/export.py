@@ -1,9 +1,9 @@
 """Deployment export, BatchNorm folding and inference benchmarking
 (counterpart of ``tfswa_tpu/optimization/export.py``, same names).
 
-Artifacts, each of the eval-mode forward on the plain route (what the
-reference exports), checked after a reload against the eager forward on a
-normal probe (max |diff| < 1e-4, the reference's limit):
+Artifacts, each of the eval-mode forward on the model's own route, checked
+after a reload against the eager forward on a normal probe (max |diff| <
+1e-4, the reference's limit):
   - :func:`export_stablehlo` / :func:`load_stablehlo`: ``torch.export``,
     saved with ``torch.export.save`` (the JAX package's portable
     serialized program is StableHLO);
@@ -17,10 +17,15 @@ normal probe (max |diff| < 1e-4, the reference's limit):
     ``ImportError`` with the reason;
   - :func:`export_torch_checkpoint`: the reference ``.pt`` format, which
     ``evaluation.load_separator_from_checkpoint`` reads.
-The kernel routes raise ``NotImplementedError``: the kernels are not
-``torch.library`` custom ops yet (ROADMAP.md, queue 3), so no exported
-program could hold them.  ``"int8"`` raises too (its products switch
-between ``torch._int_mm`` and their plain version by device).
+Every route exports.  On a kernel route (``"pallas"``, ``"pallas_int8"``,
+``"pallas_attn"``) the program holds the kernels' custom ops
+(``ops/custom_ops.py``: ``tfswa::fused_row_block``, ...), three a
+TFSWABlock, which run the kernel on the card and the plain version on the
+CPU once ``tfswa_tpu_torch`` is imported; ``"int8"`` holds its products as
+traced on the model's device (``torch._int_mm`` on the card).  ONNX has no
+such ops: :func:`export_to_onnx` exports the plain route's graph
+(``model.clone("xla")``) whatever the route, as the JAX package's ONNX
+export goes through its plain torch mirror.
 
 :func:`fold_batch_norms` folds every eval-mode BatchNorm into the conv
 before it, exactly (float64), paired by module structure: a BatchNorm2d
@@ -55,15 +60,6 @@ def make_forward_fn(model: TFSWAUNet) -> Callable:
             return model(x)
 
     return forward
-
-
-def _check_exportable(model: TFSWAUNet) -> None:
-    if model.attention_impl != "xla":
-        raise NotImplementedError(
-            f"export of attention_impl={model.attention_impl!r}: the hand-written kernels "
-            "are not torch.library custom ops yet (ROADMAP.md, queue 3), so no exported "
-            "program can hold them; export the plain route, attention_impl='xla', which "
-            "is what the reference exports (model.clone('xla'))")
 
 
 class _Eval(nn.Module):
@@ -102,7 +98,6 @@ def export_stablehlo(model: TFSWAUNet, output_path: str,
     """``torch.export`` of the eval-mode forward at ``input_shape``, saved
     to ``output_path`` (``torch.export.save``); with ``verify``, loaded
     back and run against the eager forward."""
-    _check_exportable(model)
     x = torch.zeros(input_shape, device=_device(model))
     with torch.no_grad():
         program = torch.export.export(_Eval(model), (x,))
@@ -122,7 +117,6 @@ def load_stablehlo(path: str) -> Callable:
 
 def aot_compile(model: TFSWAUNet, input_shape: Tuple[int, ...]) -> torch.jit.ScriptModule:
     """A TorchScript trace of the eval-mode forward at ``input_shape``."""
-    _check_exportable(model)
     x = torch.zeros(input_shape, device=_device(model))
     with torch.no_grad():
         return torch.jit.trace(_Eval(model), (x,), check_trace=False)
@@ -173,11 +167,15 @@ def export_to_onnx(model: TFSWAUNet, output_path: str,
                    verify: bool = True) -> Dict:
     """ONNX export of the eval-mode forward (the reference's shape and
     opset), the batch axis dynamic; the time axis is not (SWA's padding is
-    fixed at trace time: export one artifact per segment length).  With
-    ``verify`` the traced graph is run against the eager forward first.
-    The artifact embeds the f32 weights, so it must hold at least 4 bytes
-    a parameter."""
-    _check_exportable(model)
+    fixed at trace time: export one artifact per segment length).  The
+    graph is the plain route's (``model.clone("xla")`` for any other
+    route: ONNX cannot hold the kernels' custom ops, and the JAX package
+    exports its plain mirror whatever the route).  With ``verify`` the
+    traced graph is run against the eager forward (of the plain route)
+    first.  The artifact embeds the weights, so it must hold at least their
+    bytes (4 a parameter in f32, 2 in bf16)."""
+    if model.attention_impl != "xla":
+        model = model.clone("xla")
     info: Dict = {"path": output_path, "input_shape": list(input_shape),
                   "opset_version": opset_version}
     if verify:
@@ -190,7 +188,7 @@ def export_to_onnx(model: TFSWAUNet, output_path: str,
                           dynamic_axes={"spectrogram": {0: "batch"}, "masks": {0: "batch"}})
     size = os.path.getsize(output_path)
     n_params = sum(p.numel() for p in model.parameters())
-    if size < 4 * n_params:
+    if size < sum(p.numel() * p.element_size() for p in model.parameters()):
         raise RuntimeError(f"ONNX artifact suspiciously small: {size} bytes for "
                            f"{n_params} parameters")
     info["bytes"] = size

@@ -2,30 +2,107 @@
 ``tfswa_tpu/optimization/remat.py``).
 
 The model applies it itself through ``ModelConfig.remat`` (each TFSWABlock
-under ``torch.utils.checkpoint``, ``models/tfswa_unet.py``); this module
-holds the config object, ``checkpoint_fn`` / ``checkpoint_sequential``,
-the activation-memory estimate and the device memory counters.  ``torch.utils.checkpoint`` saves nothing of the
-function's inside, which is the JAX package's policy ``"none"``; its save
-policies (``"dots"``, ...) have no torch counterpart and raise.
+under ``torch.utils.checkpoint``, ``models/tfswa_unet.py``, with the save
+policy in ``TFSWAUNet.remat_policy``); this module holds the config
+object, ``checkpoint_fn`` / ``checkpoint_sequential``, the save policies,
+the activation-memory estimate and the device memory counters.
+
+The JAX package's save policies map onto torch's selective activation
+checkpointing (``torch.utils.checkpoint.create_selective_checkpoint_contexts``),
+which keeps the outputs of the ops a policy names and recomputes the rest:
+  - ``"none"``: nothing of the function's inside is kept (plain
+    ``torch.utils.checkpoint``);
+  - ``"dots"`` (``checkpoint_dots``, which keeps every ``dot_general``):
+    the outputs of the matrix products ``aten.mm``, ``addmm``, ``bmm`` and
+    ``baddbmm`` (not convolutions, which JAX's policy does not keep either);
+  - ``"dots_no_batch"`` (``checkpoint_dots_with_no_batch_dims``): those
+    without a batch dimension, ``mm`` and ``addmm`` (a product of a 3-d
+    tensor and a matrix reaches them flattened, as its dot_general has no
+    batch dimension);
+  - ``"everything"`` (``everything_saveable``): every value is kept, so
+    nothing is recomputed: the function runs with no checkpoint at all.
+An op run under ``torch.no_grad`` keeps nothing under any policy: it makes
+no residual, and the recompute may skip it (BatchNorm's running-stat
+update, which ``frozen_stats`` leaves out).
+The hand-written kernels launch outside torch's dispatcher: under any
+policy their launches run again in the recompute.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 from typing import Callable, Sequence
 
-from torch.utils.checkpoint import checkpoint
+import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..utils.profiling import device_memory_report
 
+_aten = torch.ops.aten
+# the ops each policy keeps (op overload packets); None: all, no checkpoint
+SAVED_OPS = {
+    "none": frozenset(),
+    "dots": frozenset({_aten.mm, _aten.addmm, _aten.bmm, _aten.baddbmm}),
+    "dots_no_batch": frozenset({_aten.mm, _aten.addmm}),
+    "everything": None,
+}
+POLICIES = tuple(SAVED_OPS)
+
+
+def check_policy(policy: str) -> None:
+    if policy not in SAVED_OPS:
+        raise ValueError(f"unknown remat policy {policy}; options {list(POLICIES)}")
+
+
+def _keeps(policy: str):
+    saved = SAVED_OPS[policy]
+
+    def keep(ctx, op, *args, **kwargs):
+        # an op under no_grad keeps no residual (and a recompute may skip
+        # it: BatchNorm's running-stat update under frozen_stats)
+        if torch.is_grad_enabled() and op.overloadpacket in saved:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return keep
+
+
+def policy_contexts(policy: str, recompute_ctx=None):
+    """``context_fn`` of ``torch.utils.checkpoint`` for ``policy``: the
+    (forward, recompute) contexts, ``recompute_ctx`` (a context manager, or
+    None) entered in the recompute as well."""
+    check_policy(policy)
+    extra = recompute_ctx if recompute_ctx is not None else contextlib.nullcontext()
+    if policy == "none":
+        return contextlib.nullcontext(), extra
+    fwd, rec = create_selective_checkpoint_contexts(_keeps(policy))
+
+    @contextlib.contextmanager
+    def both():
+        with rec, extra:
+            yield
+
+    return fwd, both()
+
+
+def recomputes(policy: str) -> bool:
+    """Whether a checkpoint under ``policy`` recomputes anything (all but
+    "everything")."""
+    check_policy(policy)
+    return SAVED_OPS[policy] is not None
+
 
 def checkpoint_fn(fn: Callable, policy: str = "none") -> Callable:
-    """``fn`` recomputed in the backward instead of keeping its inside."""
-    if policy != "none":
-        raise NotImplementedError(
-            f"remat policy {policy!r} has no torch counterpart; only 'none' is ported")
+    """``fn`` recomputed in the backward but for what ``policy`` keeps (the
+    JAX ``checkpoint_fn``'s names; an unknown name raises ValueError)."""
+    if not recomputes(policy):
+        return fn
+    context_fn = functools.partial(policy_contexts, policy)
 
     def wrapped(*args):
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
 
     return wrapped
 
@@ -54,15 +131,14 @@ def checkpoint_sequential(fns: Sequence[Callable], segments: int = 2) -> Callabl
 @dataclasses.dataclass
 class CheckpointConfig:
     """Config-object API: ``apply`` returns a copy of a ModelConfig with
-    remat set to ``enabled``."""
+    remat set to ``enabled``, whatever the policy (as the JAX object does:
+    the config has no policy field; a model takes one in
+    ``TFSWAUNet.remat_policy``)."""
 
     enabled: bool = True
     policy: str = "none"
 
     def apply(self, model_config):
-        if self.policy != "none":
-            raise NotImplementedError(
-                f"remat policy {self.policy!r} has no torch counterpart; only 'none' is ported")
         return dataclasses.replace(model_config, remat=self.enabled)
 
 

@@ -96,9 +96,38 @@ def mapping(depths: Sequence[int]) -> Iterator[Entry]:
     yield from _conv("output_head.3", ("head_conv2",))
 
 
+def _bf16_numpy():
+    """numpy's bfloat16 dtype (``ml_dtypes``, which JAX's arrays use)."""
+    try:
+        import ml_dtypes
+    except ImportError as exc:
+        raise ImportError("a bfloat16 leaf as a numpy array needs the ml_dtypes "
+                          "package") from exc
+    return ml_dtypes.bfloat16
+
+
+def _leaf_to_torch(arr: np.ndarray) -> torch.Tensor:
+    """A numpy leaf as a tensor: bfloat16 stays bfloat16 (bit for bit),
+    any other dtype becomes float32."""
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy()) \
+            .view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, dtype=np.float32))
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy leaf: bfloat16 stays bfloat16 (bit for bit),
+    any other dtype becomes float32."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.contiguous().view(torch.int16).numpy().view(_bf16_numpy())
+    return t.float().numpy()
+
+
 def state_dict_from_jax(variables_np: Mapping, depths: Sequence[int]) -> Dict[str, torch.Tensor]:
     """JAX ``{"params", "batch_stats"}`` numpy tree -> the port's state_dict
-    (float32; ``num_batches_tracked`` set to 0)."""
+    (float32, a bfloat16 leaf bfloat16: ``param_dtype="bfloat16"``;
+    ``num_batches_tracked`` set to 0)."""
     sd: Dict[str, torch.Tensor] = {}
     for name, path, transform in mapping(depths):
         node = variables_np
@@ -106,8 +135,10 @@ def state_dict_from_jax(variables_np: Mapping, depths: Sequence[int]) -> Dict[st
             if key not in node:
                 raise KeyError(f"missing JAX leaf: {'/'.join(path)}")
             node = node[key]
-        arr = np.array(transform(np.asarray(node, dtype=np.float32)))
-        sd[name] = torch.from_numpy(arr)
+        arr = np.asarray(node)
+        if arr.dtype.name != "bfloat16":
+            arr = arr.astype(np.float32)
+        sd[name] = _leaf_to_torch(np.array(transform(arr)))
         if name.endswith(".running_var"):
             sd[name[: -len("running_var")] + "num_batches_tracked"] = \
                 torch.tensor(0, dtype=torch.int64)
@@ -118,8 +149,10 @@ def variables_from_state_dict(tensors: Mapping[str, torch.Tensor],
                               depths: Sequence[int]) -> Dict:
     """The port's state_dict, or any dict of tensors by state_dict name (e.g.
     parameter gradients), -> the JAX ``{"params", "batch_stats"}`` layout as a
-    nested dict of float32 numpy arrays.  Names missing from ``tensors`` are
-    left out, so a dict of gradients gives only ``"params"``."""
+    nested dict of float32 numpy arrays (a bfloat16 tensor a bfloat16 array,
+    ``ml_dtypes``'s, as JAX's bf16 leaves are).  Names missing from
+    ``tensors`` are left out, so a dict of gradients gives only
+    ``"params"``."""
     out: Dict = {}
     for name, path, transform in mapping(depths):
         if name not in tensors:
@@ -127,7 +160,7 @@ def variables_from_state_dict(tensors: Mapping[str, torch.Tensor],
         node = out
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        arr = tensors[name].detach().float().cpu().numpy()
+        arr = _leaf_to_numpy(tensors[name])
         node[path[-1]] = np.ascontiguousarray(_INVERSE[transform](arr))
     return out
 
