@@ -11,17 +11,21 @@ serving forward with int8 scores, route "pallas_int8"), B4
 (flash_row_attention, the bilinear row attention, route "pallas_attn") and
 L (lab_row_block, the kernel lab's stage and flag forms of B1); and the
 f32 forms of B1, B1-train, B2, B3 and B4 (csrc/*_f32*: f32 FFMA, counted
-apart as "<kernel>-f32").
+apart as "<kernel>-f32").  Every kernel takes any width C a multiple of 8
+up to 512 and any head count dividing it: phases 2-15 run the flagship's
+widths, phase 16 the others (wide384, WIDE384, and an edge grid).
 Phases, each of which fails the run (exit code 1) when it fails:
   1. the card's name and power limit; build of the CUDA sources (nvcc, sm_90a,
      one nvcc per source, in parallel); the SASS of every instantiation of
      the launches whose products run on the tensor cores (B1's ln_qkv_kernel,
-     attn_kernel and post_kernel, B2's mlp_bwd_kernel, attn_bwd_q_kernel,
-     attn_bwd_kv_kernel, ln1_bwd_kernel and atb_kernel, B4's proj_kernel and
-     bilinear_attn_kernel) must hold HMMA instructions, and
-     B3's int8 forms of attn_kernel IMMA (cuobjdump --dump-sass of the built
-     libraries), and every kernel of the f32 libraries FFMA, each function
-     in them one of the port's (no library kernel);
+     attn_kernel, attn_wide_kernel and post_kernel, B2's mlp_bwd_kernel,
+     attn_bwd_q_kernel, attn_bwd_kv_kernel, their _wide forms,
+     ln1_bwd_kernel and atb_kernel, B4's proj_kernel, bilinear_attn_kernel
+     and bilinear_attn_any_kernel) must hold HMMA instructions, and
+     B3's int8 forms of attn_kernel and attn_wide_kernel IMMA (cuobjdump
+     --dump-sass of the built libraries), and every kernel of the f32
+     libraries FFMA, each function in them one of the port's (no library
+     kernel);
   2. the fused row-block kernel against its plain PyTorch version at each
      of the 12 (N, C) of the main path (bf16, a slice of 64 rows, three kinds
      of weights: flat, peaked and clamped softmax), on the block's output
@@ -132,7 +136,7 @@ Phases, each of which fails the run (exit code 1) when it fails:
      under a quarter of the 0.91 GB a dense mask would take), the route
      SNR against the plain route (as phase 5) and the output moved by the
      mask; (b) dropout 0.1: eval bit-identical to dropout 0 (66 B1), one
-     train step on the first of phase 7's 4 segments (the plain route is
+     train step on the first 3 s of the first of phase 7's 4 segments (the plain route is
      host-bound: 21-24 s a step at all 4 on an H100) with no kernel launch,
      finite non-zero row-block gradients, the loss equal bit for bit across
      two runs, remat within 1e-3 rel. and cosine >= 0.999; (c)
@@ -140,9 +144,9 @@ Phases, each of which fails the run (exit code 1) when it fails:
      forward equal to their plain f32-of-int8 version and the forward equal
      to the plain-product forward bit for bit, the rate against bf16
      "pallas", compare_models against f32, quantize_static on 2 batches
-     (every scale > 0, static vs dynamic within 0.05), the 120 s track
+     (every scale > 0, static vs dynamic within 0.05), a 60 s track
      through "int8" (rate, SNR vs "pallas") and python -m
-     tfswa_tpu_torch.tools.bench_int8 --seconds 3 10 --iters 1 in a subprocess; (d)
+     tfswa_tpu_torch.tools.bench_int8 --seconds 3 --iters 1 in a subprocess; (d)
      fold_batch_norms: float32 plain route within 1e-4 rel., bf16 "pallas"
      at SNR >= 30 dB with 66 B1, benchmark_model of both; (e) export at
      (1, 4, 1025, 87) of the float32 plain route at depths (1, 1, 1, 1)
@@ -221,8 +225,32 @@ Phases, each of which fails the run (exit code 1) when it fails:
      falling loss, every parameter, gradient and Adam moment bf16; (f) one
      "dots" remat step against the no-remat step (phase 9's limits), 132
      + 66 launches, the peak GB of each;
- 16. a JSON line of the kernels (the f32 forms as their own entries), then
-     the last line {"ok": true, "device": {...}}.
+ 16. every width (wide384: the flagship but dims (48, 96, 192, 384) and 4
+     heads, D = 12, 24, 48, 96; and EDGE_GRID): (a), also under --quick (in
+     the whole run beside phase 14's two subprocesses, which wait on the
+     host, with phase 12 (e) and phase 15 (d): beside_quality), each kernel
+     against its plain version at the limits of phases 2-15
+     (B1, B3, B4, L's full form and 5 cuts and the f32 B1, B3, B4 at the 12
+     (N, C) of wide384's serving path; B1-train, B2 and their f32 forms at
+     the 12 of its training path; all but L at each (C, H) of EDGE_GRID at
+     N = 64 with an MLP of 2 C and N = 129 with 4 C + 8), every check held
+     and logged before a miss fails the run, and the registers and spill
+     bytes of every new instantiation from ptxas; (b) wide384 in bf16: the
+     120 s track through each serving route (66 launches of its kernel a
+     forward and none of another; best of 3 after a warm-up, B4's route
+     one, as phase 4), one profiled separation ("pallas"),
+     and one 10 s segment against the plain route at SNR >= 30 dB a stem
+     (B3 also against B1's route); (c) wide384 in f32 (conditioned
+     weights): phase 15 (b) (the 120 s track through "pallas", one 10 s
+     segment a route at >= 70 dB against the f32 plain route); (d) its
+     train step on 2 x 6 s, no remat: bf16 through "pallas" (66 B1-train +
+     66 B2, loss 1e-2 rel. and gradient cosine 0.99 against the plain
+     route, finite non-zero row-block gradients, ms and peak GB), f32 at
+     phase 15 (c)'s limits, and one "pallas_attn" bf16 step on 1 segment;
+     (e) each kernel at wide384's full row counts: ms a forward or step,
+     bound, library and plain (256 rows a shape, scaled) times;
+ 17. a JSON line of the kernels (the f32 forms and wide384's rows as their
+     own entries), then the last line {"ok": true, "device": {...}}.
 Long results go to chiprun_out/chip_smoke.json.  Without a CUDA device, or
 outside a checkout of the repository, the run exits non-zero with no result.
 """
@@ -325,7 +353,8 @@ def _bound(nbytes: float, flops: float, exp2: float, int8_ops: float = 0.0):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def bound_ms(R: int, N: int, C: int, hidden: int, train: bool = False, int8: bool = False):
+def bound_ms(R: int, N: int, C: int, hidden: int, train: bool = False, int8: bool = False,
+             H: int = HEADS):
     """Least time for one B1 (or B1-train, or B3) call: rows in and out
     (B1-train: also mid, acc and den out) plus weights once, in bf16, over
     the HBM rate; the products and scores/AV (bf16 operands) over the bf16
@@ -333,26 +362,26 @@ def bound_ms(R: int, N: int, C: int, hidden: int, train: bool = False, int8: boo
     H*N^2 exp2 per row over the MUFU rate."""
     nbytes = 2 * (2 * R * N * C + 4 * C * C + 2 * C * hidden + 6 * C + hidden)
     if train:
-        nbytes += 2 * 2 * R * N * C + 4 * R * HEADS * N
+        nbytes += 2 * 2 * R * N * C + 4 * R * H * N
     flops = 2 * R * N * (4 * C * C + 2 * C * hidden) + 2 * R * N * N * C
     scores = 2 * R * N * N * C
-    return _bound(nbytes, flops + (0 if int8 else scores), R * HEADS * N * N,
+    return _bound(nbytes, flops + (0 if int8 else scores), R * H * N * N,
                   scores if int8 else 0)
 
 
-def bound_attn_ms(R: int, N: int, C: int):
+def bound_attn_ms(R: int, N: int, C: int, H: int = HEADS):
     """Least time for one B4 call: rows in and out (bf16), A (H C^2), Wv and
     Wo (bf16) and the f32 bias once; the products over the bf16 peak (v and
     the out-projection 2 C^2 a token each, t 2 H C^2 a token, the scores
     2 H N^2 C a row, since t is rounded to bf16 and no rank-D shortcut
     computes the same function, and AV 2 N^2 C a row); H*N^2 exp a row
     over the MUFU rate."""
-    nbytes = 2 * 2 * R * N * C + 2 * (HEADS + 2) * C * C + 4 * C
-    flops = 2 * R * N * (2 * C * C + HEADS * C * C) + 2 * R * N * N * C * (HEADS + 1)
-    return _bound(nbytes, flops, R * HEADS * N * N)
+    nbytes = 2 * 2 * R * N * C + 2 * (H + 2) * C * C + 4 * C
+    flops = 2 * R * N * (2 * C * C + H * C * C) + 2 * R * N * N * C * (H + 1)
+    return _bound(nbytes, flops, R * H * N * N)
 
 
-def bound_bwd_ms(R: int, N: int, C: int, hidden: int):
+def bound_bwd_ms(R: int, N: int, C: int, hidden: int, H: int = HEADS):
     """Least time for one B2 call, the function's floor: rows, mid, acc, g
     in (bf16), den in (f32), weights in, dx out (bf16) and the gradients
     out (f32); the products (q|k|v and fc1 recomputed, which the inputs
@@ -362,13 +391,14 @@ def bound_bwd_ms(R: int, N: int, C: int, hidden: int):
     (one per attention-backward kernel) is its own cost, not counted."""
     M = R * N
     weights = 4 * C * C + 2 * C * hidden + 6 * C + hidden
-    nbytes = 2 * 5 * M * C + 4 * R * HEADS * N + 2 * weights + 4 * weights
+    nbytes = 2 * 5 * M * C + 4 * R * H * N + 2 * weights + 4 * weights
     flops = 2 * M * (3 * C * C + C * hidden + 4 * C * hidden + 2 * C * C + 6 * C * C) \
         + 5 * 2 * R * N * N * C
-    return _bound(nbytes, flops, R * HEADS * N * N)
+    return _bound(nbytes, flops, R * H * N * N)
 
 
-def bound_launch_ms(kernel: str, R: int, N: int, C: int, hidden: int, form: str = "B1"):
+def bound_launch_ms(kernel: str, R: int, N: int, C: int, hidden: int, form: str = "B1",
+                    H: int = HEADS):
     """Least time for one launch of a kernel at (R, N, C) in B1, B1-train,
     B2, B3 or B4 (``form``), each of its inputs read once and its outputs
     written once (bf16, f32 where the kernel keeps f32), its products over
@@ -408,21 +438,21 @@ def bound_launch_ms(kernel: str, R: int, N: int, C: int, hidden: int, form: str 
                             2 H N^2 C a row, AV 2 N^2 C a row; H N^2 exp."""
     M = R * N
     if kernel == "k_norm_kernel":
-        return _bound(2 * M * C + 4 * R * HEADS + (M * C if form == "B3" else 0), 0, 0)
+        return _bound(2 * M * C + 4 * R * H + (M * C if form == "B3" else 0), 0, 0)
     if kernel == "attn_kernel":
-        nbytes = 2 * 4 * M * C + (4 * R * HEADS * N if form == "B1-train" else 0)
+        nbytes = 2 * 4 * M * C + (4 * R * H * N if form == "B1-train" else 0)
         scores, av = 2 * R * N * N * C, 2 * R * N * N * C
         if form == "B3":
-            return _bound(nbytes, av, R * HEADS * N * N, scores)
-        return _bound(nbytes, scores + av, R * HEADS * N * N)
+            return _bound(nbytes, av, R * H * N * N, scores)
+        return _bound(nbytes, scores + av, R * H * N * N)
     if kernel == "mlp_bwd_kernel":
-        nbytes = (2 * 3 * M * C + 4 * R * HEADS * N + 2 * (3 * C * hidden + C * C)
+        nbytes = (2 * 3 * M * C + 4 * R * H * N + 2 * (3 * C * hidden + C * C)
                   + 2 * (2 * C + hidden)
-                  + 2 * M * (2 * C + 2 * hidden) + 4 * M * C + 2 * 2 * M * C + 4 * M * HEADS
+                  + 2 * M * (2 * C + 2 * hidden) + 4 * M * C + 2 * 2 * M * C + 4 * M * H
                   + 4 * (4 * C + hidden))
         return _bound(nbytes, 2 * M * (3 * C * hidden + C * C), 0)
     if kernel == "attn_bwd":
-        return _bound(2 * 7 * M * C + 4 * M * HEADS, 5 * 2 * R * N * N * C, R * HEADS * N * N)
+        return _bound(2 * 7 * M * C + 4 * M * H, 5 * 2 * R * N * N * C, R * H * N * N)
     if kernel == "ln1_bwd_kernel":
         blocks = min(-(-M // 64), 1024)
         return _bound(14 * M * C + 2 * (3 * C * C + C) + 4 * 2 * C * blocks, 6 * M * C * C, 0)
@@ -437,9 +467,9 @@ def bound_launch_ms(kernel: str, R: int, N: int, C: int, hidden: int, form: str 
     if kernel == "proj_kernel":
         return _bound(2 * 4 * M * C + 2 * 2 * C * C + 4 * C, 4 * M * C * C, 0)
     if kernel == "bilinear_attn_kernel":
-        return _bound(2 * (3 * M * C + HEADS * C * C),
-                      2 * M * HEADS * C * C + 2 * R * N * N * C * (HEADS + 1),
-                      R * HEADS * N * N)
+        return _bound(2 * (3 * M * C + H * C * C),
+                      2 * M * H * C * C + 2 * R * N * N * C * (H + 1),
+                      R * H * N * N)
     raise ValueError(kernel)
 
 
@@ -460,16 +490,19 @@ PRODUCT_LAUNCHES = {"B1": ("ln_qkv_kernel", "k_norm_kernel", "attn_kernel", "pos
 # A launch group of PRODUCT_LAUNCHES timed against one bound, and its
 # launches, each timed on its own from the same trace.
 LAUNCH_PARTS = {"attn_bwd": ("attn_bwd_norm_kernel", "attn_bwd_q_kernel", "attn_bwd_kv_kernel")}
-SASS_HMMA = {"fused_block": ("ln_qkv_kernel", "attn_kernel", "post_kernel"),
+SASS_HMMA = {"fused_block": ("ln_qkv_kernel", "attn_kernel", "attn_wide_kernel", "post_kernel"),
              "fused_block_bwd": ("ln_qkv_kernel", "mlp_bwd_kernel", "attn_bwd_q_kernel",
-                                 "attn_bwd_kv_kernel", "ln1_bwd_kernel", "atb_kernel"),
-             "row_attention": ("proj_kernel", "bilinear_attn_kernel")}
+                                 "attn_bwd_kv_kernel", "attn_bwd_q_wide_kernel",
+                                 "attn_bwd_kv_wide_kernel", "ln1_bwd_kernel", "atb_kernel"),
+             "row_attention": ("proj_kernel", "bilinear_attn_kernel",
+                               "bilinear_attn_any_kernel")}
 
 
 def int8_form(fn: str) -> bool:
-    """Whether a mangled attn_kernel<D, WITH_DEN, INT8, ...> name is an INT8
-    (B3) instantiation, whose scores must run as IMMA."""
-    return re.search(r"attn_kernelILi\d+ELb[01]ELb1E", fn) is not None
+    """Whether a mangled attn_kernel<D, WITH_DEN, INT8, ...> (or
+    attn_wide_kernel) name is an INT8 (B3) instantiation, whose scores must
+    run as IMMA."""
+    return re.search(r"attn_(wide_)?kernelILi\d+ELb[01]ELb1E", fn) is not None
 
 
 def sass_hmma_check():
@@ -657,7 +690,7 @@ def library_block(torch, rows, p, H: int):
     return torch.cat(outs)
 
 
-def check_shape(torch, N: int, C: int, gen, hidden=None):
+def check_shape(torch, N: int, C: int, gen, hidden=None, H: int = HEADS):
     """The kernel against its plain version on CHECK_ROWS rows, for each
     kind of weights in REGIMES.  The plain version gets the kernel's own
     q|k|v (as in check_train_shape and check_int8_shape): the qkv product
@@ -674,11 +707,11 @@ def check_shape(torch, N: int, C: int, gen, hidden=None):
             <= 4 bf16 ULP at max|ref attn|.  Both sides round p to bf16 at
             the same point; an f32 sum in another order flips a rounding
             now and then, which moves a peaked softmax by up to ~2 ULP.
-    ``hidden``: the MLP's width (default 4 C).  Returns the per-regime
-    results and the flat regime's parameters."""
+    ``hidden``: the MLP's width (default 4 C); ``H`` the heads.  Returns
+    the per-regime results and the flat regime's parameters."""
     from tfswa_tpu_torch.models.attention import RowBlockParams
     from tfswa_tpu_torch.ops.fused_block import (SCORE_CLAMP, _forward_kernel,
-                                                 fused_row_block_reference_parts)
+                                                 fused_row_block_reference_parts, unpad_heads)
 
     res, flat = {}, None
     for regime in REGIMES:
@@ -686,16 +719,16 @@ def check_shape(torch, N: int, C: int, gen, hidden=None):
         if regime == "flat":
             flat = p
         x = torch.randn(CHECK_ROWS, N, C, generator=gen).cuda().to(torch.bfloat16)
-        run = _forward_kernel(x, p, HEADS)
-        got, got_attn, qkv = run.out, run.attn, run.qkv
+        run = _forward_kernel(x, p, H)
+        got, got_attn, qkv = run.out, run.attn, unpad_heads(run.qkv, C, H)
         torch.cuda.synchronize()
-        ref, ref_attn = fused_row_block_reference_parts(x, p, HEADS, qkv=qkv)
-        r_qkv = plain_qkv(torch, x, p, HEADS)
+        ref, ref_attn = fused_row_block_reference_parts(x, p, H, qkv=qkv)
+        r_qkv = plain_qkv(torch, x, p, H)
         qkv_err = _max_abs(qkv, r_qkv)
         qkv_tol = 2 * bf16_ulp(r_qkv.abs().max().item())
         # recorded: how often each side's f32 sums round q|k|v otherwise
         # than the exact product does
-        exact = plain_qkv(torch, x, p, HEADS, torch.float64)
+        exact = plain_qkv(torch, x, p, H, torch.float64)
         off_exact = (int((qkv.float() != exact).sum()), int((r_qkv != exact).sum()),
                      exact.numel())
         err = (got.float() - ref.float()).abs().max().item()
@@ -704,7 +737,7 @@ def check_shape(torch, N: int, C: int, gen, hidden=None):
         a_err = (got_attn.float() - ref_attn.float()).abs().max().item()
         a_scale = ref_attn.float().abs().max().item()
         a_tol = 4 * bf16_ulp(a_scale)
-        s_max = max_score(torch, x, p, HEADS)
+        s_max = max_score(torch, x, p, H)
         finite = bool(torch.isfinite(got.float()).all() and torch.isfinite(got_attn.float()).all())
         ok = finite and err <= tol and a_err <= a_tol and qkv_err <= qkv_tol
         if regime == "clamp" and s_max <= SCORE_CLAMP:
@@ -751,7 +784,9 @@ def phase_kernels(torch, quick: bool):
             xf = torch.randn(R, N, C, generator=gen).cuda().to(torch.bfloat16)
             # the model's route: the wrapper, through its custom op
             k_ms = cuda_ms(torch, lambda: fused_row_block(xf, p, HEADS), 3)
-            pl_ms = cuda_ms(torch, lambda: fused_row_block_reference(xf, p, HEADS), 1)
+            # the plain version on PLAIN_ROWS rows, scaled (full rows until PR 14)
+            rs = min(R, PLAIN_ROWS)
+            pl_ms = cuda_ms(torch, lambda: fused_row_block_reference(xf[:rs], p, HEADS), 1) * R / rs
             lib_ms = cuda_ms(torch, lambda: library_block(torch, xf, p, HEADS), 3)
             b_ms, b_by = bound_ms(R, N, C, 4 * C)
             calls = BLOCKS_PER_STAGE[stage]
@@ -810,7 +845,7 @@ LAB_FORMS = {
     "noclamp": ("full", {"clamp": False}),
 }
 # the lab's main path: the CLI as a user runs it, once per mode
-LAB_ITERS, LAB_SHAPES = 3, "enc0"
+LAB_ITERS, LAB_SHAPES = 2, "enc0"      # 3 iterations until PR 14 (the run's time)
 LAB_VARIANTS = "prod,xla,hpair,nopair,exp2bf16,sbf16,d16,d4,wofold,ptf32,noclamp"
 LAB_CLI = [["--ablate", "--iters", str(LAB_ITERS), "--shapes", LAB_SHAPES],
            ["--check", "--variants", LAB_VARIANTS]]
@@ -844,14 +879,17 @@ def lab_limit(name: str, ref) -> float:
     return 0.0625 * max(scale / 4.0, 1.0)
 
 
-def check_lab_shape(torch, N: int, C: int, gen, with_full: bool = False):
+def check_lab_shape(torch, N: int, C: int, gen, with_full: bool = False, H: int = HEADS,
+                    only=None):
     """The lab forms of LAB_FORMS but "full" (unless ``with_full``: B1's
     own checks do not run at this (N, C)) against their plain versions on
     CHECK_ROWS rows, for each kind of weights in REGIMES.  The plain version gets the
     kernel's own q|k|v (see check_train_shape).  Held: the error within
     lab_limit over the elements both give finite, the same elements
     non-finite in both (noclamp under the clamp regime overflows exp2 past
-    a score of 128), and every element finite for the other forms."""
+    a score of 128), and every element finite for the other forms.  The
+    exp2 cut, which writes the first D queries' p, runs where N >= D.
+    ``only``: the names of LAB_FORMS checked (default all)."""
     from tfswa_tpu_torch.models.attention import RowBlockParams
     from tfswa_tpu_torch.ops.lab_block import lab_row_block_parts, lab_row_block_reference
 
@@ -863,11 +901,12 @@ def check_lab_shape(torch, N: int, C: int, gen, with_full: bool = False):
         x = torch.randn(CHECK_ROWS, N, C, generator=gen).cuda().to(torch.bfloat16)
         forms = {}
         for name, (stage, kw) in LAB_FORMS.items():
-            if name == "full" and not with_full:
+            if ((name == "full" and not with_full) or (stage == "exp2" and N < C // H)
+                    or (only is not None and name not in only)):
                 continue
-            got, qkv = lab_row_block_parts(x, p, HEADS, stage, **kw)
+            got, qkv = lab_row_block_parts(x, p, H, stage, **kw)
             torch.cuda.synchronize()
-            ref = lab_row_block_reference(x, p, HEADS, stage, qkv=qkv, **kw)
+            ref = lab_row_block_reference(x, p, H, stage, qkv=qkv, **kw)
             g, r = got.float(), ref.float()
             fin_g, fin_r = g.isfinite(), r.isfinite()
             both = fin_g & fin_r
@@ -889,13 +928,13 @@ def check_lab_shape(torch, N: int, C: int, gen, with_full: bool = False):
                            "nonfinite_mismatch": nonfinite_mismatch,
                            "nonfinite": int((~fin_r).sum()), "ok": ok}
             del got, qkv, ref
-        res[regime] = {"forms": forms, "max_score": max_score(torch, x, p, HEADS),
+        res[regime] = {"forms": forms, "max_score": max_score(torch, x, p, H),
                        "ok": all(f["ok"] for f in forms.values())}
         torch.cuda.empty_cache()
     return res, flat
 
 
-def bound_lab_ms(name: str, R: int, N: int, C: int, hidden: int):
+def bound_lab_ms(name: str, R: int, N: int, C: int, hidden: int, H: int = HEADS):
     """Least time for one lab form: B1's bound (bound_ms) cut at the stage.
     Bytes: rows in and out, LN1 and Wqkv (and from stage attn Wo, bo) once;
     the qkv product, then the scores, then AV (each 2 R N^2 C) and from
@@ -904,7 +943,7 @@ def bound_lab_ms(name: str, R: int, N: int, C: int, hidden: int):
     full stage's function on the same inputs: B1's bound."""
     stage = LAB_FORMS[name][0]
     if stage == "full":
-        return bound_ms(R, N, C, hidden)
+        return bound_ms(R, N, C, hidden, H=H)
     k = ("qkv", "scores", "exp2", "av", "attn").index(stage)
     nbytes = 2 * (2 * R * N * C + 3 * C * C + 2 * C)
     flops = 2 * R * N * 3 * C * C + (2 * R * N * N * C if k >= 1 else 0) \
@@ -912,7 +951,7 @@ def bound_lab_ms(name: str, R: int, N: int, C: int, hidden: int):
     if k >= 4:
         nbytes += 2 * (C * C + C)
         flops += 2 * R * N * C * C
-    return _bound(nbytes, flops, R * HEADS * N * N if k >= 2 else 0)
+    return _bound(nbytes, flops, R * H * N * N if k >= 2 else 0)
 
 
 def lab_own_ms(torch, rows, p, reps: int = 2, tries: int = 3):
@@ -1075,7 +1114,7 @@ def phase_lab(torch, quick: bool, b1_shapes):
     return rows_out, max_err, totals, {"launches": launches, "runs": cli}
 
 
-def check_int8_shape(torch, N: int, C: int, gen):
+def check_int8_shape(torch, N: int, C: int, gen, hidden=None, H: int = HEADS):
     """B3 against its plain version on CHECK_ROWS rows, for each kind of
     weights in REGIMES.  The plain version gets the kernel's own q|k|v, so
     that a bf16 rounding of q or k that flips between two summation orders
@@ -1089,18 +1128,19 @@ def check_int8_shape(torch, N: int, C: int, gen):
     from tfswa_tpu_torch.models.attention import RowBlockParams
     from tfswa_tpu_torch.ops.fused_block import (SCORE_CLAMP, _forward_kernel,
                                                  fused_row_block_int8_reference_parts,
-                                                 quantize_rows)
+                                                 quantize_rows, unpad_heads)
 
     res, flat = {}, None
     for regime in REGIMES:
-        p = random_params(torch, RowBlockParams, C, gen, regime)
+        p = random_params(torch, RowBlockParams, C, gen, regime, hidden)
         if regime == "flat":
             flat = p
         x = torch.randn(CHECK_ROWS, N, C, generator=gen).cuda().to(torch.bfloat16)
-        run = _forward_kernel(x, p, HEADS, int8=True)
-        out, attn, qkv, scales, qk = run.out, run.attn, run.qkv, run.scales, run.qk
+        run = _forward_kernel(x, p, H, int8=True)
+        out, attn, scales = run.out, run.attn, run.scales
+        qkv, qk = unpad_heads(run.qkv, C, H), unpad_heads(run.qk, C, H)
         torch.cuda.synchronize()
-        r_out, r_attn = fused_row_block_int8_reference_parts(x, p, HEADS, qkv=qkv)
+        r_out, r_attn = fused_row_block_int8_reference_parts(x, p, H, qkv=qkv)
         q = qkv.float().view(CHECK_ROWS, N, 3 * C)
         (qi, sq), (ki, sk) = quantize_rows(q[..., :C]), quantize_rows(q[..., C:2 * C])
         r_qk = torch.cat([qi, ki], dim=-1).reshape(-1, 2 * C)
@@ -1113,7 +1153,7 @@ def check_int8_shape(torch, N: int, C: int, gen):
              "attn_max_abs_err": _max_abs(attn, r_attn),
              "attn_tol": 4 * bf16_ulp(r_attn.float().abs().max().item()),
              "attn_max_abs_ref": r_attn.float().abs().max().item(),
-             "max_score": max_score(torch, x, p, HEADS)}
+             "max_score": max_score(torch, x, p, H)}
         finite = bool(torch.isfinite(out.float()).all() and torch.isfinite(attn.float()).all())
         c["ok"] = (finite and mism == 0 and c["max_abs_err"] <= c["tol"]
                    and c["attn_max_abs_err"] <= c["attn_tol"]
@@ -1213,7 +1253,7 @@ def library_attn(torch, rows, wqkv, wp, b, H: int):
     return torch.cat(outs)
 
 
-def check_attn_shape(torch, N: int, C: int, gen):
+def check_attn_shape(torch, N: int, C: int, gen, H: int = HEADS):
     """B4 against its plain version on CHECK_ROWS rows of LN1 output, for
     each kind of weights in REGIMES (scores in natural units: no clamp in
     B4, "clamp" is its most peaked softmax).  The plain version gets the
@@ -1236,17 +1276,17 @@ def check_attn_shape(torch, N: int, C: int, gen):
         x = ln1_rows(torch, torch.randn(CHECK_ROWS, N, C, generator=gen).cuda()
                      .to(torch.bfloat16), p)
         w = attn_weights(torch, p)
-        out, acc, v, t = _kernel(x, *w, HEADS, export=True)
+        out, acc, v, t = _kernel(x, *w, H, export=True)
         torch.cuda.synchronize()
-        r_out, r_acc = flash_row_attention_reference_parts(x, *w, HEADS, t=t, v=v)
-        a, wv = bilinear_weights(w[0], HEADS)
+        r_out, r_acc = flash_row_attention_reference_parts(x, *w, H, t=t, v=v)
+        a, wv = bilinear_weights(w[0], H)
         xf = x.float()
         r_v = (xf @ wv.float()).to(x.dtype).reshape(-1, C)
         r_t = torch.stack([(xf @ a[h].to(x.dtype).float()).to(x.dtype)
-                           for h in range(HEADS)], dim=2).reshape(-1, HEADS * C)
-        t4 = t.float().view(CHECK_ROWS, N, HEADS, C)[:4]
+                           for h in range(H)], dim=2).reshape(-1, H * C)
+        t4 = t.float().view(CHECK_ROWS, N, H, C)[:4]
         s_max = max((t4[:, :, h] @ xf[:4].transpose(-1, -2)).max().item()
-                    for h in range(HEADS))
+                    for h in range(H))
         c = {"t_err": _max_abs(t, r_t), "t_tol": 2 * bf16_ulp(r_t.float().abs().max().item()),
              "v_err": _max_abs(v, r_v), "v_tol": 2 * bf16_ulp(r_v.float().abs().max().item()),
              "max_abs_err": _max_abs(out, r_out),
@@ -1340,6 +1380,25 @@ TRAIN_SHAPES = [
     (3, "TSA", 128, 256, 256), (3, "FSA", 64, 256, 512), (3, "SWA", 64, 256, 512),
 ]
 TRAIN_BATCH, TRAIN_SECONDS, TRAIN_STEPS = 4, 6.0, 5
+# Phase 16's configuration: the flagship in every field but its widths and
+# heads, dims (48, 96, 192, 384) by the flagship's doubling rule to the
+# paper's 384-channel, 4-head bottleneck (D = 12, 24, 48, 96), and its
+# row shapes: SHAPES and TRAIN_SHAPES at its widths.
+WIDE384 = dict(in_channels=4, out_channels=4, depths=(2, 2, 6, 2), dims=(48, 96, 192, 384),
+               window_size=8, shift_size=4, num_heads=4)
+WIDE_SHAPES = [(s, a, N, WIDE384["dims"][s], R) for s, a, N, _, R in SHAPES]
+WIDE_TRAIN_SHAPES = [(s, a, N, WIDE384["dims"][s], R) for s, a, N, _, R in TRAIN_SHAPES]
+# (C, H) of phase 16's edge grid, each at N = 64 and 129: D = 4, 4, 3, 8,
+# 16, 48, 16, 128, 256, 512, 128, 64, 256
+EDGE_GRID = [(8, 2), (16, 4), (24, 8), (40, 5), (48, 3), (48, 1), (96, 6), (256, 2),
+             (256, 1), (512, 1), (512, 4), (512, 8), (512, 2)]
+EDGE_N = (64, 129)
+
+
+def wide_row_shapes(path: str):
+    """(R, N, C) of wide384's row blocks, on its serving or training path."""
+    table = WIDE_SHAPES if path == "serving" else WIDE_TRAIN_SHAPES
+    return [(R, N, C) for _, _, N, C, R in table]
 # the plain versions are timed on at most this many rows and scaled by R
 PLAIN_ROWS = 256
 
@@ -1401,7 +1460,7 @@ def plain_qkv(torch, x, p, H: int, dtype=None):
     return (n1 @ w_qkv.to(dt)).to(x.dtype).float().reshape(-1, 3 * C)
 
 
-def check_train_shape(torch, N: int, C: int, gen, hidden=None):
+def check_train_shape(torch, N: int, C: int, gen, hidden=None, H: int = HEADS):
     """B1-train and B2 against their plain versions on CHECK_ROWS rows, for
     each kind of weights in REGIMES.  The plain versions get the kernel's
     own q|k|v (B1-train's buffer; B2 recomputes it with the same code, so
@@ -1438,10 +1497,10 @@ def check_train_shape(torch, N: int, C: int, gen, hidden=None):
     from tfswa_tpu_torch.ops.fused_block import (
         SCORE_CLAMP, _forward_kernel, fused_row_block_bwd_parts,
         fused_row_block_bwd_reference_parts, fused_row_block_reference, fused_row_block_train,
-        fused_row_block_train_reference)
+        fused_row_block_train_reference, unpad_heads)
 
     def plain(a, q):
-        return fused_row_block_reference(a, q, HEADS)
+        return fused_row_block_reference(a, q, H)
 
     res, flat = {}, None
     for regime in REGIMES:
@@ -1450,12 +1509,12 @@ def check_train_shape(torch, N: int, C: int, gen, hidden=None):
             flat = p
         x = torch.randn(CHECK_ROWS, N, C, generator=gen).cuda().to(torch.bfloat16)
         g = torch.randn(CHECK_ROWS, N, C, generator=gen).cuda().to(torch.bfloat16)
-        out, mid, acc, den = fused_row_block_train(x, p, HEADS)
-        again = _forward_kernel(x, p, HEADS, train=True)     # for its q|k|v buffer
+        out, mid, acc, den = fused_row_block_train(x, p, H)
+        again = _forward_kernel(x, p, H, train=True)     # for its q|k|v buffer
         torch.cuda.synchronize()
-        qkv = again.qkv
-        r_qkv = plain_qkv(torch, x, p, HEADS)
-        r_out, r_mid, r_acc, r_den = fused_row_block_train_reference(x, p, HEADS, qkv=qkv)
+        qkv = unpad_heads(again.qkv, C, H)
+        r_qkv = plain_qkv(torch, x, p, H)
+        r_out, r_mid, r_acc, r_den = fused_row_block_train_reference(x, p, H, qkv=qkv)
         c = {"qkv_err": _max_abs(qkv, r_qkv),
              "qkv_tol": 2 * bf16_ulp(r_qkv.abs().max().item()),
              "repeat_equal": all(bool(torch.equal(a, b)) for a, b in
@@ -1468,14 +1527,15 @@ def check_train_shape(torch, N: int, C: int, gen, hidden=None):
              "acc_err": _max_abs(acc, r_acc),
              "acc_tol": 4 * bf16_ulp(r_acc.float().abs().max().item()),
              "den_rel": ((den - r_den).abs() / r_den.abs()).max().item(), "den_tol": 1e-2}
-        parts = fused_row_block_bwd_parts(x, mid, acc, den, g, p, HEADS)
-        twice = fused_row_block_bwd_parts(x, mid, acc, den, g, p, HEADS)
+        parts = fused_row_block_bwd_parts(x, mid, acc, den, g, p, H)
+        twice = fused_row_block_bwd_parts(x, mid, acc, den, g, p, H)
         torch.cuda.synchronize()
         dx, dp = parts.dx, parts.dp
-        ref = fused_row_block_bwd_reference_parts(x, mid, acc, den, g, p, HEADS, qkv=qkv)
+        ref = fused_row_block_bwd_reference_parts(x, mid, acc, den, g, p, H, qkv=qkv)
         r_dx, r_dp = ref.dx, ref.dp
-        r_dqkv = fused_row_block_bwd_reference_parts(x, mid, acc, den, g, p, HEADS, qkv=qkv,
-                                                     d_oe=parts.d_oe, d_den=parts.d_den).dqkv
+        d_oe = unpad_heads(parts.d_oe, C, H)
+        r_dqkv = fused_row_block_bwd_reference_parts(x, mid, acc, den, g, p, H, qkv=qkv,
+                                                     d_oe=d_oe, d_den=parts.d_den).dqkv
         C3 = parts.dqkv.shape[-1] // 3
         qkv_parts = [(parts.dqkv[..., i * C3:(i + 1) * C3], r_dqkv[..., i * C3:(i + 1) * C3])
                      for i in range(3)]
@@ -1484,7 +1544,7 @@ def check_train_shape(torch, N: int, C: int, gen, hidden=None):
                  dp_rel=max(_rel_max(a, b) for a, b in zip(dp, r_dp)), dp_tol=1e-2,
                  dqkv_err=[_max_abs(a, b) for a, b in qkv_parts],
                  dqkv_tol=[4 * bf16_ulp(b.float().abs().max().item()) for _, b in qkv_parts],
-                 d_oe_err=_max_abs(parts.d_oe, ref.d_oe),
+                 d_oe_err=_max_abs(d_oe, ref.d_oe),
                  d_oe_max=ref.d_oe.float().abs().max().item(),
                  d_den_err=_max_abs(parts.d_den, ref.d_den),
                  d_den_max=ref.d_den.abs().max().item(),
@@ -1498,7 +1558,7 @@ def check_train_shape(torch, N: int, C: int, gen, hidden=None):
                          for k, b, t, r in leaves]
         c["autograd_max"] = [(_rel_max(k, t), _rel_max(b, t)) for k, b, t, _ in leaves]
         ag_ok = all(e[0] <= AUTOGRAD_FACTOR * e[2] + 1e-3 for e in c["autograd"])
-        c["max_score"] = max_score(torch, x, p, HEADS)
+        c["max_score"] = max_score(torch, x, p, H)
         finite = all(bool(torch.isfinite(t.float()).all())
                      for t in (out, mid, acc, den, dx, *dp))
         c["ok"] = (finite and ag_ok and c["repeat_equal"] and c["qkv_err"] <= c["qkv_tol"]
@@ -1781,10 +1841,12 @@ def train_batch(torch, np):
 
 
 def make_trainer(torch, impl: str, remat: bool = False, mrstft: bool = False,
-                 dtype: str = "bfloat16", dropout: float = 0.0, param_dtype: str = "float32"):
+                 dtype: str = "bfloat16", dropout: float = 0.0, param_dtype: str = "float32",
+                 **model_kw):
     """The flagship model (bf16 compute unless ``dtype`` says otherwise, f32
-    parameters unless ``param_dtype`` says otherwise, weights from seed 0)
-    in a TrainState with the TrainConfig
+    parameters unless ``param_dtype`` says otherwise, weights from seed 0;
+    ``model_kw``: other ModelConfig fields, as WIDE_MODEL) in a TrainState
+    with the TrainConfig
     defaults (``mrstft``: with the MR-STFT loss at its default weight), and
     its train and eval steps."""
     from tfswa_tpu_torch.config import Config, ModelConfig, TrainConfig
@@ -1794,7 +1856,7 @@ def make_trainer(torch, impl: str, remat: bool = False, mrstft: bool = False,
 
     cfg = Config(model=ModelConfig(in_channels=4, out_channels=4, attention_impl=impl,
                                    dtype=dtype, remat=remat, dropout=dropout,
-                                   param_dtype=param_dtype),
+                                   param_dtype=param_dtype, **model_kw),
                  train=TrainConfig(seed=0, use_mrstft_loss=mrstft))
     model, state = create_train_state(cfg, device="cuda")
     proc = STFTProcessor(cfg.stft)
@@ -1818,9 +1880,9 @@ def row_block_grads(model):
 # the segments of phase 7's batch it trains on
 TRAIN_ROUTES = {
     "pallas": ({"B1-train": 66, "B2": 66}, TRAIN_STEPS,
-               {"B1-train": (*(f"ln_qkv_kernel<{C}, false>" for C in (32, 64, 128, 256)),
+               {"B1-train": (*(f"ln_qkv_kernel<{C}, true, false>" for C in (32, 64, 128, 256)),
                              "k_norm_kernel", "attn_kernel", "post_kernel"),
-                "B2": (*(f"ln_qkv_kernel<{C}, true>" for C in (32, 64, 128, 256)),
+                "B2": (*(f"ln_qkv_kernel<{C}, true, true>" for C in (32, 64, 128, 256)),
                        "mlp_bwd_kernel", "attn_bwd_norm_kernel", "attn_bwd_q_kernel",
                        "attn_bwd_kv_kernel", "ln1_bwd_kernel", "atb_kernel",
                        "reduce_kernel")}, TRAIN_BATCH),
@@ -2373,10 +2435,11 @@ def read_counts():
 # the kernel each serving route runs, and the device kernels it is made of
 # (names as torch.profiler reports them)
 ROUTES = {
-    "pallas": ("B1", ("ln_qkv_kernel", "k_norm_kernel", "attn_kernel", "post_kernel")),
+    "pallas": ("B1", ("ln_qkv_kernel", "k_norm_kernel", "attn_kernel", "attn_wide_kernel",
+                      "post_kernel")),
     "pallas_int8": ("B3", ("ln_qkv_kernel", "qk_scale_kernel", "k_norm_kernel", "attn_kernel",
-                           "post_kernel")),
-    "pallas_attn": ("B4", ("proj_kernel", "bilinear_attn_kernel")),
+                           "attn_wide_kernel", "post_kernel")),
+    "pallas_attn": ("B4", ("proj_kernel", "bilinear_attn_kernel", "bilinear_attn_any_kernel")),
 }
 
 
@@ -2385,13 +2448,14 @@ ROUTES = {
 SERVING_RUNS = {"pallas": 3, "pallas_int8": 3, "pallas_attn": 1}
 
 
-def phase_main_path(torch, np, gpu: str, impl: str):
+def phase_main_path(torch, np, gpu: str, impl: str, model_kw=None, runs=None):
     """The serving main path through one route: a warm-up separation of the
     120 s track, a counted one (every launch counter set to 0 just before
     and read just after: the route's kernel 66 times a model forward, no
-    other kernel), and more for the rate (SERVING_RUNS in all)."""
-    kernel = ROUTES[impl][0]
-    sep = make_separator(torch, impl)
+    other kernel), and more for the rate (``runs``, default SERVING_RUNS,
+    in all).  ``model_kw``: ModelConfig fields other than the flagship's."""
+    kernel, n_runs = ROUTES[impl][0], runs
+    sep = make_separator(torch, impl, **(model_kw or {}))
     forwards = []
     sep.model.register_forward_pre_hook(lambda m, a: forwards.append(a[0].shape[0]))
     track_s = 120.0
@@ -2410,7 +2474,7 @@ def phase_main_path(torch, np, gpu: str, impl: str):
     runs = [time.perf_counter() - t0]
     counts, n_forwards = read_counts(), len(forwards)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for _ in range(SERVING_RUNS[impl] - 1):
+    for _ in range((n_runs or SERVING_RUNS[impl]) - 1):
         t0 = time.perf_counter()
         out = sep.separate(audio)
         runs.append(time.perf_counter() - t0)
@@ -2519,7 +2583,7 @@ def phase_serving(torch, np, gpu: str, totals):
 # the separate_stream phase's tracks, seconds: two through the device OLA,
 # the last (one segment or less) through separate()
 STREAM_TRACKS = (120.0, 75.0, 8.0)
-STREAM_RUNS = 3
+STREAM_RUNS = 2                  # 3 until PR 14 (the run's time: phase 16)
 SERVE_WORK = os.path.join(HERE, "chiprun_out", "serve_work")
 # the serving CLI's inputs: (seconds, sample rate) of two stereo WAVs
 CLI_INPUTS = ((120.0, 44100), (30.0, 48000))
@@ -2842,10 +2906,33 @@ def phase_serve_clis(torch, np, gpu: str, design):
         frames.append(resampled_frames(int(secs * sr), sr, 44100))
     forwards = sum(track_forwards(design, n) for n in frames)
     stems = {}
+    ds = SyntheticDataset(num_tracks=EVAL_TRACKS, track_seconds=CUSTOM_SECONDS, seed=7)
+    mix_dir, ref_dir = os.path.join(work, "mix"), os.path.join(work, "refs")
+    os.makedirs(mix_dir, exist_ok=True)
+    for i in range(EVAL_TRACKS):
+        mix, refs = ds.get_full_track(i)
+        os.makedirs(os.path.join(ref_dir, f"t{i}"), exist_ok=True)
+        write_wav(os.path.join(mix_dir, f"t{i}.wav"), mix, 44100)
+        for stem, ref in refs.items():
+            write_wav(os.path.join(ref_dir, f"t{i}", f"{stem}.wav"), ref, 44100)
+    evals = (("synthetic", ["--synthetic", "--max_tracks", str(EVAL_TRACKS)], 30.0),
+             ("custom", ["--mixtures_dir", mix_dir, "--references_dir", ref_dir],
+              CUSTOM_SECONDS))
+    # the four CLIs' processes run two at a time on the card (one after the
+    # other until PR 14): their host work overlaps; each counts its own
+    # launches
+    jobs = [("tfswa_tpu_torch.cli.separate", ["--checkpoint", TRAIN_CK, "--preset", "fast",
+                                              "-o", os.path.join(work, mode), *extra, *inputs])
+            for mode, extra in (("stream", ["--stream"]), ("batch", []))]
+    jobs += [("tfswa_tpu_torch.cli.evaluate", ["--checkpoint", TRAIN_CK, "--preset", "fast",
+                                               "--no_museval", "--output_dir",
+                                               os.path.join(work, f"eval_{mode}"), *extra])
+             for mode, extra, _ in evals]
+    with ThreadPoolExecutor(2) as pool:
+        done = list(pool.map(lambda job: run_serve_cli(*job), jobs))
     for mode, extra in (("stream", ["--stream"]), ("batch", [])):
         out_dir = os.path.join(work, mode)
-        lines, rec = run_serve_cli("tfswa_tpu_torch.cli.separate", [
-            "--checkpoint", TRAIN_CK, "--preset", "fast", "-o", out_dir, *extra, *inputs])
+        lines, rec = done[0 if mode == "stream" else 1]
         oks = [ln for ln in lines[:-1] if ": ok {" in ln]
         if len(oks) != len(inputs):
             fail(f"cli.separate {mode}: not every file separated: {lines[:-1]}")
@@ -2867,22 +2954,9 @@ def phase_serve_clis(torch, np, gpu: str, design):
         fail(f"cli.separate: the two runs' stems differ by {worst} PCM16 steps")
     res["separate_runs_max_pcm_steps"] = worst
 
-    ds = SyntheticDataset(num_tracks=EVAL_TRACKS, track_seconds=CUSTOM_SECONDS, seed=7)
-    mix_dir, ref_dir = os.path.join(work, "mix"), os.path.join(work, "refs")
-    os.makedirs(mix_dir, exist_ok=True)
-    for i in range(EVAL_TRACKS):
-        mix, refs = ds.get_full_track(i)
-        os.makedirs(os.path.join(ref_dir, f"t{i}"), exist_ok=True)
-        write_wav(os.path.join(mix_dir, f"t{i}.wav"), mix, 44100)
-        for stem, ref in refs.items():
-            write_wav(os.path.join(ref_dir, f"t{i}", f"{stem}.wav"), ref, 44100)
-    for mode, extra, secs in (
-            ("synthetic", ["--synthetic", "--max_tracks", str(EVAL_TRACKS)], 30.0),
-            ("custom", ["--mixtures_dir", mix_dir, "--references_dir", ref_dir], CUSTOM_SECONDS)):
+    for j, (mode, extra, secs) in enumerate(evals):
         out_dir = os.path.join(work, f"eval_{mode}")
-        _, rec = run_serve_cli("tfswa_tpu_torch.cli.evaluate", [
-            "--checkpoint", TRAIN_CK, "--preset", "fast", "--no_museval", "--output_dir",
-            out_dir, *extra])
+        rec = done[2 + j][1]
         check_serve_launches(rec, EVAL_TRACKS * track_forwards(design, int(secs * 44100)),
                              f"cli.evaluate {mode}")
         with open(os.path.join(out_dir, "results.json")) as fh:
@@ -3011,6 +3085,11 @@ DROPOUT = 0.1
 # the dropout steps take the first segment of phase 7's batch: the plain
 # route is host-bound, 21.4-23.9 s a step at all 4 segments on an H100
 DROPOUT_SEGMENTS = 1
+# the run's time (PR 14, phase 16): the dropout step on the segment's first
+# DROPOUT_SECONDS (its 6 s until then), the int8 separation on a track of
+# INT8_TRACK_SECONDS (120 s), the int8 tool at 3 s segments (and 10 s)
+DROPOUT_SECONDS = 3.0
+INT8_TRACK_SECONDS = 60.0
 OPT_WORK = os.path.join(HERE, "chiprun_out", "opt_work")
 
 
@@ -3160,7 +3239,8 @@ def opt_dropout(torch, np, gpu: str, segments: int = DROPOUT_SEGMENTS):
     torch.cuda.empty_cache()
 
     mix, targets = train_batch(torch, np)
-    mix, targets = mix[:segments], {k: v[:segments] for k, v in targets.items()}
+    n = int(DROPOUT_SECONDS * 44100)
+    mix, targets = mix[:segments, ..., :n], {k: v[:segments, ..., :n] for k, v in targets.items()}
     runs = {}
     for label, remat in (("first", False), ("again", False), ("remat", True)):
         state, step = make_trainer(torch, "pallas", remat=remat, dropout=DROPOUT)[:2]
@@ -3181,7 +3261,7 @@ def opt_dropout(torch, np, gpu: str, segments: int = DROPOUT_SEGMENTS):
                        "grad": torch.cat([p.grad.flatten().double()
                                           for p in state.model.parameters()])}
         log(f"opt (b): dropout train step ({label}, remat {remat}, {segments} x "
-            f"{TRAIN_SECONDS} s): loss "
+            f"{DROPOUT_SECONDS} s): loss "
             f"{runs[label]['loss']!r}, {sec * 1e3:.3f} ms (the first step of a fresh "
             f"model), peak {runs[label]['peak_gb']:.3f} GB, launches {counts} on {gpu}")
         if any(counts.values()) or len(grads) != 66 * 11 or bad:
@@ -3300,7 +3380,7 @@ def opt_int8(torch, np, gpu: str):
 
     sep8 = separator_with(torch, qmodel.model, "int8")
     sep16 = separator_with(torch, model, "pallas")
-    audio = synthetic_track(np, 120.0, sep8.sample_rate)
+    audio = synthetic_track(np, INT8_TRACK_SECONDS, sep8.sample_rate)
     sep8.separate(audio[: 10 * sep8.sample_rate])                 # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3310,8 +3390,10 @@ def opt_int8(torch, np, gpu: str):
     snrs = [float(10 * np.log10(np.sum(out16[k].astype(np.float64) ** 2)
                                 / np.sum((out8[k].astype(np.float64) - out16[k]) ** 2)))
             for k in out16]
-    res.update(separation_audio_s_per_s=120.0 / sec, separation_snr_vs_pallas_db=snrs)
-    log(f"opt (c): 120 s track through \"int8\": {120.0 / sec:.4f} audio-s/s on {gpu}; "
+    res.update(separation_audio_s_per_s=INT8_TRACK_SECONDS / sec,
+               separation_snr_vs_pallas_db=snrs)
+    log(f"opt (c): {INT8_TRACK_SECONDS:.0f} s track through \"int8\": "
+        f"{INT8_TRACK_SECONDS / sec:.4f} audio-s/s on {gpu}; "
         f"SNR vs \"pallas\" per stem {[round(v, 3) for v in snrs]} dB (recorded)")
     if not all(np.isfinite(v).all() for v in out8.values()):
         fail("int8 separation: non-finite stems")
@@ -3319,7 +3401,7 @@ def opt_int8(torch, np, gpu: str):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "tfswa_tpu_torch.tools.bench_int8",
-                        "--seconds", "3", "10", "--iters", "1"], cwd=HERE,
+                        "--seconds", "3", "--iters", "1"], cwd=HERE,
                        capture_output=True, text=True, timeout=600)
     res["tool_s"] = time.perf_counter() - t0
     for line in r.stdout.strip().splitlines():
@@ -3487,15 +3569,18 @@ def opt_profiling(torch, np, gpu: str):
     return res
 
 
-def phase_options(torch, np, gpu: str):
+def phase_options(torch, np, gpu: str, skip=()):
     """Phase 12: the model's options (masked SWA, dropout) and the deployment
-    path (int8, BN folding, export, profiling).  The export and trace files
-    under chiprun_out/opt_work are deleted after it, on a failure too."""
+    path (int8, BN folding, export, profiling; those named in ``skip`` run
+    elsewhere: beside_quality).  The export and trace files under
+    chiprun_out/opt_work are deleted after it, on a failure too."""
     res, seconds = {}, {}
     try:
         for name, fn in (("masked", opt_masked), ("dropout", opt_dropout),
                          ("int8", opt_int8), ("fold", opt_fold), ("export", opt_export),
                          ("profiling", opt_profiling)):
+            if name in skip:
+                continue
             t0 = time.perf_counter()
             res[name] = fn(torch, np, gpu)
             seconds[name] = time.perf_counter() - t0
@@ -4174,7 +4259,7 @@ def quality_visualize(torch, model):
     return total
 
 
-def phase_quality(torch, np, gpu: str, covered):
+def phase_quality(torch, np, gpu: str, covered, beside=None):
     """Phase 14 (b)-(d): the untrained sdr_baseline in a subprocess, beside
     the quality A/B's direct arm for one epoch (QUALITY_STEPS steps, one
     validation, one SDR evaluation) through tools/quality_ab.py in a
@@ -4185,7 +4270,9 @@ def phase_quality(torch, np, gpu: str, covered):
     designed, finite SDRs), "pallas" against the plain route on one 10 s
     segment, and visualize at the flagship.  The checkpoints are deleted
     after it, on a failure too; the arm's metrics.jsonl is kept in
-    chiprun_out/quality_direct_metrics.jsonl."""
+    chiprun_out/quality_direct_metrics.jsonl.  ``beside``, if given, runs in
+    this process while the two subprocesses run (they wait mostly on the
+    host); its failure fails the phase once they have ended."""
     from tfswa_tpu_torch.tools import overlap_ab
 
     shutil.rmtree(QUALITY_WORK, ignore_errors=True)
@@ -4193,12 +4280,18 @@ def phase_quality(torch, np, gpu: str, covered):
     res = {}
     try:
         # the baseline beside the run: both processes wait mostly on the host
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(1) as pool:
-            baseline = pool.submit(run_tool, "sdr_baseline", [])
+        def quality_run():
+            t0 = time.perf_counter()
             out = run_tool("quality_ab", ["--arms", QUALITY_ARM, "--epochs", "1",
                                           "--out", QUALITY_WORK], runner=QUALITY_RUNNER)
-            res["run_s"] = time.perf_counter() - t0
+            return out, time.perf_counter() - t0
+
+        with ThreadPoolExecutor(2) as pool:
+            baseline = pool.submit(run_tool, "sdr_baseline", [])
+            quality = pool.submit(quality_run)
+            if beside is not None:
+                beside()
+            out, res["run_s"] = quality.result()
             base = baseline.result()["untrained"]
         log(f"sdr_baseline, untrained: sdr/avg {base.get('sdr/avg')} (JAX TPU record 2.32)")
         if not all(math.isfinite(v) for v in base.values()) or "sdr/avg" not in base:
@@ -4287,9 +4380,11 @@ PEAK_F32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_FFMA_FLOPS = 67e12
 F32_TIMING_ROWS = PLAIN_ROWS
 # the f32 libraries: every kernel FFMA, every function one of ours
-SASS_FFMA = {"fused_block_f32": ("gemm_kernel", "attn_kernel", "qk_scale_kernel"),
+SASS_FFMA = {"fused_block_f32": ("gemm_kernel", "attn_kernel", "attn_wide_kernel",
+                                 "qk_scale_kernel"),
              "fused_block_bwd_f32": ("gemm_kernel", "atb_kernel", "attn_bwd_q_kernel",
-                                     "attn_bwd_kv_kernel"),
+                                     "attn_bwd_kv_kernel", "attn_bwd_q_wide_kernel",
+                                     "attn_bwd_kv_wide_kernel"),
              "row_attention_f32": ("gemm_kernel", "attn_kernel")}
 # and B4's f64 parts (t and the scores): DFMA
 SASS_DFMA = {"row_attention_f32": ("t_kernel", "attn_kernel")}
@@ -4360,7 +4455,8 @@ def sass_ffma_check():
     return found, found_d
 
 
-def bound_f32_ms(kind: str, R: int, N: int, C: int, hidden: int, peak: float = PEAK_F32_FLOPS):
+def bound_f32_ms(kind: str, R: int, N: int, C: int, hidden: int, peak: float = PEAK_F32_FLOPS,
+                 H: int = HEADS):
     """Least time for one call of an f32 form (``kind`` B1, B1-train, B3,
     B2 or B4): its inputs read once and outputs written once in f32 (B1,
     B3, B1-train: rows, out and the weights; B1-train also mid, acc, den;
@@ -4371,20 +4467,20 @@ def bound_f32_ms(kind: str, R: int, N: int, C: int, hidden: int, peak: float = P
     M = R * N
     weights = 4 * C * C + 2 * C * hidden + 6 * C + hidden
     scores = 2 * R * N * N * C
-    exp2 = R * HEADS * N * N
+    exp2 = R * H * N * N
     if kind == "B2":
-        nbytes = 4 * 5 * M * C + 4 * R * HEADS * N + 4 * weights + 4 * weights
+        nbytes = 4 * 5 * M * C + 4 * R * H * N + 4 * weights + 4 * weights
         flops = 2 * M * (3 * C * C + C * hidden + 4 * C * hidden + 2 * C * C + 6 * C * C) \
             + 5 * scores
         int8 = 0
     elif kind == "B4":
-        nbytes = 4 * 2 * M * C + 4 * (HEADS + 2) * C * C + 4 * C
-        flops = 2 * M * (2 * C * C + HEADS * C * C) + scores * (HEADS + 1)
+        nbytes = 4 * 2 * M * C + 4 * (H + 2) * C * C + 4 * C
+        flops = 2 * M * (2 * C * C + H * C * C) + scores * (H + 1)
         int8 = 0
     else:
         nbytes = 4 * (2 * M * C + weights)
         if kind == "B1-train":
-            nbytes += 4 * 2 * M * C + 4 * R * HEADS * N
+            nbytes += 4 * 2 * M * C + 4 * R * H * N
         flops = 2 * M * (4 * C * C + 2 * C * hidden) + scores + (0 if kind == "B3" else scores)
         int8 = scores if kind == "B3" else 0
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -4419,7 +4515,7 @@ def b4_truth(torch, x, qkv_kernel, proj_kernel, proj_bias, H: int):
     return torch.cat(outs), torch.cat(accs)
 
 
-def _f32_block_checks(torch, N: int, C: int, gen, train: bool):
+def _f32_block_checks(torch, N: int, C: int, gen, train: bool, H: int = HEADS, hidden=None):
     """B1, B3, B4 (serving) or B1-train, B2 (``train``) in f32 against their
     plain versions on CHECK_ROWS rows, for each regime of F32_REGIMES.  The
     plain versions get the kernel's own q|k|v (B3's int8 values and B2's
@@ -4441,16 +4537,16 @@ def _f32_block_checks(torch, N: int, C: int, gen, train: bool):
 
     res = {}
     for regime in F32_REGIMES:
-        p = random_params(torch, RowBlockParams, C, gen, regime)
+        p = random_params(torch, RowBlockParams, C, gen, regime, hidden)
         x = torch.randn(CHECK_ROWS, N, C, generator=gen).cuda()
         c = []
         if not train:
-            run = fb._forward_kernel(x, p, HEADS)
-            c.append(held("qkv", run.qkv, plain_qkv(torch, x, p, HEADS)))
-            ref, ref_attn = fb.fused_row_block_reference_parts(x, p, HEADS, qkv=run.qkv)
+            run = fb._forward_kernel(x, p, H)
+            c.append(held("qkv", run.qkv, plain_qkv(torch, x, p, H)))
+            ref, ref_attn = fb.fused_row_block_reference_parts(x, p, H, qkv=run.qkv)
             c += [held("B1 out", run.out, ref), held("B1 attn", run.attn, ref_attn)]
-            run8 = fb._forward_kernel(x, p, HEADS, int8=True)
-            ref8, ref8_attn = fb.fused_row_block_int8_reference_parts(x, p, HEADS, qkv=run8.qkv)
+            run8 = fb._forward_kernel(x, p, H, int8=True)
+            ref8, ref8_attn = fb.fused_row_block_int8_reference_parts(x, p, H, qkv=run8.qkv)
             q3 = run8.qkv.view(CHECK_ROWS, N, 3 * C)
             (qi, sq), (ki, sk) = fb.quantize_rows(q3[..., :C]), fb.quantize_rows(q3[..., C:2 * C])
             qk = run8.qk.view(CHECK_ROWS, N, 2 * C).float()
@@ -4461,28 +4557,28 @@ def _f32_block_checks(torch, N: int, C: int, gen, train: bool):
                   {"name": "B3 int8 mismatches", "err": wrong, "tol": 0, "ok": wrong == 0}]
             xn = ln1_rows(torch, x, p)
             w = [p.qkv_kernel, p.proj_kernel, p.proj_bias]
-            out4, acc4, _, _ = ra._kernel(xn, *w, HEADS)
-            truth = b4_truth(torch, xn, *w, HEADS)
-            plain = ra.flash_row_attention_reference_parts(xn, *w, HEADS)
+            out4, acc4, _, _ = ra._kernel(xn, *w, H)
+            truth = b4_truth(torch, xn, *w, H)
+            plain = ra.flash_row_attention_reference_parts(xn, *w, H)
             for name, got, ref, pl in zip(("out", "acc"), (out4, acc4), truth, plain):
                 e = held(f"B4 {name}", got, ref)
                 c += [e, {"name": f"B4 plain {name} (recorded)", "err": _max_abs(pl, ref),
                           "tol": e["tol"], "ok": True}]
         else:
             g = torch.randn(CHECK_ROWS, N, C, generator=gen).cuda()
-            out, mid, acc, den = fb.fused_row_block_train(x, p, HEADS)
-            again = fb._forward_kernel(x, p, HEADS, train=True)
-            r_out, r_mid, r_acc, r_den = fb.fused_row_block_train_reference(x, p, HEADS,
+            out, mid, acc, den = fb.fused_row_block_train(x, p, H)
+            again = fb._forward_kernel(x, p, H, train=True)
+            r_out, r_mid, r_acc, r_den = fb.fused_row_block_train_reference(x, p, H,
                                                                             qkv=again.qkv)
-            c += [held("qkv", again.qkv, plain_qkv(torch, x, p, HEADS)),
+            c += [held("qkv", again.qkv, plain_qkv(torch, x, p, H)),
                   held("B1-train out", out, r_out), held("B1-train mid", mid, r_mid),
                   held("B1-train acc", acc, r_acc)]
             den_rel = ((den - r_den).abs() / r_den.abs()).max().item()
             c.append({"name": "B1-train den (rel)", "err": den_rel, "tol": F32_LIMIT,
                       "ok": den_rel <= F32_LIMIT})
-            parts = fb.fused_row_block_bwd_parts(x, mid, acc, den, g, p, HEADS)
-            twice = fb.fused_row_block_bwd_parts(x, mid, acc, den, g, p, HEADS)
-            ref = fb.fused_row_block_bwd_reference_parts(x, mid, acc, den, g, p, HEADS,
+            parts = fb.fused_row_block_bwd_parts(x, mid, acc, den, g, p, H)
+            twice = fb.fused_row_block_bwd_parts(x, mid, acc, den, g, p, H)
+            ref = fb.fused_row_block_bwd_reference_parts(x, mid, acc, den, g, p, H,
                                                          qkv=again.qkv)
             c.append(held("B2 dx", parts.dx, ref.dx, F32_LIMIT))
             c += [held(f"B2 d{n}", a, b, F32_LIMIT)
@@ -4492,7 +4588,7 @@ def _f32_block_checks(torch, N: int, C: int, gen, train: bool):
             c.append({"name": "B2 twice bit for bit", "err": 0 if same else 1, "tol": 0,
                       "ok": same})
             del parts, twice, ref, again
-        s_max = max_score(torch, x, p, HEADS)
+        s_max = max_score(torch, x, p, H)
         clamp_ok = regime != "clamp" or s_max > fb.SCORE_CLAMP
         res[regime] = {"checks": c, "max_score": s_max,
                        "ok": clamp_ok and all(e["ok"] for e in c)}
@@ -4500,11 +4596,20 @@ def _f32_block_checks(torch, N: int, C: int, gen, train: bool):
     return res, p
 
 
-def _f32_time(torch, kind: str, R: int, N: int, C: int, p, gen):
+def _f32_time(torch, kind: str, R: int, N: int, C: int, p, gen, H: int = HEADS, lib=None):
     """kernel / plain / library ms and the bounds of one f32 call at the
     full row count R (the plain version on F32_TIMING_ROWS rows, scaled by
     R; the library yardstick in f32 with TF32 off; those two over one call
-    after a warm-up call)."""
+    after a warm-up call; B4's kernel over one call without one).  ``lib``:
+    a dict shared by the kinds timed at one shape, so that the library
+    block is timed once there (B1's for B3, B1-train's for B2)."""
+    lib = {} if lib is None else lib
+
+    def block_ms(x_):
+        if "block" not in lib:
+            lib["block"] = cuda_ms(torch, lambda: library_block(torch, x_, p, H), 1)
+        return lib["block"]
+
     from tfswa_tpu_torch.ops import fused_block as fb
     from tfswa_tpu_torch.ops import row_attention as ra
 
@@ -4513,34 +4618,34 @@ def _f32_time(torch, kind: str, R: int, N: int, C: int, p, gen):
     if kind == "B4":
         x = ln1_rows(torch, x, p)
         w = [p.qkv_kernel, p.proj_kernel, p.proj_bias]
-        k_ms = cuda_ms(torch, lambda: ra.flash_row_attention(x, *w, HEADS), 1)
-        pl_ms = cuda_ms(torch, lambda: ra.flash_row_attention_reference(x[:rs], *w, HEADS), 1)
-        lib_ms = cuda_ms(torch, lambda: library_attn(torch, x, *w, HEADS), 1)
+        # one call, no warm-up (17 s a forward; a warm-up until PR 14)
+        k_ms = _one_call_ms(torch, lambda: ra.flash_row_attention(x, *w, H))
+        pl_ms = cuda_ms(torch, lambda: ra.flash_row_attention_reference(x[:rs], *w, H), 1)
+        lib_ms = cuda_ms(torch, lambda: library_attn(torch, x, *w, H), 1)
     elif kind in ("B1", "B3"):
         run = fb.fused_row_block if kind == "B1" else fb.fused_row_block_int8
         plain = fb.fused_row_block_reference if kind == "B1" else fb.fused_row_block_int8_reference
-        k_ms = cuda_ms(torch, lambda: run(x, p, HEADS), 2)
-        pl_ms = cuda_ms(torch, lambda: plain(x[:rs], p, HEADS), 1)
-        lib_ms = cuda_ms(torch, lambda: library_block(torch, x, p, HEADS), 1)
+        k_ms = cuda_ms(torch, lambda: run(x, p, H), 2)
+        pl_ms = cuda_ms(torch, lambda: plain(x[:rs], p, H), 1)
+        lib_ms = block_ms(x)
     else:
         g = torch.randn(R, N, C, generator=gen).cuda()
-        _, mid, acc, den = fb.fused_row_block_train(x, p, HEADS)
+        _, mid, acc, den = fb.fused_row_block_train(x, p, H)
         if kind == "B1-train":
-            k_ms = cuda_ms(torch, lambda: fb.fused_row_block_train(x, p, HEADS), 2)
+            k_ms = cuda_ms(torch, lambda: fb.fused_row_block_train(x, p, H), 2)
             pl_ms = cuda_ms(torch, lambda: fb.fused_row_block_train_reference(
-                x[:rs], p, HEADS), 1)
-            lib_ms = cuda_ms(torch, lambda: library_block(torch, x, p, HEADS), 1)
+                x[:rs], p, H), 1)
+            lib_ms = block_ms(x)
         else:
             k_ms = cuda_ms(torch, lambda: fb.fused_row_block_bwd(x, mid, acc, den, g, p,
-                                                                 HEADS), 2)
+                                                                 H), 2)
             pl_ms = cuda_ms(torch, lambda: fb.fused_row_block_bwd_reference(
-                x[:rs], mid[:rs], acc[:rs], den[:rs], g[:rs], p, HEADS), 1)
-            lf = cuda_ms(torch, lambda: library_block(torch, x, p, HEADS), 1)
-            lfb = cuda_ms(torch, lambda: library_fwd_bwd(torch, x, p, HEADS, g), 1)
-            lib_ms = max(lfb - lf, 0.0)
+                x[:rs], mid[:rs], acc[:rs], den[:rs], g[:rs], p, H), 1)
+            lfb = cuda_ms(torch, lambda: library_fwd_bwd(torch, x, p, H, g), 1)
+            lib_ms = max(lfb - block_ms(x), 0.0)
         del mid, acc, den, g
-    b_ms, b_by = bound_f32_ms(kind, R, N, C, 4 * C)
-    ffma_ms, _ = bound_f32_ms(kind, R, N, C, 4 * C, PEAK_FFMA_FLOPS)
+    b_ms, b_by = bound_f32_ms(kind, R, N, C, 4 * C, H=H)
+    ffma_ms, _ = bound_f32_ms(kind, R, N, C, 4 * C, PEAK_FFMA_FLOPS, H)
     del x
     torch.cuda.empty_cache()
     return {"ms": k_ms, "plain_ms": pl_ms * R / rs, "library_ms": lib_ms, "bound_ms": b_ms,
@@ -4578,8 +4683,9 @@ def f32_kernels(torch, quick: bool = False):
                      "N": N, "C": C, "R_full": R, "checks": checks}
             calls = BLOCKS_PER_STAGE[stage]
             timed = () if quick else ("B1-train", "B2") if train else ("B1", "B3", "B4")
+            lib = {}
             for kind in timed:
-                t = _f32_time(torch, kind, R, N, C, p, gen_full)
+                t = _f32_time(torch, kind, R, N, C, p, gen_full, lib=lib)
                 entry[kind] = t
                 for k in keys:
                     if k == "bound_bytes_ms":
@@ -4606,15 +4712,17 @@ def _segment_snr(np, a, b):
             for s in range(a.shape[1])]
 
 
-def f32_serving(torch, np, gpu: str):
+def f32_serving(torch, np, gpu: str, model_kw=None, label: str = "f32 (b)"):
     """(b) the f32 flagship on conditioned weights: the 120 s track through
     "pallas" (132 f32 B1 launches, no other kernel: counts set to 0 just
     before the separation and read just after), its audio-s/s; then one
     10 s segment through each kernel route ("pallas_int8": 66 f32 B3,
     "pallas_attn": 66 f32 B4, each alone) against the f32 plain route at
-    F32_SNR_MIN_DB a stem."""
+    F32_SNR_MIN_DB a stem.  ``model_kw``: ModelConfig fields other than
+    the flagship's (phase 16 (c))."""
     res = {}
-    sep = make_separator(torch, "pallas", dtype="float32")
+    model_kw = model_kw or {}
+    sep = make_separator(torch, "pallas", dtype="float32", **model_kw)
     condition_weights(torch, np, sep.model)
     forwards = []
     sep.model.register_forward_pre_hook(lambda m, a: forwards.append(a[0].shape[0]))
@@ -4628,16 +4736,13 @@ def f32_serving(torch, np, gpu: str):
     reset_counts()
     t0 = time.perf_counter()
     out = sep.separate(audio)
-    runs = [time.perf_counter() - t0]
+    runs = [time.perf_counter() - t0]           # one timed run (two until PR 14)
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
-    t0 = time.perf_counter()
-    sep.separate(audio)
-    runs.append(time.perf_counter() - t0)
     want = {k: (f32_forward_launches() if k == "B1-f32" else 0) for k in counts}
     bad = [n for n, w in out.items() if w.shape != (1, audio.size) or not np.isfinite(w).all()]
     rate = 120.0 / min(runs)
-    log(f"f32 (b) pallas: 120 s track, {len(forwards)} forwards, launches {counts}; runs "
+    log(f"{label} pallas: 120 s track, {len(forwards)} forwards, launches {counts}; runs "
         f"{[round(r, 4) for r in runs]} s (warm-up {warm_s:.3f} s): {rate:.4f} audio-s/s on "
         f"{gpu}; peak {peak:.3f} GB")
     if counts != want or bad:
@@ -4645,14 +4750,15 @@ def f32_serving(torch, np, gpu: str):
     res["pallas"] = {"launches": counts["B1-f32"], "runs_s": runs, "warmup_s": warm_s,
                      "audio_s_per_s": rate, "peak_mem_gb": peak}
     seg = torch.from_numpy(synthetic_track(np, 10.0, sep.sample_rate)[None]).cuda()
-    plain = separator_with(torch, sep.model, "xla", dtype="float32")
+    plain = separator_with(torch, sep.model, "xla", dtype="float32", **model_kw)
     with torch.inference_mode():
         t0 = time.perf_counter()
         ref = plain._separate_core(seg).double().cpu().numpy()
         plain_s = time.perf_counter() - t0
     del plain
     for impl, kernel in F32_ROUTES.items():
-        s = sep if impl == "pallas" else separator_with(torch, sep.model, impl, dtype="float32")
+        s = sep if impl == "pallas" else separator_with(torch, sep.model, impl, dtype="float32",
+                                                        **model_kw)
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
@@ -4662,7 +4768,7 @@ def f32_serving(torch, np, gpu: str):
         counts = read_counts()
         snr = _segment_snr(np, got, ref)
         want = {k: (66 if k == kernel else 0) for k in counts}
-        log(f"f32 (b) {impl}: one 10 s segment in {seg_s:.3f} s (plain route {plain_s:.3f} s), "
+        log(f"{label} {impl}: one 10 s segment in {seg_s:.3f} s (plain route {plain_s:.3f} s), "
             f"launches {counts}; SNR against the f32 plain route {[round(v, 3) for v in snr]} "
             f"dB (min {F32_SNR_MIN_DB})")
         if counts != want or not np.isfinite(got).all() or min(snr) < F32_SNR_MIN_DB:
@@ -4681,7 +4787,7 @@ def _grad_vector(torch, model):
     return torch.cat([p.grad.flatten().double() for p in model.parameters()])
 
 
-def f32_train(torch, np, gpu: str):
+def f32_train(torch, np, gpu: str, model_kw=None, label: str = "f32 (c)"):
     """(c) one f32 train step through "pallas" (66 f32 B1-train + 66 f32 B2,
     nothing else: counts set to 0 just before, read just after) on
     F32_TRAIN_SEGMENTS x 6 s of phase 7's batch, no remat, against the
@@ -4691,10 +4797,11 @@ def f32_train(torch, np, gpu: str):
     mix, targets = train_batch(torch, np)
     mix = mix[:F32_TRAIN_SEGMENTS]
     targets = {k: v[:F32_TRAIN_SEGMENTS] for k, v in targets.items()}
+    model_kw = model_kw or {}
     zero = zero_gradient_leaves()
     out, grads, leaves = {}, {}, {}
     for impl in ("pallas", "xla"):
-        state, step = make_trainer(torch, impl, dtype="float32")[:2]
+        state, step = make_trainer(torch, impl, dtype="float32", **model_kw)[:2]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -4734,7 +4841,7 @@ def f32_train(torch, np, gpu: str):
     out.update(loss_rel=rel, grad_cosine=cos, leaf_cosine_min=held[worst], worst_leaf=worst,
                leaves_held=len(held), leaves_recorded={n: c for n, c in leaf_cos.items()
                                                        if n in zero})
-    log(f"f32 (c) train step on {F32_TRAIN_SEGMENTS} x {TRAIN_SECONDS} s, no remat: "
+    log(f"{label} train step on {F32_TRAIN_SEGMENTS} x {TRAIN_SECONDS} s, no remat: "
         f"launches {out['pallas']['launches']}, {out['pallas']['ms_per_step']:.3f} ms/step, "
         f"peak {out['pallas']['peak_mem_gb']:.3f} GB on {gpu}; vs the plain route: loss rel "
         f"{rel:.2e} (limit {F32_STEP_LOSS_REL}), gradient cosine {cos:.8f} (min "
@@ -4888,13 +4995,16 @@ def f32_remat_policy(torch, np, gpu: str):
     return res
 
 
-def phase_f32(torch, np, gpu: str):
+def phase_f32(torch, np, gpu: str, skip=()):
     """Phase 15: the f32 kernels (a), the f32 serving (b) and training (c)
     main paths, the kernel routes' exports (d), param_dtype="bfloat16" (e)
-    and a remat save policy (f)."""
+    and a remat save policy (f) (those named in ``skip`` run elsewhere:
+    beside_quality)."""
     res, seconds = {}, {}
     for name, fn in (("serving", f32_serving), ("train", f32_train), ("export", f32_export),
                      ("param_bf16", f32_param_bf16), ("remat_policy", f32_remat_policy)):
+        if name in skip:
+            continue
         t0 = time.perf_counter()
         res[name] = fn(torch, np, gpu)
         seconds[name] = time.perf_counter() - t0
@@ -4903,32 +5013,469 @@ def phase_f32(torch, np, gpu: str):
     return res
 
 
-def ab_main(torch, np, label: str) -> None:
-    """--ab CHECKOUT LABEL: the bf16 serving path of the port that sys.path
-    finds first (CHECKOUT's), timed by this script's harness, for an A/B of
-    two commits on one card: one process a checkout, so that each imports
-    its own package, and in one call parent, change, change, parent.  B1, B3
-    and B4 a model forward (their 66 calls at SHAPES, through the public
-    wrappers) and the 120 s track's separation rate through "pallas" (best
-    of 3 after a warm-up).  Prints one JSON line."""
-    from tfswa_tpu_torch.models.attention import RowBlockParams
-    from tfswa_tpu_torch.ops import _build
-    from tfswa_tpu_torch.ops.fused_block import fused_row_block, fused_row_block_int8
-    from tfswa_tpu_torch.ops.row_attention import flash_row_attention
+# Phase 16 (widths): wide384's ModelConfig fields and its runs' sizes; the
+# lab's forms it checks (the full form and the 5 cuts; the flag forms are
+# phase 2a's, at the flagship's widths)
+WIDE_MODEL = {k: WIDE384[k] for k in ("dims", "num_heads")}
+LAB_CUTS = ("qkv", "scores", "exp2", "av", "attn", "full")
+# (b): the 120 s track's timed separations after the warm-up (B4's route,
+# 4 s a separation: one, as phase 4 times it)
+WIDE_SERVING_RUNS = {"pallas": 3, "pallas_int8": 3, "pallas_attn": 1}
+WIDE_TRAIN_SEGMENTS = 2          # (d): 2 x 6 s
+WIDE_ATTN_SEGMENTS = 1           # (d): the "pallas_attn" step
+# the kernels phase 16 adds, as their instantiations appear in ptxas's
+# report and the SASS: the wide-head and any-width attention, and the
+# product launches at C = 384 and 512 (the f32 forms' new kernels too)
+NEW_KERNEL_MARKS = ("attn_wide_kernel", "attn_bwd_q_wide_kernel", "attn_bwd_kv_wide_kernel",
+                    "bilinear_attn_any_kernel", "ILi384E", "ILi512E", "ILi16ELi512E",
+                    "ILi16ELi256E")
 
-    _build.build(["fused_block", "row_attention"])
-    gen = torch.Generator().manual_seed(1)
-    res = {"label": label, "device": gpu_line(), "B1": 0.0, "B3": 0.0, "B4": 0.0}
-    for stage, _, N, C, R in SHAPES:
-        p = random_params(torch, RowBlockParams, C, gen)
-        x = torch.randn(R, N, C, generator=gen).cuda().to(torch.bfloat16)
-        w = [t.to(torch.bfloat16) for t in (p.qkv_kernel, p.proj_kernel, p.proj_bias)]
-        calls = BLOCKS_PER_STAGE[stage]
-        res["B1"] += calls * cuda_ms(torch, lambda: fused_row_block(x, p, HEADS), 3)
-        res["B3"] += calls * cuda_ms(torch, lambda: fused_row_block_int8(x, p, HEADS), 3)
-        res["B4"] += calls * cuda_ms(torch, lambda: flash_row_attention(x, *w, HEADS), 3)
+
+def _ratio(err, tol) -> float:
+    return err / tol if tol else (0.0 if err == 0 else math.inf)
+
+
+def check_ratio(c) -> float:
+    """The largest error over its limit in one regime's result of any of
+    the check functions (check_shape, check_int8_shape, check_train_shape,
+    check_attn_shape, check_lab_shape, _f32_block_checks)."""
+    if "checks" in c:
+        return max(_ratio(e["err"], e["tol"]) for e in c["checks"]
+                   if "recorded" not in e["name"])
+    if "forms" in c:
+        return max(_ratio(f["err"], f["tol"]) for f in c["forms"].values())
+    pairs = [(c[k], c[k[:-4] + "_tol"]) for k in c
+             if k.endswith("_err") and k[:-4] + "_tol" in c and not isinstance(c[k], list)]
+    for a, b in (("max_abs_err", "tol"), ("attn_max_abs_err", "attn_tol"), ("dp_rel", "dp_tol"),
+                 ("den_rel", "den_tol")):
+        if a in c and b in c:
+            pairs.append((c[a], c[b]))
+    pairs += list(zip(c.get("dqkv_err", ()), c.get("dqkv_tol", ())))
+    if c.get("int8_mismatches"):
+        pairs.append((c["int8_mismatches"], 0))
+    return max(_ratio(a, b) for a, b in pairs)
+
+
+def kind_err(kind: str, res) -> float:
+    """The largest output error of ``kind`` ("B1", "B2", "B1 f32", ...) in a
+    check function's per-regime results: the block output's (B2: dx's; L:
+    any form's; the f32 forms: their named outputs, counts and recorded
+    lines left out)."""
+    first = next(iter(res.values()))
+    if "checks" in first:
+        base = kind[:-len(" f32")]
+        return max((x["err"] for c in res.values() for x in c["checks"]
+                    if x["name"].split()[0] == base and not any(
+                        w in x["name"] for w in ("recorded", "mismatch", "twice", "(rel)"))),
+                   default=0.0)
+    if "forms" in first:
+        return max(f["max_abs_err"] for c in res.values() for f in c["forms"].values())
+    return max(c.get("bwd_max_abs_err" if kind == "B2" else "max_abs_err", 0.0)
+               for c in res.values())
+
+
+def kernel_name(fn: str) -> str:
+    """The template's name in a mangled kernel name (its length-prefixed
+    identifier followed by template arguments)."""
+    for m in re.finditer(r"(?=(\d+))", fn):     # every digit run and each of its tails
+        end = m.start() + len(m.group(1))
+        name = fn[end:end + int(m.group(1))]
+        if name.endswith("_kernel") and fn[end + len(name):end + len(name) + 1] == "I":
+            return name
+    return fn[:60]
+
+
+def wide_ptxas():
+    """Registers and spill bytes of every new instantiation
+    (NEW_KERNEL_MARKS), from ptxas's report of the build."""
+    from tfswa_tpu_torch.ops import _build
+
+    rows = []
+    for lib, report in _build.ptxas_report.items():
+        fn, spill = None, (0, 0)
+        for line in report.splitlines():
+            if "Compiling entry function" in line:
+                fn, spill = (line.split("'")[1] if "'" in line else None), (0, 0)
+            elif fn and "Used" in line and any(m in fn for m in NEW_KERNEL_MARKS):
+                regs = int(line.split("Used ")[1].split()[0])
+                rows.append({"lib": lib, "function": fn, "registers": regs,
+                             "spill_stores": spill[0], "spill_loads": spill[1]})
+            elif fn and "spill stores" in line:
+                nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+                spill = (nums[1], nums[2]) if len(nums) >= 3 else (0, 0)
+    return rows
+
+
+def wide_kernel_checks(torch):
+    """Phase 16 (a): every kernel against its plain version, on CHECK_ROWS
+    rows under flat, peaked and clamp weights (f32: flat and clamp), at
+    PR 13's limits: B1, B3, B4, L (its full form and 5 cuts) and the f32
+    forms of B1, B3, B4 at the 12 (N, C) of wide384's serving path; B1-train
+    and B2 and their f32 forms at the 12 of its training path; then all but
+    L at every (C, H) of EDGE_GRID at N = 64 (an MLP of 2 C units) and N =
+    129 (4 C + 8).  Every check is held and logged before any miss fails
+    the run; a launch that raises is a miss.  Returns the log rows and the
+    largest error of each kernel."""
+    gen = torch.Generator().manual_seed(16)
+    H = WIDE384["num_heads"]
+    rows, misses = [], []
+    err = {}
+
+    def held(kinds, label, fn):
+        t0 = time.perf_counter()
+        try:
+            res = fn()[0]
+        except Exception as exc:     # a failed launch is held as a miss, with the others
+            log(f"phase 16 (a) {label}: {exc!r} MISS")
+            misses.append(f"{label}: {exc!r}")
+            return
+        worst = max(check_ratio(c) for c in res.values())
+        bad = [r for r, c in res.items() if not c["ok"]]
+        for kind in kinds:
+            err[kind] = max(err.get(kind, 0.0), kind_err(kind, res))
+        log(f"phase 16 (a) {label}: worst error / limit {worst:.3f}, "
+            f"{time.perf_counter() - t0:.1f} s " + ("ok" if not bad else f"MISS {bad}"))
+        rows.append({"label": label, "worst": worst, "ok": not bad})
+        if bad:
+            misses.append(f"{label} {bad}")
+
+    serving = sorted({(N, C) for _, _, N, C, _ in WIDE_SHAPES}, key=lambda t: (t[1], -t[0]))
+    training = sorted({(N, C) for _, _, N, C, _ in WIDE_TRAIN_SHAPES}, key=lambda t: (t[1], -t[0]))
+    for N, C in serving:
+        at = f"N={N} C={C} H={H}"
+        held(("B1",), f"B1 {at}", lambda: check_shape(torch, N, C, gen, H=H))
+        held(("B3",), f"B3 {at}", lambda: check_int8_shape(torch, N, C, gen, H=H))
+        held(("B4",), f"B4 {at}", lambda: check_attn_shape(torch, N, C, gen, H=H))
+        held(("L",), f"L {at}", lambda: check_lab_shape(torch, N, C, gen, True, H=H,
+                                                          only=LAB_CUTS))
+        held(("B1 f32", "B3 f32", "B4 f32"), f"f32 B1 B3 B4 {at}",
+             lambda: _f32_block_checks(torch, N, C, gen, False, H=H))
+    for N, C in training:
+        at = f"N={N} C={C} H={H}"
+        held(("B1-train", "B2"), f"B1-train B2 {at}",
+             lambda: check_train_shape(torch, N, C, gen, H=H))
+        held(("B1-train f32", "B2 f32"), f"f32 B1-train B2 {at}",
+             lambda: _f32_block_checks(torch, N, C, gen, True, H=H))
+    for C, h in EDGE_GRID:
+        for N, hid in zip(EDGE_N, (2 * C, 4 * C + 8)):
+            at = f"N={N} C={C} H={h} MLP {hid}"
+            held(("B1",), f"B1 {at}", lambda: check_shape(torch, N, C, gen, hid, H=h))
+            held(("B3",), f"B3 {at}", lambda: check_int8_shape(torch, N, C, gen, hid, H=h))
+            held(("B1-train", "B2"), f"B1-train B2 {at}",
+                 lambda: check_train_shape(torch, N, C, gen, hid, H=h))
+            held(("B4",), f"B4 N={N} C={C} H={h}", lambda: check_attn_shape(torch, N, C, gen, H=h))
+            held(("B1 f32", "B3 f32", "B4 f32"), f"f32 B1 B3 B4 {at}",
+                 lambda: _f32_block_checks(torch, N, C, gen, False, H=h, hidden=hid))
+            held(("B1-train f32", "B2 f32"), f"f32 B1-train B2 {at}",
+                 lambda: _f32_block_checks(torch, N, C, gen, True, H=h, hidden=hid))
+            torch.cuda.empty_cache()
+    if misses:
+        fail(f"phase 16 (a): {len(misses)} checks missed: " + "; ".join(misses))
+    log(f"phase 16 (a): {len(rows)} checks held")
+    return rows, err
+
+
+def _one_call_ms(torch, fn) -> float:
+    """Device ms of one call of ``fn``, without a warm-up (phase 16 (e)'s
+    one timed f32 B4 call a shape: a warm-up would double its 13 s)."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def wide_shape_times(torch, train: bool, R: int, N: int, C: int, p, gen, H: int):
+    """Phase 16 (e) at one of wide384's shapes: {kind: kernel / plain /
+    library ms and bound} of one call of each kernel (bf16 and f32) at the
+    full row count R.  The kernel over one call after a warm-up (B4's f32
+    form: one call, no warm-up); the plain version on PLAIN_ROWS rows (f32:
+    F32_TIMING_ROWS), scaled by R, after a warm-up; the library yardsticks
+    over one call after a warm-up, each timed once and shared by the kernels
+    that compute its function (B1 and L: the SDPA block; B2: the SDPA
+    block's forward + backward less its forward)."""
+    from tfswa_tpu_torch.ops import fused_block as fb
+    from tfswa_tpu_torch.ops import row_attention as ra
+    out = {}
+    for dt, sfx, rows in ((torch.bfloat16, "", PLAIN_ROWS),
+                          (torch.float32, " f32", F32_TIMING_ROWS)):
+        rs = min(R, rows)
+        x = torch.randn(R, N, C, generator=gen).cuda().to(dt)
+        pf = p               # the wrappers and yardsticks cast it to the rows' dtype
+        lib_fwd = cuda_ms(torch, lambda: library_block(torch, x, pf, H), 1)
+        f32 = dt == torch.float32
+
+        def kernel_ms(fn):
+            return cuda_ms(torch, fn, 1)
+
+        def bound(kind, **kw):
+            if f32:
+                return bound_f32_ms(kind, R, N, C, 4 * C, H=H)
+            if kind == "B4":
+                return bound_attn_ms(R, N, C, H)
+            if kind == "B2":
+                return bound_bwd_ms(R, N, C, 4 * C, H)
+            return bound_ms(R, N, C, 4 * C, H=H, **kw)
+
+        def rec(kind, k_ms, pl_ms, lib, b):
+            out[kind + sfx] = {"ms": k_ms, "plain_ms": pl_ms * R / rs, "library_ms": lib,
+                               "bound_ms": b[0], "bound_by": b[1]}
+
+        if not train:
+            forms = [("B1", fb.fused_row_block, fb.fused_row_block_reference, lib_fwd, {}),
+                     ("B3", fb.fused_row_block_int8, fb.fused_row_block_int8_reference, None,
+                      {"int8": True})]
+            for kind, run, plain, lib, kw in forms:
+                rec(kind, kernel_ms(lambda: run(x, pf, H)),
+                    cuda_ms(torch, lambda: plain(x[:rs], pf, H), 1), lib, bound(kind, **kw))
+            xn = ln1_rows(torch, x, pf)
+            w = [t.to(dt) for t in (pf.qkv_kernel, pf.proj_kernel, pf.proj_bias)]
+            run4 = lambda: ra.flash_row_attention(xn, *w, H)  # noqa: E731
+            rec("B4", _one_call_ms(torch, run4) if f32 else kernel_ms(run4),
+                cuda_ms(torch, lambda: ra.flash_row_attention_reference(xn[:rs], *w, H), 1),
+                cuda_ms(torch, lambda: library_attn(torch, xn, *w, H), 1), bound("B4"))
+            del xn
+        else:
+            g = torch.randn(R, N, C, generator=gen).cuda().to(dt)
+            _, mid, acc, den = fb.fused_row_block_train(x, pf, H)
+            rec("B1-train", kernel_ms(lambda: fb.fused_row_block_train(x, pf, H)),
+                cuda_ms(torch, lambda: fb.fused_row_block_train_reference(x[:rs], pf, H), 1),
+                lib_fwd, bound("B1-train", train=True))
+            lib_bwd = max(cuda_ms(torch, lambda: library_fwd_bwd(torch, x, pf, H, g), 1)
+                          - lib_fwd, 0.0)
+            rec("B2", kernel_ms(lambda: fb.fused_row_block_bwd(x, mid, acc, den, g, pf, H)),
+                cuda_ms(torch, lambda: fb.fused_row_block_bwd_reference(
+                    x[:rs], mid[:rs], acc[:rs], den[:rs], g[:rs], pf, H), 1), lib_bwd,
+                bound("B2"))
+            del g, mid, acc, den
         del x
         torch.cuda.empty_cache()
+    return out
+
+
+def wide_times(torch):
+    """Phase 16 (e): each kernel at wide384's full row counts
+    (wide_shape_times), summed a model forward (66 calls at WIDE_SHAPES: B1,
+    B3, B4 and the f32 B1, B3, B4) or a train step (66 calls
+    at WIDE_TRAIN_SHAPES: B1-train, B2 and their f32 forms)."""
+    from tfswa_tpu_torch.models.attention import RowBlockParams
+
+    H = WIDE384["num_heads"]
+    gen = torch.Generator().manual_seed(17)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_bytes_ms")
+    tot = {}
+    for train, table in ((False, WIDE_SHAPES), (True, WIDE_TRAIN_SHAPES)):
+        for stage, attn, N, C, R in table:
+            calls = BLOCKS_PER_STAGE[stage]
+            p = random_params(torch, RowBlockParams, C, gen)
+            for kind, t in wide_shape_times(torch, train, R, N, C, p, gen, H).items():
+                acc = tot.setdefault(kind, dict.fromkeys(keys, 0.0))
+                for key in keys:
+                    v = (t["bound_ms"] if t["bound_by"] == "bytes" else 0.0) \
+                        if key == "bound_bytes_ms" else t[key]
+                    acc[key] = None if v is None or acc[key] is None else acc[key] + calls * v
+    for kind, t in tot.items():
+        lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.3f}"
+        per = "train step" if kind.startswith(("B1-train", "B2")) else "forward"
+        log(f"phase 16 (e) wide384 {kind}, per {per} (66 calls): kernel_ms {t['ms']:.3f} "
+            f"plain_ms {t['plain_ms']:.3f} library_ms {lib} bound_ms {t['bound_ms']:.4f}")
+    return tot
+
+
+def wide_serving(torch, np, gpu: str):
+    """Phase 16 (b): wide384 in bf16, the 120 s track through each serving
+    route (66 launches of the route's kernel a forward, no other kernel;
+    best of WIDE_SERVING_RUNS after a warm-up), one profiled separation,
+    and one 10 s segment against the plain route at SNR_MIN_DB a stem (B3
+    also against B1's route, recorded); the plain route's segment computed
+    once, with the same weights."""
+    res, seg_out, plain = {}, {}, None
+    for impl in ROUTES:
+        main, sep = phase_main_path(torch, np, gpu, impl, WIDE_MODEL,
+                                    WIDE_SERVING_RUNS.get(impl))
+        if impl == "pallas":             # one profiled separation
+            main["profile"] = phase_profile(torch, np, sep, impl)
+        x = torch.from_numpy(synthetic_track(np, 10.0, sep.sample_rate)[None]).cuda()
+        with torch.inference_mode():
+            seg_out[impl] = sep._separate_core(x).double().cpu().numpy()
+            if plain is None:
+                ref = separator_with(torch, sep.model, "xla", **WIDE_MODEL)
+                plain = ref._separate_core(x).double().cpu().numpy()
+                del ref
+        snr = {"xla": _segment_snr(np, seg_out[impl], plain)}
+        if impl == "pallas_int8":
+            snr["pallas"] = _segment_snr(np, seg_out[impl], seg_out["pallas"])
+        log(f"phase 16 (b) route {impl} vs the plain route, one 10 s segment: SNR per stem "
+            f"{[round(v, 3) for v in snr['xla']]} dB (min {SNR_MIN_DB} dB)"
+            + (f"; vs route pallas {[round(v, 3) for v in snr['pallas']]} dB (recorded)"
+               if "pallas" in snr else ""))
+        if not np.isfinite(seg_out[impl]).all() or min(snr["xla"]) < SNR_MIN_DB:
+            fail(f"phase 16 (b) route {impl} vs the plain route: SNR {snr['xla']} below "
+                 f"{SNR_MIN_DB} dB")
+        main["route_snr_db"] = snr
+        res[impl] = main
+        del sep
+        torch.cuda.empty_cache()
+    return res
+
+
+def wide_train(torch, np, gpu: str):
+    """Phase 16 (d): wide384's train step, no remat, through "pallas" on
+    WIDE_TRAIN_SEGMENTS x 6 s of phase 7's batch: bf16 (66 B1-train + 66
+    B2 launches, nothing else; against the plain route: loss within 1e-2
+    relative, gradient cosine >= 0.99; every row block's gradients finite
+    and not all zero; ms a step and peak GB) and f32 (f32_train's limits);
+    then one "pallas_attn" bf16 step on WIDE_ATTN_SEGMENTS segment (66 B4
+    launches, nothing else)."""
+    mix, targets = train_batch(torch, np)
+    res, grads = {}, {}
+    for impl, n in (("pallas", WIDE_TRAIN_SEGMENTS), ("xla", WIDE_TRAIN_SEGMENTS),
+                    ("pallas_attn", WIDE_ATTN_SEGMENTS)):
+        m, t = mix[:n], {k: v[:n] for k, v in targets.items()}
+        state, step = make_trainer(torch, impl, **WIDE_MODEL)[:2]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        state, loss = step(state, m, t)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        rec = {"total_loss": float(loss["total_loss"]), "launches": counts}
+        if impl != "pallas_attn":     # the first step's, before the timed one moves the weights
+            grads[impl] = _grad_vector(torch, state.model)
+        if impl != "xla":
+            kernels = ("B1-train", "B2") if impl == "pallas" else ("B4",)
+            want = {k: (66 if k in kernels else 0) for k in counts}
+            if counts != want:
+                fail(f"phase 16 (d) {impl} step: expected launches {want}, got {counts}")
+            bad = [nm for nm, g in row_block_grads(state.model)
+                   if not bool(torch.isfinite(g).all()) or not bool(g.abs().max() > 0)]
+            t0 = time.perf_counter()
+            step(state, m, t)
+            torch.cuda.synchronize()
+            rec.update(ms_per_step=(time.perf_counter() - t0) * 1e3,
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, bad_leaves=bad)
+            if bad and impl == "pallas":
+                fail(f"phase 16 (d): row-block gradients not finite or all zero: {bad[:5]}")
+        res[impl] = rec
+        del state, step
+        torch.cuda.empty_cache()
+    a, b = grads["pallas"], grads["xla"]
+    cos = float((a @ b) / (a.norm() * b.norm()))
+    rel = abs(res["pallas"]["total_loss"] - res["xla"]["total_loss"]) / \
+        abs(res["xla"]["total_loss"])
+    res.update(loss_rel=rel, grad_cosine=cos)
+    log(f"phase 16 (d) wide384 bf16 step on {WIDE_TRAIN_SEGMENTS} x {TRAIN_SECONDS} s: "
+        f"launches {res['pallas']['launches']}, {res['pallas']['ms_per_step']:.3f} ms/step, "
+        f"peak {res['pallas']['peak_mem_gb']:.3f} GB on {gpu}; vs the plain route: loss rel "
+        f"{rel:.2e} (limit 1e-2), gradient cosine {cos:.6f} (min 0.99); pallas_attn on "
+        f"{WIDE_ATTN_SEGMENTS} x {TRAIN_SECONDS} s: {res['pallas_attn']['ms_per_step']:.3f} "
+        f"ms/step, launches {res['pallas_attn']['launches']}")
+    if not (rel <= 1e-2 and cos >= 0.99):
+        fail(f"phase 16 (d): loss rel {rel}, gradient cosine {cos}")
+    res["f32"] = f32_train(torch, np, gpu, WIDE_MODEL, "phase 16 (d) wide384 f32")
+    return res
+
+
+def beside_quality(torch, np, gpu: str):
+    """What runs beside phase 14's two subprocesses, all of it checks and
+    exports, none of it timed against a limit: phase 16 (a) (the kernel
+    checks), phase 12 (e) (the plain route's exports) and phase 15 (d) (the
+    kernel routes' exports).  Returns {part: (result, seconds)}."""
+    out = {}
+    try:
+        for name, fn in (("widths checks", lambda: wide_kernel_checks(torch)),
+                         ("options export", lambda: opt_export(torch, np, gpu)),
+                         ("f32 export", lambda: f32_export(torch, np, gpu))):
+            t0 = time.perf_counter()
+            r = fn()
+            out[name] = (r, time.perf_counter() - t0)
+            log(f"  beside phase 14, {name}: {out[name][1]:.1f} s")
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(OPT_WORK, ignore_errors=True)
+    return out
+
+
+def phase_widths(torch, np, gpu: str, quick: bool, checks=None):
+    """Phase 16: every width on the kernel routes, and wide384 end to end
+    ((a) the kernel checks, also under --quick, unless ``checks`` holds
+    them (the whole run runs them beside phase 14: beside_quality); (b)
+    bf16 serving; (c) f32 serving; (d) the train steps; (e) the kernels'
+    times)."""
+    res, seconds = {"ptxas": wide_ptxas()}, {}
+    by_kernel = {}
+    for r in res["ptxas"]:
+        by_kernel.setdefault((r["lib"], kernel_name(r["function"])), []).append(r)
+    for (lib, name), rs in by_kernel.items():
+        log(f"  new instantiations {lib} {name}: {len(rs)}, registers "
+            f"{min(r['registers'] for r in rs)}-{max(r['registers'] for r in rs)}, spill "
+            f"stores {max(r['spill_stores'] for r in rs)} / loads "
+            f"{max(r['spill_loads'] for r in rs)} bytes at most (each in chip_smoke.json)")
+    parts = [] if checks is not None else [("checks", wide_kernel_checks, (torch,))]
+    if checks is not None:
+        res["checks"] = checks
+    if not quick:
+        parts += [("serving", wide_serving, (torch, np, gpu)),
+                  ("f32 serving", f32_serving,
+                   (torch, np, gpu, WIDE_MODEL, "phase 16 (c) wide384 f32")),
+                  ("train", wide_train, (torch, np, gpu)),
+                  ("times", wide_times, (torch,))]
+    for name, fn, args in parts:
+        t0 = time.perf_counter()
+        res[name] = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        log(f"phase 16 {name}: {seconds[name]:.1f} s")
+    res["seconds"] = seconds
+    return res
+
+
+def ab_main(torch, np, label: str) -> None:
+    """--ab CHECKOUT LABEL: the port that sys.path finds first (CHECKOUT's),
+    timed by this script's harness at the flagship's widths, for an A/B of
+    two commits on one card: one process a checkout, so that each imports
+    its own package, and in one call parent, change, change, parent.  Each
+    kernel through its public wrapper, its 66 calls at SHAPES (B1, B3, B4
+    and the f32 B1, B3, B4 a model forward; B4's f32 form one call a shape)
+    or at TRAIN_SHAPES (B1-train, B2 and their f32 forms a train step); the
+    120 s track's separation rate through "pallas" (best of 3 after a
+    warm-up); and the bf16 train step through "pallas" on phase 7's batch
+    (best of 3 after a warm-up).  Prints one JSON line."""
+    from tfswa_tpu_torch.models.attention import RowBlockParams
+    from tfswa_tpu_torch.ops import _build
+    from tfswa_tpu_torch.ops import fused_block as fb
+    from tfswa_tpu_torch.ops.row_attention import flash_row_attention
+
+    _build.build(["fused_block", "fused_block_bwd", "row_attention", *F32_LIBS])
+    gen = torch.Generator().manual_seed(1)
+    kinds = ("B1", "B3", "B4", "B1-train", "B2", "B1 f32", "B3 f32", "B4 f32", "B1-train f32",
+             "B2 f32")
+    res = {"label": label, "device": gpu_line(), **dict.fromkeys(kinds, 0.0)}
+    for dt, sfx in ((torch.bfloat16, ""), (torch.float32, " f32")):
+        for stage, _, N, C, R in SHAPES:
+            p = random_params(torch, RowBlockParams, C, gen)
+            x = torch.randn(R, N, C, generator=gen).cuda().to(dt)
+            w = [t.to(dt) for t in (p.qkv_kernel, p.proj_kernel, p.proj_bias)]
+            calls = BLOCKS_PER_STAGE[stage]
+            res["B1" + sfx] += calls * cuda_ms(torch, lambda: fb.fused_row_block(x, p, HEADS), 3)
+            res["B3" + sfx] += calls * cuda_ms(
+                torch, lambda: fb.fused_row_block_int8(x, p, HEADS), 3)
+            res["B4" + sfx] += calls * cuda_ms(
+                torch, lambda: flash_row_attention(x, *w, HEADS), 1 if sfx else 3)
+            del x
+            torch.cuda.empty_cache()
+        for stage, _, N, C, R in TRAIN_SHAPES:
+            p = random_params(torch, RowBlockParams, C, gen)
+            x = torch.randn(R, N, C, generator=gen).cuda().to(dt)
+            g = torch.randn(R, N, C, generator=gen).cuda().to(dt)
+            calls = BLOCKS_PER_STAGE[stage]
+            _, mid, acc, den = fb.fused_row_block_train(x, p, HEADS)
+            res["B1-train" + sfx] += calls * cuda_ms(
+                torch, lambda: fb.fused_row_block_train(x, p, HEADS), 3)
+            res["B2" + sfx] += calls * cuda_ms(
+                torch, lambda: fb.fused_row_block_bwd(x, mid, acc, den, g, p, HEADS), 3)
+            del x, g, mid, acc, den
+            torch.cuda.empty_cache()
     sep = make_separator(torch, "pallas")
     audio = synthetic_track(np, 120.0, sep.sample_rate)
     sep.separate(audio)
@@ -4939,7 +5486,19 @@ def ab_main(torch, np, label: str) -> None:
         sep.separate(audio)
         torch.cuda.synchronize()
         runs.append(time.perf_counter() - t0)
-    res.update(audio_s_per_s=120.0 / min(runs), runs_s=runs)
+    del sep
+    mix, targets = train_batch(torch, np)
+    state, step = make_trainer(torch, "pallas")[:2]
+    state, _ = step(state, mix, targets)
+    torch.cuda.synchronize()
+    steps = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        state, _ = step(state, mix, targets)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+    res.update(audio_s_per_s=120.0 / min(runs), runs_s=runs, step_ms=min(steps),
+               steps_ms=steps)
     print(json.dumps(res), flush=True)
 
 
@@ -4954,9 +5513,10 @@ def main() -> None:
                          "(b)'s ranks and run only its run: exit 0 if they catch it, 1 "
                          "if not")
     ap.add_argument("--ab", nargs=2, metavar=("CHECKOUT", "LABEL"),
-                    help="time CHECKOUT's bf16 serving path (B1, B3, B4 a forward, "
-                         "the 120 s rate) and print it as one JSON line: one process a "
-                         "checkout, for an A/B of two commits in one call")
+                    help="time CHECKOUT's kernels at the flagship's widths (bf16 and "
+                         "f32, a forward or a step), the 120 s rate and the train step, "
+                         "and print them as one JSON line: one process a checkout, for "
+                         "an A/B of two commits in one call")
     ap.add_argument("--witness", action="store_true",
                     help="run phase 13 (b)'s witness (WITNESS_RUN) alone and write its "
                          "cosines to chiprun_out/chip_smoke_witness.json")
@@ -5112,12 +5672,22 @@ def main() -> None:
                                              torch, np, gpu, train["best_ms_per_step"])
         finally:
             shutil.rmtree(TRAIN_CK, ignore_errors=True)      # about 1 GB
-        results["options"] = timed("options and deployment", phase_options, torch, np, gpu)
+        results["options"] = timed("options and deployment", phase_options, torch, np, gpu,
+                                   ("export",))
         results["parallel"] = timed("parallel", phase_parallel, torch, np, gpu,
                                     train["best_ms_per_step"],
                                     serving["pallas"]["audio_s_per_s"])
-        results["quality"] = timed("quality", phase_quality, torch, np, gpu, covered)
-        results["f32"] = timed("f32 routes", phase_f32, torch, np, gpu)
+        beside = {}
+        results["quality"] = timed("quality", phase_quality, torch, np, gpu, covered,
+                                   lambda: beside.update(beside_quality(torch, np, gpu)))
+        results["options"]["export"], results["options"]["seconds"]["export"] = \
+            beside["options export"]
+        results["f32"] = timed("f32 routes", phase_f32, torch, np, gpu, ("export",))
+        results["f32"]["export"], results["f32"]["seconds"]["export"] = beside["f32 export"]
+        results["widths_checks_s"] = beside["widths checks"][1]
+    results["widths"] = timed("widths", phase_widths, torch, np, gpu, args.quick,
+                              None if args.quick else beside["widths checks"][0])
+    if not args.quick:
         for kind, label in (("train", "B1-train"), ("bwd", "B2")):
             log(f"per train step (66 calls), {label}: kernel_ms {{ms:.3f}} plain_ms "
                 f"{{plain_ms:.3f}} library_ms {{library_ms:.3f}} bound_ms "
@@ -5182,6 +5752,40 @@ def main() -> None:
              "tfswa_tpu/ops/pallas/row_attention.py:53")):
         kernels.append(entry(name, src, replaces, f32_launches.get(kind), f32_err[kind],
                              f32_totals[kind]))
+    # phase 16: wide384's rows, each kernel's launches from its main path there
+    wide = results["widths"]
+    wide_err = wide["checks"][1]
+    wide_launches = {} if args.quick else {
+        "B1": wide["serving"]["pallas"]["launches"],
+        "B3": wide["serving"]["pallas_int8"]["launches"],
+        "B4": wide["serving"]["pallas_attn"]["launches"],
+        "B1-train": wide["train"]["pallas"]["launches"]["B1-train"],
+        "B2": wide["train"]["pallas"]["launches"]["B2"],
+        "B1 f32": wide["f32 serving"]["pallas"]["launches"],
+        "B3 f32": wide["f32 serving"]["pallas_int8"]["segment_launches"],
+        "B4 f32": wide["f32 serving"]["pallas_attn"]["segment_launches"],
+        "B1-train f32": wide["train"]["f32"]["pallas"]["launches"]["B1-train-f32"],
+        "B2 f32": wide["train"]["f32"]["pallas"]["launches"]["B2-f32"]}
+    for name, kind, src, replaces in (
+            ("fused_row_block", "B1", fwd_src, "tfswa_tpu/ops/pallas/fused_block.py:140"),
+            ("fused_row_block_train", "B1-train", fwd_src,
+             "tfswa_tpu/ops/pallas/fused_block.py:140"),
+            ("fused_row_block_bwd", "B2", "tfswa_tpu_torch/csrc/fused_block_bwd.cu",
+             "tfswa_tpu/ops/pallas/fused_block.py:526"),
+            ("fused_row_block_int8", "B3", fwd_src, "tfswa_tpu/ops/pallas/fused_block.py:253"),
+            ("flash_row_attention", "B4", "tfswa_tpu_torch/csrc/row_attention.cu",
+             "tfswa_tpu/ops/pallas/row_attention.py:53"),
+            ("fused_row_block_f32", "B1 f32", f32_src, "tfswa_tpu/ops/pallas/fused_block.py:140"),
+            ("fused_row_block_train_f32", "B1-train f32", f32_src,
+             "tfswa_tpu/ops/pallas/fused_block.py:140"),
+            ("fused_row_block_bwd_f32", "B2 f32", "tfswa_tpu_torch/csrc/fused_block_bwd_f32.cu",
+             "tfswa_tpu/ops/pallas/fused_block.py:526"),
+            ("fused_row_block_int8_f32", "B3 f32", f32_src,
+             "tfswa_tpu/ops/pallas/fused_block.py:253"),
+            ("flash_row_attention_f32", "B4 f32", "tfswa_tpu_torch/csrc/row_attention_f32.cu",
+             "tfswa_tpu/ops/pallas/row_attention.py:53")):
+        kernels.append(entry(f"{name} (wide384)", src, replaces, wide_launches.get(kind),
+                             wide_err.get(kind), None if args.quick else wide["times"][kind]))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -536,9 +536,11 @@ def test_dp_plant_keeps_each_ranks_own_gradient_of_the_planted_leaves(chip_smoke
 def test_phase_15_is_in_the_docstring_before_the_kernels_line(chip_smoke):
     doc = chip_smoke.__doc__
     at = doc.index(" 15. the f32 forms")
-    assert at < doc.index(" 16. a JSON line of the kernels")
+    assert at < doc.index(" 16. every width") < doc.index(" 17. a JSON line of the kernels")
     for part in ("(a)", "(b)", "(c)", "(d)", "(e)", "(f)"):
         assert part in doc[at:doc.index(" 16. ")], part
+    for part in ("(a)", "(b)", "(c)", "(d)", "(e)"):
+        assert part in doc[doc.index(" 16. "):doc.index(" 17. ")], part
 
 
 @pytest.mark.parametrize("ref_max,tol", [(0.5, 1e-4), (4.0, 1e-4), (40.0, 1e-3)])
@@ -578,3 +580,61 @@ def test_f32_bound_of_b1_at_stage_0_tsa(chip_smoke):
     assert got == pytest.approx(want) and by == "operations"
     ffma, _ = chip_smoke.bound_f32_ms("B1", R, N, C, hid, chip_smoke.PEAK_FFMA_FLOPS)
     assert ffma >= got
+
+
+# --- phase 16: wide384 (dims (48, 96, 192, 384), 4 heads) ------------------
+
+def test_wide384_row_shapes_come_from_its_dims(chip_smoke):
+    """wide384's tables are SHAPES and TRAIN_SHAPES at its widths: row_shapes
+    at the serving (1024 x 862) and training (1025 x 517) spectrograms with
+    its dims gives their (N, C), and their row counts are the flagship's."""
+    dims = chip_smoke.WIDE384["dims"]
+    assert dims == (48, 96, 192, 384) and chip_smoke.WIDE384["num_heads"] == 4
+    for table, flagship, (F, T) in ((chip_smoke.WIDE_SHAPES, chip_smoke.SHAPES, (1024, 862)),
+                                    (chip_smoke.WIDE_TRAIN_SHAPES, chip_smoke.TRAIN_SHAPES,
+                                     (1025, 517))):
+        assert chip_smoke.row_shapes(F, T, dims, 8) == {(N, C) for _, _, N, C, _ in table}
+        assert [(s, a, N, R) for s, a, N, _, R in table] == \
+            [(s, a, N, R) for s, a, N, _, R in flagship]
+        assert all(C == dims[s] for s, _, _, C, _ in table)
+    assert chip_smoke.wide_row_shapes("serving") == [
+        (R, N, C) for _, _, N, C, R in chip_smoke.WIDE_SHAPES]
+
+
+def test_bounds_at_the_flagship_heads_are_the_flagships(chip_smoke):
+    """The bound functions take the head count; at H = 8 (the default) they
+    give the flagship's figures."""
+    _, _, N, C, R = chip_smoke.SHAPES[0]
+    for fn, args in ((chip_smoke.bound_ms, (R, N, C, 4 * C)),
+                     (chip_smoke.bound_attn_ms, (R, N, C)),
+                     (chip_smoke.bound_bwd_ms, (R, N, C, 4 * C)),
+                     (chip_smoke.bound_f32_ms, ("B4", R, N, C, 4 * C))):
+        assert fn(*args) == fn(*args, H=8)
+    assert chip_smoke.bound_launch_ms("attn_bwd", R, N, C, 4 * C, "B2") == \
+        chip_smoke.bound_launch_ms("attn_bwd", R, N, C, 4 * C, "B2", H=8)
+
+
+def test_wide_attention_backward_pair_is_bound_by_one_exp2_a_pair(chip_smoke):
+    """At wide384's stage-0 TSA (N = 1025, C = 48, R = 2068) the pair is
+    still exp2-bound, with 4 heads: half the flagship's exp2 time."""
+    (shape,) = [s for s in chip_smoke.WIDE_TRAIN_SHAPES if s[:2] == (0, "TSA")]
+    _, _, N, C, R = shape
+    ms, by = chip_smoke.bound_launch_ms("attn_bwd", R, N, C, 4 * C, "B2", H=4)
+    assert by == "operations"
+    assert ms == pytest.approx(R * 4 * N * N / MUFU_RATE * 1e3, rel=1e-9)
+    assert ms == pytest.approx(4.16 / 2, abs=0.005)
+
+
+@pytest.mark.parametrize("i", range(12))
+def test_wide_b1_bound_is_reckoned_from_its_shape(chip_smoke, i):
+    """B1's bound at each of wide384's serving shapes, reckoned here: bf16
+    rows in and out and the weights over the HBM rate, the products and
+    scores / AV over the bf16 peak, H N^2 exp2 a row over the MUFU rate."""
+    _, _, N, C, R = chip_smoke.WIDE_SHAPES[i]
+    H, hid = 4, 4 * C
+    nbytes = 2 * (2 * R * N * C + 4 * C * C + 2 * C * hid + 6 * C + hid)
+    flops = 2 * R * N * (4 * C * C + 2 * C * hid) + 2 * 2 * R * N * N * C
+    t_bytes, t_ops = nbytes / 3.35e12, max(flops / 989e12, R * H * N * N / MUFU_RATE)
+    got, by = chip_smoke.bound_ms(R, N, C, hid, H=H)
+    assert got == pytest.approx(max(t_bytes, t_ops) * 1e3, rel=1e-12)
+    assert by == ("bytes" if t_bytes >= t_ops else "operations")

@@ -270,7 +270,7 @@ def test_admission_does_not_depend_on_n(C, H):
         row_attention.check_shape(1, N, C, H)
 
 
-@pytest.mark.parametrize("C,H", [(48, 8), (32, 16), (64, 3), (512, 8)])
+@pytest.mark.parametrize("C,H", [(44, 4), (520, 8), (64, 3), (48, 5)])
 def test_wrapper_raises_on_a_width_or_head_count_the_kernel_does_not_take(C, H):
     w = [torch.zeros(C, 3 * C), torch.zeros(C, C), torch.zeros(C)]
     with pytest.raises(ValueError, match="no kernel"):

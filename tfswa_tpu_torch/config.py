@@ -22,14 +22,14 @@ class ModelConfig:
     parameters at in/out_channels=2.
 
     On the card the kernel routes (``attention_impl`` "pallas",
-    "pallas_int8", "pallas_attn") take bf16 rows only: with the default
-    ``dtype="float32"`` their wrappers raise (set ``dtype="bfloat16"``, as
-    every shipped config does, or use "xla").  They take the widths in
-    ``dims`` from (32, 64, 128, 256); "pallas" and "pallas_int8" a head dim
-    of 4, 8, 16 or 32 and an MLP width (``mlp_ratio`` times the width) that
-    is a multiple of 8; "pallas_attn" 2, 4 or 8 heads.  Any other shape
-    raises; none falls back to the plain route.  On the CPU every route
-    computes.  ``use_shift_mask`` (the Swin mask on the shifted SWA
+    "pallas_int8", "pallas_attn") take bf16 rows (``dtype="bfloat16"``, as
+    every shipped config has it: the tensor-core kernels) and f32 rows (the
+    default ``dtype="float32"``: their f32 forms); float16 raises.  They
+    take every width in ``dims`` that is a multiple of 8 up to 512, any
+    ``num_heads`` that divides each width, and an MLP width (``mlp_ratio``
+    times the width) that is a multiple of 8.  Any other shape raises,
+    naming the field; none falls back to the plain route.  On the CPU every
+    route computes.  ``use_shift_mask`` (the Swin mask on the shifted SWA
     blocks) and ``dropout`` (in train mode) send the row blocks concerned
     to the plain route on any ``attention_impl``, as in the JAX package."""
 

@@ -300,55 +300,112 @@ __device__ __forceinline__ void zero(float (&acc)[NT][4]) {
         for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 }
 
-// LayerNorm of one token row of C values (C / 32 a lane: lane + 32 i) in
-// f32, eps 1e-5, rounded to bf16: the statistics summed lane by lane, then
-// across the warp.
-template <int C>
-__device__ __forceinline__ void layer_norm_row(const float (&v)[C / 32], const bf16* scale,
-                                               const bf16* bias, bf16 (&out)[C / 32]) {
+// LayerNorm of one token row of C values (CP / 32 a lane: lane + 32 i; the
+// lanes from C on hold 0 and are left out of the variance) in f32, eps
+// 1e-5, rounded to bf16, 0 from C on: the statistics summed lane by lane,
+// then across the warp.  CP is the width the kernel is instantiated for
+// (prod_width(C)); at C = CP nothing is masked.
+template <int CP>
+__device__ __forceinline__ void layer_norm_row(const float (&v)[CP / 32], const bf16* scale,
+                                               const bf16* bias, bf16 (&out)[CP / 32], int C) {
     const int lane = threadIdx.x & 31;
     float s = 0.f;
 #pragma unroll
-    for (int i = 0; i < C / 32; ++i) s += v[i];
+    for (int i = 0; i < CP / 32; ++i) s += v[i];
     const float mean = warp_sum(s) / C;
     float var = 0.f;
 #pragma unroll
-    for (int i = 0; i < C / 32; ++i) {
-        const float d = v[i] - mean;
+    for (int i = 0; i < CP / 32; ++i) {
+        const float d = lane + 32 * i < C ? v[i] - mean : 0.f;
         var += d * d;
     }
     const float rstd = rsqrtf(warp_sum(var) / C + 1e-5f);
 #pragma unroll
-    for (int i = 0; i < C / 32; ++i)
-        out[i] = __float2bfloat16((v[i] - mean) * rstd * ld(scale + lane + 32 * i)
-                                  + ld(bias + lane + 32 * i));
+    for (int i = 0; i < CP / 32; ++i) {
+        const int c = lane + 32 * i;
+        out[i] = c < C ? __float2bfloat16((v[i] - mean) * rstd * ld(scale + c) + ld(bias + c))
+                       : __float2bfloat16(0.f);
+    }
+}
+
+// The widths a launch runs at.  C, the block's width, is any multiple of
+// 8 up to 512; the product kernels are instantiated for CP = prod_width(C)
+// (32, 64, 128, 256, 384 or 512), their A tiles zero past C and the
+// weights read as zeros past C (block_gemm's k_valid, n_valid).  The
+// attention kernels take each of the H heads of D = C / H channels padded
+// to DP = head_pad(D) (4, 8, ..., 512) channels of zeros, in a q|k|v
+// buffer of 3 CA columns: head h's channels of q at h DP .. h DP + D - 1,
+// CA = H DP rounded up to a multiple of 32 (the heads past H, at most
+// 32 / DP - 1 of them, are zeros: their scores are 0 and nothing of them is
+// written).  The caller pads W_qkv's columns the same way (zero columns),
+// so that ln_qkv_kernel writes the padded layout itself; every attention
+// kernel reads it and writes its results in the block's own layout (head
+// h's channel d at h D + d).  At C in (32, 64, 128, 256) and D in (4, 8,
+// 16, 32), CP = C, DP = D and CA = C: the layouts are the block's own.
+__host__ __device__ constexpr int prod_width(int C) {
+    return C <= 32 ? 32 : C <= 64 ? 64 : C <= 128 ? 128 : C <= 256 ? 256 : C <= 384 ? 384 : 512;
+}
+
+__host__ __device__ constexpr int head_pad(int D) {
+    int p = 4;
+    while (p < D) p *= 2;
+    return p;
+}
+
+struct HeadPlan {
+    int D, DP, CA, HK;    // true head dim, padded head dim, padded width, heads in CA
+};
+
+inline HeadPlan head_plan(int C, int H) {
+    const int D = C / H, DP = head_pad(D);
+    const int CA = (H * DP + 31) / 32 * 32;
+    return {D, DP, CA, CA / DP};
+}
+
+// Two results of one head's adjacent channels d, d + 1 at p (the block's
+// layout): one bf16x2 store where D is even (every head starts on an even
+// channel), else one store each; `left` = D - d channels of the head from
+// d on (nothing past the head is written).
+__device__ __forceinline__ void store_head_pair(bf16* p, float a0, float a1, int left,
+                                                bool even) {
+    if (left <= 0) return;
+    if (even && left >= 2) {
+        *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a0, a1);
+    } else {
+        p[0] = __float2bfloat16(a0);
+        if (left >= 2) p[1] = __float2bfloat16(a1);
+    }
 }
 
 // 1. LN1 + the qkv product (B1, B1-train, B3, L; B2's recompute), on the
 // tensor cores.  64 tokens a block, 4 warps; warp w owns tokens 16w..16w+15.
-// Each warp normalises its 16 tokens (f32 statistics) into the shared A
-// tile n1 = bf16(LN1(x)) (64 x (C + 8)); then the 3C output columns go in
-// chunks of QKV_NCH, W_qkv (C x 3C, 384 KB at C = 256) streamed through
-// shared memory in k-slices (block_gemm), and every warp writes its 16 x
-// QKV_NCH tile of bf16 q|k|v.  qkv is (M, 3C): [q | k | v] per token.
+// Each warp normalises its 16 tokens (f32 statistics over the C channels)
+// into the shared A tile n1 = bf16(LN1(x)) (64 x (CP + 8), zero past C);
+// then the 3 CA output columns go in chunks of QKV_NCH, W_qkv (C x 3 CA,
+// the heads padded by the caller; 384 KB at C = 256) streamed through
+// shared memory in k-slices (block_gemm, its rows past C read as zeros),
+// and every warp writes its 16 x QKV_NCH tile of bf16 q|k|v.  qkv is (M,
+// 3 CA): [q | k | v] per token, each in the padded head layout.
 // WITH_NORMED also writes n1 to normed (M, C), which B2 needs for the qkv
 // weight gradient.
 constexpr int LNQ_TOK = 64;
 constexpr int LNQ_THREADS = 128;
-constexpr int QKV_NCH = 96;       // output columns a chunk (3C = 96 at C = 32)
+constexpr int QKV_NCH = 96;       // output columns a chunk (3 CA is a multiple of 96)
 
-template <int C>
+template <int CP>
 constexpr size_t ln_qkv_smem_bytes() {
-    return sizeof(bf16) * ((size_t)LNQ_TOK * (C + 8) + 2 * KS * (QKV_NCH + 8));
+    return sizeof(bf16) * ((size_t)LNQ_TOK * (CP + 8) + 2 * KS * (QKV_NCH + 8));
 }
 
-template <int C, bool WITH_NORMED>
+template <int CP, bool EXACT, bool WITH_NORMED>
 __global__ void __launch_bounds__(LNQ_THREADS)
 ln_qkv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_s,
               const bf16* __restrict__ ln_b, const bf16* __restrict__ w,
-              bf16* __restrict__ qkv, bf16* __restrict__ normed, int M) {
-    static_assert(C % 32 == 0 && (3 * C) % QKV_NCH == 0, "ln_qkv_kernel: C");
-    constexpr int LDA = C + 8;
+              bf16* __restrict__ qkv, bf16* __restrict__ normed, int M, int c, int ca) {
+    static_assert(CP % 32 == 0, "ln_qkv_kernel: CP");
+    // EXACT: C = CA = CP, the flagship's layouts, known at compile time
+    const int C = EXACT ? CP : c, CA = EXACT ? CP : ca;
+    constexpr int LDA = CP + 8;
     constexpr int NT = QKV_NCH / 8;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     bf16* sa = reinterpret_cast<bf16*>(smem_raw);       // LNQ_TOK x LDA: n1
@@ -357,29 +414,34 @@ ln_qkv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_s,
     const size_t tok0 = (size_t)blockIdx.x * LNQ_TOK;
     const int ntok = min(LNQ_TOK, M - (int)tok0);
     for (int t = warp * 16; t < warp * 16 + 16; ++t) {
-        bf16 n[C / 32];
+        bf16 n[CP / 32];
         if (t < ntok) {
-            float v[C / 32];
+            float v[CP / 32];
 #pragma unroll
-            for (int i = 0; i < C / 32; ++i) v[i] = ld(x + (tok0 + t) * C + lane + 32 * i);
-            layer_norm_row<C>(v, ln_s, ln_b, n);
+            for (int i = 0; i < CP / 32; ++i) {
+                const int c = lane + 32 * i;
+                v[i] = c < C ? ld(x + (tok0 + t) * C + c) : 0.f;
+            }
+            layer_norm_row<CP>(v, ln_s, ln_b, n, C);
             if (WITH_NORMED) {
 #pragma unroll
-                for (int i = 0; i < C / 32; ++i) normed[(tok0 + t) * C + lane + 32 * i] = n[i];
+                for (int i = 0; i < CP / 32; ++i)
+                    if (lane + 32 * i < C) normed[(tok0 + t) * C + lane + 32 * i] = n[i];
             }
         } else {
 #pragma unroll
-            for (int i = 0; i < C / 32; ++i) n[i] = __float2bfloat16(0.f);
+            for (int i = 0; i < CP / 32; ++i) n[i] = __float2bfloat16(0.f);
         }
 #pragma unroll
-        for (int i = 0; i < C / 32; ++i) sa[t * LDA + lane + 32 * i] = n[i];
+        for (int i = 0; i < CP / 32; ++i) sa[t * LDA + lane + 32 * i] = n[i];
     }
     const int g = lane >> 2, q = lane & 3;
     const bf16* a = sa + warp * 16 * LDA;
-    for (int n0 = 0; n0 < 3 * C; n0 += QKV_NCH) {
+    const int ldo = 3 * CA;
+    for (int n0 = 0; n0 < ldo; n0 += QKV_NCH) {
         float acc[NT][4];
         zero(acc);
-        block_gemm<NT, QKV_NCH, LNQ_THREADS>(acc, a, LDA, w, 3 * C, n0, C, wbuf, 0);
+        block_gemm<NT, QKV_NCH, LNQ_THREADS>(acc, a, LDA, w, ldo, n0, CP, wbuf, 0, C);
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
             const int col = n0 + 8 * j + 2 * q;
@@ -387,32 +449,38 @@ ln_qkv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_s,
             for (int half = 0; half < 2; ++half) {
                 const int t = warp * 16 + g + 8 * half;
                 if (t < ntok)
-                    *reinterpret_cast<__nv_bfloat162*>(qkv + (tok0 + t) * 3 * C + col) =
+                    *reinterpret_cast<__nv_bfloat162*>(qkv + (tok0 + t) * ldo + col) =
                         __floats2bfloat162_rn(acc[j][2 * half], acc[j][2 * half + 1]);
             }
         }
     }
 }
 
-// Launch of ln_qkv_kernel at the given C (32, 64, 128 or 256).
+// Launch of ln_qkv_kernel at width C (CP = prod_width(C)) into a q|k|v
+// buffer of 3 CA columns; the EXACT form where C = CA = CP.
 template <bool WITH_NORMED>
 cudaError_t launch_ln_qkv(const bf16* x, const bf16* ln_s, const bf16* ln_b, const bf16* w,
-                          bf16* qkv, bf16* normed, int M, int C, cudaStream_t stream) {
+                          bf16* qkv, bf16* normed, int M, int C, int CA, cudaStream_t stream) {
     auto go = [&](auto kernel, size_t smem) {
         cudaError_t err =
             cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return err;
         kernel<<<(unsigned)((M + LNQ_TOK - 1) / LNQ_TOK), LNQ_THREADS, smem, stream>>>(
-            x, ln_s, ln_b, w, qkv, normed, M);
+            x, ln_s, ln_b, w, qkv, normed, M, C, CA);
         return cudaGetLastError();
     };
-    switch (C) {
-        case 32: return go(ln_qkv_kernel<32, WITH_NORMED>, ln_qkv_smem_bytes<32>());
-        case 64: return go(ln_qkv_kernel<64, WITH_NORMED>, ln_qkv_smem_bytes<64>());
-        case 128: return go(ln_qkv_kernel<128, WITH_NORMED>, ln_qkv_smem_bytes<128>());
-        case 256: return go(ln_qkv_kernel<256, WITH_NORMED>, ln_qkv_smem_bytes<256>());
-        default: return cudaErrorInvalidValue;
+    if (C % 8 || C > 512 || CA % 32) return cudaErrorInvalidValue;
+    const bool exact = C == prod_width(C) && CA == C;
+#define LNQ_AT(CPV)                                                                       \
+    case CPV:                                                                             \
+        return exact ? go(ln_qkv_kernel<CPV, true, WITH_NORMED>, ln_qkv_smem_bytes<CPV>()) \
+                     : go(ln_qkv_kernel<CPV, false, WITH_NORMED>, ln_qkv_smem_bytes<CPV>());
+    switch (prod_width(C)) {
+        LNQ_AT(32) LNQ_AT(64) LNQ_AT(128) LNQ_AT(256)
+        case 384: return go(ln_qkv_kernel<384, false, WITH_NORMED>, ln_qkv_smem_bytes<384>());
+        default: return go(ln_qkv_kernel<512, false, WITH_NORMED>, ln_qkv_smem_bytes<512>());
     }
+#undef LNQ_AT
 }
 
 }  // namespace

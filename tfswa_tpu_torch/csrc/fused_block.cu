@@ -72,6 +72,17 @@
 // The training form and B3 are the same code instantiated with template
 // flags, so the serving form's instructions are unchanged.
 //
+// Widths.  Every C a multiple of 8 up to 512 and every H dividing it
+// (head_plan, block_common.cuh): the product launches run at CP = C
+// rounded up to 32, 64, 128, 256, 384 or 512 (post_kernel 32 tokens a
+// block at CP >= 384, for shared memory), their tiles zero past C; q|k|v
+// is written with each head padded to DP channels of zeros (W_qkv's
+// columns padded by the caller), which attn_kernel takes up to DP = 32 and
+// attn_wide_kernel above (q staged in shared memory, the output in parts
+// of up to 128 channels); both write the attention output and den in the
+// block's layout.  At the flagship's widths CP = C and DP = D: the
+// instructions are those of the per-width kernels before.
+//
 // The kernel lab (L; replaces tools/kernel_lab.py _kernel_prod and its stage
 // and flag forms, launched there by _call_kernel) is B1 cut at a stage or
 // with one step of its score -> p line changed, also by template
@@ -166,40 +177,63 @@ qk_scale_kernel(const bf16* __restrict__ qkv, float* __restrict__ scales, int N,
 // largest |k_h| over the row's N keys, into kmax (R, H) f32.  INT8 (B3)
 // also quantises the row's k with its scale (scales (R, 2)) into the k
 // half of qk (R*N, 2C) int8, as 32-bit words: once a row, for every query
-// block of the attention.  One block per row; each thread keeps one head
-// (NORM_THREADS is a multiple of H).
+// block of the attention.  C, H: the padded layout (CA, HK).  One block per
+// row; where H divides NORM_THREADS each thread keeps one head, else
+// (H up to MAX_NORM_HEADS) the threads walk (key, head) pairs and the
+// heads' maxima meet in shared memory (atomicMax on the bits of
+// non-negative floats: the same maximum in any order).
 constexpr int NORM_THREADS = 256;
+constexpr int MAX_NORM_HEADS = 512;
+template <bool INT8>
+__device__ __forceinline__ float key_norm2(const bf16* kp, int D, int* qk_word, float sk) {
+    float k2 = 0.f;
+    for (int d = 0; d < D; d += 4) {
+        const uint2 w = *reinterpret_cast<const uint2*>(kp + d);
+        k2 += sq_bf16x2(w.x) + sq_bf16x2(w.y);
+        if constexpr (INT8)
+            qk_word[d / 4] = pack4(quant_i8(__uint_as_float(w.x << 16), sk),
+                                   quant_i8(__uint_as_float(w.x & 0xffff0000u), sk),
+                                   quant_i8(__uint_as_float(w.y << 16), sk),
+                                   quant_i8(__uint_as_float(w.y & 0xffff0000u), sk));
+    }
+    return k2;
+}
+
 template <bool INT8>
 __global__ void __launch_bounds__(NORM_THREADS)
 k_norm_kernel(const bf16* __restrict__ qkv, float* __restrict__ kmax,
               const float* __restrict__ scales, int* __restrict__ qk, int N, int C, int H) {
-    __shared__ float red[NORM_THREADS];
-    const int D = C / H, h = threadIdx.x % H, step = NORM_THREADS / H;
+    __shared__ float red[NORM_THREADS > MAX_NORM_HEADS ? NORM_THREADS : MAX_NORM_HEADS];
+    const int D = C / H;
     const size_t row0 = (size_t)blockIdx.x * N;
-    const bf16* kcol = qkv + row0 * 3 * C + C + h * D;
     const float sk = INT8 ? scales[2 * blockIdx.x + 1] : 0.f;
-    float km = 0.f;
-    for (int j = threadIdx.x / H; j < N; j += step) {
-        const bf16* kp = kcol + (size_t)j * 3 * C;
-        float k2 = 0.f;
-        for (int d = 0; d < D; d += 4) {
-            const uint2 w = *reinterpret_cast<const uint2*>(kp + d);
-            k2 += sq_bf16x2(w.x) + sq_bf16x2(w.y);
-            if constexpr (INT8)
-                qk[((row0 + j) * 2 * C + C + h * D + d) / 4] =
-                    pack4(quant_i8(__uint_as_float(w.x << 16), sk),
-                          quant_i8(__uint_as_float(w.x & 0xffff0000u), sk),
-                          quant_i8(__uint_as_float(w.y << 16), sk),
-                          quant_i8(__uint_as_float(w.y & 0xffff0000u), sk));
+    auto word = [&](int j, int h) { return qk + ((row0 + j) * 2 * C + C + h * D) / 4; };
+    if (NORM_THREADS % H == 0) {
+        const int h = threadIdx.x % H, step = NORM_THREADS / H;
+        const bf16* kcol = qkv + row0 * 3 * C + C + h * D;
+        float km = 0.f;
+        for (int j = threadIdx.x / H; j < N; j += step)
+            km = fmaxf(km, key_norm2<INT8>(kcol + (size_t)j * 3 * C, D, word(j, h), sk));
+        red[threadIdx.x] = km;
+        __syncthreads();
+        if (threadIdx.x < H) {
+            for (int t = threadIdx.x + H; t < NORM_THREADS; t += H) km = fmaxf(km, red[t]);
+            kmax[(size_t)blockIdx.x * H + threadIdx.x] = sqrtf(km);
         }
-        km = fmaxf(km, k2);
+        return;
     }
-    red[threadIdx.x] = km;
+    unsigned* bits = reinterpret_cast<unsigned*>(red);
+    for (int h = threadIdx.x; h < H; h += NORM_THREADS) bits[h] = 0u;
     __syncthreads();
-    if (threadIdx.x < H) {
-        for (int t = threadIdx.x + H; t < NORM_THREADS; t += H) km = fmaxf(km, red[t]);
-        kmax[(size_t)blockIdx.x * H + threadIdx.x] = sqrtf(km);
+    for (int i = threadIdx.x; i < N * H; i += NORM_THREADS) {
+        const int j = i / H, h = i % H;
+        const float k2 =
+            key_norm2<INT8>(qkv + (row0 + j) * 3 * C + C + h * D, D, word(j, h), sk);
+        atomicMax(bits + h, __float_as_uint(k2));
     }
+    __syncthreads();
+    for (int h = threadIdx.x; h < H; h += NORM_THREADS)
+        kmax[(size_t)blockIdx.x * H + h] = sqrtf(__uint_as_float(bits[h]));
 }
 
 // 2. Attention on the tensor cores.  One block per (row, 16 NW queries),
@@ -317,15 +351,22 @@ __device__ __forceinline__ void exp2_line(float (&s)[2][4], int nvalid, bool saf
     }
 }
 
-template <int D, bool WITH_DEN, bool INT8, int STAGE = STAGE_FULL, int FLAGS = 0>
+template <int D, bool WITH_DEN, bool INT8, int STAGE = STAGE_FULL, int FLAGS = 0,
+          bool EXACT = true>
 __global__ void __launch_bounds__(32 * AT_MAX_WARPS, 3)
 attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ kmax,
             bf16* __restrict__ out, float* __restrict__ den_out,
             const float* __restrict__ scales, int* __restrict__ qk_out, int N, int C, int H,
-            int nqb, int ak, float* __restrict__ lab, float* __restrict__ sink) {
+            int ct, int ht, int dt, int nqb, int ak, float* __restrict__ lab,
+            float* __restrict__ sink) {
     static_assert(STAGE == STAGE_FULL || (!WITH_DEN && !INT8 && FLAGS == 0),
                   "the lab cuts B1's serving form, flags only on the full attention");
     static_assert(D == 4 || D == 8 || D == 16 || D == 32, "head dim");
+    // C, H, D: the padded layout (CA, HK, DP; see head_plan); Ct, Ht, Dt:
+    // the block's, which every output takes (EXACT: the same, D at compile
+    // time)
+    const int Ct = EXACT ? C : ct, Ht = EXACT ? H : ht, Dt = EXACT ? D : dt;
+    const bool even = EXACT ? D % 2 == 0 : (Dt & 1) == 0;
     constexpr int HP = AT_LANES / D;             // heads a pass
     constexpr int VT = D < 8 ? 1 : D / 8;        // n-tiles of a head's v
     constexpr int OT = D < 8 ? 1 : VT + 1;       // ... with its ones column
@@ -540,16 +581,16 @@ attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ kmax,
                         // p's bf16 pairs, as P V would take them, kept in
                         // a checksum; p of the queries n < D written out
                         chk_bits ^= pf[0] ^ pf[1] ^ pf[2] ^ pf[3];
-                        if (qrow < D) {
-                            const int h = l0 / D + hh;
+                        const int h = l0 / D + hh;
+                        if (qrow < Dt && h < Ht) {
 #pragma unroll
                             for (int j = 0; j < 2; ++j)
 #pragma unroll
                                 for (int e = 0; e < 4; ++e) {
                                     const int n = qrow + g + 8 * (e >> 1);
                                     const int key = k0 + kc + 8 * j + 2 * q + (e & 1);
-                                    if (n < D && key < N)
-                                        out[(row0 + key) * C + h * D + n] =
+                                    if (n < Dt && key < N)
+                                        out[(row0 + key) * Ct + h * Dt + n] =
                                             __float2bfloat16(s[j][e]);
                                 }
                         }
@@ -620,18 +661,17 @@ attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ kmax,
                             part[t][0] += a0;
                             part[t][1] += a1;
                         }
-                    } else if (n < N) {
-                        *reinterpret_cast<__nv_bfloat162*>(out + (row0 + n) * C + h * D + d) =
-                            __floats2bfloat162_rn(a0, a1);
+                    } else if (n < N && h < Ht) {
+                        store_head_pair(out + (row0 + n) * Ct + h * Dt + d, a0, a1, Dt - d, even);
                     }
                 }
             }
             if constexpr (WITH_DEN) {
-                if (q == dq) {
+                if (q == dq && h < Ht) {
 #pragma unroll
                     for (int hr = 0; hr < 2; ++hr) {
                         const int n = qrow + g + 8 * hr;
-                        if (n < N) den_out[(r * H + h) * N + n] = den[hr];
+                        if (n < N) den_out[(r * Ht + h) * N + n] = den[hr];
                     }
                 }
             }
@@ -662,7 +702,7 @@ attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ kmax,
                 float sum = 0.f;
                 for (int w = 0; w < nw; ++w) sum += red[w * AT_LANES + threadIdx.x];
                 const int c = l0 + threadIdx.x, h = c / D;
-                lab[((r * H + h) * nqb + qb) * D + c % D] = sum;
+                if (h < Ht && c % D < Dt) lab[((r * Ht + h) * nqb + qb) * Dt + c % D] = sum;
             }
             __syncthreads();
         }
@@ -677,9 +717,343 @@ attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ kmax,
     }
 }
 
+// 2'. The attention of a head wider than a pass (DP = 64 .. 512, one head a
+// pass): attn_kernel's function, arithmetic and forms (B1, B1-train, B3,
+// the lab's cuts and flags) at a head width whose q fragments, k fragments
+// and output no longer fit registers.  One block per (row, 16 NW queries),
+// as attn_kernel; per head:
+//   - the block's queries' DP channels of q are staged once in shared
+//     memory (bf16 by cp.async; INT8: quantised here to int8 and written
+//     to qk_out), and each score's A fragments come from there by ldmatrix
+//     (int8: the same bytes read as bf16 pairs), DP / 16 k16 steps (INT8:
+//     DP / 32 k32 steps) a 16-key chunk;
+//   - the keys stream through shared memory AK at a time: the head's DP
+//     channels of k (INT8: its int8 bytes, quantised once a row by
+//     k_norm_kernel<true>) and OW channels of v;
+//   - the output goes in parts of OW = min(DP, 128) channels (an OW + 8
+//     column accumulator with the ones column, the denominator); each part
+//     streams the keys again and recomputes the scores and p, the same
+//     bits each time (the same products in the same order), so that a
+//     part's accumulators stay in registers.  The lab's scores and exp2
+//     cuts have no output part and run once.
+// The score -> p line, the exp2 bound (the warp's largest |q_h| from the
+// staged q) and the ones column are attn_kernel's.
+template <int DP>
+struct Wide {
+    static constexpr int OW = DP < 128 ? DP : 128;   // output channels a part
+    static constexpr int PARTS = DP / OW;
+    static constexpr int OT = OW / 8;                // n-tiles of a part, the ones column after
+    static constexpr int LDQ = DP + 8;               // bf16 a staged q or k row
+    static constexpr int LD8 = DP + 16;              // bytes an int8 q or k row
+    static constexpr int LDV = OW + 8;               // bf16 a staged v row
+    static constexpr int AK = DP >= 512 ? 32 : 64;   // keys a tile
+    static constexpr int QROWS = 16 * AT_MAX_WARPS;
+};
+
+template <int DP, bool INT8>
+constexpr size_t wide_smem_bytes() {
+    using W = Wide<DP>;
+    return (INT8 ? (size_t)W::QROWS * W::LD8 + 2 * W::AK * W::LD8
+                 : sizeof(bf16) * ((size_t)W::QROWS * W::LDQ + 2 * W::AK * W::LDQ))
+           + sizeof(bf16) * 2 * W::AK * W::LDV + sizeof(float) * AT_MAX_WARPS * W::OW;
+}
+
+template <int DP, bool WITH_DEN, bool INT8, int STAGE = STAGE_FULL, int FLAGS = 0>
+__global__ void __launch_bounds__(32 * AT_MAX_WARPS, 1)
+attn_wide_kernel(const bf16* __restrict__ qkv, const float* __restrict__ kmax,
+                 bf16* __restrict__ out, float* __restrict__ den_out,
+                 const float* __restrict__ scales, int* __restrict__ qk_out, int N, int C,
+                 int H, int Ct, int Ht, int Dt, int nqb, float* __restrict__ lab,
+                 float* __restrict__ sink) {
+    static_assert(STAGE == STAGE_FULL || (!WITH_DEN && !INT8 && FLAGS == 0),
+                  "the lab cuts B1's serving form, flags only on the full attention");
+    static_assert(DP >= 64 && DP <= 512 && (DP & (DP - 1)) == 0, "wide head dim");
+    using W = Wide<DP>;
+    constexpr bool SPLIT = (FLAGS & P_F32) != 0 && (FLAGS & SCORE_BF16) == 0;
+    constexpr bool BOUND = STAGE >= STAGE_EXP2 && (FLAGS & SCORE_BF16) == 0;
+    constexpr int AK = W::AK;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    // q rows, two key tiles (k), two v tiles, the lab's sums
+    unsigned char* qbase = smem_raw;
+    unsigned char* kbase = qbase + (INT8 ? (size_t)W::QROWS * W::LD8
+                                         : sizeof(bf16) * W::QROWS * W::LDQ);
+    bf16* vbase = reinterpret_cast<bf16*>(
+        kbase + (INT8 ? (size_t)2 * AK * W::LD8 : sizeof(bf16) * 2 * AK * W::LDQ));
+    float* red = reinterpret_cast<float*>(vbase + 2 * AK * W::LDV);
+    const int nw = blockDim.x >> 5;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, q = lane & 3;
+    const int qb = blockIdx.x % nqb;
+    const size_t r = blockIdx.x / nqb;
+    const size_t row0 = r * N;
+    const int q0 = qb * 16 * nw;                 // the block's first query
+    const int qrow = q0 + warp * 16;             // the warp's
+    const int ldq = 3 * C;
+    const int nkt = (N + AK - 1) / AK;
+    const bool even = (Dt & 1) == 0;
+    signed char* qk8 = reinterpret_cast<signed char*>(qk_out);
+    float sk = 0.f, ss = 0.f, sq = 0.f;
+    if constexpr (INT8) {
+        sq = scales[2 * r];
+        sk = scales[2 * r + 1];
+        ss = sq * sk;
+    }
+    float chk = 0.f;
+    uint32_t chk_bits = 0u;
+    const uint32_t ones_b = g == 0 ? BF16_ONES : 0u;
+
+    for (int h = 0; h < Ht; ++h) {
+        __syncthreads();          // the previous head is done with the q rows
+        if constexpr (INT8) {
+            for (int i = threadIdx.x; i < 16 * nw * DP; i += blockDim.x) {
+                const int rr = i / DP, c = i % DP, n = q0 + rr;
+                int v8 = 0;
+                if (n < N) {
+                    v8 = quant_i8(ld(qkv + (row0 + n) * ldq + h * DP + c), sq);
+                    qk8[(row0 + n) * 2 * C + h * DP + c] = (signed char)v8;
+                }
+                qbase[rr * W::LD8 + c] = (unsigned char)(v8 & 0xff);
+            }
+        } else {
+            bf16* qs = reinterpret_cast<bf16*>(qbase);
+            for (int i = threadIdx.x; i < 16 * nw * (DP / 8); i += blockDim.x) {
+                const int rr = i / (DP / 8), c = (i % (DP / 8)) * 8, n = q0 + rr;
+                const bool valid = n < N;
+                cp_async16(qs + rr * W::LDQ + c, qkv + (row0 + (valid ? n : 0)) * ldq + h * DP + c,
+                           valid);
+            }
+            cp_async_commit();
+            cp_async_wait<0>();
+        }
+        __syncthreads();
+        // the exp2 bound of attn_kernel: the warp's largest |q_h| (the
+        // staged q; INT8: its int8 values times sq) and the row's largest
+        // |k_h|
+        bool safe = false;
+        if (BOUND && kmax != nullptr) {
+            float qn = 0.f;
+            for (int rr = 0; rr < 16; ++rr) {
+                float q2 = 0.f;
+                for (int c = lane; c < DP; c += 32) {
+                    float v;
+                    if constexpr (INT8)
+                        v = (float)(signed char)qbase[(warp * 16 + rr) * W::LD8 + c];
+                    else
+                        v = __bfloat162float(
+                            reinterpret_cast<const bf16*>(qbase)[(warp * 16 + rr) * W::LDQ + c]);
+                    q2 += v * v;
+                }
+                qn = fmaxf(qn, warp_sum(q2));
+            }
+            qn = sqrtf(qn);
+            float kn = kmax[r * H + h];
+            if constexpr (INT8) {
+                qn *= sq;
+                kn += 0.5f * sqrtf((float)DP) * sk;
+            }
+            safe = qn * kn <= SAFE_BOUND;
+        }
+        const bf16* qw = reinterpret_cast<const bf16*>(qbase) + warp * 16 * W::LDQ;
+        const bf16* q8w = reinterpret_cast<const bf16*>(qbase + warp * 16 * W::LD8);
+        constexpr int NPARTS = STAGE == STAGE_SCORES || STAGE == STAGE_EXP2 ? 1 : W::PARTS;
+        for (int part = 0; part < NPARTS; ++part) {
+            const int v0 = part * W::OW;         // the part's first channel of the head
+            float o[W::OT + 1][4];
+            zero(o);
+            auto load = [&](int kt) {
+                const int k0 = kt * AK;
+                constexpr int KCH = INT8 ? DP / 16 : DP / 8;   // 16-byte chunks of a key
+                constexpr int VCH = STAGE >= STAGE_AV ? W::OW / 8 : 0;
+                for (int i = threadIdx.x; i < AK * (KCH + VCH); i += blockDim.x) {
+                    const int j = i / (KCH + VCH), c = i % (KCH + VCH);
+                    const bool valid = k0 + j < N;
+                    const size_t tok = row0 + (valid ? k0 + j : 0);
+                    if (c >= KCH) {
+                        cp_async16(vbase + ((kt & 1) * AK + j) * W::LDV + 8 * (c - KCH),
+                                   qkv + tok * ldq + 2 * C + h * DP + v0 + 8 * (c - KCH), valid);
+                    } else if constexpr (INT8) {
+                        cp_async16(reinterpret_cast<bf16*>(kbase + ((kt & 1) * AK + j) * W::LD8
+                                                           + 16 * c),
+                                   reinterpret_cast<const bf16*>(qk8 + tok * 2 * C + C + h * DP
+                                                                 + 16 * c),
+                                   valid);
+                    } else {
+                        cp_async16(reinterpret_cast<bf16*>(kbase) + ((kt & 1) * AK + j) * W::LDQ
+                                       + 8 * c,
+                                   qkv + tok * ldq + C + h * DP + 8 * c, valid);
+                    }
+                }
+            };
+            load(0);
+            cp_async_commit();
+            for (int kt = 0; kt < nkt; ++kt) {
+                const int k0 = kt * AK;
+                if (kt + 1 < nkt) load(kt + 1);
+                cp_async_commit();
+                cp_async_wait<1>();
+                __syncthreads();
+                const bf16* ktile = reinterpret_cast<const bf16*>(kbase) + (kt & 1) * AK * W::LDQ;
+                const bf16* k8tile =
+                    reinterpret_cast<const bf16*>(kbase + (size_t)(kt & 1) * AK * W::LD8);
+                const bf16* vtile = vbase + (kt & 1) * AK * W::LDV;
+                for (int kc = 0; kc < AK && k0 + kc < N; kc += 16) {
+                    const int nvalid = min(16, N - k0 - kc);
+                    float s[2][4];
+                    if constexpr (INT8) {
+                        int si[2][4] = {};
+#pragma unroll
+                        for (int ks = 0; ks < DP / 32; ++ks) {
+                            uint32_t af[4], kf[4];
+                            ldsm_a(af, q8w, W::LD8 / 2, 16 * ks);
+                            ldsm_b_nmajor(kf, k8tile, W::LD8 / 2, 16 * ks, kc);
+                            mma_s8(si[0], af, kf[0], kf[1]);
+                            mma_s8(si[1], af, kf[2], kf[3]);
+                        }
+#pragma unroll
+                        for (int j = 0; j < 2; ++j)
+#pragma unroll
+                            for (int e = 0; e < 4; ++e) s[j][e] = (float)si[j][e] * ss;
+                    } else {
+                        zero(s);
+#pragma unroll
+                        for (int ks = 0; ks < DP / 16; ++ks) {
+                            uint32_t af[4], kf[4];
+                            ldsm_a(af, qw, W::LDQ, 16 * ks);
+                            ldsm_b_nmajor(kf, ktile, W::LDQ, 16 * ks, kc);
+                            mma_bf16(s[0], af, kf[0], kf[1]);
+                            mma_bf16(s[1], af, kf[2], kf[3]);
+                        }
+                    }
+                    if constexpr (STAGE == STAGE_SCORES) {
+#pragma unroll
+                        for (int j = 0; j < 2; ++j)
+#pragma unroll
+                            for (int e = 0; e < 4; ++e) chk += s[j][e];
+                        continue;
+                    }
+                    exp2_line<FLAGS>(s, nvalid, safe);
+                    uint32_t pf[4];
+                    pack_a(pf, s[0], s[1]);
+                    if constexpr (STAGE == STAGE_EXP2) {
+                        chk_bits ^= pf[0] ^ pf[1] ^ pf[2] ^ pf[3];
+                        if (qrow < Dt) {
+#pragma unroll
+                            for (int j = 0; j < 2; ++j)
+#pragma unroll
+                                for (int e = 0; e < 4; ++e) {
+                                    const int n = qrow + g + 8 * (e >> 1);
+                                    const int key = k0 + kc + 8 * j + 2 * q + (e & 1);
+                                    if (n < Dt && key < N)
+                                        out[(row0 + key) * Ct + h * Dt + n] =
+                                            __float2bfloat16(s[j][e]);
+                                }
+                        }
+                        continue;
+                    }
+                    uint32_t pl[4];
+                    if constexpr (SPLIT) {
+                        float lo[2][4];
+#pragma unroll
+                        for (int j = 0; j < 2; ++j)
+#pragma unroll
+                            for (int e = 0; e < 4; ++e) {
+                                const float hi = round_bf16(s[j][e]);
+                                lo[j][e] = fabsf(hi) < INFINITY ? s[j][e] - hi : 0.f;
+                            }
+                        pack_a(pl, lo[0], lo[1]);
+                    }
+#pragma unroll
+                    for (int u = 0; u < W::OT / 2; ++u) {
+                        uint32_t b[4];
+                        ldsm_b_kmajor(b, vtile, W::LDV, kc, 16 * u);
+                        mma_bf16(o[2 * u], pf, b[0], b[1]);
+                        mma_bf16(o[2 * u + 1], pf, b[2], b[3]);
+                        if constexpr (SPLIT) {
+                            mma_bf16(o[2 * u], pl, b[0], b[1]);
+                            mma_bf16(o[2 * u + 1], pl, b[2], b[3]);
+                        }
+                    }
+                    mma_bf16(o[W::OT], pf, ones_b, ones_b);
+                    if constexpr (SPLIT) mma_bf16(o[W::OT], pl, ones_b, ones_b);
+                }
+                __syncthreads();  // the buffers are free before they are refilled
+            }
+            if constexpr (STAGE == STAGE_SCORES || STAGE == STAGE_EXP2) continue;
+            // acc = (sum p v) / (sum p): the denominator is column 0 of the
+            // ones n-tile, held by thread q = 0 of each quad
+            float den[2];
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr)
+                den[hr] = __shfl_sync(0xffffffffu, o[W::OT][2 * hr], lane & ~3);
+            float psum[W::OT][2] = {};
+#pragma unroll
+            for (int t = 0; t < W::OT; ++t) {
+                const int d = v0 + 8 * t + 2 * q;
+#pragma unroll
+                for (int hr = 0; hr < 2; ++hr) {
+                    const int n = qrow + g + 8 * hr;
+                    const float a0 = o[t][2 * hr] / den[hr];
+                    const float a1 = o[t][2 * hr + 1] / den[hr];
+                    if constexpr (STAGE == STAGE_AV) {
+                        if (n < N) {
+                            psum[t][0] += a0;
+                            psum[t][1] += a1;
+                        }
+                    } else if (n < N) {
+                        store_head_pair(out + (row0 + n) * Ct + h * Dt + d, a0, a1, Dt - d, even);
+                    }
+                }
+            }
+            if constexpr (WITH_DEN) {
+                if (part == 0 && q == 0) {
+#pragma unroll
+                    for (int hr = 0; hr < 2; ++hr) {
+                        const int n = qrow + g + 8 * hr;
+                        if (n < N) den_out[(r * Ht + h) * N + n] = den[hr];
+                    }
+                }
+            }
+            if constexpr (STAGE == STAGE_AV) {
+#pragma unroll
+                for (int t = 0; t < W::OT; ++t)
+#pragma unroll
+                    for (int i = 0; i < 2; ++i)
+#pragma unroll
+                        for (int o_ = 4; o_ < 32; o_ <<= 1)
+                            psum[t][i] += __shfl_xor_sync(0xffffffffu, psum[t][i], o_);
+                if (g == 0) {
+#pragma unroll
+                    for (int t = 0; t < W::OT; ++t) {
+                        red[warp * W::OW + 8 * t + 2 * q] = psum[t][0];
+                        red[warp * W::OW + 8 * t + 2 * q + 1] = psum[t][1];
+                    }
+                }
+                __syncthreads();
+                if (threadIdx.x < W::OW) {
+                    float sum = 0.f;
+                    for (int w = 0; w < nw; ++w) sum += red[w * W::OW + threadIdx.x];
+                    const int d = v0 + threadIdx.x;
+                    if (d < Dt) lab[((r * Ht + h) * nqb + qb) * Dt + d] = sum;
+                }
+                __syncthreads();
+            }
+        }
+    }
+    if constexpr (STAGE == STAGE_SCORES) {
+        chk = warp_sum(chk);
+        if (lane == 0) sink[(size_t)blockIdx.x * nw + warp] = chk;
+    } else if constexpr (STAGE == STAGE_EXP2) {
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) chk_bits ^= __shfl_xor_sync(0xffffffffu, chk_bits, o);
+        if (lane == 0) sink[(size_t)blockIdx.x * nw + warp] = __uint_as_float(chk_bits);
+    }
+}
+
 // 3. Out-projection + residual + LN2 + MLP + residual, on the tensor
-// cores.  64 tokens a block, 8 warps: warp w owns tokens 16 (w % 4) ..
-// + 15 and, in every product, half w / 4 of the chunk's columns.
+// cores.  POST_TOK = 64 tokens a block (32 at CP >= 384, so that shared
+// memory holds the f32 y), 8 warps: warp w owns tokens 16 (w % RG) .. + 15
+// (RG = tokens / 16 row groups) and, in every product, part w / RG of the
+// CS = 8 / RG parts of the chunk's columns.
 //   y = x + (bf16(acc) Wo + bo) into the f32 tile sy (the attention output
 //       acc is the bf16 A tile sa);
 //   n2 = bf16(LN2(y)) (f32 statistics) over sa, the A tile of fc1;
@@ -691,62 +1065,76 @@ attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ kmax,
 //       columns and fc2's rows past hidden as zeros and b1 as 0 there, so
 //       its units past hidden add GELU(0) * 0 = 0;
 //   out = bf16(y + (fc2 + b2)).
+// The tiles are CP = prod_width(C) wide: x and acc zero past C, every
+// weight read as zeros past C (block_gemm's k_valid, n_valid) and bo, b2 as
+// 0 there, so y and n2 stay 0 past C and nothing past C is written.
 // Each weight is streamed through shared memory in k-slices (block_gemm).
 // WITH_MID also writes mid = bf16(y), the residual stream after the
 // attention half.  ATTN_ONLY (the lab's stage attn) writes bf16(y) to out
 // and stops there; it needs no sh.
-constexpr int POST_TOK = 64;
 constexpr int POST_THREADS = 256;
 constexpr int HC = 128;            // hidden units a chunk of the MLP
 
-template <int C, bool ATTN_ONLY>
+template <int CP>
+__host__ __device__ constexpr int post_tok() { return CP >= 384 ? 32 : 64; }
+
+template <int CP, bool ATTN_ONLY>
 constexpr size_t post_smem_bytes() {
-    return sizeof(float) * POST_TOK * (C + 8)                       // sy
-           + sizeof(bf16) * (POST_TOK * (C + 8)                     // sa
-                             + 2 * KS * ((C > HC ? C : HC) + 8)     // wbuf
-                             + (ATTN_ONLY ? 0 : POST_TOK * (HC + 8)));   // sh
+    constexpr size_t T = post_tok<CP>();
+    return sizeof(float) * T * (CP + 8)                        // sy
+           + sizeof(bf16) * (T * (CP + 8)                      // sa
+                             + 2 * KS * ((CP > HC ? CP : HC) + 8)     // wbuf
+                             + (ATTN_ONLY ? 0 : T * (HC + 8)));      // sh
 }
 
-template <int C, bool WITH_MID, bool ATTN_ONLY = false>
+template <int CP, bool EXACT, bool WITH_MID, bool ATTN_ONLY = false>
 __global__ void __launch_bounds__(POST_THREADS)
 post_kernel(const bf16* __restrict__ x, const bf16* __restrict__ attn,
             const bf16* __restrict__ wo, const bf16* __restrict__ bo,
             const bf16* __restrict__ ln_s, const bf16* __restrict__ ln_b,
             const bf16* __restrict__ w1, const bf16* __restrict__ b1,
             const bf16* __restrict__ w2, const bf16* __restrict__ b2,
-            bf16* __restrict__ out, bf16* __restrict__ mid, int M, int hidden) {
-    constexpr int LDY = C + 8, LDA = C + 8, LDH = HC + 8;
-    constexpr int PNCH = C < 128 ? C : 128;   // out-projection columns a chunk
-    constexpr int PNT = PNCH / 16;            // n-tiles a warp: out-projection,
-    constexpr int FNT = HC / 16;              // fc1,
-    constexpr int ONT = C / 16;               // fc2 (its sums live across chunks)
+            bf16* __restrict__ out, bf16* __restrict__ mid, int M, int hidden, int c) {
+    const int C = EXACT ? CP : c;     // EXACT: C = CP, known at compile time
+    constexpr int TOK = post_tok<CP>();
+    constexpr int RG = TOK / 16;              // row groups of 16 tokens
+    constexpr int CS = 8 / RG;                // column parts
+    constexpr int LDY = CP + 8, LDA = CP + 8, LDH = HC + 8;
+    constexpr int PNCH = CP < 128 ? CP : 128;   // out-projection columns a chunk
+    constexpr int PNT = PNCH / (8 * CS);        // n-tiles a warp: out-projection,
+    constexpr int FNT = HC / (8 * CS);          // fc1,
+    constexpr int ONT = CP / (8 * CS);          // fc2 (its sums live across chunks)
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    float* sy = reinterpret_cast<float*>(smem_raw);        // 64 x LDY  y, f32
-    bf16* sa = reinterpret_cast<bf16*>(sy + POST_TOK * LDY);   // 64 x LDA  acc, then n2
-    bf16* wbuf = sa + POST_TOK * LDA;                       // block_gemm's buffers
-    bf16* sh = wbuf + 2 * KS * ((C > HC ? C : HC) + 8);     // 64 x LDH  GELU chunk
+    float* sy = reinterpret_cast<float*>(smem_raw);        // TOK x LDY  y, f32
+    bf16* sa = reinterpret_cast<bf16*>(sy + TOK * LDY);     // TOK x LDA  acc, then n2
+    bf16* wbuf = sa + TOK * LDA;                            // block_gemm's buffers
+    bf16* sh = wbuf + 2 * KS * ((CP > HC ? CP : HC) + 8);   // TOK x LDH  GELU chunk
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int g = lane >> 2, q = lane & 3;
-    const int mrow = (warp & 3) * 16;
-    const int half = warp >> 2;
-    const size_t tok0 = (size_t)blockIdx.x * POST_TOK;
-    const int ntok = min(POST_TOK, M - (int)tok0);
-    stage_rows<POST_THREADS>(sa, LDA, attn, C, tok0, POST_TOK, ntok, C);
+    const int mrow = (warp % RG) * 16;
+    const int cpart = warp / RG;
+    const size_t tok0 = (size_t)blockIdx.x * TOK;
+    const int ntok = min(TOK, M - (int)tok0);
+    stage_rows<POST_THREADS>(sa, LDA, attn, C, tok0, TOK, ntok, C);
     cp_async_commit();
-    for (int i = threadIdx.x; i < POST_TOK * C; i += POST_THREADS) {
-        const int t = i / C;
-        sy[t * LDY + i % C] = t < ntok ? ld(x + tok0 * C + i) : 0.f;
+    if (C < CP) {
+        for (int i = threadIdx.x; i < TOK * (CP - C); i += POST_THREADS)
+            sa[(i / (CP - C)) * LDA + C + i % (CP - C)] = __float2bfloat16(0.f);
+    }
+    for (int i = threadIdx.x; i < TOK * CP; i += POST_THREADS) {
+        const int t = i / CP, c = i % CP;
+        sy[t * LDY + c] = t < ntok && c < C ? ld(x + (tok0 + t) * C + c) : 0.f;
     }
     // the out-projection (block_gemm's first barrier orders the loads above)
-    for (int n0 = 0; n0 < C; n0 += PNCH) {
+    for (int n0 = 0; n0 < CP; n0 += PNCH) {
         float acc[PNT][4];
         zero(acc);
-        block_gemm<PNT, PNCH, POST_THREADS>(acc, sa + mrow * LDA, LDA, wo, C, n0, C, wbuf,
-                                            half * PNCH / 2);
+        block_gemm<PNT, PNCH, POST_THREADS>(acc, sa + mrow * LDA, LDA, wo, C, n0, CP, wbuf,
+                                            cpart * PNCH / CS, C, C);
 #pragma unroll
         for (int j = 0; j < PNT; ++j) {
-            const int col = n0 + half * PNCH / 2 + 8 * j + 2 * q;
-            const float b0 = ld(bo + col), b1v = ld(bo + col + 1);
+            const int col = n0 + cpart * PNCH / CS + 8 * j + 2 * q;
+            const float b0 = col < C ? ld(bo + col) : 0.f, b1v = col < C ? ld(bo + col + 1) : 0.f;
 #pragma unroll
             for (int hh = 0; hh < 2; ++hh) {
                 float* yp = sy + (mrow + g + 8 * hh) * LDY + col;
@@ -767,14 +1155,14 @@ post_kernel(const bf16* __restrict__ x, const bf16* __restrict__ attn,
     }
     // LN2 over sa (the out-projection's last barrier freed it); padded
     // tokens (y = 0) normalise to the bias and are never written
-    for (int t = warp * (POST_TOK / 8); t < (warp + 1) * (POST_TOK / 8); ++t) {
-        float v[C / 32];
-        bf16 n[C / 32];
+    for (int t = warp * (TOK / 8); t < (warp + 1) * (TOK / 8); ++t) {
+        float v[CP / 32];
+        bf16 n[CP / 32];
 #pragma unroll
-        for (int i = 0; i < C / 32; ++i) v[i] = sy[t * LDY + lane + 32 * i];
-        layer_norm_row<C>(v, ln_s, ln_b, n);
+        for (int i = 0; i < CP / 32; ++i) v[i] = sy[t * LDY + lane + 32 * i];
+        layer_norm_row<CP>(v, ln_s, ln_b, n, C);
 #pragma unroll
-        for (int i = 0; i < C / 32; ++i) sa[t * LDA + lane + 32 * i] = n[i];
+        for (int i = 0; i < CP / 32; ++i) sa[t * LDA + lane + 32 * i] = n[i];
     }
     // the MLP, HC hidden units at a time
     float o[ONT][4];
@@ -782,11 +1170,11 @@ post_kernel(const bf16* __restrict__ x, const bf16* __restrict__ attn,
     for (int h0 = 0; h0 < hidden; h0 += HC) {
         float f[FNT][4];
         zero(f);
-        block_gemm<FNT, HC, POST_THREADS>(f, sa + mrow * LDA, LDA, w1, hidden, h0, C, wbuf,
-                                          half * HC / 2, 1 << 30, hidden);
+        block_gemm<FNT, HC, POST_THREADS>(f, sa + mrow * LDA, LDA, w1, hidden, h0, CP, wbuf,
+                                          cpart * HC / CS, C, hidden);
 #pragma unroll
         for (int j = 0; j < FNT; ++j) {
-            const int col = half * HC / 2 + 8 * j + 2 * q;
+            const int col = cpart * HC / CS + 8 * j + 2 * q;
             const bool in = h0 + col < hidden;     // a ragged last chunk: b1 = 0 past it
             const float c0 = in ? ld(b1 + h0 + col) : 0.f, c1 = in ? ld(b1 + h0 + col + 1) : 0.f;
 #pragma unroll
@@ -799,12 +1187,13 @@ post_kernel(const bf16* __restrict__ x, const bf16* __restrict__ attn,
             }
         }
         // fc2's share of the chunk (block_gemm's first barrier orders sh)
-        block_gemm<ONT, C, POST_THREADS>(o, sh + mrow * LDH, LDH, w2 + (size_t)h0 * C, C, 0,
-                                         HC, wbuf, half * C / 2, hidden - h0);
+        block_gemm<ONT, CP, POST_THREADS>(o, sh + mrow * LDH, LDH, w2 + (size_t)h0 * C, C, 0,
+                                          HC, wbuf, cpart * CP / CS, hidden - h0, C);
     }
 #pragma unroll
     for (int j = 0; j < ONT; ++j) {
-        const int col = half * C / 2 + 8 * j + 2 * q;
+        const int col = cpart * CP / CS + 8 * j + 2 * q;
+        if (col >= C) continue;
         const float c0 = ld(b2 + col), c1 = ld(b2 + col + 1);
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
@@ -820,7 +1209,8 @@ post_kernel(const bf16* __restrict__ x, const bf16* __restrict__ attn,
 }
 
 // The attention's grid: one block per (row, block of 16 x warps queries),
-// 8 warps and 128-key tiles where N > 64, else 4 warps and 64-key tiles.
+// 8 warps and 128-key tiles where N > 64, else 4 warps and 64-key tiles
+// (attn_wide_kernel: its own key tiles, Wide<DP>::AK).
 struct AttnGrid {
     int threads, nqb, keys;
     size_t blocks;
@@ -832,76 +1222,120 @@ AttnGrid attn_grid(int R, int N) {
     return {32 * warps, nqb, N > 64 ? 128 : 64, (size_t)R * nqb};
 }
 
-// One launch of attn_kernel in the given form.
-// One launch of attn_kernel in the given form, after k_norm_kernel where
-// the form takes the exp2 bound (kmax: R * H floats of scratch) and the
+// One launch of the attention in the given form at padded head dim DP
+// (attn_kernel up to 32, attn_wide_kernel above), after k_norm_kernel where
+// the form takes the exp2 bound (kmax: R * HK floats of scratch) and the
 // rows are longer than one 64-key tile (shorter rows test their scores:
-// the launch and the load would cost more than the test).
-template <int D, bool WITH_DEN, bool INT8, int STAGE = STAGE_FULL, int FLAGS = 0>
+// the launch and the load would cost more than the test).  p: the widths
+// (head_plan of the block's C, H).
+template <int DP, bool WITH_DEN, bool INT8, int STAGE = STAGE_FULL, int FLAGS = 0>
 cudaError_t launch_attn_form(const bf16* qkv, float* kmax, bf16* out, float* den,
                              const float* scales, int* qk_out, float* lab, float* sink, int R,
-                             int N, int C, int H, cudaStream_t stream) {
+                             int N, int C, int H, const HeadPlan& p, cudaStream_t stream) {
     const AttnGrid g = attn_grid(R, N);
-    if (g.blocks > 0x7fffffffULL || NORM_THREADS % H) return cudaErrorInvalidConfiguration;
+    if (g.blocks > 0x7fffffffULL || p.HK > MAX_NORM_HEADS) return cudaErrorInvalidConfiguration;
     cudaError_t err;
     const bool bound = STAGE >= STAGE_EXP2 && (FLAGS & SCORE_BF16) == 0 && N > 64;
     if (bound || INT8) {
         k_norm_kernel<INT8><<<(unsigned)R, NORM_THREADS, 0, stream>>>(qkv, kmax, scales, qk_out,
-                                                                      N, C, H);
+                                                                      N, p.CA, p.HK);
         if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
-    auto kernel = attn_kernel<D, WITH_DEN, INT8, STAGE, FLAGS>;
-    const size_t smem = attn_smem_bytes(g.keys);
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<(unsigned)g.blocks, g.threads, smem, stream>>>(qkv, bound ? kmax : nullptr, out,
-                                                           den, scales, qk_out, N, C, H, g.nqb,
-                                                           g.keys, lab, sink);
-    return cudaGetLastError();
+    auto go = [&](auto kernel, size_t smem, int keys) {
+        cudaError_t e =
+            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return e;
+        if constexpr (DP <= 32)
+            kernel<<<(unsigned)g.blocks, g.threads, smem, stream>>>(
+                qkv, bound ? kmax : nullptr, out, den, scales, qk_out, N, p.CA, p.HK, C, H, p.D,
+                g.nqb, keys, lab, sink);
+        else
+            kernel<<<(unsigned)g.blocks, g.threads, smem, stream>>>(
+                qkv, bound ? kmax : nullptr, out, den, scales, qk_out, N, p.CA, p.HK, C, H, p.D,
+                g.nqb, lab, sink);
+        return cudaGetLastError();
+    };
+    if constexpr (DP <= 32) {
+        // the EXACT form at the flagship's layouts, for B1, B1-train, B3 and
+        // the lab's full form (B1's own instantiation); the lab's cuts and
+        // flag forms take the general one at every width (a build of a
+        // third fewer attention instantiations)
+        if constexpr (STAGE == STAGE_FULL && FLAGS == 0) {
+            if (p.CA == C && p.DP == p.D)
+                return go(attn_kernel<DP, WITH_DEN, INT8, STAGE, FLAGS, true>,
+                          attn_smem_bytes(g.keys), g.keys);
+        }
+        return go(attn_kernel<DP, WITH_DEN, INT8, STAGE, FLAGS, false>, attn_smem_bytes(g.keys),
+                  g.keys);
+    } else
+        return go(attn_wide_kernel<DP, WITH_DEN, INT8, STAGE, FLAGS>,
+                  wide_smem_bytes<DP, INT8>(), 0);
 }
 
-template <int D>
+template <int DP>
 cudaError_t launch_attn(const bf16* qkv, float* kmax, bf16* attn, float* den,
                         const float* scales, int* qk_out, int R, int N, int C, int H,
-                        cudaStream_t stream) {
+                        const HeadPlan& p, cudaStream_t stream) {
     if (scales)
-        return launch_attn_form<D, false, true>(qkv, kmax, attn, nullptr, scales, qk_out,
-                                                nullptr, nullptr, R, N, C, H, stream);
+        return launch_attn_form<DP, false, true>(qkv, kmax, attn, nullptr, scales, qk_out,
+                                                 nullptr, nullptr, R, N, C, H, p, stream);
     if (den)
-        return launch_attn_form<D, true, false>(qkv, kmax, attn, den, nullptr, nullptr, nullptr,
-                                                nullptr, R, N, C, H, stream);
-    return launch_attn_form<D, false, false>(qkv, kmax, attn, nullptr, nullptr, nullptr,
-                                             nullptr, nullptr, R, N, C, H, stream);
+        return launch_attn_form<DP, true, false>(qkv, kmax, attn, den, nullptr, nullptr,
+                                                 nullptr, nullptr, R, N, C, H, p, stream);
+    return launch_attn_form<DP, false, false>(qkv, kmax, attn, nullptr, nullptr, nullptr,
+                                              nullptr, nullptr, R, N, C, H, p, stream);
 }
 
-// 3. The out-projection and (unless ATTN_ONLY) the MLP half, at the given
-// C (32, 64, 128 or 256).
+// CALL(DPV) at the plan's padded head dim dp, its result into err
+#define AT_HEAD_DIM(dp, CALL)                                \
+    switch (dp) {                                            \
+        case 4: err = CALL(4); break;                        \
+        case 8: err = CALL(8); break;                        \
+        case 16: err = CALL(16); break;                      \
+        case 32: err = CALL(32); break;                      \
+        case 64: err = CALL(64); break;                      \
+        case 128: err = CALL(128); break;                    \
+        case 256: err = CALL(256); break;                    \
+        case 512: err = CALL(512); break;                    \
+        default: err = cudaErrorInvalidValue;                \
+    }
+
+// 3. The out-projection and (unless ATTN_ONLY) the MLP half at width C
+// (CP = prod_width(C)).
 template <bool WITH_MID, bool ATTN_ONLY>
 cudaError_t launch_post(const void* x, const bf16* attn, const void* w_o, const void* b_o,
                         const void* ln2_s, const void* ln2_b, const void* w_1,
                         const void* b_1, const void* w_2, const void* b_2, void* out,
                         void* mid, int M, int C, int hidden, cudaStream_t stream) {
     if (hidden <= 0 || hidden % 8) return cudaErrorInvalidValue;
-    auto go = [&](auto kernel, size_t smem) {
+    auto go = [&](auto kernel, size_t smem, int tok) {
         cudaError_t err =
             cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return err;
-        kernel<<<(unsigned)((M + POST_TOK - 1) / POST_TOK), POST_THREADS, smem, stream>>>(
+        kernel<<<(unsigned)((M + tok - 1) / tok), POST_THREADS, smem, stream>>>(
             (const bf16*)x, attn, (const bf16*)w_o, (const bf16*)b_o, (const bf16*)ln2_s,
             (const bf16*)ln2_b, (const bf16*)w_1, (const bf16*)b_1, (const bf16*)w_2,
-            (const bf16*)b_2, (bf16*)out, (bf16*)mid, M, hidden);
+            (const bf16*)b_2, (bf16*)out, (bf16*)mid, M, hidden, C);
         return cudaGetLastError();
     };
-    switch (C) {
-        case 32: return go(post_kernel<32, WITH_MID, ATTN_ONLY>, post_smem_bytes<32, ATTN_ONLY>());
-        case 64: return go(post_kernel<64, WITH_MID, ATTN_ONLY>, post_smem_bytes<64, ATTN_ONLY>());
-        case 128:
-            return go(post_kernel<128, WITH_MID, ATTN_ONLY>, post_smem_bytes<128, ATTN_ONLY>());
-        case 256:
-            return go(post_kernel<256, WITH_MID, ATTN_ONLY>, post_smem_bytes<256, ATTN_ONLY>());
+#define POST_AT(CPV, EX)                                                                    \
+    return go(post_kernel<CPV, EX, WITH_MID, ATTN_ONLY>, post_smem_bytes<CPV, ATTN_ONLY>(),   \
+              post_tok<CPV>());
+    const bool exact = C == prod_width(C);
+    switch (prod_width(C)) {
+        case 32: if (exact) POST_AT(32, true) POST_AT(32, false)
+        case 64: if (exact) POST_AT(64, true) POST_AT(64, false)
+        case 128: if (exact) POST_AT(128, true) POST_AT(128, false)
+        case 256: if (exact) POST_AT(256, true) POST_AT(256, false)
+        case 384: POST_AT(384, false)
+        case 512: POST_AT(512, false)
         default: return cudaErrorInvalidValue;
     }
+#undef POST_AT
 }
+
+// The widths a forward takes: C a multiple of 8 up to 512, H dividing it.
+bool width_ok(int C, int H) { return H > 0 && C > 0 && C % 8 == 0 && C <= 512 && C % H == 0; }
 
 // The whole block: launches 1-3, with B3's scale launch before the
 // attention when scales is non-null.  mid and den: B1-train's exports.
@@ -912,28 +1346,23 @@ cudaError_t forward(const void* x, const void* ln1_s, const void* ln1_b, const v
                     void* den, void* scales, void* qk_out, int R, int N, int C, int H,
                     int hidden, cudaStream_t stream) {
     const int M = R * N;
+    const HeadPlan p = head_plan(C, H);
     cudaError_t err = launch_ln_qkv<false>((const bf16*)x, (const bf16*)ln1_s,
                                            (const bf16*)ln1_b, (const bf16*)w_qkv,
-                                           (bf16*)qkv_buf, nullptr, M, C, stream);
+                                           (bf16*)qkv_buf, nullptr, M, C, p.CA, stream);
     if (err != cudaSuccess) return err;
 
     const bf16* qkv = (const bf16*)qkv_buf;
     if (scales) {
-        qk_scale_kernel<<<(unsigned)R, SCALE_THREADS, 0, stream>>>(qkv, (float*)scales, N, C);
+        qk_scale_kernel<<<(unsigned)R, SCALE_THREADS, 0, stream>>>(qkv, (float*)scales, N, p.CA);
         if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
     bf16* attn = (bf16*)attn_buf;
-    float* km = (float*)kmax_buf;
-    float* dn = (float*)den;
-    const float* sc = (const float*)scales;
-    int* qk = (int*)qk_out;
-    switch (C / H) {
-        case 4: err = launch_attn<4>(qkv, km, attn, dn, sc, qk, R, N, C, H, stream); break;
-        case 8: err = launch_attn<8>(qkv, km, attn, dn, sc, qk, R, N, C, H, stream); break;
-        case 16: err = launch_attn<16>(qkv, km, attn, dn, sc, qk, R, N, C, H, stream); break;
-        case 32: err = launch_attn<32>(qkv, km, attn, dn, sc, qk, R, N, C, H, stream); break;
-        default: return cudaErrorInvalidValue;
-    }
+#define ATTN_AT(DPV)                                                                      \
+    launch_attn<DPV>(qkv, (float*)kmax_buf, attn, (float*)den, (const float*)scales,      \
+                     (int*)qk_out, R, N, C, H, p, stream)
+    AT_HEAD_DIM(p.DP, ATTN_AT)
+#undef ATTN_AT
     if (err != cudaSuccess) return err;
 
     return mid ? launch_post<true, false>(x, attn, w_o, b_o, ln2_s, ln2_b, w_1, b_1, w_2,
@@ -942,34 +1371,37 @@ cudaError_t forward(const void* x, const void* ln1_s, const void* ln1_b, const v
                                            b_2, out, nullptr, M, C, hidden, stream);
 }
 
-// The lab's stage qkv: out = bf16((f32(q) + k) + v), per token and channel.
+// The lab's stage qkv: out = bf16((f32(q) + k) + v), per token and channel
+// of the block's layout (q|k|v in the padded one, p).
 __global__ void qkv_sum_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-                               size_t total, int C) {
+                               size_t total, int C, int D, int DP, int CA) {
     const size_t stride = (size_t)gridDim.x * blockDim.x;
     for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride) {
-        const bf16* t = qkv + (i / C) * 3 * C + i % C;
-        out[i] = __float2bfloat16(ld(t) + ld(t + C) + ld(t + 2 * C));
+        const int c = (int)(i % C);
+        const bf16* t = qkv + (i / C) * 3 * CA + (c / D) * DP + c % D;
+        out[i] = __float2bfloat16(ld(t) + ld(t + CA) + ld(t + 2 * CA));
     }
 }
 
-// The lab's stage scores, its output: out[r, n, c] = q_n . k_c over all C
-// lanes (the sum over heads of s_h[r, query n, key c]) for c < kept =
-// min(C, N), else 0: per row an (N, C) x (C, kept) product in f32, lanes
-// summed in order.  One block per (row, KS_Q queries); the queries' and the
-// kept keys' lanes go through shared memory KS_L at a time; warp w owns
-// queries 8w..8w+7 and lane j the keys j, j + 32, ... (KG = ceil(kept / 32)
-// groups; kept <= 256).
+// The lab's stage scores, its output: out[r, n, c] = q_n . k_c over all CA
+// lanes of the padded layout (the sum over heads of s_h[r, query n, key c];
+// the padding adds exact zeros) for c < kept = min(C, N), else 0: per row
+// an (N, CA) x (CA, kept) product in f32, lanes summed in order.  One block
+// per (row, KS_Q queries); the queries' and the kept keys' lanes go through
+// shared memory KS_L at a time; warp w owns queries 8w..8w+7 and lane j the
+// keys j, j + 32, ... (KG = ceil(kept / 32) groups; kept <= 256).
 constexpr int KS_Q = 32, KS_L = 32, KS_KEYS = 256;
 
 template <int KG>
 __global__ void __launch_bounds__(THREADS)
-kept_scores_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int C) {
+kept_scores_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int C,
+                   int CA) {
     __shared__ __align__(16) float qs[KS_L][KS_Q + 4];   // lane-major: a warp's 8 queries
     __shared__ float ks[32 * KG][KS_L + 1];              // are two float4 loads
     const int nqt = (N + KS_Q - 1) / KS_Q;
     const size_t r = blockIdx.x / nqt;
     const int n0 = (int)(blockIdx.x % nqt) * KS_Q;
-    const int kept = min(C, N), ldq = 3 * C;
+    const int kept = min(C, N), ldq = 3 * CA;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const bf16* row = qkv + r * N * ldq;
     float acc[8][KG];
@@ -977,7 +1409,7 @@ kept_scores_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, 
     for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int m = 0; m < KG; ++m) acc[i][m] = 0.f;
-    for (int l0 = 0; l0 < C; l0 += KS_L) {
+    for (int l0 = 0; l0 < CA; l0 += KS_L) {
         __syncthreads();
         for (int i = threadIdx.x; i < KS_Q * KS_L; i += THREADS) {
             const int n = n0 + i / KS_L;
@@ -985,7 +1417,7 @@ kept_scores_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, 
         }
         for (int i = threadIdx.x; i < 32 * KG * KS_L; i += THREADS) {
             const int j = i / KS_L;
-            ks[j][i % KS_L] = j < kept ? ld(row + (size_t)j * ldq + C + l0 + i % KS_L) : 0.f;
+            ks[j][i % KS_L] = j < kept ? ld(row + (size_t)j * ldq + CA + l0 + i % KS_L) : 0.f;
         }
         __syncthreads();
         for (int l = 0; l < KS_L; ++l) {
@@ -1027,49 +1459,45 @@ __global__ void av_sum_kernel(const float* __restrict__ part, bf16* __restrict__
     for (int n = 0; n < N; ++n) out[(r * N + n) * C + c] = b;
 }
 
-template <int D, int STAGE, int FLAGS>
-cudaError_t launch_attn_lab(const bf16* qkv, float* kmax, bf16* out, float* lab, float* sink,
-                            int R, int N, int C, int H, cudaStream_t stream) {
-    return launch_attn_form<D, false, false, STAGE, FLAGS>(qkv, kmax, out, nullptr, nullptr,
-                                                           nullptr, lab, sink, R, N, C, H,
-                                                           stream);
-}
-
-// The lab's attention at head dim D: a cut stage, or the full attention
-// with the flags.
-template <int D>
+// The lab's attention at padded head dim DP: a cut stage, or the full
+// attention with the flags.  The lab is instantiated for DP up to
+// LAB_MAX_DP (its 11 forms at DP = 256 and 512 would be a third of the
+// library's build; no configuration of the repository has a head wider
+// than 128 channels).
+constexpr int LAB_MAX_DP = 128;
+template <int DP>
 cudaError_t lab_attn(int stage, int flags, const bf16* qkv, float* kmax, bf16* out,
-                     float* lab, float* sink, int R, int N, int C, int H, cudaStream_t stream) {
+                     float* lab, float* sink, int R, int N, int C, int H, const HeadPlan& p,
+                     cudaStream_t stream) {
+#define LAB_FORM(S, F)                                                                     \
+    return launch_attn_form<DP, false, false, S, F>(qkv, kmax, out, nullptr, nullptr,      \
+                                                    nullptr, lab, sink, R, N, C, H, p, stream);
     switch (stage) {
-        case STAGE_SCORES:
-            return launch_attn_lab<D, STAGE_SCORES, 0>(qkv, kmax, out, lab, sink, R, N, C, H,
-                                                       stream);
-        case STAGE_EXP2:
-            return launch_attn_lab<D, STAGE_EXP2, 0>(qkv, kmax, out, lab, sink, R, N, C, H,
-                                                     stream);
-        case STAGE_AV:
-            return launch_attn_lab<D, STAGE_AV, 0>(qkv, kmax, out, lab, sink, R, N, C, H,
-                                                   stream);
-        default:
-            break;
+        case STAGE_SCORES: LAB_FORM(STAGE_SCORES, 0)
+        case STAGE_EXP2: LAB_FORM(STAGE_EXP2, 0)
+        case STAGE_AV: LAB_FORM(STAGE_AV, 0)
+        default: break;
     }
-#define LAB_FLAGS(F)                                                                       \
-    case F:                                                                                \
-        return launch_attn_lab<D, STAGE_FULL, F>(qkv, kmax, out, lab, sink, R, N, C, H, stream);
     switch (flags) {
-        LAB_FLAGS(0) LAB_FLAGS(1) LAB_FLAGS(2) LAB_FLAGS(3)
-        LAB_FLAGS(4) LAB_FLAGS(5) LAB_FLAGS(6) LAB_FLAGS(7)
+        case 0: LAB_FORM(STAGE_FULL, 0)
+        case 1: LAB_FORM(STAGE_FULL, 1)
+        case 2: LAB_FORM(STAGE_FULL, 2)
+        case 3: LAB_FORM(STAGE_FULL, 3)
+        case 4: LAB_FORM(STAGE_FULL, 4)
+        case 5: LAB_FORM(STAGE_FULL, 5)
+        case 6: LAB_FORM(STAGE_FULL, 6)
+        case 7: LAB_FORM(STAGE_FULL, 7)
         default: return cudaErrorInvalidValue;
     }
-#undef LAB_FLAGS
+#undef LAB_FORM
 }
 
 // Scratch of a lab launch, in floats: from stage scores on the rows'
-// largest |k_h| (R * H) and after them, stages scores and exp2 the sink, av
-// the per-block sums.
+// largest |k_h| (R * HK, the padded heads) and after them, stages scores
+// and exp2 the sink, av the per-block sums.
 size_t lab_scratch_floats(int R, int N, int C, int H, int stage) {
     const AttnGrid g = attn_grid(R, N);
-    const size_t kmax = (size_t)R * H;
+    const size_t kmax = (size_t)R * head_plan(C, H).HK;
     if (stage == STAGE_SCORES || stage == STAGE_EXP2) return kmax + g.blocks * (g.threads / 32);
     if (stage == STAGE_AV) return kmax + (size_t)R * C * g.nqb;
     return stage == STAGE_QKV ? 0 : kmax;
@@ -1082,43 +1510,39 @@ cudaError_t lab_forward(const void* x, const void* ln1_s, const void* ln1_b,
                         void* attn_buf, void* out, void* scratch, int R, int N, int C,
                         int H, int hidden, int stage, int flags, cudaStream_t stream) {
     const int M = R * N;
+    const HeadPlan p = head_plan(C, H);
     cudaError_t err = launch_ln_qkv<false>((const bf16*)x, (const bf16*)ln1_s,
                                            (const bf16*)ln1_b, (const bf16*)w_qkv,
-                                           (bf16*)qkv_buf, nullptr, M, C, stream);
+                                           (bf16*)qkv_buf, nullptr, M, C, p.CA, stream);
     if (err != cudaSuccess) return err;
     const bf16* qkv = (const bf16*)qkv_buf;
     if (stage == STAGE_QKV) {
         const size_t total = (size_t)M * C;
         const size_t blocks = std::min<size_t>((total + 255) / 256, (size_t)1 << 20);
-        qkv_sum_kernel<<<(unsigned)blocks, 256, 0, stream>>>(qkv, (bf16*)out, total, C);
+        qkv_sum_kernel<<<(unsigned)blocks, 256, 0, stream>>>(qkv, (bf16*)out, total, C, p.D,
+                                                             p.DP, p.CA);
         return cudaGetLastError();
     }
     float* kmax = (float*)scratch;
-    float* lab = kmax + (size_t)R * H;
+    float* lab = kmax + (size_t)R * p.HK;
     float* sink = lab;
     bf16* attn = stage == STAGE_EXP2 ? (bf16*)out : (bf16*)attn_buf;
-    switch (C / H) {
-        case 4:
-            err = lab_attn<4>(stage, flags, qkv, kmax, attn, lab, sink, R, N, C, H, stream);
-            break;
-        case 8:
-            err = lab_attn<8>(stage, flags, qkv, kmax, attn, lab, sink, R, N, C, H, stream);
-            break;
-        case 16:
-            err = lab_attn<16>(stage, flags, qkv, kmax, attn, lab, sink, R, N, C, H, stream);
-            break;
-        case 32:
-            err = lab_attn<32>(stage, flags, qkv, kmax, attn, lab, sink, R, N, C, H, stream);
-            break;
-        default: return cudaErrorInvalidValue;
+#define LAB_AT(DPV)                                                                        \
+    case DPV:                                                                              \
+        err = lab_attn<DPV>(stage, flags, qkv, kmax, attn, lab, sink, R, N, C, H, p, stream); \
+        break;
+    switch (p.DP) {       // the lab's head dims: up to LAB_MAX_DP
+        LAB_AT(4) LAB_AT(8) LAB_AT(16) LAB_AT(32) LAB_AT(64) LAB_AT(128)
+        default: err = cudaErrorInvalidValue;
     }
+#undef LAB_AT
     if (err != cudaSuccess || stage == STAGE_EXP2) return err;
     if (stage == STAGE_SCORES) {
         const int kept = std::min(C, N);
         const unsigned blocks = (unsigned)((size_t)R * ((N + KS_Q - 1) / KS_Q));
         auto kernel = kept <= 32 ? kept_scores_kernel<1> : kept <= 64 ? kept_scores_kernel<2>
                       : kept <= 128 ? kept_scores_kernel<4> : kept_scores_kernel<8>;
-        kernel<<<blocks, THREADS, 0, stream>>>(qkv, (bf16*)out, N, C);
+        kernel<<<blocks, THREADS, 0, stream>>>(qkv, (bf16*)out, N, C, p.CA);
         return cudaGetLastError();
     }
     if (stage == STAGE_AV) {
@@ -1135,19 +1559,22 @@ cudaError_t lab_forward(const void* x, const void* ln1_s, const void* ln1_b,
 
 }  // namespace
 
-// B1, B1-train and B3.  qkv_buf (R*N, 3C) bf16 receives q|k|v, kmax_buf
-// (R, H) f32 the rows' largest |k_h| (scratch of the attention's bound).
-// Serving form (B1): mid, den, scales and qk_out null.  Training form (B1-train): mid (R, N, C) bf16 and den (R, H, N) f32
-// both given.  Int8 scores (B3, serving only): scales (R, 2) f32 receives
-// the per-row scales of q and k and qk_out (R*N, 2C) int8 the int8 q | k
-// the attention used.
+// B1, B1-train and B3 at width C (a multiple of 8 up to 512) and H heads
+// (dividing C); W_qkv (C, 3 CA) bf16 with the heads padded (head_plan).
+// qkv_buf (R*N, 3 CA) bf16 receives q|k|v in the padded layout, kmax_buf
+// (R, HK) f32 the rows' largest |k_h| (scratch of the attention's bound).
+// Serving form (B1): mid, den, scales and qk_out null.  Training form
+// (B1-train): mid (R, N, C) bf16 and den (R, H, N) f32 both given.  Int8
+// scores (B3, serving only): scales (R, 2) f32 receives the per-row scales
+// of q and k and qk_out (R*N, 2 CA) int8 the int8 q | k the attention used
+// (padded layout).
 extern "C" int fused_block_forward(
     const void* x, const void* ln1_s, const void* ln1_b, const void* w_qkv,
     const void* w_o, const void* b_o, const void* ln2_s, const void* ln2_b,
     const void* w_1, const void* b_1, const void* w_2, const void* b_2,
     void* qkv_buf, void* kmax_buf, void* attn_buf, void* out, void* mid, void* den,
     void* scales, void* qk_out, int R, int N, int C, int H, int hidden, void* stream_ptr) {
-    if (R <= 0 || N <= 0 || H <= 0 || C % H || (mid == nullptr) != (den == nullptr)
+    if (R <= 0 || N <= 0 || !width_ok(C, H) || (mid == nullptr) != (den == nullptr)
         || (scales != nullptr && mid != nullptr) || (qk_out == nullptr) != (scales == nullptr)
         || kmax_buf == nullptr)
         return cudaErrorInvalidValue;
@@ -1158,8 +1585,9 @@ extern "C" int fused_block_forward(
 
 // The kernel lab (L): B1 cut at stage (0 qkv, 1 scores, 2 exp2, 3 av, 4 attn,
 // 5 full) with flags (1 score_bf16, 2 p_f32, 4 no clamp; attn and full
-// only); out (R, N, C) bf16.  qkv_buf (R*N, 3C) bf16 receives q|k|v;
-// attn_buf (R, N, C) bf16 is needed by the attn and full stages, scratch of
+// only); out (R, N, C) bf16.  qkv_buf (R*N, 3 CA) bf16 receives q|k|v
+// (W_qkv padded as fused_block_forward takes it); attn_buf (R, N, C) bf16
+// is needed by the attn and full stages, scratch of
 // fused_block_lab_scratch_bytes by every stage but qkv.
 extern "C" size_t fused_block_lab_scratch_bytes(int R, int N, int C, int H, int stage) {
     return lab_scratch_floats(R, N, C, H, stage) * sizeof(float);
@@ -1171,10 +1599,11 @@ extern "C" int fused_block_lab_forward(
     const void* w_1, const void* b_1, const void* w_2, const void* b_2,
     void* qkv_buf, void* attn_buf, void* out, void* scratch, int R, int N, int C, int H,
     int hidden, int stage, int flags, void* stream_ptr) {
-    if (R <= 0 || N <= 0 || H <= 0 || C % H || stage < STAGE_QKV || stage > STAGE_FULL
+    if (R <= 0 || N <= 0 || !width_ok(C, H) || head_plan(C, H).DP > LAB_MAX_DP
+        || stage < STAGE_QKV || stage > STAGE_FULL
         || flags < 0 || flags > 7 || (flags && stage < STAGE_ATTN)
         || (stage == STAGE_EXP2 && N < C / H) || (stage >= STAGE_ATTN && !attn_buf)
-        || (stage == STAGE_SCORES && (std::min(C, N) > KS_KEYS || C % KS_L))
+        || (stage == STAGE_SCORES && std::min(C, N) > KS_KEYS)
         || (lab_scratch_floats(R, N, C, H, stage) && !scratch))
         return cudaErrorInvalidValue;
     return lab_forward(x, ln1_s, ln1_b, w_qkv, w_o, b_o, ln2_s, ln2_b, w_1, b_1, w_2, b_2,

@@ -51,6 +51,14 @@
 //                           tiles, tokens as k) for dW2, dW1, dWo, dWqkv,
 //                           into per-split partials;
 //   7. reduce_kernel:       the partial sums, in order.
+// Widths: as B1's (fused_block.cu).  mlp_bwd_kernel and ln1_bwd_kernel run
+// at CP (32 tokens a tile at CP >= 384); q|k|v is recomputed with the heads
+// padded to DP and mlp_bwd_kernel writes d_oe padded the same way; the
+// attention backward takes DP up to 32 (attn_bwd_q_kernel,
+// attn_bwd_kv_kernel) or above (their _wide forms: the own rows' two
+// tensors staged in shared memory, the output in parts) and writes dqkv in
+// the block's layout, so that ln1_bwd_kernel and the weight gradients see
+// the block's own widths.
 // Neither attention kernel keeps an (N, N) plane: a score lives in
 // registers, and key (query) chunks wholly past N are never visited.  Each
 // launch owns its outputs (d_q; d_k and d_v), so both recompute s, d_p and
@@ -130,42 +138,70 @@ __device__ __forceinline__ void add_quarters(float* p, const float* red, int wid
         p[i] += ((red[i] + red[width + i]) + red[2 * width + i]) + red[3 * width + i];
 }
 
+// The same for RG token parts (RG = 4: add_quarters; RG = 2: the 32-token
+// tiles of the wide plans).
+template <int NTHR, int RG>
+__device__ __forceinline__ void add_parts(float* p, const float* red, int width, int n) {
+    if constexpr (RG == 4) {
+        add_quarters<NTHR>(p, red, width, n);
+    } else {
+        for (int i = threadIdx.x; i < n; i += NTHR) {
+            float s = red[i];
+#pragma unroll
+            for (int k = 1; k < RG; ++k) s += red[k * width + i];
+            p[i] += s;
+        }
+    }
+}
+
+// Tokens a tile of mlp_bwd_kernel and ln1_bwd_kernel at product width CP
+// (64; 32 at CP >= 384, so that the tiles fit shared memory), their row
+// groups of 16 tokens (RG) and column parts (CS, 8 warps = RG x CS).
+template <int CP>
+__host__ __device__ constexpr int tile_tok() { return CP >= 384 ? 32 : MB_TOK; }
+
 // 2. The MLP half's VJP, LN2 backward, d_acc, d_oe and d_den, on the tensor
-// cores (the mirror of B1's post_kernel).  64 tokens a tile, 8 warps: warp
-// w owns tokens 16 (w % 4) .. + 15 and, in every product, half w / 4 of the
-// columns.  Per tile:
-//   the bf16 g and mid to shared memory (cp.async); LN2 statistics of mid
-//     (a warp per 8 tokens) and n2 = bf16(nhat2 * ln2_s + ln2_b) into the
-//     A tile sn2 (and to n2c);
+// cores (the mirror of B1's post_kernel).  TOK = tile_tok<CP>() tokens a
+// tile, 8 warps: warp w owns tokens 16 (w % RG) .. + 15 and, in every
+// product, part w / RG of the CS parts of the columns.  Per tile:
+//   the bf16 g and mid to shared memory (cp.async, zero past C); LN2
+//     statistics of mid over its C channels (a warp per TOK / 8 tokens) and
+//     n2 = bf16(nhat2 * ln2_s + ln2_b) into the A tile sn2 (and to n2c);
 //   the hidden units in chunks of MB_HC: fc1 recomputed (sn2 W1[:, chunk]
 //     + b1) and d_h1 = g W2^T[:, chunk] (sg w2t[:, chunk]) on mma into
 //     registers; h1 = bf16(h1pre * gl) and bf16(d_h1pre) to device memory,
 //     bf16(d_h1pre) into the A tile sh, and at once its share of d_n2 (sh
 //     W1^T[chunk rows, :]) summed into registers across the chunks, so
 //     d_n2 never leaves them;
-//   the LN2 backward in registers (each token's means over C from the two
-//     column halves through shared memory): d_mid in f32 and bf16 to
+//   the LN2 backward in registers (each token's means over C from the
+//     column parts through shared memory): d_mid in f32 and bf16 to
 //     device memory, bf16(d_mid) into the A tile (sn2's place);
 //   d_acc = bf16(d_mid) Wo^T on mma, staged in f32 over the three tiles
-//     that are done, then d_oe and d_den per (token, head).
+//     that are done, then d_oe and d_den per (token, head): d_oe in the
+//     attention's padded head layout (CA columns, zeros past each head's D
+//     channels and in the heads past H; see head_plan), d_den (M, H).
+// The tiles are CP = prod_width(C) wide, zero past C, and every weight is
+// read as zeros past C, so nothing past C reaches a result.
 // The vector gradients [df2b C | df1b hidden | dln2s C | dln2b C | dob C]
 // are summed per block over its tiles in shared memory (a column's sum over
-// a tile: a shuffle tree over each warp's 16 tokens, then the 4 token
-// quarters in order) and written once per block.  Weights stream through
+// a tile: a shuffle tree over each warp's 16 tokens, then the RG token
+// parts in order) and written once per block.  Weights stream through
 // shared memory in k-slices (block_gemm).  A ragged last hidden chunk reads
 // W1's and W2^T's columns and W1^T's rows past hidden as zeros and b1 as 0
 // there, so those units give h1pre = 0, d_h1 = 0 and d_h1pre = 0.
-template <int C>
+template <int CP>
 size_t mlp_bwd_smem_bytes(int hidden) {
-    constexpr size_t wb = (C > MB_HC ? C : MB_HC) + 8;
-    return sizeof(bf16) * (3 * MB_TOK * (C + 8) + MB_TOK * (MB_HC + 8) + 2 * KS * wb)
-           + sizeof(float) * ((size_t)4 * C + hidden + 16 * C + 4 * MB_HC + 6 * MB_TOK);
+    constexpr size_t T = tile_tok<CP>(), RG = T / 16, CS = 8 / RG;
+    constexpr size_t wb = (CP > MB_HC ? CP : MB_HC) + 8;
+    return sizeof(bf16) * (3 * T * (CP + 8) + T * (MB_HC + 8) + 2 * KS * wb)
+           + sizeof(float) * ((size_t)4 * CP + hidden + 4 * RG * CP + RG * MB_HC + 2 * T
+                              + 2 * CS * T);
 }
 
 // Two blocks an SM up to C = 128 (C = 256 needs more than 128 registers a
 // thread; the bound made C = 128's launch 1.5x faster on the H100).
-template <int C>
-__global__ void __launch_bounds__(MB_THREADS, C <= 128 ? 2 : 1)
+template <int CP, bool EXACT>
+__global__ void __launch_bounds__(MB_THREADS, CP <= 128 ? 2 : 1)
 mlp_bwd_kernel(const bf16* __restrict__ mid, const bf16* __restrict__ g,
                const bf16* __restrict__ acc, const float* __restrict__ den,
                const bf16* __restrict__ ln2_s, const bf16* __restrict__ ln2_b,
@@ -175,67 +211,81 @@ mlp_bwd_kernel(const bf16* __restrict__ mid, const bf16* __restrict__ g,
                bf16* __restrict__ n2c, bf16* __restrict__ h1c, bf16* __restrict__ dh1c,
                float* __restrict__ d_mid, bf16* __restrict__ d_midc,
                bf16* __restrict__ d_oe, float* __restrict__ d_den,
-               float* __restrict__ part, int M, int N, int H, int hidden) {
-    constexpr int LDA = C + 8, LDH = MB_HC + 8, LDF = C + 4;
-    constexpr int FNT = MB_HC / 16;    // n-tiles a warp: a chunk's fc1 and d_h1,
-    constexpr int ONT = C / 16;        // d_n2 and d_acc
-    constexpr int WB = (C > MB_HC ? C : MB_HC) + 8;
+               float* __restrict__ part, int M, int N, int H, int hidden, int c, int dp,
+               int ca) {
+    // EXACT: C = CA = CP and DP = D (the flagship's layouts), C and CA
+    // known at compile time
+    const int C = EXACT ? CP : c, CA = EXACT ? CP : ca, DP = EXACT ? CP / H : dp;
+    constexpr int TOK = tile_tok<CP>(), RG = TOK / 16, CS = 8 / RG;
+    constexpr int LDA = CP + 8, LDH = MB_HC + 8, LDF = CP + 4;
+    constexpr int FNT = MB_HC / (8 * CS);    // n-tiles a warp: a chunk's fc1 and d_h1,
+    constexpr int ONT = CP / (8 * CS);       // d_n2 and d_acc
+    constexpr int WB = (CP > MB_HC ? CP : MB_HC) + 8;
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    bf16* sg = reinterpret_cast<bf16*>(smem_raw);          // 64 x LDA: g
-    bf16* sn2 = sg + MB_TOK * LDA;                          // 64 x LDA: n2, then bf16(d_mid)
-    bf16* smid = sn2 + MB_TOK * LDA;                        // 64 x LDA: mid
-    float* sacc = reinterpret_cast<float*>(smem_raw);       // 64 x LDF: d_acc, over the three
-    bf16* sh = smid + MB_TOK * LDA;                         // 64 x LDH: bf16(d_h1pre)
-    bf16* wbuf = sh + MB_TOK * LDH;                         // block_gemm's buffers
+    bf16* sg = reinterpret_cast<bf16*>(smem_raw);          // TOK x LDA: g
+    bf16* sn2 = sg + TOK * LDA;                             // TOK x LDA: n2, then bf16(d_mid)
+    bf16* smid = sn2 + TOK * LDA;                           // TOK x LDA: mid
+    float* sacc = reinterpret_cast<float*>(smem_raw);       // TOK x LDF: d_acc, over the three
+    bf16* sh = smid + TOK * LDA;                            // TOK x LDH: bf16(d_h1pre)
+    bf16* wbuf = sh + TOK * LDH;                            // block_gemm's buffers
     float* p_f2b = reinterpret_cast<float*>(wbuf + 2 * KS * WB);   // the block's partials
     float* p_f1b = p_f2b + C;
     float* p_l2s = p_f1b + hidden;
     float* p_l2b = p_l2s + C;
     float* p_ob = p_l2b + C;
-    float* red = p_ob + C;                                  // 4 vectors x 4 quarters x C
-    float* red_h = red + 16 * C;                            // 4 quarters x MB_HC
-    float* s_mean = red_h + 4 * MB_HC;                      // 64
-    float* s_rstd = s_mean + MB_TOK;                        // 64
-    float* s_rows = s_rstd + MB_TOK;                        // 64 x [2 halves x (sum dn, dn nh)]
+    float* red = p_f2b + 4 * CP + hidden;                   // 4 vectors x RG parts x CP
+    float* red_h = red + 4 * RG * CP;                       // RG parts x MB_HC
+    float* s_mean = red_h + RG * MB_HC;                     // TOK
+    float* s_rstd = s_mean + TOK;                           // TOK
+    float* s_rows = s_rstd + TOK;                           // TOK x [CS parts x (sum dn, dn nh)]
     const int pw = 4 * C + hidden;
     const int D = C / H;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int gq = lane >> 2, q = lane & 3;
-    const int quarter = warp & 3, half = warp >> 2;
-    const int mrow = 16 * quarter;
+    const int rg = warp % RG, cpart = warp / RG;
+    const int mrow = 16 * rg;
+    const int ccol0 = cpart * CP / CS;                      // the warp's first column
     for (int i = threadIdx.x; i < pw; i += MB_THREADS) p_f2b[i] = 0.f;
 
-    const int ntiles = (M + MB_TOK - 1) / MB_TOK;
+    const int ntiles = (M + TOK - 1) / TOK;
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-        const int tok0 = tile * MB_TOK;
-        const int ntok = min(MB_TOK, M - tok0);
+        const int tok0 = tile * TOK;
+        const int ntok = min(TOK, M - tok0);
         const size_t base = (size_t)tok0 * C;
-        stage_rows<MB_THREADS>(sg, LDA, g, C, tok0, MB_TOK, ntok, C);
-        stage_rows<MB_THREADS>(smid, LDA, mid, C, tok0, MB_TOK, ntok, C);
+        stage_rows<MB_THREADS>(sg, LDA, g, C, tok0, TOK, ntok, C);
+        stage_rows<MB_THREADS>(smid, LDA, mid, C, tok0, TOK, ntok, C);
         cp_async_commit();
+        if (C < CP) {
+            for (int i = threadIdx.x; i < TOK * (CP - C); i += MB_THREADS) {
+                const int o = (i / (CP - C)) * LDA + C + i % (CP - C);
+                sg[o] = smid[o] = __float2bfloat16(0.f);
+            }
+        }
         cp_async_wait<0>();
         __syncthreads();
-        // LN2 of mid, a warp per 8 tokens (padded tokens: zeros)
-        for (int t = warp * (MB_TOK / 8); t < (warp + 1) * (MB_TOK / 8); ++t) {
-            float v[C / 32];
+        // LN2 of mid, a warp per TOK / 8 tokens (padded tokens: zeros)
+        for (int t = warp * (TOK / 8); t < (warp + 1) * (TOK / 8); ++t) {
+            float v[CP / 32];
             float sum = 0.f;
 #pragma unroll
-            for (int i = 0; i < C / 32; ++i) {
+            for (int i = 0; i < CP / 32; ++i) {
                 v[i] = __bfloat162float(smid[t * LDA + lane + 32 * i]);
                 sum += v[i];
             }
             const float mean = warp_sum(sum) / C;
             float var = 0.f;
 #pragma unroll
-            for (int i = 0; i < C / 32; ++i) var += (v[i] - mean) * (v[i] - mean);
+            for (int i = 0; i < CP / 32; ++i)
+                if (lane + 32 * i < C) var += (v[i] - mean) * (v[i] - mean);
             const float rstd = rsqrtf(warp_sum(var) / C + 1e-5f);
 #pragma unroll
-            for (int i = 0; i < C / 32; ++i) {
+            for (int i = 0; i < CP / 32; ++i) {
                 const int c = lane + 32 * i;
-                const bf16 n2 = __float2bfloat16((v[i] - mean) * rstd * ld(ln2_s + c)
-                                                 + ld(ln2_b + c));
+                const bf16 n2 = c < C ? __float2bfloat16((v[i] - mean) * rstd * ld(ln2_s + c)
+                                                         + ld(ln2_b + c))
+                                      : __float2bfloat16(0.f);
                 sn2[t * LDA + c] = n2;
-                if (t < ntok) n2c[base + t * C + c] = n2;
+                if (t < ntok && c < C) n2c[base + t * C + c] = n2;
             }
             if (lane == 0) {
                 s_mean[t] = mean;
@@ -250,14 +300,14 @@ mlp_bwd_kernel(const bf16* __restrict__ mid, const bf16* __restrict__ g,
             float f[FNT][4], dd[FNT][4];
             zero(f);
             zero(dd);
-            block_gemm<FNT, MB_HC, MB_THREADS>(f, sn2 + mrow * LDA, LDA, w1, hidden, h0, C, wbuf,
-                                               half * MB_HC / 2, 1 << 30, hidden);
-            block_gemm<FNT, MB_HC, MB_THREADS>(dd, sg + mrow * LDA, LDA, w2t, hidden, h0, C,
-                                               wbuf, half * MB_HC / 2, 1 << 30, hidden);
+            block_gemm<FNT, MB_HC, MB_THREADS>(f, sn2 + mrow * LDA, LDA, w1, hidden, h0, CP, wbuf,
+                                               cpart * MB_HC / CS, C, hidden);
+            block_gemm<FNT, MB_HC, MB_THREADS>(dd, sg + mrow * LDA, LDA, w2t, hidden, h0, CP,
+                                               wbuf, cpart * MB_HC / CS, C, hidden);
             float cs[FNT][2] = {};
 #pragma unroll
             for (int j = 0; j < FNT; ++j) {
-                const int col = half * MB_HC / 2 + 8 * j + 2 * q;
+                const int col = cpart * MB_HC / CS + 8 * j + 2 * q;
                 const int hc = h0 + col;
                 const bool in = hc < hidden;
                 const float bj0 = in ? ld(b1 + hc) : 0.f, bj1 = in ? ld(b1 + hc + 1) : 0.f;
@@ -284,19 +334,21 @@ mlp_bwd_kernel(const bf16* __restrict__ mid, const bf16* __restrict__ g,
                     }
                 }
             }
-            warp_colsum(cs, red_h + quarter * MB_HC + half * MB_HC / 2);
+            warp_colsum(cs, red_h + rg * MB_HC + cpart * MB_HC / CS);
             // d_n2 += bf16(d_h1pre) W1^T[chunk rows, :] (the first barrier
             // orders sh and red)
-            block_gemm<ONT, C, MB_THREADS>(dn2, sh + mrow * LDH, LDH, w1t + (size_t)h0 * C, C, 0,
-                                           MB_HC, wbuf, half * C / 2, hidden - h0);
-            add_quarters<MB_THREADS>(p_f1b + h0, red_h, MB_HC, min(MB_HC, hidden - h0));
+            block_gemm<ONT, CP, MB_THREADS>(dn2, sh + mrow * LDH, LDH, w1t + (size_t)h0 * C, C,
+                                            0, MB_HC, wbuf, ccol0, hidden - h0, C);
+            add_parts<MB_THREADS, RG>(p_f1b + h0, red_h, MB_HC, min(MB_HC, hidden - h0));
         }
         // LN2 backward: d_mid = g + rstd (dn - m1 - nhat m2), dn = d_n2 ln2_s
+        // (the columns past C: none of it)
         float ra[2] = {}, rb[2] = {};
         float c_l2s[ONT][2] = {}, c_l2b[ONT][2] = {};
 #pragma unroll
         for (int j = 0; j < ONT; ++j) {
-            const int col = half * C / 2 + 8 * j + 2 * q;
+            const int col = ccol0 + 8 * j + 2 * q;
+            if (col >= C) continue;
             const float ls0 = ld(ln2_s + col), ls1 = ld(ln2_s + col + 1);
 #pragma unroll
             for (int hr = 0; hr < 2; ++hr) {
@@ -315,8 +367,8 @@ mlp_bwd_kernel(const bf16* __restrict__ mid, const bf16* __restrict__ g,
                 }
             }
         }
-        warp_colsum(c_l2s, red + (1 * 4 + quarter) * C + half * C / 2);
-        warp_colsum(c_l2b, red + (2 * 4 + quarter) * C + half * C / 2);
+        warp_colsum(c_l2s, red + (1 * RG + rg) * CP + ccol0);
+        warp_colsum(c_l2b, red + (2 * RG + rg) * CP + ccol0);
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
 #pragma unroll
@@ -326,22 +378,28 @@ mlp_bwd_kernel(const bf16* __restrict__ mid, const bf16* __restrict__ g,
             }
             if (q == 0) {
                 const int t = mrow + gq + 8 * hr;
-                s_rows[t * 4 + 2 * half] = ra[hr];
-                s_rows[t * 4 + 2 * half + 1] = rb[hr];
+                s_rows[t * 2 * CS + 2 * cpart] = ra[hr];
+                s_rows[t * 2 * CS + 2 * cpart + 1] = rb[hr];
             }
         }
         __syncthreads();
         float c_ob[ONT][2] = {}, c_f2b[ONT][2] = {};
 #pragma unroll
         for (int j = 0; j < ONT; ++j) {
-            const int col = half * C / 2 + 8 * j + 2 * q;
+            const int col = ccol0 + 8 * j + 2 * q;
+            if (col >= C) continue;
             const float ls0 = ld(ln2_s + col), ls1 = ld(ln2_s + col + 1);
 #pragma unroll
             for (int hr = 0; hr < 2; ++hr) {
                 const int t = mrow + gq + 8 * hr;
                 const float mean = s_mean[t], rstd = s_rstd[t];
-                const float m1 = (s_rows[t * 4] + s_rows[t * 4 + 2]) / C;
-                const float m2 = (s_rows[t * 4 + 1] + s_rows[t * 4 + 3]) / C;
+                float sa_ = s_rows[t * 2 * CS], sb_ = s_rows[t * 2 * CS + 1];
+#pragma unroll
+                for (int k = 1; k < CS; ++k) {
+                    sa_ += s_rows[t * 2 * CS + 2 * k];
+                    sb_ += s_rows[t * 2 * CS + 2 * k + 1];
+                }
+                const float m1 = sa_ / C, m2 = sb_ / C;
                 const float nh0 = (__bfloat162float(smid[t * LDA + col]) - mean) * rstd;
                 const float nh1 = (__bfloat162float(smid[t * LDA + col + 1]) - mean) * rstd;
                 const float g0 = __bfloat162float(sg[t * LDA + col]);
@@ -360,20 +418,21 @@ mlp_bwd_kernel(const bf16* __restrict__ mid, const bf16* __restrict__ g,
                 }
             }
         }
-        warp_colsum(c_f2b, red + (0 * 4 + quarter) * C + half * C / 2);
-        warp_colsum(c_ob, red + (3 * 4 + quarter) * C + half * C / 2);
-        // d_acc = bf16(d_mid) Wo^T (the first barrier orders sn2 and red)
+        warp_colsum(c_f2b, red + (0 * RG + rg) * CP + ccol0);
+        warp_colsum(c_ob, red + (3 * RG + rg) * CP + ccol0);
+        // d_acc = bf16(d_mid) Wo^T (the first barrier orders sn2 and red;
+        // sn2 past C holds LN2's zeros)
         float da[ONT][4];
         zero(da);
-        block_gemm<ONT, C, MB_THREADS>(da, sn2 + mrow * LDA, LDA, wot, C, 0, C, wbuf,
-                                       half * C / 2);
-        add_quarters<MB_THREADS>(p_f2b, red, C, C);
-        add_quarters<MB_THREADS>(p_l2s, red + 4 * C, C, C);
-        add_quarters<MB_THREADS>(p_l2b, red + 8 * C, C, C);
-        add_quarters<MB_THREADS>(p_ob, red + 12 * C, C, C);
+        block_gemm<ONT, CP, MB_THREADS>(da, sn2 + mrow * LDA, LDA, wot, C, 0, CP, wbuf, ccol0, C,
+                                        C);
+        add_parts<MB_THREADS, RG>(p_f2b, red, CP, C);
+        add_parts<MB_THREADS, RG>(p_l2s, red + RG * CP, CP, C);
+        add_parts<MB_THREADS, RG>(p_l2b, red + 2 * RG * CP, CP, C);
+        add_parts<MB_THREADS, RG>(p_ob, red + 3 * RG * CP, CP, C);
 #pragma unroll
         for (int j = 0; j < ONT; ++j) {
-            const int col = half * C / 2 + 8 * j + 2 * q;
+            const int col = ccol0 + 8 * j + 2 * q;
 #pragma unroll
             for (int hr = 0; hr < 2; ++hr) {
                 const int t = mrow + gq + 8 * hr;
@@ -382,20 +441,27 @@ mlp_bwd_kernel(const bf16* __restrict__ mid, const bf16* __restrict__ g,
             }
         }
         __syncthreads();
-        // d_oe = bf16(d_acc / den) and d_den = bf16(-(1/den) sum_D d_acc * acc)
-        for (int i = threadIdx.x; i < ntok * H; i += MB_THREADS) {
-            const int t = i / H, h = i % H;
+        // d_oe = bf16(d_acc / den) and d_den = bf16(-(1/den) sum_D d_acc * acc),
+        // d_oe padded per head to DP channels of zeros (CA = HK DP columns)
+        const int HK = CA / DP;
+        for (int i = threadIdx.x; i < ntok * HK; i += MB_THREADS) {
+            const int t = i / HK, h = i % HK;
             const int tok = tok0 + t;
-            const float dv = den[((size_t)(tok / N) * H + h) * N + tok % N];
-            const float r = 1.0f / dv;
-            float s = 0.f;
-            for (int d = 0; d < D; ++d) {
-                const int c = h * D + d;
-                const float da_c = sacc[t * LDF + c];
-                s += da_c * ld(acc + base + t * C + c);
-                d_oe[base + t * C + c] = __float2bfloat16(da_c * r);
+            bf16* dst = d_oe + (size_t)tok * CA + h * DP;
+            int d = 0;
+            if (h < H) {
+                const float dv = den[((size_t)(tok / N) * H + h) * N + tok % N];
+                const float r = 1.0f / dv;
+                float s = 0.f;
+                for (; d < D; ++d) {
+                    const int c = h * D + d;
+                    const float da_c = sacc[t * LDF + c];
+                    s += da_c * ld(acc + base + t * C + c);
+                    dst[d] = __float2bfloat16(da_c * r);
+                }
+                d_den[(size_t)tok * H + h] = round_bf16(-r * s);
             }
-            d_den[(size_t)tok * H + h] = round_bf16(-r * s);
+            for (; d < DP; ++d) dst[d] = __float2bfloat16(0.f);
         }
         __syncthreads();          // sacc is read before the next tile's g and mid
     }
@@ -640,40 +706,67 @@ __device__ __forceinline__ void bwd_line_low(float (&s)[2][4], const float (&dp)
 
 // The bound that picks the short line for a whole pass: per row and head,
 // max|q_h| max|k_h| over the row's N tokens into bound (R, H) f32 (by
-// Cauchy-Schwarz no score of the head exceeds it).  One block per row,
-// each thread keeps one head (NORM_THREADS a multiple of H).  Named for
-// the attention backward, whose time it is part of.
+// Cauchy-Schwarz no score of the head exceeds it).  C, H: the padded
+// layout (CA, HK).  One block per row; where H divides NORM_THREADS each
+// thread keeps one head, else (H up to MAX_NORM_HEADS) the threads walk
+// (token, head) pairs and the heads' maxima meet in shared memory
+// (atomicMax on the bits of non-negative floats).  Named for the attention
+// backward, whose time it is part of.
 constexpr int NORM_THREADS = 256;
+constexpr int MAX_NORM_HEADS = 512;
 constexpr float SAFE_SCORE = 109.0f;   // below the band, with room for rounding
 
 __global__ void __launch_bounds__(NORM_THREADS)
 attn_bwd_norm_kernel(const bf16* __restrict__ qkv, float* __restrict__ bound, int N, int C,
                      int H) {
-    __shared__ float red[2][NORM_THREADS];
-    const int D = C / H, h = threadIdx.x % H, step = NORM_THREADS / H;
+    __shared__ float red[2][MAX_NORM_HEADS];
+    const int D = C / H;
     const size_t row0 = (size_t)blockIdx.x * N;
-    float mq = 0.f, mk = 0.f;
-    for (int j = threadIdx.x / H; j < N; j += step) {
+    auto norms = [&](int j, int h, float& q2, float& k2) {
         const bf16* p = qkv + (row0 + j) * 3 * C + h * D;
-        float q2 = 0.f, k2 = 0.f;
+        q2 = 0.f;
+        k2 = 0.f;
         for (int d = 0; d < D; ++d) {
             const float a = ld(p + d), b = ld(p + C + d);
             q2 += a * a;
             k2 += b * b;
         }
-        mq = fmaxf(mq, q2);
-        mk = fmaxf(mk, k2);
-    }
-    red[0][threadIdx.x] = mq;
-    red[1][threadIdx.x] = mk;
-    __syncthreads();
-    if (threadIdx.x < H) {
-        for (int t = threadIdx.x + H; t < NORM_THREADS; t += H) {
-            mq = fmaxf(mq, red[0][t]);
-            mk = fmaxf(mk, red[1][t]);
+    };
+    if (NORM_THREADS % H == 0) {
+        const int h = threadIdx.x % H, step = NORM_THREADS / H;
+        float mq = 0.f, mk = 0.f;
+        for (int j = threadIdx.x / H; j < N; j += step) {
+            float q2, k2;
+            norms(j, h, q2, k2);
+            mq = fmaxf(mq, q2);
+            mk = fmaxf(mk, k2);
         }
-        bound[(size_t)blockIdx.x * H + threadIdx.x] = sqrtf(mq) * sqrtf(mk);
+        red[0][threadIdx.x] = mq;
+        red[1][threadIdx.x] = mk;
+        __syncthreads();
+        if (threadIdx.x < H) {
+            for (int t = threadIdx.x + H; t < NORM_THREADS; t += H) {
+                mq = fmaxf(mq, red[0][t]);
+                mk = fmaxf(mk, red[1][t]);
+            }
+            bound[(size_t)blockIdx.x * H + threadIdx.x] = sqrtf(mq) * sqrtf(mk);
+        }
+        return;
     }
+    unsigned* bq = reinterpret_cast<unsigned*>(red[0]);
+    unsigned* bk = reinterpret_cast<unsigned*>(red[1]);
+    for (int h = threadIdx.x; h < H; h += NORM_THREADS) bq[h] = bk[h] = 0u;
+    __syncthreads();
+    for (int i = threadIdx.x; i < N * H; i += NORM_THREADS) {
+        float q2, k2;
+        norms(i / H, i % H, q2, k2);
+        atomicMax(bq + i % H, __float_as_uint(q2));
+        atomicMax(bk + i % H, __float_as_uint(k2));
+    }
+    __syncthreads();
+    for (int h = threadIdx.x; h < H; h += NORM_THREADS)
+        bound[(size_t)blockIdx.x * H + h] =
+            sqrtf(__uint_as_float(bq[h])) * sqrtf(__uint_as_float(bk[h]));
 }
 
 // Whether every head of the pass at channel l0 has its row bound at most
@@ -687,30 +780,40 @@ __device__ __forceinline__ bool pass_below_band(const float* bound, size_t r, in
     return safe;
 }
 
-// The warp's accumulators (16 rows x the pass's channels) rounded to bf16
-// into columns col0 .. of out (row stride `stride`), rows below N.
+// The warp's accumulators (16 rows x the pass's channels at padded channel
+// l0 on) rounded to bf16 into out (row stride `stride`), rows below N, each
+// padded channel c = h DP + d (D = DP: the padded layout's head dim) at
+// column col0 + h Dt + d of the block's layout if h < Ht and d < Dt.
 template <int NTP>
 __device__ __forceinline__ void store_rows(bf16* out, int stride, const float (&acc)[NTP][4],
-                                           size_t row0, int n0, int N, int col0) {
+                                           size_t row0, int n0, int N, int col0, int l0, int DP,
+                                           int Ht, int Dt) {
     const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+    const bool even = (Dt & 1) == 0;
 #pragma unroll
-    for (int t = 0; t < NTP; ++t)
+    for (int t = 0; t < NTP; ++t) {
+        const int c = l0 + 8 * t + 2 * q, h = c / DP, d = c % DP;
+        if (h >= Ht) continue;
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
             const int n = n0 + g + 8 * hr;
-            bf16* o = out + (row0 + n) * stride + col0 + 8 * t + 2 * q;
             if (n < N)
-                *reinterpret_cast<__nv_bfloat162*>(o) =
-                    __floats2bfloat162_rn(acc[t][2 * hr], acc[t][2 * hr + 1]);
+                store_head_pair(out + (row0 + n) * stride + col0 + h * Dt + d, acc[t][2 * hr],
+                                acc[t][2 * hr + 1], Dt - d, even);
         }
+    }
 }
 
 // 3. d_q (query-major).
-template <int D>
+template <int D, bool EXACT>
 __global__ void __launch_bounds__(32 * AB_MAX_WARPS, D < 32 ? 3 : 2)
 attn_bwd_q_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ d_oe,
                   const float* __restrict__ d_den, const float* __restrict__ bound,
-                  bf16* __restrict__ dqkv, int N, int C, int H, int nb, int ak) {
+                  bf16* __restrict__ dqkv, int N, int C, int H, int ct, int ht, int dt, int nb,
+                  int ak) {
+    // C, H, D: the padded layout of qkv and d_oe (CA, HK, DP); Ct, Ht, Dt
+    // the block's, of d_den and dqkv (EXACT: the same, D at compile time)
+    const int Ct = EXACT ? C : ct, Ht = EXACT ? H : ht, Dt = EXACT ? D : dt;
     using P = BwdPass<D>;
     constexpr int CH = P::PASS / 8;                  // 16-byte chunks a tensor a row
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -734,8 +837,8 @@ attn_bwd_q_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ d_oe,
         for (int hh = 0; hh < P::HP; ++hh)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-                const int n = qrow + g + 8 * (e >> 1);
-                dd[hh][0][e] = dd[hh][1][e] = n < N ? d_den[(row0 + n) * H + l0 / D + hh] : 0.f;
+                const int n = qrow + g + 8 * (e >> 1), h = l0 / D + hh;
+                dd[hh][0][e] = dd[hh][1][e] = n < N && h < Ht ? d_den[(row0 + n) * Ht + h] : 0.f;
             }
         float dq[P::NTP][4];
         zero(dq);
@@ -797,16 +900,18 @@ attn_bwd_q_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ d_oe,
             }
             __syncthreads();      // the buffers are free before they are refilled
         }
-        store_rows<P::NTP>(dqkv, ldq, dq, row0, qrow, N, l0);
+        store_rows<P::NTP>(dqkv, 3 * Ct, dq, row0, qrow, N, 0, l0, D, Ht, Dt);
     }
 }
 
 // 4. d_k, d_v (key-major).
-template <int D>
+template <int D, bool EXACT>
 __global__ void __launch_bounds__(32 * AB_MAX_WARPS, D < 32 ? 3 : 2)
 attn_bwd_kv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ d_oe,
                    const float* __restrict__ d_den, const float* __restrict__ bound,
-                   bf16* __restrict__ dqkv, int N, int C, int H, int nb, int ak) {
+                   bf16* __restrict__ dqkv, int N, int C, int H, int ct, int ht, int dt, int nb,
+                   int ak) {
+    const int Ct = EXACT ? C : ct, Ht = EXACT ? H : ht, Dt = EXACT ? D : dt;
     using P = BwdPass<D>;
     constexpr int CH = P::PASS / 8;
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -846,10 +951,10 @@ attn_bwd_kv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ d_oe,
             }
             float* dds = sden + (qt & 1) * P::HP * ak;
             for (int i = threadIdx.x; i < ak * P::HP; i += blockDim.x) {
-                const int j = i / P::HP, hh = i % P::HP;
-                const bool q_in = t0 + j < N;
+                const int j = i / P::HP, hh = i % P::HP, h = l0 / D + hh;
+                const bool q_in = t0 + j < N && h < Ht;
                 const size_t tok = row0 + (q_in ? t0 + j : 0);
-                cp_async4(dds + hh * ak + j, d_den + tok * H + l0 / D + hh, q_in);
+                cp_async4(dds + hh * ak + j, d_den + tok * Ht + (q_in ? h : 0), q_in);
             }
         };
         load(0);
@@ -910,78 +1015,354 @@ attn_bwd_kv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ d_oe,
             }
             __syncthreads();      // the buffers are free before they are refilled
         }
-        store_rows<P::NTP>(dqkv, ldq, dk, row0, krow, N, C + l0);
-        store_rows<P::NTP>(dqkv, ldq, dv, row0, krow, N, 2 * C + l0);
+        store_rows<P::NTP>(dqkv, 3 * Ct, dk, row0, krow, N, Ct, l0, D, Ht, Dt);
+        store_rows<P::NTP>(dqkv, 3 * Ct, dv, row0, krow, N, 2 * Ct, l0, D, Ht, Dt);
+    }
+}
+
+// 3'-4'. The attention backward of a head wider than a pass (DP = 64 ..
+// 512, one head a pass): attn_bwd_q_kernel's and attn_bwd_kv_kernel's
+// function, line and clamp agreement at a head width whose fragments no
+// longer fit registers.  One block per (row, 64 rows of its side), 4
+// warps; per head the block stages its own rows' DP channels of two
+// tensors (q and d_oe; k and v) in shared memory once, and a score's or
+// d_p's A fragments come from there by ldmatrix, DP / 16 k16 steps in
+// order from channel 0, the first seeded (0 for s, d_den for d_p): the
+// same steps at the same k positions in both kernels, so that they agree
+// on the clamp, as the narrow kernels do.  The other side streams through
+// shared memory AK tokens at a time (two tensors' DP channels; the kv
+// kernel also their d_den).  The output goes in parts of OW channels (the
+// q kernel min(DP, 128), the kv kernel's two outputs min(DP, 64)), each
+// part streaming the other side again and recomputing s, d_p and the line
+// (the same bits each time).
+template <int DP>
+struct WideBwd {
+    static constexpr int LD = DP + 8;                // bf16 a staged row of one tensor
+    static constexpr int AK = DP >= 512 ? 16 : DP >= 256 ? 32 : 64;   // other-side tokens a tile
+    static constexpr int OWQ = DP < 128 ? DP : 128;  // d_q channels a part
+    static constexpr int OWKV = DP < 64 ? DP : 64;   // d_k, d_v channels a part
+    static constexpr int WARPS = 4;
+};
+
+template <int DP>
+size_t attn_bwd_wide_smem_bytes(bool kv) {
+    using W = WideBwd<DP>;
+    return sizeof(bf16) * (2 * 16 * W::WARPS * (size_t)W::LD + 2 * 2 * W::AK * (size_t)W::LD)
+           + (kv ? sizeof(float) * 2 * W::AK : 0);
+}
+
+// The block's own rows r0 .. r0 + 63 of a head's DP channels of two
+// tensors (a at column ca, b at column cb of row strides lda, ldb) into
+// shared memory, rows past N as zeros (cp.async, waited for).
+template <int DP>
+__device__ __forceinline__ void stage_own(bf16* dst, const bf16* a, int lda, const bf16* b,
+                                          int ldb, size_t row0, int r0, int N) {
+    using W = WideBwd<DP>;
+    constexpr int CH = DP / 8;
+    for (int i = threadIdx.x; i < 2 * 16 * W::WARPS * CH; i += blockDim.x) {
+        const int t = i / CH / (16 * W::WARPS), rr = (i / CH) % (16 * W::WARPS), c = i % CH;
+        const bool valid = r0 + rr < N;
+        const size_t tok = row0 + (valid ? r0 + rr : 0);
+        cp_async16(dst + (t * 16 * W::WARPS + rr) * W::LD + 8 * c,
+                   (t ? b + tok * ldb : a + tok * lda) + 8 * c, valid);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+}
+
+// acc (16 x 16) = seed + a b^T over the head's DP channels: a the warp's
+// own rows (row-major, ld LD), b the other side's 16 rows from kc of a tile
+// (n-major, ld LD), k16 steps in order, the first from the seed.
+template <int DP>
+__device__ __forceinline__ void wide_product(float (&acc)[2][4], const bf16* a, const bf16* b,
+                                             int kc, const float (&seed)[2][4]) {
+    constexpr int LD = WideBwd<DP>::LD;
+#pragma unroll
+    for (int ks = 0; ks < DP / 16; ++ks) {
+        uint32_t af[4], bfr[4];
+        ldsm_a(af, a, LD, 16 * ks);
+        ldsm_b_nmajor(bfr, b, LD, 16 * ks, kc);
+        if (ks == 0) {
+            mma_bf16_to(acc[0], af, bfr[0], bfr[1], seed[0]);
+            mma_bf16_to(acc[1], af, bfr[2], bfr[3], seed[1]);
+        } else {
+            mma_bf16(acc[0], af, bfr[0], bfr[1]);
+            mma_bf16(acc[1], af, bfr[2], bfr[3]);
+        }
+    }
+}
+
+// d_q of a head wider than a pass.
+template <int DP>
+__global__ void __launch_bounds__(32 * WideBwd<DP>::WARPS, 1)
+attn_bwd_q_wide_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ d_oe,
+                       const float* __restrict__ d_den, const float* __restrict__ bound,
+                       bf16* __restrict__ dqkv, int N, int C, int H, int Ct, int Ht, int Dt,
+                       int nb) {
+    using W = WideBwd<DP>;
+    constexpr int AK = W::AK, LD = W::LD, OW = W::OWQ, OT = OW / 8;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* own = reinterpret_cast<bf16*>(smem_raw);            // 2 x 64 x LD: q, d_oe
+    bf16* kv = own + 2 * 16 * W::WARPS * LD;                  // 2 x AK x 2 LD: k | v
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const size_t r = blockIdx.x / nb;
+    const size_t row0 = r * N;
+    const int r0 = (blockIdx.x % nb) * 16 * W::WARPS;
+    const int qrow = r0 + warp * 16;
+    const bool active = qrow < N;
+    const int ldq = 3 * C;
+    const int nkt = (N + AK - 1) / AK;
+    const float zs[2][4] = {};
+    const bf16* qw = own + warp * 16 * LD;
+    const bf16* ew = own + (16 * W::WARPS + warp * 16) * LD;
+    for (int h = 0; h < Ht; ++h) {
+        __syncthreads();          // the previous head is done with the own rows
+        stage_own<DP>(own, qkv + h * DP, ldq, d_oe + h * DP, C, row0, r0, N);
+        float dd[2][4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int n = qrow + g + 8 * (e >> 1);
+            dd[0][e] = dd[1][e] = n < N ? d_den[(row0 + n) * Ht + h] : 0.f;
+        }
+        const bool low = bound[r * H + h] <= SAFE_SCORE;
+        for (int v0 = 0; v0 < DP; v0 += OW) {
+            float dq[OT][4];
+            zero(dq);
+            auto load = [&](int kt) {
+                const int k0 = kt * AK;
+                bf16* dst = kv + (kt & 1) * AK * 2 * LD;
+                constexpr int CH = DP / 8;
+                for (int i = threadIdx.x; i < AK * 2 * CH; i += blockDim.x) {
+                    const int j = i / (2 * CH), c = i % (2 * CH);
+                    const bool in_row = k0 + j < N;
+                    const size_t tok = row0 + (in_row ? k0 + j : 0);
+                    cp_async16(dst + (c < CH ? 0 : AK * LD) + j * LD + 8 * (c % CH),
+                               qkv + tok * ldq + (c < CH ? C : 2 * C) + h * DP + 8 * (c % CH),
+                               in_row);
+                }
+            };
+            load(0);
+            cp_async_commit();
+            for (int kt = 0; kt < nkt; ++kt) {
+                const int k0 = kt * AK;
+                if (kt + 1 < nkt) load(kt + 1);
+                cp_async_commit();
+                cp_async_wait<1>();
+                __syncthreads();
+                const bf16* kt_ = kv + (kt & 1) * AK * 2 * LD;
+                const bf16* vt_ = kt_ + AK * LD;
+                for (int kc = 0; active && kc < AK && k0 + kc < N; kc += 16) {
+                    float sc[2][4], dp[2][4], ds[2][4];
+                    wide_product<DP>(sc, qw, kt_, kc, zs);
+                    wide_product<DP>(dp, ew, vt_, kc, dd);
+                    if (low || below_band(sc)) {
+                        bwd_line_low(sc, dp, ds);
+                    } else {
+                        clamp_band<DP>(sc, qkv + row0 * ldq + h * DP, ldq, qrow, N,
+                                       kt_ + kc * LD, LD);
+                        bwd_line(sc, dp, ds);
+                    }
+                    uint32_t a[4];
+                    pack_a(a, ds[0], ds[1]);
+#pragma unroll
+                    for (int u = 0; u < OT / 2; ++u) {
+                        uint32_t b[4];
+                        ldsm_b_kmajor(b, kt_, LD, kc, v0 + 16 * u);
+                        mma_bf16(dq[2 * u], a, b[0], b[1]);
+                        mma_bf16(dq[2 * u + 1], a, b[2], b[3]);
+                    }
+                }
+                __syncthreads();  // the buffers are free before they are refilled
+            }
+            store_rows<OT>(dqkv, 3 * Ct, dq, row0, qrow, N, 0, h * DP + v0, DP, Ht, Dt);
+        }
+    }
+}
+
+// d_k, d_v of a head wider than a pass.
+template <int DP>
+__global__ void __launch_bounds__(32 * WideBwd<DP>::WARPS, 1)
+attn_bwd_kv_wide_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ d_oe,
+                        const float* __restrict__ d_den, const float* __restrict__ bound,
+                        bf16* __restrict__ dqkv, int N, int C, int H, int Ct, int Ht, int Dt,
+                        int nb) {
+    using W = WideBwd<DP>;
+    constexpr int AK = W::AK, LD = W::LD, OW = W::OWKV, OT = OW / 8;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* own = reinterpret_cast<bf16*>(smem_raw);            // 2 x 64 x LD: k, v
+    bf16* qe = own + 2 * 16 * W::WARPS * LD;                  // 2 x AK x 2 LD: q | d_oe
+    float* sden = reinterpret_cast<float*>(qe + 2 * AK * 2 * LD);   // 2 x AK: d_den
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int q = lane & 3;
+    const size_t r = blockIdx.x / nb;
+    const size_t row0 = r * N;
+    const int r0 = (blockIdx.x % nb) * 16 * W::WARPS;
+    const int krow = r0 + warp * 16;
+    const bool active = krow < N;
+    const int ldq = 3 * C;
+    const int nqt = (N + AK - 1) / AK;
+    const float zs[2][4] = {};
+    const bf16* kw = own + warp * 16 * LD;
+    const bf16* vw = own + (16 * W::WARPS + warp * 16) * LD;
+    for (int h = 0; h < Ht; ++h) {
+        __syncthreads();
+        stage_own<DP>(own, qkv + C + h * DP, ldq, qkv + 2 * C + h * DP, ldq, row0, r0, N);
+        const bool low = bound[r * H + h] <= SAFE_SCORE;
+        for (int v0 = 0; v0 < DP; v0 += OW) {
+            float dk[OT][4], dv[OT][4];
+            zero(dk);
+            zero(dv);
+            auto load = [&](int qt) {
+                const int t0 = qt * AK;
+                bf16* dst = qe + (qt & 1) * AK * 2 * LD;
+                constexpr int CH = DP / 8;
+                for (int i = threadIdx.x; i < AK * 2 * CH; i += blockDim.x) {
+                    const int j = i / (2 * CH), c = i % (2 * CH);
+                    const bool q_in = t0 + j < N;
+                    const size_t tok = row0 + (q_in ? t0 + j : 0);
+                    cp_async16(dst + (c < CH ? 0 : AK * LD) + j * LD + 8 * (c % CH),
+                               c < CH ? qkv + tok * ldq + h * DP + 8 * c
+                                      : d_oe + tok * C + h * DP + 8 * (c - CH),
+                               q_in);
+                }
+                for (int j = threadIdx.x; j < AK; j += blockDim.x) {
+                    const bool q_in = t0 + j < N;
+                    const size_t tok = row0 + (q_in ? t0 + j : 0);
+                    cp_async4(sden + (qt & 1) * AK + j, d_den + tok * Ht + h, q_in);
+                }
+            };
+            load(0);
+            cp_async_commit();
+            for (int qt = 0; qt < nqt; ++qt) {
+                const int t0 = qt * AK;
+                if (qt + 1 < nqt) load(qt + 1);
+                cp_async_commit();
+                cp_async_wait<1>();
+                __syncthreads();
+                const bf16* qt_ = qe + (qt & 1) * AK * 2 * LD;
+                const bf16* et_ = qt_ + AK * LD;
+                const float* dds = sden + (qt & 1) * AK;
+                for (int qc = 0; active && qc < AK && t0 + qc < N; qc += 16) {
+                    float sc[2][4], dp[2][4], ds[2][4], seed[2][4];
+#pragma unroll
+                    for (int j = 0; j < 2; ++j) {
+                        const float2 d2 =
+                            *reinterpret_cast<const float2*>(dds + qc + 8 * j + 2 * q);
+                        seed[j][0] = seed[j][2] = d2.x;
+                        seed[j][1] = seed[j][3] = d2.y;
+                    }
+                    wide_product<DP>(sc, kw, qt_, qc, zs);
+                    wide_product<DP>(dp, vw, et_, qc, seed);
+                    if (low || below_band(sc)) {
+                        bwd_line_low(sc, dp, ds);
+                    } else {
+                        clamp_band<DP>(sc, qkv + row0 * ldq + C + h * DP, ldq, krow, N,
+                                       qt_ + qc * LD, LD);
+                        bwd_line(sc, dp, ds);
+                    }
+                    uint32_t a[4], pa[4];
+                    pack_a(a, ds[0], ds[1]);
+                    pack_a(pa, sc[0], sc[1]);
+#pragma unroll
+                    for (int u = 0; u < OT / 2; ++u) {
+                        uint32_t b[4];
+                        ldsm_b_kmajor(b, qt_, LD, qc, v0 + 16 * u);
+                        mma_bf16(dk[2 * u], a, b[0], b[1]);
+                        mma_bf16(dk[2 * u + 1], a, b[2], b[3]);
+                        ldsm_b_kmajor(b, et_, LD, qc, v0 + 16 * u);
+                        mma_bf16(dv[2 * u], pa, b[0], b[1]);
+                        mma_bf16(dv[2 * u + 1], pa, b[2], b[3]);
+                    }
+                }
+                __syncthreads();
+            }
+            store_rows<OT>(dqkv, 3 * Ct, dk, row0, krow, N, Ct, h * DP + v0, DP, Ht, Dt);
+            store_rows<OT>(dqkv, 3 * Ct, dv, row0, krow, N, 2 * Ct, h * DP + v0, DP, Ht, Dt);
+        }
     }
 }
 
 // 5. d_normed = dqkv Wqkv^T, the LN1 backward and dx = d_mid + LN1'(...),
-// on the tensor cores (the mirror of mlp_bwd_kernel).  64 tokens a tile, 8
-// warps: warp w owns tokens 16 (w % 4) .. + 15 and half w / 4 of the C
-// columns.  Per tile: the bf16 dqkv (the A tile, 64 x 3C) and x to shared
-// memory (cp.async); LN1 statistics of x in f32 (a warp per 8 tokens);
-// d_normed on mma into registers, Wqkv^T (3C x C) streamed in k-slices
-// (block_gemm); the LN backward in registers (each token's means over C
-// from the two column halves through shared memory), d_mid read from
-// device memory, dx rounded to bf16.  The partials [dln1s C | dln1b C] are
-// summed per block over its tiles (a fixed shuffle tree over each warp's
-// 16 tokens, then the 4 token quarters in order) and written once.
+// on the tensor cores (the mirror of mlp_bwd_kernel).  TOK =
+// tile_tok<CP>() tokens a tile, 8 warps: warp w owns tokens 16 (w % RG) ..
+// + 15 and part w / RG of the CS parts of the columns.  Per tile: the bf16
+// dqkv (the A tile, TOK x 3C, zero up to K3 = 3C rounded up to 32) and x
+// to shared memory (cp.async); LN1 statistics of x over its C channels in
+// f32 (a warp per TOK / 8 tokens); d_normed on mma into registers, Wqkv^T
+// (3C x C) streamed in k-slices (block_gemm, read as zeros past 3C and past
+// C); the LN backward in registers (each token's means over C from the
+// column parts through shared memory), d_mid read from device memory, dx
+// rounded to bf16.  The partials [dln1s C | dln1b C] are summed per block
+// over its tiles (a fixed shuffle tree over each warp's 16 tokens, then
+// the RG token parts in order) and written once.
 constexpr int LB_TOK = 64;
 constexpr int LB_THREADS = 256;
 
-template <int C>
+template <int CP>
 constexpr size_t ln1_bwd_smem_bytes() {
-    return sizeof(bf16) * ((size_t)LB_TOK * (3 * C + 8) + LB_TOK * (C + 8) + 2 * KS * (C + 8))
-           + sizeof(float) * ((size_t)2 * C + 8 * C + 6 * LB_TOK);
+    constexpr size_t T = tile_tok<CP>(), RG = T / 16, CS = 8 / RG;
+    return sizeof(bf16) * (T * (3 * CP + 8) + T * (CP + 8) + 2 * KS * (CP + 8))
+           + sizeof(float) * ((size_t)2 * CP + 2 * RG * CP + 2 * T + 2 * CS * T);
 }
 
-template <int C>
-__global__ void __launch_bounds__(LB_THREADS, C <= 128 ? 2 : 1)
+template <int CP, bool EXACT>
+__global__ void __launch_bounds__(LB_THREADS, CP <= 128 ? 2 : 1)
 ln1_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dqkv,
                const float* __restrict__ d_mid, const bf16* __restrict__ ln1_s,
                const bf16* __restrict__ wqkvt, bf16* __restrict__ dx,
-               float* __restrict__ part, int M) {
-    constexpr int LDA = 3 * C + 8, LDX = C + 8;
-    constexpr int ONT = C / 16;        // n-tiles a warp (half the columns)
+               float* __restrict__ part, int M, int c) {
+    const int C = EXACT ? CP : c;     // EXACT: C = CP, known at compile time
+    constexpr int TOK = tile_tok<CP>(), RG = TOK / 16, CS = 8 / RG;
+    constexpr int LDA = 3 * CP + 8, LDX = CP + 8;
+    constexpr int ONT = CP / (8 * CS);     // n-tiles a warp (its part of the columns)
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    bf16* sa = reinterpret_cast<bf16*>(smem_raw);                 // 64 x LDA: dqkv
-    bf16* sx = sa + LB_TOK * LDA;                                 // 64 x LDX: x
-    bf16* wbuf = sx + LB_TOK * LDX;                               // block_gemm's buffers
-    float* p_l1s = reinterpret_cast<float*>(wbuf + 2 * KS * (C + 8));   // the block's partials
+    bf16* sa = reinterpret_cast<bf16*>(smem_raw);                 // TOK x LDA: dqkv
+    bf16* sx = sa + TOK * LDA;                                    // TOK x LDX: x
+    bf16* wbuf = sx + TOK * LDX;                                  // block_gemm's buffers
+    float* p_l1s = reinterpret_cast<float*>(wbuf + 2 * KS * (CP + 8));   // the block's partials
     float* p_l1b = p_l1s + C;
-    float* red = p_l1b + C;                                       // 2 vectors x 4 quarters x C
-    float* s_mean = red + 8 * C;                                  // 64
-    float* s_rstd = s_mean + LB_TOK;                              // 64
-    float* s_rows = s_rstd + LB_TOK;             // 64 x [2 halves x (sum dn, dn nh)]
+    float* red = p_l1s + 2 * CP;                                  // 2 vectors x RG parts x CP
+    float* s_mean = red + 2 * RG * CP;                            // TOK
+    float* s_rstd = s_mean + TOK;                                 // TOK
+    float* s_rows = s_rstd + TOK;              // TOK x [CS parts x (sum dn, dn nh)]
+    const int C3 = 3 * C, K3 = (C3 + KS - 1) / KS * KS;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int gq = lane >> 2, q = lane & 3;
-    const int quarter = warp & 3, half = warp >> 2;
-    const int mrow = 16 * quarter;
+    const int rg = warp % RG, cpart = warp / RG;
+    const int mrow = 16 * rg;
+    const int ccol0 = cpart * CP / CS;
     for (int i = threadIdx.x; i < 2 * C; i += LB_THREADS) p_l1s[i] = 0.f;
 
-    const int ntiles = (M + LB_TOK - 1) / LB_TOK;
+    const int ntiles = (M + TOK - 1) / TOK;
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-        const int tok0 = tile * LB_TOK;
-        const int ntok = min(LB_TOK, M - tok0);
+        const int tok0 = tile * TOK;
+        const int ntok = min(TOK, M - tok0);
         const size_t base = (size_t)tok0 * C;
-        stage_rows<LB_THREADS>(sa, LDA, dqkv, 3 * C, tok0, LB_TOK, ntok, 3 * C);
-        stage_rows<LB_THREADS>(sx, LDX, x, C, tok0, LB_TOK, ntok, C);
+        stage_rows<LB_THREADS>(sa, LDA, dqkv, C3, tok0, TOK, ntok, C3);
+        stage_rows<LB_THREADS>(sx, LDX, x, C, tok0, TOK, ntok, C);
         cp_async_commit();
+        if (C3 < K3) {
+            for (int i = threadIdx.x; i < TOK * (K3 - C3); i += LB_THREADS)
+                sa[(i / (K3 - C3)) * LDA + C3 + i % (K3 - C3)] = __float2bfloat16(0.f);
+        }
         cp_async_wait<0>();
         __syncthreads();
-        // LN1 statistics of x, a warp per 8 tokens (padded tokens: zeros)
-        for (int t = warp * (LB_TOK / 8); t < (warp + 1) * (LB_TOK / 8); ++t) {
-            float v[C / 32];
+        // LN1 statistics of x, a warp per TOK / 8 tokens (padded tokens: zeros)
+        for (int t = warp * (TOK / 8); t < (warp + 1) * (TOK / 8); ++t) {
+            float v[CP / 32];
             float sum = 0.f;
 #pragma unroll
-            for (int i = 0; i < C / 32; ++i) {
-                v[i] = __bfloat162float(sx[t * LDX + lane + 32 * i]);
+            for (int i = 0; i < CP / 32; ++i) {
+                v[i] = lane + 32 * i < C ? __bfloat162float(sx[t * LDX + lane + 32 * i]) : 0.f;
                 sum += v[i];
             }
             const float mean = warp_sum(sum) / C;
             float var = 0.f;
 #pragma unroll
-            for (int i = 0; i < C / 32; ++i) var += (v[i] - mean) * (v[i] - mean);
+            for (int i = 0; i < CP / 32; ++i)
+                if (lane + 32 * i < C) var += (v[i] - mean) * (v[i] - mean);
             const float rstd = rsqrtf(warp_sum(var) / C + 1e-5f);
             if (lane == 0) {
                 s_mean[t] = mean;
@@ -992,14 +1373,15 @@ ln1_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dqkv,
         // statistics)
         float dn[ONT][4];
         zero(dn);
-        block_gemm<ONT, C, LB_THREADS>(dn, sa + mrow * LDA, LDA, wqkvt, C, 0, 3 * C, wbuf,
-                                       half * C / 2);
+        block_gemm<ONT, CP, LB_THREADS>(dn, sa + mrow * LDA, LDA, wqkvt, C, 0, K3, wbuf, ccol0,
+                                        C3, C);
         // LN1 backward: dx = d_mid + rstd (dn - m1 - nhat m2), dn = d_normed ln1_s
         float ra[2] = {}, rb[2] = {};
         float c_s[ONT][2] = {}, c_b[ONT][2] = {};
 #pragma unroll
         for (int j = 0; j < ONT; ++j) {
-            const int col = half * C / 2 + 8 * j + 2 * q;
+            const int col = ccol0 + 8 * j + 2 * q;
+            if (col >= C) continue;
             const float ls0 = ld(ln1_s + col), ls1 = ld(ln1_s + col + 1);
 #pragma unroll
             for (int hr = 0; hr < 2; ++hr) {
@@ -1018,8 +1400,8 @@ ln1_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dqkv,
                 }
             }
         }
-        warp_colsum(c_s, red + (0 * 4 + quarter) * C + half * C / 2);
-        warp_colsum(c_b, red + (1 * 4 + quarter) * C + half * C / 2);
+        warp_colsum(c_s, red + (0 * RG + rg) * CP + ccol0);
+        warp_colsum(c_b, red + (1 * RG + rg) * CP + ccol0);
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
 #pragma unroll
@@ -1029,22 +1411,28 @@ ln1_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dqkv,
             }
             if (q == 0) {
                 const int t = mrow + gq + 8 * hr;
-                s_rows[t * 4 + 2 * half] = ra[hr];
-                s_rows[t * 4 + 2 * half + 1] = rb[hr];
+                s_rows[t * 2 * CS + 2 * cpart] = ra[hr];
+                s_rows[t * 2 * CS + 2 * cpart + 1] = rb[hr];
             }
         }
         __syncthreads();
 #pragma unroll
         for (int j = 0; j < ONT; ++j) {
-            const int col = half * C / 2 + 8 * j + 2 * q;
+            const int col = ccol0 + 8 * j + 2 * q;
+            if (col >= C) continue;
             const float ls0 = ld(ln1_s + col), ls1 = ld(ln1_s + col + 1);
 #pragma unroll
             for (int hr = 0; hr < 2; ++hr) {
                 const int t = mrow + gq + 8 * hr;
                 if (t >= ntok) continue;
                 const float mean = s_mean[t], rstd = s_rstd[t];
-                const float m1 = (s_rows[t * 4] + s_rows[t * 4 + 2]) / C;
-                const float m2 = (s_rows[t * 4 + 1] + s_rows[t * 4 + 3]) / C;
+                float sa_ = s_rows[t * 2 * CS], sb_ = s_rows[t * 2 * CS + 1];
+#pragma unroll
+                for (int k = 1; k < CS; ++k) {
+                    sa_ += s_rows[t * 2 * CS + 2 * k];
+                    sb_ += s_rows[t * 2 * CS + 2 * k + 1];
+                }
+                const float m1 = sa_ / C, m2 = sb_ / C;
                 const float nh0 = (__bfloat162float(sx[t * LDX + col]) - mean) * rstd;
                 const float nh1 = (__bfloat162float(sx[t * LDX + col + 1]) - mean) * rstd;
                 const float2 dm = *reinterpret_cast<const float2*>(d_mid + base + t * C + col);
@@ -1054,8 +1442,8 @@ ln1_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dqkv,
                         dm.y + rstd * (dn[j][2 * hr + 1] * ls1 - m1 - nh1 * m2));
             }
         }
-        add_quarters<LB_THREADS>(p_l1s, red, C, C);
-        add_quarters<LB_THREADS>(p_l1b, red + 4 * C, C, C);
+        add_parts<LB_THREADS, RG>(p_l1s, red, CP, C);
+        add_parts<LB_THREADS, RG>(p_l1b, red + RG * CP, CP, C);
         __syncthreads();          // sx, red and s_rows are read before the next tile's
     }
     for (int i = threadIdx.x; i < 2 * C; i += LB_THREADS)
@@ -1174,27 +1562,53 @@ BwdGrid attn_bwd_grid(int R, int N) {
     return {32 * warps, nb, N > 64 ? 128 : 64, (size_t)R * nb};
 }
 
-// bound: R * H floats of scratch.
-template <int D>
+// The attention backward at padded head dim DP (p: the widths, head_plan
+// of the block's C, H): attn_bwd_norm_kernel, then d_q and d_k, d_v.
+// bound: R * HK floats of scratch.
+template <int DP>
 cudaError_t launch_attn_bwd(const bf16* qkv, const bf16* d_oe, const float* d_den, float* bound,
-                            bf16* dqkv, int R, int N, int C, int H, cudaStream_t stream) {
+                            bf16* dqkv, int R, int N, int C, int H, const HeadPlan& p,
+                            cudaStream_t stream) {
     const BwdGrid g = attn_bwd_grid(R, N);
-    if (g.blocks > 0x7fffffffULL || C % BwdPass<D>::PASS || NORM_THREADS % H)
-        return cudaErrorInvalidConfiguration;
-    attn_bwd_norm_kernel<<<(unsigned)R, NORM_THREADS, 0, stream>>>(qkv, bound, N, C, H);
+    if (g.blocks > 0x7fffffffULL || p.HK > MAX_NORM_HEADS) return cudaErrorInvalidConfiguration;
+    attn_bwd_norm_kernel<<<(unsigned)R, NORM_THREADS, 0, stream>>>(qkv, bound, N, p.CA, p.HK);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    auto go = [&](auto kernel, size_t smem) {
-        cudaError_t e =
-            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return e;
-        kernel<<<(unsigned)g.blocks, g.threads, smem, stream>>>(qkv, d_oe, d_den, bound, dqkv, N,
-                                                               C, H, g.nb, g.tile);
-        return cudaGetLastError();
-    };
-    err = go(attn_bwd_q_kernel<D>, attn_bwd_smem_bytes<D>(g.tile, false));
-    if (err != cudaSuccess) return err;
-    return go(attn_bwd_kv_kernel<D>, attn_bwd_smem_bytes<D>(g.tile, true));
+    if constexpr (DP <= 32) {
+        if (p.CA % BwdPass<DP>::PASS) return cudaErrorInvalidConfiguration;
+        auto go = [&](auto kernel, size_t smem) {
+            cudaError_t e = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            if (e != cudaSuccess) return e;
+            kernel<<<(unsigned)g.blocks, g.threads, smem, stream>>>(
+                qkv, d_oe, d_den, bound, dqkv, N, p.CA, p.HK, C, H, p.D, g.nb, g.tile);
+            return cudaGetLastError();
+        };
+        const size_t q_smem = attn_bwd_smem_bytes<DP>(g.tile, false);
+        const size_t kv_smem = attn_bwd_smem_bytes<DP>(g.tile, true);
+        if (p.CA == C && p.DP == p.D) {
+            err = go(attn_bwd_q_kernel<DP, true>, q_smem);
+            return err != cudaSuccess ? err : go(attn_bwd_kv_kernel<DP, true>, kv_smem);
+        }
+        err = go(attn_bwd_q_kernel<DP, false>, q_smem);
+        return err != cudaSuccess ? err : go(attn_bwd_kv_kernel<DP, false>, kv_smem);
+    } else {
+        constexpr int W = WideBwd<DP>::WARPS;
+        const int nb = (N + 16 * W - 1) / (16 * W);
+        const size_t blocks = (size_t)R * nb;
+        if (blocks > 0x7fffffffULL) return cudaErrorInvalidConfiguration;
+        auto go = [&](auto kernel, size_t smem) {
+            cudaError_t e = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            if (e != cudaSuccess) return e;
+            kernel<<<(unsigned)blocks, 32 * W, smem, stream>>>(qkv, d_oe, d_den, bound, dqkv, N,
+                                                               p.CA, p.HK, C, H, p.D, nb);
+            return cudaGetLastError();
+        };
+        err = go(attn_bwd_q_wide_kernel<DP>, attn_bwd_wide_smem_bytes<DP>(false));
+        if (err != cudaSuccess) return err;
+        return go(attn_bwd_kv_wide_kernel<DP>, attn_bwd_wide_smem_bytes<DP>(true));
+    }
 }
 
 // The scratch buffer's parts, in order, as byte offsets.
@@ -1206,20 +1620,21 @@ struct Layout {
 
 Layout layout(int R, int N, int C, int H, int hidden) {
     const size_t M = (size_t)R * N;
+    const HeadPlan p = head_plan(C, H);
     Layout l{};
     size_t off = 0;
     auto take = [&](size_t n) { const size_t at = off; off += align256(n); return at; };
-    l.qkv = take(M * 3 * C * 2);
+    l.qkv = take(M * 3 * p.CA * 2);
     l.normed = take(M * C * 2);
     l.n2c = take(M * C * 2);
     l.h1c = take(M * hidden * 2);
     l.dh1c = take(M * hidden * 2);
     l.d_midc = take(M * C * 2);
-    l.d_oe = take(M * C * 2);
+    l.d_oe = take(M * p.CA * 2);
     l.dqkv = take(M * 3 * C * 2);
     l.d_mid = take(M * C * 4);
     l.d_den = take(M * H * 4);
-    l.bound = take((size_t)R * H * 4);
+    l.bound = take((size_t)R * p.HK * 4);
     // mlp_bwd_kernel's partials and, after them, ln1_bwd_kernel's
     l.vec_part = take((size_t)token_blocks((int)M) * (4 * C + hidden) * 4);
     const size_t mat = (size_t)max(hidden * C, 3 * C * C);
@@ -1248,8 +1663,9 @@ extern "C" size_t fused_block_backward_scratch_bytes(int R, int N, int C, int H,
 }
 
 // Where the attention backward's operands and result lie in the scratch
-// buffer after a call, as byte offsets: d_oe (R*N, C) bf16, d_den (R*N, H)
-// f32 (bf16 values) and dqkv (R*N, 3C) bf16.
+// buffer after a call, as byte offsets: d_oe (R*N, CA) bf16 in the padded
+// head layout (head_plan), d_den (R*N, H) f32 (bf16 values) and dqkv
+// (R*N, 3C) bf16.
 extern "C" void fused_block_backward_part_offsets(int R, int N, int C, int H, int hidden,
                                                   size_t* offsets) {
     const Layout l = layout(R, N, C, H, hidden);
@@ -1267,7 +1683,9 @@ extern "C" int fused_block_backward(
     int R, int N, int C, int H, int hidden, void* stream_ptr) {
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     const int M = R * N;
-    if (M <= 0 || H <= 0 || C % H) return cudaErrorInvalidValue;
+    if (M <= 0 || H <= 0 || C % 8 || C > 512 || C % H || hidden <= 0 || hidden % 8)
+        return cudaErrorInvalidValue;
+    const HeadPlan p = head_plan(C, H);
     const Scratch s = carve((char*)scratch, layout(R, N, C, H, hidden));
     float* gr = (float*)grads;
     float *g_ln1s = gr, *g_ln1b = g_ln1s + C, *g_qkv = g_ln1b + C, *g_wo = g_qkv + 3 * C * C,
@@ -1278,7 +1696,8 @@ extern "C" int fused_block_backward(
 
     // 1. LN1 + qkv recompute (B1's launch, on the tensor cores)
     cudaError_t err = launch_ln_qkv<true>(bx, (const bf16*)ln1_s, (const bf16*)ln1_b,
-                                          (const bf16*)w_qkv, s.qkv, s.normed, M, C, stream);
+                                          (const bf16*)w_qkv, s.qkv, s.normed, M, C, p.CA,
+                                          stream);
     if (err != cudaSuccess) return err;
 
     // 2. MLP half + LN2 backward + d_oe / d_den
@@ -1292,16 +1711,23 @@ extern "C" int fused_block_backward(
             (const bf16*)mid, bg, bacc, (const float*)den, (const bf16*)ln2_s,
             (const bf16*)ln2_b, (const bf16*)w_1, (const bf16*)b_1, (const bf16*)w_1_t,
             (const bf16*)w_2_t, (const bf16*)w_o_t, s.n2c, s.h1c, s.dh1c, s.d_mid, s.d_midc,
-            s.d_oe, s.d_den, s.vec_part, M, N, H, hidden);
+            s.d_oe, s.d_den, s.vec_part, M, N, H, hidden, C, p.DP, p.CA);
         return cudaGetLastError();
     };
-    switch (C) {
-        case 32: err = mlp(mlp_bwd_kernel<32>, mlp_bwd_smem_bytes<32>(hidden)); break;
-        case 64: err = mlp(mlp_bwd_kernel<64>, mlp_bwd_smem_bytes<64>(hidden)); break;
-        case 128: err = mlp(mlp_bwd_kernel<128>, mlp_bwd_smem_bytes<128>(hidden)); break;
-        case 256: err = mlp(mlp_bwd_kernel<256>, mlp_bwd_smem_bytes<256>(hidden)); break;
-        default: return cudaErrorInvalidValue;
+    // the EXACT forms where the widths are the flagship's (C = CA = CP, DP = D)
+    const bool exact = C == prod_width(C) && p.CA == C && p.DP == p.D;
+#define WIDTH_SWITCH(F)                                                 \
+    switch (prod_width(C)) {                                            \
+        case 32: err = exact ? F(32, true) : F(32, false); break;       \
+        case 64: err = exact ? F(64, true) : F(64, false); break;       \
+        case 128: err = exact ? F(128, true) : F(128, false); break;    \
+        case 256: err = exact ? F(256, true) : F(256, false); break;    \
+        case 384: err = F(384, false); break;                           \
+        default: err = F(512, false); break;                            \
     }
+#define MLP_AT(CPV, EX) mlp(mlp_bwd_kernel<CPV, EX>, mlp_bwd_smem_bytes<CPV>(hidden))
+    WIDTH_SWITCH(MLP_AT)
+#undef MLP_AT
     if (err != cudaSuccess) return err;
     const float* vp = s.vec_part;
     if ((err = reduce(vp, g_b2, G, pw, C, stream)) != cudaSuccess) return err;
@@ -1311,16 +1737,17 @@ extern "C" int fused_block_backward(
     if ((err = reduce(vp + 3 * C + hidden, g_ob, G, pw, C, stream)) != cudaSuccess) return err;
 
     // 3-4. attention backward
-    auto attn = [&](auto launch) {
-        return launch(s.qkv, s.d_oe, s.d_den, s.bound, s.dqkv, R, N, C, H, stream);
-    };
-    switch (C / H) {
-        case 4: err = attn(launch_attn_bwd<4>); break;
-        case 8: err = attn(launch_attn_bwd<8>); break;
-        case 16: err = attn(launch_attn_bwd<16>); break;
-        case 32: err = attn(launch_attn_bwd<32>); break;
+#define ATTN_AT(DPV)                                                                      \
+    case DPV:                                                                             \
+        err = launch_attn_bwd<DPV>(s.qkv, s.d_oe, s.d_den, s.bound, s.dqkv, R, N, C, H, p, \
+                                   stream);                                              \
+        break;
+    switch (p.DP) {
+        ATTN_AT(4) ATTN_AT(8) ATTN_AT(16) ATTN_AT(32) ATTN_AT(64) ATTN_AT(128) ATTN_AT(256)
+        ATTN_AT(512)
         default: return cudaErrorInvalidValue;
     }
+#undef ATTN_AT
     if (err != cudaSuccess) return err;
 
     // 5. LN1 backward and dx
@@ -1329,16 +1756,14 @@ extern "C" int fused_block_backward(
             cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return e;
         kernel<<<G, LB_THREADS, smem, stream>>>(bx, s.dqkv, s.d_mid, (const bf16*)ln1_s,
-                                                (const bf16*)w_qkv_t, (bf16*)dx, s.vec_part, M);
+                                                (const bf16*)w_qkv_t, (bf16*)dx, s.vec_part, M,
+                                                C);
         return cudaGetLastError();
     };
-    switch (C) {
-        case 32: err = ln1(ln1_bwd_kernel<32>, ln1_bwd_smem_bytes<32>()); break;
-        case 64: err = ln1(ln1_bwd_kernel<64>, ln1_bwd_smem_bytes<64>()); break;
-        case 128: err = ln1(ln1_bwd_kernel<128>, ln1_bwd_smem_bytes<128>()); break;
-        case 256: err = ln1(ln1_bwd_kernel<256>, ln1_bwd_smem_bytes<256>()); break;
-        default: return cudaErrorInvalidValue;
-    }
+#define LN1_AT(CPV, EX) ln1(ln1_bwd_kernel<CPV, EX>, ln1_bwd_smem_bytes<CPV>())
+    WIDTH_SWITCH(LN1_AT)
+#undef LN1_AT
+#undef WIDTH_SWITCH
     if (err != cudaSuccess) return err;
     if ((err = reduce(s.vec_part, g_ln1s, G, 2 * C, C, stream)) != cudaSuccess) return err;
     if ((err = reduce(s.vec_part + C, g_ln1b, G, 2 * C, C, stream)) != cudaSuccess) return err;

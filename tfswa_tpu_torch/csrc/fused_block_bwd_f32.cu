@@ -30,7 +30,11 @@
 // d_p), d_normed and dx; then every weight gradient (atb_kernel) and
 // vector (colsum_kernel) as partial sums over fixed slices of the tokens,
 // added slice by slice in a fixed order (sum_parts_kernel).  No atomics:
-// two runs give the same bits.  No (N, N) plane exists.
+// two runs give the same bits.  No (N, N) plane exists.  The attention
+// kernels hold a head's D channels (rounded up to 4, 8, 16 or 32, zeros
+// past D) in registers; a head wider than 32 channels runs their _wide
+// forms, the output in parts of 32 channels whose blocks sum s and d_p
+// over the head's channels 32 at a time.
 //
 // What bounds it: the attention backward's pairs (about 4 D FFMA and one
 // exp2 each, twice: once per kernel) at the CUDA cores' issue rate, and
@@ -65,90 +69,94 @@ attn_prep_kernel(const float* __restrict__ d_acc, const float* __restrict__ acc,
 }
 
 // dqkv[(r N + i) 3C + h D + d] = d_q: one block per (row, QT queries) and
-// head, a thread a query.
-template <int D>
+// head, a thread a query.  DP: the head dim D rounded up to 4, 8, 16 or 32
+// (the operands zero past D).
+template <int DP>
 __global__ void __launch_bounds__(QT)
 attn_bwd_q_kernel(const float* __restrict__ qkv, const float* __restrict__ d_oe,
                   const float* __restrict__ d_den, float* __restrict__ dqkv, int N, int C, int H,
                   int q_tiles) {
-    __shared__ float ks[KT][D];
-    __shared__ float vs[KT][D];
+    __shared__ float ks[KT][DP];
+    __shared__ float vs[KT][DP];
+    const int D = C / H;
     const int r = blockIdx.x / q_tiles;
     const int i = (blockIdx.x % q_tiles) * QT + threadIdx.x;
     const int h = blockIdx.y;
     const long row0 = (long)r * N;
     const long C3 = 3L * C;
     const bool live = i < N;
-    float q[D], o[D], dq[D];
+    float q[DP], o[DP], dq[DP];
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-        q[d] = live ? qkv[(row0 + i) * C3 + h * D + d] : 0.0f;
-        o[d] = live ? d_oe[(row0 + i) * C + h * D + d] : 0.0f;
+    for (int d = 0; d < DP; ++d) {
+        q[d] = live && d < D ? qkv[(row0 + i) * C3 + h * D + d] : 0.0f;
+        o[d] = live && d < D ? d_oe[(row0 + i) * C + h * D + d] : 0.0f;
         dq[d] = 0.0f;
     }
     const float dd = live ? d_den[(row0 + i) * H + h] : 0.0f;
     for (int j0 = 0; j0 < N; j0 += KT) {
         const int nk = N - j0 < KT ? N - j0 : KT;
-        for (int e = threadIdx.x; e < nk * D; e += QT) {
-            const int j = e / D, d = e % D;
+        for (int e = threadIdx.x; e < nk * DP; e += QT) {
+            const int j = e / DP, d = e % DP;
             const long t = row0 + j0 + j;
-            ks[j][d] = qkv[t * C3 + C + h * D + d];
-            vs[j][d] = qkv[t * C3 + 2 * C + h * D + d];
+            ks[j][d] = d < D ? qkv[t * C3 + C + h * D + d] : 0.0f;
+            vs[j][d] = d < D ? qkv[t * C3 + 2 * C + h * D + d] : 0.0f;
         }
         __syncthreads();
         if (live) {
             for (int j = 0; j < nk; ++j) {
                 float s = 0.0f, dp = 0.0f;
 #pragma unroll
-                for (int d = 0; d < D; ++d) {
+                for (int d = 0; d < DP; ++d) {
                     s = fmaf(q[d], ks[j][d], s);
                     dp = fmaf(o[d], vs[j][d], dp);
                 }
                 const float p = exp2f(fminf(s, SCORE_CLAMP));
                 const float ds = s < SCORE_CLAMP ? (dp + dd) * p * LN2 : 0.0f;
 #pragma unroll
-                for (int d = 0; d < D; ++d) dq[d] = fmaf(ds, ks[j][d], dq[d]);
+                for (int d = 0; d < DP; ++d) dq[d] = fmaf(ds, ks[j][d], dq[d]);
             }
         }
         __syncthreads();
     }
     if (live) {
 #pragma unroll
-        for (int d = 0; d < D; ++d) dqkv[(row0 + i) * C3 + h * D + d] = dq[d];
+        for (int d = 0; d < DP; ++d)
+            if (d < D) dqkv[(row0 + i) * C3 + h * D + d] = dq[d];
     }
 }
 
 // dqkv's d_k and d_v columns: one block per (row, QT keys) and head, a
 // thread a key; the queries' q, d_oe and d_den stream through shared memory.
-template <int D>
+template <int DP>
 __global__ void __launch_bounds__(QT)
 attn_bwd_kv_kernel(const float* __restrict__ qkv, const float* __restrict__ d_oe,
                    const float* __restrict__ d_den, float* __restrict__ dqkv, int N, int C,
                    int H, int k_tiles) {
-    __shared__ float qs[KT][D];
-    __shared__ float os[KT][D];
+    __shared__ float qs[KT][DP];
+    __shared__ float os[KT][DP];
     __shared__ float ds_[KT];
+    const int D = C / H;
     const int r = blockIdx.x / k_tiles;
     const int j = (blockIdx.x % k_tiles) * QT + threadIdx.x;
     const int h = blockIdx.y;
     const long row0 = (long)r * N;
     const long C3 = 3L * C;
     const bool live = j < N;
-    float k[D], v[D], dk[D], dv[D];
+    float k[DP], v[DP], dk[DP], dv[DP];
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-        k[d] = live ? qkv[(row0 + j) * C3 + C + h * D + d] : 0.0f;
-        v[d] = live ? qkv[(row0 + j) * C3 + 2 * C + h * D + d] : 0.0f;
+    for (int d = 0; d < DP; ++d) {
+        k[d] = live && d < D ? qkv[(row0 + j) * C3 + C + h * D + d] : 0.0f;
+        v[d] = live && d < D ? qkv[(row0 + j) * C3 + 2 * C + h * D + d] : 0.0f;
         dk[d] = 0.0f;
         dv[d] = 0.0f;
     }
     for (int i0 = 0; i0 < N; i0 += KT) {
         const int nq = N - i0 < KT ? N - i0 : KT;
-        for (int e = threadIdx.x; e < nq * D; e += QT) {
-            const int i = e / D, d = e % D;
+        for (int e = threadIdx.x; e < nq * DP; e += QT) {
+            const int i = e / DP, d = e % DP;
             const long t = row0 + i0 + i;
-            qs[i][d] = qkv[t * C3 + h * D + d];
-            os[i][d] = d_oe[t * C + h * D + d];
+            qs[i][d] = d < D ? qkv[t * C3 + h * D + d] : 0.0f;
+            os[i][d] = d < D ? d_oe[t * C + h * D + d] : 0.0f;
         }
         for (int i = threadIdx.x; i < nq; i += QT) ds_[i] = d_den[(row0 + i0 + i) * H + h];
         __syncthreads();
@@ -156,14 +164,14 @@ attn_bwd_kv_kernel(const float* __restrict__ qkv, const float* __restrict__ d_oe
             for (int i = 0; i < nq; ++i) {
                 float s = 0.0f, dp = 0.0f;
 #pragma unroll
-                for (int d = 0; d < D; ++d) {
+                for (int d = 0; d < DP; ++d) {
                     s = fmaf(qs[i][d], k[d], s);
                     dp = fmaf(os[i][d], v[d], dp);
                 }
                 const float p = exp2f(fminf(s, SCORE_CLAMP));
                 const float ds = s < SCORE_CLAMP ? (dp + ds_[i]) * p * LN2 : 0.0f;
 #pragma unroll
-                for (int d = 0; d < D; ++d) {
+                for (int d = 0; d < DP; ++d) {
                     dk[d] = fmaf(ds, qs[i][d], dk[d]);
                     dv[d] = fmaf(p, os[i][d], dv[d]);
                 }
@@ -173,20 +181,167 @@ attn_bwd_kv_kernel(const float* __restrict__ qkv, const float* __restrict__ d_oe
     }
     if (live) {
 #pragma unroll
-        for (int d = 0; d < D; ++d) {
+        for (int d = 0; d < DP; ++d) {
+            if (d >= D) continue;
             dqkv[(row0 + j) * C3 + C + h * D + d] = dk[d];
             dqkv[(row0 + j) * C3 + 2 * C + h * D + d] = dv[d];
         }
     }
 }
 
-template <int D>
+// The two kernels for a head wider than 32 channels (D up to 512): the
+// output in parts of WCH channels (grid.z), each part's block streaming the
+// other side WKT tokens at a time; s and d_p summed over the head's
+// channels WCH at a time in order (the own token's channels read from
+// device memory, the other side's through shared memory: the FMA chains of
+// the kernels above), then the part's channels of the other side staged
+// for the output sums.  Each part recomputes s, d_p and p.
+constexpr int WKT = 32;   // other-side tokens a tile
+constexpr int WCH = 32;   // channels a chunk, and an output part
+
+// s[j] and dp[j] of the own token (a, e: its rows of the two tensors at
+// the head's channel 0, or null) against the tile's WKT other-side tokens
+// t0 .. (b, f: their rows at the head's channel 0, row strides ldb, ldf),
+// tokens past n_in as zeros.  All threads of the block.
+__device__ __forceinline__ void wide_scores(float (&s)[WKT], float (&dp)[WKT], const float* a,
+                                            const float* e, const float* b, long ldb,
+                                            const float* f, long ldf, int n_in, int D,
+                                            float (*xs)[WCH], float (*ys)[WCH]) {
+    for (int j = 0; j < WKT; ++j) s[j] = dp[j] = 0.0f;
+    for (int c0 = 0; c0 < D; c0 += WCH) {
+        __syncthreads();
+        for (int i = threadIdx.x; i < WKT * WCH; i += QT) {
+            const int j = i / WCH, d = i % WCH;
+            const bool in = j < n_in && c0 + d < D;
+            xs[j][d] = in ? b[j * ldb + c0 + d] : 0.0f;
+            ys[j][d] = in ? f[j * ldf + c0 + d] : 0.0f;
+        }
+        __syncthreads();
+        float ac[WCH], ec[WCH];
+        for (int d = 0; d < WCH; ++d) {
+            ac[d] = a && c0 + d < D ? a[c0 + d] : 0.0f;
+            ec[d] = a && c0 + d < D ? e[c0 + d] : 0.0f;
+        }
+        for (int j = 0; j < WKT; ++j)
+            for (int d = 0; d < WCH; ++d) {
+                s[j] = fmaf(ac[d], xs[j][d], s[j]);
+                dp[j] = fmaf(ec[d], ys[j][d], dp[j]);
+            }
+    }
+    __syncthreads();
+}
+
+__global__ void __launch_bounds__(QT)
+attn_bwd_q_wide_kernel(const float* __restrict__ qkv, const float* __restrict__ d_oe,
+                       const float* __restrict__ d_den, float* __restrict__ dqkv, int N, int C,
+                       int H, int q_tiles) {
+    __shared__ float xs[WKT][WCH];
+    __shared__ float ys[WKT][WCH];
+    const int D = C / H, v0 = blockIdx.z * WCH;
+    const int r = blockIdx.x / q_tiles;
+    const int i = (blockIdx.x % q_tiles) * QT + threadIdx.x;
+    const int h = blockIdx.y;
+    const long row0 = (long)r * N;
+    const long C3 = 3L * C;
+    const bool live = i < N;
+    const float* qa = live ? qkv + (row0 + i) * C3 + h * D : nullptr;
+    const float* oa = live ? d_oe + (row0 + i) * C + h * D : nullptr;
+    const float dd = live ? d_den[(row0 + i) * H + h] : 0.0f;
+    float dq[WCH];
+    for (int d = 0; d < WCH; ++d) dq[d] = 0.0f;
+    for (int j0 = 0; j0 < N; j0 += WKT) {
+        const int nk = N - j0 < WKT ? N - j0 : WKT;
+        const float* kb = qkv + (row0 + j0) * C3 + C + h * D;
+        float s[WKT], dp[WKT];
+        wide_scores(s, dp, qa, oa, kb, C3, kb + C, C3, nk, D, xs, ys);
+        for (int e = threadIdx.x; e < WKT * WCH; e += QT) {
+            const int j = e / WCH, d = e % WCH;
+            xs[j][d] = j < nk && v0 + d < D ? kb[j * C3 + v0 + d] : 0.0f;
+        }
+        __syncthreads();
+        if (live) {
+            for (int j = 0; j < nk; ++j) {
+                const float p = exp2f(fminf(s[j], SCORE_CLAMP));
+                const float ds = s[j] < SCORE_CLAMP ? (dp[j] + dd) * p * LN2 : 0.0f;
+                for (int d = 0; d < WCH; ++d) dq[d] = fmaf(ds, xs[j][d], dq[d]);
+            }
+        }
+    }
+    if (live) {
+        for (int d = 0; d < WCH; ++d)
+            if (v0 + d < D) dqkv[(row0 + i) * C3 + h * D + v0 + d] = dq[d];
+    }
+}
+
+__global__ void __launch_bounds__(QT)
+attn_bwd_kv_wide_kernel(const float* __restrict__ qkv, const float* __restrict__ d_oe,
+                        const float* __restrict__ d_den, float* __restrict__ dqkv, int N, int C,
+                        int H, int k_tiles) {
+    __shared__ float xs[WKT][WCH];
+    __shared__ float ys[WKT][WCH];
+    __shared__ float ds_[WKT];
+    const int D = C / H, v0 = blockIdx.z * WCH;
+    const int r = blockIdx.x / k_tiles;
+    const int j = (blockIdx.x % k_tiles) * QT + threadIdx.x;
+    const int h = blockIdx.y;
+    const long row0 = (long)r * N;
+    const long C3 = 3L * C;
+    const bool live = j < N;
+    const float* ka = live ? qkv + (row0 + j) * C3 + C + h * D : nullptr;
+    const float* va = live ? qkv + (row0 + j) * C3 + 2 * C + h * D : nullptr;
+    float dk[WCH], dv[WCH];
+    for (int d = 0; d < WCH; ++d) dk[d] = dv[d] = 0.0f;
+    for (int i0 = 0; i0 < N; i0 += WKT) {
+        const int nq = N - i0 < WKT ? N - i0 : WKT;
+        const float* qb = qkv + (row0 + i0) * C3 + h * D;
+        const float* ob = d_oe + (row0 + i0) * C + h * D;
+        float s[WKT], dp[WKT];
+        wide_scores(s, dp, ka, va, qb, C3, ob, C, nq, D, xs, ys);
+        for (int e = threadIdx.x; e < WKT * WCH; e += QT) {
+            const int i = e / WCH, d = e % WCH;
+            const bool in = i < nq && v0 + d < D;
+            xs[i][d] = in ? qb[i * C3 + v0 + d] : 0.0f;
+            ys[i][d] = in ? ob[i * C + v0 + d] : 0.0f;
+        }
+        for (int i = threadIdx.x; i < WKT; i += QT)
+            ds_[i] = i < nq ? d_den[(row0 + i0 + i) * H + h] : 0.0f;
+        __syncthreads();
+        if (live) {
+            for (int i = 0; i < nq; ++i) {
+                const float p = exp2f(fminf(s[i], SCORE_CLAMP));
+                const float ds = s[i] < SCORE_CLAMP ? (dp[i] + ds_[i]) * p * LN2 : 0.0f;
+                for (int d = 0; d < WCH; ++d) {
+                    dk[d] = fmaf(ds, xs[i][d], dk[d]);
+                    dv[d] = fmaf(p, ys[i][d], dv[d]);
+                }
+            }
+        }
+    }
+    if (live) {
+        for (int d = 0; d < WCH; ++d) {
+            if (v0 + d >= D) continue;
+            dqkv[(row0 + j) * C3 + C + h * D + v0 + d] = dk[d];
+            dqkv[(row0 + j) * C3 + 2 * C + h * D + v0 + d] = dv[d];
+        }
+    }
+}
+
+template <int DP>
 void launch_attn_bwd(const float* qkv, const float* d_oe, const float* d_den, float* dqkv, int R,
                      int N, int C, int H, cudaStream_t st) {
     const int tiles = (N + QT - 1) / QT;
     const dim3 grid((unsigned)((long)R * tiles), (unsigned)H);
-    LAUNCH(attn_bwd_q_kernel<D>, grid, QT, st, qkv, d_oe, d_den, dqkv, N, C, H, tiles);
-    LAUNCH(attn_bwd_kv_kernel<D>, grid, QT, st, qkv, d_oe, d_den, dqkv, N, C, H, tiles);
+    LAUNCH(attn_bwd_q_kernel<DP>, grid, QT, st, qkv, d_oe, d_den, dqkv, N, C, H, tiles);
+    LAUNCH(attn_bwd_kv_kernel<DP>, grid, QT, st, qkv, d_oe, d_den, dqkv, N, C, H, tiles);
+}
+
+void launch_attn_bwd_wide(const float* qkv, const float* d_oe, const float* d_den, float* dqkv,
+                          int R, int N, int C, int H, cudaStream_t st) {
+    const int tiles = (N + QT - 1) / QT;
+    const dim3 grid((unsigned)((long)R * tiles), (unsigned)H,
+                    (unsigned)((C / H + WCH - 1) / WCH));
+    LAUNCH(attn_bwd_q_wide_kernel, grid, QT, st, qkv, d_oe, d_den, dqkv, N, C, H, tiles);
+    LAUNCH(attn_bwd_kv_wide_kernel, grid, QT, st, qkv, d_oe, d_den, dqkv, N, C, H, tiles);
 }
 
 // The scratch, in floats, each region a multiple of 64 floats (256 bytes).
@@ -257,13 +412,12 @@ int backward(const float* x, const float* mid, const float* acc, const float* de
            doe, dden);
     ln_stats(x, M, C, mean1, rstd1, st);
     gemm(ln_a(x, C, mean1, rstd1, ln1_s, ln1_b), w_qkv, C3, qkv, C3, M, C3, C, epi(), st);
-    switch (C / H) {
-        case 4: launch_attn_bwd<4>(qkv, doe, dden, dqkv, R, N, C, H, st); break;
-        case 8: launch_attn_bwd<8>(qkv, doe, dden, dqkv, R, N, C, H, st); break;
-        case 16: launch_attn_bwd<16>(qkv, doe, dden, dqkv, R, N, C, H, st); break;
-        case 32: launch_attn_bwd<32>(qkv, doe, dden, dqkv, R, N, C, H, st); break;
-        default: return cudaErrorInvalidValue;
-    }
+    const int D = C / H;
+    if (D <= 4) launch_attn_bwd<4>(qkv, doe, dden, dqkv, R, N, C, H, st);
+    else if (D <= 8) launch_attn_bwd<8>(qkv, doe, dden, dqkv, R, N, C, H, st);
+    else if (D <= 16) launch_attn_bwd<16>(qkv, doe, dden, dqkv, R, N, C, H, st);
+    else if (D <= 32) launch_attn_bwd<32>(qkv, doe, dden, dqkv, R, N, C, H, st);
+    else launch_attn_bwd_wide(qkv, doe, dden, dqkv, R, N, C, H, st);
     gemm(plain_a(dqkv, C3), w_qkv_t, C, dnrm, C, M, C, C3, epi(), st);
     LAUNCH(ln_bwd_kernel, row_grid(M), ROW_WARPS * 32, st, dnrm, x, mean1, rstd1, ln1_s, dmid, dx,
            (int)M, C);
@@ -331,7 +485,8 @@ extern "C" int fused_block_backward_f32(
     const float* w_o_t, const float* ln2_s, const float* ln2_b, const float* w_1,
     const float* w_1_t, const float* b_1, const float* w_2_t, void* scratch, float* dx,
     float* grads, int R, int N, int C, int H, int hidden, void* stream) {
-    if (R <= 0 || N <= 0 || H <= 0 || C % H || hidden <= 0 || !scratch)
+    if (R <= 0 || N <= 0 || H <= 0 || C <= 0 || C % 8 || C > 512 || C % H || hidden <= 0
+        || !scratch)
         return cudaErrorInvalidValue;
     return f32::backward(x, mid, acc, den, g, ln1_s, ln1_b, w_qkv, w_qkv_t, w_o_t, ln2_s, ln2_b,
                          w_1, w_1_t, b_1, w_2_t, static_cast<float*>(scratch), dx, grads, R, N,

@@ -26,7 +26,11 @@
 // attn_kernel: one block per (row, 128 queries) and head, a thread a query
 // holding its q and its D sums in registers; the head's keys and values
 // stream through shared memory 128 keys at a time, read by every thread
-// (broadcast).  No (N, N) plane exists.  q, k, v, the attention output, y
+// (broadcast); DP, D rounded up to 4, 8, 16 or 32, sizes its registers and
+// tiles, zeros past D.  A head wider than 32 channels runs
+// attn_wide_kernel: the output in parts of 32 channels, each part's block
+// summing the scores over the head's channels 32 at a time.  No (N, N)
+// plane exists.  q, k, v, the attention output, y
 // and the MLP's hidden activation (4 C a token) go through device memory.
 //
 // What bounds it: the attention's pairs, 2 D FFMA, one exp2 (MUFU) and a
@@ -44,14 +48,17 @@ constexpr int KT = 128;   // keys a shared-memory tile
 
 // acc_out[(r N + i) C + h D + d] = (sum_j p_ij v_jd) / den_i; den_out[(r H
 // + h) N + i] = den_i (B1-train).  qk (R N, 2C) int8 and scales (R, 2): B3.
-// grid (R * q_tiles, H), QT threads.
-template <int D>
+// grid (R * q_tiles, H), QT threads.  DP: the head dim D rounded up to 4,
+// 8, 16 or 32 (q, k and v zero past D: the dot products' FMA chains over d
+// in order are those of D channels).
+template <int DP>
 __global__ void __launch_bounds__(QT)
 attn_kernel(const float* __restrict__ qkv, const int8_t* __restrict__ qk,
             const float* __restrict__ scales, float* __restrict__ acc_out,
             float* __restrict__ den_out, int N, int C, int H, int q_tiles) {
-    __shared__ float ks[KT][D];
-    __shared__ float vs[KT][D];
+    __shared__ float ks[KT][DP];
+    __shared__ float vs[KT][DP];
+    const int D = C / H;
     const int r = blockIdx.x / q_tiles;
     const int i = (blockIdx.x % q_tiles) * QT + threadIdx.x;
     const int h = blockIdx.y;
@@ -60,10 +67,10 @@ attn_kernel(const float* __restrict__ qkv, const int8_t* __restrict__ qk,
     const bool int8 = qk != nullptr;
     const float sqsk = int8 ? scales[2 * r] * scales[2 * r + 1] : 0.0f;
     const bool live = i < N;
-    float q[D], acc[D];
+    float q[DP], acc[DP];
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-        q[d] = !live ? 0.0f
+    for (int d = 0; d < DP; ++d) {
+        q[d] = !live || d >= D ? 0.0f
                : int8 ? (float)qk[(row0 + i) * C2 + h * D + d]
                       : qkv[(row0 + i) * C3 + h * D + d];
         acc[d] = 0.0f;
@@ -71,31 +78,107 @@ attn_kernel(const float* __restrict__ qkv, const int8_t* __restrict__ qk,
     float den = 0.0f;
     for (int j0 = 0; j0 < N; j0 += KT) {
         const int nk = N - j0 < KT ? N - j0 : KT;
-        for (int e = threadIdx.x; e < nk * D; e += QT) {
-            const int j = e / D, d = e % D;
+        for (int e = threadIdx.x; e < nk * DP; e += QT) {
+            const int j = e / DP, d = e % DP;
             const long t = row0 + j0 + j;
-            ks[j][d] = int8 ? (float)qk[t * C2 + C + h * D + d] : qkv[t * C3 + C + h * D + d];
-            vs[j][d] = qkv[t * C3 + 2 * C + h * D + d];
+            const bool in = d < D;
+            ks[j][d] = !in ? 0.0f
+                       : int8 ? (float)qk[t * C2 + C + h * D + d] : qkv[t * C3 + C + h * D + d];
+            vs[j][d] = in ? qkv[t * C3 + 2 * C + h * D + d] : 0.0f;
         }
         __syncthreads();
         if (live) {
             for (int j = 0; j < nk; ++j) {
                 float s = 0.0f;
 #pragma unroll
-                for (int d = 0; d < D; ++d) s = fmaf(q[d], ks[j][d], s);
+                for (int d = 0; d < DP; ++d) s = fmaf(q[d], ks[j][d], s);
                 if (int8) s = s * sqsk;
                 const float p = exp2f(fminf(s, SCORE_CLAMP));
                 den += p;
 #pragma unroll
-                for (int d = 0; d < D; ++d) acc[d] = fmaf(p, vs[j][d], acc[d]);
+                for (int d = 0; d < DP; ++d) acc[d] = fmaf(p, vs[j][d], acc[d]);
             }
         }
         __syncthreads();
     }
     if (live) {
 #pragma unroll
-        for (int d = 0; d < D; ++d) acc_out[(row0 + i) * C + h * D + d] = acc[d] / den;
+        for (int d = 0; d < DP; ++d)
+            if (d < D) acc_out[(row0 + i) * C + h * D + d] = acc[d] / den;
         if (den_out) den_out[((long)r * H + h) * N + i] = den;
+    }
+}
+
+// The same for a head wider than 32 channels (D up to 512): a thread a
+// query, the output in parts of WCH channels (grid.z), each part's block
+// streaming the keys WKT at a time and summing every score over the
+// head's channels WCH at a time in order (the query's channels read from
+// device memory, the keys' through shared memory), so that the scores are
+// those of attn_kernel's FMA chain; each part recomputes them.
+constexpr int WKT = 32;   // keys a tile
+constexpr int WCH = 32;   // channels a chunk, and an output part
+
+__global__ void __launch_bounds__(QT)
+attn_wide_kernel(const float* __restrict__ qkv, const int8_t* __restrict__ qk,
+                 const float* __restrict__ scales, float* __restrict__ acc_out,
+                 float* __restrict__ den_out, int N, int C, int H, int q_tiles) {
+    __shared__ float ks[WKT][WCH];
+    __shared__ float vs[WKT][WCH];
+    const int D = C / H, v0 = blockIdx.z * WCH;
+    const int r = blockIdx.x / q_tiles;
+    const int i = (blockIdx.x % q_tiles) * QT + threadIdx.x;
+    const int h = blockIdx.y;
+    const long row0 = (long)r * N;
+    const long C3 = 3L * C, C2 = 2L * C;
+    const bool int8 = qk != nullptr;
+    const float sqsk = int8 ? scales[2 * r] * scales[2 * r + 1] : 0.0f;
+    const bool live = i < N;
+    float acc[WCH];
+    for (int d = 0; d < WCH; ++d) acc[d] = 0.0f;
+    float den = 0.0f;
+    for (int j0 = 0; j0 < N; j0 += WKT) {
+        const int nk = N - j0 < WKT ? N - j0 : WKT;
+        float s[WKT];
+        for (int j = 0; j < WKT; ++j) s[j] = 0.0f;
+        for (int c0 = 0; c0 < D; c0 += WCH) {
+            __syncthreads();
+            for (int e = threadIdx.x; e < WKT * WCH; e += QT) {
+                const int j = e / WCH, d = e % WCH;
+                const long t = row0 + j0 + j;
+                const bool in = j < nk && c0 + d < D;
+                ks[j][d] = !in ? 0.0f
+                           : int8 ? (float)qk[t * C2 + C + h * D + c0 + d]
+                                  : qkv[t * C3 + C + h * D + c0 + d];
+            }
+            __syncthreads();
+            float qc[WCH];
+            for (int d = 0; d < WCH; ++d)
+                qc[d] = !live || c0 + d >= D ? 0.0f
+                        : int8 ? (float)qk[(row0 + i) * C2 + h * D + c0 + d]
+                               : qkv[(row0 + i) * C3 + h * D + c0 + d];
+            for (int j = 0; j < WKT; ++j)
+                for (int d = 0; d < WCH; ++d) s[j] = fmaf(qc[d], ks[j][d], s[j]);
+        }
+        __syncthreads();
+        for (int e = threadIdx.x; e < WKT * WCH; e += QT) {
+            const int j = e / WCH, d = e % WCH;
+            vs[j][d] = j < nk && v0 + d < D ? qkv[(row0 + j0 + j) * C3 + 2 * C + h * D + v0 + d]
+                                            : 0.0f;
+        }
+        __syncthreads();
+        if (live) {
+            for (int j = 0; j < nk; ++j) {
+                const float sj = int8 ? s[j] * sqsk : s[j];
+                const float p = exp2f(fminf(sj, SCORE_CLAMP));
+                den += p;
+                for (int d = 0; d < WCH; ++d) acc[d] = fmaf(p, vs[j][d], acc[d]);
+            }
+        }
+    }
+    if (live) {
+        for (int d = 0; d < WCH; ++d)
+            if (v0 + d < D) acc_out[(row0 + i) * C + h * D + v0 + d] = acc[d] / den;
+        if (den_out && blockIdx.z == 0) den_out[((long)r * H + h) * N + i] = den;
     }
 }
 
@@ -145,12 +228,20 @@ quantize_kernel(const float* __restrict__ qkv, const float* __restrict__ scales,
     qk[e] = (int8_t)(s > 0.0f ? rintf(v / s) : 0.0f);
 }
 
-template <int D>
+template <int DP>
 void launch_attn(const float* qkv, const int8_t* qk, const float* scales, float* attn,
                  float* den, int R, int N, int C, int H, cudaStream_t st) {
     const int q_tiles = (N + QT - 1) / QT;
-    LAUNCH(attn_kernel<D>, dim3((unsigned)((long)R * q_tiles), (unsigned)H), QT, st, qkv, qk,
+    LAUNCH(attn_kernel<DP>, dim3((unsigned)((long)R * q_tiles), (unsigned)H), QT, st, qkv, qk,
            scales, attn, den, N, C, H, q_tiles);
+}
+
+void launch_attn_wide(const float* qkv, const int8_t* qk, const float* scales, float* attn,
+                      float* den, int R, int N, int C, int H, cudaStream_t st) {
+    const int q_tiles = (N + QT - 1) / QT;
+    const unsigned parts = (unsigned)((C / H + WCH - 1) / WCH);
+    LAUNCH(attn_wide_kernel, dim3((unsigned)((long)R * q_tiles), (unsigned)H, parts), QT, st,
+           qkv, qk, scales, attn, den, N, C, H, q_tiles);
 }
 
 int forward(const float* x, const float* ln1_s, const float* ln1_b, const float* w_qkv,
@@ -169,13 +260,12 @@ int forward(const float* x, const float* ln1_s, const float* ln1_b, const float*
         LAUNCH(quantize_kernel, (unsigned)((M * 2 * C + 255) / 256), 256, st, qkv, scales, M, N,
                C, qk);
     }
-    switch (C / H) {
-        case 4: launch_attn<4>(qkv, qk, scales, attn, den, R, N, C, H, st); break;
-        case 8: launch_attn<8>(qkv, qk, scales, attn, den, R, N, C, H, st); break;
-        case 16: launch_attn<16>(qkv, qk, scales, attn, den, R, N, C, H, st); break;
-        case 32: launch_attn<32>(qkv, qk, scales, attn, den, R, N, C, H, st); break;
-        default: return cudaErrorInvalidValue;
-    }
+    const int D = C / H;
+    if (D <= 4) launch_attn<4>(qkv, qk, scales, attn, den, R, N, C, H, st);
+    else if (D <= 8) launch_attn<8>(qkv, qk, scales, attn, den, R, N, C, H, st);
+    else if (D <= 16) launch_attn<16>(qkv, qk, scales, attn, den, R, N, C, H, st);
+    else if (D <= 32) launch_attn<32>(qkv, qk, scales, attn, den, R, N, C, H, st);
+    else launch_attn_wide(qkv, qk, scales, attn, den, R, N, C, H, st);
     gemm(plain_a(attn, C), w_o, C, y, C, M, C, C, epi(EPI_NONE, b_o, x, C), st);
     ln_stats(y, M, C, mean2, rstd2, st);
     gemm(ln_a(y, C, mean2, rstd2, ln2_s, ln2_b), w_1, hidden, hbuf, hidden, M, hidden, C,
@@ -197,7 +287,8 @@ extern "C" int fused_block_forward_f32(
     const float* w_1, const float* b_1, const float* w_2, const float* b_2,
     float* qkv, float* stats, float* y, float* hbuf, float* attn, float* out, float* den,
     float* scales, int8_t* qk, int R, int N, int C, int H, int hidden, void* stream) {
-    if (R <= 0 || N <= 0 || H <= 0 || C % H || hidden <= 0 || (scales == nullptr) != (qk == nullptr)
+    if (R <= 0 || N <= 0 || H <= 0 || C <= 0 || C % 8 || C > 512 || C % H || hidden <= 0
+        || (scales == nullptr) != (qk == nullptr)
         || (den != nullptr && qk != nullptr))
         return cudaErrorInvalidValue;
     return f32::forward(x, ln1_s, ln1_b, w_qkv, w_o, b_o, ln2_s, ln2_b, w_1, b_1, w_2, b_2, qkv,

@@ -57,11 +57,10 @@ class TFSWAUNet(nn.Module):
     names the reference's).  ``attention_impl`` picks the row-block route
     (see ``ModelConfig``; "int8" is the int8-product serving route of
     ``ops/int8.py``).  On a CUDA device the kernel routes take bf16 rows
-    (tensor-core kernels) or f32 rows (the f32 kernels), widths in (32,
-    64, 128, 256), for "pallas" / "pallas_int8" a head dim in (4, 8, 16,
-    32) and an MLP width a multiple of 8, for "pallas_attn" 2, 4 or 8
-    heads; their wrappers raise on anything else (float16 rows too), with
-    no fallback.  ``use_shift_mask`` (the Swin mask on the shifted SWA
+    (tensor-core kernels) or f32 rows (the f32 kernels), every width a
+    multiple of 8 up to 512 with any head count that divides it, and an
+    MLP width a multiple of 8; their wrappers raise on anything else
+    (float16 rows too), with no fallback.  ``use_shift_mask`` (the Swin mask on the shifted SWA
     blocks) and active dropout send those row blocks to the plain route.
     ``param_dtype`` is every parameter's dtype (the JAX model's: each
     flax param, BatchNorm's scale and bias included, is made in it; the

@@ -53,13 +53,16 @@ LN2 = 0.6931471805599453
 # ln 2 rounded to bf16: what XLA multiplies a bf16 argument of exp2 by
 LN2_BF16 = 0.69140625
 INV_SQRT_2PI = 0.3989422804014327
-# What the CUDA kernels are instantiated for: the width C (ln_qkv_kernel,
-# post_kernel and mlp_bwd_kernel are templates on it), the head dims of
-# attn_kernel, and an MLP hidden width that is a multiple of HIDDEN_ALIGN
-# units (a bf16 row of it is whole 16-byte cp.async copies; a last chunk of
-# the kernels' hidden chunks may be ragged).
-KERNEL_DIMS = (32, 64, 128, 256)
-KERNEL_HEAD_DIMS = (4, 8, 16, 32)
+# What the CUDA kernels take: a width C that is a multiple of WIDTH_ALIGN
+# (a bf16 row is whole 16-byte cp.async copies) up to MAX_WIDTH, any head
+# count H that divides C, and an MLP hidden width that is a multiple of
+# HIDDEN_ALIGN units (likewise; a last chunk of the kernels' hidden chunks
+# may be ragged).  The product kernels are instantiated for PROD_WIDTHS (C
+# rounded up to the next, the tiles zero past C) and the attention kernels
+# for the padded head dims of head_plan (csrc/block_common.cuh).
+WIDTH_ALIGN = 8
+MAX_WIDTH = 512
+PROD_WIDTHS = (32, 64, 128, 256, 384, 512)
 HIDDEN_ALIGN = 8
 # dynamic shared memory a block may use on the H100 (227 KB)
 MAX_SMEM_BYTES = 232448
@@ -93,6 +96,57 @@ def _ln_bwd(d_nhat: torch.Tensor, nhat: torch.Tensor, rstd: torch.Tensor) -> tor
     m1 = d_nhat.mean(dim=-1, keepdim=True)
     m2 = (d_nhat * nhat).mean(dim=-1, keepdim=True)
     return rstd * (d_nhat - m1 - nhat * m2)
+
+
+class HeadPlan(NamedTuple):
+    """The widths of the bf16 kernels' attention at width C with H heads
+    (csrc/block_common.cuh head_plan): each head's D channels padded to DP
+    (D rounded up to a power of two, at least 4) in a q|k|v buffer of 3 CA
+    columns, CA = H DP rounded up to 32 (HK = CA / DP heads, those past H
+    all zeros)."""
+
+    D: int
+    DP: int
+    CA: int
+    HK: int
+
+
+def prod_width(C: int) -> int:
+    """The width the product kernels are instantiated for at C."""
+    return next(w for w in PROD_WIDTHS if w >= C)
+
+
+def head_plan(C: int, num_heads: int) -> HeadPlan:
+    D = C // num_heads
+    DP = 4
+    while DP < D:
+        DP *= 2
+    CA = -(-num_heads * DP // 32) * 32
+    return HeadPlan(D, DP, CA, CA // DP)
+
+
+def pad_heads(t: torch.Tensor, C: int, num_heads: int) -> torch.Tensor:
+    """The last axis of ``t``, k blocks of C channels in the block's layout
+    (head h's channel d at h D + d), in the padded layout of
+    :func:`head_plan` (k blocks of CA, zeros past each head's D channels
+    and in the heads past H).  ``t`` itself where the layouts agree."""
+    D, DP, CA, HK = head_plan(C, num_heads)
+    if CA == C:
+        return t
+    k = t.shape[-1] // C
+    out = t.new_zeros(*t.shape[:-1], k, HK, DP)
+    out[..., :num_heads, :D] = t.unflatten(-1, (k, num_heads, D))
+    return out.flatten(-3).contiguous()
+
+
+def unpad_heads(t: torch.Tensor, C: int, num_heads: int) -> torch.Tensor:
+    """The inverse of :func:`pad_heads`: a padded kernel buffer (q|k|v, the
+    int8 q|k, d_oe) in the block's layout, as the plain versions take it."""
+    D, DP, CA, HK = head_plan(C, num_heads)
+    if CA == C:
+        return t
+    k = t.shape[-1] // CA
+    return t.unflatten(-1, (k, HK, DP))[..., :num_heads, :D].flatten(-3)
 
 
 def _qk_scale(C: int, num_heads: int) -> float:
@@ -261,9 +315,10 @@ def fused_row_block_train_reference(rows: torch.Tensor, p, num_heads: int, qkv=N
 class BwdParts(NamedTuple):
     """What B2 computes: ``dx`` (R, N, C) in ``rows.dtype`` and ``dp`` (a
     RowBlockParams of f32 gradients), and the attention backward's operands
-    and result: ``d_oe`` (R, N, C) and ``d_den`` (R, N, H) f32, both with
-    values of ``rows.dtype``, and ``dqkv`` (R, N, 3C) in ``rows.dtype``, the
-    gradients of the (pre-scaled) q, k and v."""
+    and result: ``d_oe`` (R, N, C; the bf16 kernel's (R, N, CA), see
+    :func:`fused_row_block_bwd_parts`) and ``d_den`` (R, N, H) f32, both
+    with values of ``rows.dtype``, and ``dqkv`` (R, N, 3C) in
+    ``rows.dtype``, the gradients of the (pre-scaled) q, k and v."""
 
     dx: torch.Tensor
     dp: object
@@ -389,59 +444,92 @@ def fused_row_block_bwd_reference(rows: torch.Tensor, mid: torch.Tensor,
     return res.dx, res.dp
 
 
+def _attn_smem_bytes(C: int, num_heads: int) -> int:
+    """Shared memory of the bf16 attention launches at width C with H heads
+    (csrc/fused_block.cu, csrc/fused_block_bwd.cu): up to DP = 32
+    attn_kernel two 128-key tiles of 64 bf16 channels and two of 32 int8
+    channels (rows padded by 16 bytes) and a 1 KB sum, attn_bwd_kv_kernel
+    (the larger of the attention backward's two) two 128-token tiles of two
+    tensors' 32 channels (16 where D < 16) and their d_den; above,
+    attn_wide_kernel 128 queries' q (bf16 or int8), two AK-key tiles of k
+    and of an OW-channel part of v, and 8 x OW f32 sums (OW = min(DP, 128),
+    AK = 32 at DP = 512, else 64), and attn_bwd_{q,kv}_wide_kernel 64 own
+    rows of two tensors' DP channels and two AK-token tiles of two tensors
+    (AK 16, 32, 64 at DP 512, 256, less) and their d_den."""
+    DP = head_plan(C, num_heads).DP
+    if DP <= 32:
+        return max(2 * 2 * 128 * 72 + 2 * 128 * 48 + 4 * 8 * 32,
+                   2 * 2 * 128 * 72 + 4 * 2 * 4 * 128)
+    ow = min(DP, 128)
+    ak = 32 if DP >= 512 else 64
+    fwd = (max(2 * (128 + 2 * ak) * (DP + 8), (128 + 2 * ak) * (DP + 16))
+           + 2 * 2 * ak * (ow + 8) + 4 * 8 * ow)
+    akb = 16 if DP >= 512 else 32 if DP >= 256 else 64
+    bwd = 2 * (2 * 64 * (DP + 8) + 2 * 2 * akb * (DP + 8)) + 4 * 2 * akb
+    return max(fwd, bwd)
+
+
 def kernel_smem_bytes(C: int, hidden: Optional[int] = None,
-                      dtype: torch.dtype = torch.bfloat16) -> int:
-    """Shared memory of the largest launch of B1 and B2 at width C and MLP
-    width ``hidden`` (default 4 C) in ``dtype``.  float32, from the layouts
-    of csrc/block_f32.cuh, fused_block_f32.cu and fused_block_bwd_f32.cu
-    (static shared memory): gemm_kernel and atb_kernel two 16 x 68 f32
-    tiles; attn_kernel and attn_bwd_q_kernel 128 keys of a head's k and v
-    (D = 32 at most); attn_bwd_kv_kernel 128 queries of q and d_oe and
-    their d_den.  None depends on C, the MLP width or N.  bfloat16, from
-    the layouts in csrc/:
-    ln_qkv_kernel holds 64 rows of bf16 n1 and two 32-row slices of 96
-    weight columns; attn_kernel two 128-key tiles of 64 bf16 channels and
-    two of 32 int8 channels (rows padded by 16 bytes) and a 1 KB sum; post_kernel 64 rows of f32 y, of bf16
-    acc / n2 and of a 128-unit GELU chunk, and two 32-row weight slices;
-    mlp_bwd_kernel 64 rows of bf16 g, n2 and mid and of a 64-unit d_h1
+                      dtype: torch.dtype = torch.bfloat16,
+                      num_heads: Optional[int] = None) -> int:
+    """Shared memory of the largest launch of B1 and B2 at width C, MLP
+    width ``hidden`` (default 4 C) and ``num_heads`` heads (default: the
+    largest over every H dividing C) in ``dtype``.  float32, from the
+    layouts of csrc/block_f32.cuh, fused_block_f32.cu and
+    fused_block_bwd_f32.cu (static shared memory): gemm_kernel and
+    atb_kernel two 16 x 68 f32 tiles; attn_kernel and attn_bwd_q_kernel 128
+    keys of a head's k and v (D padded to 32 at most), attn_bwd_kv_kernel 128
+    queries of q and d_oe and their d_den; the wide forms (D > 32) 32-token
+    tiles of 32 channels.  None depends on C, the MLP width or N.
+    bfloat16, from the layouts in csrc/, at CP = prod_width(C) and T = 64
+    tokens a tile (32 at CP >= 384; RG = T / 16 row groups, CS = 8 / RG
+    column parts): ln_qkv_kernel holds 64 rows of bf16 n1 and two 32-row
+    slices of 96 weight columns; post_kernel T rows of f32 y, of bf16 acc /
+    n2 and of a 128-unit GELU chunk, and two 32-row weight slices;
+    mlp_bwd_kernel T rows of bf16 g, n2 and mid and of a 64-unit d_h1
     chunk, two 32-row weight slices, and f32 sums: the block's vector
-    partials (4 C + hidden), 16 C + 256 of column sums and 384 of row
-    statistics (rows padded by 8); attn_bwd_kv_kernel (the larger of the
-    attention backward's two) two 128-token tiles of two tensors' 32
-    channels (16 where D < 16) and their d_den; ln1_bwd_kernel 64 rows of
-    bf16 dqkv and x, two 32-row weight slices, and f32 sums: the block's
-    two vector partials, 8 C of column sums and 384 of row statistics.  No
+    partials (4 CP + hidden), 4 RG CP + 64 RG of column sums and (2 + 2 CS)
+    T of row statistics (rows padded by 8); ln1_bwd_kernel T rows of bf16
+    dqkv (3 CP) and x, two 32-row weight slices, and f32 sums: the block's
+    two vector partials (2 CP), 2 RG CP of column sums and (2 + 2 CS) T of
+    row statistics; the attention's (:func:`_attn_smem_bytes`).  No
     launch's shared memory depends on N."""
     if dtype == torch.float32:
-        d = max(KERNEL_HEAD_DIMS)
-        return max(4 * 2 * 16 * 68, 4 * 2 * 128 * d, 4 * (2 * 128 * d + 128))
+        return max(4 * 2 * 16 * 68, 4 * 2 * 128 * 32, 4 * (2 * 128 * 32 + 128))
     hidden = 4 * C if hidden is None else hidden
-    ln_qkv = 2 * (64 * (C + 8) + 2 * 32 * (96 + 8))
-    attn = 2 * 2 * 128 * 72 + 2 * 128 * 48 + 4 * 8 * 32
-    post = 4 * 64 * (C + 8) + 2 * (64 * (C + 8) + 2 * 32 * (max(C, 128) + 8) + 64 * (128 + 8))
-    mlp_bwd = (2 * (3 * 64 * (C + 8) + 64 * (64 + 8) + 2 * 32 * (max(C, 64) + 8))
-               + 4 * (4 * C + hidden + 16 * C + 4 * 64 + 6 * 64))
-    attn_bwd = 2 * 2 * 128 * 72 + 4 * 2 * 4 * 128
-    ln1_bwd = 2 * (64 * (3 * C + 8) + 64 * (C + 8) + 2 * 32 * (C + 8)) + 4 * (10 * C + 6 * 64)
-    return max(ln_qkv, attn, post, mlp_bwd, attn_bwd, ln1_bwd)
+    cp = prod_width(C)
+    t = 32 if cp >= 384 else 64
+    rg = t // 16
+    cs = 8 // rg
+    heads = [num_heads] if num_heads else [h for h in range(1, C + 1) if C % h == 0]
+    ln_qkv = 2 * (64 * (cp + 8) + 2 * 32 * (96 + 8))
+    attn = max(_attn_smem_bytes(C, h) for h in heads)
+    post = 4 * t * (cp + 8) + 2 * (t * (cp + 8) + 2 * 32 * (max(cp, 128) + 8) + t * (128 + 8))
+    mlp_bwd = (2 * (3 * t * (cp + 8) + t * (64 + 8) + 2 * 32 * (max(cp, 64) + 8))
+               + 4 * (4 * cp + hidden + 4 * rg * cp + rg * 64 + 2 * t + 2 * cs * t))
+    ln1_bwd = (2 * (t * (3 * cp + 8) + t * (cp + 8) + 2 * 32 * (cp + 8))
+               + 4 * (2 * cp + 2 * rg * cp + 2 * t + 2 * cs * t))
+    return max(ln_qkv, attn, post, mlp_bwd, ln1_bwd)
 
 
 def check_shape(name: str, R: int, N: int, C: int, num_heads: int, hidden: int,
                 dtype: torch.dtype = torch.bfloat16) -> None:
     """The shapes the CUDA kernels of ``dtype`` take: raise ValueError on
     any other."""
-    if C not in KERNEL_DIMS:
-        raise ValueError(f"{name}: no kernel for C={C} (C in {KERNEL_DIMS})")
-    if C % num_heads or C // num_heads not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {C}/{num_heads} not in {KERNEL_HEAD_DIMS}")
+    if C <= 0 or C % WIDTH_ALIGN or C > MAX_WIDTH:
+        raise ValueError(f"{name}: no kernel for C={C} (C a multiple of {WIDTH_ALIGN} up to "
+                         f"{MAX_WIDTH})")
+    if num_heads <= 0 or C % num_heads:
+        raise ValueError(f"{name}: no kernel for {num_heads} heads at C={C} (the head count "
+                         "divides C)")
     if hidden <= 0 or hidden % HIDDEN_ALIGN:
         raise ValueError(f"{name}: no kernel for an MLP of {hidden} units (a multiple of "
                          f"{HIDDEN_ALIGN})")
     limit = STATIC_SMEM_BYTES if dtype == torch.float32 else MAX_SMEM_BYTES
-    if kernel_smem_bytes(C, hidden, dtype) > limit:
+    if kernel_smem_bytes(C, hidden, dtype, num_heads) > limit:
         raise ValueError(f"{name}: C={C}, an MLP of {hidden} units, does not fit the "
                          "kernels' shared memory")
-    if R * N * max(3 * C, hidden) >= 2 ** 31:
+    if R * N * max(3 * head_plan(C, num_heads).CA, hidden) >= 2 ** 31:
         raise ValueError(f"{name}: too many tokens for 32-bit counts")
 
 
@@ -529,10 +617,12 @@ def _check_cuda(name: str, rows: torch.Tensor, num_heads: int, p, like=(),
 
 class _Launch(NamedTuple):
     """What one launch of fused_block_forward wrote: the block's output, its
-    attention output, the (R*N, 3C) q|k|v buffer (a check feeds it to the
-    plain versions); B1-train's mid and den; B3's (R, 2) f32 row scales of
-    q and k and its (R*N, 2C) int8 q | k.  None where the form does not
-    write it."""
+    attention output, the q|k|v buffer (a check feeds it to the plain
+    versions); B1-train's mid and den; B3's (R, 2) f32 row scales of q and
+    k and its int8 q | k.  None where the form does not write it.  The bf16
+    kernels' q|k|v (R*N, 3 CA) and q | k (R*N, 2 CA) are in the padded head
+    layout of :func:`head_plan` (:func:`unpad_heads` gives the block's
+    (R*N, 3C), (R*N, 2C)); the f32 kernels' are in the block's layout."""
 
     out: torch.Tensor
     attn: torch.Tensor
@@ -559,20 +649,23 @@ def _forward_kernel(rows: torch.Tensor, p, num_heads: int, train: bool = False,
     R, N, C = rows.shape
     hidden = weights[7].shape[1]
     dev = rows.device
+    plan = head_plan(C, num_heads)
+    weights = (*weights[:2], pad_heads(weights[2], C, num_heads), *weights[3:])
 
     def buf(shape, dtype, on=True):
         return torch.empty(shape, dtype=dtype, device=dev) if on else None
 
     res = _Launch(out=torch.empty_like(rows), attn=buf((R, N, C), rows.dtype),
-                  qkv=buf((R * N, 3 * C), rows.dtype), mid=buf((R, N, C), rows.dtype, train),
+                  qkv=buf((R * N, 3 * plan.CA), rows.dtype),
+                  mid=buf((R, N, C), rows.dtype, train),
                   den=buf((R, num_heads, N), torch.float32, train),
                   scales=buf((R, 2), torch.float32, int8),
-                  qk=buf((R * N, 2 * C), torch.int8, int8))
+                  qk=buf((R * N, 2 * plan.CA), torch.int8, int8))
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    kmax = buf((R, num_heads), torch.float32)     # scratch: the rows' largest |k_h|
+    kmax = buf((R, plan.HK), torch.float32)       # scratch: the rows' largest |k_h|
     err = _on_stream(dev, _lib().fused_block_forward,
                      rows.data_ptr(), *(w.data_ptr() for w in weights),
                      ptr(res.qkv), ptr(kmax), ptr(res.attn), ptr(res.out), ptr(res.mid),
@@ -689,8 +782,10 @@ def fused_row_block_bwd_parts(rows: torch.Tensor, mid: torch.Tensor, acc: torch.
     """B2: the block's VJP from B1-train's residuals, :class:`BwdParts` as
     :func:`fused_row_block_bwd_reference_parts` gives them (on the card
     ``d_oe``, ``d_den`` and ``dqkv`` are views of the launch's scratch
-    buffer).  Counts each launch in ``fused_row_block_bwd.launches`` (bf16)
-    or ``.launches_f32``."""
+    buffer; the bf16 kernel's ``d_oe`` is (R, N, CA) in the padded head
+    layout of :func:`head_plan`, which :func:`unpad_heads` turns into the
+    block's (R, N, C)).  Counts each launch in
+    ``fused_row_block_bwd.launches`` (bf16) or ``.launches_f32``."""
     if rows.device.type == "cpu":
         return fused_row_block_bwd_reference_parts(rows, mid, acc, den, g, p, num_heads)
     res = _bwd_kernel(rows, mid, acc, den, g, p, num_heads)
@@ -701,7 +796,9 @@ def fused_row_block_bwd_parts(rows: torch.Tensor, mid: torch.Tensor, acc: torch.
 def _bwd_kernel(rows: torch.Tensor, mid: torch.Tensor, acc: torch.Tensor, den: torch.Tensor,
                 g: torch.Tensor, p, num_heads: int) -> BwdParts:
     """One launch of fused_block_backward (bf16 rows) or
-    fused_block_backward_f32 (f32 rows)."""
+    fused_block_backward_f32 (f32 rows).  The bf16 kernel recomputes q|k|v
+    with W_qkv's heads padded (:func:`head_plan`) and takes W_qkv^T in the
+    block's layout; its d_oe is in the padded layout."""
     H = num_heads
     _check_cuda("fused_row_block_bwd", rows, H, p, like=(mid, acc, g), den=den)
     R, N, C = rows.shape
@@ -711,6 +808,8 @@ def _bwd_kernel(rows: torch.Tensor, mid: torch.Tensor, acc: torch.Tensor, den: t
     # transposed copies, so that every product reads its weight by columns
     w_qkv_t, w_o_t, w_1_t, w_2_t = (w.t().contiguous() for w in (w_qkv, w_o, w_1, w_2))
     f32 = rows.dtype == torch.float32
+    if not f32:
+        w_qkv = pad_heads(w_qkv, C, H)
     lib = _bwd_lib_f32() if f32 else _bwd_lib()
     sfx = "_f32" if f32 else ""
     size = getattr(lib, f"fused_block_backward{sfx}_scratch_bytes")(R, N, C, H, hidden)
@@ -739,7 +838,8 @@ def _bwd_kernel(rows: torch.Tensor, mid: torch.Tensor, acc: torch.Tensor, den: t
         n = R * N * width * torch.finfo(dtype).bits // 8
         return scratch[offsets[i]:offsets[i] + n].view(dtype).view(R, N, width)
 
-    return BwdParts(dx, type(p)(*leaves), part(0, C, rows.dtype), part(1, H, torch.float32),
+    d_oe = part(0, C if f32 else head_plan(C, H).CA, rows.dtype)
+    return BwdParts(dx, type(p)(*leaves), d_oe, part(1, H, torch.float32),
                     part(2, 3 * C, rows.dtype))
 
 

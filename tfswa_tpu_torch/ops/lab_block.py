@@ -40,9 +40,13 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .fused_block import _block_weights, _check_cuda, _reference_forward
+from .fused_block import (_block_weights, _check_cuda, _reference_forward, head_plan, pad_heads,
+                          unpad_heads)
 
 STAGES = ("qkv", "scores", "exp2", "av", "attn", "full")
+# the head dims the lab's kernel is instantiated for (B1's take up to 512;
+# csrc/fused_block.cu LAB_MAX_DP)
+LAB_MAX_HEAD_DIM = 128
 # the flag bits of fused_block_lab_forward (csrc/fused_block.cu)
 SCORE_BF16, P_F32, NO_CLAMP = 1, 2, 4
 
@@ -87,19 +91,24 @@ def lab_row_block_parts(rows: torch.Tensor, p, num_heads: int, stage: str = "ful
                         score_bf16: bool = False, p_f32: bool = False,
                         clamp: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of ``fused_block_lab_forward`` on the card, uncounted:
-    the lab form's output and the (R*N, 3C) q|k|v it used (what a check
-    feeds the plain version).  Raises on a tensor the kernel does not take
+    the lab form's output and the (R*N, 3C) q|k|v it used, in the block's
+    layout (what a check feeds the plain version).  Raises on a tensor the kernel does not take
     and when the launch fails."""
     flags = _lab_flags(rows, num_heads, stage, score_bf16, p_f32, clamp)
+    if rows.shape[-1] // num_heads > LAB_MAX_HEAD_DIM:
+        raise ValueError(f"lab_row_block: no kernel for a head dim of "
+                         f"{rows.shape[-1] // num_heads} (the lab takes head dims up to "
+                         f"{LAB_MAX_HEAD_DIM})")
     _check_cuda("lab_row_block", rows, num_heads, p, dtypes=(torch.bfloat16,))
     R, N, C = rows.shape
     weights = _block_weights(p, C, num_heads, rows.dtype)
+    weights = (*weights[:2], pad_heads(weights[2], C, num_heads), *weights[3:])
     hidden = weights[7].shape[1]
     dev = rows.device
     lib = _lib()
     st = STAGES.index(stage)
     out = torch.empty_like(rows)
-    qkv = torch.empty((R * N, 3 * C), dtype=rows.dtype, device=dev)
+    qkv = torch.empty((R * N, 3 * head_plan(C, num_heads).CA), dtype=rows.dtype, device=dev)
     attn = torch.empty_like(rows) if stage in ("attn", "full") else None
     scratch = torch.empty(lib.fused_block_lab_scratch_bytes(R, N, C, num_heads, st),
                           dtype=torch.uint8, device=dev)
@@ -113,7 +122,7 @@ def lab_row_block_parts(rows: torch.Tensor, p, num_heads: int, stage: str = "ful
     if err != 0:
         raise RuntimeError(f"fused_block_lab_forward (stage {stage}, flags {flags}) "
                            f"failed: CUDA error {err}")
-    return out, qkv
+    return out, unpad_heads(qkv, C, num_heads)
 
 
 def lab_row_block(rows: torch.Tensor, p, num_heads: int, stage: str = "full",

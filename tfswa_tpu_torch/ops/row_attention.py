@@ -29,11 +29,15 @@ import torch
 
 from ..parallel.comm import reduce_from
 from . import _build
-from .fused_block import (KERNEL_DTYPES, MAX_SCORE_BYTES, MAX_SMEM_BYTES, STATIC_SMEM_BYTES,
-                          _count, _on_stream)
+from .fused_block import (KERNEL_DTYPES, MAX_SCORE_BYTES, MAX_SMEM_BYTES, MAX_WIDTH,
+                          STATIC_SMEM_BYTES, WIDTH_ALIGN, _count, _on_stream, prod_width)
 
-# what the kernels are instantiated for: C (templates on it) and H heads,
-# D = C / H from 4 to 128
+# What the kernels take: C a multiple of WIDTH_ALIGN up to MAX_WIDTH and
+# any head count that divides it.  bilinear_attn_kernel (csrc/row_attention.cu)
+# is instantiated for C in KERNEL_DIMS and H in KERNEL_HEADS (D from 4 to
+# 128, the flagship's); every other width and head count runs
+# bilinear_attn_any_kernel (t in shared memory, 64 queries a block, the
+# head's v in parts).
 KERNEL_DIMS = (32, 64, 128, 256)
 KERNEL_HEADS = (2, 4, 8)
 
@@ -41,20 +45,34 @@ KERNEL_HEADS = (2, 4, 8)
 def kernel_smem_bytes(C: int, num_heads: int, dtype: torch.dtype = torch.bfloat16) -> int:
     """Shared memory of the largest attention block.  float32
     (csrc/row_attention_f32.cu attn_kernel, static; t_kernel's and
-    gemm_kernel's are smaller): a tile of 16 keys of x in f64, its C / 32
-    slices of 32 padded to 33, and of the head's v in f32, 16 C / 32
-    columns.  bfloat16
-    (csrc/row_attention.cu attn_smem_bytes, 8 warps): its 128 queries' x,
-    two 32-row slices of A_h's columns (64 at a time), and two key tiles
-    (128 keys at C <= 64, else 64) each of x (C columns) and of the head's
-    v (D, at least 8), rows padded by 8 bf16.  Keys stream through the
+    gemm_kernel's are smaller): a tile of KT keys of x in f64, its G slices
+    of 32 (G the power of two with 32 G >= C) padded to 33, and of the
+    head's v in f32, VSW = 16 G columns (32 G where D > 16 G), KT as many
+    keys as fit 48 KB, at most 16.  bfloat16 (csrc/row_attention.cu): at
+    C in KERNEL_DIMS and H in KERNEL_HEADS (attn_smem_bytes, 8 warps) its
+    128 queries' x, two 32-row slices of A_h's columns (64 at a time), and
+    two key tiles (128 keys at C <= 64, else 64) each of x (C columns) and
+    of the head's v (D, at least 8), rows padded by 8 bf16; otherwise
+    (any_smem_bytes) 64 queries' x and t at CP = prod_width(C), the slices
+    of A_h, and two key tiles (32 keys at CP >= 384, else 64) of x and of
+    VW columns of v (16 up to D = 9, else 64).  Keys stream through the
     tiles, so neither depends on N."""
+    D = C // num_heads
     if dtype == torch.float32:
-        g = C // 32
-        return 16 * (8 * g * 33 + 4 * 16 * g)
-    vw = max(C // num_heads, 8)
-    keys = 128 if C <= 64 else 64
-    return 2 * (128 * (C + 8) + 2 * 32 * (min(C, 64) + 8) + 2 * keys * (C + 8 + vw + 8))
+        g = 1
+        while 32 * g < C:
+            g *= 2
+        vsw = 16 * g if D <= 16 * g else 32 * g
+        kt = min(16, 49152 // (8 * g * 33 + 4 * vsw))
+        return kt * (8 * g * 33 + 4 * vsw)
+    if C in KERNEL_DIMS and num_heads in KERNEL_HEADS:
+        vw = max(D, 8)
+        keys = 128 if C <= 64 else 64
+        return 2 * (128 * (C + 8) + 2 * 32 * (min(C, 64) + 8) + 2 * keys * (C + 8 + vw + 8))
+    cp = prod_width(C)
+    vw = 16 if D + 7 <= 16 else 64
+    keys = 32 if cp >= 384 else 64
+    return 2 * (2 * 64 * (cp + 8) + 2 * 32 * (min(cp, 64) + 8) + 2 * keys * (cp + 8 + vw + 8))
 
 
 def check_shape(R: int, N: int, C: int, num_heads: int,
@@ -62,9 +80,12 @@ def check_shape(R: int, N: int, C: int, num_heads: int,
     """The shapes the CUDA kernels of ``dtype`` take: raise ValueError on
     any other."""
     name = "flash_row_attention"
-    if C not in KERNEL_DIMS or num_heads not in KERNEL_HEADS:
-        raise ValueError(f"{name}: no kernel for C={C}, {num_heads} heads (C in "
-                         f"{KERNEL_DIMS}, heads in {KERNEL_HEADS})")
+    if C <= 0 or C % WIDTH_ALIGN or C > MAX_WIDTH:
+        raise ValueError(f"{name}: no kernel for C={C} (C a multiple of {WIDTH_ALIGN} up to "
+                         f"{MAX_WIDTH})")
+    if num_heads <= 0 or C % num_heads:
+        raise ValueError(f"{name}: no kernel for {num_heads} heads at C={C} (the head count "
+                         "divides C)")
     smem = kernel_smem_bytes(C, num_heads, dtype)
     if smem > (STATIC_SMEM_BYTES if dtype == torch.float32 else MAX_SMEM_BYTES):
         raise ValueError(f"{name}: C={C} does not fit the kernel's shared memory "
