@@ -10,8 +10,9 @@ Six kernels: B1 (fused_row_block, the serving forward), B1-train
 serving forward with int8 scores, route "pallas_int8"), B4
 (flash_row_attention, the bilinear row attention, route "pallas_attn") and
 L (lab_row_block, the kernel lab's stage and flag forms of B1); and the
-f32 forms of B1, B1-train, B2, B3 and B4 (csrc/*_f32*: f32 FFMA, counted
-apart as "<kernel>-f32").  Every kernel takes any width C a multiple of 8
+f32 forms of B1, B1-train, B2, B3 and B4 (csrc/*_f32*: f32 FFMA, B4's
+q|k and scores f64 on the FP64 tensor cores; counted apart as
+"<kernel>-f32").  Every kernel takes any width C a multiple of 8
 up to 512 and any head count dividing it: phases 2-15 run the flagship's
 widths, phase 16 the others (wide384, WIDE384, and an edge grid).
 Phases, each of which fails the run (exit code 1) when it fails:
@@ -24,7 +25,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
      and bilinear_attn_any_kernel) must hold HMMA instructions, and
      B3's int8 forms of attn_kernel and attn_wide_kernel IMMA (cuobjdump
      --dump-sass of the built libraries), and every kernel of the f32
-     libraries FFMA, each function in them one of the port's (no library
+     libraries FFMA (B4's f32 qkv_kernel and attn_kernel DMMA, and no
+     t_kernel), each function in them one of the port's (no library
      kernel);
   2. the fused row-block kernel against its plain PyTorch version at each
      of the 12 (N, C) of the main path (bf16, a slice of 64 rows, three kinds
@@ -209,7 +211,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
      leaf's max and twice bit for bit, B4 against its f64 function (at the
      plain f32 version's distance where that is larger); kernel / plain /
      library (f32) ms at the full row counts with the bound (3xTF32's
-     rate; FFMA's beside); then, after phase 14: (b) the 120 s track
+     rate, B4's f64 parts the FP64 tensor cores'; FFMA's and DFMA's
+     beside); then, after phase 14: (b) the 120 s track
      through "pallas" in f32 (132 f32 B1 launches, nothing else), its
      audio-s/s, and one 10 s segment through "pallas", "pallas_int8" and
      "pallas_attn" (66 f32 launches of the route's kernel each) against
@@ -1789,13 +1792,15 @@ PLANTS = {
 
 
 # Faults for --plant in a copy of csrc/row_attention_f32.cu, each of which
-# phase 15 (a)'s B4 check must catch: "b4_tf32_scores", the score
-# products on operands rounded to TF32's 10-bit mantissa (one TF32 pass).
+# phase 15 (a)'s B4 check must catch: "b4_tf32_scores", q and k rounded to
+# TF32's 10-bit mantissa before the score product (one TF32 pass).
 TF32 = "__uint_as_float((__float_as_uint({}) + 0x1000u) & 0xffffe000u)"
 F32_PLANTS = {
-    "b4_tf32_scores": ("part = fma(tq[c], xs[j][g][c], part);",
-                       "part = fma((double)" + TF32.format("(float)tq[c]") + ", (double)"
-                       + TF32.format("(float)xs[j][g][c]") + ", part);"),
+    "b4_tf32_scores": (
+        "dmma(sc[0][nt][0], sc[0][nt][1], sc[1][nt][0], sc[1][nt][1], a[0][kk], a[1][kk], b);",
+        "dmma(sc[0][nt][0], sc[0][nt][1], sc[1][nt][0], sc[1][nt][1], (double)"
+        + TF32.format("(float)a[0][kk]") + ", (double)" + TF32.format("(float)a[1][kk]")
+        + ", (double)" + TF32.format("(float)b") + ");"),
 }
 
 
@@ -4374,10 +4379,14 @@ F32_STEP_LEAF_COSINE = 0.9999
 F32_TRAIN_SEGMENTS = 2
 OPTION_SEGMENTS = 2
 # the f32 bound: products at 3xTF32's rate, the fastest f32-accurate route
-# on the card (the kernels use FFMA, 67 TFLOP/s, recorded beside it)
+# on the card (the kernels use FFMA, 67 TFLOP/s, recorded beside it); B4's
+# f64 parts (q|k and the scores) at the FP64 tensor cores' rate (DFMA's
+# beside it)
 PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_FFMA_FLOPS = 67e12
+PEAK_F64_TC_FLOPS = 67e12
+PEAK_DFMA_FLOPS = 34e12
 F32_TIMING_ROWS = PLAIN_ROWS
 # the f32 libraries: every kernel FFMA, every function one of ours
 SASS_FFMA = {"fused_block_f32": ("gemm_kernel", "attn_kernel", "attn_wide_kernel",
@@ -4386,8 +4395,12 @@ SASS_FFMA = {"fused_block_f32": ("gemm_kernel", "attn_kernel", "attn_wide_kernel
                                      "attn_bwd_kv_kernel", "attn_bwd_q_wide_kernel",
                                      "attn_bwd_kv_wide_kernel"),
              "row_attention_f32": ("gemm_kernel", "attn_kernel")}
-# and B4's f64 parts (t and the scores): DFMA
-SASS_DFMA = {"row_attention_f32": ("t_kernel", "attn_kernel")}
+# and B4's f64 parts (q|k and the scores): DMMA, the FP64 tensor cores;
+# no kernel of SASS_ABSENT (B4's old bilinear t = x A_h)
+SASS_DMMA = {"row_attention_f32": ("qkv_kernel", "attn_kernel")}
+SASS_ABSENT = {"row_attention_f32": ("8t_kernel",)}
+# B4's f32 launches, timed apart in phase 15 (a) (a profiler trace a shape)
+B4_F32_LAUNCHES = ("qkv_kernel", "attn_kernel", "gemm_kernel")
 F32_LIBS = tuple(SASS_FFMA)
 F32_ROUTES = {"pallas": "B1-f32", "pallas_int8": "B3-f32", "pallas_attn": "B4-f32"}
 
@@ -4407,9 +4420,10 @@ def f32_forward_launches(depths=(2, 2, 6, 2), seconds: float = 120.0) -> int:
 
 def sass_ffma_check():
     """Every kernel of SASS_FFMA in the f32 libraries holds FFMA, every one
-    of SASS_DFMA DFMA, and every function in them is one of the port's
+    of SASS_DMMA DMMA (mma.sync on the FP64 tensor cores), none of
+    SASS_ABSENT is there, and every function in them is one of the port's
     (namespace f32): no library kernel.  Fails the run otherwise; returns
-    {library: {function: FFMA count}} and {library: {function: DFMA
+    {library: {function: FFMA count}} and {library: {function: DMMA
     count}}."""
     from pathlib import Path
 
@@ -4422,23 +4436,25 @@ def sass_ffma_check():
                              capture_output=True, text=True, timeout=300)
         if res.returncode != 0:
             fail(f"cuobjdump --dump-sass lib{lib}.so failed: {res.stderr[-2000:]}")
-        counts, dfma, fn = {}, {}, None
+        counts, dmma, fn = {}, {}, None
         for line in res.stdout.splitlines():
             if "Function :" in line:
                 fn = line.split("Function :")[1].strip()
-                counts[fn] = dfma[fn] = 0
+                counts[fn] = dmma[fn] = 0
                 if not fn.startswith("_ZN3f32"):
                     bad.append(f"{lib}: {fn} is not one of the port's kernels")
             elif fn and "FFMA" in line:
                 counts[fn] += 1
-            elif fn and "DFMA" in line:
-                dfma[fn] += 1
+            elif fn and "DMMA" in line:
+                dmma[fn] += 1
         found[lib] = counts
-        found_d[lib] = {f: n for f, n in dfma.items() if n}
-        for n in SASS_DFMA.get(lib, ()):
-            fns = [f for f in dfma if n in f]
-            bad += [f"{lib}: {f}: no DFMA" for f in fns if dfma[f] == 0] or (
+        found_d[lib] = {f: n for f, n in dmma.items() if n}
+        for n in SASS_DMMA.get(lib, ()):
+            fns = [f for f in dmma if n in f]
+            bad += [f"{lib}: {f}: no DMMA" for f in fns if dmma[f] == 0] or (
                 [] if fns else [f"{lib}: no {n} in the SASS"])
+        bad += [f"{lib}: {f} is there" for n in SASS_ABSENT.get(lib, ()) for f in counts
+                if n in f]
         for n in names:
             fns = [f for f in counts if n in f]
             if not fns:
@@ -4448,8 +4464,9 @@ def sass_ffma_check():
             f"{n} {min(c for f, c in counts.items() if n in f)}-"
             f"{max(c for f, c in counts.items() if n in f)}"
             for n in names if any(n in f for f in counts))
-            + "".join(f"; DFMA {n} {min(c for f, c in dfma.items() if n in f)}"
-                      for n in SASS_DFMA.get(lib, ()) if any(n in f for f in dfma)))
+            + "".join(f"; DMMA {n} {min(c for f, c in dmma.items() if n in f)}-"
+                      f"{max(c for f, c in dmma.items() if n in f)}"
+                      for n in SASS_DMMA.get(lib, ()) if any(n in f for f in dmma)))
     if bad:
         fail("f32 SASS check: " + "; ".join(bad))
     return found, found_d
@@ -4461,9 +4478,13 @@ def bound_f32_ms(kind: str, R: int, N: int, C: int, hidden: int, peak: float = P
     B2 or B4): its inputs read once and outputs written once in f32 (B1,
     B3, B1-train: rows, out and the weights; B1-train also mid, acc, den;
     B2 as bound_bwd_ms with f32 tensors, weights in and f32 gradients out;
-    B4 as bound_attn_ms in f32) over the HBM rate, the products over
-    ``peak`` (3xTF32's third of the TF32 rate unless told otherwise), B3's
-    scores over the int8 peak, and exp2 over the MUFU rate."""
+    B4: rows in and out, the qkv kernel, Wo and b) over the HBM rate, the
+    products over ``peak`` (3xTF32's third of the TF32 rate unless told
+    otherwise), B3's scores over the int8 peak, and exp2 over the MUFU
+    rate.  B4 counts its function's work once: q|k (4 M C^2) and the
+    scores (2 R N^2 C) in f64 over the FP64 tensor cores' rate (DFMA's
+    where ``peak`` is FFMA's), v and the out-projection (4 M C^2) and p . v
+    (2 R N^2 C) over ``peak``, H N^2 exp a row over the MUFU rate."""
     M = R * N
     weights = 4 * C * C + 2 * C * hidden + 6 * C + hidden
     scores = 2 * R * N * N * C
@@ -4474,9 +4495,13 @@ def bound_f32_ms(kind: str, R: int, N: int, C: int, hidden: int, peak: float = P
             + 5 * scores
         int8 = 0
     elif kind == "B4":
-        nbytes = 4 * 2 * M * C + 4 * (H + 2) * C * C + 4 * C
-        flops = 2 * M * (2 * C * C + H * C * C) + scores * (H + 1)
-        int8 = 0
+        nbytes = 4 * 2 * M * C + 4 * 4 * C * C + 4 * C
+        f64 = 4 * M * C * C + scores
+        flops = 4 * M * C * C + scores
+        f64_peak = PEAK_DFMA_FLOPS if peak == PEAK_FFMA_FLOPS else PEAK_F64_TC_FLOPS
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = max(f64 / f64_peak + flops / peak, exp2 / MUFU_RATE) * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
     else:
         nbytes = 4 * (2 * M * C + weights)
         if kind == "B1-train":
@@ -4600,7 +4625,8 @@ def _f32_time(torch, kind: str, R: int, N: int, C: int, p, gen, H: int = HEADS, 
     """kernel / plain / library ms and the bounds of one f32 call at the
     full row count R (the plain version on F32_TIMING_ROWS rows, scaled by
     R; the library yardstick in f32 with TF32 off; those two over one call
-    after a warm-up call; B4's kernel over one call without one).  ``lib``:
+    after a warm-up call; B4 also each of B4_F32_LAUNCHES from a
+    profiler trace of one call).  ``lib``:
     a dict shared by the kinds timed at one shape, so that the library
     block is timed once there (B1's for B3, B1-train's for B2)."""
     lib = {} if lib is None else lib
@@ -4618,8 +4644,8 @@ def _f32_time(torch, kind: str, R: int, N: int, C: int, p, gen, H: int = HEADS, 
     if kind == "B4":
         x = ln1_rows(torch, x, p)
         w = [p.qkv_kernel, p.proj_kernel, p.proj_bias]
-        # one call, no warm-up (17 s a forward; a warm-up until PR 14)
-        k_ms = _one_call_ms(torch, lambda: ra.flash_row_attention(x, *w, H))
+        k_ms = cuda_ms(torch, lambda: ra.flash_row_attention(x, *w, H), 2)
+        parts = launch_ms(torch, lambda: ra.flash_row_attention(x, *w, H), B4_F32_LAUNCHES, 1)
         pl_ms = cuda_ms(torch, lambda: ra.flash_row_attention_reference(x[:rs], *w, H), 1)
         lib_ms = cuda_ms(torch, lambda: library_attn(torch, x, *w, H), 1)
     elif kind in ("B1", "B3"):
@@ -4648,22 +4674,27 @@ def _f32_time(torch, kind: str, R: int, N: int, C: int, p, gen, H: int = HEADS, 
     ffma_ms, _ = bound_f32_ms(kind, R, N, C, 4 * C, PEAK_FFMA_FLOPS, H)
     del x
     torch.cuda.empty_cache()
-    return {"ms": k_ms, "plain_ms": pl_ms * R / rs, "library_ms": lib_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "bound_ffma_ms": ffma_ms, "plain_rows_timed": rs}
+    res = {"ms": k_ms, "plain_ms": pl_ms * R / rs, "library_ms": lib_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "bound_ffma_ms": ffma_ms, "plain_rows_timed": rs}
+    if kind == "B4":
+        res["launch_ms"] = parts
+    return res
 
 
-def f32_kernels(torch, quick: bool = False):
+def f32_kernels(torch, quick: bool = False, misses=None):
     """(a) each f32 form against its plain version (checks on 64 rows, at
     the 12 serving (N, C) for B1, B3, B4 and the 12 training (N, C) for
     B1-train and B2, flat and clamp weights), then its kernel / plain /
     library time at the full row counts with its bounds, summed a forward
-    (66 calls) or a train step."""
+    (66 calls) or a train step.  ``misses``: a list that receives the
+    label of each (shape, regime) that missed, before the run fails."""
     gen = torch.Generator().manual_seed(15)
     gen_full = torch.Generator().manual_seed(16)
-    shapes, misses = [], []
+    shapes, misses = [], ([] if misses is None else misses)
     err = dict.fromkeys(("B1", "B3", "B4", "B1-train", "B2"), 0.0)
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_bytes_ms", "bound_ffma_ms")
     totals = {k: dict.fromkeys(keys, 0.0) for k in err}
+    b4_launches = dict.fromkeys(B4_F32_LAUNCHES, 0.0)
     for train, table in ((False, SHAPES), (True, TRAIN_SHAPES)):
         for stage, attn, N, C, R in table:
             checks, p = _f32_block_checks(torch, N, C, gen, train)
@@ -4692,6 +4723,9 @@ def f32_kernels(torch, quick: bool = False):
                         totals[kind][k] += calls * t["bound_ms"] if t["bound_by"] == "bytes" else 0
                     else:
                         totals[kind][k] += calls * t[k]
+                for n, ms in t.get("launch_ms", {}).items():
+                    b4_launches[n] = None if ms is None or b4_launches[n] is None else \
+                        b4_launches[n] + calls * ms
                 log(f"  full R={R} {kind} f32: kernel_ms {t['ms']:.3f} plain_ms "
                     f"{t['plain_ms']:.3f} (timed on {t['plain_rows_timed']} rows) library_ms "
                     f"{t['library_ms']:.3f} bound_ms {t['bound_ms']:.4f} ({t['bound_by']}; "
@@ -4704,6 +4738,11 @@ def f32_kernels(torch, quick: bool = False):
             f"calls), {kind} f32: kernel_ms {t['ms']:.3f} plain_ms {t['plain_ms']:.3f} "
             f"library_ms {t['library_ms']:.3f} bound_ms {t['bound_ms']:.4f} (FFMA "
             f"{t['bound_ffma_ms']:.4f})")
+    if not quick:
+        totals["B4"]["launch_ms"] = b4_launches
+        log("per model forward (66 calls), B4 f32 launches (device ms): " + ", ".join(
+            f"{n} {'not measured' if ms is None else f'{ms:.3f}'}"
+            for n, ms in b4_launches.items()))
     return shapes, err, totals
 
 
@@ -5175,22 +5214,11 @@ def wide_kernel_checks(torch):
     return rows, err
 
 
-def _one_call_ms(torch, fn) -> float:
-    """Device ms of one call of ``fn``, without a warm-up (phase 16 (e)'s
-    one timed f32 B4 call a shape: a warm-up would double its 13 s)."""
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end)
-
-
 def wide_shape_times(torch, train: bool, R: int, N: int, C: int, p, gen, H: int):
     """Phase 16 (e) at one of wide384's shapes: {kind: kernel / plain /
     library ms and bound} of one call of each kernel (bf16 and f32) at the
-    full row count R.  The kernel over one call after a warm-up (B4's f32
-    form: one call, no warm-up); the plain version on PLAIN_ROWS rows (f32:
+    full row count R.  The kernel over one call after a warm-up; the plain
+    version on PLAIN_ROWS rows (f32:
     F32_TIMING_ROWS), scaled by R, after a warm-up; the library yardsticks
     over one call after a warm-up, each timed once and shared by the kernels
     that compute its function (B1 and L: the SDPA block; B2: the SDPA
@@ -5232,7 +5260,7 @@ def wide_shape_times(torch, train: bool, R: int, N: int, C: int, p, gen, H: int)
             xn = ln1_rows(torch, x, pf)
             w = [t.to(dt) for t in (pf.qkv_kernel, pf.proj_kernel, pf.proj_bias)]
             run4 = lambda: ra.flash_row_attention(xn, *w, H)  # noqa: E731
-            rec("B4", _one_call_ms(torch, run4) if f32 else kernel_ms(run4),
+            rec("B4", kernel_ms(run4),
                 cuda_ms(torch, lambda: ra.flash_row_attention_reference(xn[:rs], *w, H), 1),
                 cuda_ms(torch, lambda: library_attn(torch, xn, *w, H), 1), bound("B4"))
             del xn
@@ -5579,7 +5607,7 @@ def main() -> None:
     for line in spills:
         log(f"  {line}")
     hmma = sass_hmma_check()
-    ffma, dfma = sass_ffma_check()
+    ffma, dmma = sass_ffma_check()
 
     if args.witness:
         os.makedirs(PARALLEL_WORK, exist_ok=True)
@@ -5609,17 +5637,30 @@ def main() -> None:
             fail(f"planted fault {args.plant}: phase 13 (b) passed it")
         log(f"planted fault {args.plant}: caught by phase 13 (b): {res['bad']}")
         sys.exit(0)
+    if args.plant in F32_PLANTS:
+        # phase 15 (a) must catch B4's f32 fault at every serving shape's
+        # clamp weights (scores in the hundreds)
+        plant_fault(torch, args.plant)
+        misses = []
+        try:
+            f32_kernels(torch, True, misses)
+        except SystemExit:
+            pass
+        clamp = [f"serving stage {s} {a} N={N} C={C} clamp" for s, a, N, C, _ in SHAPES]
+        passed = [c for c in clamp if c not in misses]
+        if passed:
+            fail(f"planted fault {args.plant}: phase 15 (a) passed it at {passed}")
+        log(f"planted fault {args.plant}: caught by phase 15 (a) at all {len(clamp)} clamp "
+            f"shapes ({len(misses)} misses in all)")
+        sys.exit(0)
     if args.plant:
         plant_fault(torch, args.plant)
-        check, what = ((lambda: f32_kernels(torch, True), "phase 15 (a)")
-                       if args.plant in F32_PLANTS else
-                       (lambda: phase_train_kernels(torch, True), "the B2 check"))
         try:
-            check()
+            phase_train_kernels(torch, True)
         except SystemExit:
-            log(f"planted fault {args.plant}: caught by {what}")
+            log(f"planted fault {args.plant}: caught by the B2 check")
             sys.exit(0)
-        fail(f"planted fault {args.plant}: {what} passed it")
+        fail(f"planted fault {args.plant}: the B2 check passed it")
 
     phase_s = {"build": build_s}
 
@@ -5637,7 +5678,7 @@ def main() -> None:
                                          shapes)
     at_shapes, at_err, at_totals = timed("B4 kernels", phase_attn_kernels, torch, args.quick)
     results = {"gpu": gpu, "build_s": build_s, "ptxas": ptxas, "spills": spills,
-               "sass_hmma": hmma, "sass_ffma": ffma, "sass_dfma": dfma, "mufu_rate": MUFU_RATE,
+               "sass_hmma": hmma, "sass_ffma": ffma, "sass_dmma": dmma, "mufu_rate": MUFU_RATE,
                "phase_s": phase_s, "shapes": shapes, "totals": totals,
                "int8_shapes": i8_shapes, "int8_totals": i8_totals,
                "attn_shapes": at_shapes, "attn_totals": at_totals, "lab_shapes": lab_shapes,

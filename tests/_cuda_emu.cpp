@@ -11,6 +11,7 @@ dim3 gridDim, blockDim;
 std::barrier<>* emu_block_barrier;
 std::barrier<>* emu_warp_barrier[32];
 double emu_lanes[32][32];
+double emu_frags[32][32][3];
 
 void emu_launch(dim3 grid, dim3 block, const std::function<void()>& kernel) {
     const unsigned n = block.x;           // the kernels use 1-d blocks of whole warps

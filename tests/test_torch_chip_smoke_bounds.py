@@ -582,6 +582,31 @@ def test_f32_bound_of_b1_at_stage_0_tsa(chip_smoke):
     assert ffma >= got
 
 
+@pytest.mark.parametrize("table,H,total", [("SHAPES", 8, 174.59), ("WIDE_SHAPES", 4, 253.69)])
+def test_f32_bound_of_b4_counts_its_functions_work_once(chip_smoke, table, H, total):
+    """B4's f32 form at each serving shape of the flagship and of wide384,
+    reckoned here: q|k (4 M C^2) and the scores (2 R N^2 C) in f64 over the
+    FP64 tensor cores' 67 TFLOP/s, v and the out-projection (4 M C^2) and
+    p . v (2 R N^2 C) over 3xTF32's 165, H N^2 exp a row over the MUFU
+    rate; f32 rows in and out and the weights over the HBM rate.  The FFMA
+    column takes the f64 parts at DFMA's 34 TFLOP/s.  Summed over a
+    forward's 66 calls: about 175 ms (flagship) and 254 ms (wide384)."""
+    got_total = 0.0
+    for stage, _, N, C, R in getattr(chip_smoke, table):
+        M = R * N
+        f64 = 4 * M * C * C + 2 * R * N * N * C
+        f32 = 4 * M * C * C + 2 * R * N * N * C
+        t_bytes = (4 * 2 * M * C + 4 * 4 * C * C + 4 * C) / 3.35e12
+        t_ops = max(f64 / 67e12 + f32 / (495e12 / 3), R * H * N * N / MUFU_RATE)
+        got, by = chip_smoke.bound_f32_ms("B4", R, N, C, 4 * C, H=H)
+        assert got == pytest.approx(max(t_bytes, t_ops) * 1e3, rel=1e-12) and by == "operations"
+        ffma, _ = chip_smoke.bound_f32_ms("B4", R, N, C, 4 * C, chip_smoke.PEAK_FFMA_FLOPS, H)
+        want = max(t_bytes, f64 / 34e12 + f32 / 67e12, R * H * N * N / MUFU_RATE) * 1e3
+        assert ffma == pytest.approx(want, rel=1e-12) and ffma >= got
+        got_total += chip_smoke.BLOCKS_PER_STAGE[stage] * got
+    assert got_total == pytest.approx(total, abs=0.01)
+
+
 # --- phase 16: wide384 (dims (48, 96, 192, 384), 4 heads) ------------------
 
 def test_wide384_row_shapes_come_from_its_dims(chip_smoke):

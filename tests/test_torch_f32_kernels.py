@@ -164,24 +164,77 @@ def test_f32_backward_matches_its_plain_version(kernels, R, N, C, regime, hid):
 
 
 @pytest.mark.parametrize("R,N,C,heads", [(2, 20, 32, 8), (1, 40, 64, 4), (1, 33, 32, 2),
-                                         (1, 17, 256, 8)])
+                                         (1, 17, 256, 8), (1, 150, 32, 8), (1, 70, 64, 2)])
 def test_f32_row_attention_matches_its_plain_version(kernels, R, N, C, heads):
-    """B4 at each threads-a-query count (C / 32: 1, 2, 8) and each head
-    split of a thread's sums (32 / H: 4, 8, 16), peaked scores."""
+    """B4 at D = 4, 16 and 32 (score chunks and output parts of W = 4, 16
+    and 32 channels; key tiles of 64 and 32), at one key tile and at three
+    with a ragged last one (N = 150, 70), peaked scores; its exported q|k
+    against x Wq_h / sqrt(D) and x Wk_h in f64."""
     rng = np.random.default_rng(C + heads)
     x, wq, wp, b = (torch.from_numpy(a.astype(np.float32)) for a in (
         rng.standard_normal((R, N, C)), rng.standard_normal((C, 3 * C)) * 1.44 / C ** 0.5,
         rng.standard_normal((C, C)) * 0.05, rng.standard_normal(C) * 0.01))
-    out, acc, v, t = ra._kernel(x, wq, wp, b, heads, export=True)
+    out, acc, v, qk = ra._kernel(x, wq, wp, b, heads, export=True)
     r_out, r_acc = ra.flash_row_attention_reference_parts(x, wq, wp, b, heads)
     _close(out, r_out)
     _close(acc, r_acc)
-    a, wv = ra.bilinear_weights(wq, heads, torch.float64)
-    _close(v, (x @ wv).reshape(-1, C))
-    assert t.dtype == torch.float64                 # t and the scores in f64
-    _close(t.view(R, N, heads, C),
-           torch.stack([x.double() @ a[h] for h in range(heads)], dim=2), rel=1e-12)
-    assert torch.equal(ra._kernel(x, wq, wp, b, heads)[0], out)   # t per head or exported
+    _close(v, (x @ wq[:, 2 * C:]).reshape(-1, C))
+    assert qk.dtype == torch.float64                 # q, k and the scores in f64
+    xd = x.double().reshape(-1, C)
+    _close(qk[:, :C], xd @ wq[:, :C].double() * (C // heads) ** -0.5, rel=1e-12)
+    _close(qk[:, C:], xd @ wq[:, C:2 * C].double(), rel=1e-12)
+    assert torch.equal(ra._kernel(x, wq, wp, b, heads)[0], out)   # q|k exported or a scratch
+
+
+DMMA_PROBE = r"""
+// Each warp of the launch multiplies its own 16 x 4 A by its 4 x 8 B and
+// adds its 16 x 8 C through the stand-in of mma.sync m16n8k4 f64, every lane
+// loading and storing its fragments at the PTX ISA's layout.
+__global__ void probe(const double* a, const double* b, const double* c, double* d) {
+    const int w = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, j = lane % 4;
+    const double* cw = c + w * 128;
+    double c0 = cw[g * 8 + 2 * j], c1 = cw[g * 8 + 2 * j + 1];
+    double c2 = cw[(g + 8) * 8 + 2 * j], c3 = cw[(g + 8) * 8 + 2 * j + 1];
+    emu_mma_m16n8k4_f64(c0, c1, c2, c3, a[w * 64 + g * 4 + j], a[w * 64 + (g + 8) * 4 + j],
+                        b[w * 32 + j * 8 + g]);
+    double* dw = d + w * 128;
+    dw[g * 8 + 2 * j] = c0;
+    dw[g * 8 + 2 * j + 1] = c1;
+    dw[(g + 8) * 8 + 2 * j] = c2;
+    dw[(g + 8) * 8 + 2 * j + 1] = c3;
+}
+
+extern "C" void run(const double* a, const double* b, const double* c, double* d, int warps) {
+    LAUNCH(probe, 1, 32 * warps, nullptr, a, b, c, d);
+}
+"""
+
+
+def test_dmma_stand_in_is_the_plain_16x4_by_4x8_product_at_every_lane(tmp_path):
+    """The CPU stand-in of the FP64 tensor cores' mma.sync m16n8k4
+    (``tests/_cuda_emu.h``), on which B4's f32 source runs here: each of 4
+    warps' 16 x 8 results, every lane's four values, against A @ B + C in
+    numpy (f64, sums of 4 products: within 1e-15 of the largest)."""
+    src = tmp_path / "probe.cu"
+    src.write_text(DMMA_PROBE)
+    lib = tmp_path / "libprobe.so"
+    res = subprocess.run(
+        [shutil.which("g++"), "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
+         "-DTFSWA_EMU", "-include", str(TESTS / "_cuda_emu.h"), "-o", str(lib),
+         str(TESTS / "_cuda_emu.cpp"), "-x", "c++", str(src)],
+        capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    rng = np.random.default_rng(4)
+    warps = 4
+    a, b, c = (rng.standard_normal(s) for s in ((warps, 16, 4), (warps, 4, 8), (warps, 16, 8)))
+    d = np.zeros((warps, 16, 8))
+    fn = ctypes.CDLL(str(lib)).run
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int]
+    fn(*(t.ctypes.data for t in (a, b, c, d)), warps)
+    want = a @ b + c
+    assert np.abs(d - want).max() <= 1e-15 * np.abs(want).max()
+    swapped = a[:, [*range(8, 16), *range(8)]] @ b + c               # the row halves swapped
+    assert not np.allclose(d, swapped)
 
 
 def test_f32_row_attention_holds_the_f32_limit_where_scores_reach_hundreds(kernels):
@@ -272,9 +325,22 @@ def test_float16_rows_are_refused_before_any_launch(kernel):
 @pytest.mark.parametrize("stage", range(4))
 def test_f32_shared_memory_rule_admits_the_flagship_shapes(path, stage):
     """The f32 forms' shared memory is static, under 48 KB, at every
-    flagship (N, C), for B1 / B2 (any MLP width) and B4 (8 heads)."""
+    flagship (N, C), for B1 / B2 (any MLP width) and B4 (8 heads: D = C / 8,
+    B4's plan W = 4 to 32); and B4's plan (``f32_attn_plan``) admits every
+    C a multiple of 8 up to 512 at every head count dividing it."""
     for R, N, C in flagship_row_shapes(path, stage):
         fb.check_shape("fused_row_block", R, N, C, 8, 4 * C, torch.float32)
         ra.check_shape(R, N, C, 8, torch.float32)
         assert fb.kernel_smem_bytes(C, 4 * C, torch.float32) <= fb.STATIC_SMEM_BYTES
         assert ra.kernel_smem_bytes(C, 8, torch.float32) <= fb.STATIC_SMEM_BYTES
+        D = C // 8
+        assert ra.f32_attn_plan(C, 8) == (D, D, 32 if D == 32 else 64)
+    for C in range(8, 513, 8):
+        for h in (h for h in range(1, C + 1) if C % h == 0):
+            ra.check_shape(2, 17, C, h, torch.float32)
+            D = C // h
+            w, vw, kt = ra.f32_attn_plan(C, h)
+            parts = -(-D // vw)
+            assert w in (4, 8, 16, 32) and vw <= w < 2 * vw and vw % 4 == 0
+            assert parts == -(-D // 32) and D <= parts * vw < D + 4 * parts
+            assert ra.kernel_smem_bytes(C, h, torch.float32) <= fb.STATIC_SMEM_BYTES

@@ -13,9 +13,9 @@ to a power of two).  Held here, with no card:
     ``tests/_cuda_emu.h`` and called through the wrappers' own launches
     (``test_torch_f32_kernels.py``'s fixtures), against the plain f32
     versions within 1e-5 of the largest magnitude: B1, B1-train, B3, B2
-    (twice, bit for bit) and B4 at D = 3, 12, 48, 128, 8 and B4 at 3 and 6
-    heads.  It is the only check of CUDA code at the new widths without a
-    card;
+    (twice, bit for bit) and B4 at D = 3, 12, 48, 128, 8, B4 also at 3 and
+    6 heads and at D = 1 (C = 8, 8 heads) and D = 512 (C = 512, one head).
+    It is the only check of CUDA code at the new widths without a card;
   - a whole model at a narrow off-list width, dims (8, 16, 24, 48) and 4
     heads (D = 2, 4, 6, 12), against JAX with the same weights: a
     SourceSeparator separation and a train step through ``"pallas"`` and
@@ -199,7 +199,7 @@ def test_f32_backward_source_at_any_width(kernels, C, H):  # noqa: F811
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("C,H", EMU_WIDTHS + [(48, 3), (96, 6)])
+@pytest.mark.parametrize("C,H", EMU_WIDTHS + [(48, 3), (96, 6), (8, 8), (512, 1)])
 def test_f32_row_attention_source_at_any_width(kernels, C, H):  # noqa: F811
     R, N = 1, 19
     rng = np.random.default_rng(C * H)

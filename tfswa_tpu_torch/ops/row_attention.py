@@ -12,8 +12,10 @@ then ``bf16(acc) @ Wo + b`` (see ``csrc/row_attention.cu``).
 plain version (:func:`flash_row_attention_reference`) on a CPU tensor, and
 counts each launch in ``flash_row_attention.launches`` (bf16 rows,
 ``csrc/row_attention.cu``, tensor cores) or
-``flash_row_attention.launches_f32`` (f32 rows, ``csrc/row_attention_f32.cu``,
-f32 FFMA: the TPU kernel with compute_dtype = float32).  On a CUDA tensor
+``flash_row_attention.launches_f32`` (f32 rows, ``csrc/row_attention_f32.cu``:
+the TPU kernel's function with compute_dtype = float32, its scores q_h . k_h
+over each head's D channels in f64 on the FP64 tensor cores, p . v f32).
+On a CUDA tensor
 that the kernels do not take, it raises.  It is forward only: the
 gradient of B4, as in the JAX package, is the plain attention's
 (:func:`mha_rows`), and the ``"pallas_attn"`` block
@@ -30,7 +32,7 @@ import torch
 from ..parallel.comm import reduce_from
 from . import _build
 from .fused_block import (KERNEL_DTYPES, MAX_SCORE_BYTES, MAX_SMEM_BYTES, MAX_WIDTH,
-                          STATIC_SMEM_BYTES, WIDTH_ALIGN, _count, _on_stream, prod_width)
+                          WIDTH_ALIGN, _count, _on_stream, prod_width)
 
 # What the kernels take: C a multiple of WIDTH_ALIGN up to MAX_WIDTH and
 # any head count that divides it.  bilinear_attn_kernel (csrc/row_attention.cu)
@@ -42,13 +44,27 @@ KERNEL_DIMS = (32, 64, 128, 256)
 KERNEL_HEADS = (2, 4, 8)
 
 
+def f32_attn_plan(C: int, num_heads: int):
+    """``(W, VW, KT)`` of the f32 attention (csrc/row_attention_f32.cu
+    attn_kernel<W, VW>): ceil(D / 32) parts of VW outputs a head (VW the
+    part's share of D rounded up to 4), scores in chunks of W channels (the
+    power of two at least VW), KT keys a tile (32 at W = 32, else 64)."""
+    D = C // num_heads
+    parts = -(-D // 32)
+    vw = (-(-D // parts) + 3) // 4 * 4
+    w = 4
+    while w < vw:
+        w *= 2
+    return w, vw, (32 if w == 32 else 64)
+
+
 def kernel_smem_bytes(C: int, num_heads: int, dtype: torch.dtype = torch.bfloat16) -> int:
     """Shared memory of the largest attention block.  float32
-    (csrc/row_attention_f32.cu attn_kernel, static; t_kernel's and
-    gemm_kernel's are smaller): a tile of KT keys of x in f64, its G slices
-    of 32 (G the power of two with 32 G >= C) padded to 33, and of the
-    head's v in f32, VSW = 16 G columns (32 G where D > 16 G), KT as many
-    keys as fit 48 KB, at most 16.  bfloat16 (csrc/row_attention.cu): at
+    (csrc/row_attention_f32.cu, static): attn_kernel<W, VW>'s two key tiles
+    of KT keys (``f32_attn_plan``), each k in f64 at W channels (rows padded
+    to W + 4, W = 4: none) and the part's v in f32 at VW (padded to 4 mod
+    8), or qkv_kernel's two k-slices
+    (64 x 20 f32 of x, 16 x 68 f64 of the weights), whichever is larger.  bfloat16 (csrc/row_attention.cu): at
     C in KERNEL_DIMS and H in KERNEL_HEADS (attn_smem_bytes, 8 warps) its
     128 queries' x, two 32-row slices of A_h's columns (64 at a time), and
     two key tiles (128 keys at C <= 64, else 64) each of x (C columns) and
@@ -59,12 +75,9 @@ def kernel_smem_bytes(C: int, num_heads: int, dtype: torch.dtype = torch.bfloat1
     tiles, so neither depends on N."""
     D = C // num_heads
     if dtype == torch.float32:
-        g = 1
-        while 32 * g < C:
-            g *= 2
-        vsw = 16 * g if D <= 16 * g else 32 * g
-        kt = min(16, 49152 // (8 * g * 33 + 4 * vsw))
-        return kt * (8 * g * 33 + 4 * vsw)
+        w, vw, kt = f32_attn_plan(C, num_heads)
+        sk, sv = (4 if w == 4 else w + 4), (vw if vw % 8 == 4 else vw + 4)
+        return max(2 * kt * (8 * sk + 4 * sv), 2 * (64 * 20 * 4 + 16 * 68 * 8))
     if C in KERNEL_DIMS and num_heads in KERNEL_HEADS:
         vw = max(D, 8)
         keys = 128 if C <= 64 else 64
@@ -87,7 +100,7 @@ def check_shape(R: int, N: int, C: int, num_heads: int,
         raise ValueError(f"{name}: no kernel for {num_heads} heads at C={C} (the head count "
                          "divides C)")
     smem = kernel_smem_bytes(C, num_heads, dtype)
-    if smem > (STATIC_SMEM_BYTES if dtype == torch.float32 else MAX_SMEM_BYTES):
+    if smem > MAX_SMEM_BYTES:
         raise ValueError(f"{name}: C={C} does not fit the kernel's shared memory "
                          f"({smem} bytes)")
     if R * N * C >= 2 ** 31:
@@ -96,7 +109,7 @@ def check_shape(R: int, N: int, C: int, num_heads: int,
 
 def bilinear_weights(qkv_kernel: torch.Tensor, num_heads: int,
                      dtype: torch.dtype = torch.float32):
-    """A (H, C, C) in ``dtype`` (f32, or f64 for B4's f32 form) with A_h =
+    """A (H, C, C) in ``dtype`` (f32, or f64 for B4's function in f64) with A_h =
     Wq_h Wk_h^T / sqrt(D), from the qkv kernel (C, 3C) as given (the route
     casts it to the compute dtype first), and Wv (C, C) as given."""
     C = qkv_kernel.shape[0]
@@ -105,6 +118,14 @@ def bilinear_weights(qkv_kernel: torch.Tensor, num_heads: int,
     wq = qkv_kernel[:, :C].to(dtype).reshape(C, H, D).permute(1, 0, 2)     # (H, C, D)
     wk = qkv_kernel[:, C:2 * C].to(dtype).reshape(C, H, D).permute(1, 0, 2)
     return torch.einsum("hcd,hed->hce", wq, wk) * D ** -0.5, qkv_kernel[:, 2 * C:]
+
+
+def qkv_weights_f64(qkv_kernel: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[Wq / sqrt(D) | Wk | Wv] (C, 3C) in f64, from the qkv kernel (C, 3C):
+    B4's f32 form computes q_h . k_h = x A_h x^T and v from x @ this."""
+    C = qkv_kernel.shape[0]
+    w = qkv_kernel.double()
+    return torch.cat([w[:, :C] * (C // num_heads) ** -0.5, w[:, C:]], dim=1)
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
@@ -240,7 +261,7 @@ def _lib_f32() -> ctypes.CDLL:
     lib = _build.load("row_attention_f32")
     fn = lib.row_attention_forward_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -267,16 +288,15 @@ def _kernel(rows: torch.Tensor, qkv_kernel: torch.Tensor, proj_kernel: torch.Ten
             proj_bias: torch.Tensor, num_heads: int, export: bool = False):
     """One launch of row_attention_forward (bf16 rows) or
     row_attention_forward_f32 (f32 rows): ``(out, acc, v, t)``, with v
-    (R*N, C) the kernel's x @ Wv and, with ``export``, t (R*N, H*C) its
-    x @ A_h per head (else None), both in the rows' dtype (t in f64 for f32
-    rows)."""
+    (R*N, C) the kernel's x @ Wv in the rows' dtype and, with ``export``
+    (else None), bf16 rows' t (R*N, H*C), x @ A_h per head, or f32 rows'
+    q|k (R*N, 2C) in f64, x @ [Wq / sqrt(D) | Wk]."""
     _check_cuda(rows, (qkv_kernel, proj_kernel, proj_bias), num_heads)
     R, N, C = rows.shape
     dt, dev = rows.dtype, rows.device
     if dt == torch.float32:
-        a, wv = bilinear_weights(qkv_kernel, num_heads, torch.float64)
-        return _kernel_f32(rows, a, wv.float(), proj_kernel.float(), proj_bias.float(),
-                           num_heads, export)
+        return _kernel_f32(rows, qkv_weights_f64(qkv_kernel, num_heads), proj_kernel.float(),
+                           proj_bias.float(), num_heads, export)
     a, wv = bilinear_weights(qkv_kernel, num_heads)
     a, wv, wp = (w.to(dt).contiguous() for w in (a, wv, proj_kernel))
     bias = proj_bias.float().contiguous()
@@ -293,25 +313,25 @@ def _kernel(rows: torch.Tensor, qkv_kernel: torch.Tensor, proj_kernel: torch.Ten
     return out, acc, v, t
 
 
-def _kernel_f32(rows: torch.Tensor, a: torch.Tensor, wv: torch.Tensor, wp: torch.Tensor,
-                bias: torch.Tensor, num_heads: int, export: bool):
-    """One launch of row_attention_forward_f32 on checked f32 rows, ``a``
-    (H, C, C) f64; t (f64) is written per head into an (R*N, C) scratch, or
-    with ``export`` into the head's columns of the returned (R*N, H*C) t."""
+def _kernel_f32(rows: torch.Tensor, wqkv: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor,
+                num_heads: int, export: bool):
+    """One launch of row_attention_forward_f32 on checked f32 rows, ``wqkv``
+    (C, 3C) f64 (:func:`qkv_weights_f64`); q|k (R*N, 2C) f64 is a scratch,
+    or with ``export`` returned."""
     R, N, C = rows.shape
     dev = rows.device
-    a, wv, wp, bias = (w.contiguous() for w in (a, wv, wp, bias))
+    wqkv, wp, bias = (w.contiguous() for w in (wqkv, wp, bias))
     v = torch.empty((R * N, C), dtype=torch.float32, device=dev)
     acc = torch.empty_like(rows)
     out = torch.empty_like(rows)
-    t = torch.empty((R * N, num_heads * C if export else C), dtype=torch.float64, device=dev)
+    qk = torch.empty((R * N, 2 * C), dtype=torch.float64, device=dev)
     err = _on_stream(dev, _lib_f32().row_attention_forward_f32,
-                     rows.data_ptr(), a.data_ptr(), wv.data_ptr(), wp.data_ptr(),
-                     bias.data_ptr(), v.data_ptr(), acc.data_ptr(), out.data_ptr(),
-                     t.data_ptr(), int(export), R, N, C, num_heads)
+                     rows.data_ptr(), wqkv.data_ptr(), wp.data_ptr(), bias.data_ptr(),
+                     v.data_ptr(), acc.data_ptr(), out.data_ptr(), qk.data_ptr(),
+                     R, N, C, num_heads)
     if err != 0:
         raise RuntimeError(f"row_attention_forward_f32 failed: CUDA error {err}")
-    return out, acc, v, t if export else None
+    return out, acc, v, qk if export else None
 
 
 def flash_row_attention(rows: torch.Tensor, qkv_kernel: torch.Tensor,
