@@ -10,8 +10,9 @@ Six kernels: B1 (fused_row_block, the serving forward), B1-train
 serving forward with int8 scores, route "pallas_int8"), B4
 (flash_row_attention, the bilinear row attention, route "pallas_attn") and
 L (lab_row_block, the kernel lab's stage and flag forms of B1); and the
-f32 forms of B1, B1-train, B2, B3 and B4 (csrc/*_f32*: f32 FFMA, B4's
-q|k and scores f64 on the FP64 tensor cores; counted apart as
+f32 forms of B1, B1-train, B2, B3 and B4 (csrc/*_f32*: products in
+3xTF32 on the tensor cores, B4's q|k and scores f64 on the FP64 tensor
+cores; counted apart as
 "<kernel>-f32").  Every kernel takes any width C a multiple of 8
 up to 512 and any head count dividing it: phases 2-15 run the flagship's
 widths, phase 16 the others (wide384, WIDE384, and an edge grid).
@@ -24,10 +25,12 @@ Phases, each of which fails the run (exit code 1) when it fails:
      ln1_bwd_kernel and atb_kernel, B4's proj_kernel, bilinear_attn_kernel
      and bilinear_attn_any_kernel) must hold HMMA instructions, and
      B3's int8 forms of attn_kernel and attn_wide_kernel IMMA (cuobjdump
-     --dump-sass of the built libraries), and every kernel of the f32
-     libraries FFMA (B4's f32 qkv_kernel and attn_kernel DMMA, and no
-     t_kernel), each function in them one of the port's (no library
-     kernel);
+     --dump-sass of the built libraries); in the f32 libraries every
+     product kernel (gemm_kernel, atb_kernel) and every tensor-core
+     attention kernel HMMA with TF32 operands (3xTF32), B3's f32 scores
+     IMMA, the attention's FMA-chain scores and the forms for a head of at
+     most 8 channels FFMA, B4's f32 qkv_kernel and attn_kernel DMMA (and
+     no t_kernel), each function one of the port's (no library kernel);
   2. the fused row-block kernel against its plain PyTorch version at each
      of the 12 (N, C) of the main path (bf16, a slice of 64 rows, three kinds
      of weights: flat, peaked and clamped softmax), on the block's output
@@ -105,8 +108,10 @@ Phases, each of which fails the run (exit code 1) when it fails:
      there, which must be the recipe's and checked in phase 6; a track
      that fails in the SDR evaluation fails the run; finite train / val /
      sdr records, the checkpoint layout; the best checkpoint served through
-     "pallas"; ms a step (the trainer's own mean), audio-s trained/s, peak
-     GB and the SDR evaluation's seconds;
+     "pallas"; peak GB.  It runs beside phase 14's subprocesses (and
+     phase 11, which serves its checkpoint, after phase 14), so its step
+     and SDR-evaluation times are recorded as taken under their load and
+     give no training rate;
  11. the serving and evaluation entry points: separate_stream of three
      synthetic tracks (120, 75 and 8 s; the last through separate()) with
      two in flight, the flagship model through "pallas" at the fast serving
@@ -124,8 +129,9 @@ Phases, each of which fails the run (exit code 1) when it fails:
      at checked (N, C); python -m tfswa_tpu_torch.cli.evaluate on 2
      synthetic tracks and on a custom dataset of 2: every track in
      results.json (a track the evaluator skips fails the run), finite
-     metrics and aggregate, launches as designed; then the MR-STFT train
-     step on the first 2 of phase 7's segments through "pallas" against
+     metrics and aggregate, launches as designed (the four CLIs at once);
+     then the MR-STFT train step on the first 2 of phase 7's segments
+     (MRSTFT_SEGMENTS) through "pallas" against
      the plain route in
      float32 at phase 8's limits (the plain route in bf16 recorded beside
      it), 66 B1-train + 66 B2 launches a step, ms a step and peak GB;
@@ -212,7 +218,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
      plain f32 version's distance where that is larger); kernel / plain /
      library (f32) ms at the full row counts with the bound (3xTF32's
      rate, B4's f64 parts the FP64 tensor cores'; FFMA's and DFMA's
-     beside); then, after phase 14: (b) the 120 s track
+     beside), and each f32 form's launches timed apart (a profiler trace
+     opened by a warm-up step); then, after phase 14: (b) the 120 s track
      through "pallas" in f32 (132 f32 B1 launches, nothing else), its
      audio-s/s, and one 10 s segment through "pallas", "pallas_int8" and
      "pallas_attn" (66 f32 launches of the route's kernel each) against
@@ -240,8 +247,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
      and logged before a miss fails the run, and the registers and spill
      bytes of every new instantiation from ptxas; (b) wide384 in bf16: the
      120 s track through each serving route (66 launches of its kernel a
-     forward and none of another; best of 3 after a warm-up, B4's route
-     one, as phase 4), one profiled separation ("pallas"),
+     forward and none of another; best of SERVING_RUNS after a warm-up,
+     as phase 4), one profiled separation ("pallas"),
      and one 10 s segment against the plain route at SNR >= 30 dB a stem
      (B3 also against B1's route); (c) wide384 in f32 (conditioned
      weights): phase 15 (b) (the 120 s track through "pallas", one 10 s
@@ -344,6 +351,16 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def card_randn(torch, shape, gen):
+    """Standard normal values of ``shape`` made on the card, by a CUDA
+    generator seeded from the host generator ``gen``: the rows of a timing
+    at the full row counts (226 M values a stage-0 shape), which the host's
+    generator takes seconds to draw."""
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen))
+    return torch.randn(shape, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(seed))
 
 
 def _bound(nbytes: float, flops: float, exp2: float, int8_ops: float = 0.0):
@@ -556,19 +573,26 @@ def sass_hmma_check():
 def launch_ms(torch, run, names, reps: int = 2, tries: int = 3):
     """Device ms a call of ``run`` spends in each kernel of ``names`` (all
     its launches of that kernel), from a torch.profiler trace (CUDA
-    activity) of ``reps`` calls; a trace that misses one of the kernels is
-    taken again, up to ``tries`` traces (the profiler now and then records
-    no device events); None where the last trace still holds no such
-    kernel (not measured)."""
-    from torch.profiler import ProfilerActivity, profile
+    activity) of ``reps`` calls.  The trace opens with a warm-up step (one
+    call, traced and dropped: the profiler's schedule), so that the device
+    tracing is running before the timed calls start; a trace that misses one
+    of the kernels is taken again, up to ``tries`` traces; None where the
+    last trace still holds no such kernel (not measured; logged with the
+    kernels that trace did hold)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     run()
     torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            run()
+            torch.cuda.synchronize()
+            prof.step()
             for _ in range(reps):
                 run()
             torch.cuda.synchronize()
+            prof.step()
         kernels = device_kernels(prof)[0]
         res = {}
         for n in names:
@@ -576,7 +600,16 @@ def launch_ms(torch, run, names, reps: int = 2, tries: int = 3):
             res[n] = sum(hits) / reps if hits else None
         if None not in res.values():
             break
+    for n in (n for n, v in res.items() if v is None):
+        log(f"  launch_ms: {n} not measured: in none of {tries} traces of {reps} calls; the "
+            "last held " + (", ".join(f"{kernel_name_of(k)} x{c}" for k, _, c in kernels)
+                            or "no device kernel"))
     return res
+
+
+def kernel_name_of(key: str) -> str:
+    """A profiler key's kernel name without its namespaces and arguments."""
+    return key.replace("(anonymous namespace)::", "").split("(")[0].split("::")[-1][:80]
 
 
 def log_launches(label: str, launches) -> None:
@@ -784,6 +817,8 @@ def phase_kernels(torch, quick: bool):
         max_err = max(max_err, log_b1_checks(f"stage {stage} {attn} N={N} C={C}", checks,
                                              misses))
         if not quick:
+            # drawn on the host from the checks' generator, as the checks'
+            # data after it depends on it
             xf = torch.randn(R, N, C, generator=gen).cuda().to(torch.bfloat16)
             # the model's route: the wrapper, through its custom op
             k_ms = cuda_ms(torch, lambda: fused_row_block(xf, p, HEADS), 3)
@@ -1042,7 +1077,7 @@ def phase_lab(torch, quick: bool, b1_shapes):
         log_lab_checks(N, C, checks, f"stage {stage} {attn}")
         tally(N, C, checks)
         if not quick:
-            xf = torch.randn(R, N, C, generator=gen_full).cuda().to(torch.bfloat16)
+            xf = card_randn(torch, (R, N, C), gen_full).to(torch.bfloat16)
             rs = min(R, PLAIN_ROWS)
             calls = BLOCKS_PER_STAGE[stage]
             timed = {}
@@ -1191,7 +1226,7 @@ def phase_int8_kernels(torch, quick: bool, b1_shapes):
                 misses.append(f"N={N} C={C} {regime}")
             max_err = max(max_err, c["max_abs_err"])
         if not quick:
-            xf = torch.randn(R, N, C, generator=gen_full).cuda().to(torch.bfloat16)
+            xf = card_randn(torch, (R, N, C), gen_full).to(torch.bfloat16)
             k_ms = cuda_ms(torch, lambda: fused_row_block_int8(xf, p, HEADS), 3)
             rs = min(R, PLAIN_ROWS)
             pl_ms = cuda_ms(torch, lambda: fused_row_block_int8_reference(
@@ -1338,7 +1373,7 @@ def phase_attn_kernels(torch, quick: bool):
                     misses.append(f"{path} N={N} C={C} {regime}")
                 max_err = max(max_err, c["max_abs_err"])
             if not quick and path == "serving":
-                xf = torch.randn(R, N, C, generator=gen_full).cuda().to(torch.bfloat16)
+                xf = card_randn(torch, (R, N, C), gen_full).to(torch.bfloat16)
                 w = attn_weights(torch, p)
                 with torch.no_grad():
                     k_ms = cuda_ms(torch, lambda: flash_row_attention(xf, *w, HEADS), 1)
@@ -1627,8 +1662,8 @@ def phase_train_kernels(torch, quick: bool):
                  "checks": checks}
         log_train_checks(f"stage {stage} {attn} N={N} C={C}", checks, misses, err)
         if not quick:
-            xf = torch.randn(R, N, C, generator=gen_full).cuda().to(torch.bfloat16)
-            gf = torch.randn(R, N, C, generator=gen_full).cuda().to(torch.bfloat16)
+            xf = card_randn(torch, (R, N, C), gen_full).to(torch.bfloat16)
+            gf = card_randn(torch, (R, N, C), gen_full).to(torch.bfloat16)
             t_ms = cuda_ms(torch, lambda: fused_row_block_train(xf, p, HEADS), 3)
             _, mid, acc, den = fused_row_block_train(xf, p, HEADS)
             b_ms = cuda_ms(torch, lambda: fused_row_block_bwd(xf, mid, acc, den, gf, p, HEADS), 3)
@@ -1791,9 +1826,13 @@ PLANTS = {
 }
 
 
-# Faults for --plant in a copy of csrc/row_attention_f32.cu, each of which
-# phase 15 (a)'s B4 check must catch: "b4_tf32_scores", q and k rounded to
-# TF32's 10-bit mantissa before the score product (one TF32 pass).
+# Faults for --plant in a copy of an f32 source, each of which phase 15
+# (a)'s checks must catch: "b4_tf32_scores" (csrc/row_attention_f32.cu), q
+# and k rounded to TF32's 10-bit mantissa before B4's score product (one
+# TF32 pass), to be caught at every serving shape's clamp weights;
+# "f32_1xtf32" (csrc/block_f32.cuh, the tile every f32 product runs on),
+# the two correction products of 3xTF32 dropped, leaving one TF32 pass:
+# each (shape, regime) that catches it is logged.
 TF32 = "__uint_as_float((__float_as_uint({}) + 0x1000u) & 0xffffe000u)"
 F32_PLANTS = {
     "b4_tf32_scores": (
@@ -1801,34 +1840,46 @@ F32_PLANTS = {
         "dmma(sc[0][nt][0], sc[0][nt][1], sc[1][nt][0], sc[1][nt][1], (double)"
         + TF32.format("(float)a[0][kk]") + ", (double)" + TF32.format("(float)a[1][kk]")
         + ", (double)" + TF32.format("(float)b") + ");"),
+    "f32_1xtf32": ("    mma_tf32(t, a[1], b[0]);\n    mma_tf32(t, a[0], b[1]);\n", ""),
 }
+# the file each f32 plant patches
+F32_PLANT_SOURCES = {"b4_tf32_scores": "row_attention_f32.cu", "f32_1xtf32": "block_f32.cuh"}
 
 
 def plant_fault(torch, name: str) -> None:
-    """Build csrc/fused_block_bwd.cu with fault ``name`` of PLANTS (or
-    csrc/row_attention_f32.cu with one of F32_PLANTS) into build/planted/
-    (outside the sources) with the port's nvcc flags, and swap the library
-    in for B2 (B4's f32 form)."""
+    """Build csrc/fused_block_bwd.cu with fault ``name`` of PLANTS, or the f32
+    sources with one of F32_PLANTS, into build/planted/ (outside the
+    sources) with the port's nvcc flags, and swap the libraries in for the
+    kernels'.  A patched header goes beside copies of the f32 sources, whose
+    #include "block_f32.cuh" finds it there first."""
     import ctypes
 
     from tfswa_tpu_torch.ops import _build
 
-    source = "row_attention_f32" if name in F32_PLANTS else "fused_block_bwd"
+    src_name = F32_PLANT_SOURCES.get(name, "fused_block_bwd.cu")
     old, new = {**PLANTS, **F32_PLANTS}[name]
-    src = (_build.CSRC / f"{source}.cu").read_text()
-    if old not in src:
-        fail(f"planted fault {name}: its text is not in the source")
-    out = _build.BUILD_DIR.parent / "planted"
+    src = (_build.CSRC / src_name).read_text()
+    if src.count(old) != 1:
+        fail(f"planted fault {name}: its text is not once in {src_name}")
+    out = _build.BUILD_DIR.parent / "planted" / name
     out.mkdir(parents=True, exist_ok=True)
-    cu = out / f"{source}_{name}.cu"
-    cu.write_text(src.replace(old, new))
-    lib = out / f"lib{source}_{name}.so"
-    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-                          "-o", str(lib), str(cu)], capture_output=True, text=True)
-    if res.returncode != 0:
-        fail(f"planted fault {name}: nvcc failed:\n{res.stdout}{res.stderr}")
-    _build._loaded[source] = ctypes.CDLL(str(lib))
-    log(f"planted fault {name}: {old!r} -> {new!r}")
+    (out / src_name).write_text(src.replace(old, new))
+    libs = list(F32_LIBS) if src_name.endswith(".cuh") else [src_name[:-3]]
+    procs = {}
+    for lib in libs:
+        cu = out / f"{lib}.cu"
+        if lib + ".cu" != src_name:
+            cu.write_text((_build.CSRC / f"{lib}.cu").read_text())
+        procs[lib] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+             "-o", str(out / f"lib{lib}.so"), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for lib, proc in procs.items():
+        log_out = proc.communicate()[0]
+        if proc.returncode != 0:
+            fail(f"planted fault {name}: nvcc failed for {lib}:\n{log_out}")
+        _build._loaded[lib] = ctypes.CDLL(str(out / f"lib{lib}.so"))
+    log(f"planted fault {name} in {src_name} ({', '.join(libs)}): {old!r} -> {new!r}")
 
 
 def train_batch(torch, np):
@@ -2313,17 +2364,16 @@ def phase_train_cli(torch, np, gpu: str, covered):
     configs/musdb_repro.yaml and the synthetic set, in a subprocess: two
     epochs of 4 steps (remat, augment + mixup, direct masks, crop_pow2,
     4 x 5.938 s), validation and SDR evaluation, checkpoints; then a third
-    epoch resumed from latest; then the best checkpoint served through
-    "pallas".  Launches counted by phase against the design, the (N, C)
+    epoch resumed from latest.  Launches counted by phase against the design, the (N, C)
     of each against the recipe's and against ``covered`` (the shapes that
     phase_recipe_kernels and the kernel phases checked), the log's
     records finite, the checkpoint layout, the restored state equal to the
-    saved one, global_step 12 at the end.  The checkpoints (about 1 GB)
-    stay for phase_serve_clis, which serves them and deletes them; the log
-    stays in chiprun_out/train_log."""
+    saved one, global_step 12 at the end (the best checkpoint is served by
+    serve_cli_best).  The checkpoints (about 1 GB) stay for
+    phase_serve_clis, which serves them and deletes them; the log
+    (train_log, beside them) stays."""
 
     from tfswa_tpu_torch.config import Config
-    from tfswa_tpu_torch.evaluation import load_separator_from_checkpoint
 
     ck, log_dir = TRAIN_CK, os.path.join(HERE, "chiprun_out", "train_log")
     for d in (ck, log_dir):
@@ -2361,8 +2411,32 @@ def phase_train_cli(torch, np, gpu: str, covered):
         fail(f"resume: latest meta {meta}, expected global_step 12 and epoch 2")
     recs = read_cli_log(np, log_dir)
 
+    # beside phase 14's subprocesses: the times are taken under their load,
+    # so no rate is derived from them
+    nums, nums_resumed = ({k: v for k, v in cli_numbers(
+        r, cfg.data.batch_size, cfg.data.segment_seconds).items()
+        if k != "audio_s_trained_per_s"} for r in (recs[:n_first], recs[n_first:]))
+    log(f"CLI run on {gpu}, under phase 14's load (not a training rate): "
+        f"{nums['ms_per_step']:.3f} ms/step (mean of the steps after each epoch's first), "
+        f"peak memory {nums['peak_mem_gb']:.3f} GB, SDR evaluation {nums['sdr_eval_s']} s; "
+        f"resumed run {nums_resumed['ms_per_step']:.3f} ms/step, SDR evaluation "
+        f"{nums_resumed['sdr_eval_s']} s")
+    return {"first": dict(first, seconds=first_s, **nums),
+            "resumed": dict(second, seconds=second_s, **nums_resumed)}
+
+
+def serve_cli_best(torch, np):
+    """Phase 10's best checkpoint served through its route in this process
+    (10 s of audio: 66 launches of B1 and none of another kernel, finite
+    stems of the input's length); run where no other thread launches a
+    kernel, since the launch counts are the process's."""
+    from tfswa_tpu_torch.config import Config
+    from tfswa_tpu_torch.evaluation import load_separator_from_checkpoint
+
+    with open(os.path.join(TRAIN_CK, "config.json")) as fh:
+        cfg = Config.from_dict(json.load(fh))
     sep = load_separator_from_checkpoint(
-        os.path.join(ck, "best", "checkpoint.pt"), model_config=cfg.model,
+        os.path.join(TRAIN_CK, "best", "checkpoint.pt"), model_config=cfg.model,
         stft_config=cfg.stft, eval_config=cfg.eval, stem_names=cfg.data.stems, device="cuda")
     audio = synthetic_track(np, 10.0, sep.sample_rate)
     reset_counts()
@@ -2374,17 +2448,7 @@ def phase_train_cli(torch, np, gpu: str, covered):
         f"finite {finite}")
     if served != {k: (66 if k == "B1" else 0) for k in served} or not finite:
         fail(f"serving the best checkpoint: launches {served}, finite {finite}")
-    del sep
-
-    nums = cli_numbers(recs[:n_first], cfg.data.batch_size, cfg.data.segment_seconds)
-    nums_resumed = cli_numbers(recs[n_first:], cfg.data.batch_size, cfg.data.segment_seconds)
-    log(f"CLI run on {gpu}: {nums['ms_per_step']:.3f} ms/step (mean of the steps after each epoch's first), "
-        f"{nums['audio_s_trained_per_s']:.4f} audio-s trained/s, peak memory "
-        f"{nums['peak_mem_gb']:.3f} GB, SDR evaluation {nums['sdr_eval_s']} s; resumed run "
-        f"{nums_resumed['ms_per_step']:.3f} ms/step, SDR evaluation {nums_resumed['sdr_eval_s']} s")
-    return {"first": dict(first, seconds=first_s, **nums),
-            "resumed": dict(second, seconds=second_s, **nums_resumed),
-            "served_launches": served}
+    return served
 
 
 def make_separator(torch, impl: str, mesh=None, dtype: str = "bfloat16", **model_kw):
@@ -2448,9 +2512,8 @@ ROUTES = {
 }
 
 
-# separations of the 120 s track timed after the warm-up, per route: B4's
-# route takes about 18 s a separation, and its device is busy 99 % of it
-SERVING_RUNS = {"pallas": 3, "pallas_int8": 3, "pallas_attn": 1}
+# separations of the 120 s track timed after the warm-up, per route
+SERVING_RUNS = {"pallas": 2, "pallas_int8": 2, "pallas_attn": 1}
 
 
 def phase_main_path(torch, np, gpu: str, impl: str, model_kw=None, runs=None):
@@ -2923,9 +2986,8 @@ def phase_serve_clis(torch, np, gpu: str, design):
     evals = (("synthetic", ["--synthetic", "--max_tracks", str(EVAL_TRACKS)], 30.0),
              ("custom", ["--mixtures_dir", mix_dir, "--references_dir", ref_dir],
               CUSTOM_SECONDS))
-    # the four CLIs' processes run two at a time on the card (one after the
-    # other until PR 14): their host work overlaps; each counts its own
-    # launches
+    # the four CLIs' processes run at once on the card: their host work
+    # overlaps; each counts its own launches
     jobs = [("tfswa_tpu_torch.cli.separate", ["--checkpoint", TRAIN_CK, "--preset", "fast",
                                               "-o", os.path.join(work, mode), *extra, *inputs])
             for mode, extra in (("stream", ["--stream"]), ("batch", []))]
@@ -2933,7 +2995,7 @@ def phase_serve_clis(torch, np, gpu: str, design):
                                                "--no_museval", "--output_dir",
                                                os.path.join(work, f"eval_{mode}"), *extra])
              for mode, extra, _ in evals]
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(len(jobs)) as pool:
         done = list(pool.map(lambda job: run_serve_cli(*job), jobs))
     for mode, extra in (("stream", ["--stream"]), ("batch", [])):
         out_dir = os.path.join(work, mode)
@@ -4388,21 +4450,51 @@ PEAK_FFMA_FLOPS = 67e12
 PEAK_F64_TC_FLOPS = 67e12
 PEAK_DFMA_FLOPS = 34e12
 F32_TIMING_ROWS = PLAIN_ROWS
-# the f32 libraries: every kernel FFMA, every function one of ours
-SASS_FFMA = {"fused_block_f32": ("gemm_kernel", "attn_kernel", "attn_wide_kernel",
-                                 "qk_scale_kernel"),
+# the f32 libraries, by cuobjdump's SASS: every product of B1, B1-train, B2
+# and B3 in 3xTF32 on the tensor cores (HMMA with TF32 operands), and B4's
+# out-projection, the same tile; B3's scores IMMA (the int8 forms of
+# attn_kernel); the scores of the other attention kernels FFMA (one f32 FMA
+# chain a score) and B4's p . v too, and the forms for a head of at most 8
+# channels (_ffma: the whole attention on the CUDA cores, where the tensor
+# cores do not pay); B4's f64 parts (q|k and the scores)
+# DMMA, the FP64 tensor cores; no kernel of SASS_ABSENT (B4's old bilinear
+# t = x A_h); every function one of ours
+SASS_TF32 = {"fused_block_f32": ("gemm_kernel", "attn_kernel"),
              "fused_block_bwd_f32": ("gemm_kernel", "atb_kernel", "attn_bwd_q_kernel",
-                                     "attn_bwd_kv_kernel", "attn_bwd_q_wide_kernel",
-                                     "attn_bwd_kv_wide_kernel"),
-             "row_attention_f32": ("gemm_kernel", "attn_kernel")}
-# and B4's f64 parts (q|k and the scores): DMMA, the FP64 tensor cores;
-# no kernel of SASS_ABSENT (B4's old bilinear t = x A_h)
+                                     "attn_bwd_kv_kernel"),
+             "row_attention_f32": ("gemm_kernel",)}
+SASS_CHAIN = {"fused_block_f32": ("attn_kernel", "attn_ffma_kernel"),
+              "fused_block_bwd_f32": ("attn_bwd_q_kernel", "attn_bwd_kv_kernel",
+                                      "attn_bwd_q_ffma_kernel", "attn_bwd_kv_ffma_kernel"),
+              "row_attention_f32": ("attn_kernel",)}
 SASS_DMMA = {"row_attention_f32": ("qkv_kernel", "attn_kernel")}
 SASS_ABSENT = {"row_attention_f32": ("8t_kernel",)}
-# B4's f32 launches, timed apart in phase 15 (a) (a profiler trace a shape)
+# the f32 forms' launches, timed apart in phase 15 (a) (a profiler trace a
+# shape): B4's, the forward's (B1, B1-train, B3: B3 alone runs the two
+# quantisation launches; a head of at most 8 channels runs the _ffma
+# attention) and B2's
 B4_F32_LAUNCHES = ("qkv_kernel", "attn_kernel", "gemm_kernel")
-F32_LIBS = tuple(SASS_FFMA)
+F32_FWD_LAUNCHES = ("ln_stats_kernel", "gemm_kernel", "qk_scale_kernel", "quantize_kernel",
+                    "attn_kernel", "attn_ffma_kernel")
+B2_F32_LAUNCHES = ("ln_stats_kernel", "gemm_kernel", "ln_bwd_kernel", "attn_prep_kernel",
+                   "attn_bwd_q_kernel", "attn_bwd_kv_kernel", "attn_bwd_q_ffma_kernel",
+                   "attn_bwd_kv_ffma_kernel", "atb_kernel", "colsum_kernel", "sum_parts_kernel")
+# the largest head (channels) whose attention runs the _ffma forms
+F32_FFMA_MAX_D = 8
+F32_LIBS = tuple(SASS_TF32)
 F32_ROUTES = {"pallas": "B1-f32", "pallas_int8": "B3-f32", "pallas_attn": "B4-f32"}
+
+
+def f32_launches_at(kind: str, C: int, H: int = HEADS):
+    """The launches of f32 form ``kind`` that run at width C with H heads."""
+    if kind == "B4":
+        return B4_F32_LAUNCHES
+    ffma = C // H <= F32_FFMA_MAX_D
+    names = B2_F32_LAUNCHES if kind == "B2" else F32_FWD_LAUNCHES
+    return tuple(n for n in names
+                 if (kind in ("B3", "B2") or n not in ("qk_scale_kernel", "quantize_kernel"))
+                 and (not n.startswith("attn_") or n == "attn_prep_kernel"
+                      or ("ffma" in n) == ffma))
 
 
 def f32_tol(ref_max: float) -> float:
@@ -4418,58 +4510,68 @@ def f32_forward_launches(depths=(2, 2, 6, 2), seconds: float = 120.0) -> int:
     return batches * forward_launches(depths)
 
 
-def sass_ffma_check():
-    """Every kernel of SASS_FFMA in the f32 libraries holds FFMA, every one
-    of SASS_DMMA DMMA (mma.sync on the FP64 tensor cores), none of
-    SASS_ABSENT is there, and every function in them is one of the port's
-    (namespace f32): no library kernel.  Fails the run otherwise; returns
-    {library: {function: FFMA count}} and {library: {function: DMMA
-    count}}."""
+def sass_f32_check():
+    """The f32 libraries' SASS (cuobjdump --dump-sass) against SASS_TF32,
+    SASS_CHAIN, SASS_DMMA and SASS_ABSENT: every instantiation of a kernel
+    of SASS_TF32 holds HMMA with TF32 operands, every int8 form of
+    attn_kernel (int8_form) IMMA, every other instantiation of a kernel of
+    SASS_CHAIN FFMA, every one of SASS_DMMA DMMA; none of SASS_ABSENT is
+    there, and every function is one of the port's (namespace f32): no
+    library kernel.  Fails the run otherwise; returns {library: {function:
+    {"tf32": HMMA.TF32, "imma": IMMA, "ffma": FFMA, "dmma": DMMA counts}}}."""
     from pathlib import Path
 
     from tfswa_tpu_torch.ops import _build
 
     tool = Path(_build._nvcc()).parent / "cuobjdump"
-    found, found_d, bad = {}, {}, []
-    for lib, names in SASS_FFMA.items():
+    found, bad = {}, []
+    for lib in F32_LIBS:
         res = subprocess.run([str(tool), "--dump-sass", str(_build.BUILD_DIR / f"lib{lib}.so")],
                              capture_output=True, text=True, timeout=300)
         if res.returncode != 0:
             fail(f"cuobjdump --dump-sass lib{lib}.so failed: {res.stderr[-2000:]}")
-        counts, dmma, fn = {}, {}, None
+        counts, fn = {}, None
         for line in res.stdout.splitlines():
             if "Function :" in line:
                 fn = line.split("Function :")[1].strip()
-                counts[fn] = dmma[fn] = 0
+                counts[fn] = dict.fromkeys(("tf32", "imma", "ffma", "dmma"), 0)
                 if not fn.startswith("_ZN3f32"):
                     bad.append(f"{lib}: {fn} is not one of the port's kernels")
-            elif fn and "FFMA" in line:
-                counts[fn] += 1
-            elif fn and "DMMA" in line:
-                dmma[fn] += 1
+            elif fn:
+                c = counts[fn]
+                c["tf32"] += "HMMA" in line and "TF32" in line
+                c["imma"] += "IMMA" in line
+                c["ffma"] += "FFMA" in line
+                c["dmma"] += "DMMA" in line
         found[lib] = counts
-        found_d[lib] = {f: n for f, n in dmma.items() if n}
-        for n in SASS_DMMA.get(lib, ()):
-            fns = [f for f in dmma if n in f]
-            bad += [f"{lib}: {f}: no DMMA" for f in fns if dmma[f] == 0] or (
-                [] if fns else [f"{lib}: no {n} in the SASS"])
+
+        def held(names, key, pick=lambda f: True):
+            for n in names:
+                fns = [f for f in counts if n in f and pick(f)]
+                if not fns:
+                    bad.append(f"{lib}: no {n} in the SASS")
+                bad.extend(f"{lib}: {f}: no {key.upper()}" for f in fns if counts[f][key] == 0)
+
+        held(SASS_TF32.get(lib, ()), "tf32")
+        held(["attn_kernel"] if lib == "fused_block_f32" else [], "imma", int8_form)
+        held(SASS_CHAIN.get(lib, ()), "ffma", lambda f: not int8_form(f))
+        held(SASS_DMMA.get(lib, ()), "dmma")
         bad += [f"{lib}: {f} is there" for n in SASS_ABSENT.get(lib, ()) for f in counts
                 if n in f]
-        for n in names:
-            fns = [f for f in counts if n in f]
-            if not fns:
-                bad.append(f"{lib}: no {n} in the SASS")
-            bad += [f"{lib}: {f}: no FFMA" for f in fns if counts[f] == 0]
-        log(f"  SASS {lib}: {len(counts)} kernels, FFMA " + ", ".join(
-            f"{n} {min(c for f, c in counts.items() if n in f)}-"
-            f"{max(c for f, c in counts.items() if n in f)}"
-            for n in names if any(n in f for f in counts))
-            + "".join(f"; DMMA {n} {min(c for f, c in dmma.items() if n in f)}-"
-                      f"{max(c for f, c in dmma.items() if n in f)}"
-                      for n in SASS_DMMA.get(lib, ()) if any(n in f for f in dmma)))
+
+        def span(n, key):
+            cs = [c[key] for f, c in counts.items() if n in f]
+            return f"{n} {min(cs)}-{max(cs)}" if cs else f"{n} none"
+
+        log(f"  SASS {lib}: {len(counts)} kernels; HMMA.TF32 "
+            + ", ".join(span(n, "tf32") for n in SASS_TF32.get(lib, ()))
+            + "; FFMA " + ", ".join(span(n, "ffma") for n in SASS_CHAIN.get(lib, ()))
+            + "".join(f"; IMMA {span(n, 'imma')}" for n in ("attn_kernel",)
+                      if lib == "fused_block_f32")
+            + "".join(f"; DMMA {span(n, 'dmma')}" for n in SASS_DMMA.get(lib, ())))
     if bad:
         fail("f32 SASS check: " + "; ".join(bad))
-    return found, found_d
+    return found
 
 
 def bound_f32_ms(kind: str, R: int, N: int, C: int, hidden: int, peak: float = PEAK_F32_FLOPS,
@@ -4625,8 +4727,8 @@ def _f32_time(torch, kind: str, R: int, N: int, C: int, p, gen, H: int = HEADS, 
     """kernel / plain / library ms and the bounds of one f32 call at the
     full row count R (the plain version on F32_TIMING_ROWS rows, scaled by
     R; the library yardstick in f32 with TF32 off; those two over one call
-    after a warm-up call; B4 also each of B4_F32_LAUNCHES from a
-    profiler trace of one call).  ``lib``:
+    after a warm-up call; each launch of the form, f32_launches_at, from
+    a profiler trace of one call).  ``lib``:
     a dict shared by the kinds timed at one shape, so that the library
     block is timed once there (B1's for B3, B1-train's for B2)."""
     lib = {} if lib is None else lib
@@ -4640,7 +4742,7 @@ def _f32_time(torch, kind: str, R: int, N: int, C: int, p, gen, H: int = HEADS, 
     from tfswa_tpu_torch.ops import row_attention as ra
 
     rs = min(R, F32_TIMING_ROWS)
-    x = torch.randn(R, N, C, generator=gen).cuda()
+    x = card_randn(torch, (R, N, C), gen)
     if kind == "B4":
         x = ln1_rows(torch, x, p)
         w = [p.qkv_kernel, p.proj_kernel, p.proj_bias]
@@ -4652,19 +4754,24 @@ def _f32_time(torch, kind: str, R: int, N: int, C: int, p, gen, H: int = HEADS, 
         run = fb.fused_row_block if kind == "B1" else fb.fused_row_block_int8
         plain = fb.fused_row_block_reference if kind == "B1" else fb.fused_row_block_int8_reference
         k_ms = cuda_ms(torch, lambda: run(x, p, H), 2)
+        parts = launch_ms(torch, lambda: run(x, p, H), f32_launches_at(kind, C, H), 1)
         pl_ms = cuda_ms(torch, lambda: plain(x[:rs], p, H), 1)
         lib_ms = block_ms(x)
     else:
-        g = torch.randn(R, N, C, generator=gen).cuda()
+        g = card_randn(torch, (R, N, C), gen)
         _, mid, acc, den = fb.fused_row_block_train(x, p, H)
         if kind == "B1-train":
             k_ms = cuda_ms(torch, lambda: fb.fused_row_block_train(x, p, H), 2)
+            parts = launch_ms(torch, lambda: fb.fused_row_block_train(x, p, H),
+                              f32_launches_at(kind, C, H), 1)
             pl_ms = cuda_ms(torch, lambda: fb.fused_row_block_train_reference(
                 x[:rs], p, H), 1)
             lib_ms = block_ms(x)
         else:
             k_ms = cuda_ms(torch, lambda: fb.fused_row_block_bwd(x, mid, acc, den, g, p,
                                                                  H), 2)
+            parts = launch_ms(torch, lambda: fb.fused_row_block_bwd(x, mid, acc, den, g, p, H),
+                              f32_launches_at(kind, C, H), 1)
             pl_ms = cuda_ms(torch, lambda: fb.fused_row_block_bwd_reference(
                 x[:rs], mid[:rs], acc[:rs], den[:rs], g[:rs], p, H), 1)
             lfb = cuda_ms(torch, lambda: library_fwd_bwd(torch, x, p, H, g), 1)
@@ -4675,9 +4782,8 @@ def _f32_time(torch, kind: str, R: int, N: int, C: int, p, gen, H: int = HEADS, 
     del x
     torch.cuda.empty_cache()
     res = {"ms": k_ms, "plain_ms": pl_ms * R / rs, "library_ms": lib_ms, "bound_ms": b_ms,
-           "bound_by": b_by, "bound_ffma_ms": ffma_ms, "plain_rows_timed": rs}
-    if kind == "B4":
-        res["launch_ms"] = parts
+           "bound_by": b_by, "bound_ffma_ms": ffma_ms, "plain_rows_timed": rs,
+           "launch_ms": parts}
     return res
 
 
@@ -4694,7 +4800,7 @@ def f32_kernels(torch, quick: bool = False, misses=None):
     err = dict.fromkeys(("B1", "B3", "B4", "B1-train", "B2"), 0.0)
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_bytes_ms", "bound_ffma_ms")
     totals = {k: dict.fromkeys(keys, 0.0) for k in err}
-    b4_launches = dict.fromkeys(B4_F32_LAUNCHES, 0.0)
+    launches = {k: {} for k in err}
     for train, table in ((False, SHAPES), (True, TRAIN_SHAPES)):
         for stage, attn, N, C, R in table:
             checks, p = _f32_block_checks(torch, N, C, gen, train)
@@ -4723,9 +4829,12 @@ def f32_kernels(torch, quick: bool = False, misses=None):
                         totals[kind][k] += calls * t["bound_ms"] if t["bound_by"] == "bytes" else 0
                     else:
                         totals[kind][k] += calls * t[k]
-                for n, ms in t.get("launch_ms", {}).items():
-                    b4_launches[n] = None if ms is None or b4_launches[n] is None else \
-                        b4_launches[n] + calls * ms
+                for n, ms in t["launch_ms"].items():
+                    was = launches[kind].get(n, 0.0)
+                    launches[kind][n] = None if ms is None or was is None else was + calls * ms
+                log(f"  full R={R} {kind} f32 launches (device ms): " + ", ".join(
+                    f"{n} {'not measured' if ms is None else f'{ms:.3f}'}"
+                    for n, ms in t["launch_ms"].items()))
                 log(f"  full R={R} {kind} f32: kernel_ms {t['ms']:.3f} plain_ms "
                     f"{t['plain_ms']:.3f} (timed on {t['plain_rows_timed']} rows) library_ms "
                     f"{t['library_ms']:.3f} bound_ms {t['bound_ms']:.4f} ({t['bound_by']}; "
@@ -4738,11 +4847,12 @@ def f32_kernels(torch, quick: bool = False, misses=None):
             f"calls), {kind} f32: kernel_ms {t['ms']:.3f} plain_ms {t['plain_ms']:.3f} "
             f"library_ms {t['library_ms']:.3f} bound_ms {t['bound_ms']:.4f} (FFMA "
             f"{t['bound_ffma_ms']:.4f})")
-    if not quick:
-        totals["B4"]["launch_ms"] = b4_launches
-        log("per model forward (66 calls), B4 f32 launches (device ms): " + ", ".join(
-            f"{n} {'not measured' if ms is None else f'{ms:.3f}'}"
-            for n, ms in b4_launches.items()))
+    for kind, t in () if quick else totals.items():
+        t["launch_ms"] = launches[kind]
+        log(f"per {'train step' if kind in ('B1-train', 'B2') else 'model forward'} (66 "
+            f"calls), {kind} f32 launches (device ms): " + ", ".join(
+                f"{n} {'not measured' if ms is None else f'{ms:.3f}'}"
+                for n, ms in launches[kind].items()))
     return shapes, err, totals
 
 
@@ -5057,9 +5167,8 @@ def phase_f32(torch, np, gpu: str, skip=()):
 # phase 2a's, at the flagship's widths)
 WIDE_MODEL = {k: WIDE384[k] for k in ("dims", "num_heads")}
 LAB_CUTS = ("qkv", "scores", "exp2", "av", "attn", "full")
-# (b): the 120 s track's timed separations after the warm-up (B4's route,
-# 4 s a separation: one, as phase 4 times it)
-WIDE_SERVING_RUNS = {"pallas": 3, "pallas_int8": 3, "pallas_attn": 1}
+# (b): the 120 s track's timed separations after the warm-up, as phase 4's
+WIDE_SERVING_RUNS = SERVING_RUNS
 WIDE_TRAIN_SEGMENTS = 2          # (d): 2 x 6 s
 WIDE_ATTN_SEGMENTS = 1           # (d): the "pallas_attn" step
 # the kernels phase 16 adds, as their instantiations appear in ptxas's
@@ -5229,7 +5338,7 @@ def wide_shape_times(torch, train: bool, R: int, N: int, C: int, p, gen, H: int)
     for dt, sfx, rows in ((torch.bfloat16, "", PLAIN_ROWS),
                           (torch.float32, " f32", F32_TIMING_ROWS)):
         rs = min(R, rows)
-        x = torch.randn(R, N, C, generator=gen).cuda().to(dt)
+        x = card_randn(torch, (R, N, C), gen).to(dt)
         pf = p               # the wrappers and yardsticks cast it to the rows' dtype
         lib_fwd = cuda_ms(torch, lambda: library_block(torch, x, pf, H), 1)
         f32 = dt == torch.float32
@@ -5265,7 +5374,7 @@ def wide_shape_times(torch, train: bool, R: int, N: int, C: int, p, gen, H: int)
                 cuda_ms(torch, lambda: library_attn(torch, xn, *w, H), 1), bound("B4"))
             del xn
         else:
-            g = torch.randn(R, N, C, generator=gen).cuda().to(dt)
+            g = card_randn(torch, (R, N, C), gen).to(dt)
             _, mid, acc, den = fb.fused_row_block_train(x, pf, H)
             rec("B1-train", kernel_ms(lambda: fb.fused_row_block_train(x, pf, H)),
                 cuda_ms(torch, lambda: fb.fused_row_block_train_reference(x[:rs], pf, H), 1),
@@ -5482,7 +5591,7 @@ def ab_main(torch, np, label: str) -> None:
     for dt, sfx in ((torch.bfloat16, ""), (torch.float32, " f32")):
         for stage, _, N, C, R in SHAPES:
             p = random_params(torch, RowBlockParams, C, gen)
-            x = torch.randn(R, N, C, generator=gen).cuda().to(dt)
+            x = card_randn(torch, (R, N, C), gen).to(dt)
             w = [t.to(dt) for t in (p.qkv_kernel, p.proj_kernel, p.proj_bias)]
             calls = BLOCKS_PER_STAGE[stage]
             res["B1" + sfx] += calls * cuda_ms(torch, lambda: fb.fused_row_block(x, p, HEADS), 3)
@@ -5494,8 +5603,8 @@ def ab_main(torch, np, label: str) -> None:
             torch.cuda.empty_cache()
         for stage, _, N, C, R in TRAIN_SHAPES:
             p = random_params(torch, RowBlockParams, C, gen)
-            x = torch.randn(R, N, C, generator=gen).cuda().to(dt)
-            g = torch.randn(R, N, C, generator=gen).cuda().to(dt)
+            x = card_randn(torch, (R, N, C), gen).to(dt)
+            g = card_randn(torch, (R, N, C), gen).to(dt)
             calls = BLOCKS_PER_STAGE[stage]
             _, mid, acc, den = fb.fused_row_block_train(x, p, HEADS)
             res["B1-train" + sfx] += calls * cuda_ms(
@@ -5607,7 +5716,7 @@ def main() -> None:
     for line in spills:
         log(f"  {line}")
     hmma = sass_hmma_check()
-    ffma, dmma = sass_ffma_check()
+    f32_sass = sass_f32_check()
 
     if args.witness:
         os.makedirs(PARALLEL_WORK, exist_ok=True)
@@ -5638,20 +5747,23 @@ def main() -> None:
         log(f"planted fault {args.plant}: caught by phase 13 (b): {res['bad']}")
         sys.exit(0)
     if args.plant in F32_PLANTS:
-        # phase 15 (a) must catch B4's f32 fault at every serving shape's
-        # clamp weights (scores in the hundreds)
+        # phase 15 (a) must catch an f32 fault: B4's at every serving shape's
+        # clamp weights (scores in the hundreds); the tile's wherever it can
         plant_fault(torch, args.plant)
         misses = []
         try:
             f32_kernels(torch, True, misses)
         except SystemExit:
             pass
-        clamp = [f"serving stage {s} {a} N={N} C={C} clamp" for s, a, N, C, _ in SHAPES]
-        passed = [c for c in clamp if c not in misses]
+        if args.plant == "b4_tf32_scores":
+            want = [f"serving stage {s} {a} N={N} C={C} clamp" for s, a, N, C, _ in SHAPES]
+        else:
+            want = misses[:1] or ["any shape"]
+        passed = [c for c in want if c not in misses]
         if passed:
             fail(f"planted fault {args.plant}: phase 15 (a) passed it at {passed}")
-        log(f"planted fault {args.plant}: caught by phase 15 (a) at all {len(clamp)} clamp "
-            f"shapes ({len(misses)} misses in all)")
+        log(f"planted fault {args.plant}: caught by phase 15 (a) at {len(misses)} of "
+            f"{2 * (len(SHAPES) + len(TRAIN_SHAPES))} (shape, regime): {misses}")
         sys.exit(0)
     if args.plant:
         plant_fault(torch, args.plant)
@@ -5678,7 +5790,7 @@ def main() -> None:
                                          shapes)
     at_shapes, at_err, at_totals = timed("B4 kernels", phase_attn_kernels, torch, args.quick)
     results = {"gpu": gpu, "build_s": build_s, "ptxas": ptxas, "spills": spills,
-               "sass_hmma": hmma, "sass_ffma": ffma, "sass_dmma": dmma, "mufu_rate": MUFU_RATE,
+               "sass_hmma": hmma, "sass_f32": f32_sass, "mufu_rate": MUFU_RATE,
                "phase_s": phase_s, "shapes": shapes, "totals": totals,
                "int8_shapes": i8_shapes, "int8_totals": i8_totals,
                "attn_shapes": at_shapes, "attn_totals": at_totals, "lab_shapes": lab_shapes,
@@ -5706,21 +5818,32 @@ def main() -> None:
                                            "pallas_attn")
         results["train_routes"] = timed("train routes", phase_train_routes, torch, np)
         results["remat"] = timed("remat", phase_remat, torch, np, gpu)
-        try:
-            results["train_cli"] = timed("train CLI", phase_train_cli, torch, np, gpu,
-                                         covered)
-            results["serving_entry"] = timed("serving entry points", phase_serving_entry,
-                                             torch, np, gpu, train["best_ms_per_step"])
-        finally:
-            shutil.rmtree(TRAIN_CK, ignore_errors=True)      # about 1 GB
         results["options"] = timed("options and deployment", phase_options, torch, np, gpu,
                                    ("export",))
         results["parallel"] = timed("parallel", phase_parallel, torch, np, gpu,
                                     train["best_ms_per_step"],
                                     serving["pallas"]["audio_s_per_s"])
         beside = {}
-        results["quality"] = timed("quality", phase_quality, torch, np, gpu, covered,
-                                   lambda: beside.update(beside_quality(torch, np, gpu)))
+
+        def beside_phase_14():
+            # the training CLI (phase 10, two subprocesses) beside phase 14's
+            # subprocesses too: its checkpoint serves phase 11
+            with ThreadPoolExecutor(1) as pool:
+                t0 = time.perf_counter()
+                cli = pool.submit(phase_train_cli, torch, np, gpu, covered)
+                beside.update(beside_quality(torch, np, gpu))
+                beside["train CLI"] = (cli.result(), time.perf_counter() - t0)
+
+        try:
+            results["quality"] = timed("quality", phase_quality, torch, np, gpu, covered,
+                                       beside_phase_14)
+            results["train_cli"], results["train_cli_s"] = beside["train CLI"]
+            log(f"phase train CLI, beside phase 14: {results['train_cli_s']:.1f} s")
+            results["train_cli"]["served_launches"] = serve_cli_best(torch, np)
+            results["serving_entry"] = timed("serving entry points", phase_serving_entry,
+                                             torch, np, gpu, train["best_ms_per_step"])
+        finally:
+            shutil.rmtree(TRAIN_CK, ignore_errors=True)      # about 1 GB
         results["options"]["export"], results["options"]["seconds"]["export"] = \
             beside["options export"]
         results["f32"] = timed("f32 routes", phase_f32, torch, np, gpu, ("export",))

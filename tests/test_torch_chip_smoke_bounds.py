@@ -79,6 +79,41 @@ def test_each_planted_f32_fault_edits_one_place_of_b4s_f32_source(chip_smoke, na
     assert src.count(old) == 1 and old != new
 
 
+def test_the_1xtf32_plant_drops_the_two_correction_products_of_the_f32_tile(chip_smoke):
+    """--plant f32_1xtf32 edits one place of csrc/block_f32.cuh, the tile
+    every f32 product runs on: mma3 keeps its big-by-big pass alone (one
+    TF32 pass), and nothing else of the header changes."""
+    assert chip_smoke.F32_PLANT_SOURCES["f32_1xtf32"] == "block_f32.cuh"
+    src = (ROOT / "tfswa_tpu_torch" / "csrc" / "block_f32.cuh").read_text()
+    old, new = chip_smoke.F32_PLANTS["f32_1xtf32"]
+    assert src.count(old) == 1 and old != new
+    planted = src.replace(old, new)
+    body = planted[planted.index("void mma3("):]
+    body = body[:body.index("}\n")]
+    assert body.count("mma_tf32(") == 1 and "mma_tf32(t, a[0], b[0]);" in body
+    assert len(src) - len(planted) == len(old)
+
+
+@pytest.mark.parametrize("kind,C,attn", [("B1", 32, "attn_ffma_kernel"),
+                                         ("B1", 128, "attn_kernel"),
+                                         ("B2", 64, "attn_bwd_q_ffma_kernel"),
+                                         ("B2", 256, "attn_bwd_kv_kernel")])
+def test_f32_launches_timed_apart_follow_the_head_width(chip_smoke, kind, C, attn):
+    """Phase 15 (a) times each f32 launch that runs at a shape: the _ffma
+    attention for a head of at most 8 channels (8 heads: C = 32, 64), the
+    tensor-core one above; B3 alone the quantisation launches; every name
+    one of the f32 libraries' kernels (SASS_TF32 or SASS_CHAIN) or a row
+    kernel of block_f32.cuh."""
+    names = chip_smoke.f32_launches_at(kind, C)
+    assert attn in names
+    assert ("qk_scale_kernel" in names) == (kind == "B3")
+    src = (ROOT / "tfswa_tpu_torch" / "csrc" / "block_f32.cuh").read_text() + "".join(
+        (ROOT / "tfswa_tpu_torch" / "csrc" / f"{lib}.cu").read_text()
+        for lib in chip_smoke.F32_LIBS)
+    for n in names:
+        assert f"{n}(" in src, n
+
+
 @pytest.mark.parametrize("remat", [False, True])
 def test_train_step_launches_with_and_without_remat(chip_smoke, monkeypatch, remat):
     """The new phase's designed counts a step (66 B1-train + 66 B2 at the
@@ -560,7 +595,7 @@ def test_f32_launches_at_full_depth_and_at_the_export_depth(chip_smoke):
     assert chip_smoke.forward_launches(chip_smoke.EXPORT_DEPTHS) == 21
     assert chip_smoke.step_launches() == {"B1-train": 66, "B2": 66}
     assert set(chip_smoke.F32_ROUTES.values()) <= set(chip_smoke.counters())
-    assert set(chip_smoke.SASS_FFMA) == set(chip_smoke.F32_LIBS)
+    assert set(chip_smoke.SASS_TF32) == set(chip_smoke.F32_LIBS)
     for lib in chip_smoke.F32_LIBS:
         assert (ROOT / "tfswa_tpu_torch" / "csrc" / f"{lib}.cu").exists()
 

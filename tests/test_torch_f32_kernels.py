@@ -3,13 +3,18 @@
 
 The CPU tests run with no card and no nvcc, so the CUDA sources themselves are
 compiled with g++ against a CPU stand-in of the CUDA subset they use
-(``tests/_cuda_emu.h``: a block's threads as std::threads, __syncthreads a
-barrier, a warp's shuffle an exchange between barriers) and called
+(``tests/_cuda_emu.h``: a block's threads as fibers of one OS thread,
+__syncthreads a barrier, a warp's shuffle and mma.sync an exchange at
+barriers) and called
 through the wrappers' own ctypes launches, on CPU tensors.  Held:
   - every output against the plain f32 version (the wrappers' CPU path)
     within 1e-5 of its largest magnitude: f32 sums of at most a few hundred
     terms in another order (the products' tiles, the key loop), a few f32
-    ulp;
+    ulp, and the products' 3xTF32 (about 2^-22 of each product left out);
+  - the tensor cores' stand-ins (TF32 m16n8k8, int8 m16n8k32) against the
+    plain products at every lane, 3xTF32 within f32's error where one TF32
+    pass is not, and B2's attention backward on scores planted at the
+    clamp taking the plain version's side of it;
   - B3's int8 q, k and row scales exactly (the same true division and
     rounding half to even);
   - B2 twice bit for bit (no atomics), each gradient leaf within 1e-5 of
@@ -161,6 +166,36 @@ def test_f32_backward_matches_its_plain_version(kernels, R, N, C, regime, hid):
         _close(a, b)
     for a, b in zip((got.dx, *got.dp, got.dqkv), (again.dx, *again.dp, again.dqkv)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("C,heads", [(64, 4), (64, 2)])
+def test_f32_tensor_core_attention_forms_match_their_plain_versions(kernels, C, heads):
+    """The attention forms on the tensor cores (a head of 16 and of 32
+    channels: attn_kernel<16>, <32> and the backward's, p . v and the
+    gradient products in 3xTF32, the scores FMA chains; B3's scores on the
+    int8 tensor-core stand-in) at two key tiles with a ragged last one and
+    the clamp weights: B1, B1-train, B3 and B2 against their plain versions
+    as in the tests above."""
+    R, N = 1, 70
+    x, p = _inputs(R, N, C, seed=C + heads, regime="clamp")
+    run = fb._forward_kernel(x, p, heads)
+    for got, ref in zip((run.out, run.attn),
+                        fb.fused_row_block_reference_parts(x, p, heads, qkv=run.qkv)):
+        _close(got, ref)
+    i8 = fb._forward_kernel(x, p, heads, int8=True)
+    for got, ref in zip((i8.out, i8.attn),
+                        fb.fused_row_block_int8_reference_parts(x, p, heads, qkv=i8.qkv)):
+        _close(got, ref)
+    tr = fb._forward_kernel(x, p, heads, train=True)
+    for got, ref in zip((tr.out, tr.mid, tr.attn, tr.den),
+                        fb.fused_row_block_train_reference(x, p, heads, qkv=tr.qkv)):
+        _close(got, ref)
+    g = torch.from_numpy(np.random.default_rng(C).standard_normal((R, N, C)).astype(np.float32))
+    got = fb._bwd_kernel(x, tr.mid, tr.attn, tr.den, g, p, heads)
+    ref = fb.fused_row_block_bwd_reference_parts(x, tr.mid, tr.attn, tr.den, g, p, heads,
+                                                 qkv=tr.qkv)
+    for a, b in zip((got.dx, *got.dp, got.dqkv), (ref.dx, *ref.dp, ref.dqkv)):
+        _close(a, b)
 
 
 @pytest.mark.parametrize("R,N,C,heads", [(2, 20, 32, 8), (1, 40, 64, 4), (1, 33, 32, 2),
@@ -344,3 +379,209 @@ def test_f32_shared_memory_rule_admits_the_flagship_shapes(path, stage):
             assert w in (4, 8, 16, 32) and vw <= w < 2 * vw and vw % 4 == 0
             assert parts == -(-D // 32) and D <= parts * vw < D + 4 * parts
             assert ra.kernel_smem_bytes(C, h, torch.float32) <= fb.STATIC_SMEM_BYTES
+
+
+# --- the tensor cores' TF32 and int8 products on the CPU stand-in ---------
+
+@pytest.fixture(scope="module")
+def mma_probe(tmp_path_factory):
+    """MMA_PROBE's ``run``, built once for the module."""
+    return _probe(tmp_path_factory.mktemp("mma"), MMA_PROBE)
+
+
+def _probe(tmp_path, src: str):
+    """``src`` (with csrc/ on the include path) built with g++ against the
+    CUDA stand-in; its ``run``."""
+    cu = tmp_path / "probe.cu"
+    cu.write_text(src)
+    lib = tmp_path / "libprobe.so"
+    res = subprocess.run(
+        [shutil.which("g++"), "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
+         "-DTFSWA_EMU", "-include", str(TESTS / "_cuda_emu.h"), f"-I{CSRC}", "-o", str(lib),
+         str(TESTS / "_cuda_emu.cpp"), "-x", "c++", str(cu)],
+        capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return ctypes.CDLL(str(lib)).run
+
+
+MMA_PROBE = r"""
+#include "block_f32.cuh"
+// Each warp multiplies its own A (16 x K) by its B (K x 8) and adds its C
+// (16 x 8), every lane loading and storing its fragments at the PTX ISA's
+// layout: mode 0 the TF32 form (K = 8, operands as given), 1 its 3xTF32
+// (f32::mma3 on f32::split_tf32 of each operand), 2 one TF32 pass of the
+// split's big parts; 3 the int8 form (K = 32, A and B int8 as floats).
+__global__ void probe(const float* a, const float* b, const float* c, float* d, int mode) {
+    const int w = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+    const int K = mode == 3 ? 32 : 8;
+    const float* aw = a + w * 16 * K;
+    const float* bw = b + w * K * 8;
+    const float* cw = c + w * 128;
+    float acc[4];
+    int iacc[4];
+    for (int e = 0; e < 4; ++e) {
+        acc[e] = cw[(g + 8 * (e >> 1)) * 8 + 2 * t + (e & 1)];
+        iacc[e] = (int)acc[e];
+    }
+    if (mode == 3) {
+        uint32_t fa[4], fb[2];
+        for (int i = 0; i < 4; ++i) {
+            uint32_t word = 0;
+            for (int u = 0; u < 4; ++u)
+                word |= (uint32_t)(uint8_t)(int8_t)aw[(g + 8 * (i & 1)) * K + 4 * t + 16 * (i >> 1) + u] << (8 * u);
+            fa[i] = word;
+        }
+        for (int i = 0; i < 2; ++i) {
+            uint32_t word = 0;
+            for (int u = 0; u < 4; ++u)
+                word |= (uint32_t)(uint8_t)(int8_t)bw[(4 * t + 16 * i + u) * 8 + g] << (8 * u);
+            fb[i] = word;
+        }
+        f32::mma_s8(iacc, fa, fb);
+        for (int e = 0; e < 4; ++e) acc[e] = (float)iacc[e];
+    } else {
+        uint32_t fa[2][4], fb[2][2];
+        for (int i = 0; i < 4; ++i)
+            f32::split_tf32(aw[(g + 8 * (i & 1)) * K + t + 4 * (i >> 1)], fa[0][i], fa[1][i]);
+        for (int i = 0; i < 2; ++i) f32::split_tf32(bw[(t + 4 * i) * 8 + g], fb[0][i], fb[1][i]);
+        if (mode == 0) {
+            for (int i = 0; i < 4; ++i) fa[0][i] = __float_as_uint(aw[(g + 8 * (i & 1)) * K + t + 4 * (i >> 1)]);
+            for (int i = 0; i < 2; ++i) fb[0][i] = __float_as_uint(bw[(t + 4 * i) * 8 + g]);
+        }
+        if (mode == 1) f32::mma3(acc, fa, fb);
+        else f32::mma_tf32(acc, fa[0], fb[0]);
+    }
+    float* dw = d + w * 128;
+    for (int e = 0; e < 4; ++e) dw[(g + 8 * (e >> 1)) * 8 + 2 * t + (e & 1)] = acc[e];
+}
+
+extern "C" void run(const float* a, const float* b, const float* c, float* d, int warps, int mode) {
+    LAUNCH(probe, 1, 32 * warps, nullptr, a, b, c, d, mode);
+}
+"""
+
+
+def _mma(run, a, b, c, mode):
+    d = np.zeros(c.shape, np.float32)
+    a, b, c = (np.ascontiguousarray(x, np.float32) for x in (a, b, c))
+    run.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+    run(a.ctypes.data, b.ctypes.data, c.ctypes.data, d.ctypes.data, a.shape[0], mode)
+    return d
+
+
+def _tf32(x):
+    """cvt.rna.tf32.f32 in numpy: to nearest, ties away from zero."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xffffe000)).view(np.float32)
+
+
+@pytest.mark.parametrize("mode", ["tf32", "int8"])
+def test_tensor_core_stand_ins_are_the_plain_products_at_every_lane(mma_probe, mode):
+    """The CPU stand-ins of mma.sync m16n8k8 TF32 and m16n8k32 int8
+    (``tests/_cuda_emu.h``), on which the f32 sources run here: each of 4
+    warps' 16 x 8 results, every lane's four values, against A @ B + C in
+    numpy (TF32 operands: exact products, f32 sums of 8, within 1e-6 of the
+    largest; int8: exact); the result with the row halves of A swapped is
+    not it."""
+    run = mma_probe
+    rng = np.random.default_rng(5)
+    warps = 4
+    if mode == "tf32":
+        a = _tf32(rng.standard_normal((warps, 16, 8)))
+        b = _tf32(rng.standard_normal((warps, 8, 8)))
+        c = rng.standard_normal((warps, 16, 8)).astype(np.float32)
+        d = _mma(run, a, b, c, 0)
+        want = a.astype(np.float64) @ b + c
+        assert np.abs(d - want).max() <= 1e-6 * np.abs(want).max()
+    else:
+        a = rng.integers(-128, 128, (warps, 16, 32)).astype(np.float32)
+        b = rng.integers(-128, 128, (warps, 32, 8)).astype(np.float32)
+        c = rng.integers(-1000, 1000, (warps, 16, 8)).astype(np.float32)
+        d = _mma(run, a, b, c, 3)
+        want = a.astype(np.int64) @ b.astype(np.int64) + c.astype(np.int64)
+        assert np.array_equal(d.astype(np.int64), want)
+    swapped = a[:, [*range(8, 16), *range(8)]].astype(np.float64) @ b + c
+    assert not np.allclose(d, swapped)
+
+
+def test_3xtf32_keeps_f32s_accuracy_where_one_tf32_pass_does_not(mma_probe):
+    """The f32 tile's product (``f32::mma3`` on ``f32::split_tf32``,
+    csrc/block_f32.cuh) on full-mantissa f32 operands against the f64
+    product: within 2^-20 of sum |a_k b_k| at every element (f32's own
+    error for sums of 8 is 8 x 2^-24 of it; the split leaves about 3 x
+    2^-22), while one TF32 pass of the big parts (what the f32_1xtf32 plant
+    leaves) is off by more than 100 times that somewhere."""
+    run = mma_probe
+    rng = np.random.default_rng(6)
+    warps = 4
+    a = (rng.standard_normal((warps, 16, 8)) * 3.0).astype(np.float32)
+    b = (rng.standard_normal((warps, 8, 8)) * 3.0).astype(np.float32)
+    c = np.zeros((warps, 16, 8), np.float32)
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    scale = np.abs(a).astype(np.float64) @ np.abs(b).astype(np.float64)
+    three = np.abs(_mma(run, a, b, c, 1) - want) / scale
+    one = np.abs(_mma(run, a, b, c, 2) - want) / scale
+    assert three.max() <= 2.0 ** -20
+    assert one.max() > 100 * 2.0 ** -20
+
+
+def _three_pass(a, b):
+    """The 3xTF32 product of two f32 scalars as the tile sums it: the small
+    terms first, each product exact, each sum rounded to f32."""
+    ab, bb = _tf32(a), _tf32(b)
+    as_, bs = _tf32(np.float32(a) - ab), _tf32(np.float32(b) - bb)
+    x = np.float32(np.float64(as_) * np.float64(bb))
+    x = np.float32(np.float64(x) + np.float64(ab) * np.float64(bs))
+    return np.float32(np.float64(x) + np.float64(ab) * np.float64(bb))
+
+
+@pytest.mark.parametrize("C,heads", [(32, 8), (32, 2), (64, 2), (128, 1)])
+def test_f32_attention_backward_takes_the_plain_sides_of_the_clamp(kernels, emulated, C,
+                                                                   heads):
+    """Scores planted at SCORE_CLAMP: head 0's q and k have one channel, q
+    = a for every query and k_j = 110 / a stepped by single f32 ulps, with
+    a chosen so that some exact product a k_j lies within 2^-18 of 110.
+    The f32 scores straddle the clamp (some round below 110, some to 110 or
+    above), and a 3xTF32 score would put at least one on the other side;
+    d_s jumps there by d_p p ln 2 (p = 2^110).  At each form of the
+    attention backward: D = 4 (the CUDA-core attn_bwd_{q,kv}_ffma_kernel),
+    16 and 32 (attn_bwd_{q,kv}_kernel on the tensor cores) and 128 (its
+    wide form).  The attention backward alone
+    (fused_block_attn_backward_f32) against the plain version fed the same
+    q|k|v, d_oe and d_den: d_q, d_k and d_v within 1e-5 of their largest
+    magnitude, so every pair took the plain version's side."""
+    R, N, D = 1, 24, C // heads
+    rng = np.random.default_rng(11)
+    qkv = (rng.standard_normal((R * N, 3 * C)) * 0.3).astype(np.float32)
+    d_oe = rng.standard_normal((R * N, C)).astype(np.float32)
+    d_den = rng.standard_normal((R * N, heads)).astype(np.float32)
+    steps = np.arange(-6, 7, dtype=np.int32)
+    for a in np.linspace(9.0, 12.0, 400, dtype=np.float32):
+        k = (np.float32(110.0) / a).view(np.int32) + np.resize(steps, N)
+        k = k.view(np.float32)
+        exact = np.float64(a) * k.astype(np.float64)
+        s = exact.astype(np.float32)
+        three = np.array([_three_pass(a, kj) for kj in k])
+        if (np.abs(exact - 110.0).min() <= 2.0 ** -18 and (s < 110).any() and (s >= 110).any()
+                and ((three < 110) != (s < 110)).any()):
+            break
+    else:
+        pytest.fail("no a plants a score at the clamp")
+    qkv[:, 0:D] = 0.0
+    qkv[:, C:C + D] = 0.0
+    qkv[:, 0] = a
+    qkv[:, C] = k
+    got = torch.zeros(R * N, 3 * C)
+    fn = emulated["fused_block_bwd_f32"].fused_block_attn_backward_f32
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    t = [torch.from_numpy(x) for x in (qkv, d_oe, d_den)]
+    assert fn(*(x.data_ptr() for x in t), got.data_ptr(), R, N, C, heads, None) == 0
+    x, p = _inputs(R, N, C, seed=1)
+    ref = fb.fused_row_block_bwd_reference_parts(
+        x, x, x, torch.ones(R, heads, N), x, p, heads, qkv=t[0],
+        d_oe=t[1].view(R, N, C), d_den=t[2].view(R, N, heads))
+    want = ref.dqkv.view(R * N, 3 * C)
+    for part in range(3):
+        cols = slice(part * C, (part + 1) * C)
+        _close(got[:, cols], want[:, cols])
+    assert float(want[:, :C].abs().max()) > 1e30                  # p = 2^110 reached d_q

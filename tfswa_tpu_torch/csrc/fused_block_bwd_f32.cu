@@ -19,34 +19,44 @@
 //   column sums of g, d_h1pre, d_n2 nhat2, d_n2, d_mid, d_normed nhat1,
 //   d_normed.
 //
-// Design (every product f32 FFMA, see block_f32.cuh).  A chain of launches:
-// LN2 statistics, the three MLP products (gemm_kernel with GELU's
-// derivative fused into the second's epilogue), LN2's input gradient
-// (ln_bwd_kernel), d_acc, d_oe / d_den (attn_prep_kernel), LN1 statistics
-// and q|k|v, the attention backward in two kernels (attn_bwd_q_kernel: a
-// thread a query, its d_q summed over the keys streamed through shared
-// memory; attn_bwd_kv_kernel: a thread a key, its d_k and d_v summed over
-// the queries streamed through shared memory; each recomputes s, p and
-// d_p), d_normed and dx; then every weight gradient (atb_kernel) and
-// vector (colsum_kernel) as partial sums over fixed slices of the tokens,
-// added slice by slice in a fixed order (sum_parts_kernel).  No atomics:
-// two runs give the same bits.  No (N, N) plane exists.  The attention
-// kernels hold a head's D channels (rounded up to 4, 8, 16 or 32, zeros
-// past D) in registers; a head wider than 32 channels runs their _wide
-// forms, the output in parts of 32 channels whose blocks sum s and d_p
-// over the head's channels 32 at a time.
+// Design (see block_f32.cuh for the tile).  A chain of launches: LN2
+// statistics, the three MLP products (gemm_kernel with GELU's derivative
+// fused into the second's epilogue), LN2's input gradient (ln_bwd_kernel),
+// d_acc, d_oe / d_den (attn_prep_kernel), LN1 statistics and q|k|v, the
+// attention backward in two kernels (a query side owning d_q, a key side
+// owning d_k and d_v, each recomputing s, p and d_p), d_normed and dx; then
+// every weight gradient (atb_kernel) and vector (colsum_kernel) as partial
+// sums over fixed slices of the tokens, added slice by slice in a fixed
+// order (sum_parts_kernel).  No atomics: two runs give the same bits.  No
+// (N, N) plane exists.  Every product runs in 3xTF32 on the tensor cores.
+// The attention backward, one design per head width:
+//   D <= 8 (attn_bwd_{q,kv}_ffma_kernel): a thread a query (a key), the
+//       other side streaming through shared memory, everything on the CUDA
+//       cores (as the forward's attn_ffma_kernel, for the same reason);
+//   D > 8 (attn_bwd_{q,kv}_kernel<DC, WIDE>): a warp owns 16 tokens; the
+//       scores as f32 FMA chains in channel order (chain_scores), so that
+//       the clamp's mask s < 110, where d_s jumps by d_p p ln 2 with p =
+//       2^110, is the plain version's on both sides; d_p = d_oe . v + d_den,
+//       d_q += d_s k, d_k += d_s^T q and d_v += p^T d_oe in 3xTF32 (C
+//       fragments of d_s and p re-used as A fragments); a head wider than
+//       32 channels sums s and d_p over chunks of 32, the output in parts.
 //
-// What bounds it: the attention backward's pairs (about 4 D FFMA and one
-// exp2 each, twice: once per kernel) at the CUDA cores' issue rate, and
-// the products (about 48 C^2 FLOPs a token with the recompute) at the FFMA
-// rate.
+// What bounds it: the attention backward's pairs (at D <= 8 about 3 D FMAs
+// and one exp2 each, twice: once per kernel) at the CUDA cores'
+// instruction rate, and the products (about 48 C^2 FLOPs a token with the recompute)
+// at 3xTF32's rate (at C = 32, their bytes).  Against a CUDA-core form for
+// every D, the tensor-core forms take wide384's D = 48 and 96 attention
+// backward from 561.9 to 354.8 ms a step; at D = 24 and 12 they are 3 and
+// 7 % slower (153.5 -> 158.8, 469.6 -> 502.6), at the flagship's D = 16
+// 6 % faster (72.6 -> 68.4; PERF.md).
 #include "block_f32.cuh"
 
 namespace f32 {
 namespace {
 
-constexpr int QT = 128;   // queries (or keys) a block
-constexpr int KT = 128;   // keys (or queries) a shared-memory tile
+constexpr int BQ = 64;            // own tokens a block: 4 warps of 16
+constexpr int BT = 32;            // other-side tokens a staged tile: 4 n-tiles
+constexpr int ATT_THREADS = 128;
 
 // d_oe[m, h D + d] = d_acc * r, d_den[m, h] = -r * sum_d d_acc * acc, with
 // r = 1 / den[r, h, n] for token m = r N + n; a thread a (token, head).
@@ -68,12 +78,18 @@ attn_prep_kernel(const float* __restrict__ d_acc, const float* __restrict__ acc,
     d_den[m * H + h] = -r * s;
 }
 
+constexpr int QT = 128;   // queries (or keys) a block of the _ffma kernels
+constexpr int KT = 128;   // keys (or queries) a shared-memory tile of them
+
+// The two kernels for a head of at most 8 channels, on the CUDA cores (as
+// the forward's attn_ffma_kernel, for the same reason: the tensor-core
+// form ran them at 2.1x and 1.9x these forms' times at stage 0, PERF.md).
 // dqkv[(r N + i) 3C + h D + d] = d_q: one block per (row, QT queries) and
-// head, a thread a query.  DP: the head dim D rounded up to 4, 8, 16 or 32
-// (the operands zero past D).
+// head, a thread a query; s, p and d_p as the FMA chains over d in order.
+// DP: D rounded up to 4 or 8 (the operands zero past D).
 template <int DP>
 __global__ void __launch_bounds__(QT)
-attn_bwd_q_kernel(const float* __restrict__ qkv, const float* __restrict__ d_oe,
+attn_bwd_q_ffma_kernel(const float* __restrict__ qkv, const float* __restrict__ d_oe,
                   const float* __restrict__ d_den, float* __restrict__ dqkv, int N, int C, int H,
                   int q_tiles) {
     __shared__ float ks[KT][DP];
@@ -102,19 +118,23 @@ attn_bwd_q_kernel(const float* __restrict__ qkv, const float* __restrict__ d_oe,
             vs[j][d] = d < D ? qkv[t * C3 + 2 * C + h * D + d] : 0.0f;
         }
         __syncthreads();
-        if (live) {
-            for (int j = 0; j < nk; ++j) {
-                float s = 0.0f, dp = 0.0f;
+        auto key = [&](int j) {
+            float s = 0.0f, dp = 0.0f;
 #pragma unroll
-                for (int d = 0; d < DP; ++d) {
-                    s = fmaf(q[d], ks[j][d], s);
-                    dp = fmaf(o[d], vs[j][d], dp);
-                }
-                const float p = exp2f(fminf(s, SCORE_CLAMP));
-                const float ds = s < SCORE_CLAMP ? (dp + dd) * p * LN2 : 0.0f;
-#pragma unroll
-                for (int d = 0; d < DP; ++d) dq[d] = fmaf(ds, ks[j][d], dq[d]);
+            for (int d = 0; d < DP; ++d) {
+                s = fmaf(q[d], ks[j][d], s);
+                dp = fmaf(o[d], vs[j][d], dp);
             }
+            const float p = exp2f(fminf(s, SCORE_CLAMP));
+            const float ds = s < SCORE_CLAMP ? (dp + dd) * p * LN2 : 0.0f;
+#pragma unroll
+            for (int d = 0; d < DP; ++d) dq[d] = fmaf(ds, ks[j][d], dq[d]);
+        };
+        if (live && nk == KT) {          // a full tile: a fixed trip count, unrolled
+#pragma unroll 8
+            for (int j = 0; j < KT; ++j) key(j);
+        } else if (live) {
+            for (int j = 0; j < nk; ++j) key(j);
         }
         __syncthreads();
     }
@@ -129,7 +149,7 @@ attn_bwd_q_kernel(const float* __restrict__ qkv, const float* __restrict__ d_oe,
 // thread a key; the queries' q, d_oe and d_den stream through shared memory.
 template <int DP>
 __global__ void __launch_bounds__(QT)
-attn_bwd_kv_kernel(const float* __restrict__ qkv, const float* __restrict__ d_oe,
+attn_bwd_kv_ffma_kernel(const float* __restrict__ qkv, const float* __restrict__ d_oe,
                    const float* __restrict__ d_den, float* __restrict__ dqkv, int N, int C,
                    int H, int k_tiles) {
     __shared__ float qs[KT][DP];
@@ -160,22 +180,26 @@ attn_bwd_kv_kernel(const float* __restrict__ qkv, const float* __restrict__ d_oe
         }
         for (int i = threadIdx.x; i < nq; i += QT) ds_[i] = d_den[(row0 + i0 + i) * H + h];
         __syncthreads();
-        if (live) {
-            for (int i = 0; i < nq; ++i) {
-                float s = 0.0f, dp = 0.0f;
+        auto query = [&](int i) {
+            float s = 0.0f, dp = 0.0f;
 #pragma unroll
-                for (int d = 0; d < DP; ++d) {
-                    s = fmaf(qs[i][d], k[d], s);
-                    dp = fmaf(os[i][d], v[d], dp);
-                }
-                const float p = exp2f(fminf(s, SCORE_CLAMP));
-                const float ds = s < SCORE_CLAMP ? (dp + ds_[i]) * p * LN2 : 0.0f;
-#pragma unroll
-                for (int d = 0; d < DP; ++d) {
-                    dk[d] = fmaf(ds, qs[i][d], dk[d]);
-                    dv[d] = fmaf(p, os[i][d], dv[d]);
-                }
+            for (int d = 0; d < DP; ++d) {
+                s = fmaf(qs[i][d], k[d], s);
+                dp = fmaf(os[i][d], v[d], dp);
             }
+            const float p = exp2f(fminf(s, SCORE_CLAMP));
+            const float ds = s < SCORE_CLAMP ? (dp + ds_[i]) * p * LN2 : 0.0f;
+#pragma unroll
+            for (int d = 0; d < DP; ++d) {
+                dk[d] = fmaf(ds, qs[i][d], dk[d]);
+                dv[d] = fmaf(p, os[i][d], dv[d]);
+            }
+        };
+        if (live && nq == KT) {          // a full tile: a fixed trip count, unrolled
+#pragma unroll 8
+            for (int i = 0; i < KT; ++i) query(i);
+        } else if (live) {
+            for (int i = 0; i < nq; ++i) query(i);
         }
         __syncthreads();
     }
@@ -189,159 +213,247 @@ attn_bwd_kv_kernel(const float* __restrict__ qkv, const float* __restrict__ d_oe
     }
 }
 
-// The two kernels for a head wider than 32 channels (D up to 512): the
-// output in parts of WCH channels (grid.z), each part's block streaming the
-// other side WKT tokens at a time; s and d_p summed over the head's
-// channels WCH at a time in order (the own token's channels read from
-// device memory, the other side's through shared memory: the FMA chains of
-// the kernels above), then the part's channels of the other side staged
-// for the output sums.  Each part recomputes s, d_p and p.
-constexpr int WKT = 32;   // other-side tokens a tile
-constexpr int WCH = 32;   // channels a chunk, and an output part
-
-// s[j] and dp[j] of the own token (a, e: its rows of the two tensors at
-// the head's channel 0, or null) against the tile's WKT other-side tokens
-// t0 .. (b, f: their rows at the head's channel 0, row strides ldb, ldf),
-// tokens past n_in as zeros.  All threads of the block.
-__device__ __forceinline__ void wide_scores(float (&s)[WKT], float (&dp)[WKT], const float* a,
-                                            const float* e, const float* b, long ldb,
-                                            const float* f, long ldf, int n_in, int D,
-                                            float (*xs)[WCH], float (*ys)[WCH]) {
-    for (int j = 0; j < WKT; ++j) s[j] = dp[j] = 0.0f;
-    for (int c0 = 0; c0 < D; c0 += WCH) {
-        __syncthreads();
-        for (int i = threadIdx.x; i < WKT * WCH; i += QT) {
-            const int j = i / WCH, d = i % WCH;
-            const bool in = j < n_in && c0 + d < D;
-            xs[j][d] = in ? b[j * ldb + c0 + d] : 0.0f;
-            ys[j][d] = in ? f[j * ldf + c0 + d] : 0.0f;
-        }
-        __syncthreads();
-        float ac[WCH], ec[WCH];
-        for (int d = 0; d < WCH; ++d) {
-            ac[d] = a && c0 + d < D ? a[c0 + d] : 0.0f;
-            ec[d] = a && c0 + d < D ? e[c0 + d] : 0.0f;
-        }
-        for (int j = 0; j < WKT; ++j)
-            for (int d = 0; d < WCH; ++d) {
-                s[j] = fmaf(ac[d], xs[j][d], s[j]);
-                dp[j] = fmaf(ec[d], ys[j][d], dp[j]);
-            }
+// dqkv[(r N + i) 3C + h D + v0 + d] = d_q for the part's channels d < DC:
+// grid (R * tiles, H, parts), 128 threads, a warp owning 16 queries (their
+// q rows and split d_oe fragments in registers), the keys' k (raw and
+// split) and v staged BT at a time; s = q . k as the FMA chain
+// (chain_scores), d_p = d_oe . v + d_den on the tensor cores, then d_s and
+// d_q += d_s k on them.  DC and WIDE as in the forward's attn_kernel: a
+// head wider than 32 channels sums s and d_p over chunks of 32 and stages
+// the part's k channels for d_q.
+template <int DC, bool WIDE>
+__global__ void __launch_bounds__(ATT_THREADS)
+attn_bwd_q_kernel(const float* __restrict__ qkv, const float* __restrict__ d_oe,
+                  const float* __restrict__ d_den, float* __restrict__ dqkv, int N, int C, int H,
+                  int tiles) {
+    constexpr int KS = DC / 8;
+    __shared__ Staged<BT, DC> ks;
+    __shared__ Staged<BT, DC> vs;
+    __shared__ __align__(16) float kr[BT][DC + 4];
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, warp = threadIdx.x >> 5;
+    const int D = C / H, r = blockIdx.x / tiles, h = blockIdx.y, v0 = blockIdx.z * DC;
+    const int i0 = (blockIdx.x % tiles) * BQ + warp * 16;
+    const long row0 = (long)r * N, C3 = 3L * C;
+    const int chunks = WIDE ? (D + DC - 1) / DC : 1;
+    const float* qrow = qkv + row0 * C3 + h * D;
+    const float* orow = d_oe + row0 * C + h * D;
+    float qo[2][DC];
+    uint32_t oa[KS][2][4];
+    auto load_own = [&](int c0) {
+        const int dc = imin(DC, D - c0);
+        own_rows(qo, qrow + c0, C3, i0, N, dc);
+#pragma unroll
+        for (int k8 = 0; k8 < KS; ++k8) frag_a(oa[k8], orow + c0, C, i0, N, 8 * k8, dc);
+    };
+    if (!WIDE) load_own(0);
+    float dd[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+        const int i = i0 + g + 8 * hh;
+        dd[hh] = i < N ? d_den[(row0 + i) * H + h] : 0.0f;
     }
-    __syncthreads();
-}
-
-__global__ void __launch_bounds__(QT)
-attn_bwd_q_wide_kernel(const float* __restrict__ qkv, const float* __restrict__ d_oe,
-                       const float* __restrict__ d_den, float* __restrict__ dqkv, int N, int C,
-                       int H, int q_tiles) {
-    __shared__ float xs[WKT][WCH];
-    __shared__ float ys[WKT][WCH];
-    const int D = C / H, v0 = blockIdx.z * WCH;
-    const int r = blockIdx.x / q_tiles;
-    const int i = (blockIdx.x % q_tiles) * QT + threadIdx.x;
-    const int h = blockIdx.y;
-    const long row0 = (long)r * N;
-    const long C3 = 3L * C;
-    const bool live = i < N;
-    const float* qa = live ? qkv + (row0 + i) * C3 + h * D : nullptr;
-    const float* oa = live ? d_oe + (row0 + i) * C + h * D : nullptr;
-    const float dd = live ? d_den[(row0 + i) * H + h] : 0.0f;
-    float dq[WCH];
-    for (int d = 0; d < WCH; ++d) dq[d] = 0.0f;
-    for (int j0 = 0; j0 < N; j0 += WKT) {
-        const int nk = N - j0 < WKT ? N - j0 : WKT;
-        const float* kb = qkv + (row0 + j0) * C3 + C + h * D;
-        float s[WKT], dp[WKT];
-        wide_scores(s, dp, qa, oa, kb, C3, kb + C, C3, nk, D, xs, ys);
-        for (int e = threadIdx.x; e < WKT * WCH; e += QT) {
-            const int j = e / WCH, d = e % WCH;
-            xs[j][d] = j < nk && v0 + d < D ? kb[j * C3 + v0 + d] : 0.0f;
-        }
-        __syncthreads();
-        if (live) {
-            for (int j = 0; j < nk; ++j) {
-                const float p = exp2f(fminf(s[j], SCORE_CLAMP));
-                const float ds = s[j] < SCORE_CLAMP ? (dp[j] + dd) * p * LN2 : 0.0f;
-                for (int d = 0; d < WCH; ++d) dq[d] = fmaf(ds, xs[j][d], dq[d]);
-            }
-        }
-    }
-    if (live) {
-        for (int d = 0; d < WCH; ++d)
-            if (v0 + d < D) dqkv[(row0 + i) * C3 + h * D + v0 + d] = dq[d];
-    }
-}
-
-__global__ void __launch_bounds__(QT)
-attn_bwd_kv_wide_kernel(const float* __restrict__ qkv, const float* __restrict__ d_oe,
-                        const float* __restrict__ d_den, float* __restrict__ dqkv, int N, int C,
-                        int H, int k_tiles) {
-    __shared__ float xs[WKT][WCH];
-    __shared__ float ys[WKT][WCH];
-    __shared__ float ds_[WKT];
-    const int D = C / H, v0 = blockIdx.z * WCH;
-    const int r = blockIdx.x / k_tiles;
-    const int j = (blockIdx.x % k_tiles) * QT + threadIdx.x;
-    const int h = blockIdx.y;
-    const long row0 = (long)r * N;
-    const long C3 = 3L * C;
-    const bool live = j < N;
-    const float* ka = live ? qkv + (row0 + j) * C3 + C + h * D : nullptr;
-    const float* va = live ? qkv + (row0 + j) * C3 + 2 * C + h * D : nullptr;
-    float dk[WCH], dv[WCH];
-    for (int d = 0; d < WCH; ++d) dk[d] = dv[d] = 0.0f;
-    for (int i0 = 0; i0 < N; i0 += WKT) {
-        const int nq = N - i0 < WKT ? N - i0 : WKT;
-        const float* qb = qkv + (row0 + i0) * C3 + h * D;
-        const float* ob = d_oe + (row0 + i0) * C + h * D;
-        float s[WKT], dp[WKT];
-        wide_scores(s, dp, ka, va, qb, C3, ob, C, nq, D, xs, ys);
-        for (int e = threadIdx.x; e < WKT * WCH; e += QT) {
-            const int i = e / WCH, d = e % WCH;
-            const bool in = i < nq && v0 + d < D;
-            xs[i][d] = in ? qb[i * C3 + v0 + d] : 0.0f;
-            ys[i][d] = in ? ob[i * C + v0 + d] : 0.0f;
-        }
-        for (int i = threadIdx.x; i < WKT; i += QT)
-            ds_[i] = i < nq ? d_den[(row0 + i0 + i) * H + h] : 0.0f;
-        __syncthreads();
-        if (live) {
-            for (int i = 0; i < nq; ++i) {
-                const float p = exp2f(fminf(s[i], SCORE_CLAMP));
-                const float ds = s[i] < SCORE_CLAMP ? (dp[i] + ds_[i]) * p * LN2 : 0.0f;
-                for (int d = 0; d < WCH; ++d) {
-                    dk[d] = fmaf(ds, xs[i][d], dk[d]);
-                    dv[d] = fmaf(p, ys[i][d], dv[d]);
+    const int vd = imin(DC, D - v0);
+    float dq[KS][4] = {};
+    for (int j0 = 0; j0 < N; j0 += BT) {
+        const int nk = imin(BT, N - j0);
+        const float* kb = qkv + (row0 + j0) * C3 + C + h * D;     // key j's k; its v at + C
+        float s[4][4] = {}, dp[4][4] = {};
+        for (int c = 0; c < chunks; ++c) {
+            const int c0 = c * DC, dc = imin(DC, D - c0);
+            __syncthreads();
+            stage_raw<ATT_THREADS>(kr, kb + c0, C3, nk, dc);
+            if (!WIDE) stage<ATT_THREADS>(ks, kb, C3, nk, dc);
+            stage<ATT_THREADS>(vs, kb + C + c0, C3, nk, dc);
+            __syncthreads();
+            if (WIDE) load_own(c0);
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+                chain_scores(s[nt], qo, kr, nt * 8);
+#pragma unroll
+                for (int k8 = 0; k8 < KS; ++k8) {
+                    uint32_t b[2][2];
+                    frag_row(b, vs, nt * 8, 8 * k8);
+                    mma3(dp[nt], oa[k8], b);
                 }
             }
         }
-    }
-    if (live) {
-        for (int d = 0; d < WCH; ++d) {
-            if (v0 + d >= D) continue;
-            dqkv[(row0 + j) * C3 + C + h * D + v0 + d] = dk[d];
-            dqkv[(row0 + j) * C3 + 2 * C + h * D + v0 + d] = dv[d];
+        if (WIDE) {
+            __syncthreads();
+            stage<ATT_THREADS>(ks, kb + v0, C3, nk, vd);
+            __syncthreads();
         }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+            float ds[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float p = exp2f(fminf(s[nt][e], SCORE_CLAMP));
+                ds[e] = nt * 8 + 2 * t + (e & 1) < nk && s[nt][e] < SCORE_CLAMP
+                            ? (dp[nt][e] + dd[e >> 1]) * p * LN2 : 0.0f;
+            }
+            uint32_t da[2][4];
+            frag_from_c(da, ds);
+#pragma unroll
+            for (int c8 = 0; c8 < KS; ++c8) {
+                uint32_t b[2][2];
+                frag_col(b, ks, nt * 8, 8 * c8);
+                mma3(dq[c8], da, b);
+            }
+        }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+        const int i = i0 + g + 8 * hh;
+        if (i >= N) continue;
+#pragma unroll
+        for (int c8 = 0; c8 < KS; ++c8)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+                const int d = 8 * c8 + 2 * t + j;
+                if (d < vd) dqkv[(row0 + i) * C3 + h * D + v0 + d] = dq[c8][2 * hh + j];
+            }
+    }
+}
+
+// dqkv's d_k and d_v columns for the part's channels: a warp owning 16 keys
+// (their k rows and split v fragments in registers), the queries' q (raw
+// and split), d_oe and d_den staged BT at a time; s^T = k . q as the FMA
+// chain (the same chain as attn_bwd_q_kernel's, so both take the same side
+// of the clamp), d_p^T = v . d_oe on the tensor cores, then d_s and p, d_k
+// += d_s^T q and d_v += p^T d_oe on them.
+template <int DC, bool WIDE>
+__global__ void __launch_bounds__(ATT_THREADS)
+attn_bwd_kv_kernel(const float* __restrict__ qkv, const float* __restrict__ d_oe,
+                   const float* __restrict__ d_den, float* __restrict__ dqkv, int N, int C,
+                   int H, int tiles) {
+    constexpr int KS = DC / 8;
+    __shared__ Staged<BT, DC> qs;
+    __shared__ Staged<BT, DC> os;
+    __shared__ __align__(16) float qr[BT][DC + 4];
+    __shared__ float dds[BT];
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, warp = threadIdx.x >> 5;
+    const int D = C / H, r = blockIdx.x / tiles, h = blockIdx.y, v0 = blockIdx.z * DC;
+    const int j0w = (blockIdx.x % tiles) * BQ + warp * 16;
+    const long row0 = (long)r * N, C3 = 3L * C;
+    const int chunks = WIDE ? (D + DC - 1) / DC : 1;
+    const float* krow = qkv + row0 * C3 + C + h * D;
+    float ko[2][DC];
+    uint32_t va[KS][2][4];
+    auto load_own = [&](int c0) {
+        const int dc = imin(DC, D - c0);
+        own_rows(ko, krow + c0, C3, j0w, N, dc);
+#pragma unroll
+        for (int k8 = 0; k8 < KS; ++k8) frag_a(va[k8], krow + C + c0, C3, j0w, N, 8 * k8, dc);
+    };
+    if (!WIDE) load_own(0);
+    const int vd = imin(DC, D - v0);
+    float dk[KS][4] = {}, dv[KS][4] = {};
+    for (int q0 = 0; q0 < N; q0 += BT) {
+        const int nq = imin(BT, N - q0);
+        const float* qb = qkv + (row0 + q0) * C3 + h * D;
+        const float* ob = d_oe + (row0 + q0) * C + h * D;
+        float s[4][4] = {}, dp[4][4] = {};
+        for (int c = 0; c < chunks; ++c) {
+            const int c0 = c * DC, dc = imin(DC, D - c0);
+            __syncthreads();
+            stage_raw<ATT_THREADS>(qr, qb + c0, C3, nq, dc);
+            if (!WIDE) {
+                stage<ATT_THREADS>(qs, qb, C3, nq, dc);
+                stage<ATT_THREADS>(os, ob, C, nq, dc);
+            }
+            if (c == 0)
+                for (int i = threadIdx.x; i < BT; i += ATT_THREADS)
+                    dds[i] = i < nq ? d_den[(row0 + q0 + i) * H + h] : 0.0f;
+            if (WIDE) stage<ATT_THREADS>(os, ob + c0, C, nq, dc);
+            __syncthreads();
+            if (WIDE) load_own(c0);
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+                chain_scores(s[nt], ko, qr, nt * 8);
+#pragma unroll
+                for (int k8 = 0; k8 < KS; ++k8) {
+                    uint32_t b[2][2];
+                    frag_row(b, os, nt * 8, 8 * k8);
+                    mma3(dp[nt], va[k8], b);
+                }
+            }
+        }
+        if (WIDE) {
+            __syncthreads();
+            stage<ATT_THREADS>(qs, qb + v0, C3, nq, vd);
+            stage<ATT_THREADS>(os, ob + v0, C, nq, vd);
+            __syncthreads();
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+            float ds[4], pv[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int i = nt * 8 + 2 * t + (e & 1);
+                const float p = exp2f(fminf(s[nt][e], SCORE_CLAMP));
+                pv[e] = i < nq ? p : 0.0f;
+                ds[e] = i < nq && s[nt][e] < SCORE_CLAMP ? (dp[nt][e] + dds[i]) * p * LN2 : 0.0f;
+            }
+            uint32_t da[2][4], pa[2][4];
+            frag_from_c(da, ds);
+            frag_from_c(pa, pv);
+#pragma unroll
+            for (int c8 = 0; c8 < KS; ++c8) {
+                uint32_t b[2][2];
+                frag_col(b, qs, nt * 8, 8 * c8);
+                mma3(dk[c8], da, b);
+                frag_col(b, os, nt * 8, 8 * c8);
+                mma3(dv[c8], pa, b);
+            }
+        }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+        const int j = j0w + g + 8 * hh;
+        if (j >= N) continue;
+#pragma unroll
+        for (int c8 = 0; c8 < KS; ++c8)
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+                const int d = 8 * c8 + 2 * t + u;
+                if (d >= vd) continue;
+                dqkv[(row0 + j) * C3 + C + h * D + v0 + d] = dk[c8][2 * hh + u];
+                dqkv[(row0 + j) * C3 + 2 * C + h * D + v0 + d] = dv[c8][2 * hh + u];
+            }
     }
 }
 
 template <int DP>
-void launch_attn_bwd(const float* qkv, const float* d_oe, const float* d_den, float* dqkv, int R,
-                     int N, int C, int H, cudaStream_t st) {
-    const int tiles = (N + QT - 1) / QT;
-    const dim3 grid((unsigned)((long)R * tiles), (unsigned)H);
-    LAUNCH(attn_bwd_q_kernel<DP>, grid, QT, st, qkv, d_oe, d_den, dqkv, N, C, H, tiles);
-    LAUNCH(attn_bwd_kv_kernel<DP>, grid, QT, st, qkv, d_oe, d_den, dqkv, N, C, H, tiles);
-}
-
-void launch_attn_bwd_wide(const float* qkv, const float* d_oe, const float* d_den, float* dqkv,
+void launch_attn_bwd_ffma(const float* qkv, const float* d_oe, const float* d_den, float* dqkv,
                           int R, int N, int C, int H, cudaStream_t st) {
     const int tiles = (N + QT - 1) / QT;
+    const dim3 grid((unsigned)((long)R * tiles), (unsigned)H);
+    LAUNCH(attn_bwd_q_ffma_kernel<DP>, grid, QT, st, qkv, d_oe, d_den, dqkv, N, C, H, tiles);
+    LAUNCH(attn_bwd_kv_ffma_kernel<DP>, grid, QT, st, qkv, d_oe, d_den, dqkv, N, C, H, tiles);
+}
+
+template <int DC, bool WIDE>
+void launch_attn_bwd(const float* qkv, const float* d_oe, const float* d_den, float* dqkv, int R,
+                     int N, int C, int H, cudaStream_t st) {
+    const int tiles = (N + BQ - 1) / BQ;
     const dim3 grid((unsigned)((long)R * tiles), (unsigned)H,
-                    (unsigned)((C / H + WCH - 1) / WCH));
-    LAUNCH(attn_bwd_q_wide_kernel, grid, QT, st, qkv, d_oe, d_den, dqkv, N, C, H, tiles);
-    LAUNCH(attn_bwd_kv_wide_kernel, grid, QT, st, qkv, d_oe, d_den, dqkv, N, C, H, tiles);
+                    WIDE ? (unsigned)((C / H + DC - 1) / DC) : 1u);
+    auto* q = attn_bwd_q_kernel<DC, WIDE>;
+    auto* kv = attn_bwd_kv_kernel<DC, WIDE>;
+    LAUNCH(q, grid, ATT_THREADS, st, qkv, d_oe, d_den, dqkv, N, C, H, tiles);
+    LAUNCH(kv, grid, ATT_THREADS, st, qkv, d_oe, d_den, dqkv, N, C, H, tiles);
+}
+
+// The attention backward: dqkv (R N, 3C) from q|k|v (R N, 3C), d_oe (R N,
+// C) and d_den (R N, H), all f32.
+void attn_backward(const float* qkv, const float* d_oe, const float* d_den, float* dqkv, int R,
+                   int N, int C, int H, cudaStream_t st) {
+    const int D = C / H;
+    if (D <= 4) launch_attn_bwd_ffma<4>(qkv, d_oe, d_den, dqkv, R, N, C, H, st);
+    else if (D <= 8) launch_attn_bwd_ffma<8>(qkv, d_oe, d_den, dqkv, R, N, C, H, st);
+    else if (D <= 16) launch_attn_bwd<16, false>(qkv, d_oe, d_den, dqkv, R, N, C, H, st);
+    else if (D <= 32) launch_attn_bwd<32, false>(qkv, d_oe, d_den, dqkv, R, N, C, H, st);
+    else launch_attn_bwd<32, true>(qkv, d_oe, d_den, dqkv, R, N, C, H, st);
 }
 
 // The scratch, in floats, each region a multiple of 64 floats (256 bytes).
@@ -399,26 +511,22 @@ int backward(const float* x, const float* mid, const float* acc, const float* de
 
     // the MLP half
     ln_stats(mid, M, C, mean2, rstd2, st);
-    gemm(ln_a(mid, C, mean2, rstd2, ln2_s, ln2_b), w_1, hidden, h1p, hidden, M, hidden, C,
-         epi(EPI_NONE, b_1), st);
-    gemm(plain_a(g, C), w_2_t, hidden, dh, hidden, M, hidden, C,
-         epi(EPI_GELU_GRAD, nullptr, nullptr, 0, h1p, hidden), st);
-    gemm(plain_a(dh, hidden), w_1_t, C, dn2, C, M, C, hidden, epi(), st);
+    F32_TRY(gemm(ln_a(mid, C, mean2, rstd2, ln2_s, ln2_b), w_1, hidden, h1p, hidden, M, hidden,
+                 C, epi(EPI_NONE, b_1), st));
+    F32_TRY(gemm(plain_a(g, C), w_2_t, hidden, dh, hidden, M, hidden, C,
+                 epi(EPI_GELU_GRAD, nullptr, nullptr, 0, h1p, hidden), st));
+    F32_TRY(gemm(plain_a(dh, hidden), w_1_t, C, dn2, C, M, C, hidden, epi(), st));
     LAUNCH(ln_bwd_kernel, row_grid(M), ROW_WARPS * 32, st, dn2, mid, mean2, rstd2, ln2_s, g, dmid,
            (int)M, C);
     // the attention half
-    gemm(plain_a(dmid, C), w_o_t, C, dacc, C, M, C, C, epi(), st);
+    F32_TRY(gemm(plain_a(dmid, C), w_o_t, C, dacc, C, M, C, C, epi(), st));
     LAUNCH(attn_prep_kernel, (unsigned)((M * H + 255) / 256), 256, st, dacc, acc, den, M, N, C, H,
            doe, dden);
     ln_stats(x, M, C, mean1, rstd1, st);
-    gemm(ln_a(x, C, mean1, rstd1, ln1_s, ln1_b), w_qkv, C3, qkv, C3, M, C3, C, epi(), st);
-    const int D = C / H;
-    if (D <= 4) launch_attn_bwd<4>(qkv, doe, dden, dqkv, R, N, C, H, st);
-    else if (D <= 8) launch_attn_bwd<8>(qkv, doe, dden, dqkv, R, N, C, H, st);
-    else if (D <= 16) launch_attn_bwd<16>(qkv, doe, dden, dqkv, R, N, C, H, st);
-    else if (D <= 32) launch_attn_bwd<32>(qkv, doe, dden, dqkv, R, N, C, H, st);
-    else launch_attn_bwd_wide(qkv, doe, dden, dqkv, R, N, C, H, st);
-    gemm(plain_a(dqkv, C3), w_qkv_t, C, dnrm, C, M, C, C3, epi(), st);
+    F32_TRY(gemm(ln_a(x, C, mean1, rstd1, ln1_s, ln1_b), w_qkv, C3, qkv, C3, M, C3, C, epi(),
+                 st));
+    attn_backward(qkv, doe, dden, dqkv, R, N, C, H, st);
+    F32_TRY(gemm(plain_a(dqkv, C3), w_qkv_t, C, dnrm, C, M, C, C3, epi(), st));
     LAUNCH(ln_bwd_kernel, row_grid(M), ROW_WARPS * 32, st, dnrm, x, mean1, rstd1, ln1_s, dmid, dx,
            (int)M, C);
 
@@ -427,11 +535,8 @@ int backward(const float* x, const float* mid, const float* acc, const float* de
     const long total = l.off[11];
     const Slices sl = grad_slices(M, C, hidden);
     float* part = at[PART];
-    auto atb = [&](const Operand& a, const float* b, int ldb, int K1, int K2, int leaf) {
-        const dim3 grid((unsigned)((K2 + BN - 1) / BN), (unsigned)((K1 + BM - 1) / BM),
-                        (unsigned)sl.parts);
-        LAUNCH(atb_kernel, grid, GEMM_THREADS, st, a, b, ldb, (int)M, K1, K2, sl.chunk,
-               part + l.off[leaf], total, K2);
+    auto atb_leaf = [&](const Operand& a, const float* b, int ldb, int K1, int K2, int leaf) {
+        atb(a, b, ldb, M, K1, K2, sl.parts, sl.chunk, part + l.off[leaf], total, st);
     };
     auto colsum = [&](const float* xs, int ldx, const float* ys, const float* mu,
                       const float* rs, int K, int leaf) {
@@ -439,10 +544,11 @@ int backward(const float* x, const float* mid, const float* acc, const float* de
         LAUNCH(colsum_kernel, grid, 256, st, xs, ldx, ys, ldx, mu, rs, (int)M, K, sl.chunk,
                part + l.off[leaf], total);
     };
-    atb(ln_a(x, C, mean1, rstd1, ln1_s, ln1_b), dqkv, C3, C, C3, 2);
-    atb(plain_a(acc, C), dmid, C, C, C, 3);
-    atb(ln_a(mid, C, mean2, rstd2, ln2_s, ln2_b), dh, hidden, C, hidden, 7);
-    atb(Operand{h1p, hidden, AOP_GELU, nullptr, nullptr, nullptr, nullptr}, g, C, hidden, C, 9);
+    atb_leaf(ln_a(x, C, mean1, rstd1, ln1_s, ln1_b), dqkv, C3, C, C3, 2);
+    atb_leaf(plain_a(acc, C), dmid, C, C, C, 3);
+    atb_leaf(ln_a(mid, C, mean2, rstd2, ln2_s, ln2_b), dh, hidden, C, hidden, 7);
+    atb_leaf(Operand{h1p, hidden, AOP_GELU, nullptr, nullptr, nullptr, nullptr}, g, C, hidden, C,
+             9);
     colsum(dnrm, C, x, mean1, rstd1, C, 0);
     colsum(dnrm, C, nullptr, nullptr, nullptr, C, 1);
     colsum(dmid, C, nullptr, nullptr, nullptr, C, 4);
@@ -473,6 +579,17 @@ extern "C" void fused_block_backward_f32_part_offsets(int R, int N, int C, int H
     out[0] = (size_t)off[f32::DOE] * sizeof(float);
     out[1] = (size_t)off[f32::DDEN] * sizeof(float);
     out[2] = (size_t)off[f32::DQKV] * sizeof(float);
+}
+
+// The attention backward alone (dqkv from q|k|v, d_oe and d_den, all f32 in
+// the layouts above): a test entry point.  Returns a CUDA error code.
+extern "C" int fused_block_attn_backward_f32(const float* qkv, const float* d_oe,
+                                             const float* d_den, float* dqkv, int R, int N,
+                                             int C, int H, void* stream) {
+    if (R <= 0 || N <= 0 || H <= 0 || C <= 0 || C % 8 || C > 512 || C % H)
+        return cudaErrorInvalidValue;
+    f32::attn_backward(qkv, d_oe, d_den, dqkv, R, N, C, H, static_cast<cudaStream_t>(stream));
+    return cudaGetLastError();
 }
 
 // dx (R, N, C) and the 11 gradients, concatenated in RowBlockParams order,

@@ -18,42 +18,214 @@
 // dot product summed exactly (in f32: at most 32 * 127^2 < 2^24); v, p and
 // the sums as in B1.
 //
-// Design (every product f32 FFMA, see block_f32.cuh).  Launches:
+// Design (see block_f32.cuh for the tile).  Launches:
 //   ln_stats_kernel (x) -> gemm qkv = LN1(x) @ Wqkv' -> (B3) qk_scale_kernel,
-//   quantize_kernel -> attn_kernel -> gemm y = x + acc @ Wo + bo ->
+//   quantize_kernel -> attention -> gemm y = x + acc @ Wo + bo ->
 //   ln_stats_kernel (y) -> gemm h = gelu(LN2(y) @ W1 + b1) ->
 //   gemm out = y + h @ W2 + b2.
-// attn_kernel: one block per (row, 128 queries) and head, a thread a query
-// holding its q and its D sums in registers; the head's keys and values
-// stream through shared memory 128 keys at a time, read by every thread
-// (broadcast); DP, D rounded up to 4, 8, 16 or 32, sizes its registers and
-// tiles, zeros past D.  A head wider than 32 channels runs
-// attn_wide_kernel: the output in parts of 32 channels, each part's block
-// summing the scores over the head's channels 32 at a time.  No (N, N)
-// plane exists.  q, k, v, the attention output, y
-// and the MLP's hidden activation (4 C a token) go through device memory.
+// Every product (the four gemms) runs in 3xTF32 on the tensor cores.  The
+// attention, one design per head width, chosen at compile time:
+//   D <= 8 (attn_ffma_kernel): a thread a query holding its q and its D
+//       sums in registers, the head's keys and values streaming through
+//       shared memory, read by every thread (broadcast): the score chain,
+//       one exp2 and D FMAs of p . v a score, all on the CUDA cores;
+//   8 < D <= 32 (attn_kernel<DC>): a warp owns 16 queries, the keys come
+//       64 at a time through shared memory; each n-tile of 8 keys gets its
+//       scores as FMA chains (f32, the plain version's sum), p = exp2(min(s,
+//       110)) and p . v in 3xTF32 on the tensor cores (p's C fragment
+//       re-used as the A fragment); B3's scores are the int8 dot on IMMA
+//       (mma.sync m16n8k32, exact) times sq sk;
+//   D > 32 (attn_kernel<32, WIDE>): the same, the scores continued over
+//       the head's channels 32 at a time, the output in parts of 32
+//       channels (grid.z), each part's block recomputing the scores.
+// No (N, N) plane exists.  q, k, v, the attention output, y and the MLP's
+// hidden activation (4 C a token) go through device memory.
 //
-// What bounds it: the attention's pairs, 2 D FFMA, one exp2 (MUFU) and a
-// few more instructions each, at the CUDA cores' issue rate; the products
-// (24 C^2 FLOPs a token) at the FFMA rate (67 TFLOP/s on an H100 SXM).  The
-// f32 bound the harness states is 3xTF32's (495 / 3 TFLOP/s), the fastest
-// f32-accurate route, which this simple form does not take.
+// What bounds it: at D <= 8 the attention runs about 16 instructions a
+// score (the chain, the clamp, exp2 and its range checks, the row sum,
+// p . v), about twice the SFU's one exp2 a score: the tensor cores would
+// take p . v but cost p's split and the fragments' reads, more than the D
+// FMAs (stage 0's attention took 132.4 ms on them against 40.6 on this
+// form, PERF.md).
+// Above, the chain's D FMAs a score and 3xTF32's p . v; the products at
+// stage 0 by their bytes, above by 3xTF32's rate (PERF.md).  Against a
+// CUDA-core form for every D (a thread a query), these forms take
+// wide384's D = 48 and 96 attention from 451.3 to 303.1 ms a forward and
+// D = 24 from 167.2 to 157.6; D = 12 is level (557.5, 556.6; PERF.md).
 #include "block_f32.cuh"
 
 namespace f32 {
 namespace {
 
-constexpr int QT = 128;   // queries a block
-constexpr int KT = 128;   // keys a shared-memory tile
+constexpr int AQ = 64;            // queries a block: 4 warps of 16
+constexpr int AK = 64;            // keys a staged tile: 8 n-tiles
+constexpr int ATT_THREADS = 128;
+constexpr int KW = 12;            // words a staged int8 key row (32 channels, padded)
 
-// acc_out[(r N + i) C + h D + d] = (sum_j p_ij v_jd) / den_i; den_out[(r H
-// + h) N + i] = den_i (B1-train).  qk (R N, 2C) int8 and scales (R, 2): B3.
-// grid (R * q_tiles, H), QT threads.  DP: the head dim D rounded up to 4,
-// 8, 16 or 32 (q, k and v zero past D: the dot products' FMA chains over d
-// in order are those of D channels).
+// acc_out[(r N + i) C + h D + v0 + d] = (sum_j p_ij v_jd) / den_i for the
+// part's channels d < DC, den_out[(r H + h) N + i] = den_i (B1-train);
+// p_ij = exp2(min(s_ij, 110)).  s_ij = q_i . k_j, the FMA chain
+// (chain_scores), or B3's (qi_i . ki_j) * sq * sk, the int8 dot exact on
+// IMMA (qk (R N, 2C) int8, scales (R, 2)); p . v in 3xTF32.  grid (R *
+// q_tiles, H, parts), 128 threads: a warp owns 16 queries (their q rows in
+// registers), the keys come AK at a time through shared memory (k raw, v
+// split as it is staged).  DC: the head's D channels rounded up to 8, 16 or
+// 32 (zeros past D), one part; WIDE (D > 32): the scores continued over the
+// head's channels DC = 32 at a time (the q rows of each chunk read again),
+// the output in parts of 32 channels (grid.z), each part's block
+// recomputing the scores.  Keys past N get p = 0; queries past N are
+// computed and not stored.
+template <int DC, bool WIDE, bool INT8>
+__global__ void __launch_bounds__(ATT_THREADS)
+attn_kernel(const float* __restrict__ qkv, const int8_t* __restrict__ qk,
+            const float* __restrict__ scales, float* __restrict__ acc_out,
+            float* __restrict__ den_out, int N, int C, int H, int q_tiles) {
+    constexpr int KS = DC / 8;
+    __shared__ __align__(16) float kr[INT8 ? 1 : AK][DC + 4];
+    __shared__ Staged<AK, DC> vs;
+    __shared__ __align__(16) uint32_t k8s[INT8 ? AK : 1][KW];
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, warp = threadIdx.x >> 5;
+    const int D = C / H, r = blockIdx.x / q_tiles, h = blockIdx.y, v0 = blockIdx.z * DC;
+    const int i0 = (blockIdx.x % q_tiles) * AQ + warp * 16;
+    const long row0 = (long)r * N, C3 = 3L * C, C2 = 2L * C;
+    const int chunks = WIDE ? (D + DC - 1) / DC : 1;
+    const float* qrow = qkv + row0 * C3 + h * D;
+    float qo[INT8 ? 1 : 2][DC];
+    uint32_t qi[4];
+    auto load_q = [&](int c0) {
+        const int dc = imin(DC, D - c0);
+        if constexpr (INT8) {
+            const int8_t* q8 = qk + row0 * C2 + h * D + c0;
+#pragma unroll
+            for (int w = 0; w < 4; ++w) {
+                const int i = i0 + g + 8 * (w & 1), c = 4 * t + 16 * (w >> 1);
+                uint32_t word = 0;
+                for (int u = 0; u < 4; ++u)
+                    if (i < N && c + u < dc)
+                        word |= (uint32_t)(uint8_t)q8[(long)i * C2 + c + u] << (8 * u);
+                qi[w] = word;
+            }
+        } else {
+            own_rows(qo, qrow + c0, C3, i0, N, dc);
+        }
+    };
+    if (!WIDE) load_q(0);
+    const float sqsk = INT8 ? scales[2 * r] * scales[2 * r + 1] : 0.0f;
+    const int vd = imin(DC, D - v0);
+    float o[KS][4] = {};
+    float den[2] = {0.0f, 0.0f};
+    // the scores of n-tile nt of the staged keys (chunk c0 .. c0 + dc) added to sv
+    auto scores = [&](int nt, float (&sv)[4]) {
+        if constexpr (INT8) {
+            int si[4] = {};
+            const uint32_t b[2] = {k8s[nt * 8 + g][t], k8s[nt * 8 + g][4 + t]};
+            mma_s8(si, qi, b);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sv[e] += (float)si[e];
+        } else {
+            chain_scores(sv, qo, kr, nt * 8);
+        }
+    };
+    auto stage_k = [&](const float* kb, int j0, int nk, int c0, int dc) {
+        if constexpr (INT8) {
+            int8_t* k8 = reinterpret_cast<int8_t*>(&k8s[0][0]);
+            const int8_t* src = qk + (row0 + j0) * C2 + C + h * D + c0;
+            for (int e = threadIdx.x; e < AK * 32; e += ATT_THREADS) {
+                const int j = e >> 5, d = e & 31;
+                k8[j * 4 * KW + d] = j < nk && d < dc ? src[(long)j * C2 + d] : (int8_t)0;
+            }
+        } else {
+            stage_raw<ATT_THREADS>(kr, kb + c0, C3, nk, dc);
+        }
+    };
+    // p of n-tile nt's scores, the row sums and o += p v
+    auto accumulate = [&](int nt, int nk, const float (&sv)[4]) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const float x = INT8 ? sv[e] * sqsk : sv[e];
+            p[e] = nt * 8 + 2 * t + (e & 1) < nk ? exp2f(fminf(x, SCORE_CLAMP)) : 0.0f;
+        }
+        den[0] += p[0] + p[1];
+        den[1] += p[2] + p[3];
+        uint32_t pa[2][4];
+        frag_from_c(pa, p);
+#pragma unroll
+        for (int c8 = 0; c8 < KS; ++c8) {
+            uint32_t b[2][2];
+            frag_col(b, vs, nt * 8, 8 * c8);
+            mma3(o[c8], pa, b);
+        }
+    };
+    for (int j0 = 0; j0 < N; j0 += AK) {
+        const int nk = imin(AK, N - j0);
+        const float* kb = qkv + (row0 + j0) * C3 + C + h * D;     // key j's k; its v at + C
+        if constexpr (!WIDE) {
+            // one chunk: k and v staged together, each n-tile's scores used at once
+            __syncthreads();
+            stage_k(kb, j0, nk, 0, D);
+            stage<ATT_THREADS>(vs, kb + C, C3, nk, D);
+            __syncthreads();
+#pragma unroll 2
+            for (int nt = 0; nt < 8; ++nt) {
+                float sv[4] = {};
+                scores(nt, sv);
+                accumulate(nt, nk, sv);
+            }
+        } else {
+            float sv[8][4] = {};
+            for (int c = 0; c < chunks; ++c) {
+                const int c0 = c * DC;
+                __syncthreads();
+                stage_k(kb, j0, nk, c0, imin(DC, D - c0));
+                __syncthreads();
+                load_q(c0);
+#pragma unroll
+                for (int nt = 0; nt < 8; ++nt) scores(nt, sv[nt]);
+            }
+            __syncthreads();
+            stage<ATT_THREADS>(vs, kb + C + v0, C3, nk, vd);
+            __syncthreads();
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt) accumulate(nt, nk, sv[nt]);
+        }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+        den[hh] += __shfl_xor_sync(0xffffffffu, den[hh], 1);
+        den[hh] += __shfl_xor_sync(0xffffffffu, den[hh], 2);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+        const int i = i0 + g + 8 * hh;
+        if (i >= N) continue;
+#pragma unroll
+        for (int c8 = 0; c8 < KS; ++c8)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+                const int d = 8 * c8 + 2 * t + j;
+                if (d < vd) acc_out[(row0 + i) * C + h * D + v0 + d] = o[c8][2 * hh + j] / den[hh];
+            }
+        if (den_out && blockIdx.z == 0 && t == 0) den_out[((long)r * H + h) * N + i] = den[hh];
+    }
+}
+
+constexpr int QT = 128;   // queries a block of attn_ffma_kernel
+constexpr int KT = 128;   // keys a shared-memory tile of it
+
+// The same for a head of at most 8 channels, on the CUDA cores: one block
+// per (row, QT queries) and head, a thread a query holding its q and its D
+// sums in registers, the head's keys and values streaming through shared
+// memory QT at a time, read by every thread (broadcast).  At D <= 8 the
+// attention is bound by the instructions it runs a score (the chain, one
+// exp2, p . v), not by its products: p . v on the tensor cores costs p's
+// split and the fragments' reads, more than D FFMAs (PERF.md: the
+// tensor-core form ran stage 0 at 132.4 ms against this form's 40.6).
+// DP: D rounded up to 4 or 8 (zeros past D); B3's int8 dot summed in f32
+// (exact: at most 8 * 127^2).
 template <int DP>
 __global__ void __launch_bounds__(QT)
-attn_kernel(const float* __restrict__ qkv, const int8_t* __restrict__ qk,
+attn_ffma_kernel(const float* __restrict__ qkv, const int8_t* __restrict__ qk,
             const float* __restrict__ scales, float* __restrict__ acc_out,
             float* __restrict__ den_out, int N, int C, int H, int q_tiles) {
     __shared__ float ks[KT][DP];
@@ -87,17 +259,21 @@ attn_kernel(const float* __restrict__ qkv, const int8_t* __restrict__ qk,
             vs[j][d] = in ? qkv[t * C3 + 2 * C + h * D + d] : 0.0f;
         }
         __syncthreads();
-        if (live) {
-            for (int j = 0; j < nk; ++j) {
-                float s = 0.0f;
+        auto key = [&](int j) {
+            float s = 0.0f;
 #pragma unroll
-                for (int d = 0; d < DP; ++d) s = fmaf(q[d], ks[j][d], s);
-                if (int8) s = s * sqsk;
-                const float p = exp2f(fminf(s, SCORE_CLAMP));
-                den += p;
+            for (int d = 0; d < DP; ++d) s = fmaf(q[d], ks[j][d], s);
+            if (int8) s = s * sqsk;
+            const float p = exp2f(fminf(s, SCORE_CLAMP));
+            den += p;
 #pragma unroll
-                for (int d = 0; d < DP; ++d) acc[d] = fmaf(p, vs[j][d], acc[d]);
-            }
+            for (int d = 0; d < DP; ++d) acc[d] = fmaf(p, vs[j][d], acc[d]);
+        };
+        if (live && nk == KT) {          // a full tile: a fixed trip count, unrolled
+#pragma unroll 8
+            for (int j = 0; j < KT; ++j) key(j);
+        } else if (live) {
+            for (int j = 0; j < nk; ++j) key(j);
         }
         __syncthreads();
     }
@@ -106,79 +282,6 @@ attn_kernel(const float* __restrict__ qkv, const int8_t* __restrict__ qk,
         for (int d = 0; d < DP; ++d)
             if (d < D) acc_out[(row0 + i) * C + h * D + d] = acc[d] / den;
         if (den_out) den_out[((long)r * H + h) * N + i] = den;
-    }
-}
-
-// The same for a head wider than 32 channels (D up to 512): a thread a
-// query, the output in parts of WCH channels (grid.z), each part's block
-// streaming the keys WKT at a time and summing every score over the
-// head's channels WCH at a time in order (the query's channels read from
-// device memory, the keys' through shared memory), so that the scores are
-// those of attn_kernel's FMA chain; each part recomputes them.
-constexpr int WKT = 32;   // keys a tile
-constexpr int WCH = 32;   // channels a chunk, and an output part
-
-__global__ void __launch_bounds__(QT)
-attn_wide_kernel(const float* __restrict__ qkv, const int8_t* __restrict__ qk,
-                 const float* __restrict__ scales, float* __restrict__ acc_out,
-                 float* __restrict__ den_out, int N, int C, int H, int q_tiles) {
-    __shared__ float ks[WKT][WCH];
-    __shared__ float vs[WKT][WCH];
-    const int D = C / H, v0 = blockIdx.z * WCH;
-    const int r = blockIdx.x / q_tiles;
-    const int i = (blockIdx.x % q_tiles) * QT + threadIdx.x;
-    const int h = blockIdx.y;
-    const long row0 = (long)r * N;
-    const long C3 = 3L * C, C2 = 2L * C;
-    const bool int8 = qk != nullptr;
-    const float sqsk = int8 ? scales[2 * r] * scales[2 * r + 1] : 0.0f;
-    const bool live = i < N;
-    float acc[WCH];
-    for (int d = 0; d < WCH; ++d) acc[d] = 0.0f;
-    float den = 0.0f;
-    for (int j0 = 0; j0 < N; j0 += WKT) {
-        const int nk = N - j0 < WKT ? N - j0 : WKT;
-        float s[WKT];
-        for (int j = 0; j < WKT; ++j) s[j] = 0.0f;
-        for (int c0 = 0; c0 < D; c0 += WCH) {
-            __syncthreads();
-            for (int e = threadIdx.x; e < WKT * WCH; e += QT) {
-                const int j = e / WCH, d = e % WCH;
-                const long t = row0 + j0 + j;
-                const bool in = j < nk && c0 + d < D;
-                ks[j][d] = !in ? 0.0f
-                           : int8 ? (float)qk[t * C2 + C + h * D + c0 + d]
-                                  : qkv[t * C3 + C + h * D + c0 + d];
-            }
-            __syncthreads();
-            float qc[WCH];
-            for (int d = 0; d < WCH; ++d)
-                qc[d] = !live || c0 + d >= D ? 0.0f
-                        : int8 ? (float)qk[(row0 + i) * C2 + h * D + c0 + d]
-                               : qkv[(row0 + i) * C3 + h * D + c0 + d];
-            for (int j = 0; j < WKT; ++j)
-                for (int d = 0; d < WCH; ++d) s[j] = fmaf(qc[d], ks[j][d], s[j]);
-        }
-        __syncthreads();
-        for (int e = threadIdx.x; e < WKT * WCH; e += QT) {
-            const int j = e / WCH, d = e % WCH;
-            vs[j][d] = j < nk && v0 + d < D ? qkv[(row0 + j0 + j) * C3 + 2 * C + h * D + v0 + d]
-                                            : 0.0f;
-        }
-        __syncthreads();
-        if (live) {
-            for (int j = 0; j < nk; ++j) {
-                const float sj = int8 ? s[j] * sqsk : s[j];
-                const float p = exp2f(fminf(sj, SCORE_CLAMP));
-                den += p;
-                for (int d = 0; d < WCH; ++d) acc[d] = fmaf(p, vs[j][d], acc[d]);
-            }
-        }
-    }
-    if (live) {
-        for (int d = 0; d < WCH; ++d)
-            if (v0 + d < D) acc_out[(row0 + i) * C + h * D + v0 + d] = acc[d] / den;
-        if (den_out && blockIdx.z == 0) den_out[((long)r * H + h) * N + i] = den;
     }
 }
 
@@ -229,19 +332,21 @@ quantize_kernel(const float* __restrict__ qkv, const float* __restrict__ scales,
 }
 
 template <int DP>
-void launch_attn(const float* qkv, const int8_t* qk, const float* scales, float* attn,
-                 float* den, int R, int N, int C, int H, cudaStream_t st) {
-    const int q_tiles = (N + QT - 1) / QT;
-    LAUNCH(attn_kernel<DP>, dim3((unsigned)((long)R * q_tiles), (unsigned)H), QT, st, qkv, qk,
-           scales, attn, den, N, C, H, q_tiles);
-}
-
-void launch_attn_wide(const float* qkv, const int8_t* qk, const float* scales, float* attn,
+void launch_attn_ffma(const float* qkv, const int8_t* qk, const float* scales, float* attn,
                       float* den, int R, int N, int C, int H, cudaStream_t st) {
     const int q_tiles = (N + QT - 1) / QT;
-    const unsigned parts = (unsigned)((C / H + WCH - 1) / WCH);
-    LAUNCH(attn_wide_kernel, dim3((unsigned)((long)R * q_tiles), (unsigned)H, parts), QT, st,
-           qkv, qk, scales, attn, den, N, C, H, q_tiles);
+    LAUNCH(attn_ffma_kernel<DP>, dim3((unsigned)((long)R * q_tiles), (unsigned)H), QT, st, qkv,
+           qk, scales, attn, den, N, C, H, q_tiles);
+}
+
+template <int DC, bool WIDE>
+void launch_attn(const float* qkv, const int8_t* qk, const float* scales, float* attn,
+                 float* den, int R, int N, int C, int H, cudaStream_t st) {
+    const int q_tiles = (N + AQ - 1) / AQ;
+    const dim3 grid((unsigned)((long)R * q_tiles), (unsigned)H,
+                    WIDE ? (unsigned)((C / H + DC - 1) / DC) : 1u);
+    auto* kernel = qk ? attn_kernel<DC, WIDE, true> : attn_kernel<DC, WIDE, false>;
+    LAUNCH(kernel, grid, ATT_THREADS, st, qkv, qk, scales, attn, den, N, C, H, q_tiles);
 }
 
 int forward(const float* x, const float* ln1_s, const float* ln1_b, const float* w_qkv,
@@ -253,24 +358,25 @@ int forward(const float* x, const float* ln1_s, const float* ln1_b, const float*
     const long M = (long)R * N;
     float *mean1 = stats, *rstd1 = stats + M, *mean2 = stats + 2 * M, *rstd2 = stats + 3 * M;
     ln_stats(x, M, C, mean1, rstd1, st);
-    gemm(ln_a(x, C, mean1, rstd1, ln1_s, ln1_b), w_qkv, 3 * C, qkv, 3 * C, M, 3 * C, C, epi(),
-         st);
+    F32_TRY(gemm(ln_a(x, C, mean1, rstd1, ln1_s, ln1_b), w_qkv, 3 * C, qkv, 3 * C, M, 3 * C, C,
+                 epi(), st));
     if (qk) {
         LAUNCH(qk_scale_kernel, (unsigned)R, 256, st, qkv, N, C, scales);
         LAUNCH(quantize_kernel, (unsigned)((M * 2 * C + 255) / 256), 256, st, qkv, scales, M, N,
                C, qk);
     }
     const int D = C / H;
-    if (D <= 4) launch_attn<4>(qkv, qk, scales, attn, den, R, N, C, H, st);
-    else if (D <= 8) launch_attn<8>(qkv, qk, scales, attn, den, R, N, C, H, st);
-    else if (D <= 16) launch_attn<16>(qkv, qk, scales, attn, den, R, N, C, H, st);
-    else if (D <= 32) launch_attn<32>(qkv, qk, scales, attn, den, R, N, C, H, st);
-    else launch_attn_wide(qkv, qk, scales, attn, den, R, N, C, H, st);
-    gemm(plain_a(attn, C), w_o, C, y, C, M, C, C, epi(EPI_NONE, b_o, x, C), st);
+    if (D <= 4) launch_attn_ffma<4>(qkv, qk, scales, attn, den, R, N, C, H, st);
+    else if (D <= 8) launch_attn_ffma<8>(qkv, qk, scales, attn, den, R, N, C, H, st);
+    else if (D <= 16) launch_attn<16, false>(qkv, qk, scales, attn, den, R, N, C, H, st);
+    else if (D <= 32) launch_attn<32, false>(qkv, qk, scales, attn, den, R, N, C, H, st);
+    else launch_attn<32, true>(qkv, qk, scales, attn, den, R, N, C, H, st);
+    F32_TRY(gemm(plain_a(attn, C), w_o, C, y, C, M, C, C, epi(EPI_NONE, b_o, x, C), st));
     ln_stats(y, M, C, mean2, rstd2, st);
-    gemm(ln_a(y, C, mean2, rstd2, ln2_s, ln2_b), w_1, hidden, hbuf, hidden, M, hidden, C,
-         epi(EPI_GELU, b_1), st);
-    gemm(plain_a(hbuf, hidden), w_2, C, out, C, M, C, hidden, epi(EPI_NONE, b_2, y, C), st);
+    F32_TRY(gemm(ln_a(y, C, mean2, rstd2, ln2_s, ln2_b), w_1, hidden, hbuf, hidden, M, hidden,
+                 C, epi(EPI_GELU, b_1), st));
+    F32_TRY(gemm(plain_a(hbuf, hidden), w_2, C, out, C, M, C, hidden,
+                 epi(EPI_NONE, b_2, y, C), st));
     return cudaGetLastError();
 }
 

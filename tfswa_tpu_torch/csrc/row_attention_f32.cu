@@ -19,7 +19,8 @@
 //                scores q_h . k_h in f64 on DMMA, an online softmax with its
 //                running max in f64, p = 2^(s - max) in f32 and p . v in f32
 //                FFMA, divided by the sum at the end; no (N, N) plane;
-//   gemm_kernel: out = acc @ Wo + b, f32 FFMA (block_f32.cuh).
+//   gemm_kernel: out = acc @ Wo + b, 3xTF32 on the tensor cores
+//                (block_f32.cuh).
 //
 // Arithmetic.  The scores are f64: a score reaches the hundreds where the
 // softmax is peaked, and an f32 score that large is off by tens of its ulp
@@ -72,33 +73,6 @@ __device__ __forceinline__ void dmma(double& c0, double& c1, double& c2, double&
                  "{%6}, {%0, %1, %2, %3};\n"
                  : "+d"(c0), "+d"(c1), "+d"(c2), "+d"(c3)
                  : "d"(a0), "d"(a1), "d"(b));
-#endif
-}
-
-// Asynchronous copy of BYTES (4 or 8) from src to the shared dst; zeros when
-// !valid (src is then not read).
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
-#ifdef TFSWA_EMU
-    emu_cp_async(dst, src, BYTES, valid ? BYTES : 0);
-#else
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
-                 :: "r"(s), "l"(src), "n"(BYTES), "r"(valid ? BYTES : 0));
-#endif
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-#ifndef TFSWA_EMU
-    asm volatile("cp.async.commit_group;\n" ::);
-#endif
-}
-
-// Wait until at most N groups of this thread's copies are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-#ifndef TFSWA_EMU
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 #endif
 }
 
@@ -186,7 +160,6 @@ qkv_kernel(const float* __restrict__ x, const double* __restrict__ w, double* __
 constexpr double LOG2E = 1.4426950408889634;
 
 __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
-__device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 
 // 2^f in f32 on the SFU (within 2 f32 ulp; a denormal result flushed to 0,
 // 2^-inf = 0)
@@ -434,7 +407,7 @@ int forward(const float* x, const double* wqkv, const float* wo, const float* bi
         case 28: launch_attn<32, 28>(qk, v, acc, R, N, C, H, st); break;
         default: launch_attn<32, 32>(qk, v, acc, R, N, C, H, st); break;
     }
-    gemm(plain_a(acc, C), wo, C, out, C, M, C, C, epi(EPI_NONE, bias), st);
+    F32_TRY(gemm(plain_a(acc, C), wo, C, out, C, M, C, C, epi(EPI_NONE, bias), st));
     return cudaGetLastError();
 }
 

@@ -22,8 +22,8 @@ launch counter (``<wrapper>.launches``):
     wrapper raises.
 Each has a bf16 form (``csrc/fused_block.cu``, ``csrc/fused_block_bwd.cu``:
 tensor-core products) and an f32 form (``csrc/fused_block_f32.cu``,
-``csrc/fused_block_bwd_f32.cu``: f32 FFMA products, the TPU kernel with cd
-= float32), counted apart: ``<wrapper>.launches`` (bf16) and
+``csrc/fused_block_bwd_f32.cu``: products in 3xTF32 on the tensor cores,
+scores as f32 FMA chains, the TPU kernel with cd = float32), counted apart: ``<wrapper>.launches`` (bf16) and
 ``<wrapper>.launches_f32``.  A CPU tensor goes to the plain version; a
 contiguous bf16 or f32 CUDA tensor launches the kernel of its dtype;
 anything else raises.  The plain versions compute in f32 with the
@@ -68,7 +68,7 @@ HIDDEN_ALIGN = 8
 MAX_SMEM_BYTES = 232448
 # the f32 kernels' shared memory is static: at most 48 KB a block
 STATIC_SMEM_BYTES = 49152
-# the row dtypes the kernels take: bf16 (tensor cores) and f32 (FFMA)
+# the row dtypes the kernels take: bf16 and f32 (3xTF32 on the tensor cores)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 # The plain versions materialise f32 score planes; they chunk over rows so
 # that at most this many bytes of one plane exist at once (the backward
@@ -476,11 +476,14 @@ def kernel_smem_bytes(C: int, hidden: Optional[int] = None,
     width ``hidden`` (default 4 C) and ``num_heads`` heads (default: the
     largest over every H dividing C) in ``dtype``.  float32, from the
     layouts of csrc/block_f32.cuh, fused_block_f32.cu and
-    fused_block_bwd_f32.cu (static shared memory): gemm_kernel and
-    atb_kernel two 16 x 68 f32 tiles; attn_kernel and attn_bwd_q_kernel 128
-    keys of a head's k and v (D padded to 32 at most), attn_bwd_kv_kernel 128
-    queries of q and d_oe and their d_den; the wide forms (D > 32) 32-token
-    tiles of 32 channels.  None depends on C, the MLP width or N.
+    fused_block_bwd_f32.cu (static shared memory, words of 4 bytes, rows
+    padded by 4 or 8): gemm_kernel a ring of three k-slices of a 128 x 16 A
+    tile and a 16 x 64 B tile, atb_kernel three of 16 x 64 each; attn_kernel
+    64 keys of a 32-channel chunk of k (raw) and of v (split: big and
+    small), and B3's 64 int8 key rows; attn_bwd_{q,kv}_kernel 32 tokens of
+    two split tensors and one raw, and their d_den; the forms for D <= 8
+    (attn_ffma_kernel, attn_bwd_{q,kv}_ffma_kernel) 128 tokens of two
+    tensors' 8 channels.  None depends on C, the MLP width or N.
     bfloat16, from the layouts in csrc/, at CP = prod_width(C) and T = 64
     tokens a tile (32 at CP >= 384; RG = T / 16 row groups, CS = 8 / RG
     column parts): ln_qkv_kernel holds 64 rows of bf16 n1 and two 32-row
@@ -495,7 +498,11 @@ def kernel_smem_bytes(C: int, hidden: Optional[int] = None,
     row statistics; the attention's (:func:`_attn_smem_bytes`).  No
     launch's shared memory depends on N."""
     if dtype == torch.float32:
-        return max(4 * 2 * 16 * 68, 4 * 2 * 128 * 32, 4 * (2 * 128 * 32 + 128))
+        gemm = 4 * 3 * (128 * (16 + 4) + 16 * (64 + 8))
+        atb = 4 * 3 * 2 * 16 * (64 + 8)
+        attn = 4 * (64 * 36 + 2 * 64 * 36 + 12)
+        attn_bwd = 4 * (2 * 2 * 32 * 36 + 32 * 36 + 32)
+        return max(gemm, atb, attn, attn_bwd)
     hidden = 4 * C if hidden is None else hidden
     cp = prod_width(C)
     t = 32 if cp >= 384 else 64
