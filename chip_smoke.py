@@ -48,8 +48,23 @@ Phases, each of which fails the run (exit code 1) when it fails:
      forms timed at the full row counts with bounds and plain times, and
      net of each cut's own output launch (device time from the profiler);
      then its main path, the
-     CLI (python -m tfswa_tpu_torch.tools.kernel_lab --ablate, then
-     --check) in a subprocess, whose lab launches are counted;
+     CLI (tfswa_tpu_torch.tools.kernel_lab --ablate, then --check)
+     through its main in this process, whose lab launches are counted;
+ 2b. the kernel lab's f32 forms (L f32, csrc/fused_block_f32.cu), also
+     under --quick: the 9 forms against their plain f32 versions (fed the
+     kernel's q|k|v) on 64 rows under the 3 kinds of weights at the 12
+     shapes, at wide384's 12 (D = 12-96) and at LAB_F32_EDGE's (C, H) at N
+     = 64 and 129 (D = 3, 4, 8, 16, 32, 64, 128), within 1e-4 x
+     max(max|ref| / 4, 1), the full form equal to B1 f32 bit for bit (no
+     clamp: the attention outputs non-finite where f64 decides that they
+     overflow, and the block output non-finite where the plain one is, but
+     in tokens that hold an undecided attention element); each form timed at the full row
+     counts with bound and plain times; then the CLI with --dtype float32
+     (--ablate --iters 2 --shapes enc0, then --check) through its main in
+     this process, whose f32 lab launches are counted.  --plant lab_f32_score_bf16 (the
+     kernel ignores score_bf16) runs only those checks of score_bf16 and
+     exits 0 when they miss wherever the rounding moves the output past the
+     limit;
   3. B3 the same way (the plain version gets the kernel's q|k|v; the int8 q
      and k and the row scales must agree exactly; its attention launch timed
      beside its bound), and B4 (on LN1 output;
@@ -150,11 +165,11 @@ Phases, each of which fails the run (exit code 1) when it fails:
      two runs, remat within 1e-3 rel. and cosine >= 0.999; (c)
      quantize_dynamic(compute="int8"): all 264 torch._int_mm products of a
      forward equal to their plain f32-of-int8 version and the forward equal
-     to the plain-product forward bit for bit, the rate against bf16
-     "pallas", compare_models against f32, quantize_static on 2 batches
-     (every scale > 0, static vs dynamic within 0.05), a 60 s track
-     through "int8" (rate, SNR vs "pallas") and python -m
-     tfswa_tpu_torch.tools.bench_int8 --seconds 3 --iters 1 in a subprocess; (d)
+     to the plain-product forward bit for bit, compare_models against f32,
+     quantize_static on 2 batches (every scale > 0, static vs dynamic
+     within 0.05), a 60 s track through "int8" (rate, SNR vs "pallas") and
+     tfswa_tpu_torch.tools.bench_int8 --seconds 3 --iters 1 in this process
+     (the rate against bf16 "pallas"); (d)
      fold_batch_norms: float32 plain route within 1e-4 rel., bf16 "pallas"
      at SNR >= 30 dB with 66 B1, benchmark_model of both; (e) export at
      (1, 4, 1025, 87) of the float32 plain route at depths (1, 1, 1, 1)
@@ -235,6 +250,14 @@ Phases, each of which fails the run (exit code 1) when it fails:
      falling loss, every parameter, gradient and Adam moment bf16; (f) one
      "dots" remat step against the no-remat step (phase 9's limits), 132
      + 66 launches, the peak GB of each;
+ 15b. the measuring tools (tfswa_tpu_torch/tools: forward_ablation,
+     bench_pipeline, bench_train_ablate, bench_train, geom_probe,
+     bench_ola_windows, bench_device_rate, bench_block --check,
+     bench_attention), each through its CLI's main in this process at the
+     flagship's full width and minimal repeats (TOOL_RUNS): exit 0, finite
+     positive times and rates, and their kernel launches the model's (66 B1
+     a forward, none with the row blocks as identity, 132 B1-train + 66 B2
+     a step with remat, one B1 or B4 a timed call);
  16. every width (wide384: the flagship but dims (48, 96, 192, 384) and 4
      heads, D = 12, 24, 48, 96; and EDGE_GRID): (a), also under --quick (in
      the whole run beside phase 14's two subprocesses, which wait on the
@@ -516,6 +539,14 @@ SASS_HMMA = {"fused_block": ("ln_qkv_kernel", "attn_kernel", "attn_wide_kernel",
                                  "attn_bwd_kv_wide_kernel", "ln1_bwd_kernel", "atb_kernel"),
              "row_attention": ("proj_kernel", "bilinear_attn_kernel",
                                "bilinear_attn_any_kernel")}
+
+
+def lab_cut_form(fn: str) -> bool:
+    """Whether a mangled f32 attn_kernel<DC, WIDE, INT8, STAGE, FLAGS> or
+    attn_ffma_kernel<DP, STAGE, FLAGS> name is one of the f32 lab's cuts
+    (STAGE 1 scores, 2 exp2), which stop before p . v: no tensor-core
+    product."""
+    return re.search(r"attn_(ffma_)?kernelILi\d+E(?:Lb[01]E)*Li[12]E", fn) is not None
 
 
 def int8_form(fn: str) -> bool:
@@ -942,7 +973,7 @@ def check_lab_shape(torch, N: int, C: int, gen, with_full: bool = False, H: int 
             if ((name == "full" and not with_full) or (stage == "exp2" and N < C // H)
                     or (only is not None and name not in only)):
                 continue
-            got, qkv = lab_row_block_parts(x, p, H, stage, **kw)
+            got, qkv, _ = lab_row_block_parts(x, p, H, stage, **kw)
             torch.cuda.synchronize()
             ref = lab_row_block_reference(x, p, H, stage, qkv=qkv, **kw)
             g, r = got.float(), ref.float()
@@ -1017,19 +1048,6 @@ def lab_own_ms(torch, rows, p, reps: int = 2, tries: int = 3):
         if None not in per_call.values():
             break
     return per_call
-
-
-def run_lab_cli(argv):
-    """The lab's CLI in a subprocess from the checkout, as a user runs it:
-    its output lines and its launch counts (its last line)."""
-    res = subprocess.run([sys.executable, "-m", "tfswa_tpu_torch.tools.kernel_lab", *argv],
-                         cwd=HERE, capture_output=True, text=True, timeout=600)
-    lines = res.stdout.strip().splitlines()
-    for line in lines:
-        log(f"  | {line}")
-    if res.returncode != 0:
-        fail(f"kernel_lab {' '.join(argv)} exited {res.returncode}:\n{res.stderr[-3000:]}")
-    return lines, json.loads(lines[-1])["launches"]
 
 
 def log_lab_checks(N: int, C: int, checks, label: str) -> None:
@@ -1137,19 +1155,279 @@ def phase_lab(torch, quick: bool, b1_shapes):
                 f"net_ms {net} plain_ms {t['plain_ms']:.3f} bound_ms {t['bound_ms']:.4f}")
     # the lab's main path: every counter at 0 just before, read just after
     reset_counts()
-    launches, cli = 0, []
-    for argv in LAB_CLI:
-        lines, counts = run_lab_cli(argv)
-        launches += counts["lab_row_block"]
-        cli.append({"argv": argv, "lines": lines, "launches": counts})
+    cli = [{"argv": argv, "last_line": run_tool_here("kernel_lab", argv)} for argv in LAB_CLI]
+    launches = read_counts()["L"]
     ablated = sum(1 for label, *_ in CLI_SHAPES if LAB_SHAPES in label)
     variants = [v for v in LAB_VARIANTS.split(",") if v not in ("prod", "xla")]
     want = ablated * len(STAGES) * (1 + LAB_ITERS) + len(variants)   # a warm-up call each
-    log(f"kernel_lab CLI: {launches} lab launches (expected {want}), in-process counts "
-        f"{read_counts()}")
+    log(f"kernel_lab CLI: {launches} lab launches (expected {want}), counts {read_counts()}")
     if launches != want:
         fail(f"kernel_lab CLI: {launches} lab launches, expected {want}")
     return rows_out, max_err, totals, {"launches": launches, "runs": cli}
+
+
+# The kernel lab's f32 forms (csrc/fused_block_f32.cu fused_block_lab_forward_f32):
+# checked at the serving shapes, at wide384's (N, C) with its 4 heads (D =
+# 12-96) and at these (C, H) at EDGE_N (D = 3, 4, 8, 16, 32, 64, 128), each
+# (shape, regime) within f32_tol of the plain version; timed at the full
+# row counts; the CLI in f32 once a mode (LAB_CLI with --dtype float32).
+LAB_F32_EDGE = [(24, 8), (16, 4), (40, 5), (48, 3), (256, 8), (512, 8), (512, 4)]
+LAB_F32_CLI = [["--dtype", "float32", *argv] for argv in LAB_CLI]
+# a fault for --plant: the f32 lab kernel ignores score_bf16 (p = exp2 of the
+# unrounded score), to be caught wherever the rounding moves the plain
+# version's output past f32_tol
+LAB_F32_PLANTS = {"lab_f32_score_bf16": (
+    "    if constexpr ((FLAGS & SCORE_BF16) != 0) "
+    "return expf(round_bf16(round_bf16(s) * LN2_BF16));\n", "")}
+
+
+# how far (log2 units) from 128 a quantity of the no-clamp attention must lie
+# for f32 overflow to be decided whatever the summation order
+OVERFLOW_BAND = 1e-2
+
+
+def overflow_decided(torch, qkv, R: int, N: int, C: int, H: int):
+    """Which elements of the no-clamp attention output (R, N, C) are
+    non-finite, and which finite, in any f32 computation of it, from the
+    kernel's q|k|v (R*N, 3C) in float64.  With s the scores (log2 units),
+    den = sum_j 2^s_ij and w_d = sum_j 2^s_ij |v_jd| (which bounds every
+    partial sum of p . v in magnitude): an element is non-finite when its
+    query's largest score is past 128 + OVERFLOW_BAND (an exp2 overflows,
+    so den does: inf / inf or inf * v); finite when the largest score and
+    log2 w_d lie below 128 - OVERFLOW_BAND and log2 den is not within the
+    band (no partial sum of p . v overflows; den finite, or inf, giving 0);
+    else undecided (f32 rounding decides)."""
+    D = C // H
+    t = qkv.view(R, N, 3, H, D).permute(2, 0, 3, 1, 4).double()   # (3, R, H, N, D)
+    chunk = max(1, (1 << 30) // (H * N * N * 8))
+    nonfinite, finite = [], []
+    for r0 in range(0, R, chunk):
+        q, k, v = t[0, r0:r0 + chunk], t[1, r0:r0 + chunk], t[2, r0:r0 + chunk]
+        sc = q @ k.transpose(-1, -2)
+        m = sc.amax(dim=-1, keepdim=True)
+        p = torch.exp2(sc - m)
+        lden = m + torch.log2(p.sum(dim=-1, keepdim=True))
+        lw = m + torch.log2(p @ v.abs())                              # (Rc, H, N, D)
+        far = (lden - 128.0).abs() > OVERFLOW_BAND
+        nf = (m >= 128.0 + OVERFLOW_BAND).expand_as(lw)
+        fi = (m < 128.0 - OVERFLOW_BAND) & (lw < 128.0 - OVERFLOW_BAND) & far
+        Rc = q.shape[0]
+        nonfinite.append(nf.transpose(1, 2).reshape(Rc, N, C))
+        finite.append(fi.transpose(1, 2).reshape(Rc, N, C))
+        del sc, p
+    return torch.cat(nonfinite), torch.cat(finite)
+
+
+def check_lab_f32_shape(torch, N: int, C: int, gen, H: int = HEADS, only=None):
+    """The f32 lab forms of LAB_FORMS (``only``: these names) against their
+    plain f32 versions (fed the kernel's q|k|v) on CHECK_ROWS f32 rows, for
+    each kind of weights in REGIMES.  Held: the error within f32_tol of the
+    plain version's largest finite magnitude over the elements both give
+    finite, every element finite (but noclamp's), and "full" equal to B1
+    f32 (fused_row_block's launch) bit for bit.  noclamp overflows exp2 past
+    a score of 128 (the clamp weights), and whether an attention output
+    element (before the out-projection) overflows is decided by f32
+    rounding where a sum lies within rounding of the largest f32: so the
+    kernel's and the plain attention outputs are held where
+    overflow_decided decides (both as decided), the undecided elements
+    counted, and the block outputs must be non-finite at the same elements
+    but in the tokens that hold an undecided attention element (the
+    out-projection and LN2 spread a non-finite element over its token).
+    Each form also records whether its
+    flags move the plain output past the limit ("moved": score_bf16's
+    against the unrounded score, what --plant lab_f32_score_bf16 computes)."""
+    from tfswa_tpu_torch.models.attention import RowBlockParams
+    from tfswa_tpu_torch.ops import fused_block as fb
+    from tfswa_tpu_torch.ops.lab_block import lab_row_block_parts, lab_row_block_reference
+
+    res = {}
+    for regime in REGIMES:
+        p = random_params(torch, RowBlockParams, C, gen, regime)
+        x = torch.randn(CHECK_ROWS, N, C, generator=gen).cuda()
+        forms = {}
+        for name, (stage, kw) in LAB_FORMS.items():
+            if (stage == "exp2" and N < C // H) or (only is not None and name not in only):
+                continue
+            got, qkv, attn = lab_row_block_parts(x, p, H, stage, **kw)
+            torch.cuda.synchronize()
+            ref = lab_row_block_reference(x, p, H, stage, qkv=qkv, **kw)
+            fin_g, fin_r = got.isfinite(), ref.isfinite()
+            both = fin_g & fin_r
+            scale = ref[fin_r].abs().max().item() if fin_r.any() else 0.0
+            tol = f32_tol(scale)
+            diff = (got - ref).abs()[both]
+            err = diff.max().item() if diff.numel() else 0.0
+            f = {"max_abs_err": err, "tol": tol, "nonfinite": int((~fin_r).sum())}
+            if name == "noclamp":
+                ref_attn = fb._reference_forward(x, p, H, train=False, qkv=qkv, clamp=False)[1]
+                nf, fi = overflow_decided(torch, qkv, CHECK_ROWS, N, C, H)
+                f["attn_undecided"] = int((~nf & ~fi).sum())
+                f["attn_nonfinite_mismatch"] = sum(
+                    int(((a.isfinite() & nf) | (~a.isfinite() & fi)).sum())
+                    for a in (attn, ref_attn))
+                undecided = (~nf & ~fi).any(dim=-1, keepdim=True)
+                f["nonfinite_mismatch"] = int(((fin_g != fin_r) & ~undecided).sum())
+                f["ok"] = (err <= tol and f["attn_nonfinite_mismatch"] == 0
+                           and f["nonfinite_mismatch"] == 0)
+            else:
+                f["ok"] = err <= tol and bool(fin_g.all() and fin_r.all())
+            if name == "full":
+                f["b1_f32_equal"] = bool(torch.equal(got, fb._forward_kernel(x, p, H).out))
+                f["ok"] = f["ok"] and f["b1_f32_equal"]
+            if name == "score_bf16":
+                plain = lab_row_block_reference(x, p, H, "full", qkv=qkv)
+                f["moved"] = (plain - ref).abs().max().item() > tol
+            forms[name] = f
+            del got, qkv, attn, ref
+        res[regime] = {"forms": forms, "max_score": max_score(torch, x, p, H),
+                       "ok": all(f["ok"] for f in forms.values())}
+        torch.cuda.empty_cache()
+    return res
+
+
+def log_lab_f32_checks(label: str, checks) -> None:
+    for regime, c in checks.items():
+        log(f"lab f32 check {label} {regime:6s}: " + ", ".join(
+            f"{n} {f['max_abs_err']:.3g}/{f['tol']:.3g}"
+            + (f" nonfinite {f['nonfinite']} (mismatch {f['nonfinite_mismatch']}, attn "
+               f"{f['attn_nonfinite_mismatch']}, attn undecided {f['attn_undecided']})"
+               if "attn_undecided" in f and f["nonfinite"] else "")
+            + ("" if f["ok"] else " MISS") for n, f in c["forms"].items())
+            + f"; max score {c['max_score']:.1f}")
+
+
+def lab_f32_shapes():
+    """(label, N, C, H) of every f32 lab check: the serving shapes,
+    wide384's and LAB_F32_EDGE's."""
+    out = [(f"stage {s} {a}", N, C, HEADS) for s, a, N, C, _ in SHAPES]
+    H = WIDE384["num_heads"]
+    out += [(f"wide384 stage {s} {a}", N, C, H) for s, a, N, C, _ in WIDE_SHAPES]
+    out += [(f"edge D={C // h}", N, C, h) for C, h in LAB_F32_EDGE for N in EDGE_N]
+    return out
+
+
+def lab_f32_checks(torch, only=None):
+    """check_lab_f32_shape at every shape of lab_f32_shapes: {label:
+    checks}, every check logged before the caller holds them."""
+    gen = torch.Generator().manual_seed(17)
+    out = {}
+    for label, N, C, H in lab_f32_shapes():
+        checks = check_lab_f32_shape(torch, N, C, gen, H=H, only=only)
+        log_lab_f32_checks(f"{label} N={N} C={C} H={H}", checks)
+        out[label] = {"N": N, "C": C, "H": H, "checks": checks}
+    return out
+
+
+def bound_lab_f32_ms(name: str, R: int, N: int, C: int, hidden: int, H: int = HEADS):
+    """Least time for one f32 lab form: bound_lab_ms's work with f32 bytes
+    and the products at 3xTF32's rate (PEAK_F32_FLOPS); the full and flag
+    forms B1 f32's bound (bound_f32_ms)."""
+    stage = LAB_FORMS[name][0]
+    if stage == "full":
+        return bound_f32_ms("B1", R, N, C, hidden, H=H)
+    k = ("qkv", "scores", "exp2", "av", "attn").index(stage)
+    nbytes = 4 * (2 * R * N * C + 3 * C * C + 2 * C)
+    flops = 2 * R * N * 3 * C * C + (2 * R * N * N * C if k >= 1 else 0) \
+        + (2 * R * N * N * C if k >= 3 else 0)
+    if k >= 4:
+        nbytes += 4 * (C * C + C)
+        flops += 2 * R * N * C * C
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = max(flops / PEAK_F32_FLOPS, (R * H * N * N if k >= 2 else 0) / MUFU_RATE) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_lab_f32(torch, quick: bool):
+    """The kernel lab's f32 forms (L f32): the checks of lab_f32_checks (every
+    one logged before a miss fails the run); unless ``quick``, each form
+    timed once at the full row count of each serving shape (one call after
+    a warm-up) with its bound and its plain version's time (on PLAIN_ROWS
+    rows, scaled), summed over a model forward; then its main path, the CLI
+    in f32 once a mode of LAB_F32_CLI, whose f32 lab launches are the
+    kernel's count.  The library column is B1 f32's SDPA block for "full";
+    no PyTorch call computes a cut or a flag form."""
+    from tfswa_tpu_torch.models.attention import RowBlockParams
+    from tfswa_tpu_torch.ops.lab_block import STAGES, lab_row_block, lab_row_block_reference
+    from tfswa_tpu_torch.tools.kernel_lab import SHAPES as CLI_SHAPES
+
+    checks = lab_f32_checks(torch)
+    misses = [f"{label} {regime} {n}" for label, e in checks.items()
+              for regime, c in e["checks"].items() for n, f in c["forms"].items() if not f["ok"]]
+    n_checks = sum(len(c["forms"]) for e in checks.values() for c in e["checks"].values())
+    worst = max(f["max_abs_err"] / f["tol"] for e in checks.values()
+                for c in e["checks"].values() for f in c["forms"].values())
+    max_err = max(c["forms"]["full"]["max_abs_err"] for e in checks.values()
+                  for c in e["checks"].values() if "full" in c["forms"])
+    log(f"lab f32 checks: {n_checks - len(misses)} of {n_checks} within limits, worst error "
+        f"/ limit {worst:.4f}")
+    if misses:
+        fail("the f32 kernel lab disagrees with its plain version at " + "; ".join(misses))
+    totals = {name: dict.fromkeys(("ms", "plain_ms", "bound_ms", "bound_bytes_ms"), 0.0)
+              for name in LAB_FORMS}
+    timed = []
+    if not quick:
+        gen = torch.Generator().manual_seed(18)
+        for stage, attn, N, C, R in SHAPES:
+            p = random_params(torch, RowBlockParams, C, gen)
+            xf = card_randn(torch, (R, N, C), gen)
+            rs = min(R, PLAIN_ROWS)
+            calls = BLOCKS_PER_STAGE[stage]
+            row = {"stage": stage, "attn": attn, "N": N, "C": C, "R": R}
+            for name, (st, kw) in LAB_FORMS.items():
+                k_ms = cuda_ms(torch, lambda: lab_row_block(xf, p, HEADS, st, **kw), 1)
+                pl_ms = cuda_ms(torch, lambda: lab_row_block_reference(
+                    xf[:rs], p, HEADS, st, **kw), 1) * R / rs
+                b_ms, b_by = bound_lab_f32_ms(name, R, N, C, 4 * C)
+                row[name] = {"ms": k_ms, "plain_ms": pl_ms, "bound_ms": b_ms, "bound_by": b_by}
+                for k, v in (("ms", k_ms), ("plain_ms", pl_ms), ("bound_ms", b_ms)):
+                    totals[name][k] += calls * v
+                if b_by == "bytes":
+                    totals[name]["bound_bytes_ms"] += calls * b_ms
+            log(f"  lab f32 stage {stage} {attn} R={R}: " + " ".join(
+                f"{n} {row[n]['ms']:.3f}" for n in LAB_FORMS) + "; bound " + " ".join(
+                f"{n} {row[n]['bound_ms']:.3f}" for n in LAB_FORMS))
+            timed.append(row)
+            del xf
+            torch.cuda.empty_cache()
+        for name, t in totals.items():
+            log(f"per model forward (66 calls), lab f32 {name}: kernel_ms {t['ms']:.3f} "
+                f"plain_ms {t['plain_ms']:.3f} bound_ms {t['bound_ms']:.4f}")
+    # the main path: every counter at 0 just before, read just after
+    reset_counts()
+    cli = [{"argv": argv, "last_line": run_tool_here("kernel_lab", argv)}
+           for argv in LAB_F32_CLI]
+    launches = read_counts()["L-f32"]
+    ablated = sum(1 for label, *_ in CLI_SHAPES if LAB_SHAPES in label)
+    variants = [v for v in LAB_VARIANTS.split(",") if v not in ("prod", "xla")]
+    want = ablated * len(STAGES) * (1 + LAB_ITERS) + len(variants)
+    log(f"kernel_lab CLI in f32: {launches} f32 lab launches (expected {want})")
+    if launches != want:
+        fail(f"kernel_lab CLI in f32: {launches} f32 lab launches, expected {want}")
+    return {"checks": checks, "worst": worst, "max_err": max_err,
+            "timed": timed, "totals": totals, "path": {"launches": launches, "runs": cli}}
+
+
+def plant_lab_f32(torch) -> None:
+    """--plant lab_f32_score_bf16: the f32 lab's score_bf16 checks must miss
+    at every (shape, regime) where the rounding moves the plain output past
+    the limit, and somewhere at all; exit 0 when they do, 1 when not."""
+    plant_fault(torch, "lab_f32_score_bf16")
+    checks = lab_f32_checks(torch, only=("score_bf16",))
+    must, missed = [], []
+    for label, e in checks.items():
+        for regime, c in e["checks"].items():
+            f = c["forms"]["score_bf16"]
+            if f["moved"]:
+                must.append(f"{label} {regime}")
+            if not f["ok"]:
+                missed.append(f"{label} {regime}")
+    passed = [m for m in must if m not in missed]
+    if passed or not missed:
+        fail(f"planted fault lab_f32_score_bf16: the f32 lab checks passed it at "
+             f"{passed or 'every shape'}")
+    log(f"planted fault lab_f32_score_bf16: caught at {len(missed)} (shape, regime) of "
+        f"{sum(len(e['checks']) for e in checks.values())}, {len(must)} where the rounding "
+        f"moves the output past the limit: {missed}")
 
 
 def check_int8_shape(torch, N: int, C: int, gen, hidden=None, H: int = HEADS):
@@ -1843,7 +2121,8 @@ F32_PLANTS = {
     "f32_1xtf32": ("    mma_tf32(t, a[1], b[0]);\n    mma_tf32(t, a[0], b[1]);\n", ""),
 }
 # the file each f32 plant patches
-F32_PLANT_SOURCES = {"b4_tf32_scores": "row_attention_f32.cu", "f32_1xtf32": "block_f32.cuh"}
+F32_PLANT_SOURCES = {"b4_tf32_scores": "row_attention_f32.cu", "f32_1xtf32": "block_f32.cuh",
+                     "lab_f32_score_bf16": "fused_block_f32.cu"}
 
 
 def plant_fault(torch, name: str) -> None:
@@ -1857,7 +2136,7 @@ def plant_fault(torch, name: str) -> None:
     from tfswa_tpu_torch.ops import _build
 
     src_name = F32_PLANT_SOURCES.get(name, "fused_block_bwd.cu")
-    old, new = {**PLANTS, **F32_PLANTS}[name]
+    old, new = {**PLANTS, **F32_PLANTS, **LAB_F32_PLANTS}[name]
     src = (_build.CSRC / src_name).read_text()
     if src.count(old) != 1:
         fail(f"planted fault {name}: its text is not once in {src_name}")
@@ -1942,19 +2221,19 @@ TRAIN_ROUTES = {
                        "mlp_bwd_kernel", "attn_bwd_norm_kernel", "attn_bwd_q_kernel",
                        "attn_bwd_kv_kernel", "ln1_bwd_kernel", "atb_kernel",
                        "reduce_kernel")}, TRAIN_BATCH),
-    # one timed step on the first segment: the route's step is host-bound
-    # (about 10 s at 2 segments on an H100, 111 s for the phase), and the
-    # profiler's post-processing of its launches takes about a minute more
-    # at 4
-    "pallas_attn": ({"B4": 66}, 1, {"B4": ("proj_kernel", "bilinear_attn_kernel")}, 1),
+    # one timed step on the first segment, and no profile of its some 150 k
+    # launches (the run's time): the route's step is host-bound (about 10 s
+    # at 2 segments on an H100, 111 s for the phase)
+    "pallas_attn": ({"B4": 66}, 1, None, 1),
 }
 
 
 def phase_train(torch, np, gpu: str, impl: str = "pallas"):
     """The training main path through one route: a warm-up step, then
     counted and timed steps on one fixed batch (every launch counter set to
-    0 just before and read just after), the checks, one profiled step and,
-    for "pallas", an eval step, on the route's segments of phase 7's batch.
+    0 just before and read just after), the checks and, for "pallas", one
+    profiled step and an eval step, on the route's segments of phase 7's
+    batch.
     The loss must fall over the "pallas" route's 5 steps; the "pallas_attn"
     route's one is recorded."""
     per_kernel, steps, groups, segments = TRAIN_ROUTES[impl]
@@ -2003,17 +2282,12 @@ def phase_train(torch, np, gpu: str, impl: str = "pallas"):
         f"best {best * 1e3:.3f} ms/step (warm-up {warm_s:.3f} s): {rate:.4f} "
         f"audio-s trained per s on {gpu}; peak memory {peak_gb:.3f} GB")
 
-    prof = profile_step(torch, lambda: step(state, mix, targets), groups)
     res = {"launches": launches, "per_step": per_step, "step_s": times,
            "warmup_s": warm_s, "best_ms_per_step": best * 1e3,
-           "audio_s_trained_per_s": rate, "peak_mem_gb": peak_gb, "losses": losses,
-           "profile": prof}
+           "audio_s_trained_per_s": rate, "peak_mem_gb": peak_gb, "losses": losses}
     if impl != "pallas":
         return res
-    # the same step profiled with CPU activity too, so that idle shares read
-    # under either setting can be compared within one run
-    res["profile_cpu_cuda"] = profile_step(torch, lambda: step(state, mix, targets), groups,
-                                           cpu=True)
+    res["profile"] = profile_step(torch, lambda: step(state, mix, targets), groups)
     reset_counts()
     ev = eval_step(state, mix, targets)
     torch.cuda.synchronize()
@@ -2043,16 +2317,14 @@ def device_kernels(prof):
     return kernels, annotation_ms
 
 
-def profile_step(torch, run, groups, cpu: bool = False):
+def profile_step(torch, run, groups):
     """Device time by kernel over one train step (torch.profiler, CUDA
-    activity only: the "pallas_attn" step issues some 150 k launches, and
-    the profiler's post-processing of their CPU ops as well takes minutes;
-    ``cpu`` records CPU activity too), summed by the
-    kernel groups of ``groups``, and the device's idle share."""
+    activity only: the profiler's post-processing of CPU ops as well takes
+    seconds more), summed by the kernel groups of ``groups``, and the
+    device's idle share."""
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
-    with profile(activities=acts) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -2068,7 +2340,7 @@ def profile_step(torch, run, groups, cpu: bool = False):
     if not busy_ms:
         log("profile: the profiler recorded no device time (not measured)")
         return res
-    log(f"profile ({'CPU + CUDA' if cpu else 'CUDA'} activity): one train step, wall "
+    log(f"profile (CUDA activity): one train step, wall "
         f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
         f"idle share {res['idle_share']:.4f} (user annotations left out: "
         f"{annotation_ms:.3f} ms); " + ", ".join(
@@ -2478,18 +2750,13 @@ def synthetic_track(np, seconds: float, sr: int):
 
 
 def counters():
-    """The launch counter of every kernel, by kernel: (wrapper, attribute);
-    the f32 forms ("-f32") count on the same wrappers apart."""
-    from tfswa_tpu_torch.ops.fused_block import (fused_row_block, fused_row_block_bwd,
-                                                 fused_row_block_int8, fused_row_block_train)
-    from tfswa_tpu_torch.ops.lab_block import lab_row_block
-    from tfswa_tpu_torch.ops.row_attention import flash_row_attention
+    """The launch counter of every kernel, by kernel: (wrapper, attribute),
+    from the tools' table of kernels (tools/_common.py KERNELS); the f32
+    forms ("-f32") count on the same wrappers apart."""
+    from tfswa_tpu_torch.tools._common import KERNELS
 
-    forms = {"B1": fused_row_block, "B1-train": fused_row_block_train,
-             "B2": fused_row_block_bwd, "B3": fused_row_block_int8, "B4": flash_row_attention}
-    return {**{k: (w, "launches") for k, w in forms.items()},
-            "L": (lab_row_block, "launches"),
-            **{f"{k}-f32": (w, "launches_f32") for k, w in forms.items()}}
+    return {**{k: (w, "launches") for k, w in KERNELS.items()},
+            **{f"{k}-f32": (w, "launches_f32") for k, w in KERNELS.items()}}
 
 
 def reset_counts() -> None:
@@ -2498,7 +2765,9 @@ def reset_counts() -> None:
 
 
 def read_counts():
-    return {k: getattr(wrapper, attr) for k, (wrapper, attr) in counters().items()}
+    from tfswa_tpu_torch.tools._common import counts
+
+    return counts()
 
 
 # the kernel each serving route runs, and the device kernels it is made of
@@ -2513,7 +2782,7 @@ ROUTES = {
 
 
 # separations of the 120 s track timed after the warm-up, per route
-SERVING_RUNS = {"pallas": 2, "pallas_int8": 2, "pallas_attn": 1}
+SERVING_RUNS = {"pallas": 1, "pallas_int8": 1, "pallas_attn": 1}   # one rate run: the run's time
 
 
 def phase_main_path(torch, np, gpu: str, impl: str, model_kw=None, runs=None):
@@ -2651,7 +2920,7 @@ def phase_serving(torch, np, gpu: str, totals):
 # the separate_stream phase's tracks, seconds: two through the device OLA,
 # the last (one segment or less) through separate()
 STREAM_TRACKS = (120.0, 75.0, 8.0)
-STREAM_RUNS = 2                  # 3 until PR 14 (the run's time: phase 16)
+STREAM_RUNS = 1                  # one rate run: the run's time
 SERVE_WORK = os.path.join(HERE, "chiprun_out", "serve_work")
 # the serving CLI's inputs: (seconds, sample rate) of two stereo WAVs
 CLI_INPUTS = ((120.0, 44100), (30.0, 48000))
@@ -3384,26 +3653,13 @@ def plain_products_forward(torch, qmodel, x):
         int8_ops.int8_product = real
 
 
-def timed_forward_ms(torch, fn, x, iters: int = 2, warm: bool = True) -> float:
-    """ms a call of ``fn(x)`` (after a warm-up call unless ``warm`` is
-    False, where one has run already), host clock ending in a synchronize."""
-    with torch.inference_mode():
-        if warm:
-            fn(x)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn(x)
-        torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / iters * 1e3
-
-
 def opt_int8(torch, np, gpu: str):
     """(c) quantize_dynamic(compute="int8"): every torch._int_mm product of
     one forward equal to its plain version, the whole forward equal to the
-    plain-product forward, the rate against bf16 "pallas", compare_models
-    against the f32 model, quantize_static on 2 calibration batches, one
-    separation of the 120 s track, and the int8 tool in a subprocess."""
+    plain-product forward, compare_models against the f32 model,
+    quantize_static on 2 calibration batches, one separation of the 120 s
+    track, and the int8 tool in this process (its forward against bf16
+    "pallas" is the route's rate)."""
     from tfswa_tpu_torch.optimization import compare_models, quantize_dynamic, quantize_static
 
     res = {}
@@ -3421,10 +3677,6 @@ def opt_int8(torch, np, gpu: str):
     if n != 4 * 66 or differ or not same:
         fail(f"int8 products: {n} products, {differ} differ, forward equal {same}")
     del out, plain_out
-    res["int8_ms"] = timed_forward_ms(torch, qmodel, x, iters=1, warm=False)
-    res["bf16_pallas_ms"] = timed_forward_ms(torch, model, x)
-    log(f"opt (c): int8 forward {res['int8_ms']:.3f} ms vs bf16 \"pallas\" "
-        f"{res['bf16_pallas_ms']:.3f} ms of {OPT_BATCH} on {gpu}")
     f32 = opt_model(torch, np, impl="xla", dtype="float32")
     res["vs_f32"] = compare_models(f32, qmodel, input_shape=(1, 4, 257, 65))
     log(f"opt (c): compare_models vs f32 at (1, 4, 257, 65): mae {res['vs_f32']['mae']:.4e}, "
@@ -3467,15 +3719,9 @@ def opt_int8(torch, np, gpu: str):
     del sep8, sep16, qmodel, model
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "tfswa_tpu_torch.tools.bench_int8",
-                        "--seconds", "3", "--iters", "1"], cwd=HERE,
-                       capture_output=True, text=True, timeout=600)
+    res["tool"] = run_tool_here("bench_int8", ["--seconds", "3", "--iters", "1"])
     res["tool_s"] = time.perf_counter() - t0
-    for line in r.stdout.strip().splitlines():
-        log(f"  bench_int8: {line}")
-    if r.returncode != 0:
-        fail(f"tools.bench_int8 exited {r.returncode}: {r.stderr[-2000:]}")
-    res["tool"] = json.loads(r.stdout.strip().splitlines()[-1])
+    log(f"  bench_int8: {json.dumps(res['tool'])}")
     return res
 
 
@@ -4513,7 +4759,8 @@ def f32_forward_launches(depths=(2, 2, 6, 2), seconds: float = 120.0) -> int:
 def sass_f32_check():
     """The f32 libraries' SASS (cuobjdump --dump-sass) against SASS_TF32,
     SASS_CHAIN, SASS_DMMA and SASS_ABSENT: every instantiation of a kernel
-    of SASS_TF32 holds HMMA with TF32 operands, every int8 form of
+    of SASS_TF32 but the f32 lab's cuts (lab_cut_form) holds HMMA with TF32
+    operands, every int8 form of
     attn_kernel (int8_form) IMMA, every other instantiation of a kernel of
     SASS_CHAIN FFMA, every one of SASS_DMMA DMMA; none of SASS_ABSENT is
     there, and every function is one of the port's (namespace f32): no
@@ -4552,7 +4799,7 @@ def sass_f32_check():
                     bad.append(f"{lib}: no {n} in the SASS")
                 bad.extend(f"{lib}: {f}: no {key.upper()}" for f in fns if counts[f][key] == 0)
 
-        held(SASS_TF32.get(lib, ()), "tf32")
+        held(SASS_TF32.get(lib, ()), "tf32", lambda f: not lab_cut_form(f))
         held(["attn_kernel"] if lib == "fused_block_f32" else [], "imma", int8_form)
         held(SASS_CHAIN.get(lib, ()), "ffma", lambda f: not int8_form(f))
         held(SASS_DMMA.get(lib, ()), "dmma")
@@ -5567,6 +5814,122 @@ def phase_widths(torch, np, gpu: str, quick: bool, checks=None):
     return res
 
 
+# Phase "tools": the nine measuring tools of tfswa_tpu_torch/tools that the
+# JAX package's tools/ has, each through its CLI's main in this process at
+# the flagship's full width and minimal repeats, their last line read
+TOOL_RUNS = [
+    ("forward_ablation", ["--batch", "8", "--seconds", "10", "--iters", "1"]),
+    ("bench_pipeline", ["--batch", "4", "--iters", "1"]),
+    ("bench_train_ablate", ["--iters", "2"]),
+    ("bench_train", ["--steps", "2"]),
+    ("geom_probe", ["--iters", "2"]),
+    ("bench_ola_windows", ["--buckets", "60", "121", "--repeats", "1"]),
+    ("bench_device_rate", ["--windows", "4", "--repeats", "1"]),
+    ("bench_block", ["--check", "--iters", "2"]),
+    ("bench_attention", ["--iters", "2"]),
+]
+
+
+def run_tool_here(name: str, argv):
+    """``tfswa_tpu_torch.tools.<name>.main(argv)`` in this process: its last
+    line's JSON (its output logged); a non-zero exit fails the run."""
+    import contextlib
+    import io
+
+    mod = importlib.import_module(f"tfswa_tpu_torch.tools.{name}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(list(argv))
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines[:-1]:
+        log(f"  | {line}")
+    if rc != 0:
+        fail(f"tools.{name} {' '.join(argv)} exited {rc}")
+    return json.loads(lines[-1])
+
+
+def tool_problems(name: str, out, want) -> list:
+    """What is wrong with a tool's numbers: a time or rate that is not
+    finite and positive, launches a call other than the model's design."""
+    bad = []
+
+    def pos(d, keys, where=""):
+        for k in keys:
+            v = d.get(k)
+            if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0):
+                bad.append(f"{where}{k} = {v}")
+
+    def launches(got, exp, where):
+        if got != exp:
+            bad.append(f"{where} launches {got}, expected {exp}")
+
+    b1, step = want["forward"], want["step_remat"]
+    if name == "forward_ablation":
+        pos(out, ("full_ms", "identity_ms"))
+        launches(out["launches"]["full"], {"B1": b1}, "full arm")
+        launches(out["launches"]["identity"], {}, "identity arm")
+    elif name == "bench_pipeline":
+        pos(out, ("stft_ms", "forward_ms", "mask_istft_ms", "d2h_ms", "audio_s_per_s"))
+        launches(out["launches"], {"B1": b1}, "a forward")
+    elif name == "bench_train_ablate":
+        pos(out, [f"{k}_ms" for k in ("pre", "fwd", "fwdbwd", "opt", "full")])
+        for arm, exp in (("pre", {}), ("fwd", {"B1": b1}), ("fwdbwd", step), ("opt", {}),
+                         ("full", step)):
+            launches(out["launches"][arm], exp, arm)
+    elif name == "bench_train":
+        pos(out, ("step_time_ms", "steps_per_sec", "audio_sec_per_sec", "mfu"))
+        launches(out["launches"], step, "a step")
+    elif name == "geom_probe":
+        for g in out["geometries"]:
+            pos(g, ("total_ms", "ms_per_audio_s"), g["geometry"] + " ")
+            for r in g["shapes"]:
+                pos(r, ("ms",), f"{g['geometry']} {r['shape']} ")
+        launches(out["launches"], {"B1": 1}, "a timed call")
+    elif name == "bench_ola_windows":
+        for r in out["sweep"]:
+            pos(r, ("audio_s_per_s",), f"bucket {r['bucket_s']} ")
+            got = r["launches"]
+            if set(got) != {"B1"} or got["B1"] % b1:
+                bad.append(f"bucket {r['bucket_s']}: launches {got}, not whole forwards of B1")
+    elif name == "bench_device_rate":
+        pos(out, ("device_only_audio_s_per_s", "wall_audio_s_per_s"))
+        launches(out["launches_per_window"], {"B1": b1}, "a window")
+    elif name in ("bench_block", "bench_attention"):
+        routes = ({"fused": {"B1": 1}, "pallas_attn": {"B4": 1}, "xla": {}}
+                  if name == "bench_block" else {"pallas": {"B4": 1}, "xla": {}})
+        for r in out["shapes"]:
+            pos(r, [f"{k}_ms" for k in routes], r["shape"] + " ")
+            if name == "bench_block" and not math.isfinite(r["max_abs_err"]):
+                bad.append(f"{r['shape']} max_abs_err {r['max_abs_err']}")
+            for k, exp in routes.items():
+                launches(r["launches"][k], exp, f"{r['shape']} {k}")
+    return bad
+
+
+def phase_tools(torch, np, gpu: str):
+    """The nine tools of TOOL_RUNS: each exits 0, prints finite positive
+    times and rates, and launches the kernels the model's design gives (66
+    B1 a forward and none in forward_ablation's identity arm; 132 B1-train +
+    66 B2 a step with remat, bench_train's and bench_train_ablate's default;
+    one B1 or B4 a timed call of bench_block, bench_attention, geom_probe).
+    Every tool is run and logged before a problem fails the run."""
+    want = {"forward": forward_launches(), "step_remat": step_launches(remat=True)}
+    out, problems, seconds = {}, [], {}
+    for name, argv in TOOL_RUNS:
+        t0 = time.perf_counter()
+        res = run_tool_here(name, argv)
+        seconds[name] = time.perf_counter() - t0
+        bad = tool_problems(name, res, want)
+        log(f"tools.{name} {' '.join(argv)}: {seconds[name]:.1f} s, "
+            + ("ok" if not bad else f"MISS {bad}"))
+        out[name] = {"argv": argv, "result": res, "seconds": seconds[name]}
+        problems += [f"{name}: {b}" for b in bad]
+        torch.cuda.empty_cache()
+    if problems:
+        fail("phase tools: " + "; ".join(problems))
+    return out
+
+
 def ab_main(torch, np, label: str) -> None:
     """--ab CHECKOUT LABEL: the port that sys.path finds first (CHECKOUT's),
     timed by this script's harness at the flagship's widths, for an A/B of
@@ -5643,10 +6006,12 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="build and kernel checks only")
-    ap.add_argument("--plant", choices=sorted(PLANTS) + sorted(F32_PLANTS) + sorted(DP_PLANTS),
+    ap.add_argument("--plant", choices=sorted(PLANTS) + sorted(F32_PLANTS) + sorted(DP_PLANTS)
+                    + sorted(LAB_F32_PLANTS),
                     help="plant a fault in a copy of B2's source and run only the "
                          "B1-train / B2 checks, in a copy of B4's f32 source and run "
-                         "only phase 15 (a)'s checks, or one of DP_PLANTS in phase 13 "
+                         "only phase 15 (a)'s checks, in the f32 lab's source and run "
+                         "only its score_bf16 checks, or one of DP_PLANTS in phase 13 "
                          "(b)'s ranks and run only its run: exit 0 if they catch it, 1 "
                          "if not")
     ap.add_argument("--ab", nargs=2, metavar=("CHECKOUT", "LABEL"),
@@ -5746,6 +6111,9 @@ def main() -> None:
             fail(f"planted fault {args.plant}: phase 13 (b) passed it")
         log(f"planted fault {args.plant}: caught by phase 13 (b): {res['bad']}")
         sys.exit(0)
+    if args.plant in LAB_F32_PLANTS:
+        plant_lab_f32(torch)
+        sys.exit(0)
     if args.plant in F32_PLANTS:
         # phase 15 (a) must catch an f32 fault: B4's at every serving shape's
         # clamp weights (scores in the hundreds); the tile's wherever it can
@@ -5786,6 +6154,7 @@ def main() -> None:
     shapes, max_err, totals = timed("B1 kernels", phase_kernels, torch, args.quick)
     lab_shapes, lab_err, lab_totals, lab_path = timed("kernel lab", phase_lab, torch,
                                                       args.quick, shapes)
+    lab_f32 = timed("kernel lab f32", phase_lab_f32, torch, args.quick)
     i8_shapes, i8_err, i8_totals = timed("B3 kernels", phase_int8_kernels, torch, args.quick,
                                          shapes)
     at_shapes, at_err, at_totals = timed("B4 kernels", phase_attn_kernels, torch, args.quick)
@@ -5794,7 +6163,7 @@ def main() -> None:
                "phase_s": phase_s, "shapes": shapes, "totals": totals,
                "int8_shapes": i8_shapes, "int8_totals": i8_totals,
                "attn_shapes": at_shapes, "attn_totals": at_totals, "lab_shapes": lab_shapes,
-               "lab_totals": lab_totals, "lab_path": lab_path}
+               "lab_totals": lab_totals, "lab_path": lab_path, "lab_f32": lab_f32}
     serving = {impl: {"launches": None} for impl in ROUTES}
     if not args.quick:
         serving = timed("serving", phase_serving, torch, np, gpu,
@@ -5849,6 +6218,8 @@ def main() -> None:
         results["f32"] = timed("f32 routes", phase_f32, torch, np, gpu, ("export",))
         results["f32"]["export"], results["f32"]["seconds"]["export"] = beside["f32 export"]
         results["widths_checks_s"] = beside["widths checks"][1]
+    if not args.quick:
+        results["tools"] = timed("tools", phase_tools, torch, np, gpu)
     results["widths"] = timed("widths", phase_widths, torch, np, gpu, args.quick,
                               None if args.quick else beside["widths checks"][0])
     if not args.quick:
@@ -5916,6 +6287,12 @@ def main() -> None:
              "tfswa_tpu/ops/pallas/row_attention.py:53")):
         kernels.append(entry(name, src, replaces, f32_launches.get(kind), f32_err[kind],
                              f32_totals[kind]))
+    # L's f32 forms: the full form's numbers (B1 f32's function through the
+    # lab's f32 entry), the launches of the CLI in f32
+    kernels.append(entry("kernel_lab_f32", f32_src, "tools/kernel_lab.py:101",
+                         lab_f32["path"]["launches"], lab_f32["max_err"],
+                         dict(lab_f32["totals"]["full"],
+                              library_ms=f32_totals["B1"]["library_ms"] if timed else None)))
     # phase 16: wide384's rows, each kernel's launches from its main path there
     wide = results["widths"]
     wide_err = wide["checks"][1]

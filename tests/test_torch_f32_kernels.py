@@ -508,8 +508,8 @@ def test_3xtf32_keeps_f32s_accuracy_where_one_tf32_pass_does_not(mma_probe):
     """The f32 tile's product (``f32::mma3`` on ``f32::split_tf32``,
     csrc/block_f32.cuh) on full-mantissa f32 operands against the f64
     product: within 2^-20 of sum |a_k b_k| at every element (f32's own
-    error for sums of 8 is 8 x 2^-24 of it; the split leaves about 3 x
-    2^-22), while one TF32 pass of the big parts (what the f32_1xtf32 plant
+    error for sums of 8 is 8 x 2^-24 of it; the split leaves up to about
+    5 x 2^-22), while one TF32 pass of the big parts (what the f32_1xtf32 plant
     leaves) is off by more than 100 times that somewhere."""
     run = mma_probe
     rng = np.random.default_rng(6)
@@ -527,9 +527,12 @@ def test_3xtf32_keeps_f32s_accuracy_where_one_tf32_pass_does_not(mma_probe):
 
 def _three_pass(a, b):
     """The 3xTF32 product of two f32 scalars as the tile sums it: the small
+    parts truncated to TF32 (as the tensor cores read them), the small
     terms first, each product exact, each sum rounded to f32."""
     ab, bb = _tf32(a), _tf32(b)
-    as_, bs = _tf32(np.float32(a) - ab), _tf32(np.float32(b) - bb)
+    as_, bs = ((np.float32(x) - xb).view(np.uint32) & np.uint32(0xffffe000)
+               for x, xb in ((a, ab), (b, bb)))
+    as_, bs = as_.view(np.float32), bs.view(np.float32)
     x = np.float32(np.float64(as_) * np.float64(bb))
     x = np.float32(np.float64(x) + np.float64(ab) * np.float64(bs))
     return np.float32(np.float64(x) + np.float64(ab) * np.float64(bb))

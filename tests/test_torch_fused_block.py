@@ -290,12 +290,25 @@ def test_wrappers_raise_on_a_width_or_head_count_the_kernels_do_not_take(kernel,
 
 
 @pytest.mark.parametrize("kernel", ["B1", "B1-train", "B2", "B3", "L"])
-def test_wrappers_raise_on_a_dtype_the_kernels_do_not_take(kernel):
-    """float16 has no kernel; the lab (L) takes bf16 only, f32 too is refused."""
+def test_wrappers_raise_on_a_dtype_the_kernels_do_not_take(kernel, monkeypatch):
+    """float16 has no kernel; the lab (L) takes f32 too since it has f32
+    forms: f32 rows, with their parameters on the card, pass the wrapper's
+    own _check_cuda (called with the dtypes the wrapper gives it)."""
+    from tfswa_tpu_torch.ops import lab_block
+
     with pytest.raises(TypeError, match="bfloat16"):
         _wrappers(32, 8)[kernel](torch.float16)
     if kernel == "L":
-        with pytest.raises(TypeError, match="bfloat16, got torch.float32"):
+        class Accepted(Exception):
+            pass
+
+        def check(name, rows, num_heads, p, **kw):
+            on_card = type(p)(*(FakeCuda(w.shape, w.dtype) for w in p))
+            fused_block._check_cuda(name, rows, num_heads, on_card, **kw)
+            raise Accepted
+
+        monkeypatch.setattr(lab_block, "_check_cuda", check)
+        with pytest.raises(Accepted):
             _wrappers(32, 8)[kernel](torch.float32)
 
 

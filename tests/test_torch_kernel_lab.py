@@ -250,9 +250,9 @@ def test_wrapper_refuses_unknown_forms(kw, err):
 
 
 def test_wrapper_refuses_off_cpu_and_wrong_cuda_input():
-    """A tensor on another device raises; so does a CUDA tensor that is not
-    bf16 (a stand-in object, since this machine has no card): no fallback
-    to the plain version."""
+    """A tensor on another device raises; so does a CUDA tensor that is
+    neither bf16 nor f32 (a stand-in object, since this machine has no
+    card): no fallback to the plain version."""
     rows, jp = _inputs(seed=45)
     p = row_block_params_from_jax(jp)
     with pytest.raises(ValueError, match="no kernel"):
@@ -260,7 +260,7 @@ def test_wrapper_refuses_off_cpu_and_wrong_cuda_input():
 
     class FakeCuda:
         device = torch.device("cuda", 0)
-        dtype = torch.float32
+        dtype = torch.float16
         requires_grad = False
         shape = (R, N, C)
 

@@ -4,10 +4,11 @@
 //
 // Arithmetic.  Every product runs on the tensor cores in 3xTF32
 // (mma.sync m16n8k8, TF32 operands, f32 sums): each operand x is split
-// into big = rna_tf32(x) and small = rna_tf32(x - big), and a product takes
-// a_small b_big + a_big b_small + a_big b_big, the small terms first; what
-// is left out (a_small b_small, the split's remainder) is about 2^-22 of
-// each product, near f32's own rounding (a single TF32 pass keeps three
+// into big = rna_tf32(x) and small = x - big (which the tensor cores
+// truncate to TF32), and a product takes a_small b_big + a_big b_small +
+// a_big b_big, the small terms first; what is left out (a_small b_small,
+// small's truncation) is 2^-22 to 2^-21 of each product, near f32's own
+// rounding (a single TF32 pass keeps three
 // decimal digits, far from the f32 function the TPU kernels compute with
 // cd = float32).  The three passes of each 8-deep step sum into a fresh
 // accumulator, added to the running sum by an f32 add (mma3): the tensor
@@ -132,23 +133,27 @@ __device__ __forceinline__ float warp_max(float v) {
 // TF32 on mma.sync m16n8k8 (fragment layout, lane = 4 g + t: A a0 = A[g][t],
 // a1 = A[g + 8][t], a2 = A[g][t + 4], a3 = A[g + 8][t + 4]; B b0 = B[t][g],
 // b1 = B[t + 4][g]; C c0, c1 = C[g][2t + i], c2, c3 = C[g + 8][2t + i]).
-// An operand x is split into big = rna_tf32(x) and small = rna_tf32(x -
-// big) (x - big is exact in f32); a product takes the three passes
-// a_small b_big + a_big b_small + a_big b_big, summed in f32, the small
-// terms first (3xTF32: a_small b_small and the split's remainder, each
-// about 2^-22 of |a b|, are left out).  A split fragment is [2][...]: [0]
-// the big parts, [1] the small ones.
+// An operand x is split into big = rna_tf32(x) and small = x - big (exact
+// in f32); a product takes the three passes a_small b_big + a_big b_small +
+// a_big b_big, summed in f32, the small terms first (3xTF32: a_small
+// b_small, about 2^-22 of |a b|, is left out).  A split fragment is
+// [2][...]: [0] the big parts, [1] the small ones.
 
-// cvt.rna.tf32.f32's rounding (to nearest, ties away from zero; Inf and NaN
-// kept) as two integer operations: sm_90 has no single instruction for
-// the conversion, and its emulation takes four, in the tile's inner loop.
+// cvt.rna.tf32.f32's rounding (to nearest, ties away from zero; Inf kept)
+// as two integer operations: sm_90 has no single instruction for the
+// conversion, and its emulation takes four, in the tile's inner loop.  A
+// NaN is not kept: the card's NaN 0x7fffffff carries into the sign bit
+// (-0), and a NaN with only low mantissa bits becomes Inf.
 __device__ __forceinline__ uint32_t to_tf32(float x) {
     return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
+// small goes to the tensor cores whole: they read a TF32 operand's top 19
+// bits, which truncates it (2^-21 of |x| at most, against 2^-22 rounded)
+// at no cost, and keeps a NaN x, which big loses, as NaN (x - big is NaN).
 __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
     big = to_tf32(x);
-    small = to_tf32(x - __uint_as_float(big));
+    small = __float_as_uint(x - __uint_as_float(big));
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],

@@ -25,29 +25,38 @@ bf16 value as XLA computes it, see ``_reference_forward``), ``p_f32``
 leaves p unrounded into AV and the denominator, ``clamp=False`` drops the
 clamp (scores past 128 then overflow exp2, as in the JAX form).
 
+On f32 rows every rounding to ``rows.dtype`` is the identity, so
+``p_f32`` changes nothing there (the JAX form's ``pt_f32`` neither: its p
+and v are f32 already), and ``score_bf16`` keeps its two bf16 roundings
+inside exp, p itself f32.
+
 :func:`lab_row_block` is the wrapper: the plain version on a CPU tensor,
-the kernel (``csrc/fused_block.cu`` ``fused_block_lab_forward``, built
-from B1's own kernels) on a contiguous bf16 CUDA tensor; anything else
-raises.  It counts each launch in ``lab_row_block.launches``.  It has no
-gradient, as the JAX forms have none (no differentiation rule for Pallas'
-``reciprocal``): under grad it raises.
+the kernel on a contiguous CUDA tensor: ``csrc/fused_block.cu``
+``fused_block_lab_forward`` (built from B1's own kernels) on bf16 rows,
+``csrc/fused_block_f32.cu`` ``fused_block_lab_forward_f32`` (built from
+B1 f32's) on f32 rows; anything else raises, and so does a failed build or
+launch (no fallback).  It counts each launch in ``lab_row_block.launches``
+(bf16) or ``.launches_f32``.  It has no gradient, as the JAX forms have
+none (no differentiation rule for Pallas' ``reciprocal``): under grad it
+raises.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
-from .fused_block import (_block_weights, _check_cuda, _reference_forward, head_plan, pad_heads,
-                          unpad_heads)
+from .fused_block import (_block_weights, _check_cuda, _count, _on_stream, _reference_forward,
+                          head_plan, pad_heads, unpad_heads)
 
 STAGES = ("qkv", "scores", "exp2", "av", "attn", "full")
 # the head dims the lab's kernel is instantiated for (B1's take up to 512;
 # csrc/fused_block.cu LAB_MAX_DP)
 LAB_MAX_HEAD_DIM = 128
-# the flag bits of fused_block_lab_forward (csrc/fused_block.cu)
+# the flag bits of fused_block_lab_forward (csrc/fused_block.cu) and of its
+# f32 form
 SCORE_BF16, P_F32, NO_CLAMP = 1, 2, 4
 
 
@@ -87,57 +96,81 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _lib_f32() -> ctypes.CDLL:
+    lib = _build.load("fused_block_f32")
+    fn = lib.fused_block_lab_forward_f32
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        sz = lib.fused_block_lab_scratch_bytes_f32
+        sz.argtypes = [ctypes.c_int] * 6
+        sz.restype = ctypes.c_size_t
+    return lib
+
+
 def lab_row_block_parts(rows: torch.Tensor, p, num_heads: int, stage: str = "full",
                         score_bf16: bool = False, p_f32: bool = False,
-                        clamp: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of ``fused_block_lab_forward`` on the card, uncounted:
-    the lab form's output and the (R*N, 3C) q|k|v it used, in the block's
-    layout (what a check feeds the plain version).  Raises on a tensor the kernel does not take
-    and when the launch fails."""
+                        clamp: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """One launch of ``fused_block_lab_forward`` (bf16 rows) or
+    ``fused_block_lab_forward_f32`` (f32 rows) on the card, uncounted: the
+    lab form's output, the (R*N, 3C) q|k|v it used, in the block's layout
+    (what a check feeds the plain version), and the attention output before
+    the out-projection (R, N, C) of the stages that compute it (attn and
+    full; in f32 av too), else None.  Raises on a tensor the kernel does not
+    take and when the launch fails."""
     flags = _lab_flags(rows, num_heads, stage, score_bf16, p_f32, clamp)
     if rows.shape[-1] // num_heads > LAB_MAX_HEAD_DIM:
         raise ValueError(f"lab_row_block: no kernel for a head dim of "
                          f"{rows.shape[-1] // num_heads} (the lab takes head dims up to "
                          f"{LAB_MAX_HEAD_DIM})")
-    _check_cuda("lab_row_block", rows, num_heads, p, dtypes=(torch.bfloat16,))
+    _check_cuda("lab_row_block", rows, num_heads, p, dtypes=(torch.bfloat16, torch.float32))
     R, N, C = rows.shape
+    f32 = rows.dtype == torch.float32
     weights = _block_weights(p, C, num_heads, rows.dtype)
-    weights = (*weights[:2], pad_heads(weights[2], C, num_heads), *weights[3:])
+    if not f32:
+        weights = (*weights[:2], pad_heads(weights[2], C, num_heads), *weights[3:])
     hidden = weights[7].shape[1]
     dev = rows.device
-    lib = _lib()
     st = STAGES.index(stage)
     out = torch.empty_like(rows)
-    qkv = torch.empty((R * N, 3 * head_plan(C, num_heads).CA), dtype=rows.dtype, device=dev)
-    attn = torch.empty_like(rows) if stage in ("attn", "full") else None
-    scratch = torch.empty(lib.fused_block_lab_scratch_bytes(R, N, C, num_heads, st),
-                          dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.fused_block_lab_forward(
-            rows.data_ptr(), *(w.data_ptr() for w in weights), qkv.data_ptr(),
-            None if attn is None else attn.data_ptr(), out.data_ptr(),
-            scratch.data_ptr() if scratch.numel() else None,
-            R, N, C, num_heads, hidden, st, flags,
-            torch.cuda.current_stream(dev).cuda_stream)
+    width = C if f32 else head_plan(C, num_heads).CA
+    qkv = torch.empty((R * N, 3 * width), dtype=rows.dtype, device=dev)
+    attn = torch.empty_like(rows) if stage in (("av", "attn", "full") if f32 else
+                                               ("attn", "full")) else None
+    if f32:
+        lib = _lib_f32()
+        fn, size = lib.fused_block_lab_forward_f32, lib.fused_block_lab_scratch_bytes_f32(
+            R, N, C, num_heads, hidden, st)
+    else:
+        lib = _lib()
+        fn, size = lib.fused_block_lab_forward, lib.fused_block_lab_scratch_bytes(
+            R, N, C, num_heads, st)
+    scratch = torch.empty(size, dtype=torch.uint8, device=dev)
+    err = _on_stream(dev, fn, rows.data_ptr(), *(w.data_ptr() for w in weights), qkv.data_ptr(),
+                     None if attn is None else attn.data_ptr(), out.data_ptr(),
+                     scratch.data_ptr() if scratch.numel() else None,
+                     R, N, C, num_heads, hidden, st, flags)
     if err != 0:
-        raise RuntimeError(f"fused_block_lab_forward (stage {stage}, flags {flags}) "
-                           f"failed: CUDA error {err}")
-    return out, unpad_heads(qkv, C, num_heads)
+        raise RuntimeError(f"fused_block_lab_forward{'_f32' if f32 else ''} (stage {stage}, "
+                           f"flags {flags}) failed: CUDA error {err}")
+    return out, (qkv if f32 else unpad_heads(qkv, C, num_heads)), attn
 
 
 def lab_row_block(rows: torch.Tensor, p, num_heads: int, stage: str = "full",
                   score_bf16: bool = False, p_f32: bool = False,
                   clamp: bool = True) -> torch.Tensor:
     """The lab form's output (R, N, C) (module docstring).  Counts each
-    launch in ``lab_row_block.launches``."""
+    launch in ``lab_row_block.launches`` (bf16) or ``.launches_f32``."""
     if torch.is_grad_enabled() and (rows.requires_grad or any(t.requires_grad for t in p)):
         raise RuntimeError("lab_row_block has no gradient (as the kernel lab's forms in "
                            "the JAX package): differentiate fused_row_block instead")
     if rows.device.type == "cpu":
         return lab_row_block_reference(rows, p, num_heads, stage, score_bf16, p_f32, clamp)
     out = lab_row_block_parts(rows, p, num_heads, stage, score_bf16, p_f32, clamp)[0]
-    lab_row_block.launches += 1
+    _count(lab_row_block, rows.dtype)
     return out
 
 
 lab_row_block.launches = 0
+lab_row_block.launches_f32 = 0

@@ -11,7 +11,9 @@ block, and its stage ablation.
 It runs on the card (``--device cuda``, the default; with no card it stops)
 or, with ``--device cpu``, the plain versions on the CPU.  Times are the
 median of ``--iters`` calls after a warm-up call, by CUDA events on the
-card.  The last line printed is a JSON object of the kernels' launch counts.
+card.  The last line printed is a JSON object of the kernels' launch counts
+(bf16 and f32 apart).  ``--dtype float32`` runs the f32 forms: B1 f32 and
+the lab's f32 kernel (``fused_block_lab_forward_f32``).
 
 Variants (``ops/lab_block.py`` holds the lab forms):
   prod      B1, ``fused_row_block`` (under grad: B1-train and B2)
@@ -211,8 +213,10 @@ def parse_shapes(custom: str):
 
 
 def launch_counts():
-    return {"launches": {f.__name__: f.launches for f in (
-        lab_row_block, fused_row_block, fused_row_block_train, fused_row_block_bwd)}}
+    """The kernels' launch counts, bf16 ("launches") and f32 ("launches_f32")."""
+    fns = (lab_row_block, fused_row_block, fused_row_block_train, fused_row_block_bwd)
+    return {"launches": {f.__name__: f.launches for f in fns},
+            "launches_f32": {f.__name__: f.launches_f32 for f in fns}}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
