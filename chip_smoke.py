@@ -73,6 +73,19 @@ Phases, each of which fails the run (exit code 1) when it fails:
      checks also at the 4 training (N, C) that no serving shape has, since
      the "pallas_attn" train step runs B4 there; B4's launches (its two
      projections, its attention) timed from a profiler trace with bounds;
+ 3b. also under --quick, non-finite inputs: B1, B3 and B4 at the stage-0
+     and stage-3 serving (N, C), B1-train and B2 at the stage-0 and stage-3
+     training (N, C), bf16 and f32, each on 4 rows of which one holds a
+     token of the card's NaN (0x7fffffff; bf16 0x7fff), a token of +inf, or
+     (the overflow case) k's channels 0 and 1 of head 0 at +inf and -inf in
+     every token while q's are finite (each q.k inf - inf; B4: scores past
+     f32's range), and (nan_k) a weight of k at that NaN: each output
+     non-finite exactly where its plain version's is, the plain B1,
+     B1-train and B2 non-finite somewhere in the overflow and nan_k
+     cases.  --plant fminf_clamp
+     (exp2_line's clamp on fminf, which turns a NaN score into 110) runs
+     only this phase and exits 0 when it misses B1's overflow case at every
+     serving shape;
   4. the main path of each serving route ("pallas": B1, "pallas_int8": B3,
      "pallas_attn": B4): the flagship model (random weights from a seed,
      bf16, in/out 4, depths (2,2,6,2), dims (32,64,128,256)) in a
@@ -258,6 +271,13 @@ Phases, each of which fails the run (exit code 1) when it fails:
      positive times and rates, and their kernel launches the model's (66 B1
      a forward, none with the row blocks as identity, 132 B1-train + 66 B2
      a step with remat, one B1 or B4 a timed call);
+ 15c. python -m tfswa_tpu_torch.bench (the counterpart of the root
+     bench.py) through its main in this process at its defaults: exit 0, a
+     JSON line whose value, vs_baseline, stream_value and device_only_value
+     are finite and positive, runs_s 5 times, health tags "ok" or
+     "degraded_sample", 132 B1 launches a separation and no other kernel,
+     this card's name and power limit, and value within 10 % of phase 4's
+     "pallas" rate;
  16. every width (wide384: the flagship but dims (48, 96, 192, 384) and 4
      heads, D = 12, 24, 48, 96; and EDGE_GRID): (a), also under --quick (in
      the whole run beside phase 14's two subprocesses, which wait on the
@@ -1993,6 +2013,217 @@ def phase_train_kernels(torch, quick: bool):
     return rows_out, err, totals
 
 
+# Phase 3b: non-finite inputs.  Each kernel's output must be non-finite
+# exactly where its plain version's is (the NaN rule of jnp.minimum,
+# jnp.max and torch.clamp, torch.amax: a NaN score stays NaN where fminf
+# would make it 110 and p the finite 2^110, and B3's row scale is NaN where
+# q or k holds a NaN), at the flagship's stage-0 and stage-3 serving (B1,
+# B3, B4) and training (B1-train, B2) shapes, bf16 and f32, on NF_ROWS rows
+# of which row NF_ROW holds the case:
+#   nan:      one token of the card's NaN (0x7fffffff, bf16 0x7fff);
+#   inf:      one token of +inf;
+#   overflow: the fused block's k of head 0 overflows f32 in every token of
+#             the row, +inf in channel 0 and -inf in channel 1, while q's
+#             channels 0 and 1 are finite and of one sign, so that each
+#             q.k is inf - inf (NF_BIG weights from LN1's channel 0, which
+#             is exactly 0 in the other rows: their tokens sum to 0);
+#             B4's scores overflow f32 instead (channel 0 of the row at
+#             NF_B4_BIG), B4 having no clamp;
+#   nan_k:    no row but a weight: k's channel 0 from LN1's channel 3 the
+#             card's NaN, so that every score of head 0 is NaN while v is
+#             finite (what a NaN token cannot give: its v is NaN too).
+# B2 takes the residuals (mid, acc, den) of B1-train on the rows and
+# parameters without the case, so that the case reaches it through its
+# recompute alone.  B4 f32 is held to its plain f32 version here: its f64
+# scores stay finite where the plain version's overflow f32, and its tile
+# max (within 2^-20 of the max, PR 15) then overflows p as the plain
+# version's inf - inf does (its f64 function stays finite there: phase 15
+# (a) holds it to that function on finite scores).
+NF_ROWS, NF_ROW = 4, 1
+NF_CASES = ("nan", "inf", "overflow", "nan_k")
+NF_BIG = 2.0 ** 127
+NF_Q = 64.0
+NF_B4_BIG = 2.0 ** 80
+NF_SHAPES = [s for s in SHAPES if s[0] in (0, 3)]
+NF_TRAIN_SHAPES = [s for s in TRAIN_SHAPES if s[0] in (0, 3)]
+NF_PLANTS = {
+    # the clamp of exp2_line (B1, B1-train, B3, L) back on fminf
+    "fminf_clamp": ("s[j][e] = clamp_score(s[j][e]);", "s[j][e] = fminf(s[j][e], SCORE_CLAMP);"),
+}
+
+
+def nf_params(torch, C: int, gen, block: bool = True):
+    """Seeded flat-regime parameters; for the fused block with the
+    overflow case's weights: LN1's channel 0 unscaled and unbiased, q's
+    channels 0 and 1 NF_Q from it, k's channel 0 +NF_BIG and 1 -NF_BIG."""
+    from tfswa_tpu_torch.models.attention import RowBlockParams
+
+    p = random_params(torch, RowBlockParams, C, gen)
+    if block:
+        with torch.no_grad():
+            p.norm1_scale[0], p.norm1_bias[0] = 1.0, 0.0
+            p.qkv_kernel[0, :2] = NF_Q
+            p.qkv_kernel[0, C], p.qkv_kernel[0, C + 1] = NF_BIG, -NF_BIG
+    return p
+
+
+def nf_nan_k(torch, p, C: int):
+    """``p`` with the nan_k case's weight: qkv_kernel[3, C] the card's NaN."""
+    w = p.qkv_kernel.clone()
+    w.view(torch.int32)[3, C] = 0x7fffffff
+    return p._replace(qkv_kernel=w)
+
+
+def nf_rows(torch, N: int, C: int, gen):
+    """NF_ROWS rows whose every token sums to exactly 0 (channels c and c +
+    C/2 opposite bf16 values of magnitude 0.25-4.25), channels 0 and C/2 0:
+    LN1's mean is exactly 0, so its channel 0 is exactly 0."""
+    h = C // 2
+    mag = 0.25 + 4.0 * torch.rand(NF_ROWS, N, h, generator=gen)
+    sign = torch.where(torch.rand(NF_ROWS, N, h, generator=gen) < 0.5, -1.0, 1.0)
+    half = (mag * sign).to(torch.bfloat16).float()
+    x = torch.cat([half, -half], dim=-1)
+    x[..., 0] = 0.0
+    x[..., h] = 0.0
+    return x
+
+
+def nf_case(torch, x, case: str, dtype, block: bool = True):
+    """``x`` with ``case`` in row NF_ROW (nan_k: as it is), on the card in
+    ``dtype``."""
+    x = x.clone()
+    N, h = x.shape[1], x.shape[2] // 2
+    if case == "inf":
+        x[NF_ROW, N // 3] = math.inf
+    elif case == "overflow" and block:
+        x[NF_ROW, :, 0], x[NF_ROW, :, h] = 8.0, -8.0
+    elif case == "overflow":
+        x[NF_ROW, :, 0] = NF_B4_BIG
+    x = x.to(dtype).cuda()
+    if case == "nan":
+        f32 = dtype == torch.float32
+        x.view(torch.int32 if f32 else torch.int16)[NF_ROW, N // 3] = (
+            0x7fffffff if f32 else 0x7fff)
+    return x
+
+
+def nf_compare(torch, got, ref):
+    """(elements where one side is finite and the other not, the kernel's
+    non-finite elements, the plain version's, {output index: its elements
+    that differ}), over the pairs of outputs."""
+    diff = nk = nr = 0
+    where = {}
+    for i, (a, b) in enumerate(zip(got, ref)):
+        fa, fb = torch.isfinite(a.float()), torch.isfinite(b.float())
+        if fa.shape != fb.shape:
+            raise ValueError(f"shapes {tuple(fa.shape)} and {tuple(fb.shape)}")
+        d = int((fa != fb).sum())
+        if d:
+            where[i] = d
+        diff += d
+        nk += int((~fa).sum())
+        nr += int((~fb).sum())
+    return diff, nk, nr, where
+
+
+def nf_serving(torch, N: int, C: int, dtype, gen):
+    """B1, B3 and B4 (``dtype``) at (N, C): {(kernel, case): (outputs, plain
+    outputs)}."""
+    from tfswa_tpu_torch.ops.fused_block import (_forward_kernel,
+                                                 fused_row_block_int8_reference_parts,
+                                                 fused_row_block_reference_parts)
+    from tfswa_tpu_torch.ops.row_attention import _kernel, flash_row_attention_reference_parts
+
+    p0, pa0 = nf_params(torch, C, gen), nf_params(torch, C, gen, block=False)
+    x0 = nf_rows(torch, N, C, gen)
+    out = {}
+    for case in NF_CASES:
+        p, pa = (nf_nan_k(torch, q, C) if case == "nan_k" else q for q in (p0, pa0))
+        x = nf_case(torch, x0, case, dtype)
+        for kind, int8, plain in (("B1", False, fused_row_block_reference_parts),
+                                  ("B3", True, fused_row_block_int8_reference_parts)):
+            run = _forward_kernel(x, p, HEADS, int8=int8)
+            out[kind, case] = ((run.out, run.attn), plain(x, p, HEADS))
+        xa = nf_case(torch, x0, case, dtype, block=False)
+        w = [t.to(dtype) for t in (pa.qkv_kernel, pa.proj_kernel, pa.proj_bias)]
+        out["B4", case] = (_kernel(xa, *w, HEADS)[:2],
+                           flash_row_attention_reference_parts(xa, *w, HEADS))
+    return out
+
+
+def nf_train(torch, N: int, C: int, dtype, gen):
+    """B1-train and B2 (``dtype``) at (N, C): {(kernel, case): (outputs,
+    plain outputs)}; B2 on B1-train's residuals of the rows without the
+    case, the outputs dx, the 11 gradients and dqkv."""
+    from tfswa_tpu_torch.ops.fused_block import (fused_row_block_bwd_parts,
+                                                 fused_row_block_bwd_reference_parts,
+                                                 fused_row_block_train,
+                                                 fused_row_block_train_reference)
+
+    p0 = nf_params(torch, C, gen)
+    x0 = nf_rows(torch, N, C, gen)
+    g = torch.randn(NF_ROWS, N, C, generator=gen).to(dtype).cuda()
+    _, mid, acc, den = fused_row_block_train(x0.to(dtype).cuda(), p0, HEADS)
+    out = {}
+    for case in NF_CASES:
+        p = nf_nan_k(torch, p0, C) if case == "nan_k" else p0
+        x = nf_case(torch, x0, case, dtype)
+        out["B1-train", case] = (fused_row_block_train(x, p, HEADS),
+                                 fused_row_block_train_reference(x, p, HEADS))
+        got = fused_row_block_bwd_parts(x, mid, acc, den, g, p, HEADS)
+        ref = fused_row_block_bwd_reference_parts(x, mid, acc, den, g, p, HEADS)
+        out["B2", case] = ((got.dx, *got.dp, got.dqkv), (ref.dx, *ref.dp, ref.dqkv))
+    return out
+
+
+def phase_nonfinite(torch):
+    """Phase 3b: every kernel and f32 form on NF_CASES at NF_SHAPES
+    (serving) and NF_TRAIN_SHAPES (training).  A check misses where an
+    output element is finite on one side and not on the other; the overflow
+    and nan_k cases of B1, B1-train and B2 must make the plain version
+    non-finite somewhere (else they test no clamp).  Every check is logged before a
+    miss fails the run; returns the checks and the misses."""
+    gen = torch.Generator().manual_seed(11)
+    checks, misses = [], []
+    for dtype, sfx in ((torch.bfloat16, ""), (torch.float32, " f32")):
+        for path, shapes, run in (("serving", NF_SHAPES, nf_serving),
+                                  ("train", NF_TRAIN_SHAPES, nf_train)):
+            for stage, attn, N, C, _ in shapes:
+                with torch.no_grad():
+                    res = run(torch, N, C, dtype, gen)
+                torch.cuda.synchronize()
+                for (kind, case), (got, ref) in res.items():
+                    diff, nk, nr, where = nf_compare(torch, got, ref)
+                    ok = diff == 0 and (nr > 0 or case in ("nan", "inf")
+                                        or (case == "overflow" and kind in ("B3", "B4")))
+                    label = f"{kind}{sfx} {path} stage {stage} {attn} N={N} C={C} {case}"
+                    checks.append({"kernel": kind + sfx, "path": path, "stage": stage,
+                                   "attn": attn, "N": N, "C": C, "case": case,
+                                   "mismatched": diff, "mismatched_by_output": where,
+                                   "kernel_nonfinite": nk, "plain_nonfinite": nr, "ok": ok})
+                    log(f"non-finite {label}: kernel {nk}, plain {nr} non-finite, "
+                        f"{diff} mismatched{f' (by output {where})' if where else ''} "
+                        f"{'ok' if ok else 'MISS'}")
+                    if not ok:
+                        misses.append(label)
+                del res
+                torch.cuda.empty_cache()
+    log(f"non-finite checks: {len(checks) - len(misses)} of {len(checks)} held")
+    return checks, misses
+
+
+def plant_nonfinite(torch) -> None:
+    """--plant fminf_clamp: phase 3b on the planted library must miss B1's
+    overflow case at every serving shape of NF_SHAPES (bf16)."""
+    plant_fault(torch, "fminf_clamp")
+    _, misses = phase_nonfinite(torch)
+    want = [f"B1 serving stage {s} {a} N={N} C={C} overflow" for s, a, N, C, _ in NF_SHAPES]
+    passed = [c for c in want if c not in misses]
+    if passed:
+        fail(f"planted fault fminf_clamp: phase 3b passed it at {passed}")
+    log(f"planted fault fminf_clamp: caught by phase 3b at {len(misses)} checks: {misses}")
+
+
 RECIPE = "configs/musdb_repro.yaml"
 
 
@@ -2122,7 +2353,7 @@ F32_PLANTS = {
 }
 # the file each f32 plant patches
 F32_PLANT_SOURCES = {"b4_tf32_scores": "row_attention_f32.cu", "f32_1xtf32": "block_f32.cuh",
-                     "lab_f32_score_bf16": "fused_block_f32.cu"}
+                     "lab_f32_score_bf16": "fused_block_f32.cu", "fminf_clamp": "fused_block.cu"}
 
 
 def plant_fault(torch, name: str) -> None:
@@ -2136,7 +2367,7 @@ def plant_fault(torch, name: str) -> None:
     from tfswa_tpu_torch.ops import _build
 
     src_name = F32_PLANT_SOURCES.get(name, "fused_block_bwd.cu")
-    old, new = {**PLANTS, **F32_PLANTS, **LAB_F32_PLANTS}[name]
+    old, new = {**PLANTS, **F32_PLANTS, **LAB_F32_PLANTS, **NF_PLANTS}[name]
     src = (_build.CSRC / src_name).read_text()
     if src.count(old) != 1:
         fail(f"planted fault {name}: its text is not once in {src_name}")
@@ -5820,11 +6051,11 @@ def phase_widths(torch, np, gpu: str, quick: bool, checks=None):
 TOOL_RUNS = [
     ("forward_ablation", ["--batch", "8", "--seconds", "10", "--iters", "1"]),
     ("bench_pipeline", ["--batch", "4", "--iters", "1"]),
-    ("bench_train_ablate", ["--iters", "2"]),
+    ("bench_train_ablate", ["--iters", "1"]),
     ("bench_train", ["--steps", "2"]),
-    ("geom_probe", ["--iters", "2"]),
+    ("geom_probe", ["--iters", "1"]),
     ("bench_ola_windows", ["--buckets", "60", "121", "--repeats", "1"]),
-    ("bench_device_rate", ["--windows", "4", "--repeats", "1"]),
+    ("bench_device_rate", ["--windows", "2", "--repeats", "1"]),
     ("bench_block", ["--check", "--iters", "2"]),
     ("bench_attention", ["--iters", "2"]),
 ]
@@ -5930,6 +6161,71 @@ def phase_tools(torch, np, gpu: str):
     return out
 
 
+# Phase "bench": python -m tfswa_tpu_torch.bench at its defaults, in this
+# process; its value within BENCH_VS_PHASE4 of phase 4's "pallas" rate
+BENCH_VS_PHASE4 = 0.10
+BENCH_SEPARATION_LAUNCHES = {"B1": 132}
+
+
+def bench_problems(res, gpu: str, pallas_rate: float) -> list:
+    """What is wrong with the bench's JSON line: a rate or time that is not
+    finite and positive, a health tag other than bench.py's, launches a
+    separation other than 132 B1 (and no other kernel), another card, or a
+    value more than BENCH_VS_PHASE4 from phase 4's "pallas" rate."""
+    bad = []
+    for k in ("value", "vs_baseline", "stream_value", "device_only_value"):
+        v = res.get(k)
+        if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0):
+            bad.append(f"{k} = {v}")
+    runs = res.get("runs_s") or []
+    if len(runs) != 5 or not all(math.isfinite(r) and r > 0 for r in runs):
+        bad.append(f"runs_s = {runs}")
+    for k in ("stream_health", "device_only_health"):
+        if res.get(k) not in ("ok", "degraded_sample"):
+            bad.append(f"{k} = {res.get(k)}")
+    if res.get("launches_per_separation") != BENCH_SEPARATION_LAUNCHES:
+        bad.append(f"launches a separation {res.get('launches_per_separation')}, expected "
+                   f"{BENCH_SEPARATION_LAUNCHES}")
+    if res.get("card") != gpu:
+        bad.append(f"card {res.get('card')!r}, expected {gpu!r}")
+    value = res.get("value")
+    if isinstance(value, (int, float)) and abs(value / pallas_rate - 1) > BENCH_VS_PHASE4:
+        bad.append(f"value {value} more than {BENCH_VS_PHASE4:.0%} from phase 4's "
+                   f"{pallas_rate}")
+    return bad
+
+
+def phase_bench(torch, gpu: str, pallas_rate: float):
+    """python -m tfswa_tpu_torch.bench through its main in this process: exit
+    0, its JSON line (the last) read and held by bench_problems."""
+    import contextlib
+    import io
+
+    from tfswa_tpu_torch import bench
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main([])
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"  | {line}")
+    if rc != 0:
+        fail(f"tfswa_tpu_torch.bench exited {rc}")
+    try:
+        res = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        fail("tfswa_tpu_torch.bench printed no JSON line")
+    bad = bench_problems(res, gpu, pallas_rate)
+    log(f"bench: value {res.get('value')} audio-s/s (phase 4 \"pallas\": {pallas_rate}), "
+        f"stream {res.get('stream_value')} ({res.get('stream_health')}), device-only "
+        f"{res.get('device_only_value')} ({res.get('device_only_health')}) "
+        + ("ok" if not bad else f"MISS {bad}"))
+    if bad:
+        fail("phase bench: " + "; ".join(bad))
+    torch.cuda.empty_cache()
+    return res
+
+
 def ab_main(torch, np, label: str) -> None:
     """--ab CHECKOUT LABEL: the port that sys.path finds first (CHECKOUT's),
     timed by this script's harness at the flagship's widths, for an A/B of
@@ -6007,13 +6303,13 @@ def main() -> None:
     ap.add_argument("--quick", action="store_true",
                     help="build and kernel checks only")
     ap.add_argument("--plant", choices=sorted(PLANTS) + sorted(F32_PLANTS) + sorted(DP_PLANTS)
-                    + sorted(LAB_F32_PLANTS),
+                    + sorted(LAB_F32_PLANTS) + sorted(NF_PLANTS),
                     help="plant a fault in a copy of B2's source and run only the "
                          "B1-train / B2 checks, in a copy of B4's f32 source and run "
                          "only phase 15 (a)'s checks, in the f32 lab's source and run "
-                         "only its score_bf16 checks, or one of DP_PLANTS in phase 13 "
-                         "(b)'s ranks and run only its run: exit 0 if they catch it, 1 "
-                         "if not")
+                         "only its score_bf16 checks, in B1's source (fminf_clamp) and "
+                         "run only phase 3b, or one of DP_PLANTS in phase 13 (b)'s "
+                         "ranks and run only its run: exit 0 if they catch it, 1 if not")
     ap.add_argument("--ab", nargs=2, metavar=("CHECKOUT", "LABEL"),
                     help="time CHECKOUT's kernels at the flagship's widths (bf16 and "
                          "f32, a forward or a step), the 120 s rate and the train step, "
@@ -6114,6 +6410,9 @@ def main() -> None:
     if args.plant in LAB_F32_PLANTS:
         plant_lab_f32(torch)
         sys.exit(0)
+    if args.plant in NF_PLANTS:
+        plant_nonfinite(torch)
+        sys.exit(0)
     if args.plant in F32_PLANTS:
         # phase 15 (a) must catch an f32 fault: B4's at every serving shape's
         # clamp weights (scores in the hundreds); the tile's wherever it can
@@ -6158,12 +6457,17 @@ def main() -> None:
     i8_shapes, i8_err, i8_totals = timed("B3 kernels", phase_int8_kernels, torch, args.quick,
                                          shapes)
     at_shapes, at_err, at_totals = timed("B4 kernels", phase_attn_kernels, torch, args.quick)
+    nf_checks, nf_misses = timed("non-finite inputs", phase_nonfinite, torch)
+    if nf_misses:
+        fail("phase 3b: a kernel's output is non-finite elsewhere than its plain version's "
+             "at " + "; ".join(nf_misses))
     results = {"gpu": gpu, "build_s": build_s, "ptxas": ptxas, "spills": spills,
                "sass_hmma": hmma, "sass_f32": f32_sass, "mufu_rate": MUFU_RATE,
                "phase_s": phase_s, "shapes": shapes, "totals": totals,
                "int8_shapes": i8_shapes, "int8_totals": i8_totals,
                "attn_shapes": at_shapes, "attn_totals": at_totals, "lab_shapes": lab_shapes,
-               "lab_totals": lab_totals, "lab_path": lab_path, "lab_f32": lab_f32}
+               "lab_totals": lab_totals, "lab_path": lab_path, "lab_f32": lab_f32,
+               "nonfinite": nf_checks}
     serving = {impl: {"launches": None} for impl in ROUTES}
     if not args.quick:
         serving = timed("serving", phase_serving, torch, np, gpu,
@@ -6220,6 +6524,8 @@ def main() -> None:
         results["widths_checks_s"] = beside["widths checks"][1]
     if not args.quick:
         results["tools"] = timed("tools", phase_tools, torch, np, gpu)
+        results["bench"] = timed("bench", phase_bench, torch, gpu,
+                                 serving["pallas"]["audio_s_per_s"])
     results["widths"] = timed("widths", phase_widths, torch, np, gpu, args.quick,
                               None if args.quick else beside["widths checks"][0])
     if not args.quick:

@@ -221,6 +221,84 @@ def test_f32_row_attention_matches_its_plain_version(kernels, R, N, C, heads):
     assert torch.equal(ra._kernel(x, wq, wp, b, heads)[0], out)   # q|k exported or a scratch
 
 
+CARD_NAN = 0x7FFFFFFF      # the NaN that the card's f32 arithmetic produces
+
+
+def _nan_score_inputs(N, C, case, seed):
+    """(rows, the rows without the case, parameters, the parameters without
+    the case): 4 rows and flat parameters that make head 0's scores NaN
+    while v stays finite.  "card_nan": k's channel 0 from a weight of the
+    card's NaN bit pattern, so that every score of head 0 is that NaN (the
+    CPU's arithmetic keeps a NaN operand's bits).  "overflow": k's channels
+    0 and 1 at +inf and -inf in every token of row 1 while q's are finite
+    and positive, so that each of its q.k is inf - inf (weights of 2^127 on
+    LN1's channel 0, exactly 0 in the other rows, whose tokens sum to 0)."""
+    rng = np.random.default_rng(seed)
+    half = rng.integers(2, 34, (4, N, C // 2)) / 8.0 * rng.choice([-1.0, 1.0], (4, N, C // 2))
+    x = np.concatenate([half, -half], axis=-1).astype(np.float32)
+    x[..., 0] = x[..., C // 2] = 0.0
+    clean = torch.from_numpy(x.copy())
+    _, p = _inputs(1, 1, C, seed)
+    s1, b1, w = p.norm1_scale.clone(), p.norm1_bias.clone(), p.qkv_kernel.clone()
+    if case == "card_nan":
+        p_clean = p
+        w.view(torch.int32)[3, C] = CARD_NAN
+    else:
+        s1[0], b1[0] = 1.0, 0.0
+        w[0, :2] = 64.0
+        w[0, C], w[0, C + 1] = 2.0 ** 127, -(2.0 ** 127)
+        x[1, :, 0], x[1, :, C // 2] = 8.0, -8.0
+    p = p._replace(norm1_scale=s1, norm1_bias=b1, qkv_kernel=w)
+    return torch.from_numpy(x), clean, p, p if case == "overflow" else p_clean
+
+
+def _same_nonfinite(got, ref):
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert a.shape == b.shape, i
+        assert torch.equal(a.isfinite(), b.isfinite()), f"output {i}"
+
+
+@pytest.mark.parametrize("C,heads", [(32, 8), (64, 2)])
+@pytest.mark.parametrize("case", ["card_nan", "overflow"])
+def test_f32_kernels_keep_a_nan_score(kernels, C, heads, case):
+    """A NaN score where v is finite: p = 2^min(s, 110) must stay NaN, as
+    jnp.minimum keeps it (fminf would give p the finite 2^110), and B3's
+    row scales NaN where q or k holds a NaN.  B1, B1-train, B3, B2 (on
+    B1-train's residuals of the rows and parameters without the case) at a
+    head of 4 channels (the CUDA-core forms) and of 32 (the tensor-core
+    forms): every output non-finite exactly where the plain f32 version's
+    is, and non-finite somewhere.  B4 (no clamp; its running max) the same,
+    on its own rows: the card_nan weight, or (overflow) channel 0 of row 1
+    at 2^80, so that its scores pass f32's range."""
+    N = 20
+    x, x0, p, p0 = _nan_score_inputs(N, C, case, seed=C + heads)
+    run = fb._forward_kernel(x, p, heads)
+    ref = fb.fused_row_block_reference_parts(x, p, heads, qkv=run.qkv)
+    _same_nonfinite((run.out, run.attn), ref)
+    assert not bool(ref[0].isfinite().all())
+    i8 = fb._forward_kernel(x, p, heads, int8=True)
+    _same_nonfinite((i8.out, i8.attn),
+                    fb.fused_row_block_int8_reference_parts(x, p, heads, qkv=i8.qkv))
+    tr = fb._forward_kernel(x, p, heads, train=True)
+    _same_nonfinite((tr.out, tr.mid, tr.attn, tr.den),
+                    fb.fused_row_block_train_reference(x, p, heads, qkv=tr.qkv))
+    clean = fb._forward_kernel(x0, p0, heads, train=True)
+    g = torch.from_numpy(np.random.default_rng(C).standard_normal((4, N, C)).astype(np.float32))
+    got = fb._bwd_kernel(x, clean.mid, clean.attn, clean.den, g, p, heads)
+    ref = fb.fused_row_block_bwd_reference_parts(x, clean.mid, clean.attn, clean.den, g, p,
+                                                 heads, qkv=tr.qkv)
+    _same_nonfinite((got.dx, *got.dp, got.dqkv), (ref.dx, *ref.dp, ref.dqkv))
+    assert not bool(ref.dqkv.isfinite().all())
+    xb, wb = x0.clone(), p.qkv_kernel
+    if case == "overflow":
+        wb = _inputs(1, 1, C, seed=C)[1].qkv_kernel
+        xb[1, :, 0] = 2.0 ** 80
+    w = (wb, p.proj_kernel, p.proj_bias)
+    ref = ra.flash_row_attention_reference_parts(xb, *w, heads)
+    _same_nonfinite(ra._kernel(xb, *w, heads)[:2], ref)
+    assert not bool(ref[0].isfinite().all())
+
+
 DMMA_PROBE = r"""
 // Each warp of the launch multiplies its own 16 x 4 A by its 4 x 8 B and
 // adds its 16 x 8 C through the stand-in of mma.sync m16n8k4 f64, every lane

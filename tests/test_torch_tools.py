@@ -55,6 +55,16 @@ TOOLS = (forward_ablation, bench_pipeline, bench_train_ablate, bench_train, geom
          bench_ola_windows, bench_device_rate, bench_block, bench_attention)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Tier-1 runs six test workers on the machine's cores: two intra-op
+    threads keep these CPU-bound tests from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_tool(name):
     sys.path.insert(0, str(ROOT))
     spec = importlib.util.spec_from_file_location(f"jax_tool_{name}", ROOT / "tools" / f"{name}.py")
@@ -125,7 +135,7 @@ def test_identity_arm_forward_matches_jax(small):
     orig = jax_attn.row_transformer_block
     jax_attn.row_transformer_block = lambda rows, p, num_heads, **kw: rows
     try:
-        ref = jm.apply(variables, jnp.asarray(x), train=False)
+        ref = jax.jit(lambda v, a: jm.apply(v, a, train=False))(variables, jnp.asarray(x))
     finally:
         jax_attn.row_transformer_block = orig
     _close(got.numpy(), ref)

@@ -23,6 +23,24 @@ constexpr float SCORE_CLAMP = 110.0f;
 
 typedef __nv_bfloat16 bf16;
 
+// min(s, SCORE_CLAMP) that keeps a NaN s, as jnp.minimum and torch.clamp
+// do (fminf returns the other operand: a NaN score would become 110 and p
+// the finite 2^110).  PTX min.NaN, one instruction; its NaN is 0x7fffffff.
+__device__ __forceinline__ float clamp_score(float s) {
+    float r;
+    asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(s), "f"(SCORE_CLAMP));
+    return r;
+}
+
+// max(a, b) that keeps a NaN, as jnp.max and torch.amax do (fmaxf drops
+// it): PTX max.NaN, one instruction.  B3's row scales, so that a NaN q or
+// k makes its row's scores NaN.
+__device__ __forceinline__ float max_keep_nan(float a, float b) {
+    float r;
+    asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
+}
+
 __device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
 
 __device__ __forceinline__ float round_bf16(float x) {
@@ -387,7 +405,10 @@ __device__ __forceinline__ void store_head_pair(bf16* p, float a0, float a1, int
 // and every warp writes its 16 x QKV_NCH tile of bf16 q|k|v.  qkv is (M,
 // 3 CA): [q | k | v] per token, each in the padded head layout.
 // WITH_NORMED also writes n1 to normed (M, C), which B2 needs for the qkv
-// weight gradient.
+// weight gradient.  fix (B1 at a head of at most 8 channels; else null):
+// the rows (of N tokens) whose k holds an inf or NaN, for the attention's
+// fix-up (attn_kernel's MASK_K): fix[0] their count, fix[1 ..] the rows,
+// each once, fix[1 + M / N + r] row r's flag; zeroed by the caller.
 constexpr int LNQ_TOK = 64;
 constexpr int LNQ_THREADS = 128;
 constexpr int QKV_NCH = 96;       // output columns a chunk (3 CA is a multiple of 96)
@@ -401,7 +422,8 @@ template <int CP, bool EXACT, bool WITH_NORMED>
 __global__ void __launch_bounds__(LNQ_THREADS)
 ln_qkv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_s,
               const bf16* __restrict__ ln_b, const bf16* __restrict__ w,
-              bf16* __restrict__ qkv, bf16* __restrict__ normed, int M, int c, int ca) {
+              bf16* __restrict__ qkv, bf16* __restrict__ normed, int M, int c, int ca,
+              int* __restrict__ fix, int N) {
     static_assert(CP % 32 == 0, "ln_qkv_kernel: CP");
     // EXACT: C = CA = CP, the flagship's layouts, known at compile time
     const int C = EXACT ? CP : c, CA = EXACT ? CP : ca;
@@ -448,9 +470,19 @@ ln_qkv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_s,
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
                 const int t = warp * 16 + g + 8 * half;
-                if (t < ntok)
-                    *reinterpret_cast<__nv_bfloat162*>(qkv + (tok0 + t) * ldo + col) =
+                if (t < ntok) {
+                    const __nv_bfloat162 v =
                         __floats2bfloat162_rn(acc[j][2 * half], acc[j][2 * half + 1]);
+                    *reinterpret_cast<__nv_bfloat162*>(qkv + (tok0 + t) * ldo + col) = v;
+                    if (fix != nullptr && col >= CA && col < 2 * CA) {
+                        const uint32_t u = *reinterpret_cast<const uint32_t*>(&v);
+                        if ((u & 0x7f80u) == 0x7f80u || (u & 0x7f800000u) == 0x7f800000u) {
+                            const int r = (int)((tok0 + t) / N);
+                            if (atomicOr(fix + 1 + M / N + r, 1) == 0)
+                                fix[1 + atomicAdd(fix, 1)] = r;
+                        }
+                    }
+                }
             }
         }
     }
@@ -460,13 +492,14 @@ ln_qkv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_s,
 // buffer of 3 CA columns; the EXACT form where C = CA = CP.
 template <bool WITH_NORMED>
 cudaError_t launch_ln_qkv(const bf16* x, const bf16* ln_s, const bf16* ln_b, const bf16* w,
-                          bf16* qkv, bf16* normed, int M, int C, int CA, cudaStream_t stream) {
+                          bf16* qkv, bf16* normed, int M, int C, int CA, cudaStream_t stream,
+                          int* fix = nullptr, int N = 1) {
     auto go = [&](auto kernel, size_t smem) {
         cudaError_t err =
             cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return err;
         kernel<<<(unsigned)((M + LNQ_TOK - 1) / LNQ_TOK), LNQ_THREADS, smem, stream>>>(
-            x, ln_s, ln_b, w, qkv, normed, M, C, CA);
+            x, ln_s, ln_b, w, qkv, normed, M, C, CA, fix, N);
         return cudaGetLastError();
     };
     if (C % 8 || C > 512 || CA % 32) return cudaErrorInvalidValue;

@@ -66,6 +66,34 @@
 namespace f32 {
 
 constexpr float SCORE_CLAMP = 110.0f;
+
+// min(s, SCORE_CLAMP) that keeps a NaN s, as jnp.minimum and torch.clamp
+// do (fminf returns the other operand: a NaN score would become 110 and p
+// the finite 2^110).  PTX min.NaN, one instruction; its NaN is the card's
+// 0x7fffffff, which the CPU stand-in gives too.
+__device__ __forceinline__ float clamp_score(float s) {
+#ifdef TFSWA_EMU
+    return s != s ? __uint_as_float(0x7fffffffu) : fminf(s, SCORE_CLAMP);
+#else
+    float r;
+    asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(s), "f"(SCORE_CLAMP));
+    return r;
+#endif
+}
+
+// max(a, b) that keeps a NaN, as jnp.max and torch.amax do (fmaxf drops
+// it): PTX max.NaN.  B3's row scales, so that a NaN q or k makes its row's
+// scores NaN.
+__device__ __forceinline__ float max_keep_nan(float a, float b) {
+#ifdef TFSWA_EMU
+    return a != a || b != b ? __uint_as_float(0x7fffffffu) : fmaxf(a, b);
+#else
+    float r;
+    asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
+#endif
+}
+
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float INV_SQRT_2PI = 0.3989422804014327f;
 constexpr float SQRT_HALF = 0.7071067811865476f;
@@ -121,11 +149,6 @@ __device__ __forceinline__ float gelu(float v) {
 
 __device__ __forceinline__ float warp_sum(float v) {
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
     return v;
 }
 

@@ -139,7 +139,7 @@ __device__ __forceinline__ float sq_bf16x2(uint32_t w) {
 }
 
 // B3: the per-row scales of q and k, max|.| / 127 over the row's N*C values
-// of each, into scales (R, 2).  One block per row.
+// of each (NaN where one is NaN), into scales (R, 2).  One block per row.
 constexpr int SCALE_THREADS = 256;
 __global__ void __launch_bounds__(SCALE_THREADS)
 qk_scale_kernel(const bf16* __restrict__ qkv, float* __restrict__ scales, int N, int C) {
@@ -149,13 +149,13 @@ qk_scale_kernel(const bf16* __restrict__ qkv, float* __restrict__ scales, int N,
     float mq = 0.f, mk = 0.f;
     for (int i = threadIdx.x; i < N * C; i += SCALE_THREADS) {
         const bf16* p = qkv + (row0 + i / C) * ldq + i % C;
-        mq = fmaxf(mq, fabsf(ld(p)));
-        mk = fmaxf(mk, fabsf(ld(p + C)));
+        mq = max_keep_nan(mq, fabsf(ld(p)));
+        mk = max_keep_nan(mk, fabsf(ld(p + C)));
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
-        mq = fmaxf(mq, __shfl_xor_sync(0xffffffffu, mq, o));
-        mk = fmaxf(mk, __shfl_xor_sync(0xffffffffu, mk, o));
+        mq = max_keep_nan(mq, __shfl_xor_sync(0xffffffffu, mq, o));
+        mk = max_keep_nan(mk, __shfl_xor_sync(0xffffffffu, mk, o));
     }
     const int warp = threadIdx.x >> 5;
     if ((threadIdx.x & 31) == 0) {
@@ -165,8 +165,8 @@ qk_scale_kernel(const bf16* __restrict__ qkv, float* __restrict__ scales, int N,
     __syncthreads();
     if (threadIdx.x == 0) {
         for (int w = 1; w < SCALE_THREADS / 32; ++w) {
-            mq = fmaxf(mq, red[0][w]);
-            mk = fmaxf(mk, red[1][w]);
+            mq = max_keep_nan(mq, red[0][w]);
+            mk = max_keep_nan(mk, red[1][w]);
         }
         scales[2 * blockIdx.x] = mq / 127.0f;
         scales[2 * blockIdx.x + 1] = mk / 127.0f;
@@ -316,7 +316,7 @@ __device__ __forceinline__ void exp2_line(float (&s)[2][4], int nvalid, bool saf
 #pragma unroll
         for (int j = 0; j < 2; ++j)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) s[j][e] = fminf(s[j][e], SCORE_CLAMP);
+            for (int e = 0; e < 4; ++e) s[j][e] = clamp_score(s[j][e]);
     }
     float lo = INFINITY;
     if (!safe) {
@@ -352,13 +352,13 @@ __device__ __forceinline__ void exp2_line(float (&s)[2][4], int nvalid, bool saf
 }
 
 template <int D, bool WITH_DEN, bool INT8, int STAGE = STAGE_FULL, int FLAGS = 0,
-          bool EXACT = true>
+          bool EXACT = true, bool FIX = false>
 __global__ void __launch_bounds__(32 * AT_MAX_WARPS, 3)
 attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ kmax,
             bf16* __restrict__ out, float* __restrict__ den_out,
             const float* __restrict__ scales, int* __restrict__ qk_out, int N, int C, int H,
             int ct, int ht, int dt, int nqb, int ak, float* __restrict__ lab,
-            float* __restrict__ sink) {
+            float* __restrict__ sink, const int* __restrict__ fix, int rows) {
     static_assert(STAGE == STAGE_FULL || (!WITH_DEN && !INT8 && FLAGS == 0),
                   "the lab cuts B1's serving form, flags only on the full attention");
     static_assert(D == 4 || D == 8 || D == 16 || D == 32, "head dim");
@@ -378,342 +378,375 @@ attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ kmax,
     const int nw = blockDim.x >> 5;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int g = lane >> 2, q = lane & 3;
-    const int qb = blockIdx.x % nqb;
-    const size_t r = blockIdx.x / nqb;
-    const size_t row0 = r * N;
-    const int qrow = qb * 16 * nw + warp * 16;   // the warp's first query
-    const int ldq = 3 * C;
-    const int nkt = (N + ak - 1) / ak;
-    float sk = 0.f, ss = 0.f, sq = 0.f;
-    if constexpr (INT8) {
-        sq = scales[2 * r];
-        sk = scales[2 * r + 1];
-        ss = sq * sk;
-    }
-    // the checksums of the lab's cut stages: scores summed, p's bf16 bits
-    float chk = 0.f;
-    uint32_t chk_bits = 0u;
-    // B fragment of the ones n-tile (D >= 8): column 0 all ones
-    const uint32_t ones_b = g == 0 ? BF16_ONES : 0u;
-
-    for (int l0 = 0; l0 < C; l0 += AT_LANES) {
-        // q's A fragments for the pass: masked per head (qm) where a k
-        // step spans several heads
-        uint32_t qm[D == 32 ? 2 : HP][4];
+    // MASK_K: a k step spans heads (D <= 8), and a head's score product
+    // takes q's channels of the step's other heads zeroed times their k: a
+    // non-finite k there makes the head's scores NaN (0 x inf) where the
+    // plain version's per-head product is finite.  So with ``fix`` (B1 and
+    // B1-train; the lab passes none: ln_qkv_kernel's list of the rows whose
+    // k holds an inf or NaN, of ``rows`` rows) such a row's blocks do
+    // nothing, and the fix-up launch (FIX: a few blocks walking the list's
+    // fix[0] rows) does them with k's fragments masked to the head too.
+    constexpr bool MASK_K = !INT8 && D < 16;
+    static_assert(!FIX || (MASK_K && STAGE == STAGE_FULL && FLAGS == 0), "the fix-up form");
+    const int items = FIX ? fix[0] * nqb : 1;
+    for (int item = FIX ? (int)blockIdx.x : 0; item < items; item += FIX ? (int)gridDim.x : 1) {
+        const size_t bid = FIX ? (size_t)fix[1 + item / nqb] * nqb + item % nqb : blockIdx.x;
+        const int qb = bid % nqb;
+        const size_t r = bid / nqb;
+        if (MASK_K && !FIX && fix != nullptr && fix[1 + rows + r]) return;
+        const size_t row0 = r * N;
+        const int qrow = qb * 16 * nw + warp * 16;   // the warp's first query
+        const int ldq = 3 * C;
+        const int nkt = (N + ak - 1) / ak;
+        float sk = 0.f, ss = 0.f, sq = 0.f;
         if constexpr (INT8) {
-            uint32_t qi[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const int n = qrow + g + 8 * (i & 1);
-                const int c = l0 + 4 * q + 16 * (i >> 1);
-                int w = 0;
-                if (n < N) {
-                    const bf16* qp = qkv + (row0 + n) * ldq + c;
-                    w = pack4(quant_i8(ld(qp), sq), quant_i8(ld(qp + 1), sq),
-                              quant_i8(ld(qp + 2), sq), quant_i8(ld(qp + 3), sq));
-                    qk_out[((row0 + n) * 2 * C + c) / 4] = w;
-                }
-                qi[i] = (uint32_t)w;
-            }
-#pragma unroll
-            for (int hh = 0; hh < HP; ++hh)
-#pragma unroll
-                for (int i = 0; i < 4; ++i)
-                    qm[hh][i] = (4 * q + 16 * (i >> 1)) / D == hh ? qi[i] : 0u;
-        } else {
-            uint32_t qa[2][4];
-#pragma unroll
-            for (int kg = 0; kg < 2; ++kg)
+            sq = scales[2 * r];
+            sk = scales[2 * r + 1];
+            ss = sq * sk;
+        }
+        // the checksums of the lab's cut stages: scores summed, p's bf16 bits
+        float chk = 0.f;
+        uint32_t chk_bits = 0u;
+        // B fragment of the ones n-tile (D >= 8): column 0 all ones
+        const uint32_t ones_b = g == 0 ? BF16_ONES : 0u;
+
+        for (int l0 = 0; l0 < C; l0 += AT_LANES) {
+            // q's A fragments for the pass: masked per head (qm) where a k
+            // step spans several heads
+            uint32_t qm[D == 32 ? 2 : HP][4];
+            if constexpr (INT8) {
+                uint32_t qi[4];
 #pragma unroll
                 for (int i = 0; i < 4; ++i) {
                     const int n = qrow + g + 8 * (i & 1);
-                    const int c = l0 + 16 * kg + 2 * q + 8 * (i >> 1);
-                    qa[kg][i] = n < N ? *reinterpret_cast<const uint32_t*>(
-                                            qkv + (row0 + n) * ldq + c)
-                                      : 0u;
+                    const int c = l0 + 4 * q + 16 * (i >> 1);
+                    int w = 0;
+                    if (n < N) {
+                        const bf16* qp = qkv + (row0 + n) * ldq + c;
+                        w = pack4(quant_i8(ld(qp), sq), quant_i8(ld(qp + 1), sq),
+                                  quant_i8(ld(qp + 2), sq), quant_i8(ld(qp + 3), sq));
+                        qk_out[((row0 + n) * 2 * C + c) / 4] = w;
+                    }
+                    qi[i] = (uint32_t)w;
                 }
-            if constexpr (D == 32) {
+#pragma unroll
+                for (int hh = 0; hh < HP; ++hh)
+#pragma unroll
+                    for (int i = 0; i < 4; ++i)
+                        qm[hh][i] = (4 * q + 16 * (i >> 1)) / D == hh ? qi[i] : 0u;
+            } else {
+                uint32_t qa[2][4];
 #pragma unroll
                 for (int kg = 0; kg < 2; ++kg)
 #pragma unroll
-                    for (int i = 0; i < 4; ++i) qm[kg][i] = qa[kg][i];
-            } else {
+                    for (int i = 0; i < 4; ++i) {
+                        const int n = qrow + g + 8 * (i & 1);
+                        const int c = l0 + 16 * kg + 2 * q + 8 * (i >> 1);
+                        qa[kg][i] = n < N ? *reinterpret_cast<const uint32_t*>(
+                                                qkv + (row0 + n) * ldq + c)
+                                          : 0u;
+                    }
+                if constexpr (D == 32) {
 #pragma unroll
-                for (int hh = 0; hh < HP; ++hh) {
-                    constexpr int HG = 16 / D;   // heads a k step (one at D = 16)
+                    for (int kg = 0; kg < 2; ++kg)
 #pragma unroll
-                    for (int i = 0; i < 4; ++i)
-                        qm[hh][i] = (2 * q + 8 * (i >> 1)) / D == hh % HG ? qa[hh / HG][i]
-                                                                        : 0u;
+                        for (int i = 0; i < 4; ++i) qm[kg][i] = qa[kg][i];
+                } else {
+#pragma unroll
+                    for (int hh = 0; hh < HP; ++hh) {
+                        constexpr int HG = 16 / D;   // heads a k step (one at D = 16)
+#pragma unroll
+                        for (int i = 0; i < 4; ++i)
+                            qm[hh][i] = (2 * q + 8 * (i >> 1)) / D == hh % HG ? qa[hh / HG][i]
+                                                                            : 0u;
+                    }
                 }
             }
-        }
-        // safe[hh]: no score of head hh in this warp can fall below -126,
-        // by |s| <= |q_h| |k_h| with the warp's largest |q_h| and the row's
-        // largest |k_h| (kmax, from k_norm_kernel; null: no bound, every
-        // chunk's scores are tested), and a margin for the f32
-        // sums (INT8: the int8 q's norm times sq, and |k_h| + sqrt(D) sk / 2
-        // for k's rounding to int8)
-        constexpr bool BOUND = STAGE >= STAGE_EXP2 && (FLAGS & SCORE_BF16) == 0;
-        bool safe[HP];
+            // safe[hh]: no score of head hh in this warp can fall below -126,
+            // by |s| <= |q_h| |k_h| with the warp's largest |q_h| and the row's
+            // largest |k_h| (kmax, from k_norm_kernel; null: no bound, every
+            // chunk's scores are tested), and a margin for the f32
+            // sums (INT8: the int8 q's norm times sq, and |k_h| + sqrt(D) sk / 2
+            // for k's rounding to int8)
+            constexpr bool BOUND = STAGE >= STAGE_EXP2 && (FLAGS & SCORE_BF16) == 0;
+            bool safe[HP];
 #pragma unroll
-        for (int hh = 0; hh < HP; ++hh) {
-            safe[hh] = false;
-            if (BOUND && kmax != nullptr) {
-                float q2[2];     // |q|^2 of rows g, g + 8: this thread's channels
+            for (int hh = 0; hh < HP; ++hh) {
+                safe[hh] = false;
+                if (BOUND && kmax != nullptr) {
+                    float q2[2];     // |q|^2 of rows g, g + 8: this thread's channels
 #pragma unroll
-                for (int hr = 0; hr < 2; ++hr) {
-                    if constexpr (INT8)
-                        q2[hr] = (float)__dp4a((int)qm[hh][hr], (int)qm[hh][hr],
-                                               __dp4a((int)qm[hh][hr + 2], (int)qm[hh][hr + 2], 0));
-                    else if constexpr (D == 32)
-                        q2[hr] = sq_bf16x2(qm[0][hr]) + sq_bf16x2(qm[0][hr + 2])
-                                 + sq_bf16x2(qm[1][hr]) + sq_bf16x2(qm[1][hr + 2]);
-                    else
-                        q2[hr] = sq_bf16x2(qm[hh][hr]) + sq_bf16x2(qm[hh][hr + 2]);
-                    q2[hr] += __shfl_xor_sync(0xffffffffu, q2[hr], 1);
-                    q2[hr] += __shfl_xor_sync(0xffffffffu, q2[hr], 2);
-                }
-                float qn = fmaxf(q2[0], q2[1]);
+                    for (int hr = 0; hr < 2; ++hr) {
+                        if constexpr (INT8)
+                            q2[hr] = (float)__dp4a(
+                                (int)qm[hh][hr], (int)qm[hh][hr],
+                                __dp4a((int)qm[hh][hr + 2], (int)qm[hh][hr + 2], 0));
+                        else if constexpr (D == 32)
+                            q2[hr] = sq_bf16x2(qm[0][hr]) + sq_bf16x2(qm[0][hr + 2])
+                                     + sq_bf16x2(qm[1][hr]) + sq_bf16x2(qm[1][hr + 2]);
+                        else
+                            q2[hr] = sq_bf16x2(qm[hh][hr]) + sq_bf16x2(qm[hh][hr + 2]);
+                        q2[hr] += __shfl_xor_sync(0xffffffffu, q2[hr], 1);
+                        q2[hr] += __shfl_xor_sync(0xffffffffu, q2[hr], 2);
+                    }
+                    float qn = fmaxf(q2[0], q2[1]);
 #pragma unroll
-                for (int o_ = 4; o_ < 32; o_ <<= 1)
-                    qn = fmaxf(qn, __shfl_xor_sync(0xffffffffu, qn, o_));
-                qn = sqrtf(qn);
-                float kn = kmax[r * H + l0 / D + hh];
-                if constexpr (INT8) {
-                    qn *= sq;
-                    kn += 0.5f * sqrtf((float)D) * sk;
-                }
-                safe[hh] = qn * kn <= SAFE_BOUND;
-            }
-        }
-        float o[HP][OT][4];
-#pragma unroll
-        for (int hh = 0; hh < HP; ++hh) zero(o[hh]);
-
-        // a key tile: k (INT8: its int8 words, from qk_out), then v, in
-        // 16-byte chunks
-        auto load = [&](int kt) {
-            const int k0 = kt * ak;
-            bf16* dst = kv + (kt & 1) * ak * AT_LD;
-            constexpr int KCH = INT8 ? 2 : 4;
-            constexpr int CHUNKS = KCH + (STAGE >= STAGE_AV ? 4 : 0);
-            for (int i = threadIdx.x; i < ak * CHUNKS; i += blockDim.x) {
-                const int j = i / CHUNKS, c = i % CHUNKS;
-                const bool valid = k0 + j < N;
-                const size_t tok = row0 + (valid ? k0 + j : 0);
-                if (c >= KCH)
-                    cp_async16(dst + j * AT_LD + AT_LANES + 8 * (c - KCH),
-                               qkv + tok * ldq + 2 * C + l0 + 8 * (c - KCH), valid);
-                else if (INT8)
-                    cp_async16(reinterpret_cast<bf16*>(k8 + ((kt & 1) * ak + j) * AT_LD8 + 16 * c),
-                               reinterpret_cast<const bf16*>(
-                                   reinterpret_cast<const unsigned char*>(qk_out)
-                                   + tok * 2 * C + C + l0 + 16 * c),
-                               valid);
-                else
-                    cp_async16(dst + j * AT_LD + 8 * c, qkv + tok * ldq + C + l0 + 8 * c, valid);
-            }
-        };
-        load(0);
-        cp_async_commit();
-        for (int kt = 0; kt < nkt; ++kt) {
-            const int k0 = kt * ak;
-            if (kt + 1 < nkt) load(kt + 1);
-            cp_async_commit();
-            cp_async_wait<1>();
-            __syncthreads();
-            const bf16* tile = kv + (kt & 1) * ak * AT_LD;
-            for (int kc = 0; kc < ak && k0 + kc < N; kc += 16) {
-                const int nvalid = min(16, N - k0 - kc);
-                uint32_t kf[INT8 ? 1 : 2][4];
-                if constexpr (INT8)
-                    ldsm_b_nmajor(kf[0], reinterpret_cast<const bf16*>(k8 + (kt & 1) * ak * AT_LD8),
-                                  AT_LD8 / 2, 0, kc);
-                else {
-                    ldsm_b_nmajor(kf[0], tile, AT_LD, 0, kc);
-                    ldsm_b_nmajor(kf[1], tile, AT_LD, 16, kc);
-                }
-                uint32_t vf[4][2];
-                if constexpr (STAGE >= STAGE_AV) {
-                    uint32_t b[4];
-                    ldsm_b_kmajor(b, tile + AT_LANES, AT_LD, kc, 0);
-                    vf[0][0] = b[0]; vf[0][1] = b[1]; vf[1][0] = b[2]; vf[1][1] = b[3];
-                    ldsm_b_kmajor(b, tile + AT_LANES, AT_LD, kc, 16);
-                    vf[2][0] = b[0]; vf[2][1] = b[1]; vf[3][0] = b[2]; vf[3][1] = b[3];
-                }
-#pragma unroll
-                for (int hh = 0; hh < HP; ++hh) {
-                    float s[2][4];
+                    for (int o_ = 4; o_ < 32; o_ <<= 1)
+                        qn = fmaxf(qn, __shfl_xor_sync(0xffffffffu, qn, o_));
+                    qn = sqrtf(qn);
+                    float kn = kmax[r * H + l0 / D + hh];
                     if constexpr (INT8) {
-                        int si[2][4] = {};
-                        mma_s8(si[0], qm[hh], kf[0][0], kf[0][1]);
-                        mma_s8(si[1], qm[hh], kf[0][2], kf[0][3]);
+                        qn *= sq;
+                        kn += 0.5f * sqrtf((float)D) * sk;
+                    }
+                    safe[hh] = qn * kn <= SAFE_BOUND;
+                }
+            }
+            float o[HP][OT][4];
 #pragma unroll
-                        for (int j = 0; j < 2; ++j)
+            for (int hh = 0; hh < HP; ++hh) zero(o[hh]);
+
+            // a key tile: k (INT8: its int8 words, from qk_out), then v, in
+            // 16-byte chunks
+            auto load = [&](int kt) {
+                constexpr int KCH = INT8 ? 2 : 4;
+                constexpr int CHUNKS = KCH + (STAGE >= STAGE_AV ? 4 : 0);
+                const int k0 = kt * ak;
+                bf16* dst = kv + (kt & 1) * ak * AT_LD;
+                for (int i = threadIdx.x; i < ak * CHUNKS; i += blockDim.x) {
+                    const int j = i / CHUNKS, c = i % CHUNKS;
+                    const bool valid = k0 + j < N;
+                    const size_t tok = row0 + (valid ? k0 + j : 0);
+                    if (c >= KCH)
+                        cp_async16(dst + j * AT_LD + AT_LANES + 8 * (c - KCH),
+                                   qkv + tok * ldq + 2 * C + l0 + 8 * (c - KCH), valid);
+                    else if (INT8)
+                        cp_async16(reinterpret_cast<bf16*>(k8 + ((kt & 1) * ak + j) * AT_LD8
+                                                           + 16 * c),
+                                   reinterpret_cast<const bf16*>(
+                                       reinterpret_cast<const unsigned char*>(qk_out)
+                                       + tok * 2 * C + C + l0 + 16 * c),
+                                   valid);
+                    else
+                        cp_async16(dst + j * AT_LD + 8 * c, qkv + tok * ldq + C + l0 + 8 * c,
+                                   valid);
+                }
+            };
+            load(0);
+            cp_async_commit();
+            for (int kt = 0; kt < nkt; ++kt) {
+                const int k0 = kt * ak;
+                if (kt + 1 < nkt) load(kt + 1);
+                cp_async_commit();
+                cp_async_wait<1>();
+                const bf16* tile = kv + (kt & 1) * ak * AT_LD;
+                __syncthreads();
+                for (int kc = 0; kc < ak && k0 + kc < N; kc += 16) {
+                    const int nvalid = min(16, N - k0 - kc);
+                    uint32_t kf[INT8 ? 1 : 2][4];
+                    if constexpr (INT8)
+                        ldsm_b_nmajor(kf[0],
+                                      reinterpret_cast<const bf16*>(k8 + (kt & 1) * ak * AT_LD8),
+                                      AT_LD8 / 2, 0, kc);
+                    else {
+                        ldsm_b_nmajor(kf[0], tile, AT_LD, 0, kc);
+                        ldsm_b_nmajor(kf[1], tile, AT_LD, 16, kc);
+                    }
+                    uint32_t vf[4][2];
+                    if constexpr (STAGE >= STAGE_AV) {
+                        uint32_t b[4];
+                        ldsm_b_kmajor(b, tile + AT_LANES, AT_LD, kc, 0);
+                        vf[0][0] = b[0]; vf[0][1] = b[1]; vf[1][0] = b[2]; vf[1][1] = b[3];
+                        ldsm_b_kmajor(b, tile + AT_LANES, AT_LD, kc, 16);
+                        vf[2][0] = b[0]; vf[2][1] = b[1]; vf[3][0] = b[2]; vf[3][1] = b[3];
+                    }
 #pragma unroll
-                            for (int e = 0; e < 4; ++e) s[j][e] = (float)si[j][e] * ss;
-                    } else {
-                        zero(s);
-                        if constexpr (D == 32) {
+                    for (int hh = 0; hh < HP; ++hh) {
+                        float s[2][4];
+                        if constexpr (INT8) {
+                            int si[2][4] = {};
+                            mma_s8(si[0], qm[hh], kf[0][0], kf[0][1]);
+                            mma_s8(si[1], qm[hh], kf[0][2], kf[0][3]);
 #pragma unroll
-                            for (int kg = 0; kg < 2; ++kg) {
-                                mma_bf16(s[0], qm[kg], kf[kg][0], kf[kg][1]);
-                                mma_bf16(s[1], qm[kg], kf[kg][2], kf[kg][3]);
-                            }
+                            for (int j = 0; j < 2; ++j)
+#pragma unroll
+                                for (int e = 0; e < 4; ++e) s[j][e] = (float)si[j][e] * ss;
                         } else {
-                            constexpr int HG = 16 / D;
-                            mma_bf16(s[0], qm[hh], kf[hh / HG][0], kf[hh / HG][1]);
-                            mma_bf16(s[1], qm[hh], kf[hh / HG][2], kf[hh / HG][3]);
+                            zero(s);
+                            if constexpr (D == 32) {
+#pragma unroll
+                                for (int kg = 0; kg < 2; ++kg) {
+                                    mma_bf16(s[0], qm[kg], kf[kg][0], kf[kg][1]);
+                                    mma_bf16(s[1], qm[kg], kf[kg][2], kf[kg][3]);
+                                }
+                            } else {
+                                constexpr int HG = 16 / D;
+                                uint32_t kb[4] = {kf[hh / HG][0], kf[hh / HG][1], kf[hh / HG][2],
+                                                  kf[hh / HG][3]};
+                                if constexpr (FIX) {
+                                    // k's B fragments masked to the head as q's A
+                                    // fragments are: registers 0, 2 hold channels
+                                    // 2q, 2q + 1 of the step, 1, 3 2q + 8, 2q + 9
+                                    const bool m0 = (2 * q) / D == hh % HG;
+                                    const bool m1 = (2 * q + 8) / D == hh % HG;
+                                    kb[0] = m0 ? kb[0] : 0u;
+                                    kb[2] = m0 ? kb[2] : 0u;
+                                    kb[1] = m1 ? kb[1] : 0u;
+                                    kb[3] = m1 ? kb[3] : 0u;
+                                }
+                                mma_bf16(s[0], qm[hh], kb[0], kb[1]);
+                                mma_bf16(s[1], qm[hh], kb[2], kb[3]);
+                            }
                         }
-                    }
-                    if constexpr (STAGE == STAGE_SCORES) {
+                        if constexpr (STAGE == STAGE_SCORES) {
 #pragma unroll
-                        for (int j = 0; j < 2; ++j)
+                            for (int j = 0; j < 2; ++j)
 #pragma unroll
-                            for (int e = 0; e < 4; ++e) chk += s[j][e];
-                        continue;
-                    }
-                    exp2_line<FLAGS>(s, nvalid, safe[hh]);
-                    uint32_t pf[4];
-                    pack_a(pf, s[0], s[1]);
-                    if constexpr (STAGE == STAGE_EXP2) {
-                        // p's bf16 pairs, as P V would take them, kept in
-                        // a checksum; p of the queries n < D written out
-                        chk_bits ^= pf[0] ^ pf[1] ^ pf[2] ^ pf[3];
-                        const int h = l0 / D + hh;
-                        if (qrow < Dt && h < Ht) {
+                                for (int e = 0; e < 4; ++e) chk += s[j][e];
+                            continue;
+                        }
+                        exp2_line<FLAGS>(s, nvalid, safe[hh]);
+                        uint32_t pf[4];
+                        pack_a(pf, s[0], s[1]);
+                        if constexpr (STAGE == STAGE_EXP2) {
+                            // p's bf16 pairs, as P V would take them, kept in
+                            // a checksum; p of the queries n < D written out
+                            chk_bits ^= pf[0] ^ pf[1] ^ pf[2] ^ pf[3];
+                            const int h = l0 / D + hh;
+                            if (qrow < Dt && h < Ht) {
+#pragma unroll
+                                for (int j = 0; j < 2; ++j)
+#pragma unroll
+                                    for (int e = 0; e < 4; ++e) {
+                                        const int n = qrow + g + 8 * (e >> 1);
+                                        const int key = k0 + kc + 8 * j + 2 * q + (e & 1);
+                                        if (n < Dt && key < N)
+                                            out[(row0 + key) * Ct + h * Dt + n] =
+                                                __float2bfloat16(s[j][e]);
+                                    }
+                            }
+                            continue;
+                        }
+                        uint32_t pl[4];
+                        if constexpr (SPLIT) {
+                            float lo[2][4];
 #pragma unroll
                             for (int j = 0; j < 2; ++j)
 #pragma unroll
                                 for (int e = 0; e < 4; ++e) {
-                                    const int n = qrow + g + 8 * (e >> 1);
-                                    const int key = k0 + kc + 8 * j + 2 * q + (e & 1);
-                                    if (n < Dt && key < N)
-                                        out[(row0 + key) * Ct + h * Dt + n] =
-                                            __float2bfloat16(s[j][e]);
+                                    const float hi = round_bf16(s[j][e]);
+                                    lo[j][e] = fabsf(hi) < INFINITY ? s[j][e] - hi : 0.f;
                                 }
+                            pack_a(pl, lo[0], lo[1]);
                         }
-                        continue;
-                    }
-                    uint32_t pl[4];
-                    if constexpr (SPLIT) {
-                        float lo[2][4];
+                        // P V (and the ones column) for head hh
+                        if constexpr (D == 4) {
+                            const bool own = (g >> 2) == (hh & 1);
+                            const uint32_t fill = g == 4 * (1 - (hh & 1)) ? BF16_ONES : 0u;
+                            const uint32_t b0 = own ? vf[hh >> 1][0] : fill;
+                            const uint32_t b1 = own ? vf[hh >> 1][1] : fill;
+                            mma_bf16(o[hh][0], pf, b0, b1);
+                            if constexpr (SPLIT) mma_bf16(o[hh][0], pl, b0, b1);
+                        } else {
 #pragma unroll
-                        for (int j = 0; j < 2; ++j)
-#pragma unroll
-                            for (int e = 0; e < 4; ++e) {
-                                const float hi = round_bf16(s[j][e]);
-                                lo[j][e] = fabsf(hi) < INFINITY ? s[j][e] - hi : 0.f;
+                            for (int t = 0; t < VT; ++t) {
+                                mma_bf16(o[hh][t], pf, vf[hh * VT + t][0], vf[hh * VT + t][1]);
+                                if constexpr (SPLIT)
+                                    mma_bf16(o[hh][t], pl, vf[hh * VT + t][0], vf[hh * VT + t][1]);
                             }
-                        pack_a(pl, lo[0], lo[1]);
-                    }
-                    // P V (and the ones column) for head hh
-                    if constexpr (D == 4) {
-                        const bool own = (g >> 2) == (hh & 1);
-                        const uint32_t fill = g == 4 * (1 - (hh & 1)) ? BF16_ONES : 0u;
-                        const uint32_t b0 = own ? vf[hh >> 1][0] : fill;
-                        const uint32_t b1 = own ? vf[hh >> 1][1] : fill;
-                        mma_bf16(o[hh][0], pf, b0, b1);
-                        if constexpr (SPLIT) mma_bf16(o[hh][0], pl, b0, b1);
-                    } else {
-#pragma unroll
-                        for (int t = 0; t < VT; ++t) {
-                            mma_bf16(o[hh][t], pf, vf[hh * VT + t][0], vf[hh * VT + t][1]);
-                            if constexpr (SPLIT)
-                                mma_bf16(o[hh][t], pl, vf[hh * VT + t][0], vf[hh * VT + t][1]);
+                            mma_bf16(o[hh][VT], pf, ones_b, ones_b);
+                            if constexpr (SPLIT) mma_bf16(o[hh][VT], pl, ones_b, ones_b);
                         }
-                        mma_bf16(o[hh][VT], pf, ones_b, ones_b);
-                        if constexpr (SPLIT) mma_bf16(o[hh][VT], pl, ones_b, ones_b);
                     }
                 }
+                __syncthreads();      // the buffers are free before they are refilled
             }
-            __syncthreads();      // the buffers are free before they are refilled
-        }
-        if constexpr (STAGE == STAGE_SCORES || STAGE == STAGE_EXP2) continue;
+            if constexpr (STAGE == STAGE_SCORES || STAGE == STAGE_EXP2) continue;
 
-        // acc = (sum p v) / (sum p) per head: the denominator is column
-        // 4 (1 - hh % 2) of the head's n-tile (D = 4) or column 0 of its ones
-        // n-tile, held by thread q = dq of each quad (rows g, g + 8)
+            // acc = (sum p v) / (sum p) per head: the denominator is column
+            // 4 (1 - hh % 2) of the head's n-tile (D = 4) or column 0 of its ones
+            // n-tile, held by thread q = dq of each quad (rows g, g + 8)
 #pragma unroll
-        for (int hh = 0; hh < HP; ++hh) {
-            const int h = l0 / D + hh;
-            const int dq = D == 4 ? 2 * (1 - (hh & 1)) : 0;
-            const int dt = D == 4 ? 0 : VT;
-            float den[2];
+            for (int hh = 0; hh < HP; ++hh) {
+                const int h = l0 / D + hh;
+                const int dq = D == 4 ? 2 * (1 - (hh & 1)) : 0;
+                const int dt = D == 4 ? 0 : VT;
+                float den[2];
 #pragma unroll
-            for (int hr = 0; hr < 2; ++hr)
-                den[hr] = __shfl_sync(0xffffffffu, o[hh][dt][2 * hr], (lane & ~3) | dq);
-            float part[VT][2] = {};      // STAGE_AV: the two rows' sum
+                for (int hr = 0; hr < 2; ++hr)
+                    den[hr] = __shfl_sync(0xffffffffu, o[hh][dt][2 * hr], (lane & ~3) | dq);
+                float part[VT][2] = {};      // STAGE_AV: the two rows' sum
 #pragma unroll
-            for (int t = 0; t < VT; ++t) {
-                // this thread's columns d, d + 1 of the head (D = 4: only the
-                // head's own half of the n-tile)
-                const int d = D == 4 ? 2 * q - 4 * (hh & 1) : 8 * t + 2 * q;
-                if (D == 4 && (q >> 1) != (hh & 1)) continue;
-#pragma unroll
-                for (int hr = 0; hr < 2; ++hr) {
-                    const int n = qrow + g + 8 * hr;
-                    const float a0 = o[hh][t][2 * hr] / den[hr];
-                    const float a1 = o[hh][t][2 * hr + 1] / den[hr];
-                    if constexpr (STAGE == STAGE_AV) {
-                        if (n < N) {
-                            part[t][0] += a0;
-                            part[t][1] += a1;
-                        }
-                    } else if (n < N && h < Ht) {
-                        store_head_pair(out + (row0 + n) * Ct + h * Dt + d, a0, a1, Dt - d, even);
-                    }
-                }
-            }
-            if constexpr (WITH_DEN) {
-                if (q == dq && h < Ht) {
+                for (int t = 0; t < VT; ++t) {
+                    // this thread's columns d, d + 1 of the head (D = 4: only the
+                    // head's own half of the n-tile)
+                    const int d = D == 4 ? 2 * q - 4 * (hh & 1) : 8 * t + 2 * q;
+                    if (D == 4 && (q >> 1) != (hh & 1)) continue;
 #pragma unroll
                     for (int hr = 0; hr < 2; ++hr) {
                         const int n = qrow + g + 8 * hr;
-                        if (n < N) den_out[(r * Ht + h) * N + n] = den[hr];
+                        const float a0 = o[hh][t][2 * hr] / den[hr];
+                        const float a1 = o[hh][t][2 * hr + 1] / den[hr];
+                        if constexpr (STAGE == STAGE_AV) {
+                            if (n < N) {
+                                part[t][0] += a0;
+                                part[t][1] += a1;
+                            }
+                        } else if (n < N && h < Ht) {
+                            store_head_pair(out + (row0 + n) * Ct + h * Dt + d, a0, a1, Dt - d,
+                                            even);
+                        }
+                    }
+                }
+                if constexpr (WITH_DEN) {
+                    if (q == dq && h < Ht) {
+#pragma unroll
+                        for (int hr = 0; hr < 2; ++hr) {
+                            const int n = qrow + g + 8 * hr;
+                            if (n < N) den_out[(r * Ht + h) * N + n] = den[hr];
+                        }
+                    }
+                }
+                if constexpr (STAGE == STAGE_AV) {
+                    // the warp's 16 queries summed (over g), then the block's
+                    // warps in order below
+#pragma unroll
+                    for (int t = 0; t < VT; ++t)
+#pragma unroll
+                        for (int i = 0; i < 2; ++i)
+#pragma unroll
+                            for (int o_ = 4; o_ < 32; o_ <<= 1)
+                                part[t][i] += __shfl_xor_sync(0xffffffffu, part[t][i], o_);
+                    if (g == 0) {
+#pragma unroll
+                        for (int t = 0; t < VT; ++t) {
+                            const int d = D == 4 ? 2 * q - 4 * (hh & 1) : 8 * t + 2 * q;
+                            if (D == 4 && (q >> 1) != (hh & 1)) continue;
+                            red[warp * AT_LANES + hh * D + d] = part[t][0];
+                            red[warp * AT_LANES + hh * D + d + 1] = part[t][1];
+                        }
                     }
                 }
             }
             if constexpr (STAGE == STAGE_AV) {
-                // the warp's 16 queries summed (over g), then the block's
-                // warps in order below
-#pragma unroll
-                for (int t = 0; t < VT; ++t)
-#pragma unroll
-                    for (int i = 0; i < 2; ++i)
-#pragma unroll
-                        for (int o_ = 4; o_ < 32; o_ <<= 1)
-                            part[t][i] += __shfl_xor_sync(0xffffffffu, part[t][i], o_);
-                if (g == 0) {
-#pragma unroll
-                    for (int t = 0; t < VT; ++t) {
-                        const int d = D == 4 ? 2 * q - 4 * (hh & 1) : 8 * t + 2 * q;
-                        if (D == 4 && (q >> 1) != (hh & 1)) continue;
-                        red[warp * AT_LANES + hh * D + d] = part[t][0];
-                        red[warp * AT_LANES + hh * D + d + 1] = part[t][1];
-                    }
+                __syncthreads();
+                if (threadIdx.x < AT_LANES) {
+                    float sum = 0.f;
+                    for (int w = 0; w < nw; ++w) sum += red[w * AT_LANES + threadIdx.x];
+                    const int c = l0 + threadIdx.x, h = c / D;
+                    if (h < Ht && c % D < Dt) lab[((r * Ht + h) * nqb + qb) * Dt + c % D] = sum;
                 }
+                __syncthreads();
             }
         }
-        if constexpr (STAGE == STAGE_AV) {
-            __syncthreads();
-            if (threadIdx.x < AT_LANES) {
-                float sum = 0.f;
-                for (int w = 0; w < nw; ++w) sum += red[w * AT_LANES + threadIdx.x];
-                const int c = l0 + threadIdx.x, h = c / D;
-                if (h < Ht && c % D < Dt) lab[((r * Ht + h) * nqb + qb) * Dt + c % D] = sum;
-            }
-            __syncthreads();
-        }
-    }
-    if constexpr (STAGE == STAGE_SCORES) {
-        chk = warp_sum(chk);
-        if (lane == 0) sink[(size_t)blockIdx.x * nw + warp] = chk;
-    } else if constexpr (STAGE == STAGE_EXP2) {
+        if constexpr (STAGE == STAGE_SCORES) {
+            chk = warp_sum(chk);
+            if (lane == 0) sink[(size_t)bid * nw + warp] = chk;
+        } else if constexpr (STAGE == STAGE_EXP2) {
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1) chk_bits ^= __shfl_xor_sync(0xffffffffu, chk_bits, o);
-        if (lane == 0) sink[(size_t)blockIdx.x * nw + warp] = __uint_as_float(chk_bits);
+            for (int o = 16; o > 0; o >>= 1) chk_bits ^= __shfl_xor_sync(0xffffffffu, chk_bits, o);
+            if (lane == 0) sink[(size_t)bid * nw + warp] = __uint_as_float(chk_bits);
+        }
     }
 }
 
@@ -1227,28 +1260,35 @@ AttnGrid attn_grid(int R, int N) {
 // the form takes the exp2 bound (kmax: R * HK floats of scratch) and the
 // rows are longer than one 64-key tile (shorter rows test their scores:
 // the launch and the load would cost more than the test).  p: the widths
-// (head_plan of the block's C, H).
+// (head_plan of the block's C, H).  fix (ln_qkv_kernel's list of the rows
+// whose k holds an inf or NaN, or null; only at DP <= 8 in the full form):
+// the fix-up launch after the attention does those rows (attn_kernel's
+// MASK_K).
+constexpr unsigned FIX_BLOCKS = 264;    // the fix-up launch's blocks: 2 an SM
 template <int DP, bool WITH_DEN, bool INT8, int STAGE = STAGE_FULL, int FLAGS = 0>
 cudaError_t launch_attn_form(const bf16* qkv, float* kmax, bf16* out, float* den,
-                             const float* scales, int* qk_out, float* lab, float* sink, int R,
-                             int N, int C, int H, const HeadPlan& p, cudaStream_t stream) {
+                             const float* scales, int* qk_out, float* lab, float* sink,
+                             int* fix, int R, int N, int C, int H, const HeadPlan& p,
+                             cudaStream_t stream) {
     const AttnGrid g = attn_grid(R, N);
     if (g.blocks > 0x7fffffffULL || p.HK > MAX_NORM_HEADS) return cudaErrorInvalidConfiguration;
     cudaError_t err;
+    constexpr bool FIXES = DP <= 8 && !INT8 && STAGE == STAGE_FULL && FLAGS == 0;
+    if (!FIXES) fix = nullptr;
     const bool bound = STAGE >= STAGE_EXP2 && (FLAGS & SCORE_BF16) == 0 && N > 64;
     if (bound || INT8) {
         k_norm_kernel<INT8><<<(unsigned)R, NORM_THREADS, 0, stream>>>(qkv, kmax, scales, qk_out,
                                                                       N, p.CA, p.HK);
         if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
-    auto go = [&](auto kernel, size_t smem, int keys) {
+    auto go = [&](auto kernel, size_t smem, int keys, unsigned blocks = 0) {
         cudaError_t e =
             cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return e;
         if constexpr (DP <= 32)
-            kernel<<<(unsigned)g.blocks, g.threads, smem, stream>>>(
+            kernel<<<blocks ? blocks : (unsigned)g.blocks, g.threads, smem, stream>>>(
                 qkv, bound ? kmax : nullptr, out, den, scales, qk_out, N, p.CA, p.HK, C, H, p.D,
-                g.nqb, keys, lab, sink);
+                g.nqb, keys, lab, sink, fix, R);
         else
             kernel<<<(unsigned)g.blocks, g.threads, smem, stream>>>(
                 qkv, bound ? kmax : nullptr, out, den, scales, qk_out, N, p.CA, p.HK, C, H, p.D,
@@ -1260,13 +1300,24 @@ cudaError_t launch_attn_form(const bf16* qkv, float* kmax, bf16* out, float* den
         // the lab's full form (B1's own instantiation); the lab's cuts and
         // flag forms take the general one at every width (a build of a
         // third fewer attention instantiations)
+        const unsigned fix_blocks = (unsigned)std::min<size_t>(g.blocks, FIX_BLOCKS);
         if constexpr (STAGE == STAGE_FULL && FLAGS == 0) {
-            if (p.CA == C && p.DP == p.D)
-                return go(attn_kernel<DP, WITH_DEN, INT8, STAGE, FLAGS, true>,
-                          attn_smem_bytes(g.keys), g.keys);
+            if (p.CA == C && p.DP == p.D) {
+                err = go(attn_kernel<DP, WITH_DEN, INT8, STAGE, FLAGS, true>,
+                         attn_smem_bytes(g.keys), g.keys);
+                if (err != cudaSuccess || !fix) return err;
+                if constexpr (FIXES)
+                    return go(attn_kernel<DP, WITH_DEN, INT8, STAGE, FLAGS, true, true>,
+                              attn_smem_bytes(g.keys), g.keys, fix_blocks);
+            }
         }
-        return go(attn_kernel<DP, WITH_DEN, INT8, STAGE, FLAGS, false>, attn_smem_bytes(g.keys),
-                  g.keys);
+        err = go(attn_kernel<DP, WITH_DEN, INT8, STAGE, FLAGS, false>, attn_smem_bytes(g.keys),
+                 g.keys);
+        if (err != cudaSuccess || !fix) return err;
+        if constexpr (FIXES)
+            return go(attn_kernel<DP, WITH_DEN, INT8, STAGE, FLAGS, false, true>,
+                      attn_smem_bytes(g.keys), g.keys, fix_blocks);
+        return err;
     } else
         return go(attn_wide_kernel<DP, WITH_DEN, INT8, STAGE, FLAGS>,
                   wide_smem_bytes<DP, INT8>(), 0);
@@ -1274,16 +1325,17 @@ cudaError_t launch_attn_form(const bf16* qkv, float* kmax, bf16* out, float* den
 
 template <int DP>
 cudaError_t launch_attn(const bf16* qkv, float* kmax, bf16* attn, float* den,
-                        const float* scales, int* qk_out, int R, int N, int C, int H,
+                        const float* scales, int* qk_out, int* fix, int R, int N, int C, int H,
                         const HeadPlan& p, cudaStream_t stream) {
     if (scales)
         return launch_attn_form<DP, false, true>(qkv, kmax, attn, nullptr, scales, qk_out,
-                                                 nullptr, nullptr, R, N, C, H, p, stream);
+                                                 nullptr, nullptr, nullptr, R, N, C, H, p,
+                                                 stream);
     if (den)
         return launch_attn_form<DP, true, false>(qkv, kmax, attn, den, nullptr, nullptr,
-                                                 nullptr, nullptr, R, N, C, H, p, stream);
+                                                 nullptr, nullptr, fix, R, N, C, H, p, stream);
     return launch_attn_form<DP, false, false>(qkv, kmax, attn, nullptr, nullptr, nullptr,
-                                              nullptr, nullptr, R, N, C, H, p, stream);
+                                              nullptr, nullptr, fix, R, N, C, H, p, stream);
 }
 
 // CALL(DPV) at the plan's padded head dim dp, its result into err
@@ -1347,9 +1399,18 @@ cudaError_t forward(const void* x, const void* ln1_s, const void* ln1_b, const v
                     int hidden, cudaStream_t stream) {
     const int M = R * N;
     const HeadPlan p = head_plan(C, H);
-    cudaError_t err = launch_ln_qkv<false>((const bf16*)x, (const bf16*)ln1_s,
-                                           (const bf16*)ln1_b, (const bf16*)w_qkv,
-                                           (bf16*)qkv_buf, nullptr, M, C, p.CA, stream);
+    // kmax_buf: R * HK floats of k_norm_kernel's bound, then 2 R + 1 ints of
+    // the attention's fix-up list (at a head of at most 8 channels, not B3)
+    int* fix = p.DP <= 8 && !scales
+                   ? reinterpret_cast<int*>((float*)kmax_buf + (size_t)R * p.HK)
+                   : nullptr;
+    cudaError_t err;
+    if (fix && (err = cudaMemsetAsync(fix, 0, sizeof(int) * (2 * (size_t)R + 1), stream))
+                   != cudaSuccess)
+        return err;
+    err = launch_ln_qkv<false>((const bf16*)x, (const bf16*)ln1_s, (const bf16*)ln1_b,
+                               (const bf16*)w_qkv, (bf16*)qkv_buf, nullptr, M, C, p.CA, stream,
+                               fix, N);
     if (err != cudaSuccess) return err;
 
     const bf16* qkv = (const bf16*)qkv_buf;
@@ -1360,7 +1421,7 @@ cudaError_t forward(const void* x, const void* ln1_s, const void* ln1_b, const v
     bf16* attn = (bf16*)attn_buf;
 #define ATTN_AT(DPV)                                                                      \
     launch_attn<DPV>(qkv, (float*)kmax_buf, attn, (float*)den, (const float*)scales,      \
-                     (int*)qk_out, R, N, C, H, p, stream)
+                     (int*)qk_out, fix, R, N, C, H, p, stream)
     AT_HEAD_DIM(p.DP, ATTN_AT)
 #undef ATTN_AT
     if (err != cudaSuccess) return err;
@@ -1471,7 +1532,8 @@ cudaError_t lab_attn(int stage, int flags, const bf16* qkv, float* kmax, bf16* o
                      cudaStream_t stream) {
 #define LAB_FORM(S, F)                                                                     \
     return launch_attn_form<DP, false, false, S, F>(qkv, kmax, out, nullptr, nullptr,      \
-                                                    nullptr, lab, sink, R, N, C, H, p, stream);
+                                                    nullptr, lab, sink, nullptr, R, N, C, H,  \
+                                                    p, stream);
     switch (stage) {
         case STAGE_SCORES: LAB_FORM(STAGE_SCORES, 0)
         case STAGE_EXP2: LAB_FORM(STAGE_EXP2, 0)
@@ -1562,7 +1624,9 @@ cudaError_t lab_forward(const void* x, const void* ln1_s, const void* ln1_b,
 // B1, B1-train and B3 at width C (a multiple of 8 up to 512) and H heads
 // (dividing C); W_qkv (C, 3 CA) bf16 with the heads padded (head_plan).
 // qkv_buf (R*N, 3 CA) bf16 receives q|k|v in the padded layout, kmax_buf
-// (R, HK) f32 the rows' largest |k_h| (scratch of the attention's bound).
+// R * HK + 2 R + 1 floats of scratch: (R, HK) f32 the rows' largest |k_h|
+// (the attention's bound), then the fix-up list of the rows whose k holds
+// an inf or NaN (2 R + 1 ints, ln_qkv_kernel's fix).
 // Serving form (B1): mid, den, scales and qk_out null.  Training form
 // (B1-train): mid (R, N, C) bf16 and den (R, H, N) f32 both given.  Int8
 // scores (B3, serving only): scales (R, 2) f32 receives the per-row scales

@@ -589,7 +589,10 @@ __device__ __forceinline__ void head_frags(uint32_t (&am)[BwdPass<D>::HP][BwdPas
 // in order from 0 (the sum that an f32 matrix product's inner loop, and
 // the plain version on the card, forms; the tensor cores sum in another
 // order and round otherwise, so a score within an ulp of the clamp could
-// land on the other side).  s: the warp's 16 x 16 scores (rows n0 + g, +
+// land on the other side); and NaN scores: at D = 4 a head's product
+// takes the other head's channels of A zeroed times B, which a non-finite
+// B there turns into NaN (0 x inf) where the head's own product is
+// finite.  s: the warp's 16 x 16 scores (rows n0 + g, +
 // 8 of its own side, columns 8 j + 2 q + (e & 1) of the chunk); own: the
 // own side's token 0 of the row at the head's first channel (row stride
 // lda); other: the chunk's first row of the staged tile at the head's first
@@ -605,7 +608,7 @@ __device__ __forceinline__ void clamp_band(float (&s)[2][4], const bf16* own, in
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
             const int n = n0 + g + 8 * (e >> 1);
-            if (fabsf(s[j][e] - SCORE_CLAMP) < CLAMP_BAND && n < N) {
+            if (!(fabsf(s[j][e] - SCORE_CLAMP) >= CLAMP_BAND) && n < N) {   // or NaN
                 const bf16* a = own + (size_t)n * lda;
                 const bf16* b = other + (8 * j + 2 * q + (e & 1)) * ldt;
                 float x = 0.f;
@@ -656,16 +659,32 @@ __device__ __forceinline__ void head_product(float (&acc)[2][4],
 // acc[t] += a B[:, n-tile t] for the n-tiles of head hh's channels, B the
 // other side's k-major fragments of the pass (b[u]: n-tiles 2u, 2u + 1).
 // At D = 4 a n-tile holds heads 2m, 2m + 1: thread column g belongs to head
-// 2m + g / 4, and the other head's columns of B are zeroed.
+// 2m + g / 4, and the other head's columns of B are zeroed.  ``apart`` (a
+// pass whose q or k holds a non-finite value, where a's p or d_s can be
+// NaN): the product goes to a fresh accumulator and only the head's own
+// columns take it, since a NaN in a times the other head's zeroed columns
+// would make theirs NaN.
 template <int D>
 __device__ __forceinline__ void head_acc(float (&acc)[BwdPass<D>::NTP][4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[BwdPass<D>::NTP / 2][4], int hh) {
+                                         const uint32_t (&b)[BwdPass<D>::NTP / 2][4], int hh,
+                                         bool apart = false) {
     if constexpr (D == 4) {
-        const int g = (threadIdx.x & 31) >> 2;
+        const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
         const int t = hh >> 1;
         const bool own = (g >> 2) == (hh & 1);
-        mma_bf16(acc[t], a, own ? b[t >> 1][2 * (t & 1)] : 0u,
-                 own ? b[t >> 1][2 * (t & 1) + 1] : 0u);
+        const uint32_t b0 = own ? b[t >> 1][2 * (t & 1)] : 0u;
+        const uint32_t b1 = own ? b[t >> 1][2 * (t & 1) + 1] : 0u;
+        if (apart) {
+            const float zero4[4] = {};
+            float d[4];
+            mma_bf16_to(d, a, b0, b1, zero4);
+            if ((q >> 1) == (hh & 1)) {          // this thread's columns 2q, 2q + 1
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[t][e] += d[e];
+            }
+        } else {
+            mma_bf16(acc[t], a, b0, b1);
+        }
     } else {
 #pragma unroll
         for (int u = 0; u < D / 8; ++u) {
@@ -684,7 +703,7 @@ __device__ __forceinline__ void bwd_line(float (&s)[2][4], const float (&dp)[2][
     for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-            const float p = ex2_ftz(fminf(s[j][e], SCORE_CLAMP));
+            const float p = ex2_ftz(clamp_score(s[j][e]));
             ds[j][e] = s[j][e] < SCORE_CLAMP ? dp[j][e] * p * LN2F : 0.f;
             s[j][e] = p;
         }
@@ -706,7 +725,8 @@ __device__ __forceinline__ void bwd_line_low(float (&s)[2][4], const float (&dp)
 
 // The bound that picks the short line for a whole pass: per row and head,
 // max|q_h| max|k_h| over the row's N tokens into bound (R, H) f32 (by
-// Cauchy-Schwarz no score of the head exceeds it).  C, H: the padded
+// Cauchy-Schwarz no score of the head exceeds it; NaN where a q or k of
+// the head is NaN, so that the pass takes the full line).  C, H: the padded
 // layout (CA, HK).  One block per row; where H divides NORM_THREADS each
 // thread keeps one head, else (H up to MAX_NORM_HEADS) the threads walk
 // (token, head) pairs and the heads' maxima meet in shared memory
@@ -738,16 +758,16 @@ attn_bwd_norm_kernel(const bf16* __restrict__ qkv, float* __restrict__ bound, in
         for (int j = threadIdx.x / H; j < N; j += step) {
             float q2, k2;
             norms(j, h, q2, k2);
-            mq = fmaxf(mq, q2);
-            mk = fmaxf(mk, k2);
+            mq = max_keep_nan(mq, q2);
+            mk = max_keep_nan(mk, k2);
         }
         red[0][threadIdx.x] = mq;
         red[1][threadIdx.x] = mk;
         __syncthreads();
         if (threadIdx.x < H) {
             for (int t = threadIdx.x + H; t < NORM_THREADS; t += H) {
-                mq = fmaxf(mq, red[0][t]);
-                mk = fmaxf(mk, red[1][t]);
+                mq = max_keep_nan(mq, red[0][t]);
+                mk = max_keep_nan(mk, red[1][t]);
             }
             bound[(size_t)blockIdx.x * H + threadIdx.x] = sqrtf(mq) * sqrtf(mk);
         }
@@ -767,6 +787,17 @@ attn_bwd_norm_kernel(const bf16* __restrict__ qkv, float* __restrict__ bound, in
     for (int h = threadIdx.x; h < H; h += NORM_THREADS)
         bound[(size_t)blockIdx.x * H + h] =
             sqrtf(__uint_as_float(bq[h])) * sqrtf(__uint_as_float(bk[h]));
+}
+
+// Whether a head of the pass at channel l0 has a non-finite row bound: a q
+// or k of it is inf or NaN (block-uniform; head_acc's ``apart``).
+template <int D>
+__device__ __forceinline__ bool pass_nonfinite(const float* bound, size_t r, int H, int l0) {
+    bool bad = false;
+#pragma unroll
+    for (int hh = 0; hh < BwdPass<D>::HP; ++hh)
+        bad = bad || !(fabsf(bound[r * H + l0 / D + hh]) <= 3.402823466e38f);
+    return bad;
 }
 
 // Whether every head of the pass at channel l0 has its row bound at most
@@ -843,6 +874,7 @@ attn_bwd_q_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ d_oe,
         float dq[P::NTP][4];
         zero(dq);
         const bool low = pass_below_band<D>(bound, r, H, l0);
+        const bool apart = D == 4 && pass_nonfinite<D>(bound, r, H, l0);
         // a key tile: the pass's channels of k, then of v
         auto load = [&](int kt) {
             const int k0 = kt * ak;
@@ -888,7 +920,7 @@ attn_bwd_q_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ d_oe,
                     }
                     uint32_t a[4];
                     pack_a(a, ds[0], ds[1]);
-                    head_acc<D>(dq, a, kb, hh);
+                    head_acc<D>(dq, a, kb, hh, !pass_low && apart);
                 };
                 if (low) {
 #pragma unroll
@@ -935,6 +967,7 @@ attn_bwd_kv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ d_oe,
         zero(dk);
         zero(dv);
         const bool low = pass_below_band<D>(bound, r, H, l0);
+        const bool apart = D == 4 && pass_nonfinite<D>(bound, r, H, l0);
         // a query tile: the pass's channels of q, then of d_oe; the pass's
         // heads' d_den, head-major
         auto load = [&](int qt) {
@@ -1002,8 +1035,8 @@ attn_bwd_kv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ d_oe,
                     uint32_t a[4], pa[4];
                     pack_a(a, ds[0], ds[1]);
                     pack_a(pa, s[0], s[1]);
-                    head_acc<D>(dk, a, qb, hh);
-                    head_acc<D>(dv, pa, eb, hh);
+                    head_acc<D>(dk, a, qb, hh, !pass_low && apart);
+                    head_acc<D>(dv, pa, eb, hh, !pass_low && apart);
                 };
                 if (low) {
 #pragma unroll

@@ -125,7 +125,7 @@ attn_bwd_q_ffma_kernel(const float* __restrict__ qkv, const float* __restrict__ 
                 s = fmaf(q[d], ks[j][d], s);
                 dp = fmaf(o[d], vs[j][d], dp);
             }
-            const float p = exp2f(fminf(s, SCORE_CLAMP));
+            const float p = exp2f(clamp_score(s));
             const float ds = s < SCORE_CLAMP ? (dp + dd) * p * LN2 : 0.0f;
 #pragma unroll
             for (int d = 0; d < DP; ++d) dq[d] = fmaf(ds, ks[j][d], dq[d]);
@@ -187,7 +187,7 @@ attn_bwd_kv_ffma_kernel(const float* __restrict__ qkv, const float* __restrict__
                 s = fmaf(qs[i][d], k[d], s);
                 dp = fmaf(os[i][d], v[d], dp);
             }
-            const float p = exp2f(fminf(s, SCORE_CLAMP));
+            const float p = exp2f(clamp_score(s));
             const float ds = s < SCORE_CLAMP ? (dp + ds_[i]) * p * LN2 : 0.0f;
 #pragma unroll
             for (int d = 0; d < DP; ++d) {
@@ -287,7 +287,7 @@ attn_bwd_q_kernel(const float* __restrict__ qkv, const float* __restrict__ d_oe,
             float ds[4];
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-                const float p = exp2f(fminf(s[nt][e], SCORE_CLAMP));
+                const float p = exp2f(clamp_score(s[nt][e]));
                 ds[e] = nt * 8 + 2 * t + (e & 1) < nk && s[nt][e] < SCORE_CLAMP
                             ? (dp[nt][e] + dd[e >> 1]) * p * LN2 : 0.0f;
             }
@@ -390,7 +390,7 @@ attn_bwd_kv_kernel(const float* __restrict__ qkv, const float* __restrict__ d_oe
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 const int i = nt * 8 + 2 * t + (e & 1);
-                const float p = exp2f(fminf(s[nt][e], SCORE_CLAMP));
+                const float p = exp2f(clamp_score(s[nt][e]));
                 pv[e] = i < nq ? p : 0.0f;
                 ds[e] = i < nq && s[nt][e] < SCORE_CLAMP ? (dp[nt][e] + dds[i]) * p * LN2 : 0.0f;
             }

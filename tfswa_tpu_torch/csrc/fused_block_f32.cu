@@ -78,7 +78,7 @@ __device__ __forceinline__ float round_bf16(float x) {
 // exp2 of a bf16 value, as XLA lowers it); NO_CLAMP drops the clamp.
 template <int FLAGS>
 __device__ __forceinline__ float p_of(float s) {
-    if constexpr ((FLAGS & NO_CLAMP) == 0) s = fminf(s, SCORE_CLAMP);
+    if constexpr ((FLAGS & NO_CLAMP) == 0) s = clamp_score(s);
     if constexpr ((FLAGS & SCORE_BF16) != 0) return expf(round_bf16(round_bf16(s) * LN2_BF16));
     return exp2f(s);
 }
@@ -358,7 +358,7 @@ attn_ffma_kernel(const float* __restrict__ qkv, const int8_t* __restrict__ qk,
 }
 
 // scales[2 r] = max|q| / 127 and scales[2 r + 1] = max|k| / 127 over row r's
-// N * C values; a block of 256 threads a row.
+// N * C values (NaN where one is NaN); a block of 256 threads a row.
 __global__ void __launch_bounds__(256)
 qk_scale_kernel(const float* __restrict__ qkv, int N, int C, float* __restrict__ scales) {
     __shared__ float red[2][8];
@@ -368,11 +368,13 @@ qk_scale_kernel(const float* __restrict__ qkv, int N, int C, float* __restrict__
     for (long e = threadIdx.x; e < (long)N * C; e += 256) {
         const long t = row0 + e / C;
         const int c = (int)(e % C);
-        mq = fmaxf(mq, fabsf(qkv[t * C3 + c]));
-        mk = fmaxf(mk, fabsf(qkv[t * C3 + C + c]));
+        mq = max_keep_nan(mq, fabsf(qkv[t * C3 + c]));
+        mk = max_keep_nan(mk, fabsf(qkv[t * C3 + C + c]));
     }
-    mq = warp_max(mq);
-    mk = warp_max(mk);
+    for (int o = 16; o > 0; o >>= 1) {
+        mq = max_keep_nan(mq, __shfl_xor_sync(0xffffffffu, mq, o));
+        mk = max_keep_nan(mk, __shfl_xor_sync(0xffffffffu, mk, o));
+    }
     const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
     if (lane == 0) {
         red[0][w] = mq;
@@ -381,8 +383,8 @@ qk_scale_kernel(const float* __restrict__ qkv, int N, int C, float* __restrict__
     __syncthreads();
     if (threadIdx.x == 0) {
         for (int k = 1; k < 8; ++k) {
-            mq = fmaxf(mq, red[0][k]);
-            mk = fmaxf(mk, red[1][k]);
+            mq = max_keep_nan(mq, red[0][k]);
+            mk = max_keep_nan(mk, red[1][k]);
         }
         scales[2 * blockIdx.x] = mq / 127.0f;
         scales[2 * blockIdx.x + 1] = mk / 127.0f;

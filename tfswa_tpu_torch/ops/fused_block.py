@@ -672,7 +672,8 @@ def _forward_kernel(rows: torch.Tensor, p, num_heads: int, train: bool = False,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    kmax = buf((R, plan.HK), torch.float32)       # scratch: the rows' largest |k_h|
+    # scratch: the rows' largest |k_h|, then the attention's fix-up list (2 R + 1 ints)
+    kmax = buf((R * plan.HK + 2 * R + 1,), torch.float32)
     err = _on_stream(dev, _lib().fused_block_forward,
                      rows.data_ptr(), *(w.data_ptr() for w in weights),
                      ptr(res.qkv), ptr(kmax), ptr(res.attn), ptr(res.out), ptr(res.mid),
